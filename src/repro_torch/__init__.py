@@ -1,0 +1,9 @@
+"""PyTorch / CUDA port of the `repro` package (asynchronous FL queuing dynamics).
+
+It grows beside the JAX package, which stays the reference, and imports
+nothing of it (nor JAX).  Subpackages mirror `repro`'s layout: `core`
+(control plane, event simulator, replay engine), `data`, `configs`,
+`kernels` (hand-written CUDA kernels and their plain PyTorch versions) and
+`fl` (the federated runtime).  Entry points run on ``device="cuda"`` unless
+the caller asks for the CPU.
+"""

@@ -1,0 +1,374 @@
+"""Generalized AsyncSGD (Algorithm 1) in PyTorch: the reference loop and the
+replay engine entry point.
+
+The counterpart of `repro.core.async_sgd`.  The server algorithm is written
+against an abstract gradient source (anything that can produce a stochastic
+gradient for client i at parameters w).
+
+Faithfulness notes
+------------------
+* Line 10 of Algorithm 1:  w_{k+1} = w_k - eta/(n p_{J_k}) * g_{J_k}(w_{I_k})
+  — the gradient is computed *at the dispatch-time parameters* w_{I_k}.  We
+  snapshot parameters per in-flight task (C snapshots live at any time).
+* Event timing follows the closed Jackson network (`core.queue_sim`).
+
+Engines
+-------
+  * "python" — the per-event reference loop below (the port's own oracle);
+  * "scan"   — the device-resident replay engine (`core.engine_scan`): the
+    event stream is pre-simulated on the host and Algorithm 1 replays it
+    over a flat snapshot ring buffer on the device.
+Identical (seed, block) => identical event stream => iterates agree to
+float-associativity tolerance.
+
+Every run lives on ``ServerConfig.device`` ("cuda" by default; it raises
+when no card is visible — pass "cpu" explicitly).
+"""
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Any, Callable, Protocol
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..tree import tree_leaves, tree_map
+from ..unported import unported
+from .queue_sim import ClosedNetworkSim, FaultConfig, SimConfig, export_stream
+
+__all__ = [
+    "GradientSource",
+    "ServerConfig",
+    "TraceRecord",
+    "run_generalized_async_sgd",
+    "run_fedbuff",
+    "run_fedavg",
+    "run_favano",
+]
+
+Pytree = Any
+
+
+class GradientSource(Protocol):
+    def grad(self, client_id: int, params: Pytree, server_step: int) -> Pytree:
+        """Stochastic gradient of client `client_id`'s local loss at `params`."""
+        ...
+
+
+def _axpy(w: Pytree, g: Pytree, a: float) -> Pytree:
+    """w + a*g elementwise over the pytree."""
+    a = float(a)
+    return tree_map(lambda x, y: x + a * y, w, g)
+
+
+@dataclass
+class ServerConfig:
+    """One server-loop run of Generalized AsyncSGD / AsyncSGD.
+
+    The field names are `repro.core.async_sgd.ServerConfig`'s, so one config
+    drives both packages, plus ``device``.  Options this port does not run
+    yet raise `NotImplementedError` naming their ROADMAP item.
+    """
+
+    n: int                      # number of clients
+    C: int                      # concurrency (in-flight tasks)
+    T: int                      # CS steps
+    eta: float                  # learning rate
+    p: np.ndarray | None = None  # sampling probabilities (None = uniform)
+    mu: np.ndarray | None = None  # client speeds for the event clock (None = 1)
+    service: str = "exp"
+    seed: int = 0
+    weighting: str = "importance"  # "importance" (Alg. 1) | "plain" (AsyncSGD)
+    eval_every: int = 0
+    track_virtual: bool = False
+    apply_update: Callable[[Pytree, Pytree, float], Pytree] | None = None
+    # apply_update(w, g, scale) -> new w.  Defaults to w - scale*g.
+    engine: str = "python"      # "python" (reference loop) | "scan" (replay engine)
+    update: str = "jnp"         # scan engine update path: "jnp" (plain torch) |
+                                # "pallas" (the hand-written CUDA kernels; the
+                                # plain versions on a CPU device)
+    stream: str = "host"        # scan engine event source: "host" only here
+    sparse: bool | str = "auto"  # device-stream knob; the host stream ignores it
+    adaptive: bool = False      # device-stream control loop (not ported)
+    refresh_every: int = 0
+    ctrl_lr: float = 0.3
+    ctrl_iters: int = 4
+    block_size: int | str = 1   # events per micro-block (1 = per-event replay;
+                                # "auto" = queue_sim.select_block_size)
+    devices: int = 1            # lane-shard device count (not ported beyond 1)
+    segmentation: str = "greedy"  # blocked cut placement: "greedy" | "dp"
+    snapshot_dtype: str | None = None  # ring-buffer storage dtype (blocked
+                                       # engine; e.g. "bfloat16")
+    pallas_interpret: bool = True  # a TPU-only knob (Pallas interpret mode):
+                                   # accepted so configs carry over, ignored
+    collect_extras: bool = True  # record per-event delays in the host stream
+    faults: "FaultConfig | None" = None  # not ported (ROADMAP item 8)
+    guard: Any | None = None     # not ported (ROADMAP item 8)
+    ckpt_dir: str | None = None  # not ported (ROADMAP item 8)
+    ckpt_every: int = 0
+    resume: bool = False
+    serving: Any | None = None   # not ported (ROADMAP item 11)
+    scenario: Any | None = None  # not ported beyond the exponential law
+                                 # (ROADMAP item 10)
+    device: str = "cuda"         # torch device of the run
+
+
+@dataclass
+class TraceRecord:
+    steps: np.ndarray
+    times: np.ndarray
+    eval_steps: list[int] = field(default_factory=list)
+    eval_values: list[float] = field(default_factory=list)
+    delays: list[list[int]] | None = None
+    mean_queue_lengths: np.ndarray | None = None
+    virtual_gap_sq: list[float] = field(default_factory=list)
+    inflight_cardinality: list[int] = field(default_factory=list)
+    extras: dict = field(default_factory=dict)
+
+
+def _resolve(cfg: ServerConfig) -> tuple[np.ndarray, np.ndarray]:
+    p = np.full(cfg.n, 1.0 / cfg.n) if cfg.p is None else np.asarray(cfg.p, float)
+    mu = np.ones(cfg.n) if cfg.mu is None else np.asarray(cfg.mu, float)
+    return p, mu
+
+
+def _reject_unported(cfg: ServerConfig) -> None:
+    """Raise for every option of `repro`'s ServerConfig the port does not run."""
+    if cfg.faults is not None and cfg.faults.enabled:
+        raise unported("faults=", 8)
+    if cfg.guard is not None:
+        raise unported("guard=", 8)
+    if cfg.ckpt_dir is not None:
+        raise unported("ckpt_dir=", 8)
+    if cfg.stream == "device":
+        raise unported("stream='device'", 6)
+    if cfg.stream != "host":
+        raise ValueError(cfg.stream)
+    if cfg.adaptive:
+        raise unported("adaptive=True", 6)
+    if cfg.serving is not None and cfg.serving.enabled:
+        raise unported("serving=", 11)
+    if cfg.devices > 1:
+        raise unported("devices > 1", 12)
+    if cfg.scenario is not None:
+        from .scenario import get_scenario
+
+        if get_scenario(cfg.scenario).enabled:
+            raise unported("scenario=", 10)
+
+
+def _device_grad_fn(source) -> Callable:
+    """Resolve the device gradient fn for the scan engine."""
+    fn = getattr(source, "device_grad", None)
+    if fn is None and callable(source):
+        fn = source
+    if fn is None:
+        raise TypeError(
+            "engine='scan' needs a device gradient source (a `device_grad(j, "
+            f"w, k)` method over device tensors); got {type(source).__name__} "
+            "— use engine='python' for host sources."
+        )
+    return fn
+
+
+def _pallas_update_fn():
+    """The ``update="pallas"`` per-event update: K1 on every leaf."""
+    from ..kernels.ops import tree_weighted_update
+
+    return tree_weighted_update
+
+
+#: cap for block_size="auto" selection
+DEFAULT_BLOCK_SIZE_MAX = 16
+
+
+def _auto_block_size(slots, devices: int = 1, cut_every: int = 0) -> int:
+    """Resolve ``block_size="auto"`` from measured conflict-free run lengths
+    (`queue_sim.select_block_size`), scaled to multiples of ``devices``.
+    ``slots`` is one measured (T,) slot array or a list of them."""
+    from .queue_sim import select_block_size
+
+    E, _ = select_block_size(
+        slots,
+        block_size_max=max(DEFAULT_BLOCK_SIZE_MAX, devices),
+        devices=max(devices, 1),
+        cut_every=cut_every,
+        # greedy and DP cuts have identical block counts, so the cheaper
+        # single pass suffices for the utilization measurements
+        method="greedy",
+    )
+    return E
+
+
+def _scan_update_fn(cfg: ServerConfig):
+    if cfg.apply_update is not None:
+        return cfg.apply_update
+    if cfg.update == "pallas":
+        return _pallas_update_fn()
+    if cfg.update != "jnp":
+        raise ValueError(cfg.update)
+    return None  # engine default: w - scale*g
+
+
+def _to_device(w0: Pytree, device: torch.device) -> Pytree:
+    return tree_map(lambda x: torch.as_tensor(x, device=device), w0)
+
+
+def _run_scan(
+    w0: Pytree,
+    source,
+    cfg: ServerConfig,
+    eval_fn,
+    p: np.ndarray,
+    mu: np.ndarray,
+    device: torch.device,
+) -> tuple[Pytree, TraceRecord]:
+    """Replay-engine run: pre-simulate the event stream with
+    `queue_sim.export_stream` and replay it on ``device``."""
+    from .engine_scan import blocked_inputs, jit_runner, step_scales, stream_arrays
+    from .queue_sim import EventBlocks
+
+    if cfg.track_virtual:
+        raise NotImplementedError("track_virtual requires engine='python'")
+    w0_dev = _to_device(w0, device)
+    eval_every = cfg.eval_every if eval_fn is not None else 0
+    block_size = cfg.block_size
+    stream = export_stream(
+        SimConfig(mu=mu, p=p, C=cfg.C, T=cfg.T, service=cfg.service,
+                  seed=cfg.seed, record_delays=cfg.collect_extras)
+    )
+    scale = step_scales(stream, cfg.eta, p, cfg.weighting)
+    if cfg.update not in ("jnp", "pallas"):
+        raise ValueError(cfg.update)
+    if block_size == "auto":
+        block_size = _auto_block_size(stream.slot, cfg.devices, cut_every=eval_every)
+    block_size = int(block_size)
+    if block_size > 1 and cfg.apply_update is not None:
+        raise ValueError("block_size > 1 requires the default update w - scale*g")
+    grad_fn = _device_grad_fn(source)
+    if block_size > 1:
+        blocks = EventBlocks.from_stream(
+            stream, block_size, cut_every=eval_every, method=cfg.segmentation
+        )
+        J, slot, sc, kb, mask, chunk_blocks, n_chunks = blocked_inputs(
+            blocks, scale, eval_every
+        )
+        runner = jit_runner(
+            grad_fn, cfg.C, eval_fn=eval_fn, block_size=block_size,
+            kernel=cfg.update, snapshot_dtype=cfg.snapshot_dtype,
+        )
+        idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+        w, evals = runner(
+            w0_dev, idx(J), idx(slot),
+            torch.as_tensor(sc, dtype=torch.float32, device=device),
+            idx(kb), torch.as_tensor(mask, device=device),
+            chunk_blocks=chunk_blocks, n_chunks=n_chunks,
+        )
+    else:
+        # as in `repro`, the per-event replay keeps the ring in the
+        # parameter dtype (snapshot_dtype applies to the blocked engine)
+        runner = jit_runner(
+            grad_fn, cfg.C, eval_fn=eval_fn, eval_every=eval_every,
+            update_fn=_scan_update_fn(cfg),
+        )
+        J_dev, slot_dev = stream_arrays(stream, device)
+        w, evals = runner(
+            w0_dev, J_dev, slot_dev,
+            torch.as_tensor(scale, dtype=torch.float32, device=device),
+        )
+    trace = TraceRecord(steps=np.arange(cfg.T), times=np.asarray(stream.t))
+    trace.delays = stream.delays
+    trace.mean_queue_lengths = (
+        stream.queue_len_sum / cfg.T if stream.queue_len_sum is not None else None
+    )
+    if eval_fn is not None and cfg.eval_every:
+        vals = evals.detach().cpu().numpy()  # the run's one host sync
+        trace.eval_steps = [(i + 1) * cfg.eval_every for i in range(vals.shape[0])]
+        trace.eval_values = [float(v) for v in vals]
+    return w, trace
+
+
+def run_generalized_async_sgd(
+    w0: Pytree,
+    source: GradientSource,
+    cfg: ServerConfig,
+    eval_fn: Callable[[Pytree], float] | None = None,
+) -> tuple[Pytree, TraceRecord]:
+    """Algorithm 1.  Returns final parameters (tensors on ``cfg.device``)
+    and the execution trace.
+
+    With ``cfg.engine == "scan"``, `source` must have a ``device_grad(j, w,
+    k)`` taking 0-d device tensors, and `eval_fn` (if given) must return a
+    device scalar.  The "python" engine accepts any host callable.
+    """
+    _reject_unported(cfg)
+    device = resolve_device(cfg.device)
+    p, mu = _resolve(cfg)
+    if cfg.engine == "scan":
+        return _run_scan(w0, source, cfg, eval_fn, p, mu, device)
+    if cfg.engine != "python":
+        raise ValueError(cfg.engine)
+    sim = ClosedNetworkSim(
+        SimConfig(mu=mu, p=p, C=cfg.C, T=cfg.T, service=cfg.service,
+                  seed=cfg.seed, record_delays=True)
+    )
+    apply_update = cfg.apply_update or (lambda w, g, s: _axpy(w, g, -s))
+
+    w = _to_device(w0, device)
+    mu_virtual = w if cfg.track_virtual else None
+    # dispatch-time parameter snapshot per client FIFO queue (mirrors sim.queues)
+    snaps: list[deque] = [deque(w for _ in q) for q in sim.queues]
+
+    times = np.zeros(cfg.T)
+    steps = np.arange(cfg.T)
+    trace = TraceRecord(steps=steps, times=times)
+
+    for k in range(cfg.T):
+        j, k_new = sim.step()          # J_k completes; K_{k+1} sampled; task enqueued
+        w_disp = snaps[j].popleft()    # FIFO: the completed task's dispatch params
+        g = source.grad(j, w_disp, k)
+        if cfg.weighting == "importance":
+            scale = cfg.eta / (cfg.n * p[j])
+        elif cfg.weighting == "plain":
+            scale = cfg.eta
+        else:
+            raise ValueError(cfg.weighting)
+        w = apply_update(w, g, scale)
+        snaps[k_new].append(w)    # the new task departs with the *updated* model
+        times[k] = sim.now
+
+        if cfg.track_virtual:
+            # mu_{k+1} = mu_k - eta/(n p_{K_k}) g_{K_k}(w_k): instantaneous
+            # contribution of the *newly sampled* client at the current w.
+            g_virt = source.grad(k_new, w, k)
+            mu_virtual = _axpy(mu_virtual, g_virt, -cfg.eta / (cfg.n * p[k_new]))
+            gap = tree_map(lambda a, b: float(torch.sum((a - b) ** 2)), w, mu_virtual)
+            trace.virtual_gap_sq.append(sum(tree_leaves(gap)))
+            trace.inflight_cardinality.append(sim.total_tasks())
+
+        if eval_fn is not None and cfg.eval_every and (k + 1) % cfg.eval_every == 0:
+            trace.eval_steps.append(k + 1)
+            trace.eval_values.append(float(eval_fn(w)))
+
+    trace.delays = sim.delays
+    trace.mean_queue_lengths = sim.queue_len_sum / cfg.T
+    return w, trace
+
+
+def run_fedbuff(w0, source, cfg: ServerConfig, Z: int = 10, eval_fn=None):
+    """FedBuff — not ported yet."""
+    raise unported("run_fedbuff", 4)
+
+
+def run_fedavg(w0, source, cfg: ServerConfig, clients_per_round: int = 10,
+               local_steps: int = 1, eval_fn=None):
+    """Synchronous FedAvg baseline — not ported yet."""
+    raise unported("run_fedavg", 4)
+
+
+def run_favano(w0, source, cfg: ServerConfig, period: float = 1.0,
+               max_local_steps: int = 8, eval_fn=None):
+    """FAVANO/QuAFL-style baseline — not ported yet."""
+    raise unported("run_favano", 4)

@@ -1,0 +1,61 @@
+"""Public kernel entry points, dispatched on the tensor's device.
+
+A CUDA tensor launches the hand-written kernel (`kernels.weighted_update`)
+or raises; there is no fallback.  A CPU tensor — which exists only because
+the caller asked for ``device="cpu"`` — takes the plain version in
+`kernels.ref`.  Any other device raises.  The column-block width is fixed
+(no autotune table yet).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..tree import tree_flatten, tree_leaves, tree_map
+from . import ref
+from . import weighted_update as _cuda
+
+__all__ = ["weighted_update", "weighted_update_tree", "tree_weighted_update",
+           "block_prefix_update"]
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise NotImplementedError(f"no kernel for device {t.device} (cuda | cpu)")
+
+
+def weighted_update(w, g, scale, m=None, momentum=0.0):
+    """K1: ``(w', m')`` with w' = w - scale*(momentum*m + g)."""
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=w.device)
+    if _on_cuda(w):
+        return _cuda.weighted_update(w, g, scale, m=m, momentum=momentum)
+    return ref.weighted_update_ref(w, g, scale, m=m, momentum=momentum)
+
+
+def block_prefix_update(snaps, w, D, slots):
+    """K2: ``(snaps', w')`` — the blocked update, ``snaps`` written in place."""
+    if _on_cuda(snaps):
+        return _cuda.block_prefix_update(snaps, w, D, slots)
+    return ref.block_prefix_update_ref(snaps, w, D, slots)
+
+
+def weighted_update_tree(params, grads, scale, momenta=None, momentum=0.0):
+    """K1 across a parameter pytree, one launch per leaf.
+
+    Returns ``(params', momenta')`` (``momenta'`` None without momentum).
+    """
+    if momenta is None:
+        return tree_map(lambda w, g: weighted_update(w, g, scale)[0], params, grads), None
+    leaves, unflatten = tree_flatten(params)
+    pairs = [
+        weighted_update(w, g, scale, m=m, momentum=momentum)
+        for w, g, m in zip(leaves, tree_leaves(grads), tree_leaves(momenta))
+    ]
+    return unflatten([p[0] for p in pairs]), unflatten([p[1] for p in pairs])
+
+
+def tree_weighted_update(w, g, scale):
+    """The engine's ``update="pallas"`` path: K1 per leaf, no momentum."""
+    return weighted_update_tree(w, g, scale)[0]

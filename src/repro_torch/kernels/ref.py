@@ -1,0 +1,60 @@
+"""Plain PyTorch versions of the hand-written kernels (the correctness ground truth).
+
+The CPU path of `kernels.ops` runs these, and the GPU checks hold each CUDA
+kernel against them on the same inputs.  They mirror `repro.kernels.ref`.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["weighted_update_ref", "block_prefix_update_ref"]
+
+
+def weighted_update_ref(
+    w: torch.Tensor, g: torch.Tensor, scale, m: torch.Tensor | None = None,
+    momentum: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Generalized-AsyncSGD server update (Alg. 1 line 10):
+        m' = momentum*m + g          (if momentum buffer provided)
+        w' = w - scale * (m' or g)   scale = eta/(n p_j)
+    fp32 math, params cast back to their storage dtype.
+
+    ``g`` is cast to ``w.dtype`` before the fp32 math — the dtype rule of the
+    TPU kernel (`repro/kernels/weighted_update.py:weighted_update`) and of the
+    CUDA kernel; the JAX reference skips that cast.  The two agree whenever
+    ``g`` already has ``w``'s dtype, as on the fp32 main path.
+    """
+    gf = g.to(w.dtype).float()
+    s = torch.as_tensor(scale, dtype=torch.float32, device=w.device)
+    if m is not None:
+        mf = momentum * m.float() + gf
+        step = mf
+    else:
+        mf = None
+        step = gf
+    wf = w.float() - s * step
+    return wf.to(w.dtype), (None if mf is None else mf.to(m.dtype))
+
+
+def block_prefix_update_ref(
+    snaps: torch.Tensor,   # (R, P) flat-packed snapshot ring buffer, updated in place
+    w: torch.Tensor,       # (P,) current server weights
+    D: torch.Tensor,       # (E, P) per-event scaled update deltas (0 on padding)
+    slots: torch.Tensor,   # (E,) int64 ring slot per event (trash row on padding)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blocked server update (the engine's plain path / kernel oracle):
+
+        W_i = w - sum_{j<=i} D_j,   snaps[slot_i] = W_i,   w' = W_{E-1}
+
+    fp32 prefix accumulation, rows cast to the ring-buffer storage dtype.
+    ``snaps`` is written in place, one row at a time in event order, so
+    duplicate (padded, trash-row) slots resolve last-writer-wins as in the
+    kernels; a batched ``index_put_`` with duplicates is nondeterministic on
+    CUDA.  Returns ``(snaps, w')``.
+    """
+    W = w.float()[None, :] - torch.cumsum(D.float(), dim=0)
+    rows = W.to(snaps.dtype)
+    idx = slots.to(torch.int64)
+    for i in range(rows.shape[0]):  # E <= 16
+        snaps.index_copy_(0, idx[i : i + 1], rows[i : i + 1])
+    return snaps, W[-1].to(w.dtype)

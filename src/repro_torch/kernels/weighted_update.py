@@ -1,0 +1,134 @@
+"""CUDA wrappers of the fused server-update kernels (`csrc/weighted_update.cu`).
+
+K1 (`weighted_update`) replaces the TPU kernel
+`repro/kernels/weighted_update.py:weighted_update` — the per-event
+Algorithm 1 line-10 update, plain (K1a) or with momentum (K1b).  K2
+(`block_prefix_update`) replaces `repro/kernels/weighted_update.py:
+block_prefix_update` — the blocked engine's prefix sum plus the in-place
+scatter into the (C+1, P) snapshot ring.
+
+These wrappers take CUDA tensors only: they check dtype, shape, device and
+contiguity, allocate the outputs, launch on PyTorch's current stream and
+raise if the launch is refused.  They never synchronise.  `kernels.ops`
+picks between them and the plain versions in `kernels.ref` by the tensor's
+device.  Each wrapper adds one to its entry of `launches` per launch, and
+nowhere else, so a run can show that it went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+__all__ = ["BLOCK_TILE", "launches", "reset_launches", "weighted_update",
+           "block_prefix_update"]
+
+# the blocked engine pads the packed parameter vector to a multiple of this
+# once at init, as the TPU path does (its column tile); the CUDA kernel
+# itself takes any P
+BLOCK_TILE = 1024
+
+launches = {"weighted_update": 0, "weighted_update_momentum": 0, "block_prefix_update": 0}
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _code(t: torch.Tensor, what: str) -> int:
+    if t.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {t.dtype} not supported (float32 | bfloat16)")
+    return _DTYPES[t.dtype]
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    dev = ts[0].device
+    for t in ts:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"CUDA kernel needs all operands on one CUDA device, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("CUDA kernel needs contiguous operands")
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _raise_on(err: int, fn: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {fn} failed to launch: cudaError {err}")
+
+
+def weighted_update(
+    w: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+    m: torch.Tensor | None = None, momentum: float = 0.0,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """K1 on one parameter tensor of any shape: ``(w', m')`` (``m'`` None
+    without momentum).  ``scale`` is a float32 device scalar; ``g`` is cast
+    to ``w.dtype`` first (the TPU kernel's rule); ``m`` is float32."""
+    code = _code(w, "weighted_update")
+    if g.shape != w.shape:
+        raise ValueError(f"g shape {tuple(g.shape)} != w shape {tuple(w.shape)}")
+    g = g.to(w.dtype).contiguous()
+    w = w.contiguous()
+    scale = scale.to(device=w.device, dtype=torch.float32).reshape(1)
+    _check_cuda(w, g, scale)
+    out = torch.empty_like(w)
+    n = w.numel()
+    lib = build.load("weighted_update")
+    if m is None:
+        if n:
+            _raise_on(lib.wu_plain(code, w.data_ptr(), g.data_ptr(), scale.data_ptr(),
+                                   out.data_ptr(), n, _stream(w)), "wu_plain")
+            launches["weighted_update"] += 1
+        return out, None
+    if m.dtype != torch.float32 or m.shape != w.shape:
+        raise ValueError("momentum buffer must be float32 with w's shape")
+    m = m.contiguous()
+    _check_cuda(w, m)
+    out_m = torch.empty_like(m)
+    if n:
+        _raise_on(lib.wu_momentum(code, w.data_ptr(), g.data_ptr(), m.data_ptr(),
+                                  scale.data_ptr(), float(momentum), out.data_ptr(),
+                                  out_m.data_ptr(), n, _stream(w)), "wu_momentum")
+        launches["weighted_update_momentum"] += 1
+    return out, out_m
+
+
+def block_prefix_update(
+    snaps: torch.Tensor, w: torch.Tensor, D: torch.Tensor, slots: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2: apply one conflict-free micro-block to ``(snaps, w)``.
+
+    ``snaps`` (R, P) float32 | bfloat16 is updated in place (the CUDA
+    counterpart of the TPU kernel's ``input_output_aliases``); ``w`` (P,),
+    ``D`` (E, P) float32, ``slots`` (E,) int64 with the trash row R-1 on
+    padded lanes.  Returns ``(snaps, w')``.
+    """
+    R, P = snaps.shape
+    E = D.shape[0]
+    if w.shape != (P,) or D.shape != (E, P) or slots.shape != (E,):
+        raise ValueError(
+            f"shapes snaps {tuple(snaps.shape)}, w {tuple(w.shape)}, "
+            f"D {tuple(D.shape)}, slots {tuple(slots.shape)} do not agree"
+        )
+    if E < 1:
+        raise ValueError("block_prefix_update needs at least one event")
+    if D.dtype != torch.float32:
+        raise TypeError("D must be float32 (fp32 prefix accumulation)")
+    if slots.dtype != torch.int64:
+        raise TypeError("slots must be int64")
+    sc, wc = _code(snaps, "snaps"), _code(w, "w")
+    _check_cuda(snaps, w, D, slots)
+    w_out = torch.empty_like(w)
+    lib = build.load("weighted_update")
+    _raise_on(lib.block_prefix_update(sc, wc, snaps.data_ptr(), w.data_ptr(), D.data_ptr(),
+                                      slots.data_ptr(), w_out.data_ptr(), R, P, E,
+                                      _stream(w)), "block_prefix_update")
+    launches["block_prefix_update"] += 1
+    return snaps, w_out

@@ -1,0 +1,153 @@
+"""PyTorch port, the MLP slice: `run_experiment` and the kernel path against
+the JAX package at hidden 32, n=16, C=4, T=300.
+
+The JAX package draws its initial weights and minibatch window offsets
+from `jax.random`; the port takes the same arrays (`params_from_numpy`,
+``DeviceFLClients(starts=...)``), so both replay identical minibatches on
+identical event streams.
+"""
+from dataclasses import replace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs.base import FLConfig as JFLConfig  # noqa: E402
+from repro.core import ServerConfig as JServerConfig  # noqa: E402
+from repro.core import run_generalized_async_sgd as j_run  # noqa: E402
+from repro.data.pipeline import FederatedClassification as JData  # noqa: E402
+from repro.fl import engine as j_fl  # noqa: E402
+from repro_torch.configs.base import FLConfig  # noqa: E402
+from repro_torch.core import ServerConfig, run_generalized_async_sgd  # noqa: E402
+from repro_torch.data.pipeline import FederatedClassification  # noqa: E402
+from repro_torch.fl import engine as t_fl  # noqa: E402
+
+N, C, T, HIDDEN, EVAL = 16, 4, 300, 32, 100
+
+
+def _pair():
+    """The JAX run's cached setup and the port's setup built from its
+    weights and window offsets, placed in the port's setup cache."""
+    j_task, t_task = j_fl.ClassificationTask(hidden=HIDDEN), t_fl.ClassificationTask(hidden=HIDDEN)
+    j_data = JData(n_clients=N, seed=0)
+    j_setup = j_fl._cached_fl_setup(j_data, 0, j_task)
+    t_data = FederatedClassification(n_clients=N, seed=0)
+    model = t_fl.MLPClassifier(t_data.dim, t_data.num_classes, hidden=HIDDEN, device="cpu")
+    setup = t_fl.TaskSetup(
+        params=t_fl.params_from_numpy({k: np.asarray(v) for k, v in j_setup.params.items()},
+                                      "cpu"),
+        clients=t_fl.DeviceFLClients(t_data, model, starts=np.asarray(j_setup.clients._starts),
+                                     device="cpu"),
+        eval_fn=t_fl._accuracy_fn(model, t_data, device="cpu"),
+        model=model,
+    )
+    t_data.__dict__.setdefault("_fl_setup_cache", {})[(0, t_task.cache_key())] = setup
+    return (j_data, j_task, j_setup), (t_data, t_task, setup)
+
+
+def _gap(t_params, j_params):
+    return max(float(np.abs(t_params[k].numpy() - np.asarray(j_params[k])).max())
+               for k in j_params)
+
+
+@pytest.mark.parametrize("method", ["gen_async", "async_sgd"])
+@pytest.mark.parametrize("block_size", [1, 4])
+def test_run_experiment_matches_jax(method, block_size):
+    (j_data, j_task, _), (t_data, t_task, _) = _pair()
+    kw = dict(n_clients=N, concurrency=C, server_steps=T, engine="scan", block_size=block_size)
+    rj = j_fl.run_experiment(JFLConfig(**kw), method, eval_every=EVAL, data=j_data, task=j_task)
+    rt = t_fl.run_experiment(FLConfig(device="cpu", **kw), method, eval_every=EVAL,
+                             data=t_data, task=t_task)
+    assert _gap(rt.final_params, rj.final_params) <= 1e-4  # measured <= 1.2e-7
+    np.testing.assert_array_equal(rt.eval_steps, rj.eval_steps)
+    np.testing.assert_allclose(rt.eval_acc, rj.eval_acc, atol=2 / 2048)  # measured 0
+    np.testing.assert_array_equal(rt.eval_times, rj.eval_times)
+    assert rt.extras["engine"] == "scan"
+
+
+def test_kernel_path_matches_jax_pallas():
+    """``update="pallas", block_size=4`` through `run_generalized_async_sgd`
+    against the JAX Pallas kernels in interpret mode."""
+    (_, _, j_setup), (_, _, setup) = _pair()
+    flc = JFLConfig(n_clients=N, concurrency=C, server_steps=T)
+    mu = j_fl.make_client_speeds(N, flc.frac_fast, flc.speed_ratio, seed=0)
+    p = j_fl.sampling_for(flc, mu)
+    kw = dict(n=N, C=C, T=T, eta=0.05, mu=mu, p=p, eval_every=EVAL, engine="scan",
+              update="pallas", block_size=4)
+    w_j, tr_j = j_run(j_setup.params, j_setup.clients, JServerConfig(pallas_interpret=True, **kw),
+                      eval_fn=j_setup.eval_fn)
+    w_t, tr_t = run_generalized_async_sgd(setup.params, setup.clients,
+                                          ServerConfig(device="cpu", **kw), eval_fn=setup.eval_fn)
+    assert _gap(w_t, w_j) <= 1e-4  # measured 9e-8
+    np.testing.assert_allclose(tr_t.eval_values, tr_j.eval_values, atol=2 / 2048)
+    # the per-event kernel path reaches the same weights as the plain path
+    w_pe, _ = run_generalized_async_sgd(setup.params, setup.clients,
+                                        ServerConfig(device="cpu", **dict(kw, block_size=1)))
+    w_pj, _ = run_generalized_async_sgd(
+        setup.params, setup.clients, ServerConfig(device="cpu", **dict(kw, block_size=1, update="jnp")))
+    assert max(float((w_pe[k] - w_pj[k]).abs().max()) for k in w_pe) <= 1e-5
+
+
+def test_scan_matches_python_oracle():
+    """The replay engine against the port's per-event Python loop on the same
+    device gradient source (identical minibatches)."""
+    _, (_, _, setup) = _pair()
+    cfg = ServerConfig(n=N, C=C, T=150, eta=0.05, seed=0, device="cpu")
+    w_py, _ = run_generalized_async_sgd(setup.params, setup.clients, cfg)
+    w_sc, _ = run_generalized_async_sgd(setup.params, setup.clients, replace(cfg, engine="scan"))
+    assert max(float((w_py[k] - w_sc[k]).abs().max()) for k in w_py) <= 1e-5
+
+
+def test_python_engine_learns():
+    flc = FLConfig(n_clients=N, concurrency=C, server_steps=200, device="cpu")
+    r = t_fl.run_experiment(flc, "gen_async", eta=0.08, eval_every=100)
+    assert r.extras["engine"] == "python" and r.extras["grad_calls"] == 200
+    assert np.all(np.isfinite(r.eval_acc)) and r.eval_acc[-1] > 0.1
+
+
+def test_pack_order_is_jax_leaf_order():
+    from repro_torch.core.engine_scan import _snapshot_codec
+
+    model = t_fl.MLPClassifier(8, 3, hidden=4, device="cpu")
+    pack, unpack, _ = _snapshot_codec(model.init_params, pad_to=1024)
+    flat = pack(model.init_params)
+    assert flat.shape == (1024,)
+    order = ["b1", "b2", "b3", "w1", "w2", "w3"]
+    expect = torch.cat([model.init_params[k].reshape(-1) for k in order])
+    np.testing.assert_array_equal(flat[: expect.numel()].numpy(), expect.numpy())
+    back = unpack(flat)
+    assert all(torch.equal(back[k], model.init_params[k]) for k in order)
+
+
+def test_cuda_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_fl.run_experiment(FLConfig(n_clients=4, concurrency=2, server_steps=10), "gen_async")
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_generalized_async_sgd(np.zeros(2, np.float32), None,
+                                  ServerConfig(n=4, C=2, T=10, eta=0.1))
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_fl.MLPClassifier(8, 3)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(method="fedbuff"), "item 4"),
+    (dict(method="fedavg"), "item 4"),
+    (dict(task=object()), "item 7"),
+    (dict(faults=object()), "item 8"),
+    (dict(ckpt_dir="ckpt"), "item 8"),
+    (dict(serving=object()), "item 11"),
+])
+def test_run_experiment_unported_raise(kw, item):
+    kw = dict(kw)
+    method = kw.pop("method", "gen_async")
+    flc = FLConfig(n_clients=4, concurrency=2, server_steps=10, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        t_fl.run_experiment(flc, method, **kw)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        t_fl.run_matrix(flc)
