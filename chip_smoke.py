@@ -6,30 +6,48 @@
 Phases, each a hard check (any failure exits non-zero and prints no result):
 
 1. the card (``nvidia-smi`` name and power limit) and the nvcc build of
-   every kernel source, from this checkout;
+   every kernel source, from this checkout (one nvcc per source, all
+   started together);
 2. every hand-written kernel held against its plain PyTorch version on the
-   card (max abs error; fp32 <= 1e-5, bf16 <= 2e-2, the JAX package's kernel
-   tolerances), timed with CUDA events (median of 100 launches after
-   warm-up) beside its plain version, the one PyTorch call computing the
-   same function where there is one, and its bound: the larger of bytes
-   moved / 3.35 TB/s and operations / 67 TFLOP/s (fp32, no tensor cores);
-3. the paper's experiment, the plain path: ``run_experiment(FLConfig(
-   n_clients=256, concurrency=64, server_steps=2000, engine="scan"),
-   "gen_async", eval_every=500)`` with the full-width `ClassificationTask`
-   MLP (hidden 128, batch 128, shard 1024);
-4. the per-event kernel path (``update="pallas"``, block_size=1): K1
+   card, timed with CUDA events (median over batches of back-to-back
+   launches after warm-up) beside its plain version, the one PyTorch call
+   computing the same function where there is one, and its bound: the
+   larger of bytes moved / 3.35 TB/s and operations / peak (67 TFLOP/s
+   fp32 without tensor cores, 989 TFLOP/s bf16):
+   K1/K2 (max abs error, fp32 <= 1e-5, bf16 <= 2e-2) and K3 flash
+   attention over its shape grid (allclose with atol = rtol = 2e-5 fp32,
+   2e-2 bf16, `tests/test_kernels.py`'s rule), plus K3's gradients through
+   `FlashAttention` against the reference's;
+3. the MLP slice — the paper's experiment, the plain path:
+   ``run_experiment(FLConfig(n_clients=256, concurrency=64,
+   server_steps=2000, engine="scan"), "gen_async", eval_every=500)`` with
+   the full-width `ClassificationTask` MLP (hidden 128, batch 128, shard
+   1024);
+4. the MLP per-event kernel path (``update="pallas"``, block_size=1): K1
    launches == T x 6, weights within 1e-5 of ``update="jnp"``;
-5. the blocked kernel path (``block_size=8, update="pallas"``): K2 launches
-   == block count, weights within 1e-5 of ``update="jnp"``; against the
-   per-event run, eval accuracies within 10/2048 at T=2000 and weights
-   within 1e-4 at T=200;
+5. the MLP blocked kernel path (``block_size=8, update="pallas"``): K2
+   launches == block count, weights within 1e-5 of ``update="jnp"``;
+   against the per-event run, eval accuracies within 10/2048 at T=2000 and
+   weights within 1e-4 at T=200;
 6. the replay engine against the port's own per-event Python oracle at full
-   width and T=200 (<= 1e-5).
+   width and T=200 (<= 1e-5), then a profile of the MLP kernel paths;
+7. Granite-3.0-2B at full width in fp32: one loss and gradient with the
+   kernel (``use_pallas=True``) and with the plain attention — loss within
+   1e-5 relative, gradients within 1e-4 x max|g|;
+8. the LM slice: full-width Granite-3.0-2B (bf16, ``use_pallas=True``),
+   ``LMTask(batch 8, seq 128, shard 256)`` through ``run_experiment(
+   FLConfig(n_clients=20, concurrency=4, server_steps=64,
+   sampling="optimal", speed_ratio=10.0, engine="scan"), "gen_async",
+   eval_every=16)`` (``run_lm``'s configuration with C cut from 8 to 4 to
+   fit the card), then the same task with ``update="pallas"``: K3
+   launches == 40 x forward calls, K1 launches == 64 x 11, eval loss
+   finite and falling, the curve within `LM_CURVE_TOL` of the plain
+   attention's, peak device memory, and a profile of a few events.
 
-Phases 4 and 5 are the slice's kernel path: each launch count is zeroed
-just before the run and read just after.  fp32 matmuls run in full fp32
-(TF32 off for matmul and cuDNN).  The line before the last is the
-``kernels`` JSON object; the last line is the result object.
+Phases 4, 5 and 8 are the kernel paths: each launch count is zeroed just
+before the run and read just after.  fp32 matmuls run in full fp32 (TF32
+off for matmul and cuDNN).  The line before the last is the ``kernels``
+JSON object; the last line is the result object.
 """
 from __future__ import annotations
 
@@ -38,6 +56,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -48,7 +67,36 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's
+# K3 shapes (B, S, H, K, D, T, window, q_offset): the grid of
+# tests/test_kernels.py, Granite-3.0-2B's path shape, a long causal sequence
+# with and without a window, D=80 and D=128 with ragged S and T, and rows
+# whose every key is masked (T a multiple of the key tile or not)
+FA_PATH_SHAPE = (8, 128, 32, 8, 64, 128, 0, 0)
+FA_SHAPES = [
+    (2, 128, 4, 2, 64, 128, 0, 0),
+    (1, 256, 8, 4, 64, 256, 64, 0),
+    (1, 64, 4, 1, 128, 64, 0, 0),
+    (1, 128, 4, 4, 128, 384, 0, 256),
+    (2, 64, 6, 2, 32, 64, 16, 0),
+    FA_PATH_SHAPE,
+    (1, 2048, 32, 8, 64, 2048, 0, 0),
+    (1, 2048, 32, 8, 64, 2048, 512, 0),
+    (2, 100, 8, 2, 80, 100, 0, 0),
+    (1, 200, 4, 2, 128, 333, 0, 133),
+    (1, 64, 4, 2, 64, 64, 16, 200),
+    (1, 40, 2, 1, 64, 50, 8, 100),
+]
+# the LM slice: run_lm's configuration, C cut from 8 to 4 (memory)
+LM_ARCH, LM_N, LM_C, LM_T, LM_EVAL = "granite-3-2b", 20, 4, 64, 16
+LM_BATCH, LM_SEQ, LM_SHARD = 8, 128, 256
+LM_PARAMS = 2_533_531_648
+LM_LEAVES = 11
+# eval-loss curve, kernel vs plain attention, relative: 5x the gap measured
+# on the card (1.95e-4, NVIDIA H100 80GB HBM3, 700 W)
+LM_CURVE_TOL = 1e-3
 MLP_LEAVES = {  # the ClassificationTask MLP at dim 64, hidden 128, 10 classes
     "b1": (128,), "b2": (128,), "b3": (10,),
     "w1": (64, 128), "w2": (128, 128), "w3": (128, 10),
@@ -91,11 +139,11 @@ def _device_events(prof) -> list:
 
 
 def profile(fn, calls: int = 1):
-    """``(device_ms_per_call, wall_ms_per_call, top)`` over one profiled
-    window: device time is the sum of the kernels' and copies' own
-    durations on the card (one stream, so they do not overlap), ``top`` the
-    five largest names.  ``None`` device time if the profiler saw no device
-    activity."""
+    """``(device_ms_per_call, wall_ms_per_call, top, device_ops_per_call)``
+    over one profiled window: device time is the sum of the kernels' and
+    copies' own durations on the card (one stream, so they do not overlap),
+    ``top`` the five largest names.  ``None`` device time if the profiler
+    saw no device activity."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as _profile
 
@@ -110,16 +158,16 @@ def profile(fn, calls: int = 1):
         wall = (time.perf_counter() - t0) * 1e3 / calls
     evs = _device_events(prof)
     if not evs:
-        return None, wall, []
+        return None, wall, [], 0
     by_name: dict[str, float] = {}
     for e in evs:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return sum(by_name.values()), wall, top
+    return sum(by_name.values()), wall, top, len(evs) / calls
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -258,43 +306,108 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
-              file=sys.stderr)
-        return 2
+def _allclose_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The least tol with |a - b| <= tol + tol * |b| everywhere (allclose
+    with atol = rtol = tol)."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+
+def _fa_pairs(S: int, T: int, window: int, q_offset: int) -> int:
+    """(query, key) pairs the attention needs: the unmasked keys of each
+    row, or all T keys for a row whose every key is masked (it averages v
+    over all of them)."""
+    qpos = np.arange(S)[:, None] + q_offset
+    kpos = np.arange(T)[None, :]
+    keep = kpos <= qpos
+    if window:
+        keep &= qpos - kpos < window
+    per_row = keep.sum(axis=1)
+    return int(np.where(per_row == 0, T, per_row).sum())
+
+
+def phase_flash_attention(dev) -> dict:
+    """K3 against its plain version over `FA_SHAPES`, fp32 and bf16, timed
+    beside the plain version and `F.scaled_dot_product_attention` (causal,
+    square, no window: the only shapes where one library call computes the
+    same function); then its gradients through `FlashAttention`."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(0)
+    out_row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in FA_SHAPES:
+            B, S, H, K, D, T, window, q_offset = shape
+            q = torch.randn((B, S, H, D), generator=gen).to(dev, dtype)
+            k = torch.randn((B, T, K, D), generator=gen).to(dev, dtype)
+            v = torch.randn((B, T, K, D), generator=gen).to(dev, dtype)
+            kw = dict(causal=True, window=window, q_offset=q_offset)
+            out = fa.flash_attention_fwd(q, k, v, **kw)
+            exp = ref.flash_attention_ref(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err, close = max_err(out, exp), _allclose_err(out, exp)
+            tag = f"flash_attention {str(dtype)[6:]} {shape}"
+            check(close <= FA_TOL[dtype] and out.dtype == dtype,
+                  f"{tag} allclose tol {close:.3e} <= {FA_TOL[dtype]} (max abs err {err:.3e})")
+            library = None
+            if window == 0 and q_offset == 0 and S == T:
+                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            esz = torch.finfo(dtype).bits // 8
+            nbytes = esz * (2 * B * S * H * D + 2 * B * T * K * D)  # read q, k, v; write o
+            flops = 4 * D * B * H * _fa_pairs(S, T, window, q_offset)  # QK^T and PV
+            b, by = bound_ms(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+            if shape == FA_PATH_SHAPE and dtype == torch.bfloat16:
+                t = _timings(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                             lambda: ref.flash_attention_ref(q, k, v, **kw), library)
+                out_row = dict(max_abs_err=err, allclose_tol=close, bound_ms=b, bound_by=by, **t)
+                row = out_row
+            else:
+                quick = dict(batches=5, per_batch=10, warmup=3)
+                row = dict(max_abs_err=err, allclose_tol=close, bound_ms=b, bound_by=by,
+                           ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), **quick),
+                           plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), **quick),
+                           library_ms=None if library is None else time_ms(library, **quick))
+            print(f"     {tag}: {json.dumps(row)}")
+            del q, k, v, out, exp, library
+    torch.cuda.empty_cache()
+
+    # gradients: FlashAttention (kernel forward, reference VJP) vs the
+    # reference, with tests/test_lm_engine.py's linear probe loss
+    for dtype in (torch.float32, torch.bfloat16):
+        B, S, H, K, D, T = 2, 128, 8, 2, 64, 128
+        q, k, v = (torch.randn(sh, generator=gen).to(dev, dtype)
+                   for sh in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+        probe = torch.randn((B, S, H, D), generator=gen).to(dev)
+
+        def loss(fn):
+            return lambda q, k, v: torch.sum(fn(q, k, v).float() * probe)
+
+        gk = torch.func.grad(loss(ops.flash_attention), argnums=(0, 1, 2))(q, k, v)
+        gr = torch.func.grad(loss(ref.flash_attention_ref), argnums=(0, 1, 2))(q, k, v)
+        close = max(_allclose_err(a, b) for a, b in zip(gk, gr))
+        check(close <= FA_TOL[dtype],
+              f"flash_attention grads {str(dtype)[6:]} allclose tol {close:.3e} <= {FA_TOL[dtype]}")
+    return {"flash_attention": out_row}
+
+
+def phase_mlp(dev, launches: dict) -> None:
+    """Phases 3-6 (the MLP slice) and its profile; adds the kernel paths'
+    launch counts to ``launches`` under "mlp"."""
     from repro_torch.configs.base import FLConfig
     from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
     from repro_torch.core.engine_scan import blocked_inputs, step_scales
     from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream
     from repro_torch.fl.engine import run_experiment
-    from repro_torch.kernels import build
     from repro_torch.kernels import weighted_update as wu
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
-
-    # 1. build every kernel source of the checkout
-    t0 = time.perf_counter()
-    srcs = sorted(p.stem for p in build.CSRC.glob("*.cu"))
-    for name in srcs:
-        build.build(name, verbose=True)
-        build.load(name)
-    print(f"build: {srcs} in {time.perf_counter() - t0:.2f} s")
-
-    # 2. kernels against their plain versions
-    gen = torch.Generator().manual_seed(0)
-    rows = phase_kernels(dev, gen)
 
     # 3. the paper's experiment, plain (jnp-equivalent) update path
     flc = FLConfig(n_clients=256, concurrency=64, server_steps=2000, engine="scan",
-                   device="cuda")
+                   device=dev.type)
     r, wall = _timed(lambda: run_experiment(flc, "gen_async", eval_every=500))
     acc = np.asarray(r.eval_acc, np.float64)
     print(f"run_experiment n=256 C=64 T=2000: {wall:.3f} s, {flc.server_steps / wall:.1f} events/s, "
@@ -308,14 +421,14 @@ def main() -> int:
     print(f"task setup (data shards, sampling p, MLP, clients): {wall:.3f} s")
     base = ServerConfig(n=flc.n_clients, C=flc.concurrency, T=flc.server_steps, eta=0.05,
                         mu=mu, p=p, seed=flc.seed, eval_every=500, engine="scan",
-                        weighting="importance", device="cuda")
-    run = lambda cfg: run_generalized_async_sgd(setup.params, setup.clients, cfg,
+                        weighting="importance", device=dev.type)
+    run = lambda cfg: run_generalized_async_sgd(setup.params, setup.clients, cfg,  # noqa: E731
                                                 eval_fn=setup.eval_fn)
-    launches = {}
+    mlp = launches.setdefault("mlp", {})
 
     wu.reset_launches()
     (w_pe, tr_pe), wall = _timed(lambda: run(replace(base, update="pallas", block_size=1)))
-    launches.update(wu.launches)
+    mlp["weighted_update"] = wu.launches["weighted_update"]
     print(f"per-event pallas: {wall:.3f} s ({flc.server_steps / wall:.1f} events/s), "
           f"launches {dict(wu.launches)}, acc {tr_pe.eval_values}")
     check(wu.launches["weighted_update"] == flc.server_steps * 6,
@@ -335,7 +448,7 @@ def main() -> int:
     print(f"blocked layout E={E}: {blocks.B} conflict-free blocks, {n_blocks} rows")
     wu.reset_launches()
     (w_bl, tr_bl), wall = _timed(lambda: run(replace(base, update="pallas", block_size=E)))
-    launches["block_prefix_update"] = wu.launches["block_prefix_update"]
+    mlp["block_prefix_update"] = wu.launches["block_prefix_update"]
     print(f"blocked E={E} pallas: {wall:.3f} s ({flc.server_steps / wall:.1f} events/s), "
           f"launches {dict(wu.launches)}, acc {tr_bl.eval_values}")
     check(wu.launches["block_prefix_update"] == n_blocks,
@@ -362,29 +475,204 @@ def main() -> int:
     gap = _tree_gap(w_pe_s, w_py)
     check(gap <= 1e-5, f"scan vs python oracle (T=200) max gap {gap:.3e} <= 1e-5")
 
-    # 7. where the time goes on the kernel path (under the profiler)
+    # where the time goes on the kernel path (under the profiler)
     for label, cfg, T in (("per-event", replace(small, update="pallas"), 200),
                           ("blocked E=8", replace(small, update="pallas", block_size=E, T=400), 400)):
-        dms, wms, top = profile(lambda: run(cfg))
-        idle = None if dms is None else 1.0 - dms / wms
-        print(f"profile {label} T={T}: wall {wms / T:.4f} ms/event, device busy "
-              f"{None if dms is None else round(dms / T, 6)} ms/event, idle share {idle}")
-        for k, v in top:
-            print(f"     {v / T:.6f} ms/event  {k[:110]}")
+        _print_profile(f"MLP {label} T={T}", lambda: run(cfg), T)
+
+
+def _print_profile(label: str, fn, events: int) -> None:
+    dms, wms, top, ops = profile(fn)
+    idle = None if dms is None else 1.0 - dms / wms
+    print(f"profile {label}: wall {wms / events:.4f} ms/event, device busy "
+          f"{None if dms is None else round(dms / events, 6)} ms/event, idle share {idle}, "
+          f"{ops / events:.1f} device ops/event")
+    for k, v in top:
+        print(f"     {v / events:.6f} ms/event  {k[:110]}")
+
+
+def _lm_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    from repro_torch.data.pipeline import SyntheticLMStream
+
+    b = SyntheticLMStream(cfg.vocab_size, S, seed=seed).batch(B)
+    return {k: torch.as_tensor(v, dtype=torch.int64, device=dev) for k, v in b.items()}
+
+
+def phase_lm_grad_check(dev) -> None:
+    """7. One loss and gradient of full-width Granite-3.0-2B in fp32, with
+    the kernel and with the plain attention, on the same weights and batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(LM_ARCH).replace(dtype="float32")
+    params = init_params(api.model_meta(cfg), 0, dev)
+    batch = _lm_batch(cfg, 2, LM_SEQ, 1, dev)
+    res = {}
+    for use_pallas in (True, False):
+        c = cfg.replace(use_pallas=use_pallas)
+        fa.reset_launches()
+        res[use_pallas], wall = _timed(lambda: torch.func.grad_and_value(
+            lambda p: api.loss_fn(p, batch, c)[0])(params))
+        print(f"fp32 full-width loss+grad, use_pallas={use_pallas}: {wall:.3f} s, "
+              f"loss {float(res[use_pallas][1]):.7f}, K3 launches {fa.launches['flash_attention']}")
+    (gk, lk), (gp, lp) = res[True], res[False]
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    check(rel <= 1e-5, f"fp32 full-width loss, kernel vs plain: relative gap {rel:.3e} <= 1e-5")
+    gmax = max(float(g.abs().max()) for g in tree_leaves(gp))
+    gap = max(max_err(a, b) for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
+    per_leaf = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
+    check(gap <= 1e-4 * gmax, f"fp32 full-width grads, kernel vs plain: max gap {gap:.3e} <= "
+          f"1e-4 * max|g| = {1e-4 * gmax:.3e} (worst leaf, relative to its own max: {per_leaf:.3e})")
+    del params, res, gk, gp
+    torch.cuda.empty_cache()
+
+
+def phase_lm(dev, launches: dict) -> None:
+    """8. The LM slice at full width (see the module docstring); adds the
+    kernel launches of its two runs to ``launches`` under "lm"."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.fl.engine import LMTask, _cached_fl_setup, run_experiment, sampling_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import weighted_update as wu
+    from repro_torch.models import api
+    from repro_torch.models.module import param_count
+
+    cfg = get_config(LM_ARCH).replace(use_pallas=True)
+    n_params = param_count(api.model_meta(cfg))
+    check(n_params == LM_PARAMS, f"{LM_ARCH} parameters {n_params:,} == {LM_PARAMS:,}")
+    flc = FLConfig(n_clients=LM_N, concurrency=LM_C, server_steps=LM_T, sampling="optimal",
+                   speed_ratio=10.0, engine="scan", device=dev.type)
+    forwards = LM_T + LM_T // LM_EVAL  # one per gradient, one per eval
+    tokens = LM_T * LM_BATCH * LM_SEQ
+    lm = launches.setdefault("lm", {"weighted_update": 0, "flash_attention": 0})
+
+    def experiment(use_pallas: bool):
+        task = LMTask(cfg.replace(use_pallas=use_pallas), batch_size=LM_BATCH,
+                      seq_len=LM_SEQ, shard_size=LM_SHARD)
+        r, wall = _timed(lambda: run_experiment(flc, "gen_async", eval_every=LM_EVAL, task=task))
+        curve = np.asarray(r.eval_acc, np.float64)
+        print(f"LM run_experiment {LM_ARCH} use_pallas={use_pallas} n={LM_N} C={LM_C} "
+              f"T={LM_T}: {wall:.3f} s, {LM_T / wall:.3f} events/s, {tokens / wall:.1f} tokens/s, "
+              f"eval steps {r.eval_steps.tolist()} loss {curve.tolist()}")
+        return task, curve
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    wu.reset_launches()
+    task, curve = experiment(True)
+    lm["flash_attention"] += fa.launches["flash_attention"]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"LM peak device memory (run_experiment): {peak / 2**30:.3f} GiB")
+    check(curve.shape == (LM_T // LM_EVAL,) and bool(np.all(np.isfinite(curve))),
+          f"LM eval losses finite, {LM_T // LM_EVAL} points")
+    check(bool(curve[-1] < curve[0]), f"LM eval loss falls: {curve[0]:.5f} -> {curve[-1]:.5f}")
+    check(fa.launches["flash_attention"] == cfg.num_layers * forwards,
+          f"K3 launches {fa.launches['flash_attention']} == {cfg.num_layers} x {forwards} forwards")
+
+    # the same task with the per-leaf K1 update
+    setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
+    mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    base = ServerConfig(n=LM_N, C=LM_C, T=LM_T, eta=0.05, mu=mu, p=sampling_for(flc, mu),
+                        seed=flc.seed, eval_every=LM_EVAL, engine="scan",
+                        weighting="importance", update="pallas", device=dev.type)
+    run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+    fa.reset_launches()
+    wu.reset_launches()
+    (w, tr), wall = _timed(lambda: run(base))
+    lm["flash_attention"] += fa.launches["flash_attention"]
+    lm["weighted_update"] += wu.launches["weighted_update"]
+    del w
+    print(f"LM update=pallas: {wall:.3f} s, {LM_T / wall:.3f} events/s, {tokens / wall:.1f} "
+          f"tokens/s, launches K1 {wu.launches['weighted_update']} K3 "
+          f"{fa.launches['flash_attention']}, loss {tr.eval_values}")
+    check(wu.launches["weighted_update"] == LM_T * LM_LEAVES,
+          f"K1 launches {wu.launches['weighted_update']} == {LM_T} x {LM_LEAVES} leaves")
+    check(fa.launches["flash_attention"] == cfg.num_layers * forwards,
+          f"K3 launches {fa.launches['flash_attention']} == {cfg.num_layers} x {forwards} forwards")
+    gap = float(np.max(np.abs(np.asarray(tr.eval_values) - curve) / np.abs(curve)))
+    check(gap <= 1e-3, f"LM eval curve, update=pallas vs jnp: relative gap {gap:.3e} <= 1e-3")
+    peak = torch.cuda.max_memory_allocated()
+    st = torch.cuda.memory_stats()
+    print(f"LM peak device memory (both runs): {peak / 2**30:.3f} GiB; allocator: "
+          + ", ".join(f"{k} {st[k]}" for k in ("num_alloc_retries", "num_device_alloc",
+                                                "num_device_free") if k in st))
+
+    # where the time goes: a few events of the kernel path under the profiler
+    few = 8
+    _print_profile(f"LM update=pallas, use_pallas=True, T={few} (incl. ring set-up)",
+                   lambda: run(replace(base, T=few, eval_every=0)), few)
+    del setup, run
+    task.__dict__.pop("_fl_setup_cache")
+    torch.cuda.empty_cache()
+
+    # the same run with the plain attention
+    _, curve0 = experiment(False)
+    gap = float(np.max(np.abs(curve - curve0) / np.abs(curve0)))
+    check(gap <= LM_CURVE_TOL,
+          f"LM eval curve, K3 vs plain attention: relative gap {gap:.3e} <= {LM_CURVE_TOL}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
+
+    # 1. build every kernel source of the checkout, one nvcc each, in parallel
+    t0 = time.perf_counter()
+    srcs = sorted(p.stem for p in build.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(srcs)) as pool:
+        list(pool.map(lambda name: build.build(name, verbose=True), srcs))
+    for name in srcs:
+        build.load(name)
+    print(f"build: {srcs} in {time.perf_counter() - t0:.2f} s")
+
+    # 2. kernels against their plain versions
+    gen = torch.Generator().manual_seed(0)
+    rows = phase_kernels(dev, gen)
+    rows.update(phase_flash_attention(dev))
+
+    # 3.-8. the two slices, each kernel path's launches counted per path
+    launches: dict = {}
+    phase_mlp(dev, launches)
+    torch.cuda.empty_cache()
+    phase_lm_grad_check(dev)
+    phase_lm(dev, launches)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
         return 1
-    replaces = {
-        "weighted_update": "src/repro/kernels/weighted_update.py:112",
-        "weighted_update_momentum": "src/repro/kernels/weighted_update.py:96",
-        "block_prefix_update": "src/repro/kernels/weighted_update.py:166",
+    csrc = "src/repro_torch/kernels/csrc/"
+    meta = {
+        "weighted_update": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:112"),
+        "weighted_update_momentum": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:96"),
+        "block_prefix_update": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:166"),
+        "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:103"),
     }
-    kernels = [
-        dict(name=name, route="cuda", source="src/repro_torch/kernels/csrc/weighted_update.cu",
-             replaces=replaces[name], launches=launches.get(name, 0), **row)
-        for name, row in rows.items()
-    ]
+    kernels = []
+    for name, row in rows.items():
+        by_path = {path: c[name] for path, c in launches.items() if name in c}
+        kernels.append(dict(name=name, route="cuda", source=csrc + meta[name][0],
+                            replaces=meta[name][1], launches=sum(by_path.values()),
+                            launches_by_path=by_path, **row))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

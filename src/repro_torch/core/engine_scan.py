@@ -216,6 +216,25 @@ def _snapshot_codec(w0, snapshot_dtype=None, pad_to: int = 1):
     return pack, unpack, enc
 
 
+_AXPY_CHUNK = 1 << 27  # elements per fp32 pass of a narrow-dtype axpy (512 MB)
+
+
+def _flat_axpy(w: torch.Tensor, g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """``w - scale * g`` cast to ``w.dtype``, with JAX's type promotion.
+
+    JAX promotes a bf16 vector times a float32 scale to float32 and rounds
+    once at the end; torch would keep bf16 and round twice.  So a narrow
+    dtype goes through float32, a chunk at a time: at 2.5 G parameters one
+    unchunked pass would hold ~30 GB of float32 temporaries."""
+    if w.dtype == torch.float32 and g.dtype == torch.float32:
+        return w - scale * g
+    out = torch.empty_like(w)
+    for i in range(0, w.numel(), _AXPY_CHUNK):
+        sl = slice(i, i + _AXPY_CHUNK)
+        out[sl] = w[sl].float() - scale * g[sl].float()
+    return out
+
+
 def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc):
     """The algorithm half of a CS step, independent of the event source.
 
@@ -239,7 +258,7 @@ def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc):
         w_disp = unpack(snaps.index_select(0, s1)[0])
         g = grad_fn(j, w_disp, k)
         if flat_mode:
-            w = (w - scale * pack(g)).to(w.dtype)
+            w = _flat_axpy(w, pack(g), scale)
             row = enc(w)
         else:
             w = update_fn(w, g, scale)
@@ -256,7 +275,7 @@ def _make_batched_grads(grad_fn, pack, unpack):
     stored snapshot rows, (E,) server steps -> (E, P) packed gradients.
 
     `torch.func.vmap` over the whole gradient source — its minibatch gather
-    included (`fl.engine.DeviceFLClients.client_batch` gathers with
+    included (`fl.engine.DeviceTaskClients.client_batch` gathers with
     `index_select`, which has a batching rule)."""
     return torch.func.vmap(lambda j, wi, k: pack(grad_fn(j, unpack(wi), k)))
 

@@ -1,8 +1,10 @@
 from .engine import (
     ClassificationTask,
     DeviceFLClients,
+    DeviceTaskClients,
     FLClients,
     FLRun,
+    LMTask,
     MLPClassifier,
     TaskSetup,
     params_from_numpy,

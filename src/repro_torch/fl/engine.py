@@ -1,11 +1,12 @@
 """Federated runtime: PyTorch client gradients wired into the
 Generalized-AsyncSGD server loop (`core.async_sgd`).
 
-The counterpart of `repro.fl.engine` for the paper's §5 experiment: an MLP
-classifier over non-iid federated shards, the sampling policy (uniform /
-Jackson-optimal / physical-time-optimal, from `core.sampling`), and the
-asynchronous server algorithms (Generalized AsyncSGD, AsyncSGD), with
-accuracy against CS steps and physical time.
+The counterpart of `repro.fl.engine`: the paper's §5 experiment (an MLP
+classifier over non-iid federated shards, `ClassificationTask`) and async
+LM pre-training of a real model config (`LMTask`), the sampling policy
+(uniform / Jackson-optimal / physical-time-optimal, from `core.sampling`),
+and the asynchronous server algorithms (Generalized AsyncSGD, AsyncSGD),
+with accuracy (or eval loss) against CS steps and physical time.
 
 Parameters keep the JAX layout (``w1`` is ``(dim, hidden)``, the forward is
 ``x @ w1 + b1``), so `params_from_numpy` carries the JAX package's weights
@@ -24,16 +25,19 @@ from ..configs.base import FLConfig
 from ..core.async_sgd import ServerConfig, run_generalized_async_sgd
 from ..core.sampling import optimize_physical_time, optimize_two_cluster
 from ..core.theory import BoundConstants
-from ..data.pipeline import FederatedClassification, make_client_speeds
+from ..data.pipeline import FederatedClassification, SyntheticLMStream, make_client_speeds
 from ..device import resolve_device
+from ..tree import tree_leaves, tree_map
 from ..unported import unported
 
 __all__ = [
     "MLPClassifier",
     "FLClients",
     "DeviceFLClients",
+    "DeviceTaskClients",
     "TaskSetup",
     "ClassificationTask",
+    "LMTask",
     "FLRun",
     "params_from_numpy",
     "run_experiment",
@@ -81,14 +85,41 @@ class MLPClassifier:
         return -torch.mean(torch.gather(lp, -1, batch["y"][:, None]))
 
 
-def params_from_numpy(params: dict, device) -> dict:
-    """The JAX MLP's params (as numpy arrays) as the port's tensors.
+def _tensor_from_numpy(a) -> torch.Tensor:
+    """One array as a CPU tensor, bf16 included: numpy's ``ml_dtypes``
+    bfloat16 (what ``np.asarray`` of a JAX bf16 array gives) travels as its
+    uint16 bits, which `torch.tensor` accepts."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.tensor(a)
 
-    Both packages keep the same layout, so this is a copy; it is the one
-    named place tests carry weights across.
-    """
+
+def params_from_numpy(params, device):
+    """A JAX parameter tree (nested dicts of arrays) as the port's tensors.
+
+    Both packages keep the same layout, so this is a bitwise copy; it is
+    the one named place tests carry weights across."""
     dev = resolve_device(device)
-    return {k: torch.tensor(np.asarray(v), device=dev) for k, v in params.items()}
+    return tree_map(lambda a: _tensor_from_numpy(a).to(dev), params)
+
+
+def _window_starts(starts, seed: int, shard_size: int, batch_size: int, block: int,
+                   device: torch.device) -> torch.Tensor:
+    """The (block,) table of minibatch window offsets on ``device``: the
+    given array (parity tests pass the JAX package's), else a draw from
+    ``torch.Generator(seed)``."""
+    if batch_size > shard_size:
+        raise ValueError("batch_size must be <= shard_size")
+    if starts is None:
+        gen = torch.Generator().manual_seed(seed)
+        starts = torch.randint(0, shard_size - batch_size + 1, (block,), generator=gen)
+    starts = torch.tensor(np.asarray(starts), dtype=torch.int64)
+    if starts.shape != (block,):
+        raise ValueError(f"starts must have shape ({block},)")
+    if int(starts.min()) < 0 or int(starts.max()) > shard_size - batch_size:
+        raise ValueError("window offsets must lie in [0, shard_size - batch_size]")
+    return starts.to(device)
 
 
 class FLClients:
@@ -114,22 +145,70 @@ class FLClients:
         })
 
 
-class DeviceFLClients:
-    """Device-resident gradient source for the replay engine.
+class DeviceTaskClients:
+    """Device-resident gradient source for an arbitrary ``(loss_fn, params)``.
 
-    All client shards live on the device as one flat ``(n * m, dim)`` row
-    table (`FederatedClassification.device_shards`).  Minibatches are
-    contiguous windows of a client's shard at pre-drawn offsets: the rows of
-    client j's window starting at ``start`` are ``j * m + start +
-    arange(B)``, gathered with `index_select`.  The client id and server
-    step arrive as 0-d device tensors, so there is no host sync, and the
-    same code runs under `torch.func.vmap` for the blocked engine.
+    Any loss ``loss_fn(params, batch) -> scalar`` over a dict batch, with the
+    per-client datasets given as ``(n, m, ...)`` arrays and kept on the
+    device as flat ``(n * m, ...)`` row tables (integer arrays as int64,
+    torch's index dtype).  A minibatch is the window of B rows starting at
+    a pre-drawn offset, gathered with `index_select` from 0-d device
+    tensors: no host sync, and the same code runs under `torch.func.vmap`.
 
     ``starts`` (the (OFFSET_BLOCK,) window-offset table) defaults to a draw
-    from ``torch.Generator(seed)``; parity tests pass the JAX package's.
+    from ``torch.Generator(seed)``, where the reference draws
+    ``jax.random.randint``; parity tests pass the JAX package's.  The host
+    ``grad`` gives the per-event Python loop the same minibatches and
+    gradients as ``device_grad``.
     """
 
     OFFSET_BLOCK = 8192  # pre-drawn window offsets, reused cyclically
+
+    def __init__(self, loss_fn, shards: dict, batch_size: int, seed: int = 0,
+                 starts: np.ndarray | None = None, device: str | torch.device = "cuda"):
+        dev = resolve_device(device)
+        arrays = {k: np.asarray(v) for k, v in shards.items()}
+        first = next(iter(arrays.values()))
+        self.n_clients, self.shard_size = int(first.shape[0]), int(first.shape[1])
+        for k, v in arrays.items():
+            if v.shape[:2] != (self.n_clients, self.shard_size):
+                raise ValueError(f"shard {k!r}: leading dims must agree")
+        self._starts = _window_starts(starts, seed, self.shard_size, batch_size,
+                                      self.OFFSET_BLOCK, dev)
+
+        def table(a):
+            t = torch.as_tensor(a.reshape(-1, *a.shape[2:]))
+            return (t.long() if not t.is_floating_point() else t).to(dev)
+
+        self.shards = {k: table(v) for k, v in arrays.items()}
+        self.batch_size = int(batch_size)
+        self.loss_fn = loss_fn
+        self._window = torch.arange(self.batch_size, dtype=torch.int64, device=dev)
+        self._loss_grad = torch.func.grad(loss_fn)
+        self.grad_calls = 0
+
+    def client_batch(self, client_id, server_step) -> dict:
+        dev = self._window.device
+        step = torch.as_tensor(server_step, device=dev).reshape(1) % self.OFFSET_BLOCK
+        start = self._starts.index_select(0, step)                 # (1,)
+        rows = client_id * self.shard_size + start + self._window  # (B,)
+        return {k: v.index_select(0, rows) for k, v in self.shards.items()}
+
+    def device_grad(self, client_id, params, server_step):
+        return self._loss_grad(params, self.client_batch(client_id, server_step))
+
+    def grad(self, client_id: int, params, server_step: int):
+        # per-event Python loop entry: the same computation, Python-int ids
+        self.grad_calls += 1
+        dev = self._window.device
+        return self.device_grad(torch.tensor(client_id, device=dev), params,
+                                torch.tensor(server_step, device=dev))
+
+
+class DeviceFLClients(DeviceTaskClients):
+    """Device-resident gradient source for the MLP: `DeviceTaskClients`
+    over ``model.loss`` and the ``x`` / ``y`` shard tables of
+    `FederatedClassification.device_shards` (``(n * m, dim)`` rows)."""
 
     def __init__(
         self,
@@ -141,46 +220,10 @@ class DeviceFLClients:
         starts: np.ndarray | None = None,
         device: str | torch.device = "cuda",
     ):
-        if batch_size > shard_size:
-            raise ValueError("batch_size must be <= shard_size")
-        dev = resolve_device(device)
         xs, ys = data.device_shards(shard_size)
-        n, m, dim = xs.shape
-        self.x = torch.as_tensor(xs, device=dev).reshape(n * m, dim)
-        self.y = torch.as_tensor(ys, dtype=torch.int64, device=dev).reshape(n * m)
-        self.shard_size = m
-        self.batch_size = batch_size
+        super().__init__(model.loss, {"x": xs, "y": ys}, batch_size, seed=seed,
+                         starts=starts, device=device)
         self.model = model
-        if starts is None:
-            gen = torch.Generator().manual_seed(seed)
-            starts = torch.randint(
-                0, shard_size - batch_size + 1, (self.OFFSET_BLOCK,), generator=gen
-            )
-        starts = torch.tensor(np.asarray(starts), dtype=torch.int64)
-        if starts.shape != (self.OFFSET_BLOCK,):
-            raise ValueError(f"starts must have shape ({self.OFFSET_BLOCK},)")
-        if int(starts.min()) < 0 or int(starts.max()) > shard_size - batch_size:
-            raise ValueError("window offsets must lie in [0, shard_size - batch_size]")
-        self._starts = starts.to(dev)
-        self._window = torch.arange(batch_size, dtype=torch.int64, device=dev)
-        self._loss_grad = torch.func.grad(model.loss)
-
-    def client_batch(self, client_id, server_step) -> dict:
-        k = torch.as_tensor(server_step, device=self.x.device).reshape(1) % self.OFFSET_BLOCK
-        start = self._starts.index_select(0, k)                  # (1,)
-        rows = client_id * self.shard_size + start + self._window  # (B,)
-        return {"x": self.x.index_select(0, rows), "y": self.y.index_select(0, rows)}
-
-    def device_grad(self, client_id, params, server_step):
-        return self._loss_grad(params, self.client_batch(client_id, server_step))
-
-    def grad(self, client_id: int, params, server_step: int):
-        """Host entry for the per-event Python loop: the same minibatch and
-        gradient as `device_grad`, from Python ints — so the Python oracle
-        and the replay engine consume identical batches."""
-        dev = self.x.device
-        return self.device_grad(torch.tensor(client_id, device=dev), params,
-                                torch.tensor(server_step, device=dev))
 
 
 # ------------------------------------------------------------------ #
@@ -274,19 +317,73 @@ class ClassificationTask:
         )
 
 
+@dataclass
+class LMTask:
+    """Async-LM pre-training task: ``api.loss_fn`` over a real ModelConfig.
+
+    Each client holds a fixed non-iid shard materialized from its own
+    `SyntheticLMStream` (seed ``seed*1000 + i``, bitwise the reference's
+    shards), stacked to ``(n, m, S)`` token/label tables on the device.
+    The eval metric is the loss on a held-out stream (seed 9999), a device
+    scalar.  With ``cfg.use_pallas`` the forward runs the flash-attention
+    kernel (K3), whose backward is the plain reference's VJP.
+    """
+
+    cfg: Any                      # repro_torch.configs.base.ModelConfig (hashable)
+    batch_size: int = 4
+    seq_len: int = 64
+    shard_size: int = 256
+    eval_batch: int = 16
+
+    def cache_key(self):
+        return ("lm", self.cfg, self.batch_size, self.seq_len,
+                self.shard_size, self.eval_batch)
+
+    def shards(self, seed: int, n_clients: int) -> dict:
+        """The clients' (n, m, S) int32 token and label arrays (numpy)."""
+        toks = np.empty((n_clients, self.shard_size, self.seq_len), np.int32)
+        labs = np.empty_like(toks)
+        for i in range(n_clients):
+            b = SyntheticLMStream(self.cfg.vocab_size, self.seq_len,
+                                  seed=seed * 1000 + i).batch(self.shard_size)
+            toks[i], labs[i] = b["tokens"], b["labels"]
+        return {"tokens": toks, "labels": labs}
+
+    def build(self, data, seed: int, n_clients: int,
+              device: str | torch.device = "cuda") -> TaskSetup:
+        """SSM, hybrid and MoE configs raise (`api.family_module`)."""
+        from ..models import api
+        from ..models.module import init_params
+
+        dev = resolve_device(device)
+        cfg = self.cfg
+        params = init_params(api.model_meta(cfg), seed, dev)
+
+        def loss(params, batch):
+            return api.loss_fn(params, batch, cfg)[0]
+
+        clients = DeviceTaskClients(loss, self.shards(seed, n_clients),
+                                    batch_size=self.batch_size, seed=seed, device=dev)
+        ev = SyntheticLMStream(cfg.vocab_size, self.seq_len, seed=9999).batch(self.eval_batch)
+        ev = {k: torch.as_tensor(v, dtype=torch.int64, device=dev) for k, v in ev.items()}
+        return TaskSetup(params=params, clients=clients, eval_fn=lambda p: loss(p, ev))
+
+
 def _setup_device(setup: TaskSetup) -> torch.device:
-    return next(iter(setup.params.values())).device
+    return tree_leaves(setup.params)[0].device
 
 
-def _cached_fl_setup(data: FederatedClassification, seed: int, task=None,
+def _cached_fl_setup(data: FederatedClassification | None, seed: int, task=None,
                      n_clients: int | None = None,
                      device: str | torch.device = "cuda") -> TaskSetup:
     """Task setup (params, device clients, eval fn) memoized per (seed, task)
-    on the dataset, so repeated runs reuse one gradient source (and with it
-    the memoized runner).  A cached setup on another device raises."""
+    on the dataset — or, for dataset-free tasks like `LMTask`, on the task
+    object — so repeated runs reuse one gradient source (and with it the
+    memoized runner).  A cached setup on another device raises."""
     task = task if task is not None else ClassificationTask()
     dev = resolve_device(device)
-    cache = data.__dict__.setdefault("_fl_setup_cache", {})
+    owner = data if data is not None else task
+    cache = owner.__dict__.setdefault("_fl_setup_cache", {})
     key = (seed, task.cache_key())
     if key not in cache:
         n = n_clients if n_clients is not None else data.n_clients
@@ -303,8 +400,8 @@ def _reject_unported(flc: FLConfig, method, task, faults, guard, serving, ckpt_d
         raise unported(f"method={method!r}", 4)
     if method not in ("gen_async", "async_sgd"):
         raise ValueError(method)
-    if task is not None and not isinstance(task, ClassificationTask):
-        raise unported(f"task={type(task).__name__}", 7)
+    if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
+        raise unported(f"task={type(task).__name__}", "7d")
     if faults is not None or guard is not None:
         raise unported("faults= / guard=", 8)
     if ckpt_dir is not None:
@@ -338,8 +435,11 @@ def run_experiment(
 
     ``engine`` (default: ``flc.engine``) picks the server loop: "python" is
     the per-event reference loop over streaming host batches, "scan" the
-    device-resident replay engine over the cached `DeviceFLClients`.
-    ``flc.block_size`` turns on the micro-blocked replay (an int E, or
+    device-resident replay engine over the cached task setup.  ``task``
+    picks the workload: the paper's MLP (`ClassificationTask`, the default)
+    or `LMTask` over a dense / VLM / audio model config (``eval_acc`` then
+    carries eval loss; the Python loop drives the same device gradient
+    through its host ``grad`` entry).  ``flc.block_size`` turns on the micro-blocked replay (an int E, or
     "auto"), ``flc.segmentation`` its cut placement.  The other keywords
     keep `repro.fl.engine.run_experiment`'s signature; the options the port
     does not run yet raise `NotImplementedError`.
@@ -349,11 +449,13 @@ def run_experiment(
     engine = flc.engine if engine is None else engine
     if engine not in ("python", "scan"):
         raise ValueError(engine)
-    data = data or FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
+    classification = task is None or isinstance(task, ClassificationTask)
+    if classification:
+        data = data or FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
     mu = make_client_speeds(flc.n_clients, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
 
     use_scan = engine == "scan"
-    if use_scan:
+    if use_scan or not classification:
         setup = _cached_fl_setup(data, flc.seed, task, n_clients=flc.n_clients,
                                  device=device)
         w0, clients, acc_fn = setup.params, setup.clients, setup.eval_fn

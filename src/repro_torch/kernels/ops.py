@@ -1,44 +1,48 @@
 """Public kernel entry points, dispatched on the tensor's device.
 
-A CUDA tensor launches the hand-written kernel (`kernels.weighted_update`)
-or raises; there is no fallback.  A CPU tensor — which exists only because
-the caller asked for ``device="cpu"`` — takes the plain version in
-`kernels.ref`.  Any other device raises.  The column-block width is fixed
+A CUDA tensor launches the hand-written kernel (`kernels.weighted_update`,
+`kernels.flash_attention`) or raises; there is no fallback.  A CPU tensor
+— which exists only because the caller asked for ``device="cpu"`` — takes
+the plain version in `kernels.ref`.  Any other device raises.  The column-block width is fixed
 (no autotune table yet).
 """
 from __future__ import annotations
 
 import torch
 
+from ..device import on_cuda
 from ..tree import tree_flatten, tree_leaves, tree_map
 from . import ref
 from . import weighted_update as _cuda
+from .flash_attention import FlashAttention
 
 __all__ = ["weighted_update", "weighted_update_tree", "tree_weighted_update",
-           "block_prefix_update"]
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.is_cuda:
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise NotImplementedError(f"no kernel for device {t.device} (cuda | cpu)")
+           "block_prefix_update", "flash_attention"]
 
 
 def weighted_update(w, g, scale, m=None, momentum=0.0):
     """K1: ``(w', m')`` with w' = w - scale*(momentum*m + g)."""
     scale = torch.as_tensor(scale, dtype=torch.float32, device=w.device)
-    if _on_cuda(w):
+    if on_cuda(w):
         return _cuda.weighted_update(w, g, scale, m=m, momentum=momentum)
     return ref.weighted_update_ref(w, g, scale, m=m, momentum=momentum)
 
 
 def block_prefix_update(snaps, w, D, slots):
     """K2: ``(snaps', w')`` — the blocked update, ``snaps`` written in place."""
-    if _on_cuda(snaps):
+    if on_cuda(snaps):
         return _cuda.block_prefix_update(snaps, w, D, slots)
     return ref.block_prefix_update_ref(snaps, w, D, slots)
+
+
+def flash_attention(q, k, v, causal=True, window=0, q_offset=0, bq=128, bk=128):
+    """K3: differentiable GQA flash attention, q (B,S,H,D), k/v (B,T,K,D).
+
+    ``bq`` / ``bk`` are the TPU kernel's VMEM tile and are accepted and
+    ignored: the CUDA kernel has its own tile.  `FlashAttention`'s forward
+    dispatches on the tensor's device with `device.on_cuda`, as the
+    functions above do."""
+    return FlashAttention.apply(q, k, v, causal, window, q_offset)
 
 
 def weighted_update_tree(params, grads, scale, momenta=None, momentum=0.0):

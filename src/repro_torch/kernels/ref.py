@@ -5,9 +5,10 @@ kernel against them on the same inputs.  They mirror `repro.kernels.ref`.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["weighted_update_ref", "block_prefix_update_ref"]
+__all__ = ["weighted_update_ref", "block_prefix_update_ref", "flash_attention_ref"]
 
 
 def weighted_update_ref(
@@ -58,3 +59,36 @@ def block_prefix_update_ref(
     for i in range(rows.shape[0]):  # E <= 16
         snaps.index_copy_(0, idx[i : i + 1], rows[i : i + 1])
     return snaps, W[-1].to(w.dtype)
+
+
+def flash_attention_ref(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, T, K, D)
+    v: torch.Tensor,  # (B, T, K, D)
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Causal / sliding-window GQA attention, as `repro.kernels.ref` writes it.
+
+    Scores are q·k in the input dtype, cast to fp32 and divided by sqrt(D)
+    (the kernel instead scales q by 1/sqrt(D) before the product); masked
+    scores are -1e30, so a fully masked row averages v over all T keys; the
+    softmax weights are cast to ``v.dtype`` before P·V (the kernel keeps
+    them fp32 — the source of the bf16 gap between the two).
+    """
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() / float(np.sqrt(D))
+    rel = (torch.arange(S, device=q.device) + q_offset)[:, None] - torch.arange(T, device=q.device)
+    mask = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (rel >= 0)
+    if window:
+        mask = mask & (rel < window)
+    scores = torch.where(mask, scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, v)
+    return out.reshape(B, S, H, D)

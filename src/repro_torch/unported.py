@@ -11,7 +11,9 @@ ROADMAP_ITEMS = {
     4: "blocked replay with FedBuff, and the FedBuff / FedAvg / FAVANO baselines",
     5: "run_matrix and MatrixResult",
     6: "device event stream and adaptive sampling",
-    7: "real-model LM path",
+    "7b": "LM path, SSM and hybrid families (mamba2, hybrid, K4 ssd_scan)",
+    "7c": "LM path, MoE family (moe_block, K5 moe_gmm)",
+    "7d": "optimizers (optim/), api.train_step and duck-typed tasks",
     8: "faults, guard and checkpointing",
     10: "scenario device steps",
     11: "serving plane",
@@ -19,7 +21,7 @@ ROADMAP_ITEMS = {
 }
 
 
-def unported(what: str, item: int) -> NotImplementedError:
+def unported(what: str, item: int | str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet "
         f"(ROADMAP.md Queue 1 item {item}: {ROADMAP_ITEMS[item]})"

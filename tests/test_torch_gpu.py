@@ -1,5 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-and the kernel paths of the replay engine against the plain paths.
+the kernel paths of the replay engine against the plain paths, and the LM
+path with the flash-attention kernel against the plain attention.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without one;
 the file imports neither JAX nor `repro`, so it runs on a machine that has
@@ -19,8 +20,13 @@ from repro_torch.core.engine_scan import blocked_inputs, step_scales  # noqa: E4
 from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream  # noqa: E402
 from repro_torch.data.pipeline import FederatedClassification, make_client_speeds  # noqa: E402
 from repro_torch.fl import engine as fl  # noqa: E402
-from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.configs import smoke_config  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import weighted_update as cuda_kernels  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.models.module import init_params  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -126,3 +132,102 @@ def test_engine_matches_python_oracle_on_card(dev):
     w_sc, _ = run_generalized_async_sgd(setup.params, setup.clients,
                                         replace(cfg, engine="scan", update="pallas"))
     assert max(_err(w_py[k], w_sc[k]) for k in w_py) <= 1e-5
+
+
+# K3 shapes (B, S, H, K, D, T, window, q_offset), as chip_smoke.py checks them:
+# the grid of tests/test_kernels.py, Granite-3.0-2B's path shape, a long
+# causal sequence with and without a window, D=80 and D=128 with ragged S and
+# T, and rows whose every key is masked (T a multiple of the key tile or not)
+FA_SHAPES = [
+    (2, 128, 4, 2, 64, 128, 0, 0),
+    (1, 256, 8, 4, 64, 256, 64, 0),
+    (1, 64, 4, 1, 128, 64, 0, 0),
+    (1, 128, 4, 4, 128, 384, 0, 256),
+    (2, 64, 6, 2, 32, 64, 16, 0),
+    (8, 128, 32, 8, 64, 128, 0, 0),
+    (1, 2048, 32, 8, 64, 2048, 0, 0),
+    (1, 2048, 32, 8, 64, 2048, 512, 0),
+    (2, 100, 8, 2, 80, 100, 0, 0),
+    (1, 200, 4, 2, 128, 333, 0, 133),
+    (1, 64, 4, 2, 64, 64, 16, 200),
+    (1, 40, 2, 1, 64, 50, 8, 100),
+]
+
+
+def _qkv(dev, dtype, B, S, H, K, D, T, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen).to(dev, dtype)
+                 for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+
+
+def _close(a, b, tol) -> bool:
+    """allclose with atol = rtol = tol (tests/test_kernels.py's rule)."""
+    return bool(((a.float() - b.float()).abs() <= tol + tol * b.float().abs()).all())
+
+
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,D,T,window,q_offset", FA_SHAPES)
+def test_flash_attention_matches_plain(dev, dtype, B, S, H, K, D, T, window, q_offset):
+    q, k, v = _qkv(dev, dtype, B, S, H, K, D, T)
+    fa.reset_launches()
+    out = fa.flash_attention_fwd(q, k, v, causal=True, window=window, q_offset=q_offset)
+    exp = ref.flash_attention_ref(q, k, v, causal=True, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == 1
+    assert out.dtype == dtype and out.shape == exp.shape
+    assert _close(out, exp, FA_TOL[dtype]), _err(out, exp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_grads_match_reference(dev, dtype):
+    """Grads through `FlashAttention` (kernel forward, reference VJP) vs
+    grads through the reference, with a linear probe loss so the cotangent
+    does not depend on the forward's rounding (tests/test_lm_engine.py)."""
+    q, k, v = _qkv(dev, dtype, 2, 128, 8, 2, 64, 128)
+    probe = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def loss(fn):
+        return lambda q, k, v: torch.sum(fn(q, k, v).float() * probe)
+
+    gk = torch.func.grad(loss(ops.flash_attention), argnums=(0, 1, 2))(q, k, v)
+    gr = torch.func.grad(loss(ref.flash_attention_ref), argnums=(0, 1, 2))(q, k, v)
+    for a, b in zip(gk, gr):
+        assert a.dtype == b.dtype and _close(a, b, FA_TOL[dtype])
+
+
+def test_flash_attention_vmap_is_one_launch(dev):
+    q, k, v = _qkv(dev, torch.float32, 2, 64, 4, 2, 64, 64)
+    qs, ks, vs = (torch.stack([x, 0.5 * x, -x]) for x in (q, k, v))
+    fa.reset_launches()
+    out = torch.func.vmap(ops.flash_attention)(qs, ks, vs)
+    assert fa.launches["flash_attention"] == 1
+    for i in range(3):
+        assert _close(out[i], ref.flash_attention_ref(qs[i], ks[i], vs[i]), 2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lm_loss_and_grads_kernel_vs_plain(dev, dtype):
+    """Granite's smoke config: loss and grads with the kernel (use_pallas)
+    against the plain attention, one K3 launch per layer per forward."""
+    cfg = smoke_config("granite-3-2b").replace(dtype=dtype)
+    params = init_params(api.model_meta(cfg), 0, dev)
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 32), generator=gen).to(dev)
+             for k in ("tokens", "labels")}
+    grads = {}
+    for use_pallas in (True, False):
+        c = cfg.replace(use_pallas=use_pallas)
+        fa.reset_launches()
+        grads[use_pallas] = torch.func.grad_and_value(
+            lambda p: api.loss_fn(p, batch, c)[0])(params)
+        assert fa.launches["flash_attention"] == (cfg.num_layers if use_pallas else 0)
+    (gk, lk), (gp, lp) = grads[True], grads[False]
+    # loss relative, grads against each leaf's largest entry: fp32 as
+    # chip_smoke.py's full-width check, bf16 loose (10 bf16 ulps)
+    tol_loss, tol_grad = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 4e-2)
+    assert abs(float(lk) - float(lp)) <= tol_loss * abs(float(lp))
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert _err(a, b) <= tol_grad * float(b.float().abs().max())

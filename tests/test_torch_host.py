@@ -57,7 +57,9 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in ['repro_torch', 'repro_torch.core', 'repro_torch.fl', "
         "'repro_torch.kernels', 'repro_torch.kernels.ops', 'repro_torch.kernels.build', "
         "'repro_torch.kernels.weighted_update', 'repro_torch.kernels.ref', "
-        "'repro_torch.configs', 'repro_torch.data']:\n"
+        "'repro_torch.kernels.flash_attention', 'repro_torch.configs', "
+        "'repro_torch.configs.registry', 'repro_torch.data', 'repro_torch.models', "
+        "'repro_torch.models.api', 'repro_torch.launch', 'repro_torch.launch.train']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n"
