@@ -17,7 +17,10 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    K1/K2 (max abs error, fp32 <= 1e-5, bf16 <= 2e-2) and K3 flash
    attention over its shape grid (allclose with atol = rtol = 2e-5 fp32,
    2e-2 bf16, `tests/test_kernels.py`'s rule), plus K3's gradients through
-   `FlashAttention` against the reference's;
+   `FlashAttention` against the reference's; K4 chunked SSD over its shape
+   grid (y allclose as K3, the state within 1e-4 fp32 / 1e-2 bf16 of its
+   magnitude), its gradients through `SSDScan`, and one launch under
+   ``vmap`` with a batched A, equal to a loop;
 3. the MLP slice — the paper's experiment, the plain path:
    ``run_experiment(FLConfig(n_clients=256, concurrency=64,
    server_steps=2000, engine="scan"), "gen_async", eval_every=500)`` with
@@ -42,10 +45,24 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    fit the card), then the same task with ``update="pallas"``: K3
    launches == 40 x forward calls, K1 launches == 64 x 11, eval loss
    finite and falling, the curve within `LM_CURVE_TOL` of the plain
-   attention's, peak device memory, and a profile of a few events.
+   attention's, peak device memory, and a profile of a few events;
+9. Mamba2-130M (K4) and Zamba2-2.7B (K3 at head_dim 80 and K4) at full
+   width in fp32: one loss and gradient with the kernels and with the plain
+   versions — loss within 1e-5 relative, gradients within 1e-4 x max|g|,
+   K4 launches == num_layers and K3 launches == shared sites;
+10. the Mamba2 LM slice at full width and depth (bf16, ``use_pallas=True``):
+   ``run_lm``'s configuration, ``LMTask(batch 8, seq 128, shard 256)``,
+   n=20, C=8, sampling "optimal", speed ratio 10, with T cut from 200 to 64
+   and the eval cadence from 50 to 16, four ways: ``run_experiment`` (K4),
+   ``update="pallas"`` (K1 launches == 64 x 11), blocked ``block_size=4,
+   update="pallas"`` (K2 launches == block rows, K4 through the `vmap`
+   rule == 24 x (block rows + evals)), and the plain SSD; K4 launches ==
+   24 x forwards on the per-event runs, eval loss finite and falling, the
+   curves within `MAMBA_CURVE_TOL` of each other, peak device memory, and a
+   profile of a few events of the per-event and blocked kernel paths.
 
-Phases 4, 5 and 8 are the kernel paths: each launch count is zeroed just
-before the run and read just after.  fp32 matmuls run in full fp32 (TF32
+Phases 4, 5, 8 and 10 are the kernel paths: each launch count is zeroed
+just before the run and read just after.  fp32 matmuls run in full fp32 (TF32
 off for matmul and cuDNN).  The line before the last is the ``kernels``
 JSON object; the last line is the result object.
 """
@@ -97,6 +114,32 @@ LM_LEAVES = 11
 # eval-loss curve, kernel vs plain attention, relative: 5x the gap measured
 # on the card (1.95e-4, NVIDIA H100 80GB HBM3, 700 W)
 LM_CURVE_TOL = 1e-3
+# K4 shapes (B, S, H, P, N, chunk, A range, dt range): the grid of
+# tests/test_kernels.py, Mamba2-130M's path shape and the same folded to
+# B=32 (blocked E=4), Zamba2-2.7B's shape, a long sequence (32 chunks of
+# carried state), S < chunk, and the overflow case (A in -[1, 16], dt up to
+# 1: the masked exp(cs_i - cs_j) is inf, so the kernel must select)
+SSD_PATH_SHAPE = (8, 128, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1))
+SSD_SHAPES = [
+    (2, 128, 3, 32, 16, 32, (0.5, 2.0), (0.01, 0.2)),
+    (1, 64, 2, 64, 128, 64, (0.5, 2.0), (0.01, 0.2)),
+    (1, 256, 4, 16, 8, 16, (0.5, 2.0), (0.01, 0.2)),
+    SSD_PATH_SHAPE,
+    (32, 128, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1)),
+    (2, 128, 80, 64, 64, 64, (1.0, 16.0), (0.001, 0.1)),
+    (1, 2048, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1)),
+    (2, 40, 4, 32, 16, 64, (0.5, 2.0), (0.01, 0.2)),
+    (2, 128, 3, 32, 16, 64, (1.0, 16.0), (0.0, 1.0)),
+]
+SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the Mamba2 LM slice: run_lm's configuration at full width and depth
+MAMBA_ARCH, MAMBA_C, MAMBA_E = "mamba2-130m", 8, 4
+MAMBA_PARAMS, MAMBA_LEAVES = 128_983_488, 11
+# eval-loss curves, relative: 5x the gaps measured on the card (NVIDIA H100
+# 80GB HBM3, 700 W): K1 per leaf (bf16 leaves rounded every event) vs the
+# fp32 flat update 7.52e-4, K4 vs the plain SSD 2.77e-4, blocked E=4 vs
+# per-event 1.76e-4
+MAMBA_CURVE_TOL = {"pallas_update": 3.8e-3, "plain_ssd": 1.4e-3, "blocked": 8.8e-4}
 MLP_LEAVES = {  # the ClassificationTask MLP at dim 64, hidden 128, 10 classes
     "b1": (128,), "b2": (128,), "b3": (10,),
     "w1": (64, 128), "w2": (128, 128), "w3": (128, 10),
@@ -395,6 +438,109 @@ def phase_flash_attention(dev) -> dict:
     return {"flash_attention": out_row}
 
 
+def _ssd_inputs(dev, dtype, B, S, H, P, N, a_range, dt_range, gen):
+    """(x, dt, A (H,), Bm, Cm) on the card: x, B and C normal in ``dtype``,
+    dt and -A uniform over their ranges in fp32."""
+    x = torch.randn((B, S, H, P), generator=gen).to(dev, dtype)
+    dt = (dt_range[0] + (dt_range[1] - dt_range[0]) * torch.rand((B, S, H), generator=gen)).to(dev)
+    A = -(a_range[0] + (a_range[1] - a_range[0]) * torch.rand((H,), generator=gen)).to(dev)
+    Bm = torch.randn((B, S, N), generator=gen).to(dev, dtype)
+    Cm = torch.randn((B, S, N), generator=gen).to(dev, dtype)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_cost(B: int, S: int, H: int, P: int, N: int, Q: int, esz: int) -> tuple[int, int]:
+    """(bytes, operations) of one chunked SSD call: x, B, C, dt and A read
+    once, y and the fp32 state written once; per chunk C B^T once per batch
+    row (lower triangle), and per (row, head) the masked (Q,Q)(Q,P) product,
+    C state and B^T x."""
+    nc, tri = S // Q, Q * (Q + 1) // 2
+    nbytes = esz * (2 * B * S * H * P + 2 * B * S * N) + 4 * (B * S * H + B * H + B * H * N * P)
+    flops = 2 * B * nc * tri * N + 2 * B * H * nc * (tri * P + 2 * Q * N * P)
+    return nbytes, flops
+
+
+def phase_ssd_scan(dev) -> dict:
+    """K4 against its plain version over `SSD_SHAPES`, fp32 and bf16, timed
+    beside the plain version at the path shape (no single PyTorch call
+    computes the chunked SSD); then its gradients through `SSDScan`, and one
+    launch under ``vmap`` with a batched A, equal to a loop."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as k4
+
+    gen = torch.Generator().manual_seed(1)
+    out_row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in SSD_SHAPES:
+            B, S, H, P, N, chunk, a_range, dt_range = shape
+            x, dt, A, Bm, Cm = _ssd_inputs(dev, dtype, *shape[:5], a_range, dt_range, gen)
+            A_rows = A.expand(B, H).contiguous()
+            y, st = k4.ssd_scan_fwd(x, dt, A_rows, Bm, Cm, chunk)
+            ey, est = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
+            torch.cuda.synchronize()
+            err, close = max_err(y, ey), _allclose_err(y, ey)
+            smax = max(1.0, float(est.abs().max()))
+            serr = max_err(st, est)
+            finite = bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(st).all())
+            tag = f"ssd_scan {str(dtype)[6:]} {shape[:6]} A in -{list(a_range)} dt in {list(dt_range)}"
+            check(finite and close <= FA_TOL[dtype] and y.dtype == dtype
+                  and serr <= SSD_STATE_TOL[dtype] * smax,
+                  f"{tag}: finite {finite}, y allclose tol {close:.3e} <= {FA_TOL[dtype]} (max abs "
+                  f"err {err:.3e}), state err {serr:.3e} <= {SSD_STATE_TOL[dtype]} x {smax:.3g}")
+            Q = min(chunk, S)
+            nbytes, flops = _ssd_cost(B, S, H, P, N, Q, torch.finfo(dtype).bits // 8)
+            b, by = bound_ms(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+            kernel = lambda: k4.ssd_scan_fwd(x, dt, A_rows, Bm, Cm, chunk)  # noqa: E731
+            plain = lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)  # noqa: E731
+            row = dict(max_abs_err=err, allclose_tol=close, state_err=serr, bound_ms=b, bound_by=by)
+            if shape == SSD_PATH_SHAPE and dtype == torch.bfloat16:
+                row.update(_timings(kernel, plain))
+                out_row = row
+            else:
+                quick = dict(batches=5, per_batch=10, warmup=3)
+                row.update(ms=time_ms(kernel, **quick), plain_ms=time_ms(plain, **quick),
+                           library_ms=None)
+            print(f"     {tag}: {json.dumps(row)}")
+            del x, dt, A, A_rows, Bm, Cm, y, st, ey, est
+    torch.cuda.empty_cache()
+
+    # gradients of all five inputs: SSDScan (kernel forward, reference VJP)
+    # vs the reference, linear probe loss on both outputs
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _ssd_inputs(dev, dtype, 2, 128, 4, 32, 16, (0.5, 2.0), (0.01, 0.2), gen)
+        py = torch.randn((2, 128, 4, 32), generator=gen).to(dev)
+        ps = torch.randn((2, 4, 16, 32), generator=gen).to(dev)
+
+        def loss(fn):
+            def f(*a):
+                y, s = fn(*a, chunk=32)
+                return torch.sum(y.float() * py) + torch.sum(s * ps)
+            return f
+
+        gk = torch.func.grad(loss(ops.ssd_scan), argnums=(0, 1, 2, 3, 4))(*args)
+        gr = torch.func.grad(loss(ref.ssd_scan_ref), argnums=(0, 1, 2, 3, 4))(*args)
+        close = max(_allclose_err(a, b) for a, b in zip(gk, gr))
+        check(close <= FA_TOL[dtype],
+              f"ssd_scan grads {str(dtype)[6:]} allclose tol {close:.3e} <= {FA_TOL[dtype]}")
+
+    # vmap with a batched A (one per lane, as the blocked engine's snapshots
+    # give): one launch over the folded lanes, equal to a loop
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, torch.float32, 2, 128, 24, 64, 128, (1.0, 16.0),
+                                   (0.001, 0.1), gen)
+    xs, Bs, Cs = (torch.stack([t, 0.5 * t, 2.0 * t, -t]) for t in (x, Bm, Cm))
+    dts = torch.stack([dt, 0.5 * dt, 2.0 * dt, dt.flip(0)])
+    As = torch.stack([A, 2.0 * A, 0.25 * A, A.flip(0)])
+    k4.reset_launches()
+    y, st = torch.func.vmap(lambda *a: ops.ssd_scan(*a, chunk=64))(xs, dts, As, Bs, Cs)
+    n = k4.launches["ssd_scan"]
+    close = max(_allclose_err(y[i], ref.ssd_scan_ref(xs[i], dts[i], As[i], Bs[i], Cs[i], 64)[0])
+                for i in range(4))
+    check(n == 1 and close <= FA_TOL[torch.float32],
+          f"ssd_scan under vmap with a batched A: {n} launch(es) == 1, equal to a loop "
+          f"(allclose tol {close:.3e} <= {FA_TOL[torch.float32]})")
+    return {"ssd_scan": out_row}
+
+
 def phase_mlp(dev, launches: dict) -> None:
     """Phases 3-6 (the MLP slice) and its profile; adds the kernel paths'
     launch counts to ``launches`` under "mlp"."""
@@ -498,34 +644,45 @@ def _lm_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
     return {k: torch.as_tensor(v, dtype=torch.int64, device=dev) for k, v in b.items()}
 
 
-def phase_lm_grad_check(dev) -> None:
-    """7. One loss and gradient of full-width Granite-3.0-2B in fp32, with
-    the kernel and with the plain attention, on the same weights and batch."""
+def phase_grad_check(dev, arch: str) -> None:
+    """7. / 9. One loss and gradient of a full-width config in fp32 with the
+    kernels (``use_pallas=True``) and with the plain versions, on the same
+    weights and batch; one K3 launch per attention block and one K4 launch
+    per Mamba2 layer per forward."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import api
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.models import api, hybrid
     from repro_torch.models.module import init_params
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(LM_ARCH).replace(dtype="float32")
+    cfg = get_config(arch).replace(dtype="float32")
+    ssm = cfg.family in ("ssm", "hybrid")
+    attention = (0 if cfg.family == "ssm" else
+                 hybrid.num_shared_sites(cfg) if cfg.family == "hybrid" else cfg.num_layers)
+    want = {"flash_attention": attention, "ssd_scan": cfg.num_layers if ssm else 0}
     params = init_params(api.model_meta(cfg), 0, dev)
     batch = _lm_batch(cfg, 2, LM_SEQ, 1, dev)
     res = {}
     for use_pallas in (True, False):
         c = cfg.replace(use_pallas=use_pallas)
         fa.reset_launches()
+        k4.reset_launches()
         res[use_pallas], wall = _timed(lambda: torch.func.grad_and_value(
             lambda p: api.loss_fn(p, batch, c)[0])(params))
-        print(f"fp32 full-width loss+grad, use_pallas={use_pallas}: {wall:.3f} s, "
-              f"loss {float(res[use_pallas][1]):.7f}, K3 launches {fa.launches['flash_attention']}")
+        got = {"flash_attention": fa.launches["flash_attention"], "ssd_scan": k4.launches["ssd_scan"]}
+        print(f"{arch} fp32 full-width loss+grad, use_pallas={use_pallas}: {wall:.3f} s, "
+              f"loss {float(res[use_pallas][1]):.7f}, launches {got}")
+        if use_pallas:
+            check(got == want, f"{arch} launches per forward {got} == {want}")
     (gk, lk), (gp, lp) = res[True], res[False]
     rel = abs(float(lk) - float(lp)) / abs(float(lp))
-    check(rel <= 1e-5, f"fp32 full-width loss, kernel vs plain: relative gap {rel:.3e} <= 1e-5")
+    check(rel <= 1e-5, f"{arch} fp32 full-width loss, kernel vs plain: relative gap {rel:.3e} <= 1e-5")
     gmax = max(float(g.abs().max()) for g in tree_leaves(gp))
     gap = max(max_err(a, b) for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
     per_leaf = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
                    for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
-    check(gap <= 1e-4 * gmax, f"fp32 full-width grads, kernel vs plain: max gap {gap:.3e} <= "
+    check(gap <= 1e-4 * gmax, f"{arch} fp32 full-width grads, kernel vs plain: max gap {gap:.3e} <= "
           f"1e-4 * max|g| = {1e-4 * gmax:.3e} (worst leaf, relative to its own max: {per_leaf:.3e})")
     del params, res, gk, gp
     torch.cuda.empty_cache()
@@ -549,7 +706,7 @@ def phase_lm(dev, launches: dict) -> None:
     check(n_params == LM_PARAMS, f"{LM_ARCH} parameters {n_params:,} == {LM_PARAMS:,}")
     flc = FLConfig(n_clients=LM_N, concurrency=LM_C, server_steps=LM_T, sampling="optimal",
                    speed_ratio=10.0, engine="scan", device=dev.type)
-    forwards = LM_T + LM_T // LM_EVAL  # one per gradient, one per eval
+    forwards = _forwards(LM_T, LM_EVAL)
     tokens = LM_T * LM_BATCH * LM_SEQ
     lm = launches.setdefault("lm", {"weighted_update": 0, "flash_attention": 0})
 
@@ -620,6 +777,137 @@ def phase_lm(dev, launches: dict) -> None:
           f"LM eval curve, K3 vs plain attention: relative gap {gap:.3e} <= {LM_CURVE_TOL}")
 
 
+def _forwards(T: int, every: int) -> int:
+    """Forward passes of a per-event run: one per gradient, one per eval."""
+    return T + T // every
+
+
+def phase_mamba(dev, launches: dict) -> None:
+    """10. The Mamba2 LM slice at full width and depth (see the module
+    docstring); adds the kernel launches of its three kernel runs to
+    ``launches`` under "mamba2"."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
+    from repro_torch.core.engine_scan import blocked_inputs, step_scales
+    from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.fl.engine import LMTask, _cached_fl_setup, run_experiment, sampling_for
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import weighted_update as wu
+    from repro_torch.models import api
+    from repro_torch.models.module import param_count
+
+    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
+    n_params = param_count(api.model_meta(cfg))
+    check(n_params == MAMBA_PARAMS, f"{MAMBA_ARCH} parameters {n_params:,} == {MAMBA_PARAMS:,}")
+    nL = cfg.num_layers
+    flc = FLConfig(n_clients=LM_N, concurrency=MAMBA_C, server_steps=LM_T, sampling="optimal",
+                   speed_ratio=10.0, engine="scan", device=dev.type)
+    forwards = _forwards(LM_T, LM_EVAL)
+    tokens = LM_T * LM_BATCH * LM_SEQ
+    path = launches.setdefault("mamba2", {"weighted_update": 0, "block_prefix_update": 0,
+                                          "ssd_scan": 0})
+
+    def task_for(use_pallas: bool):
+        return LMTask(cfg.replace(use_pallas=use_pallas), batch_size=LM_BATCH, seq_len=LM_SEQ,
+                      shard_size=LM_SHARD)
+
+    def experiment(task, label: str):
+        r, wall = _timed(lambda: run_experiment(flc, "gen_async", eval_every=LM_EVAL, task=task))
+        curve = np.asarray(r.eval_acc, np.float64)
+        print(f"Mamba2 run_experiment ({label}) n={LM_N} C={MAMBA_C} T={LM_T}: {wall:.3f} s, "
+              f"{LM_T / wall:.3f} events/s, {tokens / wall:.1f} tokens/s, "
+              f"eval steps {r.eval_steps.tolist()} loss {curve.tolist()}")
+        return curve
+
+    def curve_gap(a, b) -> float:
+        return float(np.max(np.abs(np.asarray(a) - b) / np.abs(b)))
+
+    # 1. run_experiment with K4, the plain update
+    torch.cuda.reset_peak_memory_stats()
+    task = task_for(True)
+    k4.reset_launches()
+    curve = experiment(task, "K4")
+    path["ssd_scan"] += k4.launches["ssd_scan"]
+    print(f"Mamba2 peak device memory (run_experiment): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(curve.shape == (LM_T // LM_EVAL,) and bool(np.all(np.isfinite(curve))),
+          f"Mamba2 eval losses finite, {LM_T // LM_EVAL} points")
+    check(bool(curve[-1] < curve[0]), f"Mamba2 eval loss falls: {curve[0]:.5f} -> {curve[-1]:.5f}")
+    check(k4.launches["ssd_scan"] == nL * forwards,
+          f"K4 launches {k4.launches['ssd_scan']} == {nL} x {forwards} forwards")
+
+    # 2. the same task with the per-leaf K1 update; 3. blocked with K2
+    setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
+    mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    p = sampling_for(flc, mu)
+    base = ServerConfig(n=LM_N, C=MAMBA_C, T=LM_T, eta=0.05, mu=mu, p=p, seed=flc.seed,
+                        eval_every=LM_EVAL, engine="scan", weighting="importance",
+                        update="pallas", device=dev.type)
+    run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+    wu.reset_launches()
+    k4.reset_launches()
+    (w, tr), wall = _timed(lambda: run(base))
+    path["weighted_update"] += wu.launches["weighted_update"]
+    path["ssd_scan"] += k4.launches["ssd_scan"]
+    del w
+    print(f"Mamba2 update=pallas: {wall:.3f} s, {LM_T / wall:.3f} events/s, "
+          f"{tokens / wall:.1f} tokens/s, launches K1 {wu.launches['weighted_update']} "
+          f"K4 {k4.launches['ssd_scan']}, loss {tr.eval_values}")
+    check(wu.launches["weighted_update"] == LM_T * MAMBA_LEAVES,
+          f"K1 launches {wu.launches['weighted_update']} == {LM_T} x {MAMBA_LEAVES} leaves")
+    check(k4.launches["ssd_scan"] == nL * forwards,
+          f"K4 launches {k4.launches['ssd_scan']} == {nL} x {forwards} forwards")
+    gap = curve_gap(tr.eval_values, curve)
+    tol = MAMBA_CURVE_TOL["pallas_update"]
+    check(gap <= tol, f"Mamba2 eval curve, update=pallas (bf16 leaves) vs the fp32 flat "
+          f"update: relative gap {gap:.3e} <= {tol}")
+
+    stream = export_stream(SimConfig(mu=mu, p=p, C=MAMBA_C, T=LM_T, seed=flc.seed))
+    rows = blocked_inputs(EventBlocks.from_stream(stream, MAMBA_E, cut_every=LM_EVAL),
+                          step_scales(stream, base.eta, p, "importance"), LM_EVAL)[0].shape[0]
+    evals = LM_T // LM_EVAL
+    blocked = replace(base, block_size=MAMBA_E)
+    wu.reset_launches()
+    k4.reset_launches()
+    (w, tr_b), wall = _timed(lambda: run(blocked))
+    path["block_prefix_update"] += wu.launches["block_prefix_update"]
+    path["ssd_scan"] += k4.launches["ssd_scan"]
+    del w
+    print(f"Mamba2 blocked E={MAMBA_E} update=pallas: {rows} block rows, {wall:.3f} s, "
+          f"{LM_T / wall:.3f} events/s, {tokens / wall:.1f} tokens/s, launches K2 "
+          f"{wu.launches['block_prefix_update']} K4 {k4.launches['ssd_scan']}, "
+          f"loss {tr_b.eval_values}")
+    check(wu.launches["block_prefix_update"] == rows,
+          f"K2 launches {wu.launches['block_prefix_update']} == block rows {rows}")
+    check(k4.launches["ssd_scan"] == nL * (rows + evals),
+          f"K4 launches {k4.launches['ssd_scan']} == {nL} x ({rows} block rows + {evals} evals)")
+    gap = curve_gap(tr_b.eval_values, curve)
+    tol = MAMBA_CURVE_TOL["blocked"]
+    check(gap <= tol, f"Mamba2 eval curve, blocked vs per-event: relative gap {gap:.3e} <= {tol}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"Mamba2 peak device memory (three kernel runs): {peak / 2**30:.3f} GiB")
+
+    # where the time goes: a few events of each kernel path under the profiler
+    few = 8
+    _print_profile(f"Mamba2 update=pallas, use_pallas=True, T={few} (incl. ring set-up)",
+                   lambda: run(replace(base, T=few, eval_every=0)), few)
+    _print_profile(f"Mamba2 blocked E={MAMBA_E}, update=pallas, use_pallas=True, T={2 * few} "
+                   "(incl. ring set-up)",
+                   lambda: run(replace(blocked, T=2 * few, eval_every=0)), 2 * few)
+    del setup, run
+    task.__dict__.pop("_fl_setup_cache")
+    torch.cuda.empty_cache()
+
+    # 4. the same run with the plain SSD
+    curve0 = experiment(task_for(False), "plain SSD")
+    gap = curve_gap(curve, curve0)
+    tol = MAMBA_CURVE_TOL["plain_ssd"]
+    check(gap <= tol, f"Mamba2 eval curve, K4 vs plain SSD: relative gap {gap:.3e} <= {tol}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
@@ -649,13 +937,19 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     rows = phase_kernels(dev, gen)
     rows.update(phase_flash_attention(dev))
+    rows.update(phase_ssd_scan(dev))
 
     # 3.-8. the two slices, each kernel path's launches counted per path
     launches: dict = {}
     phase_mlp(dev, launches)
     torch.cuda.empty_cache()
-    phase_lm_grad_check(dev)
+    phase_grad_check(dev, LM_ARCH)
     phase_lm(dev, launches)
+    torch.cuda.empty_cache()
+    # 9.-10. the SSM and hybrid slice
+    phase_grad_check(dev, MAMBA_ARCH)
+    phase_grad_check(dev, "zamba2-2.7b")
+    phase_mamba(dev, launches)
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
@@ -666,6 +960,7 @@ def main() -> int:
         "weighted_update_momentum": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:96"),
         "block_prefix_update": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:166"),
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:103"),
+        "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:85"),
     }
     kernels = []
     for name, row in rows.items():

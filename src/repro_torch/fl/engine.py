@@ -325,8 +325,11 @@ class LMTask:
     `SyntheticLMStream` (seed ``seed*1000 + i``, bitwise the reference's
     shards), stacked to ``(n, m, S)`` token/label tables on the device.
     The eval metric is the loss on a held-out stream (seed 9999), a device
-    scalar.  With ``cfg.use_pallas`` the forward runs the flash-attention
-    kernel (K3), whose backward is the plain reference's VJP.
+    scalar.  Dense, VLM, audio, SSM (Mamba2) and hybrid (Zamba2) configs
+    run; with ``cfg.use_pallas`` the forward runs the hand-written kernels
+    — flash attention (K3) in the attention blocks, the chunked SSD scan
+    (K4) in the Mamba2 blocks — whose backwards are the plain reference's
+    VJPs.
     """
 
     cfg: Any                      # repro_torch.configs.base.ModelConfig (hashable)
@@ -351,7 +354,7 @@ class LMTask:
 
     def build(self, data, seed: int, n_clients: int,
               device: str | torch.device = "cuda") -> TaskSetup:
-        """SSM, hybrid and MoE configs raise (`api.family_module`)."""
+        """MoE configs raise (`api.family_module`)."""
         from ..models import api
         from ..models.module import init_params
 
@@ -437,8 +440,8 @@ def run_experiment(
     the per-event reference loop over streaming host batches, "scan" the
     device-resident replay engine over the cached task setup.  ``task``
     picks the workload: the paper's MLP (`ClassificationTask`, the default)
-    or `LMTask` over a dense / VLM / audio model config (``eval_acc`` then
-    carries eval loss; the Python loop drives the same device gradient
+    or `LMTask` over a dense / VLM / audio / SSM / hybrid model config
+    (``eval_acc`` then carries eval loss; the Python loop drives the same device gradient
     through its host ``grad`` entry).  ``flc.block_size`` turns on the micro-blocked replay (an int E, or
     "auto"), ``flc.segmentation`` its cut placement.  The other keywords
     keep `repro.fl.engine.run_experiment`'s signature; the options the port

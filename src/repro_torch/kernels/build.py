@@ -39,6 +39,9 @@ SIGNATURES = {
         "flash_attention_fwd": (_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                                 _INT, _I64, _I64, ctypes.c_float, _P),
     },
+    "ssd_scan": {
+        "ssd_scan_fwd": (_INT, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P),
+    },
 }
 
 _lock = threading.Lock()

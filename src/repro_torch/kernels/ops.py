@@ -1,8 +1,9 @@
 """Public kernel entry points, dispatched on the tensor's device.
 
 A CUDA tensor launches the hand-written kernel (`kernels.weighted_update`,
-`kernels.flash_attention`) or raises; there is no fallback.  A CPU tensor
-— which exists only because the caller asked for ``device="cpu"`` — takes
+`kernels.flash_attention`, `kernels.ssd_scan`) or raises; there is no
+fallback.  A CPU tensor — which exists only because the caller asked for
+``device="cpu"`` — takes
 the plain version in `kernels.ref`.  Any other device raises.  The column-block width is fixed
 (no autotune table yet).
 """
@@ -12,12 +13,14 @@ import torch
 
 from ..device import on_cuda
 from ..tree import tree_flatten, tree_leaves, tree_map
+from ..unported import unported
 from . import ref
 from . import weighted_update as _cuda
 from .flash_attention import FlashAttention
+from .ssd_scan import SSDScan
 
 __all__ = ["weighted_update", "weighted_update_tree", "tree_weighted_update",
-           "block_prefix_update", "flash_attention"]
+           "block_prefix_update", "flash_attention", "ssd_scan"]
 
 
 def weighted_update(w, g, scale, m=None, momentum=0.0):
@@ -43,6 +46,24 @@ def flash_attention(q, k, v, causal=True, window=0, q_offset=0, bq=128, bk=128):
     dispatches on the tensor's device with `device.on_cuda`, as the
     functions above do."""
     return FlashAttention.apply(q, k, v, causal, window, q_offset)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, chunk=64, init_state=None):
+    """K4: differentiable Mamba2 chunked SSD from a zero state.
+
+    x (B,S,H,P), dt (B,S,H) fp32, A (H,) (or per row (B,H)) fp32, Bm/Cm
+    (B,S,N) -> ``(y (B,S,H,P), state (B,H,N,P) fp32)``.  ``A`` goes to
+    `SSDScan` per row, so a `vmap` over snapshots folds into one launch.
+    The kernel starts from a zero state: with ``init_state`` a CUDA tensor
+    raises (prefill with a state is the serving plane's), a CPU tensor
+    takes the plain version."""
+    if init_state is not None:
+        if on_cuda(x):
+            raise unported("ssd_scan with init_state", 11)
+        return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state)
+    if A.ndim == 1:
+        A = A.expand(x.shape[0], A.shape[0])
+    return SSDScan.apply(x, dt, A, Bm, Cm, chunk)
 
 
 def weighted_update_tree(params, grads, scale, momenta=None, momentum=0.0):

@@ -8,7 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["weighted_update_ref", "block_prefix_update_ref", "flash_attention_ref"]
+__all__ = ["weighted_update_ref", "block_prefix_update_ref", "flash_attention_ref",
+           "ssd_scan_ref"]
 
 
 def weighted_update_ref(
@@ -92,3 +93,13 @@ def flash_attention_ref(
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, v)
     return out.reshape(B, S, H, D)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int = 64, init_state=None):
+    """The chunked SSD of `models.mamba2.ssd_chunked` (one copy of the
+    algorithm), as `repro.kernels.ref.ssd_scan_ref` delegates to the
+    reference's.  ``A`` is (H,) or per row (B, H); ``init_state`` (B, H, N, P)
+    or None.  Returns ``(y (B,S,H,P) in x's dtype, state (B,H,N,P) fp32)``."""
+    from ..models.mamba2 import ssd_chunked
+
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state)

@@ -14,6 +14,8 @@ Runs on the GPU unless ``--device cpu`` is given:
 
     PYTHONPATH=src python -m repro_torch.launch.train --mode lm --preset full \\
         --arch granite-3-2b --concurrency 4
+    PYTHONPATH=src python -m repro_torch.launch.train --mode lm --preset full \\
+        --arch mamba2-130m
 """
 from __future__ import annotations
 

@@ -4,9 +4,10 @@
     logits, _ = forward(params, batch, cfg)          # train / prefill
     loss, aux = loss_fn(params, batch, cfg)
 
-The dense, VLM and audio families (the transformer) are ported; SSM and
-hybrid, MoE, the optimizer-driven `train_step` and decode / serving raise
-`NotImplementedError` naming their ROADMAP item.
+The dense, VLM and audio families (the transformer), the SSM family
+(`mamba2`) and the hybrid (`hybrid`) are ported; MoE, the optimizer-driven
+`train_step` and decode / serving raise `NotImplementedError` naming their
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..unported import unported
-from . import transformer
+from . import hybrid, mamba2, transformer
 
 __all__ = [
     "family_module",
@@ -31,8 +32,10 @@ __all__ = [
 def family_module(cfg: ModelConfig):
     if cfg.family in ("dense", "vlm", "audio"):
         return transformer
-    if cfg.family in ("ssm", "hybrid"):
-        raise unported(f"family={cfg.family!r} (mamba2 / hybrid, K4 ssd_scan)", "7b")
+    if cfg.family == "ssm":
+        return mamba2
+    if cfg.family == "hybrid":
+        return hybrid
     if cfg.family == "moe":
         raise unported("family='moe' (moe_block, K5 moe_gmm)", "7c")
     raise ValueError(f"unknown family {cfg.family}")

@@ -1,0 +1,246 @@
+"""Mamba2 (state-space duality / SSD) blocks — the chunked parallel form.
+
+`repro.models.mamba2`'s training and prefill half, after "Transformers are
+SSDs" (arXiv:2405.21060):
+  h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t,      y_t = C_t h_t + D x_t
+with per-head scalar A and B/C shared across heads (ssm_groups=1).  Training
+and prefill use the chunked dual form (O(S Q) with chunk Q); all decay and
+exp math is fp32.  With ``cfg.use_pallas`` the chunked scan runs the
+hand-written CUDA kernel (`kernels.ops.ssd_scan`, K4), else `ssd_chunked`.
+Decode (the O(1) recurrence and its cache) belongs to the serving plane
+and is not ported yet.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..unported import unported
+from . import layers as L
+from .module import ParamMeta
+from .transformer import _dt, _remat, _unstack
+
+__all__ = [
+    "mamba_block_meta",
+    "model_meta",
+    "ssd_chunked",
+    "ssd_recurrent_step",
+    "mamba_block",
+    "mamba_decode_block",
+    "forward",
+    "init_cache",
+    "decode_step",
+]
+
+
+def _dims(cfg: ModelConfig):
+    d_inner = cfg.d_inner
+    H = cfg.ssm_heads
+    N = cfg.ssm_state
+    G = cfg.ssm_groups
+    conv_ch = d_inner + 2 * G * N
+    return d_inner, H, N, G, conv_ch
+
+
+def mamba_block_meta(cfg: ModelConfig, stacked: int | None = None) -> dict:
+    D = cfg.d_model
+    d_inner, H, N, G, conv_ch = _dims(cfg)
+    d_in_proj = 2 * d_inner + 2 * G * N + H
+    dt = _dt(cfg)
+
+    def P(shape, axes, **kw):
+        if stacked is not None:
+            shape, axes = (stacked, *shape), ("layers", *axes)
+        return ParamMeta(shape, axes, dtype=dt, **kw)
+
+    return {
+        "in_proj": P((D, d_in_proj), ("embed", "mlp"), fan_in_axes=(-2,)),
+        "conv_w": P((cfg.ssm_conv, conv_ch), ("conv", "mlp"), init="normal", fan_in_axes=(0,)),
+        "conv_b": P((conv_ch,), ("mlp",), init="zeros"),
+        "A_log": P((H,), ("state",), init="ssm_a"),
+        "D": P((H,), ("state",), init="ones"),
+        "dt_bias": P((H,), ("state",), init="ssm_dt"),
+        "norm": P((d_inner,), ("mlp",), init="ones"),
+        "out_proj": P((d_inner, D), ("mlp", "embed"), fan_in_axes=(-2,)),
+        "pre_norm": P((D,), ("embed",), init="ones"),
+    }
+
+
+def model_meta(cfg: ModelConfig) -> dict:
+    D, V, nL = cfg.d_model, cfg.vocab_size, cfg.num_layers
+    dt = _dt(cfg)
+    tree: dict[str, Any] = {
+        "embed": ParamMeta((V, D), ("vocab", "embed"), dtype=dt, init="embed"),
+        "blocks": mamba_block_meta(cfg, stacked=nL),
+        "final_norm": ParamMeta((D,), ("embed",), dtype=dt, init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = ParamMeta((D, V), ("embed", "vocab"), dtype=dt, fan_in_axes=(0,))
+    return tree
+
+
+# ------------------------------------------------------------------ #
+# SSD math
+# ------------------------------------------------------------------ #
+def _segsum(a: torch.Tensor, cs: torch.Tensor | None = None) -> torch.Tensor:
+    """a: (..., Q) -> (..., Q, Q) with out[i,j] = sum_{j < l <= i} a_l (i>=j), -inf else.
+
+    ``cs``, a's cumsum along its last axis, is taken as given when the
+    caller has it.  The upper triangle is selected, never exponentiated
+    from the difference: there cs_i - cs_j > 0, and its exp can overflow."""
+    Q = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1) if cs is None else cs
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=a.device).tril()
+    return torch.where(mask, diff, -torch.inf)
+
+
+def ssd_chunked(
+    x: torch.Tensor,   # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)  fp32, post-softplus
+    A: torch.Tensor,   # (H,) or per row (B, H), fp32, negative
+    Bm: torch.Tensor,  # (B, S, N)
+    Cm: torch.Tensor,  # (B, S, N)
+    chunk: int,
+    init_state: torch.Tensor | None = None,  # (B, H, N, P)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD.  Returns (y (B,S,H,P), final_state (B,H,N,P) fp32).
+
+    ``A`` per row is the form the kernel's autograd Function passes (one A
+    per (b, h), so a `vmap` over snapshots can fold its lanes into B)."""
+    Bsz, S, H, Pd = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"S={S} not divisible by chunk={Q}")
+    nc = S // Q
+    xc = x.reshape(Bsz, nc, Q, H, Pd)
+    dtc = dt.reshape(Bsz, nc, Q, H).float()
+    Bc = Bm.reshape(Bsz, nc, Q, N).float()
+    Cc = Cm.reshape(Bsz, nc, Q, N).float()
+    A = A.float()
+    a = dtc * (A[None, None, None, :] if A.ndim == 1 else A[:, None, None, :])  # (B,nc,Q,H)
+    cs = torch.cumsum(a, dim=2)                          # within-chunk cumsum
+
+    # --- intra-chunk (diagonal) term --------------------------------- #
+    # L from this cs (the reference recomputes the same cumsum inside
+    # _segsum): on the card a cumsum along dim 2 is a sequential fp32 loop,
+    # one along the last dim a parallel scan, and at |cs| ~ 100s the order
+    # shows in exp(cs_i - cs_j); the kernel sums in the first order
+    Lmat = torch.exp(_segsum(a.transpose(2, 3), cs.transpose(2, 3)))  # (B,nc,H,Q,Q)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)     # (B,nc,Q,Q)
+    xw = xc.float() * dtc[..., None]                     # dt_j * x_j
+    y_diag = torch.einsum("bcij,bchij,bcjhp->bcihp", scores, Lmat, xw)
+
+    # --- chunk states -------------------------------------------------- #
+    decay_to_end = torch.exp(cs[:, :, -1:, :] - cs)      # (B,nc,Q,H)
+    states = torch.einsum("bcjn,bcjh,bcjhp->bchnp", Bc, dtc * decay_to_end, xc.float())
+
+    # --- inter-chunk recurrence (the reference's lax.scan) ------------- #
+    chunk_decay = torch.exp(cs[:, :, -1, :])             # (B,nc,H)
+    h = (torch.zeros((Bsz, H, N, Pd), dtype=torch.float32, device=x.device)
+         if init_state is None else init_state.float())
+    h_prevs = []
+    for c in range(nc):
+        h_prevs.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_prevs = torch.stack(h_prevs, dim=1)                # (B,nc,H,N,P)
+
+    # --- inter-chunk output term -------------------------------------- #
+    y_off = torch.einsum("bcin,bchnp,bcih->bcihp", Cc, h_prevs, torch.exp(cs))
+
+    y = (y_diag + y_off).reshape(Bsz, S, H, Pd).to(x.dtype)
+    return y, h
+
+
+def ssd_recurrent_step(*args, **kwargs):
+    """One decode step of the recurrence — not ported yet."""
+    raise unported("mamba2.ssd_recurrent_step", 11)
+
+
+# ------------------------------------------------------------------ #
+# blocks
+# ------------------------------------------------------------------ #
+def _split_proj(proj: torch.Tensor, cfg: ModelConfig):
+    d_inner, H, N, G, conv_ch = _dims(cfg)
+    z, xBC, dt = torch.split(proj, [d_inner, conv_ch, H], dim=-1)
+    return z, xBC, dt
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv.  xBC: (B,S,Ch), w: (W,Ch).  The W taps are
+    summed in fp32 in order, then the bias is added, as the reference does."""
+    W, S = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, W - 1, 0))
+    out = pad[:, 0:S, :].float() * w[0].float()
+    for i in range(1, W):
+        out = out + pad[:, i : i + S, :].float() * w[i].float()
+    return (out + b.float()).to(xBC.dtype)
+
+
+def mamba_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                init_state: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence Mamba2 block with residual.  Returns (y, final_ssm_state)."""
+    B, S, D = x.shape
+    d_inner, H, N, G, conv_ch = _dims(cfg)
+    Pd = cfg.ssm_head_dim
+    h = L._maybe_grad_cast(L.rms_norm(params["pre_norm"], x, cfg.norm_eps), cfg)
+    proj = h @ params["in_proj"]
+    z, xBC, dt_raw = _split_proj(proj, cfg)
+    xBC = F.silu(_causal_conv(xBC, params["conv_w"], params["conv_b"]))
+    xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, S, H, Pd)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())
+    if cfg.use_pallas:
+        from ..kernels import ops as kops
+
+        y, hT = kops.ssd_scan(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk, init_state=init_state)
+    else:
+        y, hT = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
+    y = y + xs * params["D"].to(y.dtype)[None, None, :, None]
+    y = y.reshape(B, S, d_inner) * F.silu(z)
+    y = L.rms_norm(params["norm"], y, cfg.norm_eps)
+    return x + y @ params["out_proj"], hT
+
+
+def mamba_decode_block(*args, **kwargs):
+    """Single-token Mamba2 block against the SSM / conv cache — not ported yet."""
+    raise unported("mamba2.mamba_decode_block", 11)
+
+
+# ------------------------------------------------------------------ #
+# whole-model entry points
+# ------------------------------------------------------------------ #
+def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward over the unbound stacked layers (the
+    reference's ``lax.scan``).  Returns (logits (B,S,V), 0)."""
+    x = F.embedding(batch["tokens"], params["embed"])
+    blk = _remat(functools.partial(_call_block, cfg), cfg)
+    for params_l in _unstack(params["blocks"], cfg.num_layers):
+        x, _ = blk(params_l, x)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _call_block(cfg, params_l, x):
+    return mamba_block(params_l, x, cfg)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """SSM / conv decode cache spec — not ported yet."""
+    raise unported("mamba2.init_cache", 11)
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    raise unported("mamba2.cache_logical_axes", 11)
+
+
+def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
+    """One-token decode against the SSM / conv cache — not ported yet."""
+    raise unported("mamba2.decode_step", 11)

@@ -7,7 +7,8 @@ layers (`jax.lax.scan` in the reference), whichever ``cfg.scan_layers``
 says.  The reference's two ways of summing the MoE aux loss differ only
 for the MoE FFN; every family ported here returns an aux of 0, so the
 loop sums it one way (the scan's).  The MoE FFN and decode are not ported
-yet.
+yet; the SSM and hybrid families live in `mamba2` and `hybrid`, which reuse
+this module's `_dt`, `_unstack` and `_remat`.
 """
 from __future__ import annotations
 

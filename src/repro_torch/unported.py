@@ -11,7 +11,6 @@ ROADMAP_ITEMS = {
     4: "blocked replay with FedBuff, and the FedBuff / FedAvg / FAVANO baselines",
     5: "run_matrix and MatrixResult",
     6: "device event stream and adaptive sampling",
-    "7b": "LM path, SSM and hybrid families (mamba2, hybrid, K4 ssd_scan)",
     "7c": "LM path, MoE family (moe_block, K5 moe_gmm)",
     "7d": "optimizers (optim/), api.train_step and duck-typed tasks",
     8: "faults, guard and checkpointing",

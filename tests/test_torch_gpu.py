@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
 the kernel paths of the replay engine against the plain paths, and the LM
-path with the flash-attention kernel against the plain attention.
+paths with the flash-attention and chunked-SSD kernels against the plain
+versions.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without one;
 the file imports neither JAX nor `repro`, so it runs on a machine that has
@@ -23,6 +24,7 @@ from repro_torch.fl import engine as fl  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.kernels import weighted_update as cuda_kernels  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models.module import init_params  # noqa: E402
@@ -227,6 +229,126 @@ def test_lm_loss_and_grads_kernel_vs_plain(dev, dtype):
     (gk, lk), (gp, lp) = grads[True], grads[False]
     # loss relative, grads against each leaf's largest entry: fp32 as
     # chip_smoke.py's full-width check, bf16 loose (10 bf16 ulps)
+    tol_loss, tol_grad = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 4e-2)
+    assert abs(float(lk) - float(lp)) <= tol_loss * abs(float(lp))
+    for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+        assert _err(a, b) <= tol_grad * float(b.float().abs().max())
+
+
+# K4 shapes (B, S, H, P, N, chunk, A range, dt range), as chip_smoke.py checks
+# them: the grid of tests/test_kernels.py, Mamba2-130M's path shape and the
+# same folded to B=32 (blocked E=4), Zamba2-2.7B's shape, a long sequence (32
+# chunks of carried state), S < chunk, and the overflow case (A in -[1, 16],
+# dt up to 1: the masked exp(cs_i - cs_j) is inf)
+SSD_SHAPES = [
+    (2, 128, 3, 32, 16, 32, (0.5, 2.0), (0.01, 0.2)),
+    (1, 64, 2, 64, 128, 64, (0.5, 2.0), (0.01, 0.2)),
+    (1, 256, 4, 16, 8, 16, (0.5, 2.0), (0.01, 0.2)),
+    (8, 128, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1)),
+    (32, 128, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1)),
+    (2, 128, 80, 64, 64, 64, (1.0, 16.0), (0.001, 0.1)),
+    (1, 2048, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1)),
+    (2, 40, 4, 32, 16, 64, (0.5, 2.0), (0.01, 0.2)),
+    (2, 128, 3, 32, 16, 64, (1.0, 16.0), (0.0, 1.0)),
+]
+SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}  # tests/test_kernels.py's
+
+
+def _ssd_inputs(dev, dtype, B, S, H, P, N, a_range, dt_range, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=gen).to(dev, dtype)
+    dt = (dt_range[0] + (dt_range[1] - dt_range[0]) * torch.rand((B, S, H), generator=gen)).to(dev)
+    A = -(a_range[0] + (a_range[1] - a_range[0]) * torch.rand((H,), generator=gen)).to(dev)
+    Bm = torch.randn((B, S, N), generator=gen).to(dev, dtype)
+    Cm = torch.randn((B, S, N), generator=gen).to(dev, dtype)
+    return x, dt, A, Bm, Cm
+
+
+def _state_ok(s, e, tol) -> bool:
+    """The state within ``tol`` relative to its magnitude (at least 1)."""
+    return _err(s, e) <= tol * max(1.0, float(e.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,P,N,chunk,a_range,dt_range", SSD_SHAPES)
+def test_ssd_scan_matches_plain(dev, dtype, B, S, H, P, N, chunk, a_range, dt_range):
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, dtype, B, S, H, P, N, a_range, dt_range)
+    k4.reset_launches()
+    y, s = k4.ssd_scan_fwd(x, dt, A.expand(B, H), Bm, Cm, chunk)
+    ey, es = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
+    torch.cuda.synchronize()
+    assert k4.launches["ssd_scan"] == 1
+    assert y.dtype == dtype and s.dtype == torch.float32 and s.shape == (B, H, N, P)
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(s).all())
+    assert _close(y, ey, FA_TOL[dtype]), _err(y, ey)
+    assert _state_ok(s, es, SSD_STATE_TOL[dtype]), _err(s, es)
+
+
+def test_ssd_scan_init_state_raises_on_card(dev):
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, torch.float32, 1, 64, 2, 16, 8, (0.5, 2.0), (0.01, 0.2))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32, init_state=torch.zeros((1, 2, 8, 16), device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_grads_match_reference(dev, dtype):
+    """Grads of all five inputs through `SSDScan` (kernel forward, reference
+    VJP) vs grads through the reference, linear probe loss on both outputs."""
+    args = _ssd_inputs(dev, dtype, 2, 128, 4, 32, 16, (0.5, 2.0), (0.01, 0.2))
+    gen = torch.Generator().manual_seed(1)
+    py = torch.randn((2, 128, 4, 32), generator=gen).to(dev)
+    ps = torch.randn((2, 4, 16, 32), generator=gen).to(dev)
+
+    def loss(fn):
+        def f(*a):
+            y, s = fn(*a, chunk=32)
+            return torch.sum(y.float() * py) + torch.sum(s * ps)
+        return f
+
+    gk = torch.func.grad(loss(ops.ssd_scan), argnums=(0, 1, 2, 3, 4))(*args)
+    gr = torch.func.grad(loss(ref.ssd_scan_ref), argnums=(0, 1, 2, 3, 4))(*args)
+    for a, b in zip(gk, gr):
+        assert a.dtype == b.dtype and _close(a, b, FA_TOL[dtype]), _err(a, b)
+
+
+def test_ssd_scan_vmap_is_one_launch(dev):
+    """A batched A (one per lane, as the blocked engine's snapshots give):
+    one launch over the folded lanes, equal to a loop."""
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, torch.float32, 2, 128, 4, 32, 16, (0.5, 2.0), (0.01, 0.2))
+    xs, dts, Bs, Cs = (torch.stack([t, 0.5 * t, 2.0 * t]) for t in (x, dt, Bm, Cm))
+    As = torch.stack([A, 2.0 * A, 0.25 * A])
+    k4.reset_launches()
+    y, s = torch.func.vmap(lambda *a: ops.ssd_scan(*a, chunk=64))(xs, dts, As, Bs, Cs)
+    assert k4.launches["ssd_scan"] == 1
+    for i in range(3):
+        ey, es = ref.ssd_scan_ref(xs[i], dts[i], As[i], Bs[i], Cs[i], chunk=64)
+        assert _close(y[i], ey, 2e-5) and _state_ok(s[i], es, 1e-4)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_loss_and_grads_kernel_vs_plain(dev, arch, dtype):
+    """The Mamba2 and Zamba2 smoke configs: loss and grads with the kernels
+    (use_pallas) against the plain versions; one K4 launch per Mamba2 layer
+    and one K3 launch per shared-block site per forward."""
+    from repro_torch.models import hybrid
+
+    cfg = smoke_config(arch).replace(dtype=dtype)
+    sites = hybrid.num_shared_sites(cfg) if cfg.family == "hybrid" else 0
+    params = init_params(api.model_meta(cfg), 0, dev)
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 32), generator=gen).to(dev)
+             for k in ("tokens", "labels")}
+    grads = {}
+    for use_pallas in (True, False):
+        c = cfg.replace(use_pallas=use_pallas)
+        k4.reset_launches()
+        fa.reset_launches()
+        grads[use_pallas] = torch.func.grad_and_value(
+            lambda p: api.loss_fn(p, batch, c)[0])(params)
+        assert k4.launches["ssd_scan"] == (cfg.num_layers if use_pallas else 0)
+        assert fa.launches["flash_attention"] == (sites if use_pallas else 0)
+    (gk, lk), (gp, lp) = grads[True], grads[False]
     tol_loss, tol_grad = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 4e-2)
     assert abs(float(lk) - float(lp)) <= tol_loss * abs(float(lp))
     for a, b in zip(tree_leaves(gk), tree_leaves(gp)):

@@ -36,9 +36,8 @@ from repro_torch.models import module as t_module  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 PORTED = ["internvl2_26b", "starcoder2_7b", "musicgen_medium", "qwen2_5_32b", "yi_6b",
-          "granite_3_2b"]  # dense, vlm and audio families
-UNPORTED = {"arctic_480b": "item 7c", "qwen2_moe_a2_7b": "item 7c",
-            "mamba2_130m": "item 7b", "zamba2_2_7b": "item 7b"}
+          "granite_3_2b", "mamba2_130m", "zamba2_2_7b"]  # dense, vlm, audio, ssm, hybrid
+UNPORTED = {"arctic_480b": "item 7c", "qwen2_moe_a2_7b": "item 7c"}
 
 
 def _jleaves(tree):
@@ -97,6 +96,20 @@ def test_model_meta_matches_reference(arch):
 def test_granite_full_width_parameter_count():
     assert t_module.param_count(t_api.model_meta(t_configs.get_config("granite-3-2b"))) \
         == 2_533_531_648
+
+
+@pytest.mark.parametrize("arch,n_params,n_leaves", [
+    ("mamba2-130m", 128_983_488, 11),
+    ("zamba2-2.7b", 2_422_670_240, 21),
+])
+def test_ssm_full_width_parameter_count(arch, n_params, n_leaves):
+    """Full-width counts, and the two fp32 leaves (``A_log``, ``dt_bias``)
+    that make the packed snapshot ring fp32."""
+    meta = t_api.model_meta(t_configs.get_config(arch))
+    assert t_module.param_count(meta) == n_params
+    leaves = tree_leaves(t_module.abstract_params(meta))
+    assert len(leaves) == n_leaves
+    assert sum(x.dtype == torch.float32 for x in leaves) == 2
 
 
 @pytest.mark.parametrize("arch,item", sorted(UNPORTED.items()))
@@ -232,13 +245,13 @@ def test_layer_loop_scan_flag_and_kernel_launches():
 N, C, T = 4, 2, 8
 
 
-def _tasks(use_pallas=True):
+def _tasks(use_pallas=True, arch="granite-3-2b"):
     """The JAX task's cached setup and the port's setup built from its
     weights and window offsets, placed in the port task's setup cache
     (tests/test_lm_engine.py's smoke-config sizes)."""
     kw = dict(batch_size=2, seq_len=16, shard_size=32)
-    j_task = j_fl.LMTask(cfg=j_configs.smoke_config("granite-3-2b").replace(use_pallas=use_pallas), **kw)
-    t_task = t_fl.LMTask(cfg=t_configs.smoke_config("granite-3-2b").replace(use_pallas=use_pallas), **kw)
+    j_task = j_fl.LMTask(cfg=j_configs.smoke_config(arch).replace(use_pallas=use_pallas), **kw)
+    t_task = t_fl.LMTask(cfg=t_configs.smoke_config(arch).replace(use_pallas=use_pallas), **kw)
     j_setup = j_fl._cached_fl_setup(None, 0, j_task, n_clients=N)
     own = t_task.build(None, 0, N, device="cpu")
     clients = t_fl.DeviceTaskClients(own.clients.loss_fn, t_task.shards(0, N), batch_size=2,
