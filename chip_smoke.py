@@ -20,7 +20,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    `FlashAttention` against the reference's; K4 chunked SSD over its shape
    grid (y allclose as K3, the state within 1e-4 fp32 / 1e-2 bf16 of its
    magnitude), its gradients through `SSDScan`, and one launch under
-   ``vmap`` with a batched A, equal to a loop;
+   ``vmap`` with a batched A, equal to a loop (K5: phase 11);
 3. the MLP slice — the paper's experiment, the plain path:
    ``run_experiment(FLConfig(n_clients=256, concurrency=64,
    server_steps=2000, engine="scan"), "gen_async", eval_every=500)`` with
@@ -59,9 +59,31 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    rule == 24 x (block rows + evals)), and the plain SSD; K4 launches ==
    24 x forwards on the per-event runs, eval loss finite and falling, the
    curves within `MAMBA_CURVE_TOL` of each other, peak device memory, and a
-   profile of a few events of the per-event and blocked kernel paths.
+   profile of a few events of the per-event and blocked kernel paths;
+11. K5, the grouped expert matmul, against its plain version over
+   `GMM_SHAPES` (allclose with atol = rtol = 2e-5 fp32, 2e-2 bf16), timed
+   at Qwen1.5-MoE-A2.7B's path shape beside the plain version and
+   `torch.bmm`; its gradients through `MoeGMM`; one launch under ``vmap``
+   over 4 lanes, equal to a loop; a CPU tensor takes the plain version and
+   a dtype mismatch raises;
+12. Qwen1.5-MoE-A2.7B at full width, depth cut to `MOE_LAYERS`, in fp32
+   under the sort dispatch: one loss and gradient with the kernels (K3, K5)
+   and with the plain versions — loss within 1e-5 relative, gradients
+   within 1e-4 x max|g|, K5 launches == 3 x layers — and the loss of the
+   einsum dispatch (no K5) on the same weights within 1e-5 of the sort
+   dispatch's;
+13. the Qwen1.5-MoE LM slice at full width, depth `MOE_LAYERS` (bf16,
+   ``use_pallas=True``, ``moe_dispatch="sort"``): ``run_lm``'s
+   configuration with C cut to 4, T to 64 and the eval cadence to 16, as
+   for Granite, three ways: ``run_experiment`` (K3 + K5), ``update=
+   "pallas"`` (K1 launches == 64 x 19) and ``use_pallas=False`` (plain
+   attention, bf16 einsum experts on the same dispatch); K5 launches == 3
+   x layers x forwards and K3 == layers x forwards on the kernel runs,
+   eval loss finite and falling, the curves within 1e-3 (K1) and
+   `MOE_CURVE_TOL` (plain) of the kernel run's, peak device memory, and a
+   profile of a few events.
 
-Phases 4, 5, 8 and 10 are the kernel paths: each launch count is zeroed
+Phases 4, 5, 8, 10 and 13 are the kernel paths: each launch count is zeroed
 just before the run and read just after.  fp32 matmuls run in full fp32 (TF32
 off for matmul and cuDNN).  The line before the last is the ``kernels``
 JSON object; the last line is the result object.
@@ -140,6 +162,32 @@ MAMBA_PARAMS, MAMBA_LEAVES = 128_983_488, 11
 # fp32 flat update 7.52e-4, K4 vs the plain SSD 2.77e-4, blocked E=4 vs
 # per-event 1.76e-4
 MAMBA_CURVE_TOL = {"pallas_update": 3.8e-3, "plain_ssd": 1.4e-3, "blocked": 8.8e-4}
+# K5 shapes (E, C, D, F): Qwen1.5-MoE-A2.7B's path shapes (one dispatch group
+# of 8 x 128 tokens, capacity 88; gate / up, then down), the grid of
+# tests/test_kernels.py, a ragged capacity, C over two 128-row slabs with D
+# and F that rule out 16-byte loads, and Arctic's per-expert shape at 16 of
+# its 128 experts (capacity 12 from a group of 512 tokens, top-2; bf16 only)
+GMM_PATH_SHAPE = (60, 88, 2048, 1408)
+GMM_SHAPES = [
+    GMM_PATH_SHAPE,
+    (60, 88, 1408, 2048),
+    (4, 256, 128, 256),
+    (2, 128, 256, 128),
+    (8, 64, 64, 64),
+    (4, 20, 256, 128),
+    (3, 130, 100, 70),
+]
+GMM_ARCTIC = (16, 12, 7168, 4864)
+# gradients and vmap: Qwen1.5-MoE's experts at the capacity of phase 12's
+# batch (2 x 128 tokens: 24)
+GMM_GRAD_SHAPE = (60, 24, 2048, 1408)
+# the Qwen1.5-MoE LM slice: run_lm's configuration at full width, depth cut
+# from 24 to 3 layers (the bf16 ring of 24 layers is 28.6 GB a row)
+MOE_ARCH, MOE_LAYERS = "qwen2-moe-a2.7b", 3
+MOE_PARAMS, MOE_LEAVES = 2_334_007_296, 19
+# eval-loss curve, K3 + K5 vs plain attention and einsum experts, relative:
+# 5x the gap measured on the card (7.30e-4, NVIDIA H100 80GB HBM3, 700 W)
+MOE_CURVE_TOL = 3.7e-3
 MLP_LEAVES = {  # the ClassificationTask MLP at dim 64, hidden 128, 10 classes
     "b1": (128,), "b2": (128,), "b3": (10,),
     "w1": (64, 128), "w2": (128, 128), "w3": (128, 10),
@@ -541,6 +589,103 @@ def phase_ssd_scan(dev) -> dict:
     return {"ssd_scan": out_row}
 
 
+def _gmm_inputs(dev, dtype, E, C, D, F, gen):
+    """x unit normal, w normal with std 1/sqrt(D) (the experts' fan-in
+    init), so y is O(1) as on the path."""
+    x = torch.randn((E, C, D), generator=gen).to(dev, dtype)
+    w = (torch.randn((E, D, F), generator=gen) / np.sqrt(D)).to(dev, dtype)
+    return x, w
+
+
+def phase_moe_gmm(dev) -> dict:
+    """11. K5 against its plain version over `GMM_SHAPES` (and Arctic's shape
+    in bf16), timed at the path shape beside the plain version and
+    `torch.bmm` (bf16 in, fp32 accumulation, bf16 out: the same function in
+    one call); its gradients through `MoeGMM`; one launch under ``vmap``;
+    the CPU and dtype dispatch."""
+    from repro_torch.kernels import moe_gmm as k5
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator().manual_seed(2)
+    out_row = None
+    cells = [(d, s) for d in (torch.float32, torch.bfloat16) for s in GMM_SHAPES]
+    for dtype, shape in cells + [(torch.bfloat16, GMM_ARCTIC)]:
+        E, C, D, F = shape
+        x, w = _gmm_inputs(dev, dtype, *shape, gen)
+        y = k5.moe_gmm_fwd(x, w)
+        e = ref.moe_gmm_ref(x, w)
+        torch.cuda.synchronize()
+        err, close = max_err(y, e), _allclose_err(y, e)
+        finite = bool(torch.isfinite(y.float()).all())
+        tag = f"moe_gmm {str(dtype)[6:]} {shape}"
+        check(finite and close <= FA_TOL[dtype] and y.dtype == dtype,
+              f"{tag}: finite {finite}, allclose tol {close:.3e} <= {FA_TOL[dtype]} "
+              f"(max abs err {err:.3e})")
+        esz = torch.finfo(dtype).bits // 8
+        nbytes = esz * (E * C * D + E * D * F + E * C * F)  # read x, w; write y
+        b, by = bound_ms(nbytes, 2 * E * C * D * F,
+                         BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        kernel = lambda: k5.moe_gmm_fwd(x, w)  # noqa: E731
+        plain = lambda: ref.moe_gmm_ref(x, w)  # noqa: E731
+        library = lambda: torch.bmm(x, w)  # noqa: E731
+        row = dict(max_abs_err=err, allclose_tol=close, bound_ms=b, bound_by=by)
+        if shape == GMM_PATH_SHAPE and dtype == torch.bfloat16:
+            row.update(_timings(kernel, plain, library))
+            out_row = row
+        else:
+            quick = dict(batches=5, per_batch=10, warmup=3)
+            row.update(ms=time_ms(kernel, **quick), plain_ms=time_ms(plain, **quick),
+                       library_ms=time_ms(library, **quick))
+        print(f"     {tag}: {json.dumps(row)}")
+        del x, w, y, e, kernel, plain, library
+    torch.cuda.empty_cache()
+
+    # gradients of x and w: MoeGMM (kernel forward, reference VJP) vs the
+    # reference, linear probe loss
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w = _gmm_inputs(dev, dtype, *GMM_GRAD_SHAPE, gen)
+        E, C, _, F = GMM_GRAD_SHAPE
+        probe = torch.randn((E, C, F), generator=gen).to(dev)
+
+        def loss(fn):
+            return lambda x, w: torch.sum(fn(x, w).float() * probe)
+
+        gk = torch.func.grad(loss(ops.moe_gmm), argnums=(0, 1))(x, w)
+        gr = torch.func.grad(loss(ref.moe_gmm_ref), argnums=(0, 1))(x, w)
+        close = max(_allclose_err(a, b) for a, b in zip(gk, gr))
+        check(close <= FA_TOL[dtype] and all(a.dtype == dtype for a in gk),
+              f"moe_gmm grads {str(dtype)[6:]} allclose tol {close:.3e} <= {FA_TOL[dtype]}")
+        del x, w, gk, gr
+
+    # vmap with x and w both mapped over 4 lanes (the blocked engine's case:
+    # one set of expert weights per lane): one launch, equal to a loop
+    x, w = _gmm_inputs(dev, torch.bfloat16, *GMM_GRAD_SHAPE, gen)
+    xs = torch.stack([x, 0.5 * x, -x, x.flip(1)])
+    ws = torch.stack([w, 2.0 * w, w.flip(0), -w])
+    k5.reset_launches()
+    y = torch.func.vmap(ops.moe_gmm)(xs, ws)
+    n = k5.launches["moe_gmm"]
+    close = max(_allclose_err(y[i], ref.moe_gmm_ref(xs[i], ws[i])) for i in range(4))
+    check(n == 1 and close <= FA_TOL[torch.bfloat16],
+          f"moe_gmm under vmap over 4 lanes: {n} launch(es) == 1, equal to a loop "
+          f"(allclose tol {close:.3e} <= {FA_TOL[torch.bfloat16]})")
+    del x, w, xs, ws, y
+    # a CPU tensor takes the plain version (no launch); a dtype mismatch raises
+    xc, wc = _gmm_inputs(torch.device("cpu"), torch.float32, 2, 8, 16, 4, gen)
+    k5.reset_launches()
+    same = torch.equal(ops.moe_gmm(xc, wc), ref.moe_gmm_ref(xc, wc))
+    try:
+        k5.moe_gmm_fwd(xc.to(dev), wc.to(dev, torch.bfloat16))
+        raised = False
+    except TypeError:
+        raised = True
+    check(same and k5.launches["moe_gmm"] == 0 and raised,
+          f"moe_gmm dispatch: CPU tensor -> plain version {same}, no launch "
+          f"({k5.launches['moe_gmm']}), dtype mismatch raises {raised}")
+    torch.cuda.empty_cache()
+    return {"moe_gmm": out_row}
+
+
 def phase_mlp(dev, launches: dict) -> None:
     """Phases 3-6 (the MLP slice) and its profile; adds the kernel paths'
     launch counts to ``launches`` under "mlp"."""
@@ -644,40 +789,56 @@ def _lm_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
     return {k: torch.as_tensor(v, dtype=torch.int64, device=dev) for k, v in b.items()}
 
 
-def phase_grad_check(dev, arch: str) -> None:
-    """7. / 9. One loss and gradient of a full-width config in fp32 with the
-    kernels (``use_pallas=True``) and with the plain versions, on the same
-    weights and batch; one K3 launch per attention block and one K4 launch
-    per Mamba2 layer per forward."""
+def phase_grad_check(dev, arch: str, num_layers: int | None = None) -> None:
+    """7. / 9. / 12. One loss and gradient of a full-width config in fp32
+    with the kernels (``use_pallas=True``) and with the plain versions, on
+    the same weights and batch; one K3 launch per attention block, one K4
+    launch per Mamba2 layer and three K5 launches per MoE layer (the sort
+    dispatch) per forward.  ``num_layers`` cuts the depth; an MoE config
+    also gives the loss of the einsum dispatch (no K5) on the same weights."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as k5
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.models import api, hybrid
     from repro_torch.models.module import init_params
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch).replace(dtype="float32")
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
+    moe = cfg.family == "moe"
+    if moe:
+        cfg = cfg.replace(moe_dispatch="sort")
     ssm = cfg.family in ("ssm", "hybrid")
     attention = (0 if cfg.family == "ssm" else
                  hybrid.num_shared_sites(cfg) if cfg.family == "hybrid" else cfg.num_layers)
-    want = {"flash_attention": attention, "ssd_scan": cfg.num_layers if ssm else 0}
+    want = {"flash_attention": attention, "ssd_scan": cfg.num_layers if ssm else 0,
+            "moe_gmm": 3 * cfg.num_layers if moe else 0}
     params = init_params(api.model_meta(cfg), 0, dev)
     batch = _lm_batch(cfg, 2, LM_SEQ, 1, dev)
     res = {}
     for use_pallas in (True, False):
         c = cfg.replace(use_pallas=use_pallas)
-        fa.reset_launches()
-        k4.reset_launches()
+        for mod in (fa, k4, k5):
+            mod.reset_launches()
         res[use_pallas], wall = _timed(lambda: torch.func.grad_and_value(
             lambda p: api.loss_fn(p, batch, c)[0])(params))
-        got = {"flash_attention": fa.launches["flash_attention"], "ssd_scan": k4.launches["ssd_scan"]}
-        print(f"{arch} fp32 full-width loss+grad, use_pallas={use_pallas}: {wall:.3f} s, "
-              f"loss {float(res[use_pallas][1]):.7f}, launches {got}")
+        got = {"flash_attention": fa.launches["flash_attention"], "ssd_scan": k4.launches["ssd_scan"],
+               "moe_gmm": k5.launches["moe_gmm"]}
+        print(f"{arch} ({cfg.num_layers} layers) fp32 full-width loss+grad, use_pallas={use_pallas}: "
+              f"{wall:.3f} s, loss {float(res[use_pallas][1]):.7f}, launches {got}")
         if use_pallas:
             check(got == want, f"{arch} launches per forward {got} == {want}")
     (gk, lk), (gp, lp) = res[True], res[False]
     rel = abs(float(lk) - float(lp)) / abs(float(lp))
     check(rel <= 1e-5, f"{arch} fp32 full-width loss, kernel vs plain: relative gap {rel:.3e} <= 1e-5")
+    if moe:
+        with torch.no_grad():
+            le = api.loss_fn(params, batch, cfg.replace(moe_dispatch="einsum"))[0]
+        rel = abs(float(le) - float(lp)) / abs(float(lp))
+        check(rel <= 1e-5, f"{arch} fp32 full-width loss, einsum vs sort dispatch: relative gap "
+              f"{rel:.3e} <= 1e-5 (einsum {float(le):.7f})")
     gmax = max(float(g.abs().max()) for g in tree_leaves(gp))
     gap = max(max_err(a, b) for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
     per_leaf = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
@@ -908,7 +1069,116 @@ def phase_mamba(dev, launches: dict) -> None:
     check(gap <= tol, f"Mamba2 eval curve, K4 vs plain SSD: relative gap {gap:.3e} <= {tol}")
 
 
+def phase_moe_lm(dev, launches: dict) -> None:
+    """13. The Qwen1.5-MoE LM slice at full width (see the module
+    docstring); adds the kernel launches of its two kernel runs to
+    ``launches`` under "qwen_moe"."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.fl.engine import LMTask, _cached_fl_setup, run_experiment, sampling_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import moe_gmm as k5
+    from repro_torch.kernels import weighted_update as wu
+    from repro_torch.models import api
+    from repro_torch.models.module import param_count
+
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS, use_pallas=True,
+                                       moe_dispatch="sort")
+    n_params = param_count(api.model_meta(cfg))
+    check(n_params == MOE_PARAMS,
+          f"{MOE_ARCH} ({MOE_LAYERS} layers) parameters {n_params:,} == {MOE_PARAMS:,}")
+    nL = cfg.num_layers
+    flc = FLConfig(n_clients=LM_N, concurrency=LM_C, server_steps=LM_T, sampling="optimal",
+                   speed_ratio=10.0, engine="scan", device=dev.type)
+    forwards = _forwards(LM_T, LM_EVAL)
+    tokens = LM_T * LM_BATCH * LM_SEQ
+    path = launches.setdefault("qwen_moe", {"weighted_update": 0, "flash_attention": 0,
+                                            "moe_gmm": 0})
+
+    def experiment(use_pallas: bool):
+        task = LMTask(cfg.replace(use_pallas=use_pallas), batch_size=LM_BATCH,
+                      seq_len=LM_SEQ, shard_size=LM_SHARD)
+        r, wall = _timed(lambda: run_experiment(flc, "gen_async", eval_every=LM_EVAL, task=task))
+        curve = np.asarray(r.eval_acc, np.float64)
+        print(f"Qwen-MoE run_experiment use_pallas={use_pallas} n={LM_N} C={LM_C} T={LM_T}: "
+              f"{wall:.3f} s, {LM_T / wall:.3f} events/s, {tokens / wall:.1f} tokens/s, "
+              f"eval steps {r.eval_steps.tolist()} loss {curve.tolist()}")
+        return task, curve
+
+    def counts_ok(label: str) -> None:
+        check(k5.launches["moe_gmm"] == 3 * nL * forwards,
+              f"Qwen-MoE {label}: K5 launches {k5.launches['moe_gmm']} == 3 x {nL} x "
+              f"{forwards} forwards")
+        check(fa.launches["flash_attention"] == nL * forwards,
+              f"Qwen-MoE {label}: K3 launches {fa.launches['flash_attention']} == {nL} x "
+              f"{forwards} forwards")
+
+    # 1. run_experiment with K3 and K5, the plain update
+    torch.cuda.reset_peak_memory_stats()
+    for mod in (fa, k5, wu):
+        mod.reset_launches()
+    task, curve = experiment(True)
+    path["flash_attention"] += fa.launches["flash_attention"]
+    path["moe_gmm"] += k5.launches["moe_gmm"]
+    print(f"Qwen-MoE peak device memory (run_experiment): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(curve.shape == (LM_T // LM_EVAL,) and bool(np.all(np.isfinite(curve))),
+          f"Qwen-MoE eval losses finite, {LM_T // LM_EVAL} points")
+    check(bool(curve[-1] < curve[0]), f"Qwen-MoE eval loss falls: {curve[0]:.5f} -> {curve[-1]:.5f}")
+    counts_ok("run_experiment")
+
+    # 2. the same task with the per-leaf K1 update
+    setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
+    mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    base = ServerConfig(n=LM_N, C=LM_C, T=LM_T, eta=0.05, mu=mu, p=sampling_for(flc, mu),
+                        seed=flc.seed, eval_every=LM_EVAL, engine="scan",
+                        weighting="importance", update="pallas", device=dev.type)
+    run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+    for mod in (fa, k5, wu):
+        mod.reset_launches()
+    (w, tr), wall = _timed(lambda: run(base))
+    path["weighted_update"] += wu.launches["weighted_update"]
+    path["flash_attention"] += fa.launches["flash_attention"]
+    path["moe_gmm"] += k5.launches["moe_gmm"]
+    del w
+    print(f"Qwen-MoE update=pallas: {wall:.3f} s, {LM_T / wall:.3f} events/s, "
+          f"{tokens / wall:.1f} tokens/s, launches K1 {wu.launches['weighted_update']} K3 "
+          f"{fa.launches['flash_attention']} K5 {k5.launches['moe_gmm']}, loss {tr.eval_values}")
+    check(wu.launches["weighted_update"] == LM_T * MOE_LEAVES,
+          f"Qwen-MoE K1 launches {wu.launches['weighted_update']} == {LM_T} x {MOE_LEAVES} leaves")
+    counts_ok("update=pallas")
+    gap = float(np.max(np.abs(np.asarray(tr.eval_values) - curve) / np.abs(curve)))
+    check(gap <= 1e-3, f"Qwen-MoE eval curve, update=pallas vs the flat update: relative gap "
+          f"{gap:.3e} <= 1e-3")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"Qwen-MoE peak device memory (both kernel runs): {peak / 2**30:.3f} GiB")
+    check(peak < 80e9, f"Qwen-MoE peak device memory {peak / 1e9:.3f} GB < 80 GB")
+
+    # where the time goes: a few events of the kernel path under the profiler
+    few = 8
+    _print_profile(f"Qwen-MoE update=pallas, use_pallas=True, T={few} (incl. ring set-up)",
+                   lambda: run(replace(base, T=few, eval_every=0)), few)
+    del setup, run
+    task.__dict__.pop("_fl_setup_cache")
+    torch.cuda.empty_cache()
+
+    # 3. plain attention and bf16 einsum experts on the same sort dispatch
+    _, curve0 = experiment(False)
+    gap = float(np.max(np.abs(curve - curve0) / np.abs(curve0)))
+    check(gap <= MOE_CURVE_TOL, f"Qwen-MoE eval curve, K3 + K5 vs plain: relative gap "
+          f"{gap:.3e} <= {MOE_CURVE_TOL}")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def done(phases: str) -> None:
+        print(f"phases {phases} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
@@ -932,24 +1202,35 @@ def main() -> int:
     for name in srcs:
         build.load(name)
     print(f"build: {srcs} in {time.perf_counter() - t0:.2f} s")
+    done("1")
 
     # 2. kernels against their plain versions
     gen = torch.Generator().manual_seed(0)
     rows = phase_kernels(dev, gen)
     rows.update(phase_flash_attention(dev))
     rows.update(phase_ssd_scan(dev))
+    rows.update(phase_moe_gmm(dev))
+    done("2, 11")
 
-    # 3.-8. the two slices, each kernel path's launches counted per path
+    # 3.-8. the MLP and dense LM slices, each kernel path's launches counted per path
     launches: dict = {}
     phase_mlp(dev, launches)
+    done("3-6")
     torch.cuda.empty_cache()
     phase_grad_check(dev, LM_ARCH)
     phase_lm(dev, launches)
+    done("7-8")
     torch.cuda.empty_cache()
     # 9.-10. the SSM and hybrid slice
     phase_grad_check(dev, MAMBA_ARCH)
     phase_grad_check(dev, "zamba2-2.7b")
     phase_mamba(dev, launches)
+    done("9-10")
+    torch.cuda.empty_cache()
+    # 12.-13. the MoE slice
+    phase_grad_check(dev, MOE_ARCH, num_layers=MOE_LAYERS)
+    phase_moe_lm(dev, launches)
+    done("12-13")
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
@@ -961,6 +1242,7 @@ def main() -> int:
         "block_prefix_update": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:166"),
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:103"),
         "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:85"),
+        "moe_gmm": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:54"),
     }
     kernels = []
     for name, row in rows.items():

@@ -325,11 +325,12 @@ class LMTask:
     `SyntheticLMStream` (seed ``seed*1000 + i``, bitwise the reference's
     shards), stacked to ``(n, m, S)`` token/label tables on the device.
     The eval metric is the loss on a held-out stream (seed 9999), a device
-    scalar.  Dense, VLM, audio, SSM (Mamba2) and hybrid (Zamba2) configs
-    run; with ``cfg.use_pallas`` the forward runs the hand-written kernels
-    — flash attention (K3) in the attention blocks, the chunked SSD scan
-    (K4) in the Mamba2 blocks — whose backwards are the plain reference's
-    VJPs.
+    scalar.  Every family runs: dense, MoE, VLM, audio, SSM (Mamba2) and
+    hybrid (Zamba2); with ``cfg.use_pallas`` the forward runs the
+    hand-written kernels — flash attention (K3) in the attention blocks,
+    the chunked SSD scan (K4) in the Mamba2 blocks, the grouped expert
+    matmul (K5) in the MoE blocks under ``cfg.moe_dispatch="sort"`` — whose
+    backwards are the plain reference's VJPs.
     """
 
     cfg: Any                      # repro_torch.configs.base.ModelConfig (hashable)
@@ -354,7 +355,6 @@ class LMTask:
 
     def build(self, data, seed: int, n_clients: int,
               device: str | torch.device = "cuda") -> TaskSetup:
-        """MoE configs raise (`api.family_module`)."""
         from ..models import api
         from ..models.module import init_params
 

@@ -42,6 +42,9 @@ SIGNATURES = {
     "ssd_scan": {
         "ssd_scan_fwd": (_INT, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P),
     },
+    "moe_gmm": {
+        "moe_gmm_fwd": (_INT, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+    },
 }
 
 _lock = threading.Lock()

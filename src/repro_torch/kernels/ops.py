@@ -1,8 +1,8 @@
 """Public kernel entry points, dispatched on the tensor's device.
 
 A CUDA tensor launches the hand-written kernel (`kernels.weighted_update`,
-`kernels.flash_attention`, `kernels.ssd_scan`) or raises; there is no
-fallback.  A CPU tensor — which exists only because the caller asked for
+`kernels.flash_attention`, `kernels.ssd_scan`, `kernels.moe_gmm`) or raises;
+there is no fallback.  A CPU tensor — which exists only because the caller asked for
 ``device="cpu"`` — takes
 the plain version in `kernels.ref`.  Any other device raises.  The column-block width is fixed
 (no autotune table yet).
@@ -17,10 +17,11 @@ from ..unported import unported
 from . import ref
 from . import weighted_update as _cuda
 from .flash_attention import FlashAttention
+from .moe_gmm import MoeGMM
 from .ssd_scan import SSDScan
 
 __all__ = ["weighted_update", "weighted_update_tree", "tree_weighted_update",
-           "block_prefix_update", "flash_attention", "ssd_scan"]
+           "block_prefix_update", "flash_attention", "ssd_scan", "moe_gmm"]
 
 
 def weighted_update(w, g, scale, m=None, momentum=0.0):
@@ -64,6 +65,17 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk=64, init_state=None):
     if A.ndim == 1:
         A = A.expand(x.shape[0], A.shape[0])
     return SSDScan.apply(x, dt, A, Bm, Cm, chunk)
+
+
+def moe_gmm(x, w, bc=128, bf=128, bd=128):
+    """K5: differentiable grouped matmul y[e] = x[e] @ w[e], x (E,C,D),
+    w (E,D,F) -> (E,C,F) in x's dtype, fp32 accumulation.
+
+    ``bc`` / ``bf`` / ``bd`` are the TPU kernel's VMEM tiles and are
+    accepted and ignored: the CUDA kernel has its own tile and takes any C,
+    D and F.  `MoeGMM`'s forward dispatches on the tensor's device with
+    `device.on_cuda`, as the functions above do."""
+    return MoeGMM.apply(x, w)
 
 
 def weighted_update_tree(params, grads, scale, momenta=None, momentum=0.0):

@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 __all__ = ["weighted_update_ref", "block_prefix_update_ref", "flash_attention_ref",
-           "ssd_scan_ref"]
+           "ssd_scan_ref", "moe_gmm_ref"]
 
 
 def weighted_update_ref(
@@ -103,3 +103,12 @@ def ssd_scan_ref(x, dt, A, Bm, Cm, chunk: int = 64, init_state=None):
     from ..models.mamba2 import ssd_chunked
 
     return ssd_chunked(x, dt, A, Bm, Cm, chunk, init_state)
+
+
+def moe_gmm_ref(xin: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped (per-expert) matmul on dispatch-form tensors.
+
+    xin: (E, C, D), w: (E, D, F) -> (E, C, F) in xin's dtype, fp32
+    accumulation (products of two bf16 values are exact in fp32).
+    """
+    return torch.einsum("ecd,edf->ecf", xin.float(), w.float()).to(xin.dtype)

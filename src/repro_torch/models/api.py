@@ -4,8 +4,8 @@
     logits, _ = forward(params, batch, cfg)          # train / prefill
     loss, aux = loss_fn(params, batch, cfg)
 
-The dense, VLM and audio families (the transformer), the SSM family
-(`mamba2`) and the hybrid (`hybrid`) are ported; MoE, the optimizer-driven
+The dense, MoE, VLM and audio families (the transformer), the SSM family
+(`mamba2`) and the hybrid (`hybrid`) are ported; the optimizer-driven
 `train_step` and decode / serving raise `NotImplementedError` naming their
 ROADMAP item.
 """
@@ -30,14 +30,12 @@ __all__ = [
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family in ("dense", "vlm", "audio"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         return transformer
     if cfg.family == "ssm":
         return mamba2
     if cfg.family == "hybrid":
         return hybrid
-    if cfg.family == "moe":
-        raise unported("family='moe' (moe_block, K5 moe_gmm)", "7c")
     raise ValueError(f"unknown family {cfg.family}")
 
 

@@ -1,14 +1,14 @@
-"""Decoder-only transformer family (dense, VLM backbone, audio backbone).
+"""Decoder-only transformer family (dense, MoE, VLM backbone, audio backbone).
 
 `repro.models.transformer`'s parameter tree and full-sequence `forward`
 (train / prefill).  Layers are stacked along a leading 'layers' axis; the
 forward unbinds each stacked leaf once and runs a Python loop over the
 layers (`jax.lax.scan` in the reference), whichever ``cfg.scan_layers``
-says.  The reference's two ways of summing the MoE aux loss differ only
-for the MoE FFN; every family ported here returns an aux of 0, so the
-loop sums it one way (the scan's).  The MoE FFN and decode are not ported
-yet; the SSM and hybrid families live in `mamba2` and `hybrid`, which reuse
-this module's `_dt`, `_unstack` and `_remat`.
+says.  The MoE aux loss is summed as the reference sums it: with
+``scan_layers`` the per-layer sum over num_layers, else each layer's
+share added in turn.  Decode is not ported yet; the SSM and hybrid
+families live in `mamba2` and `hybrid`, which reuse this module's `_dt`,
+`_unstack` and `_remat`.
 """
 from __future__ import annotations
 
@@ -101,8 +101,9 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for params_l in _unstack(params["blocks"], nL):
         x, a = blk(cfg, params_l, x, positions)
-        aux = aux + a
-    aux = aux / nL
+        aux = aux + a if cfg.scan_layers else aux + a / nL
+    if cfg.scan_layers:
+        aux = aux / nL
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head, aux

@@ -1,7 +1,7 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
 the kernel paths of the replay engine against the plain paths, and the LM
-paths with the flash-attention and chunked-SSD kernels against the plain
-versions.
+paths with the flash-attention, chunked-SSD and grouped-matmul kernels
+against the plain versions.
 
 Every test here needs a CUDA device (marker ``gpu``) and skips without one;
 the file imports neither JAX nor `repro`, so it runs on a machine that has
@@ -23,6 +23,7 @@ from repro_torch.data.pipeline import FederatedClassification, make_client_speed
 from repro_torch.fl import engine as fl  # noqa: E402
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import moe_gmm as k5  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as k4  # noqa: E402
 from repro_torch.kernels import weighted_update as cuda_kernels  # noqa: E402
@@ -353,3 +354,114 @@ def test_ssm_loss_and_grads_kernel_vs_plain(dev, arch, dtype):
     assert abs(float(lk) - float(lp)) <= tol_loss * abs(float(lp))
     for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
         assert _err(a, b) <= tol_grad * float(b.float().abs().max())
+
+
+# K5 shapes (E, C, D, F), as chip_smoke.py checks them: Qwen1.5-MoE-A2.7B's
+# path shapes (capacity 88; gate/up, then down), the grid of
+# tests/test_kernels.py, a ragged capacity, C over two 128-row slabs with D
+# and F that rule out 16-byte loads, and Arctic's per-expert shape at 16 of
+# its 128 experts (capacity 12 from a group of 512 tokens, top-2)
+GMM_SHAPES = [
+    (60, 88, 2048, 1408),
+    (60, 88, 1408, 2048),
+    (4, 256, 128, 256),
+    (2, 128, 256, 128),
+    (8, 64, 64, 64),
+    (4, 20, 256, 128),
+    (3, 130, 100, 70),
+]
+GMM_ARCTIC = (16, 12, 7168, 4864)
+
+
+def _gmm_inputs(dev, dtype, E, C, D, F, seed=0):
+    """x unit normal, w normal with std 1/sqrt(D) (the experts' fan-in
+    init), so y is O(1) as on the path."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn((E, C, D), generator=gen).to(dev, dtype)
+    w = (torch.randn((E, D, F), generator=gen) / np.sqrt(D)).to(dev, dtype)
+    return x, w
+
+
+@pytest.mark.parametrize("dtype,shape", [(d, s) for d in (torch.float32, torch.bfloat16)
+                                         for s in GMM_SHAPES] + [(torch.bfloat16, GMM_ARCTIC)])
+def test_moe_gmm_matches_plain(dev, dtype, shape):
+    x, w = _gmm_inputs(dev, dtype, *shape)
+    k5.reset_launches()
+    y = k5.moe_gmm_fwd(x, w)
+    e = ref.moe_gmm_ref(x, w)
+    torch.cuda.synchronize()
+    assert k5.launches["moe_gmm"] == 1
+    assert y.dtype == dtype and y.shape == e.shape
+    assert bool(torch.isfinite(y.float()).all())
+    assert _close(y, e, FA_TOL[dtype]), _err(y, e)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_grads_match_reference(dev, dtype):
+    """Grads of x and w through `MoeGMM` (kernel forward, reference VJP) vs
+    grads through the reference, linear probe loss."""
+    x, w = _gmm_inputs(dev, dtype, 4, 20, 256, 128)
+    probe = torch.randn((4, 20, 128), generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def loss(fn):
+        return lambda x, w: torch.sum(fn(x, w).float() * probe)
+
+    k5.reset_launches()
+    gk = torch.func.grad(loss(ops.moe_gmm), argnums=(0, 1))(x, w)
+    assert k5.launches["moe_gmm"] == 1
+    gr = torch.func.grad(loss(ref.moe_gmm_ref), argnums=(0, 1))(x, w)
+    for a, b in zip(gk, gr):
+        assert a.dtype == b.dtype and _close(a, b, FA_TOL[dtype]), _err(a, b)
+
+
+def test_moe_gmm_vmap_is_one_launch(dev):
+    """x and w both mapped over 4 lanes (the blocked engine's case): one
+    launch over the lanes folded into E, equal to a loop."""
+    x, w = _gmm_inputs(dev, torch.bfloat16, 6, 24, 256, 128)
+    xs = torch.stack([x, 0.5 * x, -x, x.flip(1)])
+    ws = torch.stack([w, 2.0 * w, w.flip(0), -w])
+    k5.reset_launches()
+    y = torch.func.vmap(ops.moe_gmm)(xs, ws)
+    assert k5.launches["moe_gmm"] == 1
+    for i in range(4):
+        assert _close(y[i], ref.moe_gmm_ref(xs[i], ws[i]), FA_TOL[torch.bfloat16])
+
+
+def test_moe_gmm_wrapper_rejects_bad_operands(dev):
+    x, w = _gmm_inputs(dev, torch.float32, 2, 16, 64, 32)
+    with pytest.raises(TypeError, match="one dtype"):
+        k5.moe_gmm_fwd(x, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.moe_gmm_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.moe_gmm_fwd(x, w[:, :, ::2])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        k5.moe_gmm_fwd(x, w.cpu())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "arctic-480b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_loss_and_grads_kernel_vs_plain(dev, arch, dtype):
+    """The MoE smoke configs under the sort dispatch: loss and grads with
+    the kernels (use_pallas: K3 and K5) against the plain versions; three
+    K5 launches (gate, up, down) per MoE layer per forward."""
+    cfg = smoke_config(arch).replace(dtype=dtype, moe_dispatch="sort")
+    params = init_params(api.model_meta(cfg), 0, dev)
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 32), generator=gen).to(dev)
+             for k in ("tokens", "labels")}
+    grads = {}
+    for use_pallas in (True, False):
+        c = cfg.replace(use_pallas=use_pallas)
+        k5.reset_launches()
+        fa.reset_launches()
+        grads[use_pallas] = torch.func.grad_and_value(
+            lambda p: api.loss_fn(p, batch, c)[0])(params)
+        assert k5.launches["moe_gmm"] == (3 * cfg.num_layers if use_pallas else 0)
+        assert fa.launches["flash_attention"] == (cfg.num_layers if use_pallas else 0)
+    (gk, lk), (gp, lp) = grads[True], grads[False]
+    tol_loss, tol_grad = (1e-5, 1e-4) if dtype == "float32" else (2e-2, 4e-2)
+    assert abs(float(lk) - float(lp)) <= tol_loss * abs(float(lp))
+    if dtype == "float32":  # bf16: the loss only (a near-tied router choice may flip)
+        for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
+            assert _err(a, b) <= tol_grad * float(b.float().abs().max())

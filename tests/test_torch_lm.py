@@ -36,8 +36,8 @@ from repro_torch.models import module as t_module  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
 PORTED = ["internvl2_26b", "starcoder2_7b", "musicgen_medium", "qwen2_5_32b", "yi_6b",
-          "granite_3_2b", "mamba2_130m", "zamba2_2_7b"]  # dense, vlm, audio, ssm, hybrid
-UNPORTED = {"arctic_480b": "item 7c", "qwen2_moe_a2_7b": "item 7c"}
+          "granite_3_2b", "mamba2_130m", "zamba2_2_7b", "arctic_480b",
+          "qwen2_moe_a2_7b"]  # dense, vlm, audio, ssm, hybrid, moe
 
 
 def _jleaves(tree):
@@ -112,13 +112,19 @@ def test_ssm_full_width_parameter_count(arch, n_params, n_leaves):
     assert sum(x.dtype == torch.float32 for x in leaves) == 2
 
 
-@pytest.mark.parametrize("arch,item", sorted(UNPORTED.items()))
-def test_unported_families_raise(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        t_api.model_meta(t_configs.smoke_config(arch))
-    flc = FLConfig(n_clients=2, concurrency=1, server_steps=2, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        t_fl.run_experiment(flc, "gen_async", task=t_fl.LMTask(cfg=t_configs.smoke_config(arch)))
+@pytest.mark.parametrize("arch,n_params,n_leaves", [
+    ("qwen2-moe-a2.7b", 14_315_735_040, 19),
+    ("arctic-480b", 476_850_275_328, 16),
+])
+def test_moe_full_width_parameter_count(arch, n_params, n_leaves):
+    """Full-width counts of the two MoE configs (nothing allocated): every
+    leaf bf16; Qwen1.5-MoE has shared experts (ws_*) and attention biases,
+    Arctic a dense residual FFN (wd_*)."""
+    meta = t_api.model_meta(t_configs.get_config(arch))
+    assert t_module.param_count(meta) == n_params
+    leaves = tree_leaves(t_module.abstract_params(meta))
+    assert len(leaves) == n_leaves
+    assert all(x.dtype == torch.bfloat16 for x in leaves)
 
 
 def test_init_law_matches_reference():
@@ -245,13 +251,15 @@ def test_layer_loop_scan_flag_and_kernel_launches():
 N, C, T = 4, 2, 8
 
 
-def _tasks(use_pallas=True, arch="granite-3-2b"):
+def _tasks(use_pallas=True, arch="granite-3-2b", eval_batch=16, **upd):
     """The JAX task's cached setup and the port's setup built from its
     weights and window offsets, placed in the port task's setup cache
-    (tests/test_lm_engine.py's smoke-config sizes)."""
-    kw = dict(batch_size=2, seq_len=16, shard_size=32)
-    j_task = j_fl.LMTask(cfg=j_configs.smoke_config(arch).replace(use_pallas=use_pallas), **kw)
-    t_task = t_fl.LMTask(cfg=t_configs.smoke_config(arch).replace(use_pallas=use_pallas), **kw)
+    (tests/test_lm_engine.py's smoke-config sizes); ``upd`` replaces
+    further config fields in both."""
+    kw = dict(batch_size=2, seq_len=16, shard_size=32, eval_batch=eval_batch)
+    upd = dict(use_pallas=use_pallas, **upd)
+    j_task = j_fl.LMTask(cfg=j_configs.smoke_config(arch).replace(**upd), **kw)
+    t_task = t_fl.LMTask(cfg=t_configs.smoke_config(arch).replace(**upd), **kw)
     j_setup = j_fl._cached_fl_setup(None, 0, j_task, n_clients=N)
     own = t_task.build(None, 0, N, device="cpu")
     clients = t_fl.DeviceTaskClients(own.clients.loss_fn, t_task.shards(0, N), batch_size=2,
