@@ -20,7 +20,10 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    `FlashAttention` against the reference's; K4 chunked SSD over its shape
    grid (y allclose as K3, the state within 1e-4 fp32 / 1e-2 bf16 of its
    magnitude), its gradients through `SSDScan`, and one launch under
-   ``vmap`` with a batched A, equal to a loop (K5: phase 11);
+   ``vmap`` with a batched A, equal to a loop (K5: phase 11); K6, the
+   lane-sharded scatter, over `SCATTER_SHAPES` (every ring row and w'
+   bitwise equal to the plain version), timed beside its plain version and
+   ``index_copy_``;
 3. the MLP slice — the paper's experiment, the plain path:
    ``run_experiment(FLConfig(n_clients=256, concurrency=64,
    server_steps=2000, engine="scan"), "gen_async", eval_every=500)`` with
@@ -193,6 +196,20 @@ MLP_LEAVES = {  # the ClassificationTask MLP at dim 64, hidden 128, 10 classes
     "w1": (64, 128), "w2": (128, 128), "w3": (128, 10),
 }
 EXTRA_SHAPES = [(17,), (1000, 37), (3, 5, 7)]
+# K6 shapes (ring rows C+1, P, E, padded lanes on the trash row, ring dtype):
+# the MLP's blocked ring and block (the main path's), a ragged P, and
+# Mamba2-130M's fp32 ring at C=8 (128,983,488 padded to a multiple of 1024)
+# with E=4, in fp32 and as a bf16 ring
+SCATTER_PATH_SHAPE = (65, 26624, 8, 3, torch.float32)
+SCATTER_SHAPES = [
+    SCATTER_PATH_SHAPE,
+    (65, 26624, 8, 3, torch.bfloat16),
+    (65, 26122, 8, 3, torch.float32),
+    (9, 128_984_064, 4, 0, torch.float32),
+    (9, 128_984_064, 4, 0, torch.bfloat16),
+]
+# the lane-sharded MLP slice: 2 gloo ranks sharing the one card
+LANE_RANKS, MLP_E, FEDBUFF_Z = 2, 8, 10
 
 failures: list[str] = []
 
@@ -371,7 +388,91 @@ def phase_kernels(dev, gen):
     for dtype, err in worst.items():
         check(err <= TOL[dtype], f"block_prefix_update {str(dtype)[6:]} max_abs_err {err:.3e} <= {TOL[dtype]}")
     rows["block_prefix_update"]["max_abs_err"] = max(worst.values())
+    rows.update(_phase_scatter_rows(dev))
     return rows
+
+
+def _scatter_cost(slots: list[int], P: int, esz_ring: int, esz_w: int) -> int:
+    """Bytes K6 must move for these slots: each distinct ring row is written
+    once (the last lane that targets it wins, and the last lane always
+    does), so it reads those rows of W once, the slots, and writes those
+    ring rows and w'."""
+    distinct = len(set(slots))
+    return distinct * P * 4 + 8 * len(slots) + distinct * P * esz_ring + P * esz_w
+
+
+def _phase_scatter_rows(dev) -> dict:
+    """K6 against its plain version over `SCATTER_SHAPES`: every ring row and
+    w' bitwise (both cast W to the ring's dtype and store the rows in event
+    order), timed beside the plain version and ``index_copy_`` plus the
+    final-row copy (one PyTorch call each; with duplicate trash-row slots
+    ``index_copy_`` leaves the trash row undefined, which no reader sees)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import weighted_update as wu
+
+    out = {}
+    worst = 0.0
+    for shape in SCATTER_SHAPES:
+        R, P, E, pad, dtype = shape
+        real = np.random.default_rng(P + E).choice(R - 1, size=E - pad, replace=False)
+        slots_np = np.concatenate([real, np.full(pad, R - 1)]).astype(np.int64)
+        slots = torch.as_tensor(slots_np, device=dev)
+        # drawn on the card: a CPU draw of Mamba2's 1.2 G ring values takes seconds
+        g = torch.Generator(device=dev).manual_seed(P + E)
+        snaps0 = torch.randn((R, P), generator=g, device=dev).to(dtype)
+        w = torch.randn((P,), generator=g, device=dev)
+        W = torch.randn((E, P), generator=g, device=dev)
+        ks, kw_ = wu.block_scatter_rows(snaps0.clone(), w, W, slots)
+        rs, rw_ = ref.block_scatter_rows_ref(snaps0.clone(), w, W, slots)
+        torch.cuda.synchronize()
+        same = torch.equal(ks, rs) and torch.equal(kw_, rw_)
+        err = max(max_err(ks, rs), max_err(kw_, rw_))
+        worst = max(worst, err)
+        tag = f"block_scatter_rows {str(dtype)[6:]} ring {(R, P)} E={E} ({pad} padded)"
+        check(same and kw_.dtype == w.dtype, f"{tag}: every ring row and w' bitwise equal to "
+              f"the plain version {same} (max abs err {err:.3e})")
+        del ks, rs, kw_, rw_
+        buf = snaps0
+        kernel = lambda: wu.block_scatter_rows(buf, w, W, slots)  # noqa: E731
+        plain = lambda: ref.block_scatter_rows_ref(buf, w, W, slots)  # noqa: E731
+        library = lambda: (buf.index_copy_(0, slots, W.to(buf.dtype)),  # noqa: E731
+                           W[-1].to(w.dtype))
+        nbytes = _scatter_cost(slots_np.tolist(), P, torch.finfo(dtype).bits // 8, 4)
+        b, by = bound_ms(nbytes, 0.0)
+        row = dict(max_abs_err=err, bitwise=same, bound_ms=b, bound_by=by)
+        if shape == SCATTER_PATH_SHAPE or P > 10**8:
+            row.update(_timings(kernel, plain, library))
+        else:
+            quick = dict(batches=5, per_batch=10, warmup=3)
+            row.update(ms=time_ms(kernel, **quick), plain_ms=time_ms(plain, **quick),
+                       library_ms=time_ms(library, **quick))
+        print(f"     {tag}: {json.dumps(row)}")
+        if shape == SCATTER_PATH_SHAPE:
+            out["block_scatter_rows"] = row
+        del snaps0, buf, w, W, kernel, plain, library
+        torch.cuda.empty_cache()
+    out["block_scatter_rows"]["max_abs_err"] = worst
+    return out
+
+
+def _mlp_flc(dev):
+    """The MLP slice's configuration: the README's and `BENCH_engine.json`'s."""
+    from repro_torch.configs.base import FLConfig
+
+    return FLConfig(n_clients=256, concurrency=64, server_steps=2000, engine="scan",
+                    device=dev.type)
+
+
+def _mlp_setup(dev):
+    """``(setup, ServerConfig)`` of the MLP slice's gen_async run, built as
+    `run_experiment` builds it (eval every 500 events)."""
+    from repro_torch.core.async_sgd import ServerConfig
+
+    flc = _mlp_flc(dev)
+    setup, mu, p = _build_task(flc, dev)
+    return setup, ServerConfig(n=flc.n_clients, C=flc.concurrency, T=flc.server_steps,
+                               eta=0.05, mu=mu, p=p, seed=flc.seed, eval_every=500,
+                               engine="scan", weighting="importance", device=dev.type)
 
 
 def _build_task(flc, dev):
@@ -686,19 +787,19 @@ def phase_moe_gmm(dev) -> dict:
     return {"moe_gmm": out_row}
 
 
-def phase_mlp(dev, launches: dict) -> None:
+def phase_mlp(dev, launches: dict) -> dict:
     """Phases 3-6 (the MLP slice) and its profile; adds the kernel paths'
-    launch counts to ``launches`` under "mlp"."""
-    from repro_torch.configs.base import FLConfig
-    from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
+    launch counts to ``launches`` under "mlp".  Returns what the lane-sharded
+    phase holds its runs against: the blocked K2 run's eval curve, events/s
+    and block rows, and its weights at T=200."""
+    from repro_torch.core.async_sgd import run_generalized_async_sgd
     from repro_torch.core.engine_scan import blocked_inputs, step_scales
     from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream
     from repro_torch.fl.engine import run_experiment
     from repro_torch.kernels import weighted_update as wu
 
     # 3. the paper's experiment, plain (jnp-equivalent) update path
-    flc = FLConfig(n_clients=256, concurrency=64, server_steps=2000, engine="scan",
-                   device=dev.type)
+    flc = _mlp_flc(dev)
     r, wall = _timed(lambda: run_experiment(flc, "gen_async", eval_every=500))
     acc = np.asarray(r.eval_acc, np.float64)
     print(f"run_experiment n=256 C=64 T=2000: {wall:.3f} s, {flc.server_steps / wall:.1f} events/s, "
@@ -708,11 +809,9 @@ def phase_mlp(dev, launches: dict) -> None:
     check(all(bool(torch.isfinite(v).all()) for v in r.final_params.values()), "final params finite")
 
     # 4./5. the kernel path, built as run_experiment builds it
-    (setup, mu, p), wall = _timed(lambda: _build_task(flc, dev))
+    (setup, base), wall = _timed(lambda: _mlp_setup(dev))
+    mu, p = base.mu, base.p
     print(f"task setup (data shards, sampling p, MLP, clients): {wall:.3f} s")
-    base = ServerConfig(n=flc.n_clients, C=flc.concurrency, T=flc.server_steps, eta=0.05,
-                        mu=mu, p=p, seed=flc.seed, eval_every=500, engine="scan",
-                        weighting="importance", device=dev.type)
     run = lambda cfg: run_generalized_async_sgd(setup.params, setup.clients, cfg,  # noqa: E731
                                                 eval_fn=setup.eval_fn)
     mlp = launches.setdefault("mlp", {})
@@ -729,7 +828,7 @@ def phase_mlp(dev, launches: dict) -> None:
     gap = _tree_gap(w_pe, w_pe_j)
     check(gap <= 1e-5, f"per-event pallas vs jnp max gap {gap:.3e} <= 1e-5")
 
-    E = 8
+    E = MLP_E
     stream = export_stream(SimConfig(mu=mu, p=p, C=base.C, T=base.T, seed=base.seed))
     blocks = EventBlocks.from_stream(stream, E, cut_every=base.eval_every)
     # one launch per row of the blocked layout: the conflict-free blocks plus
@@ -739,6 +838,7 @@ def phase_mlp(dev, launches: dict) -> None:
     print(f"blocked layout E={E}: {blocks.B} conflict-free blocks, {n_blocks} rows")
     wu.reset_launches()
     (w_bl, tr_bl), wall = _timed(lambda: run(replace(base, update="pallas", block_size=E)))
+    blocked = dict(acc=tr_bl.eval_values, events_per_s=flc.server_steps / wall, rows=n_blocks)
     mlp["block_prefix_update"] = wu.launches["block_prefix_update"]
     print(f"blocked E={E} pallas: {wall:.3f} s ({flc.server_steps / wall:.1f} events/s), "
           f"launches {dict(wu.launches)}, acc {tr_bl.eval_values}")
@@ -759,6 +859,7 @@ def phase_mlp(dev, launches: dict) -> None:
     (w_pe_s, _), (w_bl_s, _) = run(small), run(replace(small, update="pallas", block_size=E))
     gap = _tree_gap(w_bl_s, w_pe_s)
     check(gap <= 1e-4, f"blocked vs per-event (T=200) max gap {gap:.3e} <= 1e-4")
+    blocked["w_200"] = w_bl_s
 
     # 6. replay engine vs the port's per-event Python oracle, full width
     w_py, _ = run_generalized_async_sgd(setup.params, setup.clients,
@@ -770,6 +871,180 @@ def phase_mlp(dev, launches: dict) -> None:
     for label, cfg, T in (("per-event", replace(small, update="pallas"), 200),
                           ("blocked E=8", replace(small, update="pallas", block_size=E, T=400), 400)):
         _print_profile(f"MLP {label} T={T}", lambda: run(cfg), T)
+    return blocked
+
+
+def _np_tree(w: dict) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in w.items()}
+
+
+def _np_gap(a: dict, b: dict) -> float:
+    return max(float(np.max(np.abs(a[k] - b[k]))) for k in a)
+
+
+def _acc_gap(a: list, b: list) -> float:
+    return float(np.max(np.abs(np.subtract(a, b)))) if len(a) == len(b) else float("inf")
+
+
+def _lanes_rank(rank: int, world: int, device: str) -> dict:
+    """One rank of the lane-sharded MLP slice (15.): the ranks share the card
+    over a gloo group.  gen_async blocked E=8 with K6 (T=200 without eval,
+    which also warms the rank up, then T=2000) and with the plain scatter,
+    FedBuff blocked E=8 with K2 after the gather (T=200 and T=2000), and a
+    profile of 400 events of the K6 path; each run's launch counts are
+    zeroed just before it and read just after."""
+    from repro_torch.core.async_sgd import run_fedbuff, run_generalized_async_sgd
+    from repro_torch.kernels import weighted_update as wu
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    setup, base = _mlp_setup(torch.device(device))
+    base = replace(base, block_size=MLP_E, devices=world)
+    gen = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+    fb = lambda c: run_fedbuff(setup.params, setup.clients, c, Z=FEDBUFF_Z,  # noqa: E731
+                               eval_fn=setup.eval_fn)
+    small = dict(T=200, eval_every=0)
+    out = {}
+    for name, fn, cfg in (("gen_async_200", gen, dict(update="pallas", **small)),
+                          ("gen_async", gen, dict(update="pallas")),
+                          ("gen_async_jnp", gen, dict(update="jnp")),
+                          ("fedbuff_200", fb, dict(update="pallas", **small)),
+                          ("fedbuff", fb, dict(update="pallas"))):
+        wu.reset_launches()
+        (w, tr), wall = _timed(lambda: fn(replace(base, **cfg)))
+        out[name] = dict(w=_np_tree(w), acc=tr.eval_values, wall=wall, launches=dict(wu.launches))
+    out["profile"] = profile(lambda: gen(replace(base, update="pallas", T=400, eval_every=0)))
+    return out
+
+
+def phase_lanes(dev, launches: dict, blocked: dict) -> None:
+    """14.-16.: FedBuff on the MLP, the lane-sharded MLP slice on 2 ranks,
+    the FL launcher's defaults, FedAvg and FAVANO; adds the kernel paths'
+    launch counts to ``launches`` ("fedbuff", "lanes_rank0", "lanes_rank1").
+    ``blocked`` is phase 5's unsharded K2 run (`phase_mlp`)."""
+    import contextlib
+    import io
+
+    from repro_torch.core.async_sgd import run_fedbuff
+    from repro_torch.core.engine_scan import blocked_inputs, step_scales
+    from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream
+    from repro_torch.fl.engine import run_experiment
+    from repro_torch.kernels import weighted_update as wu
+    from repro_torch.launch import train
+    from repro_torch.launch.lanes import run_lanes
+
+    flc = replace(_mlp_flc(dev), fedbuff_Z=FEDBUFF_Z)
+    setup, base = _mlp_setup(dev)
+    T = base.T
+    fb = lambda cfg: run_fedbuff(setup.params, setup.clients, cfg, Z=FEDBUFF_Z,  # noqa: E731
+                                 eval_fn=setup.eval_fn)
+    uniform = np.full(base.n, 1.0 / base.n)  # FedBuff samples uniformly
+    stream = export_stream(SimConfig(mu=base.mu, p=uniform, C=base.C, T=T, seed=base.seed))
+    fb_rows = blocked_inputs(EventBlocks.from_stream(stream, MLP_E, cut_every=base.eval_every),
+                             step_scales(stream, base.eta, uniform, "plain"),
+                             base.eval_every)[0].shape[0]
+
+    # 14. FedBuff (Z=10): the entry point, per event with K1 per leaf, blocked
+    # E=8 with K2, and the port's Python loop at T=200
+    r, wall = _timed(lambda: run_experiment(flc, "fedbuff", eval_every=500))
+    print(f"run_experiment fedbuff Z={FEDBUFF_Z} n=256 C=64 T=2000: {wall:.3f} s, "
+          f"{T / wall:.1f} events/s, acc {r.eval_acc.tolist()}")
+    check(len(r.eval_acc) == 4 and bool(np.all(np.isfinite(r.eval_acc))),
+          "fedbuff eval accuracies finite, 4 points")
+    path = launches.setdefault("fedbuff", {})
+    wu.reset_launches()
+    (w_pe, tr_pe), wall = _timed(lambda: fb(replace(base, update="pallas")))
+    path["weighted_update"] = wu.launches["weighted_update"]
+    fb_pe_rate = T / wall
+    print(f"fedbuff per-event pallas: {wall:.3f} s ({fb_pe_rate:.1f} events/s), launches "
+          f"{dict(wu.launches)}, acc {tr_pe.eval_values}")
+    check(wu.launches["weighted_update"] == T * 6,
+          f"fedbuff K1 launches {wu.launches['weighted_update']} == T*6 = {T * 6}")
+    gap = _tree_gap(w_pe, r.final_params)
+    check(gap <= 1e-5, f"fedbuff per-event K1 vs run_experiment (flat update) max gap {gap:.3e} <= 1e-5")
+    wu.reset_launches()
+    (w_bl, tr_bl), wall = _timed(lambda: fb(replace(base, update="pallas", block_size=MLP_E)))
+    path["block_prefix_update"] = wu.launches["block_prefix_update"]
+    fb_bl_rate = T / wall
+    print(f"fedbuff blocked E={MLP_E} pallas: {wall:.3f} s ({fb_bl_rate:.1f} events/s), launches "
+          f"{dict(wu.launches)}, acc {tr_bl.eval_values}")
+    check(wu.launches["block_prefix_update"] == fb_rows,
+          f"fedbuff K2 launches {wu.launches['block_prefix_update']} == block rows {fb_rows}")
+    dacc = _acc_gap(tr_bl.eval_values, tr_pe.eval_values)
+    check(dacc <= 10 / 2048, f"fedbuff blocked vs per-event eval accuracy gap {dacc:.5f} <= 10/2048")
+    small = replace(base, T=200, eval_every=0)
+    w_py = _np_tree(fb(replace(small, engine="python"))[0])
+    gap = _np_gap(_np_tree(fb(replace(small, update="pallas"))[0]), w_py)
+    check(gap <= 1e-5, f"fedbuff per-event K1 vs the Python loop (T=200) max gap {gap:.3e} <= 1e-5")
+    gap = _np_gap(_np_tree(fb(replace(small, update="pallas", block_size=MLP_E))[0]), w_py)
+    check(gap <= 1e-4, f"fedbuff blocked K2 vs the Python loop (T=200) max gap {gap:.3e} <= 1e-4")
+    del w_pe, w_bl, r
+
+    # 15. the lane-sharded MLP slice: 2 gloo ranks, each on the one card
+    res, wall = _timed(lambda: run_lanes(_lanes_rank, LANE_RANKS, (dev.type,), timeout=300.0))
+    print(f"lane-sharded MLP, {LANE_RANKS} ranks: {wall:.3f} s including their start-up")
+    for rank, out in enumerate(res):
+        dms, wms, top, ops = out.pop("profile")
+        print(f"     rank {rank}: " + ", ".join(
+            f"{name} {o['wall']:.3f} s launches {o['launches']}" for name, o in out.items()))
+        idle = None if dms is None else 1.0 - dms / wms
+        print(f"profile lane-sharded rank {rank}, gen_async K6 T=400: wall {wms / 400:.4f} ms/event, "
+              f"device busy {None if dms is None else round(dms / 400, 6)} ms/event, idle share "
+              f"{idle}, {ops / 400:.1f} device ops/event")
+        for k, v in top:
+            print(f"     {v / 400:.6f} ms/event  {k[:110]}")
+        got = {"block_scatter_rows": out["gen_async"]["launches"]["block_scatter_rows"],
+               "block_prefix_update": out["fedbuff"]["launches"]["block_prefix_update"]}
+        launches[f"lanes_rank{rank}"] = got
+        check(got["block_scatter_rows"] == blocked["rows"]
+              and out["gen_async"]["launches"]["block_prefix_update"] == 0,
+              f"rank {rank}: K6 launches {got['block_scatter_rows']} == block rows "
+              f"{blocked['rows']} (no K2)")
+        check(sum(out["gen_async_jnp"]["launches"].values()) == 0,
+              f"rank {rank}: the plain scatter launches no kernel")
+        check(got["block_prefix_update"] == fb_rows,
+              f"rank {rank}: fedbuff K2 launches {got['block_prefix_update']} == block rows {fb_rows}")
+    for name, o in res[0].items():
+        same = _np_gap(o["w"], res[1][name]["w"]) == 0.0 and o["acc"] == res[1][name]["acc"]
+        check(same, f"lane-sharded {name}: the {LANE_RANKS} ranks' weights and curves bitwise equal")
+    o = res[0]
+    gap = _np_gap(o["gen_async"]["w"], o["gen_async_jnp"]["w"])
+    check(gap <= 1e-5, f"lane-sharded K6 vs plain scatter max gap {gap:.3e} <= 1e-5")
+    gap = _np_gap(o["gen_async_200"]["w"], _np_tree(blocked["w_200"]))
+    check(gap <= 1e-4, f"lane-sharded vs unsharded K2 (T=200) max gap {gap:.3e} <= 1e-4")
+    dacc = _acc_gap(o["gen_async"]["acc"], blocked["acc"])
+    check(dacc <= 10 / 2048, f"lane-sharded vs unsharded eval accuracy gap {dacc:.5f} <= 10/2048")
+    gap = _np_gap(o["fedbuff_200"]["w"], w_py)
+    check(gap <= 1e-4, f"lane-sharded fedbuff vs the Python loop (T=200) max gap {gap:.3e} <= 1e-4")
+    dacc = _acc_gap(o["fedbuff"]["acc"], tr_pe.eval_values)
+    check(dacc <= 10 / 2048, f"lane-sharded fedbuff vs per-event eval accuracy gap {dacc:.5f} <= 10/2048")
+    rate = lambda name: T / max(out[name]["wall"] for out in res)  # noqa: E731
+    print(f"events/s, {LANE_RANKS} ranks sharing the card vs one process: gen_async K6 "
+          f"{rate('gen_async'):.1f} vs K2 {blocked['events_per_s']:.1f}; gen_async plain scatter "
+          f"{rate('gen_async_jnp'):.1f}; fedbuff K2 {rate('fedbuff'):.1f} vs blocked "
+          f"{fb_bl_rate:.1f} (per event {fb_pe_rate:.1f})")
+
+    # 16. the FL launcher's defaults on the card, and the synchronous baselines
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, wall = _timed(lambda: train.main(["--mode", "fl", "--steps", "200", "--eval-every", "100",
+                                            "--device", dev.type]))
+    lines = [line for line in buf.getvalue().splitlines() if "final_acc=" in line]
+    print(buf.getvalue().rstrip())
+    accs = [float(line.split("final_acc=")[1].split()[0]) for line in lines]
+    check([line.split()[0] for line in lines] == ["gen_async", "async_sgd", "fedbuff"]
+          and bool(np.all(np.isfinite(accs))),
+          f"launch.train --mode fl runs its default methods on the card ({wall:.3f} s)")
+    for method, rounds, every in (("fedavg", 20, 10), ("favano", 4, 2)):
+        r, wall = _timed(lambda: run_experiment(replace(flc, server_steps=rounds), method,
+                                                eval_every=every))
+        print(f"run_experiment {method} n=256, {rounds} rounds: {wall:.3f} s, acc "
+              f"{r.eval_acc.tolist()} at rounds {r.eval_steps.tolist()}")
+        check(r.eval_steps.tolist() == list(range(every, rounds + 1, every))
+              and bool(np.all(np.isfinite(r.eval_acc)))
+              and all(bool(torch.isfinite(v).all()) for v in r.final_params.values()),
+              f"{method}: finite weights and eval accuracies at every {every} rounds")
 
 
 def _print_profile(label: str, fn, events: int) -> None:
@@ -1214,8 +1489,11 @@ def main() -> int:
 
     # 3.-8. the MLP and dense LM slices, each kernel path's launches counted per path
     launches: dict = {}
-    phase_mlp(dev, launches)
+    blocked = phase_mlp(dev, launches)
     done("3-6")
+    # 14.-16. FedBuff, the lane-sharded MLP slice, the FL launcher, FedAvg, FAVANO
+    phase_lanes(dev, launches, blocked)
+    done("14-16")
     torch.cuda.empty_cache()
     phase_grad_check(dev, LM_ARCH)
     phase_lm(dev, launches)
@@ -1240,6 +1518,7 @@ def main() -> int:
         "weighted_update": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:112"),
         "weighted_update_momentum": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:96"),
         "block_prefix_update": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:166"),
+        "block_scatter_rows": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:229"),
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:103"),
         "ssd_scan": ("ssd_scan.cu", "src/repro/kernels/ssd_scan.py:85"),
         "moe_gmm": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:54"),

@@ -1,4 +1,5 @@
-"""Generalized AsyncSGD (Algorithm 1) in PyTorch: the reference loop and the
+"""Generalized AsyncSGD (Algorithm 1) in PyTorch, and the asynchronous /
+synchronous baselines (FedBuff, FedAvg, FAVANO): the reference loops and the
 replay engine entry point.
 
 The counterpart of `repro.core.async_sgd`.  The server algorithm is written
@@ -97,7 +98,8 @@ class ServerConfig:
     ctrl_iters: int = 4
     block_size: int | str = 1   # events per micro-block (1 = per-event replay;
                                 # "auto" = queue_sim.select_block_size)
-    devices: int = 1            # lane-shard device count (not ported beyond 1)
+    devices: int = 1            # lane-shard rank count: the blocked engine's E
+                                # lanes over this many torch.distributed ranks
     segmentation: str = "greedy"  # blocked cut placement: "greedy" | "dp"
     snapshot_dtype: str | None = None  # ring-buffer storage dtype (blocked
                                        # engine; e.g. "bfloat16")
@@ -150,8 +152,6 @@ def _reject_unported(cfg: ServerConfig) -> None:
         raise unported("adaptive=True", 6)
     if cfg.serving is not None and cfg.serving.enabled:
         raise unported("serving=", 11)
-    if cfg.devices > 1:
-        raise unported("devices > 1", 12)
     if cfg.scenario is not None:
         from .scenario import get_scenario
 
@@ -224,14 +224,19 @@ def _run_scan(
     p: np.ndarray,
     mu: np.ndarray,
     device: torch.device,
+    *,
+    fedbuff_Z: int = 0,
 ) -> tuple[Pytree, TraceRecord]:
-    """Replay-engine run: pre-simulate the event stream with
-    `queue_sim.export_stream` and replay it on ``device``."""
+    """Replay-engine run of Generalized AsyncSGD or FedBuff: pre-simulate
+    the event stream with `queue_sim.export_stream` and replay it on
+    ``device``; ``cfg.devices > 1`` lane-shards the blocked replay over that
+    many `torch.distributed` ranks (every rank makes the same call)."""
     from .engine_scan import blocked_inputs, jit_runner, step_scales, stream_arrays
     from .queue_sim import EventBlocks
 
     if cfg.track_virtual:
         raise NotImplementedError("track_virtual requires engine='python'")
+    weighting = "plain" if fedbuff_Z else cfg.weighting
     w0_dev = _to_device(w0, device)
     eval_every = cfg.eval_every if eval_fn is not None else 0
     block_size = cfg.block_size
@@ -239,7 +244,7 @@ def _run_scan(
         SimConfig(mu=mu, p=p, C=cfg.C, T=cfg.T, service=cfg.service,
                   seed=cfg.seed, record_delays=cfg.collect_extras)
     )
-    scale = step_scales(stream, cfg.eta, p, cfg.weighting)
+    scale = step_scales(stream, cfg.eta, p, weighting)
     if cfg.update not in ("jnp", "pallas"):
         raise ValueError(cfg.update)
     if block_size == "auto":
@@ -256,8 +261,8 @@ def _run_scan(
             blocks, scale, eval_every
         )
         runner = jit_runner(
-            grad_fn, cfg.C, eval_fn=eval_fn, block_size=block_size,
-            kernel=cfg.update, snapshot_dtype=cfg.snapshot_dtype,
+            grad_fn, cfg.C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, block_size=block_size,
+            kernel=cfg.update, snapshot_dtype=cfg.snapshot_dtype, lane_devices=cfg.devices,
         )
         idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
         w, evals = runner(
@@ -267,10 +272,15 @@ def _run_scan(
             chunk_blocks=chunk_blocks, n_chunks=n_chunks,
         )
     else:
+        if cfg.devices > 1:
+            raise ValueError(
+                "devices > 1 lane-shards micro-blocks and requires the "
+                "blocked engine (block_size > 1)"
+            )
         # as in `repro`, the per-event replay keeps the ring in the
         # parameter dtype (snapshot_dtype applies to the blocked engine)
         runner = jit_runner(
-            grad_fn, cfg.C, eval_fn=eval_fn, eval_every=eval_every,
+            grad_fn, cfg.C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
             update_fn=_scan_update_fn(cfg),
         )
         J_dev, slot_dev = stream_arrays(stream, device)
@@ -348,27 +358,156 @@ def run_generalized_async_sgd(
             trace.virtual_gap_sq.append(sum(tree_leaves(gap)))
             trace.inflight_cardinality.append(sim.total_tasks())
 
-        if eval_fn is not None and cfg.eval_every and (k + 1) % cfg.eval_every == 0:
-            trace.eval_steps.append(k + 1)
-            trace.eval_values.append(float(eval_fn(w)))
+        _record_eval(trace, cfg, eval_fn, w, k + 1)
 
     trace.delays = sim.delays
     trace.mean_queue_lengths = sim.queue_len_sum / cfg.T
     return w, trace
 
 
-def run_fedbuff(w0, source, cfg: ServerConfig, Z: int = 10, eval_fn=None):
-    """FedBuff — not ported yet."""
-    raise unported("run_fedbuff", 4)
+def _record_eval(trace: TraceRecord, cfg: ServerConfig, eval_fn, w, step: int) -> None:
+    if eval_fn is not None and cfg.eval_every and step % cfg.eval_every == 0:
+        trace.eval_steps.append(step)
+        trace.eval_values.append(float(eval_fn(w)))
 
 
-def run_fedavg(w0, source, cfg: ServerConfig, clients_per_round: int = 10,
-               local_steps: int = 1, eval_fn=None):
-    """Synchronous FedAvg baseline — not ported yet."""
-    raise unported("run_fedavg", 4)
+def run_fedbuff(
+    w0: Pytree,
+    source: GradientSource,
+    cfg: ServerConfig,
+    Z: int = 10,
+    eval_fn: Callable[[Pytree], float] | None = None,
+) -> tuple[Pytree, TraceRecord]:
+    """FedBuff (Nguyen et al. 2022): uniform sampling, server applies the
+    *average* of a buffer of Z received gradients.  The buffer fill shares the
+    same queueing clock; the CS performs T//Z buffered updates over T
+    completions.  ``cfg.engine == "scan"`` replays it on the engine (per
+    event, blocked, lane-sharded), as `run_generalized_async_sgd` does."""
+    _reject_unported(cfg)
+    device = resolve_device(cfg.device)
+    p, mu = _resolve(cfg)
+    pu = np.full(cfg.n, 1.0 / cfg.n)  # FedBuff samples uniformly
+    if cfg.engine == "scan":
+        return _run_scan(w0, source, cfg, eval_fn, pu, mu, device, fedbuff_Z=Z)
+    if cfg.engine != "python":
+        raise ValueError(cfg.engine)
+    sim = ClosedNetworkSim(
+        SimConfig(mu=mu, p=pu, C=cfg.C, T=cfg.T, service=cfg.service,
+                  seed=cfg.seed, record_delays=True)
+    )
+    apply_update = cfg.apply_update or (lambda w, g, s: _axpy(w, g, -s))
+    w = _to_device(w0, device)
+    snaps: list[deque] = [deque(w for _ in q) for q in sim.queues]
+    buffer: list[Pytree] = []
+    times = np.zeros(cfg.T)
+    trace = TraceRecord(steps=np.arange(cfg.T), times=times)
+    for k in range(cfg.T):
+        j, k_new = sim.step()
+        w_disp = snaps[j].popleft()
+        buffer.append(source.grad(j, w_disp, k))
+        if len(buffer) >= Z:
+            g_mean = buffer[0]
+            for g in buffer[1:]:
+                g_mean = _axpy(g_mean, g, 1.0)
+            g_mean = tree_map(lambda x: x / len(buffer), g_mean)
+            w = apply_update(w, g_mean, cfg.eta)
+            buffer = []
+        snaps[k_new].append(w)
+        times[k] = sim.now
+        _record_eval(trace, cfg, eval_fn, w, k + 1)
+    trace.delays = sim.delays
+    trace.mean_queue_lengths = sim.queue_len_sum / cfg.T
+    return w, trace
 
 
-def run_favano(w0, source, cfg: ServerConfig, period: float = 1.0,
-               max_local_steps: int = 8, eval_fn=None):
-    """FAVANO/QuAFL-style baseline — not ported yet."""
-    raise unported("run_favano", 4)
+def run_fedavg(
+    w0: Pytree,
+    source: GradientSource,
+    cfg: ServerConfig,
+    clients_per_round: int = 10,
+    local_steps: int = 1,
+    eval_fn: Callable[[Pytree], float] | None = None,
+) -> tuple[Pytree, TraceRecord]:
+    """Synchronous FedAvg baseline.  Each round waits for the slowest sampled
+    client (round time = max of their service draws); `cfg.T` counts rounds.
+    The client choices and round times come from `numpy`'s generator, as in
+    `repro`, so they are bitwise the reference's.  Like the reference, it
+    reads only the queueing-free fields of ``cfg`` (n, T, eta, mu, service,
+    seed, eval_every, apply_update) and ``device``."""
+    device = resolve_device(cfg.device)
+    _, mu = _resolve(cfg)
+    rng = np.random.default_rng(cfg.seed)
+    apply_update = cfg.apply_update or (lambda w, g, s: _axpy(w, g, -s))
+    w = _to_device(w0, device)
+    now = 0.0
+    times = np.zeros(cfg.T)
+    trace = TraceRecord(steps=np.arange(cfg.T), times=times)
+    for r in range(cfg.T):
+        sel = rng.choice(cfg.n, size=clients_per_round, replace=False)
+        # round wall time = slowest client's total local work
+        if cfg.service == "exp":
+            durs = rng.exponential(1.0 / mu[sel], size=sel.size) * local_steps
+        else:
+            durs = local_steps / mu[sel]
+        now += float(np.max(durs))
+        g_mean = None
+        for i in sel:
+            g = source.grad(int(i), w, r)
+            for _ in range(local_steps - 1):
+                g = _axpy(g, source.grad(int(i), _axpy(w, g, -cfg.eta), r), 1.0)
+            g_mean = g if g_mean is None else _axpy(g_mean, g, 1.0)
+        g_mean = tree_map(lambda x: x / sel.size, g_mean)
+        w = apply_update(w, g_mean, cfg.eta)
+        times[r] = now
+        _record_eval(trace, cfg, eval_fn, w, r + 1)
+    return w, trace
+
+
+def run_favano(
+    w0: Pytree,
+    source: GradientSource,
+    cfg: ServerConfig,
+    period: float = 1.0,
+    max_local_steps: int = 8,
+    eval_fn: Callable[[Pytree], float] | None = None,
+) -> tuple[Pytree, TraceRecord]:
+    """FAVANO/QuAFL-style baseline (Leconte et al. 2023; Zakerinia et al. 2022).
+
+    No queues: the CS ticks at a fixed cadence `period`; between ticks each
+    client performs as many local SGD steps as its speed allows (capped at
+    `max_local_steps`, interruptible), and the CS averages the client models.
+    The CS step rate is bounded by the cadence — the contrast the paper draws
+    against queue-driven AsyncSGD (§5).  `cfg.T` counts CS rounds; the local
+    step counts come from `numpy`'s generator, bitwise the reference's.
+    """
+    device = resolve_device(cfg.device)
+    _, mu = _resolve(cfg)
+    rng = np.random.default_rng(cfg.seed)
+    apply_update = cfg.apply_update or (lambda w, g, s: _axpy(w, g, -s))
+    w = _to_device(w0, device)
+    locals_ = [w for _ in range(cfg.n)]
+    now = 0.0
+    times = np.zeros(cfg.T)
+    trace = TraceRecord(steps=np.arange(cfg.T), times=times)
+    for r in range(cfg.T):
+        now += period
+        for i in range(cfg.n):
+            # local steps completed within the window (speed-proportional)
+            n_i = min(int(rng.poisson(mu[i] * period)), max_local_steps)
+            wi = locals_[i]
+            for _ in range(n_i):
+                wi = apply_update(wi, source.grad(i, wi, r), cfg.eta)
+            locals_[i] = wi
+        # CS averages client models and broadcasts
+        w = _tree_mean(locals_)
+        locals_ = [w for _ in range(cfg.n)]
+        times[r] = now
+        _record_eval(trace, cfg, eval_fn, w, r + 1)
+    return w, trace
+
+
+def _tree_mean(trees: list) -> Pytree:
+    out = trees[0]
+    for t in trees[1:]:
+        out = _axpy(out, t, 1.0)
+    return tree_map(lambda x: x / len(trees), out)

@@ -17,6 +17,15 @@ depend on the gradient values, so it is simulated on the host first
     updates, written back in one pass (``kernel="pallas"``: the CUDA kernel
     `kernels.weighted_update.block_prefix_update`; the blocked ring has a
     trash row C that padded lanes write);
+  * ``fedbuff_Z > 0`` replays FedBuff instead: the gradients accumulate in
+    a buffer that is flushed (averaged and applied) every Z-th server step;
+    the blocked engine decomposes the flushes into the same prefix form
+    (`_fedbuff_block_deltas`);
+  * ``lane_devices=D > 1`` shards the E gradient lanes of every micro-block
+    over the D ranks of a `torch.distributed` process group: each rank
+    differentiates its E/D lanes and one ``all_gather`` per block
+    recombines them (``kernel="pallas"``: the CUDA kernel
+    `kernels.weighted_update.block_scatter_rows` writes the iterates);
   * evaluation runs every ``eval_every`` events (per event) or after each
     eval-interval group of blocks (blocked), on micro-block boundaries by
     construction (`segment_blocks(cut_every=)`).
@@ -36,7 +45,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..tree import tree_flatten
+from ..tree import tree_flatten, tree_map
 from ..unported import unported
 from .queue_sim import KIND_COMPLETE, EventBlocks, EventStream
 
@@ -235,15 +244,18 @@ def _flat_axpy(w: torch.Tensor, g: torch.Tensor, scale: torch.Tensor) -> torch.T
     return out
 
 
-def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc):
+def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc, fedbuff_Z=0):
     """The algorithm half of a CS step, independent of the event source.
 
-    ``update_step((w, snaps), j, s, scale, k) -> (w, snaps)`` consumes one
-    event (completing client j, ring slot s, update scale, server step k —
-    all 0-d device tensors) exactly as Algorithm 1 lines 9-11.  In flat
-    mode ``w`` is the packed vector and the update is one axpy; otherwise
-    (a given ``update_fn``, e.g. the per-leaf K1 kernel) ``w`` is the
-    pytree.  ``snaps`` is written in place.
+    ``update_step((w, snaps, acc), j, s, scale, k) -> (w, snaps, acc)``
+    consumes one event (completing client j, ring slot s, update scale,
+    server step k — all 0-d device tensors) exactly as Algorithm 1 lines
+    9-11.  In flat mode ``w`` (and the FedBuff buffer ``acc``) is the packed
+    vector and the update is one axpy; otherwise (a given ``update_fn``,
+    e.g. the per-leaf K1 kernel) ``w`` and ``acc`` are pytrees.  With
+    ``fedbuff_Z > 0`` the gradient joins the buffer, which is applied with
+    scale ``scale / Z`` and emptied on every Z-th server step.  ``snaps`` is
+    written in place.
     """
     if unpack is None:
         raise ValueError(
@@ -252,20 +264,35 @@ def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc):
         )
 
     def update_step(ucarry, j, s, scale, k):
-        w, snaps = ucarry
+        w, snaps, acc = ucarry
         s1 = s.reshape(1)
         # gather the completing task's dispatch-time snapshot (Alg. 1 line 9)
         w_disp = unpack(snaps.index_select(0, s1)[0])
         g = grad_fn(j, w_disp, k)
         if flat_mode:
-            w = _flat_axpy(w, pack(g), scale)
-            row = enc(w)
+            g = pack(g)
+        if fedbuff_Z > 0:
+            fire = ((k + 1) % fedbuff_Z) == 0
+            eff = torch.where(fire, scale / fedbuff_Z, 0.0)
+            keep = lambda a: a * (~fire).to(a.dtype)  # noqa: E731
+            if flat_mode:
+                acc = acc + g
+                # JAX promotes the narrow buffer times the fp32 scale and
+                # rounds once: `_flat_axpy`'s fp32 path
+                w = _flat_axpy(w, acc, eff)
+                acc = keep(acc)
+            else:
+                acc = tree_map(lambda a, y: a + y, acc, g)
+                w = update_fn(w, acc, eff)
+                acc = tree_map(keep, acc)
+        elif flat_mode:
+            w = _flat_axpy(w, g, scale)
         else:
             w = update_fn(w, g, scale)
-            row = enc(pack(w))
+        row = enc(w) if flat_mode else enc(pack(w))
         # the freed slot hosts the new dispatch with the updated params
         snaps.index_copy_(0, s1, row[None])
-        return w, snaps
+        return w, snaps, acc
 
     return update_step
 
@@ -280,47 +307,136 @@ def _make_batched_grads(grad_fn, pack, unpack):
     return torch.func.vmap(lambda j, wi, k: pack(grad_fn(j, unpack(wi), k)))
 
 
-def _make_block_step(grad_fn, pack, unpack, kernel):
+def _fedbuff_block_deltas(Gm, scm, k, m, acc, Z):
+    """Closed-form FedBuff per-event deltas over one (full) micro-block.
+
+    Gradient g_j is applied exactly once — at the first buffer flush at or
+    after its arrival — so D_i = 1{flush at i} * (scale_i/Z) * (carried
+    buffer + gradients since the previous flush), computed from the in-block
+    flush positions.  Returns ``(D, acc')``: the (E, P) scaled update deltas
+    (prefix-summable like the gen_async path) and the buffer carried out of
+    the block.  The flush positions are device tensors throughout (gathers
+    by `index_select`, selections by `torch.where`): no host sync.
+    """
+    cum = torch.cumsum(Gm, dim=0)
+    fire = m & (((k + 1) % Z) == 0)
+    E = m.shape[0]
+    fi = torch.where(fire, torch.arange(E, dtype=torch.int64, device=m.device), -1)
+    last_incl = torch.cummax(fi, dim=0).values  # last flush at or before i
+    prev = torch.cat([fi.new_full((1,), -1), last_incl[:-1]])
+    prevcum = torch.where((prev >= 0)[:, None], cum.index_select(0, prev.clamp(min=0)), 0.0)
+    first = torch.where(prev < 0, 1.0, 0.0)[:, None]
+    acc_at = cum - prevcum + first * acc.float()
+    D = torch.where(fire, scm / Z, 0.0)[:, None] * acc_at
+    lastf = last_incl[-1:]  # (1,): the block's last flush, -1 if none
+    flushed = torch.where(lastf >= 0, cum.index_select(0, lastf.clamp(min=0))[0], 0.0)
+    acc = (torch.where(lastf >= 0, 0.0, 1.0) * acc.float() + (cum[-1] - flushed)).to(acc.dtype)
+    return D, acc
+
+
+def _all_gather_lanes(group, *ts):
+    """All-gather per-lane tensors over the lane ranks in ONE collective.
+
+    Each (El, ...) tensor is viewed as bytes and the byte rows are packed
+    side by side into one (El, nbytes) uint8 tensor, so the lane prefixes,
+    gradients and slot ids of one block ride in a single ``all_gather``
+    (the list form, which every backend takes).  Returns the (E, ...)
+    tensors, rank r's lanes at rows [r*El, (r+1)*El) — the contiguous lane
+    split.  `ProcessGroupGloo` stages CUDA tensors through host memory
+    itself.
+    """
+    import torch.distributed as dist
+
+    El = ts[0].shape[0]
+    parts = [t.contiguous().reshape(El, -1).view(torch.uint8) for t in ts]
+    buf = torch.cat(parts, dim=1)
+    out = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, buf, group=group)
+    full = torch.cat(out, dim=0)
+    res, o = [], 0
+    for t, part in zip(ts, parts):
+        nb = part.shape[1]
+        res.append(full[:, o : o + nb].contiguous().view(t.dtype).reshape((-1,) + t.shape[1:]))
+        o += nb
+    return res
+
+
+def _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z=0, lane_group=None):
     """One event micro-block of the blocked engine (flat-packed mode).
 
-    ``block_step((w, snaps), j, s, scale, k, mask) -> (w, snaps)`` consumes
-    up to E conflict-free events: one batched snapshot gather, one vmapped
-    gradient call, then the exact sequential iterates w_i = w_0 -
+    ``block_step((w, snaps, acc), j, s, scale, k, mask) -> (w, snaps, acc)``
+    consumes up to E conflict-free events: one batched snapshot gather, one
+    vmapped gradient call, then the exact sequential iterates w_i = w_0 -
     sum_{j<=i} D_j written back in one pass.  Padded lanes (mask False)
     carry zero scale and the trash ring row, so they are arithmetic no-ops.
+    FedBuff decomposes into the same prefix form (`_fedbuff_block_deltas`).
+
+    With ``lane_group`` (a `torch.distributed` process group of D ranks)
+    the step runs in every rank on its own E/D lanes: it gathers the
+    snapshots of — and differentiates — only those, and ONE all-gather per
+    block recombines them (`_all_gather_lanes`).  gen_async gathers the
+    local inclusive lane prefixes and slot ids; the exclusive offsets of
+    the ranks before it fall out of the gathered lane totals, and the
+    iterates are scattered into the replicated ring identically on every
+    rank (K6, `kernels.ops.block_scatter_rows`, or its plain version).
+    FedBuff gathers the masked lane gradients instead — its flush positions
+    couple all lanes — and runs the closed form on the full block,
+    replicated (K2 or its plain version).
     """
     if kernel == "pallas":
-        # the hand-written CUDA kernel on a CUDA ring, the plain version on
-        # a CPU ring (dispatch by the tensor's device)
+        # the hand-written CUDA kernels on a CUDA ring, the plain versions
+        # on a CPU ring (dispatch by the tensor's device)
         from ..kernels.ops import block_prefix_update as apply_block
+        from ..kernels.ops import block_scatter_rows as scatter_rows
     elif kernel == "jnp":
         from ..kernels.ref import block_prefix_update_ref as apply_block
+        from ..kernels.ref import block_scatter_rows_ref as scatter_rows
     else:
         raise ValueError(kernel)
     grads = _make_batched_grads(grad_fn, pack, unpack)
 
     def block_step(ucarry, j, s, sc, k, m):
-        w, snaps = ucarry
-        G = grads(j, snaps.index_select(0, s), k)  # (E, P)
+        w, snaps, acc = ucarry
+        G = grads(j, snaps.index_select(0, s), k)  # (E or E/D, P)
         scm = torch.where(m, sc, 0.0).to(torch.float32)
+        if fedbuff_Z > 0:
+            Gm = torch.where(m[:, None], G, 0.0).to(torch.float32)
+            if lane_group is not None:
+                Gm, s, scm, k, m = _all_gather_lanes(lane_group, Gm, s, scm, k, m)
+            D, acc = _fedbuff_block_deltas(Gm, scm, k, m, acc, fedbuff_Z)
+            snaps, w = apply_block(snaps, w, D, s)
+            return w, snaps, acc
         D = scm[:, None] * G.to(torch.float32)
-        snaps, w = apply_block(snaps, w, D, s)
-        return w, snaps
+        if lane_group is None:
+            snaps, w = apply_block(snaps, w, D, s)
+            return w, snaps, acc
+        # gen_async, sharded: local lane prefix + one collective, then the
+        # global iterates W_i = w - (S_all + exclusive rank offset), replicated
+        S = torch.cumsum(D, dim=0)
+        S_all, s_all = _all_gather_lanes(lane_group, S, s)  # (E, P), (E,)
+        S_all = S_all.reshape(-1, S.shape[0], S.shape[1])  # (D, E/D, P)
+        totals = S_all[:, -1, :]
+        off = torch.cumsum(totals, dim=0) - totals
+        W = w.float()[None] - (S_all + off[:, None, :]).reshape(s_all.shape[0], -1)
+        snaps, w = scatter_rows(snaps, w, W, s_all)
+        return w, snaps, acc
 
     return block_step
 
 
-def _init_update_carry(w0, rows, pack, unpack, flat_mode, enc):
-    """``(w, snaps)`` initial carry + the carry->pytree decoder.
+def _init_update_carry(w0, rows, pack, unpack, flat_mode, enc, fedbuff_Z=0):
+    """``(w, snaps, acc)`` initial carry + the carry->pytree decoder.
 
     ``rows`` is the ring height — C for the per-event engine, C+1 for the
-    blocked engine (the extra trash row absorbs padded scatters).
+    blocked engine (the extra trash row absorbs padded scatters).  ``acc``
+    is the FedBuff buffer, zeros like ``w`` (flat or tree), or None.
     """
     flat0 = pack(w0)
     snaps0 = enc(flat0)[None].expand(rows, -1).clone()
     w_init = flat0 if flat_mode else w0
+    acc0 = tree_map(torch.zeros_like, w_init) if fedbuff_Z > 0 else None
     to_tree = unpack if flat_mode else (lambda w: w)
-    return (w_init, snaps0), to_tree
+    return (w_init, snaps0, acc0), to_tree
 
 
 def _stack_evals(evals: list, device) -> torch.Tensor:
@@ -334,6 +450,7 @@ def _make_host_runner(
     grad_fn: Callable[[Any, Pytree, Any], Pytree],
     C: int,
     *,
+    fedbuff_Z: int = 0,
     eval_fn: Callable[[Pytree], Any] | None = None,
     eval_every: int = 0,
     update_fn: Callable[[Pytree, Pytree, Any], Pytree] | None = None,
@@ -348,15 +465,16 @@ def _make_host_runner(
 
     grad_fn(j, w, k): stochastic gradient of client j at params w, server
     step k (0-d device tensors).  update_fn(w, g, scale) defaults to
-    w - scale*g.
+    w - scale*g.  ``fedbuff_Z > 0`` replays FedBuff.
     """
     eval_every_default = eval_every
 
     def run(w0, J, slot, scale, eval_every=eval_every_default):
         pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype)
         flat_mode = update_fn is None  # the default update is one flat axpy
-        update_step = _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc)
-        carry, to_tree = _init_update_carry(w0, C, pack, unpack, flat_mode, enc)
+        update_step = _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc,
+                                        fedbuff_Z)
+        carry, to_tree = _init_update_carry(w0, C, pack, unpack, flat_mode, enc, fedbuff_Z)
         T = int(J.shape[0])
         ks = torch.arange(T, dtype=torch.int64, device=J.device)
         every = eval_every if (eval_fn is not None and eval_every and T >= eval_every) else 0
@@ -370,15 +488,62 @@ def _make_host_runner(
     return run
 
 
+def _check_lane_devices(lane_devices: int, block_size: int):
+    """Validate the lane-shard request against the block shape and the
+    process group; return the lanes' ``(group, rank)``, or None at D = 1.
+
+    ``lane_devices=D > 1`` runs the blocked replay as D ranks of the
+    default `torch.distributed` process group, one lane shard each; it
+    never falls back to the unsharded replay when the group is missing.
+    This is the one place the engine reads the process group.
+    """
+    if lane_devices < 1:
+        raise ValueError("lane_devices >= 1 required")
+    if lane_devices == 1:
+        return None
+    if block_size < 2:
+        raise ValueError(
+            "lane_devices > 1 shards the E-lane micro-block gradient batch "
+            "across ranks and requires block_size > 1"
+        )
+    if block_size % lane_devices:
+        raise ValueError(
+            f"block_size={block_size} must be a multiple of "
+            f"lane_devices={lane_devices} (each rank owns E/D lanes)"
+        )
+    import torch.distributed as dist
+
+    start = (
+        f"start {lane_devices} ranks (torchrun --nproc-per-node {lane_devices}, or "
+        "torch.multiprocessing.spawn + init_process_group in each; "
+        "repro_torch.launch.lanes.run_lanes does both) and make the same run in every rank"
+    )
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            f"lane_devices={lane_devices} needs a torch.distributed process group "
+            f"of {lane_devices} ranks, but none is initialised: {start}"
+        )
+    world = dist.get_world_size()
+    if world != lane_devices:
+        raise ValueError(
+            f"lane_devices={lane_devices} but the torch.distributed process group "
+            f"has world size {world}: {start}"
+        )
+    group = dist.group.WORLD
+    return group, dist.get_rank(group)
+
+
 def _make_host_block_runner(
     grad_fn: Callable[[Any, Pytree, Any], Pytree],
     C: int,
     block_size: int,
     *,
+    fedbuff_Z: int = 0,
     eval_fn: Callable[[Pytree], Any] | None = None,
     update_fn: Callable[[Pytree, Pytree, Any], Pytree] | None = None,
     kernel: str = "jnp",
     snapshot_dtype=None,
+    lanes=None,
 ):
     """Build the blocked replay engine over `queue_sim.EventBlocks` arrays.
 
@@ -388,9 +553,17 @@ def _make_host_block_runner(
     (eval fires after each group); trailing rows replay without eval.
 
     The blocked engine needs the flat-packed codec and the default linear
-    update; ``kernel`` picks the plain path ("jnp") or the fused prefix-scan
-    kernel ("pallas"), for which the packed vector is padded to a multiple
-    of `kernels.weighted_update.BLOCK_TILE` once at init.
+    update; ``kernel`` picks the plain path ("jnp") or the CUDA kernels
+    ("pallas": K2, and K6 when lane-sharded), for which the packed vector
+    is padded to a multiple of `kernels.weighted_update.BLOCK_TILE` once at
+    init.
+
+    ``lanes=(group, rank)`` (from `_check_lane_devices`) shards the E
+    lanes of every block over the D ranks of ``group``: every rank calls
+    ``run`` with the same full (B, E) arrays and w0, takes its contiguous
+    E/D lanes, and returns the same replicated ``(w_final, evals)`` (see
+    `_make_block_step`).  Sharded and unsharded replay agree to the
+    re-association of the fp32 lane prefix (<= 1e-5 on the Quadratic).
     """
     if update_fn is not None:
         raise ValueError(
@@ -399,6 +572,11 @@ def _make_host_block_runner(
         )
     if block_size < 2:
         raise ValueError("use _make_host_runner for block_size <= 1")
+    lane_group = None
+    if lanes is not None:
+        lane_group, rank = lanes
+        El = block_size // lane_group.size()
+        lo = rank * El
     pad_to = 1
     if kernel == "pallas":
         from ..kernels.weighted_update import BLOCK_TILE
@@ -412,8 +590,11 @@ def _make_host_block_runner(
                 "block_size > 1 requires all-float parameters "
                 "(flat-packed snapshot storage)"
             )
-        block_step = _make_block_step(grad_fn, pack, unpack, kernel)
-        carry, to_tree = _init_update_carry(w0, C + 1, pack, unpack, True, enc)
+        if lane_group is not None:  # this rank's contiguous E/D lanes
+            J, slot, scale, k, mask = (a[:, lo : lo + El].contiguous()
+                                       for a in (J, slot, scale, k, mask))
+        block_step = _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z, lane_group)
+        carry, to_tree = _init_update_carry(w0, C + 1, pack, unpack, True, enc, fedbuff_Z)
         B = int(J.shape[0])
         every = chunk_blocks if (eval_fn is not None and n_chunks and chunk_blocks) else 0
         Bm = n_chunks * chunk_blocks
@@ -425,6 +606,13 @@ def _make_host_block_runner(
         return to_tree(carry[0]), _stack_evals(evals, J.device)
 
     return run
+
+
+_EVAL_CADENCE_MSG = (
+    "block_size > 1: the eval cadence is encoded in the blocked "
+    "layout — pass chunk_blocks/n_chunks from blocked_inputs(..., "
+    "eval_every=...) at call time instead of eval_every"
+)
 
 
 def make_runner(
@@ -439,34 +627,32 @@ def make_runner(
     block_size: int = 1,
     kernel: str = "jnp",
     snapshot_dtype=None,
+    lane_devices: int = 1,
 ):
     """Build the replay engine for a pre-simulated event stream.
 
     ``run(w0, J, slot, scale[, eval_every])`` per event; with
     ``block_size=E > 1`` ``run(w0, J, slot, scale, k, mask[, chunk_blocks,
-    n_chunks])`` over `blocked_inputs` arrays.  ``kernel`` picks the plain
-    path or the fused prefix-scan kernel, ``snapshot_dtype`` an optional
-    narrower ring storage dtype.
+    n_chunks])`` over `blocked_inputs` arrays.  ``fedbuff_Z > 0`` replays
+    FedBuff, ``kernel`` picks the plain path or the CUDA kernels,
+    ``snapshot_dtype`` an optional narrower ring storage dtype and
+    ``lane_devices`` the number of ranks the blocked lanes are sharded over.
     """
     if stream != "host":
         if stream == "device":
             raise unported("stream='device'", 6)
         raise ValueError(stream)
-    if fedbuff_Z > 0:
-        raise unported("fedbuff_Z > 0", 4)
+    lanes = _check_lane_devices(lane_devices, block_size)  # rejects D > 1 at E = 1
     if block_size > 1:
         if eval_every:
-            raise ValueError(
-                "block_size > 1: the eval cadence is encoded in the blocked "
-                "layout — pass chunk_blocks/n_chunks from blocked_inputs(..., "
-                "eval_every=...) at call time instead of eval_every"
-            )
+            raise ValueError(_EVAL_CADENCE_MSG)
         return _make_host_block_runner(
-            grad_fn, C, block_size, eval_fn=eval_fn, update_fn=update_fn,
-            kernel=kernel, snapshot_dtype=snapshot_dtype,
+            grad_fn, C, block_size, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn,
+            update_fn=update_fn, kernel=kernel, snapshot_dtype=snapshot_dtype,
+            lanes=lanes,
         )
     return _make_host_runner(
-        grad_fn, C, eval_fn=eval_fn, eval_every=eval_every,
+        grad_fn, C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
         update_fn=update_fn, snapshot_dtype=snapshot_dtype,
     )
 
@@ -494,6 +680,7 @@ def jit_runner(
     block_size: int = 1,
     kernel: str = "jnp",
     snapshot_dtype=None,
+    lane_devices: int = 1,
 ):
     """Memoized `make_runner` (host stream).
 
@@ -501,20 +688,17 @@ def jit_runner(
     `repro`'s entry point and memo (one runner per gradient source and
     algorithm shape; the per-event eval cadence stays a call-time argument).
     """
-    if fedbuff_Z > 0:
-        raise unported("fedbuff_Z > 0", 4)
-    cache, func = _runner_cache(grad_fn)
-    key = ("host", func, C, eval_fn, update_fn, block_size, kernel, snapshot_dtype)
     if block_size > 1 and eval_every:
-        raise ValueError(
-            "block_size > 1: the eval cadence is encoded in the blocked "
-            "layout — pass chunk_blocks/n_chunks from blocked_inputs(..., "
-            "eval_every=...) at call time instead of eval_every"
-        )
+        raise ValueError(_EVAL_CADENCE_MSG)
+    cache, func = _runner_cache(grad_fn)
+    # the lanes' (group, rank) is in the key: a runner holds the group it was built for
+    key = ("host", func, C, fedbuff_Z, eval_fn, update_fn, block_size, kernel,
+           snapshot_dtype, _check_lane_devices(lane_devices, block_size))
     if key not in cache:
         cache[key] = make_runner(
-            grad_fn, C, eval_fn=eval_fn, update_fn=update_fn,
+            grad_fn, C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, update_fn=update_fn,
             block_size=block_size, kernel=kernel, snapshot_dtype=snapshot_dtype,
+            lane_devices=lane_devices,
         )
     run = cache[key]
     return run if block_size > 1 else partial(run, eval_every=eval_every)

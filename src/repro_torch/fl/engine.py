@@ -5,8 +5,9 @@ The counterpart of `repro.fl.engine`: the paper's §5 experiment (an MLP
 classifier over non-iid federated shards, `ClassificationTask`) and async
 LM pre-training of a real model config (`LMTask`), the sampling policy
 (uniform / Jackson-optimal / physical-time-optimal, from `core.sampling`),
-and the asynchronous server algorithms (Generalized AsyncSGD, AsyncSGD),
-with accuracy (or eval loss) against CS steps and physical time.
+and the server algorithms (Generalized AsyncSGD, AsyncSGD, FedBuff, and the
+synchronous FedAvg and FAVANO baselines), with accuracy (or eval loss)
+against CS steps and physical time.
 
 Parameters keep the JAX layout (``w1`` is ``(dim, hidden)``, the forward is
 ``x @ w1 + b1``), so `params_from_numpy` carries the JAX package's weights
@@ -22,7 +23,13 @@ import numpy as np
 import torch
 
 from ..configs.base import FLConfig
-from ..core.async_sgd import ServerConfig, run_generalized_async_sgd
+from ..core.async_sgd import (
+    ServerConfig,
+    run_favano,
+    run_fedavg,
+    run_fedbuff,
+    run_generalized_async_sgd,
+)
 from ..core.sampling import optimize_physical_time, optimize_two_cluster
 from ..core.theory import BoundConstants
 from ..data.pipeline import FederatedClassification, SyntheticLMStream, make_client_speeds
@@ -399,9 +406,7 @@ def _cached_fl_setup(data: FederatedClassification | None, seed: int, task=None,
 
 
 def _reject_unported(flc: FLConfig, method, task, faults, guard, serving, ckpt_dir):
-    if method in ("fedbuff", "fedavg", "favano"):
-        raise unported(f"method={method!r}", 4)
-    if method not in ("gen_async", "async_sgd"):
+    if method not in ("gen_async", "async_sgd", "fedbuff", "fedavg", "favano"):
         raise ValueError(method)
     if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
         raise unported(f"task={type(task).__name__}", "7d")
@@ -415,8 +420,6 @@ def _reject_unported(flc: FLConfig, method, task, faults, guard, serving, ckpt_d
         raise unported("stream='device'", 6)
     if flc.adaptive:
         raise unported("adaptive=True", 6)
-    if flc.devices > 1:
-        raise unported("devices > 1", 12)
 
 
 def run_experiment(
@@ -434,18 +437,24 @@ def run_experiment(
     ckpt_every: int = 0,
     resume: bool = False,
 ) -> FLRun:
-    """One training run of {gen_async, async_sgd} on ``flc.device``.
+    """One training run of {gen_async, async_sgd, fedbuff, fedavg, favano}
+    on ``flc.device``.
 
     ``engine`` (default: ``flc.engine``) picks the server loop: "python" is
     the per-event reference loop over streaming host batches, "scan" the
-    device-resident replay engine over the cached task setup.  ``task``
-    picks the workload: the paper's MLP (`ClassificationTask`, the default)
-    or `LMTask` over a dense / VLM / audio / SSM / hybrid model config
-    (``eval_acc`` then carries eval loss; the Python loop drives the same device gradient
-    through its host ``grad`` entry).  ``flc.block_size`` turns on the micro-blocked replay (an int E, or
-    "auto"), ``flc.segmentation`` its cut placement.  The other keywords
-    keep `repro.fl.engine.run_experiment`'s signature; the options the port
-    does not run yet raise `NotImplementedError`.
+    device-resident replay engine over the cached task setup; the
+    synchronous baselines (fedavg, favano) always run their host loop, as in
+    `repro`.  ``task`` picks the workload: the paper's MLP
+    (`ClassificationTask`, the default) or `LMTask` over a dense / VLM /
+    audio / SSM / hybrid model config (``eval_acc`` then carries eval loss;
+    the Python loop drives the same device gradient through its host
+    ``grad`` entry).  ``flc.block_size`` turns on the micro-blocked replay
+    (an int E, or "auto"), ``flc.segmentation`` its cut placement, and
+    ``flc.devices = D > 1`` shards its lanes over the D ranks of a
+    `torch.distributed` process group (every rank makes the same call and
+    gets the same result).  The other keywords keep
+    `repro.fl.engine.run_experiment`'s signature; the options the port does
+    not run yet raise `NotImplementedError`.
     """
     _reject_unported(flc, method, task, faults, guard, serving, ckpt_dir)
     device = resolve_device(flc.device)
@@ -457,7 +466,8 @@ def run_experiment(
         data = data or FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
     mu = make_client_speeds(flc.n_clients, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
 
-    use_scan = engine == "scan"
+    async_method = method in ("gen_async", "async_sgd", "fedbuff")
+    use_scan = engine == "scan" and async_method
     if use_scan or not classification:
         setup = _cached_fl_setup(data, flc.seed, task, n_clients=flc.n_clients,
                                  device=device)
@@ -481,6 +491,7 @@ def run_experiment(
         engine="scan" if use_scan else "python",
         stream="host",
         block_size=flc.block_size if use_scan else 1,
+        devices=flc.devices if use_scan else 1,
         segmentation=flc.segmentation,
         scenario=flc.scenario,
         device=flc.device,
@@ -488,9 +499,20 @@ def run_experiment(
     if method == "gen_async":
         p = sampling_for(flc, mu)
         cfg = replace(base, p=p, weighting="importance")
-    else:  # async_sgd
+        w, tr = run_generalized_async_sgd(w0, clients, cfg, eval_fn=acc_fn)
+    elif method == "async_sgd":
         cfg = replace(base, weighting="plain")
-    w, tr = run_generalized_async_sgd(w0, clients, cfg, eval_fn=acc_fn)
+        w, tr = run_generalized_async_sgd(w0, clients, cfg, eval_fn=acc_fn)
+    elif method == "fedbuff":
+        cfg = replace(base, weighting="plain")
+        w, tr = run_fedbuff(w0, clients, cfg, Z=flc.fedbuff_Z, eval_fn=acc_fn)
+    elif method == "fedavg":
+        cfg = replace(base, weighting="plain")
+        w, tr = run_fedavg(w0, clients, cfg, eval_fn=acc_fn)
+    else:  # favano
+        cfg = replace(base, weighting="plain")
+        w, tr = run_favano(w0, clients, cfg, period=1.0 / float(np.median(mu)),
+                           eval_fn=acc_fn)
 
     ev_steps = np.asarray(tr.eval_steps)
     times = (

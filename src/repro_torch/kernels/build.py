@@ -34,6 +34,7 @@ SIGNATURES = {
         "wu_plain": (_INT, _P, _P, _P, _P, _I64, _P),
         "wu_momentum": (_INT, _P, _P, _P, _P, ctypes.c_float, _P, _P, _I64, _P),
         "block_prefix_update": (_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+        "block_scatter_rows": (_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P),
     },
     "flash_attention": {
         "flash_attention_fwd": (_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,

@@ -6,15 +6,21 @@
 // K2  block_prefix_update replaces repro/kernels/weighted_update.py:
 //     block_prefix_update (body _block_kernel):  W_i = w - sum_{j<=i} D_j,
 //     snaps[slot_i] = W_i in place, w' = W_{E-1}.
+// K6  block_scatter_rows replaces repro/kernels/weighted_update.py:
+//     block_scatter_rows (body _scatter_kernel): the lane-sharded engine's
+//     scatter of precomputed iterates, snaps[slot_i] = W_i in place,
+//     w' = W_{E-1}.
 //
-// What bounds them: both are elementwise passes with O(1) flops per byte, so
-// device-memory bandwidth is their ceiling.  At the MLP's width (P = 26,122
-// parameters, 26,624 once padded) one launch moves a few hundred KB (K1, per
-// leaf) to ~2 MB (K2 at E = 16), which takes well under a microsecond at
-// 3.35 TB/s: launch latency, not bandwidth, sets their time.  The design is
-// therefore the simplest one that is coalesced: one thread per element (K1)
-// or per column (K2), neighbouring threads on neighbouring addresses, and a
-// grid-stride loop so any size works without padding.
+// What bounds them: all three are elementwise passes with O(1) flops per
+// byte, so device-memory bandwidth is their ceiling.  At the MLP's width
+// (P = 26,122 parameters, 26,624 once padded) one launch moves a few hundred
+// KB (K1, per leaf) to ~2 MB (K2 at E = 16), which takes well under a
+// microsecond at 3.35 TB/s: launch latency, not bandwidth, sets their time.
+// K6 on a Mamba2-130M ring (E = 4 rows of 129 M fp32 columns) moves 4.6 GB
+// and is bandwidth-bound.  The design is therefore the simplest one that is
+// coalesced: one thread per element (K1) or per column (K2, K6), neighbouring
+// threads on neighbouring addresses, and a grid-stride loop so any size
+// works without padding.
 //
 // The scale is read from device memory (as the TPU kernel read it from SMEM)
 // so the host never waits for it.  All math is fp32 with explicit _rn
@@ -106,6 +112,32 @@ __global__ void block_prefix_update_kernel(S* __restrict__ snaps, const W* __res
   }
 }
 
+// K6: each thread owns column p and stores the E precomputed rows in event
+// order (last writer wins on duplicate trash-row slots), then w' = W[E-1].
+template <typename S, typename W>
+__global__ void block_scatter_rows_kernel(S* __restrict__ snaps, const float* __restrict__ Wr,
+                                          const int64_t* __restrict__ slots,
+                                          W* __restrict__ w_out, int64_t R, int64_t P,
+                                          int64_t E) {
+  const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
+  for (int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; p < P;
+       p += stride) {
+    for (int64_t i = 0; i < E; ++i) {
+      const int64_t row = slots[i];
+      if (row >= 0 && row < R) snaps[row * P + p] = from_f32<S>(Wr[i * P + p]);
+    }
+    w_out[p] = from_f32<W>(Wr[(E - 1) * P + p]);
+  }
+}
+
+template <typename S, typename W>
+void launch_scatter(void* snaps, const void* Wr, const void* slots, void* w_out, int64_t R,
+                    int64_t P, int64_t E, cudaStream_t stream) {
+  block_scatter_rows_kernel<S, W><<<grid_for(P), kThreads, 0, stream>>>(
+      static_cast<S*>(snaps), static_cast<const float*>(Wr),
+      static_cast<const int64_t*>(slots), static_cast<W*>(w_out), R, P, E);
+}
+
 template <typename S, typename W>
 void launch_block(void* snaps, const void* w, const void* D, const void* slots, void* w_out,
                   int64_t R, int64_t P, int64_t E, cudaStream_t stream) {
@@ -168,6 +200,24 @@ int block_prefix_update(int snap_dtype, int w_dtype, void* snaps, const void* w,
     launch_block<float, __nv_bfloat16>(snaps, w, D, slots, w_out, R, P, E, st);
   } else if (snap_dtype == kBF16 && w_dtype == kBF16) {
     launch_block<__nv_bfloat16, __nv_bfloat16>(snaps, w, D, slots, w_out, R, P, E, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int block_scatter_rows(int snap_dtype, int w_dtype, void* snaps, const void* W,
+                       const void* slots, void* w_out, int64_t R, int64_t P, int64_t E,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (snap_dtype == kF32 && w_dtype == kF32) {
+    launch_scatter<float, float>(snaps, W, slots, w_out, R, P, E, st);
+  } else if (snap_dtype == kBF16 && w_dtype == kF32) {
+    launch_scatter<__nv_bfloat16, float>(snaps, W, slots, w_out, R, P, E, st);
+  } else if (snap_dtype == kF32 && w_dtype == kBF16) {
+    launch_scatter<float, __nv_bfloat16>(snaps, W, slots, w_out, R, P, E, st);
+  } else if (snap_dtype == kBF16 && w_dtype == kBF16) {
+    launch_scatter<__nv_bfloat16, __nv_bfloat16>(snaps, W, slots, w_out, R, P, E, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -21,7 +21,8 @@ from .moe_gmm import MoeGMM
 from .ssd_scan import SSDScan
 
 __all__ = ["weighted_update", "weighted_update_tree", "tree_weighted_update",
-           "block_prefix_update", "flash_attention", "ssd_scan", "moe_gmm"]
+           "block_prefix_update", "block_scatter_rows", "flash_attention", "ssd_scan",
+           "moe_gmm"]
 
 
 def weighted_update(w, g, scale, m=None, momentum=0.0):
@@ -37,6 +38,14 @@ def block_prefix_update(snaps, w, D, slots):
     if on_cuda(snaps):
         return _cuda.block_prefix_update(snaps, w, D, slots)
     return ref.block_prefix_update_ref(snaps, w, D, slots)
+
+
+def block_scatter_rows(snaps, w, W, slots):
+    """K6: ``(snaps', w')`` — the lane-sharded scatter of precomputed iterates,
+    ``snaps`` written in place."""
+    if on_cuda(snaps):
+        return _cuda.block_scatter_rows(snaps, w, W, slots)
+    return ref.block_scatter_rows_ref(snaps, w, W, slots)
 
 
 def flash_attention(q, k, v, causal=True, window=0, q_offset=0, bq=128, bk=128):

@@ -8,8 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["weighted_update_ref", "block_prefix_update_ref", "flash_attention_ref",
-           "ssd_scan_ref", "moe_gmm_ref"]
+__all__ = ["weighted_update_ref", "block_prefix_update_ref", "block_scatter_rows_ref",
+           "flash_attention_ref", "ssd_scan_ref", "moe_gmm_ref"]
 
 
 def weighted_update_ref(
@@ -55,6 +55,29 @@ def block_prefix_update_ref(
     CUDA.  Returns ``(snaps, w')``.
     """
     W = w.float()[None, :] - torch.cumsum(D.float(), dim=0)
+    rows = W.to(snaps.dtype)
+    idx = slots.to(torch.int64)
+    for i in range(rows.shape[0]):  # E <= 16
+        snaps.index_copy_(0, idx[i : i + 1], rows[i : i + 1])
+    return snaps, W[-1].to(w.dtype)
+
+
+def block_scatter_rows_ref(
+    snaps: torch.Tensor,   # (R, P) flat-packed snapshot ring buffer, updated in place
+    w: torch.Tensor,       # (P,) current server weights (dtype reference only)
+    W: torch.Tensor,       # (E, P) precomputed intermediate weight rows (fp32)
+    slots: torch.Tensor,   # (E,) int64 ring slot per event (trash row on padding)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scatter-only half of the blocked update (the lane-sharded path):
+
+        snaps[slot_i] = W_i,   w' = W_{E-1}
+
+    The iterates W arrive precomputed (each rank builds them from its local
+    lane prefix plus the all-gathered offsets of the other ranks).  Rows are
+    cast to the ring's dtype and written in place one at a time in event
+    order, so duplicate (padded, trash-row) slots resolve last-writer-wins
+    as in the kernels.  Returns ``(snaps, w')``.
+    """
     rows = W.to(snaps.dtype)
     idx = slots.to(torch.int64)
     for i in range(rows.shape[0]):  # E <= 16

@@ -5,7 +5,9 @@ K1 (`weighted_update`) replaces the TPU kernel
 Algorithm 1 line-10 update, plain (K1a) or with momentum (K1b).  K2
 (`block_prefix_update`) replaces `repro/kernels/weighted_update.py:
 block_prefix_update` — the blocked engine's prefix sum plus the in-place
-scatter into the (C+1, P) snapshot ring.
+scatter into the (C+1, P) snapshot ring.  K6 (`block_scatter_rows`)
+replaces `repro/kernels/weighted_update.py:block_scatter_rows` — the
+lane-sharded engine's scatter of precomputed iterates into the ring.
 
 These wrappers take CUDA tensors only: they check dtype, shape, device and
 contiguity, allocate the outputs, launch on PyTorch's current stream and
@@ -23,14 +25,15 @@ import torch
 from . import build
 
 __all__ = ["BLOCK_TILE", "launches", "reset_launches", "weighted_update",
-           "block_prefix_update"]
+           "block_prefix_update", "block_scatter_rows"]
 
 # the blocked engine pads the packed parameter vector to a multiple of this
 # once at init, as the TPU path does (its column tile); the CUDA kernel
 # itself takes any P
 BLOCK_TILE = 1024
 
-launches = {"weighted_update": 0, "weighted_update_momentum": 0, "block_prefix_update": 0}
+launches = {"weighted_update": 0, "weighted_update_momentum": 0, "block_prefix_update": 0,
+            "block_scatter_rows": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -62,6 +65,28 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 def _raise_on(err: int, fn: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: cudaError {err}")
+
+
+def _block_operands(snaps, w, rows, slots, name: str) -> tuple[int, int, int, int, int]:
+    """Check the operands of K2 / K6: ring ``snaps`` (R, P) and ``w`` (P,)
+    float32 | bfloat16, ``rows`` (E, P) float32, ``slots`` (E,) int64, all
+    contiguous on one CUDA device.  Returns ``(R, P, E, ring code, w code)``."""
+    R, P = snaps.shape
+    E = rows.shape[0]
+    if w.shape != (P,) or rows.shape != (E, P) or slots.shape != (E,):
+        raise ValueError(
+            f"shapes snaps {tuple(snaps.shape)}, w {tuple(w.shape)}, "
+            f"{name} {tuple(rows.shape)}, slots {tuple(slots.shape)} do not agree"
+        )
+    if E < 1:
+        raise ValueError("a block needs at least one event")
+    if rows.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32 (fp32 rows)")
+    if slots.dtype != torch.int64:
+        raise TypeError("slots must be int64")
+    sc, wc = _code(snaps, "snaps"), _code(w, "w")
+    _check_cuda(snaps, w, rows, slots)
+    return R, P, E, sc, wc
 
 
 def weighted_update(
@@ -110,25 +135,30 @@ def block_prefix_update(
     ``D`` (E, P) float32, ``slots`` (E,) int64 with the trash row R-1 on
     padded lanes.  Returns ``(snaps, w')``.
     """
-    R, P = snaps.shape
-    E = D.shape[0]
-    if w.shape != (P,) or D.shape != (E, P) or slots.shape != (E,):
-        raise ValueError(
-            f"shapes snaps {tuple(snaps.shape)}, w {tuple(w.shape)}, "
-            f"D {tuple(D.shape)}, slots {tuple(slots.shape)} do not agree"
-        )
-    if E < 1:
-        raise ValueError("block_prefix_update needs at least one event")
-    if D.dtype != torch.float32:
-        raise TypeError("D must be float32 (fp32 prefix accumulation)")
-    if slots.dtype != torch.int64:
-        raise TypeError("slots must be int64")
-    sc, wc = _code(snaps, "snaps"), _code(w, "w")
-    _check_cuda(snaps, w, D, slots)
+    R, P, E, sc, wc = _block_operands(snaps, w, D, slots, "D")
     w_out = torch.empty_like(w)
     lib = build.load("weighted_update")
     _raise_on(lib.block_prefix_update(sc, wc, snaps.data_ptr(), w.data_ptr(), D.data_ptr(),
                                       slots.data_ptr(), w_out.data_ptr(), R, P, E,
                                       _stream(w)), "block_prefix_update")
     launches["block_prefix_update"] += 1
+    return snaps, w_out
+
+
+def block_scatter_rows(
+    snaps: torch.Tensor, w: torch.Tensor, W: torch.Tensor, slots: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6: scatter one micro-block's precomputed iterates into ``(snaps, w)``.
+
+    ``snaps`` (R, P) float32 | bfloat16 is updated in place; ``w`` (P,) sets
+    the dtype of ``w'`` only; ``W`` (E, P) float32, ``slots`` (E,) int64
+    with the trash row R-1 on padded lanes.  Returns ``(snaps, W[E-1])``,
+    the last row cast to ``w.dtype``.
+    """
+    R, P, E, sc, wc = _block_operands(snaps, w, W, slots, "W")
+    w_out = torch.empty_like(w)
+    lib = build.load("weighted_update")
+    _raise_on(lib.block_scatter_rows(sc, wc, snaps.data_ptr(), W.data_ptr(), slots.data_ptr(),
+                                     w_out.data_ptr(), R, P, E, _stream(w)), "block_scatter_rows")
+    launches["block_scatter_rows"] += 1
     return snaps, w_out

@@ -155,7 +155,6 @@ def test_scan_rejects_host_only_source():
     dict(ckpt_dir="ckpt"),
     dict(stream="device"),
     dict(adaptive=True),
-    dict(devices=2, block_size=2),
     dict(scenario="erlang2"),
 ])
 @pytest.mark.parametrize("engine", ["python", "scan"])
@@ -166,13 +165,37 @@ def test_unported_options_raise(option, engine):
         run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
 
 
+@pytest.mark.parametrize("engine", ["python", "scan"])
+def test_devices_option_is_ported(engine):
+    """``devices=2`` (lane sharding, ROADMAP Queue 1 item 12) is ported: the
+    Python loop ignores it, as `repro`'s does, and the replay engine needs a
+    process group of 2 ranks, which this process does not have
+    (`tests/test_torch_lanes.py` runs one)."""
+    prob = Quadratic(4)
+    cfg = ServerConfig(n=4, C=2, T=10, eta=0.1, engine=engine, device="cpu",
+                       devices=2, block_size=2)
+    if engine == "python":
+        w, _ = run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
+        w1, _ = run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob,
+                                          replace(cfg, devices=1))
+        assert torch.equal(w, w1)
+    else:
+        with pytest.raises(ValueError, match="process group"):
+            run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
+
+
 @pytest.mark.parametrize("fn", [run_fedbuff, run_fedavg, run_favano])
 def test_unported_baselines_raise(fn):
-    cfg = ServerConfig(n=4, C=2, T=10, eta=0.1, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        fn(np.zeros(4, np.float32), Quadratic(4), cfg)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        engine_scan.make_runner(Quadratic(4).device_grad, 2, fedbuff_Z=5)
+    """The baselines are ported (ROADMAP Queue 1 item 4): each runs on the
+    CPU and returns finite weights (their parity with the JAX package is in
+    `tests/test_torch_fedbuff.py`).  What still raises is FedBuff on the
+    device event stream, which is not ported (item 6)."""
+    cfg = ServerConfig(n=12, C=2, T=10, eta=0.1, device="cpu")  # FedAvg samples 10 a round
+    w, tr = fn(np.zeros(4, np.float32), Quadratic(12), cfg)
+    assert bool(torch.isfinite(w).all()) and len(tr.times) == 10
+    with pytest.raises(NotImplementedError, match="item 6"):
+        engine_scan.make_runner(Quadratic(4).device_grad, 2, fedbuff_Z=5, stream="device")
+    assert callable(engine_scan.make_runner(Quadratic(4).device_grad, 2, fedbuff_Z=5))
 
 
 def test_serving_raises():

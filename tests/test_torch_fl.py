@@ -136,8 +136,6 @@ def test_cuda_device_raises_without_a_card():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(method="fedbuff"), "item 4"),
-    (dict(method="fedavg"), "item 4"),
     (dict(task=object()), "item 7"),
     (dict(faults=object()), "item 8"),
     (dict(ckpt_dir="ckpt"), "item 8"),
@@ -151,3 +149,16 @@ def test_run_experiment_unported_raise(kw, item):
         t_fl.run_experiment(flc, method, **kw)
     with pytest.raises(NotImplementedError, match="item 5"):
         t_fl.run_matrix(flc)
+
+
+@pytest.mark.parametrize("method", ["fedbuff", "fedavg", "favano"])
+def test_run_experiment_baselines_run(method):
+    """FedBuff, FedAvg and FAVANO are ported (ROADMAP Queue 1 item 4): each
+    runs through `run_experiment` on the CPU (their parity with the JAX
+    package is in `tests/test_torch_fedbuff.py`)."""
+    flc = FLConfig(n_clients=12, concurrency=2, server_steps=10, fedbuff_Z=3,  # FedAvg samples 10
+                   device="cpu")
+    r = t_fl.run_experiment(flc, method, eval_every=5)
+    assert r.name == method and r.extras["engine"] == "python"
+    assert r.eval_steps.tolist() == [5, 10] and np.all(np.isfinite(r.eval_acc))
+    assert all(bool(torch.isfinite(v).all()) for v in r.final_params.values())

@@ -85,6 +85,37 @@ def test_block_prefix_update_matches_plain(dev, dtype, E):
     assert _err(ks, rs) <= TOL[dtype] and _err(kw, rw) <= 1e-5
 
 
+# K6 grid (C+1, P, E, padded lanes, ring dtype), as chip_smoke.py checks it:
+# the MLP's blocked ring, a ragged P, and Mamba2-130M's ring at C=8 (P padded
+# to a multiple of 1024) in fp32 and bf16
+SCATTER_SHAPES = [
+    (65, 26624, 8, 3, torch.float32),
+    (65, 26624, 8, 3, torch.bfloat16),
+    (65, 26122, 8, 3, torch.float32),
+    (9, 128_984_064, 4, 0, torch.float32),
+    (9, 128_984_064, 4, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("R,P,E,pad,dtype", SCATTER_SHAPES)
+def test_block_scatter_rows_matches_plain(dev, R, P, E, pad, dtype):
+    """K6 writes every ring row and w' bitwise as its plain version does
+    (the same casts, in the same order: the trash row R-1 keeps the last
+    padded lane's row), in one launch."""
+    gen = torch.Generator().manual_seed(P + E)
+    snaps = torch.randn((R, P), generator=gen).to(dev, dtype)
+    w = torch.randn((P,), generator=gen).to(dev)
+    W = torch.randn((E, P), generator=gen).to(dev)
+    real = torch.randperm(R - 1, generator=gen)[: E - pad].tolist()
+    slots = torch.tensor(real + [R - 1] * pad, device=dev)
+    cuda_kernels.reset_launches()
+    ks, kw = ops.block_scatter_rows(snaps.clone(), w, W, slots)
+    assert cuda_kernels.launches["block_scatter_rows"] == 1
+    rs, rw = ref.block_scatter_rows_ref(snaps.clone(), w, W, slots)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, rs) and torch.equal(kw, rw) and kw.dtype == w.dtype
+
+
 def _setup(dev, n=16, hidden=32):
     data = FederatedClassification(n_clients=n, seed=0)
     setup = fl._cached_fl_setup(data, 0, fl.ClassificationTask(hidden=hidden), device=dev)
@@ -126,6 +157,37 @@ def test_blocked_kernel_path_matches_plain_path(dev):
     w_b, _ = run_generalized_async_sgd(setup.params, setup.clients,
                                        replace(cfg, update="pallas", T=150, eval_every=0))
     assert max(_err(w_e[k], w_b[k]) for k in w_e) <= 1e-4
+
+
+def test_fedbuff_kernel_paths_match_plain_path(dev):
+    """FedBuff (Z=5) on the card: per event with K1 per leaf, blocked (E=4)
+    with K2, against the plain flat update, the Python loop and each other."""
+    from repro_torch.core.async_sgd import run_fedbuff
+
+    setup, mu = _setup(dev)
+    cfg = ServerConfig(n=16, C=4, T=300, eta=0.05, mu=mu, eval_every=100, engine="scan",
+                       device="cuda")
+    run = lambda c: run_fedbuff(setup.params, setup.clients, c, Z=5,  # noqa: E731
+                                eval_fn=setup.eval_fn)
+    u = np.full(16, 1 / 16)  # FedBuff samples uniformly
+    stream = export_stream(SimConfig(mu=mu, p=u, C=4, T=300))
+    rows = blocked_inputs(EventBlocks.from_stream(stream, 4, cut_every=100),
+                          step_scales(stream, 0.05, u, "plain"), 100)[0].shape[0]
+    cuda_kernels.reset_launches()
+    w_k1, tr_k1 = run(replace(cfg, update="pallas"))
+    assert cuda_kernels.launches["weighted_update"] == 300 * 6
+    w_k2, tr_k2 = run(replace(cfg, update="pallas", block_size=4))
+    assert cuda_kernels.launches["block_prefix_update"] == rows
+    w_p, tr_p = run(cfg)
+    assert max(_err(w_k1[k], w_p[k]) for k in w_p) <= 1e-5
+    assert tr_k1.eval_values == tr_p.eval_values
+    assert max(abs(a - b) for a, b in zip(tr_k2.eval_values, tr_p.eval_values)) <= 10 / 2048
+    small = replace(cfg, T=150, eval_every=0)
+    w_py, _ = run(replace(small, engine="python"))
+    w_e, _ = run(replace(small, update="pallas"))
+    w_b, _ = run(replace(small, update="pallas", block_size=4))
+    assert max(_err(w_py[k], w_e[k]) for k in w_py) <= 1e-5
+    assert max(_err(w_py[k], w_b[k]) for k in w_py) <= 1e-4
 
 
 def test_engine_matches_python_oracle_on_card(dev):

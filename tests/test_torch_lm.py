@@ -364,7 +364,6 @@ def test_cuda_device_raises_without_a_card():
 @pytest.mark.parametrize("argv,item", [
     (["--mode", "lm", "--engine", "fused"], "item 6"),
     (["--mode", "lm", "--ckpt-dir", "ckpt"], "item 8"),
-    (["--mode", "fl"], "item 4"),  # the default --methods ends with fedbuff
 ])
 def test_cli_unported_options_raise(argv, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -388,3 +387,13 @@ def test_cli_lm_mode_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     losses = [float(line.split()[-1]) for line in out.splitlines() if "eval_loss" in line]
     assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+def test_cli_fl_mode_runs_on_cpu(capsys):
+    """``--mode fl`` runs its default methods gen_async, async_sgd and
+    fedbuff (FedBuff is ported, ROADMAP Queue 1 item 4)."""
+    t_train.main(["--mode", "fl", "--device", "cpu", "--clients", "8", "--concurrency", "2",
+                  "--steps", "20", "--eval-every", "10"])
+    lines = [line for line in capsys.readouterr().out.splitlines() if "final_acc=" in line]
+    assert [line.split()[0] for line in lines] == ["gen_async", "async_sgd", "fedbuff"]
+    assert all(np.isfinite(float(line.split("final_acc=")[1].split()[0])) for line in lines)
