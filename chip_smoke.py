@@ -113,23 +113,31 @@ BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's
 # K3 shapes (B, S, H, K, D, T, window, q_offset): the grid of
-# tests/test_kernels.py, Granite-3.0-2B's path shape, a long causal sequence
-# with and without a window, D=80 and D=128 with ragged S and T, and rows
-# whose every key is masked (T a multiple of the key tile or not)
-FA_PATH_SHAPE = (8, 128, 32, 8, 64, 128, 0, 0)
+# tests/test_kernels.py, the two LM path shapes (Granite-3.0-2B's, then
+# Qwen1.5-MoE-A2.7B's), a long causal sequence with and without a window,
+# D=80 and D=128 with ragged S and T, rows whose every key is masked (T a
+# multiple of the key tile or not), and windows that let the tensor-core
+# kernel's 64-row query tiles skip 64-key tiles on both sides, beside rows
+# masked on every key (q tile 0 of the last shape visits every tile)
+FA_PATH_SHAPES = [(8, 128, 32, 8, 64, 128, 0, 0), (8, 128, 16, 16, 128, 128, 0, 0)]
+FA_PATH_SHAPE = FA_PATH_SHAPES[0]
 FA_SHAPES = [
     (2, 128, 4, 2, 64, 128, 0, 0),
     (1, 256, 8, 4, 64, 256, 64, 0),
     (1, 64, 4, 1, 128, 64, 0, 0),
     (1, 128, 4, 4, 128, 384, 0, 256),
     (2, 64, 6, 2, 32, 64, 16, 0),
-    FA_PATH_SHAPE,
+    *FA_PATH_SHAPES,
     (1, 2048, 32, 8, 64, 2048, 0, 0),
     (1, 2048, 32, 8, 64, 2048, 512, 0),
     (2, 100, 8, 2, 80, 100, 0, 0),
     (1, 200, 4, 2, 128, 333, 0, 133),
     (1, 64, 4, 2, 64, 64, 16, 200),
     (1, 40, 2, 1, 64, 50, 8, 100),
+    (1, 512, 8, 2, 64, 512, 96, 0),
+    (2, 200, 8, 2, 80, 200, 70, 0),
+    (1, 192, 4, 2, 128, 256, 40, 100),
+    (1, 128, 4, 2, 64, 128, 16, 120),
 ]
 # the LM slice: run_lm's configuration, C cut from 8 to 4 (memory)
 LM_ARCH, LM_N, LM_C, LM_T, LM_EVAL = "granite-3-2b", 20, 4, 64, 16
@@ -170,10 +178,10 @@ MAMBA_CURVE_TOL = {"pallas_update": 3.8e-3, "plain_ssd": 1.4e-3, "blocked": 8.8e
 # tests/test_kernels.py, a ragged capacity, C over two 128-row slabs with D
 # and F that rule out 16-byte loads, and Arctic's per-expert shape at 16 of
 # its 128 experts (capacity 12 from a group of 512 tokens, top-2; bf16 only)
-GMM_PATH_SHAPE = (60, 88, 2048, 1408)
+GMM_PATH_SHAPES = [(60, 88, 2048, 1408), (60, 88, 1408, 2048)]
+GMM_PATH_SHAPE = GMM_PATH_SHAPES[0]
 GMM_SHAPES = [
-    GMM_PATH_SHAPE,
-    (60, 88, 1408, 2048),
+    *GMM_PATH_SHAPES,
     (4, 256, 128, 256),
     (2, 128, 256, 128),
     (8, 64, 64, 64),
@@ -519,17 +527,18 @@ def _fa_pairs(S: int, T: int, window: int, q_offset: int) -> int:
 
 
 def phase_flash_attention(dev) -> dict:
-    """K3 against its plain version over `FA_SHAPES`, fp32 and bf16, timed
-    beside the plain version and `F.scaled_dot_product_attention` (causal,
-    square, no window: the only shapes where one library call computes the
-    same function); then its gradients through `FlashAttention`."""
+    """K3 against its plain version over `FA_SHAPES`, fp32 and bf16, each
+    cell launched twice (bitwise equal), timed beside the plain version and
+    `F.scaled_dot_product_attention` (causal, square, no window: the only
+    shapes where one library call computes the same function), in full at
+    `FA_PATH_SHAPES` in bf16; then its gradients through `FlashAttention`."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator().manual_seed(0)
-    out_row = None
+    path_rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in FA_SHAPES:
             B, S, H, K, D, T, window, q_offset = shape
@@ -538,12 +547,21 @@ def phase_flash_attention(dev) -> dict:
             v = torch.randn((B, T, K, D), generator=gen).to(dev, dtype)
             kw = dict(causal=True, window=window, q_offset=q_offset)
             out = fa.flash_attention_fwd(q, k, v, **kw)
+            again = fa.flash_attention_fwd(q, k, v, **kw)
             exp = ref.flash_attention_ref(q, k, v, **kw)
             torch.cuda.synchronize()
             err, close = max_err(out, exp), _allclose_err(out, exp)
-            tag = f"flash_attention {str(dtype)[6:]} {shape}"
-            check(close <= FA_TOL[dtype] and out.dtype == dtype,
-                  f"{tag} allclose tol {close:.3e} <= {FA_TOL[dtype]} (max abs err {err:.3e})")
+            same = torch.equal(out, again)
+            bq, bk = fa.kernel_tiles(q, k, v, out, window, q_offset)
+            # (query, key) pairs the tile plan scores over those the function
+            # needs, computed from `key_tiles` (the kernels do not count them)
+            work = fa.visited_pairs(S, T, True, window, q_offset, bq, bk) / _fa_pairs(
+                S, T, window, q_offset)
+            tag = (f"flash_attention {str(dtype)[6:]} {shape} tile {bq}x{bk} "
+                   f"(scored / needed pairs by key_tiles {work:.3f})")
+            check(close <= FA_TOL[dtype] and out.dtype == dtype and same,
+                  f"{tag} allclose tol {close:.3e} <= {FA_TOL[dtype]} (max abs err {err:.3e}), "
+                  f"two launches bitwise equal {same}")
             library = None
             if window == 0 and q_offset == 0 and S == T:
                 qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -553,20 +571,27 @@ def phase_flash_attention(dev) -> dict:
             nbytes = esz * (2 * B * S * H * D + 2 * B * T * K * D)  # read q, k, v; write o
             flops = 4 * D * B * H * _fa_pairs(S, T, window, q_offset)  # QK^T and PV
             b, by = bound_ms(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
-            if shape == FA_PATH_SHAPE and dtype == torch.bfloat16:
-                t = _timings(lambda: fa.flash_attention_fwd(q, k, v, **kw),
-                             lambda: ref.flash_attention_ref(q, k, v, **kw), library)
-                out_row = dict(max_abs_err=err, allclose_tol=close, bound_ms=b, bound_by=by, **t)
-                row = out_row
+            row = dict(shape=list(shape), max_abs_err=err, allclose_tol=close, bound_ms=b,
+                       bound_by=by)
+            if shape in FA_PATH_SHAPES and dtype == torch.bfloat16:
+                row.update(_timings(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                                    lambda: ref.flash_attention_ref(q, k, v, **kw), library))
+                path_rows[shape] = row
             else:
                 quick = dict(batches=5, per_batch=10, warmup=3)
-                row = dict(max_abs_err=err, allclose_tol=close, bound_ms=b, bound_by=by,
-                           ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), **quick),
+                row.update(ms=time_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw), **quick),
                            plain_ms=time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw), **quick),
                            library_ms=None if library is None else time_ms(library, **quick))
             print(f"     {tag}: {json.dumps(row)}")
-            del q, k, v, out, exp, library
+            del q, k, v, out, again, exp, library
     torch.cuda.empty_cache()
+    info = {f"{str(dt)[6:]} D={D}": fa.kernel_info(dt, D)
+            for dt, D in [(torch.bfloat16, D) for D in fa.TC_HEAD_DIMS]
+            + [(torch.bfloat16, 96), (torch.float32, 64), (torch.float32, 128)]}
+    print(f"     flash_attention kernels (registers, static / dynamic shared memory, "
+          f"local bytes): {json.dumps(info)}")
+    check(all(i["local_bytes"] == 0 for i in info.values()),
+          "flash_attention kernels spill nothing to local memory")
 
     # gradients: FlashAttention (kernel forward, reference VJP) vs the
     # reference, with tests/test_lm_engine.py's linear probe loss
@@ -584,7 +609,9 @@ def phase_flash_attention(dev) -> dict:
         close = max(_allclose_err(a, b) for a, b in zip(gk, gr))
         check(close <= FA_TOL[dtype],
               f"flash_attention grads {str(dtype)[6:]} allclose tol {close:.3e} <= {FA_TOL[dtype]}")
-    return {"flash_attention": out_row}
+    first = dict(path_rows[FA_PATH_SHAPES[0]])
+    first.update(path_shapes=[path_rows[sh] for sh in FA_PATH_SHAPES], kernel_info=info)
+    return {"flash_attention": first}
 
 
 def _ssd_inputs(dev, dtype, B, S, H, P, N, a_range, dt_range, gen):
@@ -700,28 +727,31 @@ def _gmm_inputs(dev, dtype, E, C, D, F, gen):
 
 def phase_moe_gmm(dev) -> dict:
     """11. K5 against its plain version over `GMM_SHAPES` (and Arctic's shape
-    in bf16), timed at the path shape beside the plain version and
-    `torch.bmm` (bf16 in, fp32 accumulation, bf16 out: the same function in
-    one call); its gradients through `MoeGMM`; one launch under ``vmap``;
-    the CPU and dtype dispatch."""
+    in bf16), each cell launched twice (bitwise equal), timed in full at
+    `GMM_PATH_SHAPES` in bf16 beside the plain version and `torch.bmm`
+    (bf16 in, fp32 accumulation, bf16 out: the same function in one call);
+    its gradients through `MoeGMM`; one launch under ``vmap``; the CPU and
+    dtype dispatch."""
     from repro_torch.kernels import moe_gmm as k5
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator().manual_seed(2)
-    out_row = None
+    path_rows = {}
     cells = [(d, s) for d in (torch.float32, torch.bfloat16) for s in GMM_SHAPES]
     for dtype, shape in cells + [(torch.bfloat16, GMM_ARCTIC)]:
         E, C, D, F = shape
         x, w = _gmm_inputs(dev, dtype, *shape, gen)
         y = k5.moe_gmm_fwd(x, w)
+        again = k5.moe_gmm_fwd(x, w)
         e = ref.moe_gmm_ref(x, w)
         torch.cuda.synchronize()
         err, close = max_err(y, e), _allclose_err(y, e)
         finite = bool(torch.isfinite(y.float()).all())
-        tag = f"moe_gmm {str(dtype)[6:]} {shape}"
-        check(finite and close <= FA_TOL[dtype] and y.dtype == dtype,
+        same = torch.equal(y, again)
+        tag = f"moe_gmm {str(dtype)[6:]} {shape} {k5.kernel_path(x, w)}"
+        check(finite and close <= FA_TOL[dtype] and y.dtype == dtype and same,
               f"{tag}: finite {finite}, allclose tol {close:.3e} <= {FA_TOL[dtype]} "
-              f"(max abs err {err:.3e})")
+              f"(max abs err {err:.3e}), two launches bitwise equal {same}")
         esz = torch.finfo(dtype).bits // 8
         nbytes = esz * (E * C * D + E * D * F + E * C * F)  # read x, w; write y
         b, by = bound_ms(nbytes, 2 * E * C * D * F,
@@ -729,17 +759,25 @@ def phase_moe_gmm(dev) -> dict:
         kernel = lambda: k5.moe_gmm_fwd(x, w)  # noqa: E731
         plain = lambda: ref.moe_gmm_ref(x, w)  # noqa: E731
         library = lambda: torch.bmm(x, w)  # noqa: E731
-        row = dict(max_abs_err=err, allclose_tol=close, bound_ms=b, bound_by=by)
-        if shape == GMM_PATH_SHAPE and dtype == torch.bfloat16:
+        row = dict(shape=list(shape), max_abs_err=err, allclose_tol=close, bound_ms=b,
+                   bound_by=by)
+        if shape in GMM_PATH_SHAPES and dtype == torch.bfloat16:
             row.update(_timings(kernel, plain, library))
-            out_row = row
+            path_rows[shape] = row
         else:
             quick = dict(batches=5, per_batch=10, warmup=3)
             row.update(ms=time_ms(kernel, **quick), plain_ms=time_ms(plain, **quick),
                        library_ms=time_ms(library, **quick))
         print(f"     {tag}: {json.dumps(row)}")
-        del x, w, y, e, kernel, plain, library
+        del x, w, y, again, e, kernel, plain, library
     torch.cuda.empty_cache()
+    info = {"bf16 tc": k5.kernel_info(torch.bfloat16, True),
+            "bf16 scalar": k5.kernel_info(torch.bfloat16, False),
+            "f32": k5.kernel_info(torch.float32, True)}
+    print(f"     moe_gmm kernels (registers, static / dynamic shared memory, local bytes): "
+          f"{json.dumps(info)}")
+    check(all(i["local_bytes"] == 0 for i in info.values()),
+          "moe_gmm kernels spill nothing to local memory")
 
     # gradients of x and w: MoeGMM (kernel forward, reference VJP) vs the
     # reference, linear probe loss
@@ -784,7 +822,9 @@ def phase_moe_gmm(dev) -> dict:
           f"moe_gmm dispatch: CPU tensor -> plain version {same}, no launch "
           f"({k5.launches['moe_gmm']}), dtype mismatch raises {raised}")
     torch.cuda.empty_cache()
-    return {"moe_gmm": out_row}
+    first = dict(path_rows[GMM_PATH_SHAPES[0]])
+    first.update(path_shapes=[path_rows[sh] for sh in GMM_PATH_SHAPES], kernel_info=info)
+    return {"moe_gmm": first}
 
 
 def phase_mlp(dev, launches: dict) -> dict:
@@ -1404,6 +1444,19 @@ def phase_moe_lm(dev, launches: dict) -> None:
     check(bool(curve[-1] < curve[0]), f"Qwen-MoE eval loss falls: {curve[0]:.5f} -> {curve[-1]:.5f}")
     counts_ok("run_experiment")
 
+    # 1b. the same run again: the K3 + K5 path repeats bitwise (no atomics
+    # on its forward or backward, the sort dispatch included)
+    task.__dict__.pop("_fl_setup_cache", None)
+    for mod in (fa, k5, wu):
+        mod.reset_launches()
+    task, curve_again = experiment(True)
+    path["flash_attention"] += fa.launches["flash_attention"]
+    path["moe_gmm"] += k5.launches["moe_gmm"]
+    counts_ok("run_experiment, repeated")
+    check(np.array_equal(curve, curve_again),
+          f"Qwen-MoE K3 + K5 eval curve repeats bitwise: {curve.tolist()} == "
+          f"{curve_again.tolist()}")
+
     # 2. the same task with the per-leaf K1 update
     setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
     mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
@@ -1448,7 +1501,23 @@ def phase_moe_lm(dev, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+GROUPS = ("k1k2k6", "fa", "ssd", "gmm", "mlp", "lanes", "granite", "ssm", "moe")
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma list of phase groups to run after the build (default: all "
+                         f"of {', '.join(GROUPS)}); 'lanes' implies 'mlp'.  A partial run "
+                         "prints no kernels line and no result line")
+    groups = set(ap.parse_args(argv).only.split(","))
+    unknown = groups - set(GROUPS)
+    if unknown:
+        ap.error(f"unknown phase groups {sorted(unknown)}")
+    if "lanes" in groups:
+        groups.add("mlp")
     t_start = time.perf_counter()
 
     def done(phases: str) -> None:
@@ -1479,40 +1548,54 @@ def main() -> int:
     print(f"build: {srcs} in {time.perf_counter() - t0:.2f} s")
     done("1")
 
-    # 2. kernels against their plain versions
+    # 2. and 11. kernels against their plain versions
     gen = torch.Generator().manual_seed(0)
-    rows = phase_kernels(dev, gen)
-    rows.update(phase_flash_attention(dev))
-    rows.update(phase_ssd_scan(dev))
-    rows.update(phase_moe_gmm(dev))
+    rows = {}
+    if "k1k2k6" in groups:
+        rows.update(phase_kernels(dev, gen))
+    if "fa" in groups:
+        rows.update(phase_flash_attention(dev))
+    if "ssd" in groups:
+        rows.update(phase_ssd_scan(dev))
+    if "gmm" in groups:
+        rows.update(phase_moe_gmm(dev))
     done("2, 11")
 
     # 3.-8. the MLP and dense LM slices, each kernel path's launches counted per path
     launches: dict = {}
-    blocked = phase_mlp(dev, launches)
-    done("3-6")
+    if "mlp" in groups:
+        blocked = phase_mlp(dev, launches)
+        done("3-6")
     # 14.-16. FedBuff, the lane-sharded MLP slice, the FL launcher, FedAvg, FAVANO
-    phase_lanes(dev, launches, blocked)
-    done("14-16")
+    if "lanes" in groups:
+        phase_lanes(dev, launches, blocked)
+        done("14-16")
     torch.cuda.empty_cache()
-    phase_grad_check(dev, LM_ARCH)
-    phase_lm(dev, launches)
-    done("7-8")
-    torch.cuda.empty_cache()
+    if "granite" in groups:
+        phase_grad_check(dev, LM_ARCH)
+        phase_lm(dev, launches)
+        done("7-8")
+        torch.cuda.empty_cache()
     # 9.-10. the SSM and hybrid slice
-    phase_grad_check(dev, MAMBA_ARCH)
-    phase_grad_check(dev, "zamba2-2.7b")
-    phase_mamba(dev, launches)
-    done("9-10")
-    torch.cuda.empty_cache()
+    if "ssm" in groups:
+        phase_grad_check(dev, MAMBA_ARCH)
+        phase_grad_check(dev, "zamba2-2.7b")
+        phase_mamba(dev, launches)
+        done("9-10")
+        torch.cuda.empty_cache()
     # 12.-13. the MoE slice
-    phase_grad_check(dev, MOE_ARCH, num_layers=MOE_LAYERS)
-    phase_moe_lm(dev, launches)
-    done("12-13")
+    if "moe" in groups:
+        phase_grad_check(dev, MOE_ARCH, num_layers=MOE_LAYERS)
+        phase_moe_lm(dev, launches)
+        done("12-13")
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)
         return 1
+    if groups != set(GROUPS):
+        print(f"chip_smoke: every check of {sorted(groups)} passed; a partial run, so no "
+              "kernels line and no result line")
+        return 0
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {
         "weighted_update": ("weighted_update.cu", "src/repro/kernels/weighted_update.py:112"),

@@ -39,12 +39,16 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": (_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                                 _INT, _I64, _I64, ctypes.c_float, _P),
+        "flash_attention_kernel_info": (_INT, _I64, _P),
+        "flash_attention_route": (_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64),
     },
     "ssd_scan": {
         "ssd_scan_fwd": (_INT, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P),
     },
     "moe_gmm": {
         "moe_gmm_fwd": (_INT, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+        "moe_gmm_kernel_info": (_INT, _INT, _P),
+        "moe_gmm_route": (_INT, _P, _P, _I64, _I64),
     },
 }
 

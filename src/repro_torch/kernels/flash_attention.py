@@ -14,6 +14,13 @@ engine's ``vmap(grad(loss))`` goes through the kernel too.
 device and contiguity, allocates the output, launches on PyTorch's current
 stream, raises if the launch is refused, never synchronises, and adds one
 to `launches["flash_attention"]` per launch, and nowhere else.
+
+The CUDA source has two kernels behind that one entry point: the
+tensor-core kernel (bf16 at a head dim of `TC_HEAD_DIMS`, 64 query rows x
+64-key tiles) and the CUDA-core kernel (fp32, and bf16 at any other D; 32 x
+32).  `kernel_tiles` asks the library which tile a call gets, and
+`key_tiles` is the kernels' rule for the key tiles a query tile visits,
+kept in Python too so that the rule can be tested on the CPU.
 """
 from __future__ import annotations
 
@@ -24,11 +31,60 @@ import torch
 
 from ..device import on_cuda
 from . import build, ref
+from .weighted_update import _DTYPES as _DTYPE_CODES
 from .weighted_update import _check_cuda, _code, _raise_on, _stream
 
-__all__ = ["FlashAttention", "flash_attention_fwd", "launches", "reset_launches"]
+__all__ = ["FlashAttention", "TC_HEAD_DIMS", "flash_attention_fwd", "kernel_info",
+           "kernel_tiles", "key_tiles", "launches", "reset_launches", "visited_pairs"]
 
 launches = {"flash_attention": 0}
+
+TC_HEAD_DIMS = (32, 64, 80, 128)  # the tensor-core kernel's templates
+TC_TILE = (64, 64)                # its (query rows, keys) per CTA and staged tile
+SIMPLE_TILE = (32, 32)            # the CUDA-core kernel's
+
+
+def kernel_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                 window: int = 0, q_offset: int = 0) -> tuple[int, int]:
+    """``(query rows, keys)`` of the tile of the kernel that
+    `flash_attention_fwd` takes on these CUDA operands and output, as the
+    library's dispatch reports it (``csrc/flash_attention.cu:
+    flash_attention_route``): `TC_TILE` for the tensor-core kernel,
+    `SIMPLE_TILE` for the CUDA-core kernel."""
+    S, D, T = q.shape[1], q.shape[3], k.shape[1]
+    tc = build.load("flash_attention").flash_attention_route(
+        _code(q, "flash_attention"), q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        S, T, D, int(window), int(q_offset))
+    return TC_TILE if tc else SIMPLE_TILE
+
+
+def key_tiles(q0: int, bq: int, S: int, T: int, causal: bool, window: int, q_offset: int,
+              bk: int) -> tuple[int, int]:
+    """Key tiles ``[lo, hi)`` (of ``bk`` keys) that the CTA of query rows
+    ``[q0, q0 + bq)`` visits; the mirror of ``csrc/flash_attention.cu:
+    key_tiles``.  A tile is left out only when every real row (< S) of the
+    query tile masks all its keys, and when some row masks all T keys (that
+    row averages v over all of them, as the reference does) nothing is
+    left out."""
+    ntiles = -(-T // bk)
+    p0 = q0 + q_offset
+    p1 = min(q0 + bq, S) - 1 + q_offset
+    if (causal and p0 < 0) or (window > 0 and p1 - window + 1 > T - 1):
+        return 0, ntiles
+    t_lo = max(0, p0 - window + 1) if window > 0 else 0
+    t_hi = min(T - 1, p1) if causal else T - 1
+    return t_lo // bk, t_hi // bk + 1
+
+
+def visited_pairs(S: int, T: int, causal: bool, window: int, q_offset: int,
+                  bq: int, bk: int) -> int:
+    """(query row, key) pairs the kernel scores: each real row against the
+    real keys of its query tile's visited key tiles."""
+    total = 0
+    for q0 in range(0, S, bq):
+        lo, hi = key_tiles(q0, bq, S, T, causal, window, q_offset, bk)
+        total += (min(q0 + bq, S) - q0) * (min(hi * bk, T) - lo * bk)
+    return total
 
 
 def reset_launches() -> None:
@@ -60,6 +116,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ctypes.c_float(1.0 / np.sqrt(D)), _stream(q)), "flash_attention_fwd")
     launches["flash_attention"] += 1
     return out
+
+
+def kernel_info(dtype: torch.dtype, D: int) -> dict:
+    """Registers, static and dynamic shared memory and local (spill) bytes
+    of the kernel `flash_attention_fwd` launches for ``dtype`` at head dim
+    ``D``, as the CUDA runtime reports them (builds the library)."""
+    out = (ctypes.c_int * 4)()
+    _raise_on(build.load("flash_attention").flash_attention_kernel_info(
+        _DTYPE_CODES[dtype], D, ctypes.cast(out, ctypes.c_void_p)), "flash_attention_kernel_info")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes"), out))
 
 
 def _forward(q, k, v, causal, window, q_offset):

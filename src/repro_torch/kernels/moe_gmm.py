@@ -20,16 +20,25 @@ raises on anything else, allocates ``y`` with `torch.empty`, launches on
 PyTorch's current stream, raises if the launch is refused, never
 synchronises, and adds one to ``launches["moe_gmm"]`` per launch, and
 nowhere else.
+
+The CUDA source has three kernels behind that one entry point: bf16 with
+16-byte aligned rows ("tc": a ring of TMA copies feeding wgmma, one
+producer and two consumer warpgroups), bf16 otherwise ("scalar") and fp32
+("f32", "f32x4" with 16-byte loads); `kernel_path` asks the library which
+one a call takes.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..device import on_cuda
 from . import build, ref
+from .weighted_update import _DTYPES as _DTYPE_CODES
 from .weighted_update import _check_cuda, _code, _raise_on, _stream
 
-__all__ = ["MoeGMM", "moe_gmm_fwd", "launches", "reset_launches"]
+__all__ = ["MoeGMM", "kernel_info", "kernel_path", "moe_gmm_fwd", "launches", "reset_launches"]
 
 launches = {"moe_gmm": 0}
 
@@ -60,6 +69,31 @@ def moe_gmm_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                               E, C, D, F, _stream(x)), "moe_gmm_fwd")
     launches["moe_gmm"] += 1
     return y
+
+
+_ROUTES = ("f32", "f32x4", "scalar", "tc")  # csrc/moe_gmm.cu:moe_gmm_route's codes
+
+
+def kernel_path(x: torch.Tensor, w: torch.Tensor) -> str:
+    """Which kernel `moe_gmm_fwd` takes on these CUDA operands, as the
+    library's dispatch reports it (``csrc/moe_gmm.cu:moe_gmm_route``):
+    "tc" (the wgmma kernel) or "scalar" for bf16, "f32x4" (16-byte loads)
+    or "f32" for float32."""
+    code = build.load("moe_gmm").moe_gmm_route(_code(x, "moe_gmm"), x.data_ptr(), w.data_ptr(),
+                                               x.shape[2], w.shape[2])
+    return _ROUTES[code]
+
+
+def kernel_info(dtype: torch.dtype, vector: bool = True) -> dict:
+    """Registers, static and dynamic shared memory and local (spill) bytes
+    of the kernel `moe_gmm_fwd` launches for ``dtype`` with 16-byte copies
+    (``vector``) or without, as the CUDA runtime reports them (builds the
+    library)."""
+    out = (ctypes.c_int * 4)()
+    _raise_on(build.load("moe_gmm").moe_gmm_kernel_info(
+        _DTYPE_CODES[dtype], int(vector), ctypes.cast(out, ctypes.c_void_p)),
+        "moe_gmm_kernel_info")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes"), out))
 
 
 def _forward(x, w):

@@ -13,7 +13,6 @@ import torch
 
 from ..device import on_cuda
 from ..tree import tree_flatten, tree_leaves, tree_map
-from ..unported import unported
 from . import ref
 from . import weighted_update as _cuda
 from .flash_attention import FlashAttention
@@ -64,12 +63,11 @@ def ssd_scan(x, dt, A, Bm, Cm, chunk=64, init_state=None):
     x (B,S,H,P), dt (B,S,H) fp32, A (H,) (or per row (B,H)) fp32, Bm/Cm
     (B,S,N) -> ``(y (B,S,H,P), state (B,H,N,P) fp32)``.  ``A`` goes to
     `SSDScan` per row, so a `vmap` over snapshots folds into one launch.
-    The kernel starts from a zero state: with ``init_state`` a CUDA tensor
-    raises (prefill with a state is the serving plane's), a CPU tensor
-    takes the plain version."""
+    The kernel, like the TPU kernel it replaces, starts from a zero state:
+    a call with ``init_state`` takes the plain version on every device, as
+    the reference's dispatch does (`repro/kernels/ops.py:ssd_scan`).  The
+    argument chooses that route, never a failure of the kernel."""
     if init_state is not None:
-        if on_cuda(x):
-            raise unported("ssd_scan with init_state", 11)
         return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk, init_state)
     if A.ndim == 1:
         A = A.expand(x.shape[0], A.shape[0])

@@ -323,7 +323,10 @@ def _route_group_sorted(params, xg: torch.Tensor, cfg: ModelConfig):
     except the trash row E*cap, so ``index_add`` is exact; the combine adds
     each token's k contributions in k order, in y's dtype, as XLA's
     scatter-add applies them (an ``index_add`` on the card would add bf16
-    with atomics in no fixed order)."""
+    with atomics in no fixed order).  For the same reason each token's k
+    copies come from ``repeat``, whose backward sums them in k order, not
+    from an ``index_select`` over ``arange(N).repeat(k)`` (the reference's
+    ``xg[tok_f]``), whose backward would add them with atomics."""
     N, D = xg.shape
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     cap = _capacity(N, cfg)
@@ -332,7 +335,6 @@ def _route_group_sorted(params, xg: torch.Tensor, cfg: ModelConfig):
     # k-major flattening (same priority order as the einsum path)
     idx_f = idx.T.reshape(N * k)                                  # (k*N,)
     gates_f = gate_vals.T.reshape(N * k)
-    tok_f = torch.arange(N, device=dev).repeat(k)
     # position within expert via stable sort over expert ids
     order = torch.argsort(idx_f, stable=True)
     sorted_e = torch.gather(idx_f, 0, order)
@@ -341,7 +343,7 @@ def _route_group_sorted(params, xg: torch.Tensor, cfg: ModelConfig):
     keep = pos < cap
     slot = torch.where(keep, idx_f * cap + pos, E * cap)          # overflow -> dropped row
     # scatter tokens into the dispatch buffer (E*cap+1, D); last row = trash
-    src = xg.index_select(0, tok_f) * keep[:, None]
+    src = xg.repeat(k, 1) * keep[:, None]                          # token of row i: i % N
     buf = torch.zeros((E * cap + 1, D), dtype=xg.dtype, device=dev).index_add(0, slot, src)
     xin = buf[: E * cap].reshape(E, cap, D)
     if cfg.use_pallas:

@@ -200,22 +200,29 @@ def test_engine_matches_python_oracle_on_card(dev):
 
 
 # K3 shapes (B, S, H, K, D, T, window, q_offset), as chip_smoke.py checks them:
-# the grid of tests/test_kernels.py, Granite-3.0-2B's path shape, a long
-# causal sequence with and without a window, D=80 and D=128 with ragged S and
-# T, and rows whose every key is masked (T a multiple of the key tile or not)
+# the grid of tests/test_kernels.py, the LM path shapes (Granite-3.0-2B's,
+# Qwen1.5-MoE-A2.7B's), a long causal sequence with and without a window, D=80
+# and D=128 with ragged S and T, rows whose every key is masked (T a multiple
+# of the key tile or not), and windows that let the tensor-core kernel skip
+# key tiles, beside rows masked on every key
+FA_PATH_SHAPES = [(8, 128, 32, 8, 64, 128, 0, 0), (8, 128, 16, 16, 128, 128, 0, 0)]
 FA_SHAPES = [
     (2, 128, 4, 2, 64, 128, 0, 0),
     (1, 256, 8, 4, 64, 256, 64, 0),
     (1, 64, 4, 1, 128, 64, 0, 0),
     (1, 128, 4, 4, 128, 384, 0, 256),
     (2, 64, 6, 2, 32, 64, 16, 0),
-    (8, 128, 32, 8, 64, 128, 0, 0),
+    *FA_PATH_SHAPES,
     (1, 2048, 32, 8, 64, 2048, 0, 0),
     (1, 2048, 32, 8, 64, 2048, 512, 0),
     (2, 100, 8, 2, 80, 100, 0, 0),
     (1, 200, 4, 2, 128, 333, 0, 133),
     (1, 64, 4, 2, 64, 64, 16, 200),
     (1, 40, 2, 1, 64, 50, 8, 100),
+    (1, 512, 8, 2, 64, 512, 96, 0),
+    (2, 200, 8, 2, 80, 200, 70, 0),
+    (1, 192, 4, 2, 128, 256, 40, 100),
+    (1, 128, 4, 2, 64, 128, 16, 120),
 ]
 
 
@@ -223,6 +230,15 @@ def _qkv(dev, dtype, B, S, H, K, D, T, seed=0):
     gen = torch.Generator().manual_seed(seed)
     return tuple(torch.randn(shape, generator=gen).to(dev, dtype)
                  for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+
+
+def _misaligned(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    storage (not 16-byte aligned for an offset that is not a multiple of
+    16 bytes)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    buf[offset:].copy_(t.reshape(-1))
+    return buf[offset:].view(t.shape)
 
 
 def _close(a, b, tol) -> bool:
@@ -243,6 +259,45 @@ def test_flash_attention_matches_plain(dev, dtype, B, S, H, K, D, T, window, q_o
     torch.cuda.synchronize()
     assert fa.launches["flash_attention"] == 1
     assert out.dtype == dtype and out.shape == exp.shape
+    assert _close(out, exp, FA_TOL[dtype]), _err(out, exp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FA_PATH_SHAPES + [(1, 192, 4, 2, 128, 256, 40, 100),
+                                                    (2, 100, 8, 2, 80, 100, 0, 0)])
+def test_flash_attention_launches_repeat_bitwise(dev, dtype, shape):
+    """No atomics and a fixed order of summation: two launches on the same
+    inputs give the same bits."""
+    B, S, H, K, D, T, window, q_offset = shape
+    q, k, v = _qkv(dev, dtype, B, S, H, K, D, T, seed=3)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    assert torch.equal(fa.flash_attention_fwd(q, k, v, **kw), fa.flash_attention_fwd(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, D) for D in fa.TC_HEAD_DIMS]
+                         + [(torch.bfloat16, 96), (torch.float32, 64)])
+def test_flash_attention_kernels_do_not_spill(dev, dtype, D):
+    info = fa.kernel_info(dtype, D)
+    assert info["local_bytes"] == 0 and info["registers"] > 0
+    assert info["static_smem"] + info["dynamic_smem"] <= 227 * 1024
+
+
+@pytest.mark.parametrize("dtype,D,offset,tc", [
+    (torch.bfloat16, 64, 0, True), (torch.bfloat16, 80, 0, True),
+    (torch.bfloat16, 128, 0, True), (torch.bfloat16, 32, 0, True),
+    (torch.bfloat16, 96, 0, False), (torch.bfloat16, 64, 1, False),
+    (torch.float32, 64, 0, False), (torch.float32, 128, 0, False),
+])
+def test_flash_attention_route_follows_the_dispatch(dev, dtype, D, offset, tc):
+    """The library reports the tensor-core tile for bf16 at `TC_HEAD_DIMS`
+    with 16-byte aligned operands and the CUDA-core tile otherwise, and the
+    kernel it takes equals the plain version."""
+    q, k, v = _qkv(dev, dtype, 1, 64, 4, 2, D, 96, seed=5)
+    if offset:
+        q = _misaligned(q, offset)
+    out = fa.flash_attention_fwd(q, k, v, window=40, q_offset=32)
+    assert fa.kernel_tiles(q, k, v, out, 40, 32) == (fa.TC_TILE if tc else fa.SIMPLE_TILE)
+    exp = ref.flash_attention_ref(q, k, v, window=40, q_offset=32)
     assert _close(out, exp, FA_TOL[dtype]), _err(out, exp)
 
 
@@ -348,9 +403,17 @@ def test_ssd_scan_matches_plain(dev, dtype, B, S, H, P, N, chunk, a_range, dt_ra
 
 
 def test_ssd_scan_init_state_raises_on_card(dev):
+    """With a state, `ops.ssd_scan` on the card takes the plain version, as
+    the reference's dispatch does on every backend, and launches no K4.
+    (The name is kept from when the port raised here instead.)"""
     x, dt, A, Bm, Cm = _ssd_inputs(dev, torch.float32, 1, 64, 2, 16, 8, (0.5, 2.0), (0.01, 0.2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32, init_state=torch.zeros((1, 2, 8, 16), device=dev))
+    h0 = torch.randn((1, 2, 8, 16), generator=torch.Generator().manual_seed(2)).to(dev)
+    k4.reset_launches()
+    y, s = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=32, init_state=h0)
+    ey, es = ref.ssd_scan_ref(x, dt, A, Bm, Cm, 32, h0)
+    torch.cuda.synchronize()
+    assert k4.launches["ssd_scan"] == 0
+    assert torch.equal(y, ey) and torch.equal(s, es)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -456,6 +519,39 @@ def test_moe_gmm_matches_plain(dev, dtype, shape):
     assert y.dtype == dtype and y.shape == e.shape
     assert bool(torch.isfinite(y.float()).all())
     assert _close(y, e, FA_TOL[dtype]), _err(y, e)
+
+
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, s) for s in GMM_SHAPES[:2]]
+                         + [(torch.bfloat16, (3, 130, 100, 70)), (torch.float32, GMM_SHAPES[0])])
+def test_moe_gmm_launches_repeat_bitwise(dev, dtype, shape):
+    """No atomics and no split of D: two launches give the same bits."""
+    x, w = _gmm_inputs(dev, dtype, *shape, seed=4)
+    assert torch.equal(k5.moe_gmm_fwd(x, w), k5.moe_gmm_fwd(x, w))
+
+
+@pytest.mark.parametrize("dtype,shape,offset,path", [
+    (torch.bfloat16, (4, 20, 256, 128), 0, "tc"), (torch.bfloat16, (3, 130, 100, 70), 0, "scalar"),
+    (torch.bfloat16, (4, 20, 256, 128), 1, "scalar"), (torch.float32, (4, 20, 256, 128), 0, "f32x4"),
+    (torch.float32, (4, 20, 256, 128), 2, "f32"),
+])
+def test_moe_gmm_route_follows_the_dispatch(dev, dtype, shape, offset, path):
+    """The library reports the wgmma kernel for bf16 with D, F % 8 == 0 and
+    16-byte aligned x and w, and the kernel it takes equals the plain
+    version."""
+    x, w = _gmm_inputs(dev, dtype, *shape, seed=6)
+    if offset:
+        x = _misaligned(x, offset)
+    assert k5.kernel_path(x, w) == path
+    y, e = k5.moe_gmm_fwd(x, w), ref.moe_gmm_ref(x, w)
+    assert _close(y, e, FA_TOL[dtype]), _err(y, e)
+
+
+@pytest.mark.parametrize("dtype,vector", [(torch.bfloat16, True), (torch.bfloat16, False),
+                                          (torch.float32, True)])
+def test_moe_gmm_kernels_do_not_spill(dev, dtype, vector):
+    info = k5.kernel_info(dtype, vector)
+    assert info["local_bytes"] == 0 and info["registers"] > 0
+    assert info["static_smem"] + info["dynamic_smem"] <= 227 * 1024
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

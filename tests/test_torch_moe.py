@@ -247,6 +247,32 @@ def test_sort_dispatch_equals_einsum_in_port(arch):
     torch.testing.assert_close(a1, a2, atol=1e-6, rtol=0)
 
 
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sort_dispatch_grads_repeat_bitwise(dtype, use_pallas):
+    """Two gradient calls through the sort dispatch, of the token group and
+    of every weight, are bitwise equal.  Its gather of each token's k copies
+    is a ``repeat``, whose backward sums the k gradients in k order (an
+    ``index_select`` over ``arange(N).repeat(k)`` would add them with
+    atomics on the card, in no fixed order)."""
+    _, (cfg, t_p) = _moe_params(ARCHS[0], 3, moe_dispatch="sort", use_pallas=use_pallas)
+    tdt = DT[dtype][1]
+    t_p = {k: v.to(tdt) if v.is_floating_point() else v for k, v in t_p.items()}
+    xg = torch.from_numpy(
+        np.random.default_rng(9).normal(size=(96, cfg.d_model)).astype(np.float32)).to(tdt)
+    probe = torch.from_numpy(
+        np.random.default_rng(10).normal(size=(96, cfg.d_model)).astype(np.float32))
+
+    def loss(p, x):
+        out, aux = t_layers._route_group_sorted(p, x, cfg)
+        return torch.sum(out.float() * probe) + aux
+
+    g1 = torch.func.grad(loss, argnums=(0, 1))(t_p, xg)
+    g2 = torch.func.grad(loss, argnums=(0, 1))(t_p, xg)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+    assert float(g1[1].float().abs().max()) > 0
+
+
 @pytest.mark.parametrize("dispatch,use_pallas", [("einsum", False), ("sort", False),
                                                  ("sort", True)])
 @pytest.mark.parametrize("arch,group", [

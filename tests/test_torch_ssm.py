@@ -223,12 +223,38 @@ def test_other_devices_raise():
 
 
 def test_init_state_on_cuda_raises_naming_item_11(monkeypatch):
-    """On a CUDA tensor a given state raises instead of taking the plain
-    version (dispatch is `device.on_cuda`, here forced to True)."""
+    """On a CUDA tensor a given state takes the plain version, as the
+    reference's dispatch does on every backend, and launches nothing.  (The
+    name is kept from when the port raised here instead; dispatch is
+    `device.on_cuda`, here forced to True, and a launch would fail on the
+    CPU tensor.)"""
     monkeypatch.setattr(ops, "on_cuda", lambda t: True)
+    monkeypatch.setattr(k4, "on_cuda", lambda t: True)
     _, t_in = _inputs("float32", 1, 16, 2, 8, 4)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ops.ssd_scan(*t_in, chunk=16, init_state=torch.zeros((1, 2, 4, 8)))
+    h0 = torch.from_numpy(np.random.default_rng(4).normal(size=(1, 2, 4, 8)).astype(np.float32))
+    k4.reset_launches()
+    y, s = ops.ssd_scan(*t_in, chunk=16, init_state=h0)
+    ey, es = ref.ssd_scan_ref(*t_in, chunk=16, init_state=h0)
+    assert k4.launches["ssd_scan"] == 0
+    assert torch.equal(y, ey) and torch.equal(s, es)
+
+
+@pytest.mark.parametrize("card", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_state_matches_jax_ops_on_either_route(monkeypatch, card, dtype):
+    """`ops.ssd_scan` with a state against the JAX package's `ops.ssd_scan`
+    with the same state, on the CUDA route (`on_cuda` forced True) and the
+    CPU route alike: both take the plain version."""
+    from repro.kernels import ops as j_ops
+
+    monkeypatch.setattr(ops, "on_cuda", lambda t: card)
+    j_in, t_in = _inputs(dtype, 2, 64, 3, 16, 8, seed=6)
+    h0 = np.random.default_rng(7).normal(size=(2, 3, 8, 16)).astype(np.float32)
+    ey, es = j_ops.ssd_scan(*j_in, chunk=16, init_state=jnp.asarray(h0))
+    y, s = ops.ssd_scan(*t_in, chunk=16, init_state=torch.from_numpy(h0))
+    assert y.dtype == t_in[0].dtype and s.dtype == torch.float32
+    np.testing.assert_allclose(_f32(y), _f32(ey), atol=TOL[dtype], rtol=TOL[dtype])
+    np.testing.assert_allclose(s.numpy(), np.asarray(es), atol=STATE_TOL[dtype])
 
 
 def test_cuda_wrapper_rejects_bad_operands():
