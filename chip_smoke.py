@@ -60,9 +60,13 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    ``update="pallas"`` (K1 launches == 64 x 11), blocked ``block_size=4,
    update="pallas"`` (K2 launches == block rows, K4 through the `vmap`
    rule == 24 x (block rows + evals)), and the plain SSD; K4 launches ==
-   24 x forwards on the per-event runs, eval loss finite and falling, the
-   curves within `MAMBA_CURVE_TOL` of each other, peak device memory, and a
-   profile of a few events of the per-event and blocked kernel paths;
+   24 x forwards on the per-event runs, eval loss finite, the clients'
+   training loss over the run's 64 trained minibatches falling (K4 and
+   plain SSD; the eval loss does not fall over these 64 events, with the
+   plain SSD neither), the curves within `MAMBA_CURVE_TOL` of each other
+   and the eval loss of the initial weights with K4 within
+   `MAMBA_CURVE_TOL["plain_ssd"]` of the plain SSD's, peak device memory,
+   and a profile of a few events of the per-event and blocked kernel paths;
 11. K5, the grouped expert matmul, against its plain version over
    `GMM_SHAPES` (allclose with atol = rtol = 2e-5 fp32, 2e-2 bf16), timed
    at Qwen1.5-MoE-A2.7B's path shape beside the plain version and
@@ -165,6 +169,10 @@ SSD_SHAPES = [
     (2, 128, 3, 32, 16, 64, (1.0, 16.0), (0.0, 1.0)),
 ]
 SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the shapes that must take the tensor-core kernel in bf16 (Mamba2-130M's
+# path shape, its blocked fold, Zamba2-2.7B's), and the ones timed in full
+SSD_TC_SHAPES = SSD_SHAPES[3:6]
+SSD_TIMED_SHAPES = SSD_SHAPES[3:5]
 # the Mamba2 LM slice: run_lm's configuration at full width and depth
 MAMBA_ARCH, MAMBA_C, MAMBA_E = "mamba2-130m", 8, 4
 MAMBA_PARAMS, MAMBA_LEAVES = 128_983_488, 11
@@ -411,14 +419,16 @@ def _scatter_cost(slots: list[int], P: int, esz_ring: int, esz_w: int) -> int:
 
 def _phase_scatter_rows(dev) -> dict:
     """K6 against its plain version over `SCATTER_SHAPES`: every ring row and
-    w' bitwise (both cast W to the ring's dtype and store the rows in event
-    order), timed beside the plain version and ``index_copy_`` plus the
-    final-row copy (one PyTorch call each; with duplicate trash-row slots
-    ``index_copy_`` leaves the trash row undefined, which no reader sees)."""
+    w' bitwise (the plain version stores the rows in event order, the kernel
+    only the live lanes'), each cell launched twice (bitwise equal), timed
+    beside the plain version and ``index_copy_`` plus the final-row copy
+    (one PyTorch call each; with duplicate trash-row slots ``index_copy_``
+    leaves the trash row undefined, which no reader sees), in full at the
+    path shape and at Mamba2-130M's rings; then `scatter_kernel_info`."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import weighted_update as wu
 
-    out = {}
+    rows = {}
     worst = 0.0
     for shape in SCATTER_SHAPES:
         R, P, E, pad, dtype = shape
@@ -436,10 +446,17 @@ def _phase_scatter_rows(dev) -> dict:
         same = torch.equal(ks, rs) and torch.equal(kw_, rw_)
         err = max(max_err(ks, rs), max_err(kw_, rw_))
         worst = max(worst, err)
-        tag = f"block_scatter_rows {str(dtype)[6:]} ring {(R, P)} E={E} ({pad} padded)"
-        check(same and kw_.dtype == w.dtype, f"{tag}: every ring row and w' bitwise equal to "
-              f"the plain version {same} (max abs err {err:.3e})")
-        del ks, rs, kw_, rw_
+        del rs, rw_
+        again, again_w = wu.block_scatter_rows(snaps0.clone(), w, W, slots)
+        torch.cuda.synchronize()
+        twice = torch.equal(ks, again) and torch.equal(kw_, again_w)
+        vec = wu.scatter_vec(snaps0, W)
+        tag = (f"block_scatter_rows {str(dtype)[6:]} ring {(R, P)} E={E} ({pad} padded, "
+               f"live {wu.live_lanes(slots_np, R)}, {vec} values an access)")
+        check(same and twice and kw_.dtype == w.dtype,
+              f"{tag}: every ring row and w' bitwise equal to the plain version {same} (max "
+              f"abs err {err:.3e}), two launches bitwise equal {twice}")
+        del ks, kw_, again, again_w
         buf = snaps0
         kernel = lambda: wu.block_scatter_rows(buf, w, W, slots)  # noqa: E731
         plain = lambda: ref.block_scatter_rows_ref(buf, w, W, slots)  # noqa: E731
@@ -447,7 +464,8 @@ def _phase_scatter_rows(dev) -> dict:
                            W[-1].to(w.dtype))
         nbytes = _scatter_cost(slots_np.tolist(), P, torch.finfo(dtype).bits // 8, 4)
         b, by = bound_ms(nbytes, 0.0)
-        row = dict(max_abs_err=err, bitwise=same, bound_ms=b, bound_by=by)
+        row = dict(shape=[R, P, E, pad, str(dtype)[6:]], max_abs_err=err, bitwise=same,
+                   vec=vec, bound_ms=b, bound_by=by)
         if shape == SCATTER_PATH_SHAPE or P > 10**8:
             row.update(_timings(kernel, plain, library))
         else:
@@ -455,12 +473,20 @@ def _phase_scatter_rows(dev) -> dict:
             row.update(ms=time_ms(kernel, **quick), plain_ms=time_ms(plain, **quick),
                        library_ms=time_ms(library, **quick))
         print(f"     {tag}: {json.dumps(row)}")
-        if shape == SCATTER_PATH_SHAPE:
-            out["block_scatter_rows"] = row
+        rows[shape] = row
         del snaps0, buf, w, W, kernel, plain, library
         torch.cuda.empty_cache()
-    out["block_scatter_rows"]["max_abs_err"] = worst
-    return out
+    info = {f"{str(dt)[6:]} ring, {v} an access": wu.scatter_kernel_info(dt, v)
+            for dt, v in ((torch.float32, 4), (torch.float32, 1), (torch.bfloat16, 8),
+                          (torch.bfloat16, 1))}
+    print(f"     block_scatter_rows kernels at E=8 (registers, static / dynamic shared memory, "
+          f"local bytes, CTAs an SM): {json.dumps(info)}")
+    check(all(i["local_bytes"] == 0 for i in info.values()),
+          "block_scatter_rows kernels spill nothing to local memory")
+    first = dict(rows[SCATTER_PATH_SHAPE], max_abs_err=worst)
+    first.update(path_shapes=[rows[sh] for sh in SCATTER_SHAPES if sh[1] > 10**8],
+                 kernel_info=info)
+    return {"block_scatter_rows": first}
 
 
 def _mlp_flc(dev):
@@ -637,15 +663,18 @@ def _ssd_cost(B: int, S: int, H: int, P: int, N: int, Q: int, esz: int) -> tuple
 
 
 def phase_ssd_scan(dev) -> dict:
-    """K4 against its plain version over `SSD_SHAPES`, fp32 and bf16, timed
-    beside the plain version at the path shape (no single PyTorch call
-    computes the chunked SSD); then its gradients through `SSDScan`, and one
-    launch under ``vmap`` with a batched A, equal to a loop."""
+    """K4 against its plain version over `SSD_SHAPES`, fp32 and bf16, each
+    bf16 cell launched twice (bitwise equal), the library's route printed for
+    every cell and required to be "tc" at `SSD_TC_SHAPES` in bf16, timed
+    beside the plain version (no single PyTorch call computes the chunked
+    SSD) in full at `SSD_TIMED_SHAPES` in bf16; `kernel_info` of both
+    kernels; then its gradients through `SSDScan`, and one launch under
+    ``vmap`` with a batched A, equal to a loop."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as k4
 
     gen = torch.Generator().manual_seed(1)
-    out_row = None
+    path_rows = {}
     for dtype in (torch.float32, torch.bfloat16):
         for shape in SSD_SHAPES:
             B, S, H, P, N, chunk, a_range, dt_range = shape
@@ -658,20 +687,32 @@ def phase_ssd_scan(dev) -> dict:
             smax = max(1.0, float(est.abs().max()))
             serr = max_err(st, est)
             finite = bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(st).all())
-            tag = f"ssd_scan {str(dtype)[6:]} {shape[:6]} A in -{list(a_range)} dt in {list(dt_range)}"
+            route = k4.kernel_route(x, Bm, Cm, chunk)
+            twice = True  # bf16 cells: a second launch gives the same bits (no atomics)
+            if dtype == torch.bfloat16:
+                y2, st2 = k4.ssd_scan_fwd(x, dt, A_rows, Bm, Cm, chunk)
+                torch.cuda.synchronize()
+                twice = torch.equal(y, y2) and torch.equal(st, st2)
+                del y2, st2
+            tag = (f"ssd_scan {str(dtype)[6:]} {shape[:6]} A in -{list(a_range)} dt in "
+                   f"{list(dt_range)} route {route}")
             check(finite and close <= FA_TOL[dtype] and y.dtype == dtype
-                  and serr <= SSD_STATE_TOL[dtype] * smax,
+                  and serr <= SSD_STATE_TOL[dtype] * smax and twice,
                   f"{tag}: finite {finite}, y allclose tol {close:.3e} <= {FA_TOL[dtype]} (max abs "
-                  f"err {err:.3e}), state err {serr:.3e} <= {SSD_STATE_TOL[dtype]} x {smax:.3g}")
+                  f"err {err:.3e}), state err {serr:.3e} <= {SSD_STATE_TOL[dtype]} x {smax:.3g}, "
+                  f"two launches bitwise equal {twice}")
+            if dtype == torch.bfloat16 and shape in SSD_TC_SHAPES:
+                check(route == "tc", f"{tag}: a path shape takes the tensor-core kernel")
             Q = min(chunk, S)
             nbytes, flops = _ssd_cost(B, S, H, P, N, Q, torch.finfo(dtype).bits // 8)
             b, by = bound_ms(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
             kernel = lambda: k4.ssd_scan_fwd(x, dt, A_rows, Bm, Cm, chunk)  # noqa: E731
             plain = lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)  # noqa: E731
-            row = dict(max_abs_err=err, allclose_tol=close, state_err=serr, bound_ms=b, bound_by=by)
-            if shape == SSD_PATH_SHAPE and dtype == torch.bfloat16:
+            row = dict(shape=list(shape[:6]), kernel=route, max_abs_err=err, allclose_tol=close,
+                       state_err=serr, bound_ms=b, bound_by=by)
+            if shape in SSD_TIMED_SHAPES and dtype == torch.bfloat16:
                 row.update(_timings(kernel, plain))
-                out_row = row
+                path_rows[shape] = row
             else:
                 quick = dict(batches=5, per_batch=10, warmup=3)
                 row.update(ms=time_ms(kernel, **quick), plain_ms=time_ms(plain, **quick),
@@ -679,6 +720,17 @@ def phase_ssd_scan(dev) -> dict:
             print(f"     {tag}: {json.dumps(row)}")
             del x, dt, A, A_rows, Bm, Cm, y, st, ey, est
     torch.cuda.empty_cache()
+    info = {}
+    for dt, N in ((torch.bfloat16, 128), (torch.bfloat16, 64), (torch.float32, 128)):
+        i = k4.kernel_info(dt, 64, N, 64)
+        info[f"{str(dt)[6:]} {i.pop('kernel')} N={N}"] = i
+    print(f"     ssd_scan kernels at (Q, P) = (64, 64) (registers, static / dynamic shared memory, "
+          f"local bytes, CTAs an SM): {json.dumps(info)}")
+    check(all(i["local_bytes"] == 0 for i in info.values()),
+          "ssd_scan kernels spill nothing to local memory")
+    tc_ctas = info.get("bfloat16 tc N=128", {}).get("ctas_per_sm", 0)
+    check(tc_ctas >= 2, f"ssd_scan tensor-core kernel at Mamba2-130M's (Q, N, P): {tc_ctas} CTAs "
+          "an SM >= 2 (the path shape's 192 CTAs in one wave)")
 
     # gradients of all five inputs: SSDScan (kernel forward, reference VJP)
     # vs the reference, linear probe loss on both outputs
@@ -714,7 +766,9 @@ def phase_ssd_scan(dev) -> dict:
     check(n == 1 and close <= FA_TOL[torch.float32],
           f"ssd_scan under vmap with a batched A: {n} launch(es) == 1, equal to a loop "
           f"(allclose tol {close:.3e} <= {FA_TOL[torch.float32]})")
-    return {"ssd_scan": out_row}
+    first = dict(path_rows[SSD_PATH_SHAPE])
+    first.update(path_shapes=[path_rows[sh] for sh in SSD_TIMED_SHAPES], kernel_info=info)
+    return {"ssd_scan": first}
 
 
 def _gmm_inputs(dev, dtype, E, C, D, F, gen):
@@ -1295,29 +1349,62 @@ def phase_mamba(dev, launches: dict) -> None:
         print(f"Mamba2 run_experiment ({label}) n={LM_N} C={MAMBA_C} T={LM_T}: {wall:.3f} s, "
               f"{LM_T / wall:.3f} events/s, {tokens / wall:.1f} tokens/s, "
               f"eval steps {r.eval_steps.tolist()} loss {curve.tolist()}")
-        return curve
+        return curve, r.final_params
 
     def curve_gap(a, b) -> float:
         return float(np.max(np.abs(np.asarray(a) - b) / np.abs(b)))
 
-    # 1. run_experiment with K4, the plain update
+    mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    p = sampling_for(flc, mu)
+    stream = export_stream(SimConfig(mu=mu, p=p, C=MAMBA_C, T=LM_T, seed=flc.seed))
+
+    def train_loss(setup, params) -> float:
+        """Mean loss of ``params`` over the run's trained minibatches (event
+        k: client J[k]'s window at step k), four minibatches a forward."""
+        out = []
+        with torch.no_grad():
+            for i in range(0, LM_T, 4):
+                bs = [setup.clients.client_batch(int(j), i + k)
+                      for k, j in enumerate(stream.J[i:i + 4])]
+                batch = {key: torch.cat([b[key] for b in bs]) for key in bs[0]}
+                out.append(float(setup.clients.loss_fn(params, batch)))
+        return float(np.mean(out))
+
+    def learns(label: str, task, curve, final) -> float:
+        """After a run, outside its timed window and its launch counts: the
+        eval curve from the initial weights, and the check that the
+        clients' training loss falls; returns the initial eval loss."""
+        setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
+        with torch.no_grad():
+            loss0 = float(setup.eval_fn(setup.params))
+        before, after = train_loss(setup, setup.params), train_loss(setup, final)
+        print(f"Mamba2 eval loss ({label}) from the initial weights: {loss0:.5f} -> "
+              f"{curve.tolist()}")
+        check(after < before, f"Mamba2 training loss ({label}) over the run's {LM_T} trained "
+              f"minibatches falls: {before:.5f} -> {after:.5f}")
+        return loss0
+
+    # 1. run_experiment with K4, the plain update.  Its eval loss does not
+    # fall over these 64 events, with the plain SSD neither (the eval stream
+    # has its own bigram structure, the clients' their own; PERF.md): the
+    # run is held to its clients' training loss falling, and the kernel to
+    # the plain SSD on the curve and on the initial weights' eval loss
     torch.cuda.reset_peak_memory_stats()
     task = task_for(True)
     k4.reset_launches()
-    curve = experiment(task, "K4")
+    curve, final = experiment(task, "K4")
     path["ssd_scan"] += k4.launches["ssd_scan"]
     print(f"Mamba2 peak device memory (run_experiment): "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     check(curve.shape == (LM_T // LM_EVAL,) and bool(np.all(np.isfinite(curve))),
           f"Mamba2 eval losses finite, {LM_T // LM_EVAL} points")
-    check(bool(curve[-1] < curve[0]), f"Mamba2 eval loss falls: {curve[0]:.5f} -> {curve[-1]:.5f}")
     check(k4.launches["ssd_scan"] == nL * forwards,
           f"K4 launches {k4.launches['ssd_scan']} == {nL} x {forwards} forwards")
+    loss0 = learns("K4", task, curve, final)
+    del final
+    setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
 
     # 2. the same task with the per-leaf K1 update; 3. blocked with K2
-    setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
-    mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
-    p = sampling_for(flc, mu)
     base = ServerConfig(n=LM_N, C=MAMBA_C, T=LM_T, eta=0.05, mu=mu, p=p, seed=flc.seed,
                         eval_every=LM_EVAL, engine="scan", weighting="importance",
                         update="pallas", device=dev.type)
@@ -1341,7 +1428,6 @@ def phase_mamba(dev, launches: dict) -> None:
     check(gap <= tol, f"Mamba2 eval curve, update=pallas (bf16 leaves) vs the fp32 flat "
           f"update: relative gap {gap:.3e} <= {tol}")
 
-    stream = export_stream(SimConfig(mu=mu, p=p, C=MAMBA_C, T=LM_T, seed=flc.seed))
     rows = blocked_inputs(EventBlocks.from_stream(stream, MAMBA_E, cut_every=LM_EVAL),
                           step_scales(stream, base.eta, p, "importance"), LM_EVAL)[0].shape[0]
     evals = LM_T // LM_EVAL
@@ -1378,9 +1464,15 @@ def phase_mamba(dev, launches: dict) -> None:
     torch.cuda.empty_cache()
 
     # 4. the same run with the plain SSD
-    curve0 = experiment(task_for(False), "plain SSD")
-    gap = curve_gap(curve, curve0)
+    task0 = task_for(False)
+    curve0, final = experiment(task0, "plain SSD")
+    loss0_plain = learns("plain SSD", task0, curve0, final)
+    del final
     tol = MAMBA_CURVE_TOL["plain_ssd"]
+    gap = curve_gap([loss0], np.asarray([loss0_plain]))
+    check(gap <= tol, f"Mamba2 eval loss of the initial weights, K4 vs plain SSD: relative gap "
+          f"{gap:.3e} <= {tol}")
+    gap = curve_gap(curve, curve0)
     check(gap <= tol, f"Mamba2 eval curve, K4 vs plain SSD: relative gap {gap:.3e} <= {tol}")
 
 
@@ -1453,6 +1545,8 @@ def phase_moe_lm(dev, launches: dict) -> None:
     path["flash_attention"] += fa.launches["flash_attention"]
     path["moe_gmm"] += k5.launches["moe_gmm"]
     counts_ok("run_experiment, repeated")
+    # the exact curve, to compare across calls
+    print(f"Qwen-MoE K3 + K5 eval curve (float.hex): {[float(v).hex() for v in curve]}")
     check(np.array_equal(curve, curve_again),
           f"Qwen-MoE K3 + K5 eval curve repeats bitwise: {curve.tolist()} == "
           f"{curve_again.tolist()}")

@@ -35,6 +35,8 @@ SIGNATURES = {
         "wu_momentum": (_INT, _P, _P, _P, _P, ctypes.c_float, _P, _P, _I64, _P),
         "block_prefix_update": (_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
         "block_scatter_rows": (_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+        "block_scatter_rows_vec": (_INT, _P, _P, _I64),
+        "block_scatter_rows_kernel_info": (_INT, _INT, _INT, _I64, _P),
     },
     "flash_attention": {
         "flash_attention_fwd": (_INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
@@ -44,6 +46,8 @@ SIGNATURES = {
     },
     "ssd_scan": {
         "ssd_scan_fwd": (_INT, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P),
+        "ssd_scan_route": (_INT, _P, _P, _P, _I64, _I64, _I64),
+        "ssd_scan_kernel_info": (_INT, _I64, _I64, _I64, _P),
     },
     "moe_gmm": {
         "moe_gmm_fwd": (_INT, _P, _P, _P, _I64, _I64, _I64, _I64, _P),

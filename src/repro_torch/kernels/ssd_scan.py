@@ -20,20 +20,37 @@ shared memory, makes its operands contiguous (in `mamba2.mamba_block`
 ``y`` and the state, launches on PyTorch's current stream, raises if the
 launch is refused, never synchronises, and adds one to
 ``launches["ssd_scan"]`` per launch, and nowhere else.
+
+The CUDA source has two kernels behind that one entry point: the
+tensor-core kernel ("tc": bf16 with Q <= 64, N <= 128, P <= 64, N and P
+multiples of 8, 16-byte aligned x, B and C; the chunk zero-padded to its
+tile) and the CUDA-core kernel ("simt": fp32, and every other bf16 call).
+`kernel_route` asks the library which one a call takes, and `kernel_info`
+reports which kernel it describes.  `route` (the rule in Python),
+`tc_smem_bytes` and `ctas_per_sm` (the tensor-core kernel's shared memory
+and the CTAs an SM holds at that size) exist for the CPU tests only; no
+code path of the port uses them.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..device import on_cuda
 from . import build, ref
+from .weighted_update import _DTYPES as _DTYPE_CODES
 from .weighted_update import _check_cuda, _code, _raise_on, _stream
 
-__all__ = ["SSDScan", "ssd_scan_fwd", "smem_bytes", "launches", "reset_launches"]
+__all__ = ["SSDScan", "TC_TILE", "ctas_per_sm", "kernel_info", "kernel_route", "route",
+           "ssd_scan_fwd", "smem_bytes", "tc_smem_bytes", "launches", "reset_launches"]
 
 launches = {"ssd_scan": 0}
 
 MAX_SMEM = 232448  # the shared memory one block may opt in to on sm_90 (227 KB)
+SM_SMEM = 233472   # the shared memory of one SM (228 KB) ...
+BLOCK_RESERVED_SMEM = 1024  # ... of which the runtime reserves this much per resident block
+TC_TILE = (64, 128, 64)  # the tensor-core kernel's largest (Q, N, P): its tile
 
 
 def reset_launches() -> None:
@@ -45,6 +62,58 @@ def smem_bytes(Q: int, N: int, P: int) -> int:
     source: the fp32 state (N, P), B (Q, N+1), C (Q, N), dt*x (Q, P), the
     scores (Q, Q), and three (Q,) vectors."""
     return 4 * (N * P + Q * (N + 1) + Q * N + Q * P + Q * Q + 3 * Q)
+
+
+def route(dtype: torch.dtype, Q: int, N: int, P: int) -> str:
+    """The kernel `ssd_scan_fwd` takes for 16-byte aligned operands:
+    "tc" for bf16 with 1 <= Q <= 64, 8 <= N <= 128, 8 <= P <= 64 and N, P
+    multiples of 8, else "simt".  The Python mirror of ``csrc/ssd_scan.cu:
+    tc_path``; on the card the library's answer is `kernel_route`'s."""
+    tq, tn, tp = TC_TILE
+    tc = (dtype == torch.bfloat16 and 1 <= Q <= tq and 8 <= N <= tn and N % 8 == 0
+          and 8 <= P <= tp and P % 8 == 0)
+    return "tc" if tc else "simt"
+
+
+def tc_smem_bytes(N: int) -> int:
+    """Shared memory of one tensor-core CTA; must agree with ``tc::Layout``
+    in the CUDA source: two stages of C and B (64 x NT bf16 each), x (64 x
+    64 bf16) and dt (64 fp32), then the state's bf16 pair (2 x NT x 64) and
+    cs (64 fp32), with NT = 64 for N <= 64, else 128."""
+    Q, _, P = TC_TILE
+    NT = 64 if N <= 64 else 128
+    stage = 2 * (2 * Q * NT + Q * P) + 4 * Q
+    return 2 * stage + 2 * 2 * NT * P + 4 * Q
+
+
+def ctas_per_sm(smem: int) -> int:
+    """CTAs of ``smem`` bytes of shared memory one SM holds (shared memory
+    alone)."""
+    return SM_SMEM // (smem + BLOCK_RESERVED_SMEM)
+
+
+def kernel_route(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor, chunk: int = 64) -> str:
+    """Which kernel `ssd_scan_fwd` takes on these contiguous CUDA operands,
+    as the library's dispatch reports it (``csrc/ssd_scan.cu:
+    ssd_scan_route``): "tc" or "simt"."""
+    S, P, N = x.shape[1], x.shape[3], Bm.shape[-1]
+    tc = build.load("ssd_scan").ssd_scan_route(
+        _code(x, "ssd_scan"), x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), min(chunk, S), N, P)
+    return "tc" if tc else "simt"
+
+
+def kernel_info(dtype: torch.dtype, Q: int = 64, N: int = 128, P: int = 64) -> dict:
+    """Which kernel `ssd_scan_fwd` launches for ``dtype`` at (Q, N, P) on
+    aligned operands ("tc" or "simt", as the library's dispatch reports it),
+    and its registers, static and dynamic shared memory, local (spill)
+    bytes and CTAs an SM, as the CUDA runtime reports them (builds the
+    library)."""
+    out = (ctypes.c_int * 6)()
+    _raise_on(build.load("ssd_scan").ssd_scan_kernel_info(
+        _DTYPE_CODES[dtype], Q, N, P, ctypes.cast(out, ctypes.c_void_p)), "ssd_scan_kernel_info")
+    info = dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes", "ctas_per_sm"),
+                    out))
+    return {"kernel": "tc" if out[5] else "simt", **info}
 
 
 def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -66,6 +135,8 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     Q = min(chunk, S)
     if S % Q:
         raise ValueError(f"S={S} % chunk={Q} != 0")
+    # the CUDA-core kernel's shared memory; a call within the tensor-core
+    # kernel's tile (`TC_TILE`) needs less than this in either kernel
     if smem_bytes(Q, N, P) > MAX_SMEM:
         raise ValueError(f"(Q, N, P) = ({Q}, {N}, {P}) needs {smem_bytes(Q, N, P)} bytes of "
                          f"shared memory per CTA, more than the {MAX_SMEM} a block may use")

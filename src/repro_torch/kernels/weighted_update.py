@@ -7,7 +7,12 @@ Algorithm 1 line-10 update, plain (K1a) or with momentum (K1b).  K2
 block_prefix_update` — the blocked engine's prefix sum plus the in-place
 scatter into the (C+1, P) snapshot ring.  K6 (`block_scatter_rows`)
 replaces `repro/kernels/weighted_update.py:block_scatter_rows` — the
-lane-sharded engine's scatter of precomputed iterates into the ring.
+lane-sharded engine's scatter of precomputed iterates into the ring.  K6
+writes a lane's row only when the lane is live (`live_lanes`, the rule the
+CUDA kernel follows), so each distinct ring row is written once, by the
+last lane that targets it; `scatter_vec` asks the library how many ring
+values a thread moves per access, `scatter_kernel_info` what the kernel
+holds.
 
 These wrappers take CUDA tensors only: they check dtype, shape, device and
 contiguity, allocate the outputs, launch on PyTorch's current stream and
@@ -19,18 +24,22 @@ nowhere else, so a run can show that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
+from collections.abc import Sequence
 
 import torch
 
 from . import build
 
-__all__ = ["BLOCK_TILE", "launches", "reset_launches", "weighted_update",
-           "block_prefix_update", "block_scatter_rows"]
+__all__ = ["BLOCK_TILE", "MAX_SCATTER_LANES", "launches", "live_lanes", "reset_launches",
+           "scatter_kernel_info", "scatter_vec", "weighted_update", "block_prefix_update",
+           "block_scatter_rows"]
 
 # the blocked engine pads the packed parameter vector to a multiple of this
 # once at init, as the TPU path does (its column tile); the CUDA kernel
 # itself takes any P
 BLOCK_TILE = 1024
+# K6 keeps a block's slots in shared memory: at most this many lanes
+MAX_SCATTER_LANES = 4096
 
 launches = {"weighted_update": 0, "weighted_update_momentum": 0, "block_prefix_update": 0,
             "block_scatter_rows": 0}
@@ -87,6 +96,15 @@ def _block_operands(snaps, w, rows, slots, name: str) -> tuple[int, int, int, in
     sc, wc = _code(snaps, "snaps"), _code(w, "w")
     _check_cuda(snaps, w, rows, slots)
     return R, P, E, sc, wc
+
+
+def live_lanes(slots: Sequence[int], R: int) -> list[bool]:
+    """K6's rule (``csrc/weighted_update.cu:block_scatter_rows_kernel``):
+    lane i writes its row of W to the ring when its slot lies in [0, R) and
+    no later lane has the same slot.  Writing only the live lanes, in any
+    order, leaves the ring as writing every lane in event order does."""
+    s = [int(v) for v in slots]
+    return [0 <= s[i] < R and s[i] not in s[i + 1:] for i in range(len(s))]
 
 
 def weighted_update(
@@ -156,9 +174,34 @@ def block_scatter_rows(
     the last row cast to ``w.dtype``.
     """
     R, P, E, sc, wc = _block_operands(snaps, w, W, slots, "W")
+    if E > MAX_SCATTER_LANES:
+        raise ValueError(f"block_scatter_rows takes at most {MAX_SCATTER_LANES} lanes, got {E}")
     w_out = torch.empty_like(w)
     lib = build.load("weighted_update")
     _raise_on(lib.block_scatter_rows(sc, wc, snaps.data_ptr(), W.data_ptr(), slots.data_ptr(),
                                      w_out.data_ptr(), R, P, E, _stream(w)), "block_scatter_rows")
     launches["block_scatter_rows"] += 1
     return snaps, w_out
+
+
+def scatter_vec(snaps: torch.Tensor, W: torch.Tensor) -> int:
+    """Ring values one thread of K6 moves per access on these CUDA operands,
+    as the library picks it (``csrc/weighted_update.cu:scatter_vec``): 16
+    bytes (4 fp32, 8 bf16) when P and the alignment of ``snaps`` and ``W``
+    allow it, else 1 value."""
+    return build.load("weighted_update").block_scatter_rows_vec(
+        _code(snaps, "snaps"), snaps.data_ptr(), W.data_ptr(), snaps.shape[1])
+
+
+def scatter_kernel_info(ring_dtype: torch.dtype, vec: int, E: int = 8,
+                        w_dtype: torch.dtype = torch.float32) -> dict:
+    """Registers, static and dynamic shared memory, local (spill) bytes and
+    CTAs an SM holds of the K6 kernel for a ring of ``ring_dtype`` moving
+    ``vec`` values per access (1, or 16 bytes of them), at ``E`` lanes
+    (builds the library)."""
+    out = (ctypes.c_int * 5)()
+    _raise_on(build.load("weighted_update").block_scatter_rows_kernel_info(
+        _DTYPES[ring_dtype], _DTYPES[w_dtype], vec, E, ctypes.cast(out, ctypes.c_void_p)),
+        "block_scatter_rows_kernel_info")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes", "ctas_per_sm"),
+                    out))

@@ -116,6 +116,66 @@ def test_block_scatter_rows_matches_plain(dev, R, P, E, pad, dtype):
     assert torch.equal(ks, rs) and torch.equal(kw, rw) and kw.dtype == w.dtype
 
 
+# slot patterns on a ring of 9 rows (trash row 8): padded lanes, a real row
+# targeted twice, every lane on the trash row; E in {1, 8, 16}
+LIVE_PATTERNS = [
+    [3],
+    [8],
+    [3, 1, 3, 5, 8, 2, 8, 1],
+    [8] * 8,
+    [8] * 16,
+    [5, 5, 5, 5, 2, 2, 8, 8, 8, 8, 7, 6, 5, 4, 3, 8],
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slots", LIVE_PATTERNS)
+def test_block_scatter_rows_over_duplicate_slots(dev, dtype, slots):
+    """K6 writes only the live lanes (`live_lanes`): the ring and w' equal
+    the plain version's (every lane in event order) bitwise, twice."""
+    E, P = len(slots), 4096
+    gen = torch.Generator().manual_seed(E)
+    snaps = torch.randn((9, P), generator=gen).to(dev, dtype)
+    w = torch.randn((P,), generator=gen).to(dev)
+    W = torch.randn((E, P), generator=gen).to(dev)
+    st = torch.tensor(slots, device=dev)
+    ks, kw = cuda_kernels.block_scatter_rows(snaps.clone(), w, W, st)
+    again, again_w = cuda_kernels.block_scatter_rows(snaps.clone(), w, W, st)
+    rs, rw = ref.block_scatter_rows_ref(snaps.clone(), w, W, st)
+    torch.cuda.synchronize()
+    assert torch.equal(ks, rs) and torch.equal(kw, rw)
+    assert torch.equal(ks, again) and torch.equal(kw, again_w)
+
+
+@pytest.mark.parametrize("dtype,P,offset,vec", [
+    (torch.float32, 4096, 0, 4), (torch.bfloat16, 4096, 0, 8), (torch.float32, 26122, 0, 1),
+    (torch.bfloat16, 26122, 0, 1), (torch.float32, 4099, 0, 1), (torch.float32, 4096, 1, 1),
+    (torch.bfloat16, 4096, 2, 1),
+])
+def test_block_scatter_rows_access_width(dev, dtype, P, offset, vec):
+    """The library moves 16 bytes of ring values an access where P and the
+    alignment of the ring allow it, and one value otherwise; both widths
+    give the plain version's bits."""
+    gen = torch.Generator().manual_seed(P)
+    snaps = torch.randn((5, P), generator=gen).to(dev, dtype)
+    if offset:
+        snaps = _misaligned(snaps, offset)
+    w = torch.randn((P,), generator=gen).to(dev)
+    W = torch.randn((3, P), generator=gen).to(dev)
+    st = torch.tensor([2, 4, 4], device=dev)
+    assert cuda_kernels.scatter_vec(snaps, W) == vec
+    rs, rw = ref.block_scatter_rows_ref(snaps.clone(), w, W, st)
+    ks, kw = cuda_kernels.block_scatter_rows(snaps, w, W, st)  # in place: keeps the offset
+    assert torch.equal(ks, rs) and torch.equal(kw, rw)
+
+
+@pytest.mark.parametrize("dtype,vec", [(torch.float32, 4), (torch.float32, 1),
+                                       (torch.bfloat16, 8), (torch.bfloat16, 1)])
+def test_block_scatter_rows_kernels_do_not_spill(dev, dtype, vec):
+    info = cuda_kernels.scatter_kernel_info(dtype, vec)
+    assert info["local_bytes"] == 0 and info["registers"] > 0 and info["ctas_per_sm"] >= 8
+
+
 def _setup(dev, n=16, hidden=32):
     data = FederatedClassification(n_clients=n, seed=0)
     setup = fl._cached_fl_setup(data, 0, fl.ClassificationTask(hidden=hidden), device=dev)
@@ -400,6 +460,58 @@ def test_ssd_scan_matches_plain(dev, dtype, B, S, H, P, N, chunk, a_range, dt_ra
     assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(s).all())
     assert _close(y, ey, FA_TOL[dtype]), _err(y, ey)
     assert _state_ok(s, es, SSD_STATE_TOL[dtype]), _err(s, es)
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk,a_range,dt_range", SSD_SHAPES)
+def test_ssd_scan_launches_repeat_bitwise(dev, B, S, H, P, N, chunk, a_range, dt_range):
+    """No atomics: two bf16 launches give the same bits, on either kernel."""
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, torch.bfloat16, B, S, H, P, N, a_range, dt_range, seed=2)
+    A = A.expand(B, H).contiguous()
+    y, s = k4.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk)
+    y2, s2 = k4.ssd_scan_fwd(x, dt, A, Bm, Cm, chunk)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.parametrize("dtype,shape,offset,route", [
+    (torch.bfloat16, (8, 128, 24, 64, 128, 64), 0, "tc"),
+    (torch.bfloat16, (2, 128, 80, 64, 64, 64), 0, "tc"),
+    (torch.bfloat16, (2, 40, 4, 32, 16, 64), 0, "tc"),
+    (torch.bfloat16, (1, 256, 4, 16, 8, 16), 0, "tc"),
+    (torch.bfloat16, (1, 64, 2, 64, 128, 64), 1, "simt"),
+    (torch.bfloat16, (1, 64, 2, 36, 16, 64), 0, "simt"),
+    (torch.float32, (1, 64, 2, 64, 128, 64), 0, "simt"),
+])
+def test_ssd_scan_route_follows_the_dispatch(dev, dtype, shape, offset, route):
+    """The library takes the tensor-core kernel for bf16 at the shapes of
+    `ssd_scan.route` with 16-byte aligned x, B and C, and the CUDA-core
+    kernel otherwise; the kernel it takes equals the plain version."""
+    B, S, H, P, N, chunk = shape
+    x, dt, A, Bm, Cm = _ssd_inputs(dev, dtype, B, S, H, P, N, (0.5, 2.0), (0.01, 0.2), seed=3)
+    if offset:
+        x = _misaligned(x, offset)
+    Q = min(chunk, S)
+    assert k4.kernel_route(x, Bm, Cm, chunk) == route
+    assert k4.route(dtype, Q, N, P) == ("tc" if route == "tc" or offset else "simt")
+    y, s = k4.ssd_scan_fwd(x, dt, A.expand(B, H), Bm, Cm, chunk)
+    ey, es = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk)
+    assert _close(y, ey, FA_TOL[dtype]), _err(y, ey)
+    assert _state_ok(s, es, SSD_STATE_TOL[dtype]), _err(s, es)
+
+
+@pytest.mark.parametrize("dtype,N", [(torch.bfloat16, 128), (torch.bfloat16, 64),
+                                     (torch.float32, 128)])
+def test_ssd_scan_kernels_do_not_spill(dev, dtype, N):
+    """Neither kernel spills; `kernel_info` names the kernel the Python
+    mirror's route names; the tensor-core kernel's shared memory is the
+    Python mirror's, and two of its CTAs fit on an SM."""
+    info = k4.kernel_info(dtype, 64, N, 64)
+    assert info["local_bytes"] == 0 and info["registers"] > 0
+    assert info["kernel"] == k4.route(dtype, 64, N, 64)
+    if info["kernel"] == "tc":
+        assert info["dynamic_smem"] == k4.tc_smem_bytes(N)
+        assert info["ctas_per_sm"] >= 2
+    else:
+        assert info["dynamic_smem"] == k4.smem_bytes(64, N, 64)
 
 
 def test_ssd_scan_init_state_raises_on_card(dev):

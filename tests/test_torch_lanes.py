@@ -90,6 +90,55 @@ def test_block_scatter_rows_matches_jax(dtype, E, pad):
         np.testing.assert_array_equal(w_.numpy(), np.asarray(jr_w))
 
 
+# slot patterns of one block on a ring of C + 1 = 9 rows (trash row 8):
+# padded lanes on the trash row, a real row targeted twice, every lane on
+# the trash row, and E in {1, 8, 16}
+LIVE_PATTERNS = [
+    [3],
+    [8],
+    [3, 1, 6, 5, 0, 8, 8, 8],
+    [3, 1, 3, 5, 8, 2, 8, 1],
+    [8] * 8,
+    [8] * 16,
+    [0, 8, 1, 8, 2, 8, 3, 8, 4, 8, 5, 8, 6, 8, 7, 8],
+    [5, 5, 5, 5, 2, 2, 8, 8, 8, 8, 7, 6, 5, 4, 3, 8],
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("slots", LIVE_PATTERNS)
+def test_live_lanes_alone_give_the_ring(dtype, slots):
+    """K6's live-lane rule (`live_lanes`, mirrored by the CUDA kernel): a
+    lane writes only when no later lane has its slot.  Writing the live
+    lanes alone, in reverse order (the kernel's threads keep no order),
+    gives bitwise the ring and w' of the plain version and of the JAX
+    kernel in interpret mode, which write every lane in event order."""
+    C, E = 8, len(slots)
+    t_in, j_in, _ = _scatter_inputs(dtype, E, E, C=C)  # its slots are replaced below
+    slots_t = torch.tensor(slots, dtype=torch.int64)
+    t_in = (*t_in[:3], slots_t)
+    j_in = (*j_in[:3], jnp.asarray(slots, jnp.int32))
+    live = cuda_kernels.live_lanes(slots, C + 1)
+    assert live[-1] and sum(live) == len(set(slots))  # one writer per distinct row
+    got = t_in[0].clone()
+    for i in reversed(range(E)):
+        if live[i]:
+            got[slots[i]] = t_in[2][i].to(dtype)
+    got_w = t_in[2][-1].to(t_in[1].dtype)
+    ref_s, ref_w = ref.block_scatter_rows_ref(t_in[0].clone(), *t_in[1:])
+    jk_s, jk_w = j_scatter(*j_in, interpret=True)
+    jr_s, _ = j_ref.block_scatter_rows_ref(*j_in)
+    assert torch.equal(got, ref_s) and torch.equal(got_w, ref_w)
+    np.testing.assert_array_equal(_f32(got), _f32(jk_s))
+    np.testing.assert_array_equal(_f32(got)[:C], _f32(jr_s)[:C])
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(jk_w))
+
+
+def test_live_lanes_drop_slots_outside_the_ring():
+    assert cuda_kernels.live_lanes([-1, 9, 3, 9], 9) == [False, False, True, False]
+    assert cuda_kernels.live_lanes([], 9) == []
+
+
 def test_block_scatter_rows_cuda_wrapper_rejects_cpu_operands():
     """The CUDA wrapper takes CUDA tensors only (it raises before building);
     `kernels.ops` routes a CPU tensor to the plain version."""
