@@ -14,7 +14,14 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    computing the same function where there is one, and its bound: the
    larger of bytes moved / 3.35 TB/s and operations / peak (67 TFLOP/s
    fp32 without tensor cores, 989 TFLOP/s bf16):
-   K1/K2 (max abs error, fp32 <= 1e-5, bf16 <= 2e-2) and K3 flash
+   K1 one leaf a launch and K2 (max abs error, fp32 <= 1e-5, bf16 <=
+   2e-2); K1 over each path's whole leaf set in one launch (the MLP's, and
+   Granite-3.0-2B's, Mamba2-130M's and Qwen1.5-MoE's at 3 layers in the
+   dtypes their runs store), with and without momentum, and K2 over
+   `PREFIX_SHAPES` (the MLP's cells and Mamba2-130M's blocked ring, whose
+   phase-10 run stores fp32), each bitwise equal to its
+   plain version and to a second launch, timed beside ``torch._foreach_add``
+   (K1); K3 flash
    attention over its shape grid (allclose with atol = rtol = 2e-5 fp32,
    2e-2 bf16, `tests/test_kernels.py`'s rule), plus K3's gradients through
    `FlashAttention` against the reference's; K4 chunked SSD over its shape
@@ -30,7 +37,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    the full-width `ClassificationTask` MLP (hidden 128, batch 128, shard
    1024);
 4. the MLP per-event kernel path (``update="pallas"``, block_size=1): K1
-   launches == T x 6, weights within 1e-5 of ``update="jnp"``;
+   launches == T, leaves covered == T x 6, weights within 1e-5 of
+   ``update="jnp"``;
 5. the MLP blocked kernel path (``block_size=8, update="pallas"``): K2
    launches == block count, weights within 1e-5 of ``update="jnp"``;
    against the per-event run, eval accuracies within 10/2048 at T=2000 and
@@ -46,7 +54,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    sampling="optimal", speed_ratio=10.0, engine="scan"), "gen_async",
    eval_every=16)`` (``run_lm``'s configuration with C cut from 8 to 4 to
    fit the card), then the same task with ``update="pallas"``: K3
-   launches == 40 x forward calls, K1 launches == 64 x 11, eval loss
+   launches == 40 x forward calls, K1 launches == 64 covering 64 x 11
+   leaves, eval loss
    finite and falling, the curve within `LM_CURVE_TOL` of the plain
    attention's, peak device memory, and a profile of a few events;
 9. Mamba2-130M (K4) and Zamba2-2.7B (K3 at head_dim 80 and K4) at full
@@ -57,7 +66,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    ``run_lm``'s configuration, ``LMTask(batch 8, seq 128, shard 256)``,
    n=20, C=8, sampling "optimal", speed ratio 10, with T cut from 200 to 64
    and the eval cadence from 50 to 16, four ways: ``run_experiment`` (K4),
-   ``update="pallas"`` (K1 launches == 64 x 11), blocked ``block_size=4,
+   ``update="pallas"`` (K1 launches == 64, leaves 64 x 11), blocked
+   ``block_size=4,
    update="pallas"`` (K2 launches == block rows, K4 through the `vmap`
    rule == 24 x (block rows + evals)), and the plain SSD; K4 launches ==
    24 x forwards on the per-event runs, eval loss finite, the clients'
@@ -83,7 +93,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    ``use_pallas=True``, ``moe_dispatch="sort"``): ``run_lm``'s
    configuration with C cut to 4, T to 64 and the eval cadence to 16, as
    for Granite, three ways: ``run_experiment`` (K3 + K5), ``update=
-   "pallas"`` (K1 launches == 64 x 19) and ``use_pallas=False`` (plain
+   "pallas"`` (K1 launches == 64, leaves 64 x 19) and ``use_pallas=False``
+   (plain
    attention, bf16 einsum experts on the same dispatch); K5 launches == 3
    x layers x forwards and K3 == layers x forwards on the kernel runs,
    eval loss finite and falling, the curves within 1e-3 (K1) and
@@ -224,6 +235,23 @@ SCATTER_SHAPES = [
     (9, 128_984_064, 4, 0, torch.float32),
     (9, 128_984_064, 4, 0, torch.bfloat16),
 ]
+# K2 cells (ring rows C+1, P, E, padded lanes on the trash row, ring dtype,
+# w dtype): the MLP's blocked ring at E in {4, 8, 16} (two padded lanes at
+# E > 2; E=8 fp32 is the main path's), fp32 and bf16 rings beside fp32 w, a
+# ragged P, then Mamba2-130M's blocked ring at C=8 (128,983,488 padded to a
+# multiple of 1024) with E=4, fp32 and bf16 (the ring and w both)
+PREFIX_PATH_SHAPE = (65, 26624, 8, 2, torch.float32, torch.float32)
+PREFIX_SHAPES = [
+    (65, 26624, 4, 2, torch.float32, torch.float32),
+    PREFIX_PATH_SHAPE,
+    (65, 26624, 16, 2, torch.float32, torch.float32),
+    (65, 26624, 4, 2, torch.bfloat16, torch.float32),
+    (65, 26624, 8, 2, torch.bfloat16, torch.float32),
+    (65, 26624, 16, 2, torch.bfloat16, torch.float32),
+    (65, 26122, 8, 2, torch.float32, torch.float32),
+    (9, 128_984_064, 4, 0, torch.float32, torch.float32),
+    (9, 128_984_064, 4, 0, torch.bfloat16, torch.bfloat16),
+]
 # the lane-sharded MLP slice: 2 gloo ranks sharing the one card
 LANE_RANKS, MLP_E, FEDBUFF_Z = 2, 8, 10
 
@@ -318,12 +346,133 @@ def _sum_rows(rows: list[dict]) -> dict:
             for k in rows[0]}
 
 
+def _leaf_sets() -> dict:
+    """K1's leaf set on each path: name -> [(shape, dtype)], the MLP's 6 fp32
+    leaves, then the LM paths' from the model's metadata in the dtypes
+    `init_params` stores (Mamba2's A_log and dt_bias stay fp32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import api
+    from repro_torch.models.module import _stored_dtype
+    from repro_torch.tree import tree_leaves
+
+    sets = {"mlp": [(shape, torch.float32) for shape in MLP_LEAVES.values()]}
+    for name, cfg in (("granite", get_config(LM_ARCH)), ("mamba2", get_config(MAMBA_ARCH)),
+                      ("qwen_moe", get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS))):
+        sets[name] = [(tuple(m.shape), _stored_dtype(m, None))
+                      for m in tree_leaves(api.model_meta(cfg))]
+    return sets
+
+
+def _k1_cost(leaves: list, momentum: bool) -> tuple[int, int]:
+    """Bytes and operations K1 must spend on a leaf set: read w and g, write
+    w' (with momentum also read m and write m', fp32)."""
+    nbytes = flops = 0
+    for shape, dtype in leaves:
+        n, esz = int(np.prod(shape)), torch.finfo(dtype).bits // 8
+        nbytes += n * (3 * esz + (8 if momentum else 0))
+        flops += n * (4 if momentum else 2)
+    return nbytes, flops
+
+
+def _leaf_set(dev, name: str, leaves: list, momentum: float) -> dict:
+    """K1 (with ``momentum`` or none) over one path's leaf set, drawn on the
+    card: one launch covering every leaf, bitwise equal to the plain version
+    leaf by leaf and to a second launch, then timed beside the plain version
+    and (no momentum) ``torch._foreach_add`` over the same leaves, plus the
+    per-leaf ``torch.addcmul`` calls at the MLP set.  In full at the MLP set;
+    at the LM sets a few calls, the plain version a few times (its fp32
+    temporaries)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import weighted_update as wu
+
+    g = torch.Generator(device=dev).manual_seed(len(leaves) + int(10 * momentum))
+    ws = [torch.randn(shape, generator=g, device=dev).to(dtype) for shape, dtype in leaves]
+    gs = [torch.randn(shape, generator=g, device=dev).to(dtype) for shape, dtype in leaves]
+    ms = [torch.randn(shape, generator=g, device=dev) for shape, _ in leaves] if momentum else None
+    s = torch.tensor(0.37, device=dev)
+    key = "weighted_update_momentum" if momentum else "weighted_update"
+    wu.reset_launches()
+    out, out_m = wu.weighted_update_leaves(ws, gs, s, ms, momentum)
+    counted = (wu.launches[key], wu.launches[key + "_leaves"])
+    err, same = 0.0, True
+    for i in range(len(leaves)):
+        rw, rm = ref.weighted_update_ref(ws[i], gs[i], s, m=None if ms is None else ms[i],
+                                         momentum=momentum)
+        pairs = [(out[i], rw)] + ([(out_m[i], rm)] if momentum else [])
+        for a, b in pairs:
+            same = same and a.dtype == b.dtype and torch.equal(a, b)
+            err = max(err, max_err(a, b) if a.numel() else 0.0)
+        del rw, rm
+    again, again_m = wu.weighted_update_leaves(ws, gs, s, ms, momentum)
+    torch.cuda.synchronize()
+    twice = all(torch.equal(a, b) for a, b in zip(out, again))
+    if momentum:
+        twice = twice and all(torch.equal(a, b) for a, b in zip(out_m, again_m))
+    del out, out_m, again, again_m
+    n = sum(int(np.prod(shape)) for shape, _ in leaves)
+    tag = (f"weighted_update{' momentum' if momentum else ''}, {name} event ({len(leaves)} leaves, "
+           f"{n:,} values, {sorted({str(d)[6:] for _, d in leaves})})")
+    covered = sum(1 for shape, _ in leaves if np.prod(shape) > 0)
+    check(counted == (1, covered) and same and twice and err == 0.0,
+          f"{tag}: launches {counted} == (1, {covered}), every leaf bitwise equal to the plain "
+          f"version {same} (max abs err {err:.3e}), two launches bitwise equal {twice}")
+    b, by = bound_ms(*_k1_cost(leaves, bool(momentum)))
+    row = dict(leaves=len(leaves), values=n, max_abs_err=err, bitwise=same, bound_ms=b, bound_by=by)
+    kernel = lambda: wu.weighted_update_leaves(ws, gs, s, ms, momentum)  # noqa: E731
+    plain = lambda: [ref.weighted_update_ref(ws[i], gs[i], s,  # noqa: E731
+                                             m=None if ms is None else ms[i], momentum=momentum)
+                     for i in range(len(leaves))]
+    if name == "mlp":
+        library = None if momentum else (lambda: torch._foreach_add(ws, gs, alpha=-0.37))
+        row.update(_timings(kernel, plain, library))
+        if not momentum:
+            row["addcmul_ms"] = time_ms(lambda: [torch.addcmul(w, x, s, value=-1)
+                                                 for w, x in zip(ws, gs)])
+            row["addcmul_device_ms"] = profile(lambda: [torch.addcmul(w, x, s, value=-1)
+                                                        for w, x in zip(ws, gs)], calls=50)[0]
+    elif not momentum:
+        quick = dict(batches=5, per_batch=4, warmup=2)
+        library = lambda: torch._foreach_add(ws, gs, alpha=-0.37)  # noqa: E731
+        row.update(ms=time_ms(kernel, **quick), device_ms=profile(kernel, calls=4)[0],
+                   plain_ms=time_ms(plain, batches=3, per_batch=1, warmup=1),
+                   plain_device_ms=profile(plain, calls=1)[0],
+                   library_ms=time_ms(library, **quick),
+                   library_device_ms=profile(library, calls=4)[0])
+    print(f"     {tag}: {json.dumps(row)}")
+    del ws, gs, ms, kernel, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def _phase_leaf_sets(dev) -> dict:
+    """K1 over each path's leaf set (`_leaf_sets`), without momentum (K1a)
+    and with it (K1b, timed at the MLP set only), then `update_kernel_info`."""
+    from repro_torch.kernels import weighted_update as wu
+
+    rows = {}
+    sets = _leaf_sets()
+    for momentum in (0.0, 0.9):
+        name = "weighted_update_momentum" if momentum else "weighted_update"
+        got = {path: _leaf_set(dev, path, leaves, momentum) for path, leaves in sets.items()}
+        rows[name] = dict(got["mlp"], path_shapes={p: r for p, r in got.items() if p != "mlp"})
+    info = {f"momentum={m}": wu.update_kernel_info(m) for m in (False, True)}
+    print(f"     weighted_update_leaves kernels (registers, static shared memory, local bytes, "
+          f"CTAs an SM, leaf table bytes, leaves a launch): {json.dumps(info)}")
+    check(all(i["local_bytes"] == 0 for i in info.values())
+          and all(i["max_leaves"] == wu.MAX_LEAVES for i in info.values()),
+          f"weighted_update_leaves kernels spill nothing to local memory and take "
+          f"{wu.MAX_LEAVES} leaves a launch")
+    for row in rows.values():
+        row["kernel_info"] = info
+    return rows
+
+
 def phase_kernels(dev, gen):
     from repro_torch.kernels import ref
     from repro_torch.kernels import weighted_update as wu
 
-    rows = {}
-    # K1a / K1b at every shape, fp32 and bf16
+    rows, grid_worst = {}, {}
+    # K1a / K1b at every shape, fp32 and bf16, one leaf a launch
     for momentum in (0.0, 0.9):
         name = "weighted_update_momentum" if momentum else "weighted_update"
         worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
@@ -342,70 +491,97 @@ def phase_kernels(dev, gen):
         torch.cuda.synchronize()
         for dtype, err in worst.items():
             check(err <= TOL[dtype], f"{name} {str(dtype)[6:]} max_abs_err {err:.3e} <= {TOL[dtype]}")
-        # timed work: one event's update on the main path, the six fp32 MLP
-        # leaves (one launch each)
-        per_leaf = []
-        nbytes = flops = 0.0
-        for shape in MLP_LEAVES.values():
-            w = torch.randn(shape, generator=gen).to(dev)
-            g = torch.randn(shape, generator=gen).to(dev)
-            m = torch.randn(shape, generator=gen).to(dev)
-            s = torch.tensor(0.37, device=dev)
-            n = w.numel()
-            if momentum:
-                per_leaf.append(_timings(
-                    lambda: wu.weighted_update(w, g, s, m=m, momentum=momentum),
-                    lambda: ref.weighted_update_ref(w, g, s, m=m, momentum=momentum)))
-                nbytes += 5 * 4 * n  # read w, g, m; write w', m'
-                flops += 4 * n
-            else:
-                per_leaf.append(_timings(
-                    lambda: wu.weighted_update(w, g, s),
-                    lambda: ref.weighted_update_ref(w, g, s),
-                    lambda: torch.addcmul(w, g, s, value=-1)))
-                nbytes += 3 * 4 * n  # read w, g; write w'
-                flops += 2 * n
-        t = _sum_rows(per_leaf)
-        b, by = bound_ms(nbytes, flops)
-        rows[name] = dict(max_abs_err=max(worst.values()), bound_ms=b, bound_by=by, **t)
-        print(f"     {name}, one event (6 fp32 leaves): {json.dumps(rows[name])}")
+        grid_worst[name] = max(worst.values())
+    rows.update(_phase_leaf_sets(dev))
+    for name, row in rows.items():
+        row["max_abs_err"] = max([grid_worst[name], row["max_abs_err"]]
+                                 + [r["max_abs_err"] for r in row["path_shapes"].values()])
 
-    # K2 on the blocked ring at the main path's width: (C+1, P) = (65, 26624)
-    C, P = 64, 26624
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for dtype in (torch.float32, torch.bfloat16):
-        for E in (4, 8, 16):
-            real = E - 2  # two padded lanes, both on the trash row C
-            slots_np = np.concatenate([
-                np.random.default_rng(E).choice(C, size=real, replace=False), [C, C]
-            ]).astype(np.int64)
-            slots = torch.as_tensor(slots_np, device=dev)
-            snaps0 = torch.randn((C + 1, P), generator=gen).to(dev, dtype)
-            w = torch.randn((P,), generator=gen).to(dev)
-            D = (0.01 * torch.randn((E, P), generator=gen)).to(dev)
-            D[real:] = 0.0
-            ks, kw_ = wu.block_prefix_update(snaps0.clone(), w, D, slots)
-            rs, rw_ = ref.block_prefix_update_ref(snaps0.clone(), w, D, slots)
-            err = max(max_err(ks, rs), max_err(kw_, rw_))  # full ring, trash row included
-            worst[dtype] = max(worst[dtype], err)
-            buf = snaps0.clone()
-            t = _timings(lambda: wu.block_prefix_update(buf, w, D, slots),
-                         lambda: ref.block_prefix_update_ref(buf, w, D, slots))
-            esz = torch.finfo(dtype).bits // 8
-            distinct = len(set(slots_np.tolist()))
-            # read w, D, slots; write the distinct ring rows and w'
-            nbytes = 4 * P + 4 * E * P + 8 * E + distinct * P * esz + 4 * P
-            b, by = bound_ms(nbytes, E * P)
-            row = dict(max_abs_err=err, bound_ms=b, bound_by=by, **t)
-            print(f"     block_prefix_update {str(dtype)[6:]} E={E}: {json.dumps(row)}")
-            if dtype == torch.float32 and E == 8:  # the main path's ring and block
-                rows["block_prefix_update"] = row
-    torch.cuda.synchronize()
-    for dtype, err in worst.items():
-        check(err <= TOL[dtype], f"block_prefix_update {str(dtype)[6:]} max_abs_err {err:.3e} <= {TOL[dtype]}")
-    rows["block_prefix_update"]["max_abs_err"] = max(worst.values())
+    rows.update(_phase_prefix_update(dev))
     rows.update(_phase_scatter_rows(dev))
     return rows
+
+
+def _prefix_cell(dev, shape: tuple, timed: str) -> dict:
+    """K2 on one cell (ring rows R = C+1, P, E, padded lanes on the trash row,
+    ring dtype, w dtype), drawn on the card: every ring row and w' bitwise
+    equal to the plain version (which stores every lane in event order, the
+    kernel only the live lanes) and to a second launch, then timed beside
+    the plain version (``timed``: "full", or "kernel" with a few calls of
+    the plain version)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import weighted_update as wu
+
+    R, P, E, pad, dtype, w_dtype = shape
+    real = np.random.default_rng(P + E).choice(R - 1, size=E - pad, replace=False)
+    slots_np = np.concatenate([real, np.full(pad, R - 1)]).astype(np.int64)
+    slots = torch.as_tensor(slots_np, device=dev)
+    g = torch.Generator(device=dev).manual_seed(P + E)
+    snaps0 = torch.randn((R, P), generator=g, device=dev).to(dtype)
+    w = torch.randn((P,), generator=g, device=dev).to(w_dtype)
+    D = 0.01 * torch.randn((E, P), generator=g, device=dev)
+    D[E - pad:] = 0.0
+    ks, kw_ = wu.block_prefix_update(snaps0.clone(), w, D, slots)
+    rs, rw_ = ref.block_prefix_update_ref(snaps0.clone(), w, D, slots)
+    torch.cuda.synchronize()
+    same = torch.equal(ks, rs) and torch.equal(kw_, rw_)
+    err = max(max_err(ks, rs), max_err(kw_, rw_))  # full ring, trash row included
+    del rs, rw_
+    again, again_w = wu.block_prefix_update(snaps0.clone(), w, D, slots)
+    torch.cuda.synchronize()
+    twice = torch.equal(ks, again) and torch.equal(kw_, again_w)
+    del ks, kw_, again, again_w
+    vec = wu.prefix_vec(snaps0, w, D)
+    tag = (f"block_prefix_update {str(dtype)[6:]} ring (w {str(w_dtype)[6:]}) {(R, P)} E={E} "
+           f"({pad} padded, live {wu.live_lanes(slots_np, R)}, {vec} values an access)")
+    check(same and twice, f"{tag}: every ring row and w' bitwise equal to the plain version "
+          f"{same} (max abs err {err:.3e}), two launches bitwise equal {twice}")
+    distinct = len(set(slots_np.tolist()))
+    esz, wsz = torch.finfo(dtype).bits // 8, torch.finfo(w_dtype).bits // 8
+    # read w, D, slots; write the distinct ring rows and w'
+    nbytes = wsz * P + 4 * E * P + 8 * E + distinct * P * esz + wsz * P
+    b, by = bound_ms(nbytes, E * P)
+    row = dict(shape=[R, P, E, pad, str(dtype)[6:], str(w_dtype)[6:]], max_abs_err=err,
+               bitwise=same, vec=vec, bound_ms=b, bound_by=by)
+    buf = snaps0
+    kernel = lambda: wu.block_prefix_update(buf, w, D, slots)  # noqa: E731
+    plain = lambda: ref.block_prefix_update_ref(buf, w, D, slots)  # noqa: E731
+    if timed == "full":
+        row.update(_timings(kernel, plain))
+    else:
+        row.update(ms=time_ms(kernel), device_ms=profile(kernel, calls=50)[0],
+                   plain_ms=time_ms(plain, batches=3, per_batch=3, warmup=1),
+                   plain_device_ms=profile(plain, calls=3)[0])
+    print(f"     {tag}: {json.dumps(row)}")
+    del snaps0, buf, w, D, kernel, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def _phase_prefix_update(dev) -> dict:
+    """K2 over `PREFIX_SHAPES` (`_prefix_cell`): every ring row bitwise, the
+    present tolerance checks, then `prefix_kernel_info`."""
+    from repro_torch.kernels import weighted_update as wu
+
+    got = {shape: _prefix_cell(dev, shape, "full" if shape[1] < 10**8 else "kernel")
+           for shape in PREFIX_SHAPES}
+    for dtype in (torch.float32, torch.bfloat16):
+        err = max(r["max_abs_err"] for sh, r in got.items() if sh[4] == dtype)
+        check(err <= TOL[dtype],
+              f"block_prefix_update {str(dtype)[6:]} max_abs_err {err:.3e} <= {TOL[dtype]}")
+    info = {f"{str(dt)[6:]} ring, w {str(wd)[6:]}, {v} an access": wu.prefix_kernel_info(dt, v, E, wd)
+            for dt, wd, v, E in ((torch.float32, torch.float32, 4, 8),
+                                 (torch.float32, torch.float32, 1, 8),
+                                 (torch.bfloat16, torch.float32, 8, 8),
+                                 (torch.bfloat16, torch.float32, 1, 8),
+                                 (torch.bfloat16, torch.bfloat16, 8, 4))}
+    print(f"     block_prefix_update kernels (registers, static / dynamic shared memory, local "
+          f"bytes, CTAs an SM): {json.dumps(info)}")
+    check(all(i["local_bytes"] == 0 for i in info.values()),
+          "block_prefix_update kernels spill nothing to local memory")
+    first = dict(got[PREFIX_PATH_SHAPE], max_abs_err=max(r["max_abs_err"] for r in got.values()))
+    first.update(path_shapes=[got[sh] for sh in PREFIX_SHAPES if sh[1] > 10**8], kernel_info=info)
+    return {"block_prefix_update": first}
 
 
 def _scatter_cost(slots: list[int], P: int, esz_ring: int, esz_w: int) -> int:
@@ -881,6 +1057,19 @@ def phase_moe_gmm(dev) -> dict:
     return {"moe_gmm": first}
 
 
+def _k1_counts(path: dict, label: str, T: int, leaves: int) -> None:
+    """A per-event ``update="pallas"`` run of T events just ended: K1 made one
+    launch an event and covered every leaf of each; adds both counts to
+    ``path``."""
+    from repro_torch.kernels import weighted_update as wu
+
+    got, covered = wu.launches["weighted_update"], wu.launches["weighted_update_leaves"]
+    path["weighted_update"] = path.get("weighted_update", 0) + got
+    path["weighted_update_leaves"] = path.get("weighted_update_leaves", 0) + covered
+    check(got == T and covered == T * leaves,
+          f"{label} K1 launches {got} == T = {T}, leaves covered {covered} == {T} x {leaves}")
+
+
 def phase_mlp(dev, launches: dict) -> dict:
     """Phases 3-6 (the MLP slice) and its profile; adds the kernel paths'
     launch counts to ``launches`` under "mlp".  Returns what the lane-sharded
@@ -912,11 +1101,9 @@ def phase_mlp(dev, launches: dict) -> dict:
 
     wu.reset_launches()
     (w_pe, tr_pe), wall = _timed(lambda: run(replace(base, update="pallas", block_size=1)))
-    mlp["weighted_update"] = wu.launches["weighted_update"]
+    _k1_counts(mlp, "MLP", flc.server_steps, 6)
     print(f"per-event pallas: {wall:.3f} s ({flc.server_steps / wall:.1f} events/s), "
           f"launches {dict(wu.launches)}, acc {tr_pe.eval_values}")
-    check(wu.launches["weighted_update"] == flc.server_steps * 6,
-          f"K1 launches {wu.launches['weighted_update']} == T*6 = {flc.server_steps * 6}")
     (w_pe_j, _), wall = _timed(lambda: run(replace(base, update="jnp", block_size=1)))
     print(f"per-event jnp: {wall:.3f} s ({flc.server_steps / wall:.1f} events/s)")
     gap = _tree_gap(w_pe, w_pe_j)
@@ -1039,8 +1226,8 @@ def phase_lanes(dev, launches: dict, blocked: dict) -> None:
                              step_scales(stream, base.eta, uniform, "plain"),
                              base.eval_every)[0].shape[0]
 
-    # 14. FedBuff (Z=10): the entry point, per event with K1 per leaf, blocked
-    # E=8 with K2, and the port's Python loop at T=200
+    # 14. FedBuff (Z=10): the entry point, per event with K1 (one launch an
+    # event), blocked E=8 with K2, and the port's Python loop at T=200
     r, wall = _timed(lambda: run_experiment(flc, "fedbuff", eval_every=500))
     print(f"run_experiment fedbuff Z={FEDBUFF_Z} n=256 C=64 T=2000: {wall:.3f} s, "
           f"{T / wall:.1f} events/s, acc {r.eval_acc.tolist()}")
@@ -1049,12 +1236,10 @@ def phase_lanes(dev, launches: dict, blocked: dict) -> None:
     path = launches.setdefault("fedbuff", {})
     wu.reset_launches()
     (w_pe, tr_pe), wall = _timed(lambda: fb(replace(base, update="pallas")))
-    path["weighted_update"] = wu.launches["weighted_update"]
+    _k1_counts(path, "fedbuff", T, 6)
     fb_pe_rate = T / wall
     print(f"fedbuff per-event pallas: {wall:.3f} s ({fb_pe_rate:.1f} events/s), launches "
           f"{dict(wu.launches)}, acc {tr_pe.eval_values}")
-    check(wu.launches["weighted_update"] == T * 6,
-          f"fedbuff K1 launches {wu.launches['weighted_update']} == T*6 = {T * 6}")
     gap = _tree_gap(w_pe, r.final_params)
     check(gap <= 1e-5, f"fedbuff per-event K1 vs run_experiment (flat update) max gap {gap:.3e} <= 1e-5")
     wu.reset_launches()
@@ -1103,6 +1288,8 @@ def phase_lanes(dev, launches: dict, blocked: dict) -> None:
         same = _np_gap(o["w"], res[1][name]["w"]) == 0.0 and o["acc"] == res[1][name]["acc"]
         check(same, f"lane-sharded {name}: the {LANE_RANKS} ranks' weights and curves bitwise equal")
     o = res[0]
+    print(f"lane-sharded gen_async K6 acc {o['gen_async']['acc']}; fedbuff K2 acc "
+          f"{o['fedbuff']['acc']}")
     gap = _np_gap(o["gen_async"]["w"], o["gen_async_jnp"]["w"])
     check(gap <= 1e-5, f"lane-sharded K6 vs plain scatter max gap {gap:.3e} <= 1e-5")
     gap = _np_gap(o["gen_async_200"]["w"], _np_tree(blocked["w_200"]))
@@ -1275,13 +1462,11 @@ def phase_lm(dev, launches: dict) -> None:
     wu.reset_launches()
     (w, tr), wall = _timed(lambda: run(base))
     lm["flash_attention"] += fa.launches["flash_attention"]
-    lm["weighted_update"] += wu.launches["weighted_update"]
+    _k1_counts(lm, "LM", LM_T, LM_LEAVES)
     del w
     print(f"LM update=pallas: {wall:.3f} s, {LM_T / wall:.3f} events/s, {tokens / wall:.1f} "
           f"tokens/s, launches K1 {wu.launches['weighted_update']} K3 "
           f"{fa.launches['flash_attention']}, loss {tr.eval_values}")
-    check(wu.launches["weighted_update"] == LM_T * LM_LEAVES,
-          f"K1 launches {wu.launches['weighted_update']} == {LM_T} x {LM_LEAVES} leaves")
     check(fa.launches["flash_attention"] == cfg.num_layers * forwards,
           f"K3 launches {fa.launches['flash_attention']} == {cfg.num_layers} x {forwards} forwards")
     gap = float(np.max(np.abs(np.asarray(tr.eval_values) - curve) / np.abs(curve)))
@@ -1319,7 +1504,7 @@ def phase_mamba(dev, launches: dict) -> None:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import FLConfig
     from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
-    from repro_torch.core.engine_scan import blocked_inputs, step_scales
+    from repro_torch.core.engine_scan import _snapshot_codec, blocked_inputs, step_scales
     from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream
     from repro_torch.data.pipeline import make_client_speeds
     from repro_torch.fl.engine import LMTask, _cached_fl_setup, run_experiment, sampling_for
@@ -1413,14 +1598,12 @@ def phase_mamba(dev, launches: dict) -> None:
     wu.reset_launches()
     k4.reset_launches()
     (w, tr), wall = _timed(lambda: run(base))
-    path["weighted_update"] += wu.launches["weighted_update"]
+    _k1_counts(path, "Mamba2", LM_T, MAMBA_LEAVES)
     path["ssd_scan"] += k4.launches["ssd_scan"]
     del w
     print(f"Mamba2 update=pallas: {wall:.3f} s, {LM_T / wall:.3f} events/s, "
           f"{tokens / wall:.1f} tokens/s, launches K1 {wu.launches['weighted_update']} "
           f"K4 {k4.launches['ssd_scan']}, loss {tr.eval_values}")
-    check(wu.launches["weighted_update"] == LM_T * MAMBA_LEAVES,
-          f"K1 launches {wu.launches['weighted_update']} == {LM_T} x {MAMBA_LEAVES} leaves")
     check(k4.launches["ssd_scan"] == nL * forwards,
           f"K4 launches {k4.launches['ssd_scan']} == {nL} x {forwards} forwards")
     gap = curve_gap(tr.eval_values, curve)
@@ -1432,6 +1615,10 @@ def phase_mamba(dev, launches: dict) -> None:
                           step_scales(stream, base.eta, p, "importance"), LM_EVAL)[0].shape[0]
     evals = LM_T // LM_EVAL
     blocked = replace(base, block_size=MAMBA_E)
+    pack, _, enc = _snapshot_codec(setup.params, blocked.snapshot_dtype)
+    flat = pack(setup.params)
+    print(f"Mamba2 blocked E={MAMBA_E}: K2's ring stores {enc(flat).dtype}, w is {flat.dtype}")
+    del flat
     wu.reset_launches()
     k4.reset_launches()
     (w, tr_b), wall = _timed(lambda: run(blocked))
@@ -1562,15 +1749,13 @@ def phase_moe_lm(dev, launches: dict) -> None:
     for mod in (fa, k5, wu):
         mod.reset_launches()
     (w, tr), wall = _timed(lambda: run(base))
-    path["weighted_update"] += wu.launches["weighted_update"]
+    _k1_counts(path, "Qwen-MoE", LM_T, MOE_LEAVES)
     path["flash_attention"] += fa.launches["flash_attention"]
     path["moe_gmm"] += k5.launches["moe_gmm"]
     del w
     print(f"Qwen-MoE update=pallas: {wall:.3f} s, {LM_T / wall:.3f} events/s, "
           f"{tokens / wall:.1f} tokens/s, launches K1 {wu.launches['weighted_update']} K3 "
           f"{fa.launches['flash_attention']} K5 {k5.launches['moe_gmm']}, loss {tr.eval_values}")
-    check(wu.launches["weighted_update"] == LM_T * MOE_LEAVES,
-          f"Qwen-MoE K1 launches {wu.launches['weighted_update']} == {LM_T} x {MOE_LEAVES} leaves")
     counts_ok("update=pallas")
     gap = float(np.max(np.abs(np.asarray(tr.eval_values) - curve) / np.abs(curve)))
     check(gap <= 1e-3, f"Qwen-MoE eval curve, update=pallas vs the flat update: relative gap "
@@ -1703,9 +1888,14 @@ def main(argv: list[str] | None = None) -> int:
     kernels = []
     for name, row in rows.items():
         by_path = {path: c[name] for path, c in launches.items() if name in c}
+        extra = {}
+        if name == "weighted_update":  # one launch an event: the leaves each covered
+            extra["leaves_by_path"] = {path: c["weighted_update_leaves"]
+                                       for path, c in launches.items()
+                                       if "weighted_update_leaves" in c}
         kernels.append(dict(name=name, route="cuda", source=csrc + meta[name][0],
                             replaces=meta[name][1], launches=sum(by_path.values()),
-                            launches_by_path=by_path, **row))
+                            launches_by_path=by_path, **extra, **row))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -174,7 +174,8 @@ def _device_grad_fn(source) -> Callable:
 
 
 def _pallas_update_fn():
-    """The ``update="pallas"`` per-event update: K1 on every leaf."""
+    """The ``update="pallas"`` per-event update: K1, one launch over every
+    leaf of the tree."""
     from ..kernels.ops import tree_weighted_update
 
     return tree_weighted_update

@@ -252,7 +252,7 @@ def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc, fedbuff_
     server step k — all 0-d device tensors) exactly as Algorithm 1 lines
     9-11.  In flat mode ``w`` (and the FedBuff buffer ``acc``) is the packed
     vector and the update is one axpy; otherwise (a given ``update_fn``,
-    e.g. the per-leaf K1 kernel) ``w`` and ``acc`` are pytrees.  With
+    e.g. K1 over the leaves) ``w`` and ``acc`` are pytrees.  With
     ``fedbuff_Z > 0`` the gradient joins the buffer, which is applied with
     scale ``scale / Z`` and emptied on every Z-th server step.  ``snaps`` is
     written in place.

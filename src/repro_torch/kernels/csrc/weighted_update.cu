@@ -2,7 +2,10 @@
 //
 // K1  weighted_update (plain and momentum) replaces the TPU kernel
 //     repro/kernels/weighted_update.py:weighted_update (bodies _kernel_plain
-//     and _kernel):  w' = w - s * (momentum * m + g),  m' = momentum * m + g.
+//     and _kernel):  w' = w - s * (momentum * m + g),  m' = momentum * m + g,
+//     g rounded to w's dtype first.  JAX applies it to a tree one leaf at a
+//     time (tree_weighted_update); here one launch covers every leaf of an
+//     event.
 // K2  block_prefix_update replaces repro/kernels/weighted_update.py:
 //     block_prefix_update (body _block_kernel):  W_i = w - sum_{j<=i} D_j,
 //     snaps[slot_i] = W_i in place, w' = W_{E-1}.
@@ -11,14 +14,61 @@
 //     scatter of precomputed iterates, snaps[slot_i] = W_i in place,
 //     w' = W_{E-1}.
 //
-// What bounds them: all three are elementwise passes with O(1) flops per
-// byte, so device-memory bandwidth is their ceiling.  At the MLP's width
-// (P = 26,122 parameters, 26,624 once padded) one launch moves a few hundred
-// KB (K1, per leaf) to ~2 MB (K2 at E = 16), which takes well under a
-// microsecond at 3.35 TB/s: launch latency, not bandwidth, sets their time.
-// K1 and K2 are the simplest design that is coalesced: one thread per
-// element (K1) or per column (K2), neighbouring threads on neighbouring
-// addresses, and a grid-stride loop so any size works without padding.
+// All three are elementwise passes with O(1) flops per byte, so at large
+// widths device-memory bandwidth bounds them, and at the MLP's width
+// (P = 26,122 parameters, 26,624 once padded) the latency of one launch.
+//
+// K1 (weighted_update_leaves_kernel).  At the MLP one event's six fp32
+// leaves move 313 KB, well under a microsecond at 3.35 TB/s: one launch's
+// latency bounds it, so the whole event is one launch, and the host cost
+// of a launch per leaf (the ctypes call, the allocation, the stream lookup)
+// is paid once.  At the LM widths it is bound by bytes:
+// sum of numel * (2 * esz(w) + esz(g)), plus 8 B a value with momentum
+// (Granite-3.0-2B's 11 bf16 leaves: 15.2 GB, 4.54 ms).  So:
+//   - The leaves travel in a table passed by value as a __grid_constant__
+//     parameter (kMaxLeaves = 64 of them in 3,600 B, inside the 4 KB of
+//     parameters): no host-to-device copy, no table in device memory.  A
+//     list of more leaves takes further launches.
+//   - The work is cut into chunks of kLeafThreads * kLeafUnroll accesses.
+//     CTA b finds its leaf by a binary search over the table's first-chunk
+//     prefix; the grid is the number of chunks, sized to the work and never
+//     capped (the MLP: 10 CTAs; Granite: 309,270).  The Python mirror of the split, for
+//     the CPU tests, is repro_torch/kernels/weighted_update.py:leaf_plan.
+//   - 16-byte accesses (8 bf16 or 4 fp32 values of the widest operand) for
+//     a leaf whose operands are all 16-byte aligned; its last partial vector
+//     takes one value an access.  Every leaf starts at its own base, so a
+//     vector body and a short tail are right here (unlike K6's rows).  A
+//     leaf with an operand off the 16-byte grid (a view with a storage
+//     offset) takes one value an access.
+//   - Each thread loads kLeafUnroll vectors of every operand before the
+//     math, so enough bytes are in flight to stream at the card's rate.
+//   - g is rounded to w's dtype in registers (__float2bfloat16_rn, the rule
+//     of g.to(w.dtype)), not by a separate device op.
+//
+// K2 (block_prefix_update_kernel).  At the MLP's ring and block ((65,
+// 26,624), E = 8) one launch moves ~1.2 MB, 0.00054 ms of bytes: latency
+// bounds it.  At Mamba2-130M's blocked ring ((9, 128,984,064), E = 4) it
+// moves 40 * P bytes for an fp32 ring and w (read w and D, write 4 ring rows
+// and w'), 1.540 ms, and 28 * P for bf16, 1.078 ms: bytes bound it.  So:
+//   - A CTA loads its block's E slots into shared memory once, and lane i
+//     stores W_i only when it is live: its slot lies in [0, R) and no later
+//     lane has the same slot (K6's rule, live_lanes in Python).  Each
+//     distinct ring row is written once, repeated trash-row lanes write
+//     nothing, and last-writer-wins needs no order between threads.  Every
+//     lane's D still enters the prefix sum, as the TPU kernel reads it.
+//   - A thread owns one vector of columns: 16 bytes of ring values (4 fp32,
+//     8 bf16), D read 4 columns a 16-byte load.  A P that is not a multiple
+//     of the vector, or an operand off the 16-byte grid, takes one value an
+//     access (K6's width rule: the rows then start off the grid at offsets
+//     that differ from row to row).  The engine pads P to a multiple of
+//     BLOCK_TILE = 1024, so its path always takes the wide form.
+//   - The D rows of a group of kPrefixGroup lanes (every lane of the
+//     engine's E <= 16 in one or two groups) are loaded before the adds; the
+//     first group and w are in flight while the slots arrive.
+//   - The sum runs in event order with __fadd_rn, so the rows equal the
+//     plain version's bit for bit.  The grid is sized to the work.
+//   - The TPU kernel's column tile table (repro/kernels/autotune.py) has no
+//     counterpart: this kernel takes any P at one fixed design.
 //
 // K6 is a copy and a cast.  On a Mamba2-130M ring (E = 4 rows of 129 M fp32
 // columns) one call moves 4.6 GB and is bound by bytes; at the MLP's ring
@@ -66,11 +116,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 132 * 16;  // 16 resident blocks per SM (K1, K2)
-constexpr int64_t kMaxScatterLanes = 4096;  // K6's slots fill E * 8 bytes of shared memory
+constexpr int64_t kMaxLanes = 4096;  // K2's and K6's slots live in shared memory
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -86,76 +136,298 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-inline int grid_for(int64_t n) {
-  int64_t blocks = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-}
-
-// K1a: w' = w - s * g
-template <typename T>
-__global__ void weighted_update_plain_kernel(const T* __restrict__ w, const T* __restrict__ g,
-                                             const float* __restrict__ scale,
-                                             T* __restrict__ out, int64_t n) {
-  const float s = *scale;
-  const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    out[i] = from_f32<T>(__fsub_rn(to_f32(w[i]), __fmul_rn(s, to_f32(g[i]))));
-  }
-}
-
-// K1b: m' = momentum * m + g;  w' = w - s * m'   (m is fp32)
-template <typename T>
-__global__ void weighted_update_momentum_kernel(const T* __restrict__ w,
-                                                const T* __restrict__ g,
-                                                const float* __restrict__ m,
-                                                const float* __restrict__ scale,
-                                                float momentum, T* __restrict__ out_w,
-                                                float* __restrict__ out_m, int64_t n) {
-  const float s = *scale;
-  const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float mf = __fadd_rn(__fmul_rn(momentum, m[i]), to_f32(g[i]));
-    out_m[i] = mf;
-    out_w[i] = from_f32<T>(__fsub_rn(to_f32(w[i]), __fmul_rn(s, mf)));
-  }
-}
-
-// K2: each thread owns column p and walks the E events in order, so
-// duplicate (trash-row) slots resolve last-writer-wins.  A slot outside
-// [0, R) is dropped, as the JAX scatter drops out-of-range rows.
-template <typename S, typename W>
-__global__ void block_prefix_update_kernel(S* __restrict__ snaps, const W* __restrict__ w,
-                                           const float* __restrict__ D,
-                                           const int64_t* __restrict__ slots,
-                                           W* __restrict__ w_out, int64_t R, int64_t P,
-                                           int64_t E) {
-  const int64_t stride = static_cast<int64_t>(blockDim.x) * gridDim.x;
-  for (int64_t p = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; p < P;
-       p += stride) {
-    const float w0 = to_f32(w[p]);
-    float acc = 0.0f;
-    for (int64_t i = 0; i < E; ++i) {
-      acc = __fadd_rn(acc, D[i * P + p]);
-      const int64_t row = slots[i];
-      if (row >= 0 && row < R) snaps[row * P + p] = from_f32<S>(__fsub_rn(w0, acc));
-    }
-    w_out[p] = from_f32<W>(__fsub_rn(w0, acc));
-  }
-}
-
-// K6 (see the note above): CTA (x, i) takes lane i's vectors
-// [x * 128 * U, (x + 1) * 128 * U), U = kScatterUnroll, 128 apart in each
-// thread.
-constexpr int kScatterThreads = 128;
-constexpr int kScatterUnroll = 2;
-
 // VEC values of type T, as wide as one access may be (16 bytes at most)
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC < 16 ? sizeof(T) * VEC : 16) Pack {
   T v[VEC];
 };
+
+bool aligned_to(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+// ------------------------------------------------------------------ K1
+constexpr int kLeafThreads = 256;
+constexpr int kLeafUnroll = 4;  // vectors of each operand a thread loads before the math
+constexpr int kMaxLeaves = 64;
+constexpr int kLeafFields = 7;  // int64 fields of a leaf row from the host (see below)
+
+struct LeafArg {
+  const void* w;
+  const void* g;
+  void* out;
+  const float* m;  // the momentum buffer (K1b), else null
+  float* out_m;
+  int64_t n;       // values, > 0
+  int32_t first;   // the leaf's first chunk (CTA) in its launch
+  int8_t w_dtype;
+  int8_t g_dtype;
+  int8_t vec;      // values an access: 16 bytes of the widest operand, or 1
+  int8_t unused;
+};
+
+struct LeafTable {
+  LeafArg leaf[kMaxLeaves];
+  const float* scale;
+  float momentum;
+  int32_t count;
+};
+static_assert(sizeof(LeafTable) <= 4096, "K1's leaf table must fit the 4 KB of kernel parameters");
+
+// g as the update sees it: rounded to w's dtype first (RNE, g.to(w.dtype))
+template <typename W, typename G>
+__device__ __forceinline__ float g_in_w_dtype(G g) {
+  if constexpr (std::is_same<W, __nv_bfloat16>::value && std::is_same<G, float>::value) {
+    return __bfloat162float(__float2bfloat16_rn(g));
+  } else {
+    return to_f32(g);
+  }
+}
+
+// One chunk of one leaf: thread t takes vectors c * T * U + u * T + t,
+// u < U (T = kLeafThreads, U = kLeafUnroll), all loads before the math.
+// A vector that runs past n (the leaf's last, partial one) moves one value
+// an access.
+template <typename W, typename G, int VEC, bool kMomentum>
+__device__ __forceinline__ void update_chunk(const LeafArg& L, int64_t chunk, float s,
+                                             float beta) {
+  using PW = Pack<W, VEC>;
+  using PG = Pack<G, VEC>;
+  using PM = Pack<float, VEC>;
+  const W* w = static_cast<const W*>(L.w);
+  const G* g = static_cast<const G*>(L.g);
+  const int64_t n = L.n;
+  const int64_t v0 = chunk * (kLeafThreads * kLeafUnroll) + threadIdx.x;
+  PW wv[kLeafUnroll];
+  PG gv[kLeafUnroll];
+  PM mv[kLeafUnroll];
+#pragma unroll
+  for (int u = 0; u < kLeafUnroll; ++u) {
+    const int64_t v = v0 + static_cast<int64_t>(u) * kLeafThreads;
+    const int64_t e = v * VEC;
+    if (e + VEC <= n) {
+      wv[u] = reinterpret_cast<const PW*>(w)[v];
+      gv[u] = reinterpret_cast<const PG*>(g)[v];
+      if constexpr (kMomentum) mv[u] = reinterpret_cast<const PM*>(L.m)[v];
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const bool in = e + k < n;
+        wv[u].v[k] = in ? w[e + k] : from_f32<W>(0.0f);
+        gv[u].v[k] = in ? g[e + k] : from_f32<G>(0.0f);
+        if constexpr (kMomentum) mv[u].v[k] = in ? L.m[e + k] : 0.0f;
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kLeafUnroll; ++u) {
+    const int64_t v = v0 + static_cast<int64_t>(u) * kLeafThreads;
+    const int64_t e = v * VEC;
+    if (e >= n) break;
+    PW o;
+    PM om;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      float step = g_in_w_dtype<W>(gv[u].v[k]);
+      if constexpr (kMomentum) {
+        step = __fadd_rn(__fmul_rn(beta, mv[u].v[k]), step);
+        om.v[k] = step;
+      }
+      o.v[k] = from_f32<W>(__fsub_rn(to_f32(wv[u].v[k]), __fmul_rn(s, step)));
+    }
+    if (e + VEC <= n) {
+      reinterpret_cast<PW*>(L.out)[v] = o;
+      if constexpr (kMomentum) reinterpret_cast<PM*>(L.out_m)[v] = om;
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        if (e + k < n) {
+          static_cast<W*>(L.out)[e + k] = o.v[k];
+          if constexpr (kMomentum) L.out_m[e + k] = om.v[k];
+        }
+      }
+    }
+  }
+}
+
+template <typename W, typename G, int WIDE, bool kMomentum>
+__device__ __forceinline__ void update_leaf_chunk(const LeafArg& L, int64_t chunk, float s,
+                                                  float beta) {
+  if (L.vec == 1) {
+    update_chunk<W, G, 1, kMomentum>(L, chunk, s, beta);
+  } else {
+    update_chunk<W, G, WIDE, kMomentum>(L, chunk, s, beta);
+  }
+}
+
+// K1 (see the note above): CTA b takes chunk b - first of the leaf whose
+// first chunk is the largest that is <= b.
+template <bool kMomentum>
+__global__ void __launch_bounds__(kLeafThreads)
+weighted_update_leaves_kernel(const __grid_constant__ LeafTable t) {
+  const int32_t b = static_cast<int32_t>(blockIdx.x);
+  int lo = 0, hi = t.count - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (t.leaf[mid].first <= b) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const LeafArg L = t.leaf[lo];
+  const int64_t chunk = b - L.first;
+  const float s = *t.scale;
+  const float beta = t.momentum;
+  if (L.w_dtype == kF32) {
+    if (L.g_dtype == kF32) {
+      update_leaf_chunk<float, float, 4, kMomentum>(L, chunk, s, beta);
+    } else {
+      update_leaf_chunk<float, __nv_bfloat16, 4, kMomentum>(L, chunk, s, beta);
+    }
+  } else if (L.g_dtype == kF32) {
+    update_leaf_chunk<__nv_bfloat16, float, 4, kMomentum>(L, chunk, s, beta);
+  } else {
+    update_leaf_chunk<__nv_bfloat16, __nv_bfloat16, kMomentum ? 4 : 8, kMomentum>(L, chunk, s,
+                                                                                  beta);
+  }
+}
+
+// The values a thread of K1 moves per access on a leaf: 16 bytes of its
+// widest operand (fp32 w, g or the momentum buffer: 4; all bf16: 8) when
+// every operand is 16-byte aligned, else 1.
+int leaf_vec(int w_dtype, int g_dtype, bool momentum, const void* const* ptrs) {
+  const int widest = (w_dtype == kF32 || g_dtype == kF32 || momentum) ? 4 : 2;
+  for (int k = 0; k < (momentum ? 5 : 3); ++k) {
+    if (!aligned_to(ptrs[k], 16)) return 1;
+  }
+  return 16 / widest;
+}
+
+// ------------------------------------------------------------------ K2
+// 64 threads a CTA: at the MLP's ring that is 104 CTAs (fp32) or 52 (bf16),
+// so a block's D spreads over as many SMs.  With 256 threads (26 / 13 CTAs)
+// each SM pulled up to 65 KB of D alone, and the kernel took 4-38% longer
+// than one thread per column walking the events (H100 80GB HBM3, 700 W).
+constexpr int kPrefixThreads = 64;
+constexpr int kPrefixGroup = 8;  // rows of D a thread holds before the adds
+
+// K2 (see the note above): thread v of the grid owns columns [v * VEC,
+// (v + 1) * VEC).  Shared memory: the E slots, then the ring row each lane
+// stores (-1: none).
+template <typename S, typename W, int VEC>
+__global__ void __launch_bounds__(kPrefixThreads)
+block_prefix_update_kernel(S* __restrict__ snaps, const W* __restrict__ w,
+                           const float* __restrict__ D, const int64_t* __restrict__ slots,
+                           W* __restrict__ w_out, int64_t R, int64_t P, int64_t E) {
+  extern __shared__ int64_t slot_sh[];
+  int32_t* row_sh = reinterpret_cast<int32_t*>(slot_sh + E);
+  using PF = Pack<float, VEC>;
+  const int64_t nvec = P / VEC;
+  const int64_t v = static_cast<int64_t>(blockIdx.x) * kPrefixThreads + threadIdx.x;
+  const bool active = v < nvec;
+  const PF* Dv = reinterpret_cast<const PF*>(D);
+  Pack<W, VEC> wp;
+  PF d[kPrefixGroup];
+  if (active) {  // w and the first group of D, in flight while the slots arrive
+    wp = reinterpret_cast<const Pack<W, VEC>*>(w)[v];
+#pragma unroll
+    for (int i = 0; i < kPrefixGroup; ++i) {
+      if (i < E) d[i] = Dv[i * nvec + v];
+    }
+  }
+  for (int64_t j = threadIdx.x; j < E; j += kPrefixThreads) slot_sh[j] = slots[j];
+  __syncthreads();
+  for (int64_t j = threadIdx.x; j < E; j += kPrefixThreads) {
+    const int64_t row = slot_sh[j];
+    bool live = row >= 0 && row < R;
+    for (int64_t k = j + 1; live && k < E; ++k) live = slot_sh[k] != row;
+    row_sh[j] = live ? static_cast<int32_t>(row) : -1;
+  }
+  __syncthreads();
+  if (!active) return;
+  float w0[VEC], acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    w0[k] = to_f32(wp.v[k]);
+    acc[k] = 0.0f;
+  }
+  Pack<S, VEC>* ring = reinterpret_cast<Pack<S, VEC>*>(snaps);
+  for (int64_t g0 = 0;;) {
+#pragma unroll
+    for (int i = 0; i < kPrefixGroup; ++i) {
+      if (g0 + i < E) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] = __fadd_rn(acc[k], d[i].v[k]);
+        const int32_t row = row_sh[g0 + i];
+        if (row >= 0) {
+          Pack<S, VEC> o;
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) o.v[k] = from_f32<S>(__fsub_rn(w0[k], acc[k]));
+          ring[row * nvec + v] = o;
+        }
+      }
+    }
+    g0 += kPrefixGroup;
+    if (g0 >= E) break;
+#pragma unroll
+    for (int i = 0; i < kPrefixGroup; ++i) {
+      if (g0 + i < E) d[i] = Dv[(g0 + i) * nvec + v];
+    }
+  }
+  Pack<W, VEC> o;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) o.v[k] = from_f32<W>(__fsub_rn(w0[k], acc[k]));
+  reinterpret_cast<Pack<W, VEC>*>(w_out)[v] = o;
+}
+
+size_t prefix_smem(int64_t E) { return E * (sizeof(int64_t) + sizeof(int32_t)); }
+
+// The columns a thread of K2 owns: 16 bytes of ring values when P is a
+// multiple of that and snaps, w and D are 16-byte aligned, else one (w' is
+// 16-byte aligned, block_prefix_update checks it).
+int prefix_vec(int snap_dtype, const void* snaps, const void* w, const void* D, int64_t P) {
+  const int vec = snap_dtype == kF32 ? 4 : 8;
+  return P % vec == 0 && aligned_to(snaps, 16) && aligned_to(w, 16) && aligned_to(D, 16) ? vec
+                                                                                          : 1;
+}
+
+template <typename S, typename W, int VEC>
+cudaError_t launch_prefix_vec(void* snaps, const void* w, const void* D, const void* slots,
+                              void* w_out, int64_t R, int64_t P, int64_t E,
+                              cudaStream_t stream) {
+  const int64_t grid = (P / VEC + kPrefixThreads - 1) / kPrefixThreads;
+  block_prefix_update_kernel<S, W, VEC><<<static_cast<unsigned>(grid), kPrefixThreads,
+                                          prefix_smem(E), stream>>>(
+      static_cast<S*>(snaps), static_cast<const W*>(w), static_cast<const float*>(D),
+      static_cast<const int64_t*>(slots), static_cast<W*>(w_out), R, P, E);
+  return cudaGetLastError();
+}
+
+// 16 bytes of ring values a thread access
+template <typename S>
+constexpr int kWide = 16 / sizeof(S);
+
+template <typename S, typename W>
+cudaError_t launch_prefix(void* snaps, const void* w, const void* D, const void* slots,
+                          void* w_out, int64_t R, int64_t P, int64_t E, int vec,
+                          cudaStream_t stream) {
+  return vec == 1
+      ? launch_prefix_vec<S, W, 1>(snaps, w, D, slots, w_out, R, P, E, stream)
+      : launch_prefix_vec<S, W, kWide<S>>(snaps, w, D, slots, w_out, R, P, E, stream);
+}
+
+// The K2 kernel of this dtype pair and VEC (1 or 16 bytes), for kernel_info.
+template <typename S, typename W>
+const void* prefix_kernel(int vec) {
+  return vec == 1 ? (const void*)block_prefix_update_kernel<S, W, 1>
+                  : (const void*)block_prefix_update_kernel<S, W, kWide<S>>;
+}
+
+// ------------------------------------------------------------------ K6
+// K6 (see the note above): CTA (x, i) takes lane i's vectors
+// [x * 128 * U, (x + 1) * 128 * U), U = kScatterUnroll, 128 apart in each
+// thread.
+constexpr int kScatterThreads = 128;
+constexpr int kScatterUnroll = 2;
 
 template <typename S, typename W, int VEC>
 __global__ void __launch_bounds__(kScatterThreads)
@@ -203,8 +475,6 @@ block_scatter_rows_kernel(S* __restrict__ snaps, const float* __restrict__ Wr,
   }
 }
 
-bool aligned_to(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
-
 // The ring values a thread of K6 moves per access: 16 bytes of them when P
 // is a multiple of that and snaps and W are 16-byte aligned, else one (w'
 // is 16-byte aligned, block_scatter_rows checks it).
@@ -224,10 +494,6 @@ cudaError_t launch_scatter_vec(void* snaps, const void* Wr, const void* slots, v
   return cudaGetLastError();
 }
 
-// 16 bytes of ring values a thread access
-template <typename S>
-constexpr int kWide = 16 / sizeof(S);
-
 template <typename S, typename W>
 cudaError_t launch_scatter(void* snaps, const void* Wr, const void* slots, void* w_out, int64_t R,
                            int64_t P, int64_t E, int vec, cudaStream_t stream) {
@@ -242,79 +508,143 @@ const void* scatter_kernel(int vec) {
                   : (const void*)block_scatter_rows_kernel<S, W, kWide<S>>;
 }
 
-template <typename S, typename W>
-void launch_block(void* snaps, const void* w, const void* D, const void* slots, void* w_out,
-                  int64_t R, int64_t P, int64_t E, cudaStream_t stream) {
-  block_prefix_update_kernel<S, W><<<grid_for(P), kThreads, 0, stream>>>(
-      static_cast<S*>(snaps), static_cast<const W*>(w), static_cast<const float*>(D),
-      static_cast<const int64_t*>(slots), static_cast<W*>(w_out), R, P, E);
+// Registers, static / dynamic shared memory, local (spill) bytes and the
+// CTAs an SM holds of a kernel at this block size and dynamic shared memory.
+int kernel_attrs(const void* fn, int threads, size_t dyn, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, dyn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = static_cast<int>(dyn);
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = blocks;
+  return 0;
+}
+
+bool valid_pair(int snap_dtype, int w_dtype) {
+  return (snap_dtype == kF32 || snap_dtype == kBF16) && (w_dtype == kF32 || w_dtype == kBF16);
 }
 
 }  // namespace
 
 extern "C" {
 
-int wu_plain(int dtype, const void* w, const void* g, const void* scale, void* out, int64_t n,
-             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* s = static_cast<const float*>(scale);
-  if (dtype == kF32) {
-    weighted_update_plain_kernel<float><<<grid_for(n), kThreads, 0, st>>>(
-        static_cast<const float*>(w), static_cast<const float*>(g), s, static_cast<float*>(out),
-        n);
-  } else if (dtype == kBF16) {
-    weighted_update_plain_kernel<__nv_bfloat16><<<grid_for(n), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(w), static_cast<const __nv_bfloat16*>(g), s,
-        static_cast<__nv_bfloat16*>(out), n);
-  } else {
+// K1 over `count` leaves, one launch.  rows[i * 7 + k]: the pointers of w,
+// g, w' and (with momentum) m and m', the leaf's numel (> 0), and its dtype
+// codes w | g << 8.  scale: one float32 on the device.
+int weighted_update_leaves(const int64_t* rows, int count, const void* scale, float momentum,
+                           int with_momentum, void* stream) {
+  if (count < 1 || count > kMaxLeaves || scale == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool mom = with_momentum != 0;
+  LeafTable t = {};
+  int64_t chunks = 0;
+  for (int i = 0; i < count; ++i) {
+    const int64_t* r = rows + static_cast<int64_t>(i) * kLeafFields;
+    const int w_dtype = static_cast<int>(r[6] & 0xff), g_dtype = static_cast<int>(r[6] >> 8);
+    const void* ptrs[5] = {reinterpret_cast<const void*>(r[0]), reinterpret_cast<const void*>(r[1]),
+                           reinterpret_cast<const void*>(r[2]), reinterpret_cast<const void*>(r[3]),
+                           reinterpret_cast<const void*>(r[4])};
+    if (!valid_pair(w_dtype, g_dtype) || r[5] <= 0 || !ptrs[0] || !ptrs[1] || !ptrs[2] ||
+        (mom && (!ptrs[3] || !ptrs[4]))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    LeafArg& L = t.leaf[i];
+    L.w = ptrs[0];
+    L.g = ptrs[1];
+    L.out = const_cast<void*>(ptrs[2]);
+    L.m = mom ? static_cast<const float*>(ptrs[3]) : nullptr;
+    L.out_m = mom ? static_cast<float*>(const_cast<void*>(ptrs[4])) : nullptr;
+    L.n = r[5];
+    L.w_dtype = static_cast<int8_t>(w_dtype);
+    L.g_dtype = static_cast<int8_t>(g_dtype);
+    L.vec = static_cast<int8_t>(leaf_vec(w_dtype, g_dtype, mom, ptrs));
+    L.first = static_cast<int32_t>(chunks);
+    const int64_t per_chunk = int64_t{kLeafThreads} * kLeafUnroll * L.vec;
+    chunks += (L.n + per_chunk - 1) / per_chunk;
+    if (chunks > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  t.scale = static_cast<const float*>(scale);
+  t.momentum = momentum;
+  t.count = count;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned grid = static_cast<unsigned>(chunks);
+  if (mom) {
+    weighted_update_leaves_kernel<true><<<grid, kLeafThreads, 0, st>>>(t);
+  } else {
+    weighted_update_leaves_kernel<false><<<grid, kLeafThreads, 0, st>>>(t);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-int wu_momentum(int dtype, const void* w, const void* g, const void* m, const void* scale,
-                float momentum, void* out_w, void* out_m, int64_t n, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* s = static_cast<const float*>(scale);
-  const float* mm = static_cast<const float*>(m);
-  float* om = static_cast<float*>(out_m);
-  if (dtype == kF32) {
-    weighted_update_momentum_kernel<float><<<grid_for(n), kThreads, 0, st>>>(
-        static_cast<const float*>(w), static_cast<const float*>(g), mm, s, momentum,
-        static_cast<float*>(out_w), om, n);
-  } else if (dtype == kBF16) {
-    weighted_update_momentum_kernel<__nv_bfloat16><<<grid_for(n), kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(w), static_cast<const __nv_bfloat16*>(g), mm, s,
-        momentum, static_cast<__nv_bfloat16*>(out_w), om, n);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+// The leaves one launch of K1 takes (kMaxLeaves).
+int weighted_update_max_leaves() { return kMaxLeaves; }
+
+// Registers, static / dynamic shared memory, local (spill) bytes and CTAs
+// an SM of the K1 kernel (momentum or not), then the bytes of its leaf
+// table: out[0..5].
+int weighted_update_leaves_kernel_info(int with_momentum, int* out) {
+  const void* fn = with_momentum ? (const void*)weighted_update_leaves_kernel<true>
+                                 : (const void*)weighted_update_leaves_kernel<false>;
+  const int err = kernel_attrs(fn, kLeafThreads, 0, out);
+  out[5] = static_cast<int>(sizeof(LeafTable));
+  return err;
 }
 
 int block_prefix_update(int snap_dtype, int w_dtype, void* snaps, const void* w, const void* D,
                         const void* slots, void* w_out, int64_t R, int64_t P, int64_t E,
                         void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (snap_dtype == kF32 && w_dtype == kF32) {
-    launch_block<float, float>(snaps, w, D, slots, w_out, R, P, E, st);
-  } else if (snap_dtype == kBF16 && w_dtype == kF32) {
-    launch_block<__nv_bfloat16, float>(snaps, w, D, slots, w_out, R, P, E, st);
-  } else if (snap_dtype == kF32 && w_dtype == kBF16) {
-    launch_block<float, __nv_bfloat16>(snaps, w, D, slots, w_out, R, P, E, st);
-  } else if (snap_dtype == kBF16 && w_dtype == kBF16) {
-    launch_block<__nv_bfloat16, __nv_bfloat16>(snaps, w, D, slots, w_out, R, P, E, st);
-  } else {
+  if (E < 1 || E > kMaxLanes || R > INT32_MAX || !valid_pair(snap_dtype, w_dtype) ||
+      !aligned_to(w_out, 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (P == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = prefix_vec(snap_dtype, snaps, w, D, P);
+  cudaError_t err;
+  if (snap_dtype == kF32 && w_dtype == kF32) {
+    err = launch_prefix<float, float>(snaps, w, D, slots, w_out, R, P, E, vec, st);
+  } else if (snap_dtype == kBF16 && w_dtype == kF32) {
+    err = launch_prefix<__nv_bfloat16, float>(snaps, w, D, slots, w_out, R, P, E, vec, st);
+  } else if (snap_dtype == kF32 && w_dtype == kBF16) {
+    err = launch_prefix<float, __nv_bfloat16>(snaps, w, D, slots, w_out, R, P, E, vec, st);
+  } else {
+    err = launch_prefix<__nv_bfloat16, __nv_bfloat16>(snaps, w, D, slots, w_out, R, P, E, vec,
+                                                       st);
+  }
+  return static_cast<int>(err);
+}
+
+// The columns a thread of K2 owns for these operands.
+int block_prefix_update_vec(int snap_dtype, const void* snaps, const void* w, const void* D,
+                            int64_t P) {
+  return prefix_vec(snap_dtype, snaps, w, D, P);
+}
+
+// kernel_attrs of the K2 kernel for this dtype pair and VEC (1, or 16 bytes
+// of ring values), at E lanes: out[0..4].
+int block_prefix_update_kernel_info(int snap_dtype, int w_dtype, int vec, int64_t E, int* out) {
+  if (!valid_pair(snap_dtype, w_dtype) || (vec != 1 && vec != (snap_dtype == kF32 ? 4 : 8)) ||
+      E < 1 || E > kMaxLanes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const void* fn = snap_dtype == kF32
+      ? (w_dtype == kF32 ? prefix_kernel<float, float>(vec)
+                         : prefix_kernel<float, __nv_bfloat16>(vec))
+      : (w_dtype == kF32 ? prefix_kernel<__nv_bfloat16, float>(vec)
+                         : prefix_kernel<__nv_bfloat16, __nv_bfloat16>(vec));
+  return kernel_attrs(fn, kPrefixThreads, prefix_smem(E), out);
 }
 
 int block_scatter_rows(int snap_dtype, int w_dtype, void* snaps, const void* W,
                        const void* slots, void* w_out, int64_t R, int64_t P, int64_t E,
                        void* stream) {
-  if (E < 1 || E > kMaxScatterLanes || (snap_dtype != kF32 && snap_dtype != kBF16) ||
-      (w_dtype != kF32 && w_dtype != kBF16) || !aligned_to(w_out, 16)) {
+  if (E < 1 || E > kMaxLanes || !valid_pair(snap_dtype, w_dtype) || !aligned_to(w_out, 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (P == 0) return static_cast<int>(cudaSuccess);
@@ -338,12 +668,11 @@ int block_scatter_rows_vec(int snap_dtype, const void* snaps, const void* W, int
   return scatter_vec(snap_dtype, snaps, W, P);
 }
 
-// Registers, static / dynamic shared memory, local (spill) bytes and the
-// CTAs an SM holds of the K6 kernel for this dtype pair and VEC (1, or 16
-// bytes of ring values), at E lanes: out[0..4].
+// kernel_attrs of the K6 kernel for this dtype pair and VEC (1, or 16 bytes
+// of ring values), at E lanes: out[0..4].
 int block_scatter_rows_kernel_info(int snap_dtype, int w_dtype, int vec, int64_t E, int* out) {
-  if ((snap_dtype != kF32 && snap_dtype != kBF16) || (w_dtype != kF32 && w_dtype != kBF16) ||
-      (vec != 1 && vec != (snap_dtype == kF32 ? 4 : 8)) || E < 1 || E > kMaxScatterLanes) {
+  if (!valid_pair(snap_dtype, w_dtype) || (vec != 1 && vec != (snap_dtype == kF32 ? 4 : 8)) ||
+      E < 1 || E > kMaxLanes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const void* fn = snap_dtype == kF32
@@ -351,19 +680,7 @@ int block_scatter_rows_kernel_info(int snap_dtype, int w_dtype, int vec, int64_t
                          : scatter_kernel<float, __nv_bfloat16>(vec))
       : (w_dtype == kF32 ? scatter_kernel<__nv_bfloat16, float>(vec)
                          : scatter_kernel<__nv_bfloat16, __nv_bfloat16>(vec));
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t dyn = E * sizeof(int64_t);
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kScatterThreads, dyn);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.sharedSizeBytes);
-  out[2] = static_cast<int>(dyn);
-  out[3] = static_cast<int>(attr.localSizeBytes);
-  out[4] = blocks;
-  return 0;
+  return kernel_attrs(fn, kScatterThreads, E * sizeof(int64_t), out);
 }
 
 }  // extern "C"

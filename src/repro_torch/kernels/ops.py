@@ -9,10 +9,8 @@ the plain version in `kernels.ref`.  Any other device raises.  The column-block 
 """
 from __future__ import annotations
 
-import torch
-
 from ..device import on_cuda
-from ..tree import tree_flatten, tree_leaves, tree_map
+from ..tree import tree_flatten, tree_leaves
 from . import ref
 from . import weighted_update as _cuda
 from .flash_attention import FlashAttention
@@ -25,8 +23,7 @@ __all__ = ["weighted_update", "weighted_update_tree", "tree_weighted_update",
 
 
 def weighted_update(w, g, scale, m=None, momentum=0.0):
-    """K1: ``(w', m')`` with w' = w - scale*(momentum*m + g)."""
-    scale = torch.as_tensor(scale, dtype=torch.float32, device=w.device)
+    """K1 on one leaf: ``(w', m')`` with w' = w - scale*(momentum*m + g)."""
     if on_cuda(w):
         return _cuda.weighted_update(w, g, scale, m=m, momentum=momentum)
     return ref.weighted_update_ref(w, g, scale, m=m, momentum=momentum)
@@ -86,20 +83,27 @@ def moe_gmm(x, w, bc=128, bf=128, bd=128):
 
 
 def weighted_update_tree(params, grads, scale, momenta=None, momentum=0.0):
-    """K1 across a parameter pytree, one launch per leaf.
+    """K1 across a parameter pytree: one launch over all its leaves on the
+    card (`weighted_update.weighted_update_leaves`), the plain version leaf
+    by leaf on the CPU.
 
     Returns ``(params', momenta')`` (``momenta'`` None without momentum).
     """
-    if momenta is None:
-        return tree_map(lambda w, g: weighted_update(w, g, scale)[0], params, grads), None
     leaves, unflatten = tree_flatten(params)
-    pairs = [
-        weighted_update(w, g, scale, m=m, momentum=momentum)
-        for w, g, m in zip(leaves, tree_leaves(grads), tree_leaves(momenta))
-    ]
-    return unflatten([p[0] for p in pairs]), unflatten([p[1] for p in pairs])
+    grads = tree_leaves(grads)
+    ms = None if momenta is None else tree_leaves(momenta)
+    if leaves and on_cuda(leaves[0]):
+        new, new_ms = _cuda.weighted_update_leaves(leaves, grads, scale, ms, momentum)
+    else:
+        pairs = [ref.weighted_update_ref(w, g, scale, m=None if ms is None else ms[i],
+                                         momentum=momentum)
+                 for i, (w, g) in enumerate(zip(leaves, grads))]
+        new = [p[0] for p in pairs]
+        new_ms = None if ms is None else [p[1] for p in pairs]
+    return unflatten(new), (None if new_ms is None else unflatten(new_ms))
 
 
 def tree_weighted_update(w, g, scale):
-    """The engine's ``update="pallas"`` path: K1 per leaf, no momentum."""
+    """The engine's ``update="pallas"`` path: K1, no momentum, one launch
+    an event on the card."""
     return weighted_update_tree(w, g, scale)[0]

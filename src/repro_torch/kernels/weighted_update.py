@@ -1,50 +1,68 @@
 """CUDA wrappers of the fused server-update kernels (`csrc/weighted_update.cu`).
 
-K1 (`weighted_update`) replaces the TPU kernel
+K1 (`weighted_update_leaves`) replaces the TPU kernel
 `repro/kernels/weighted_update.py:weighted_update` — the per-event
-Algorithm 1 line-10 update, plain (K1a) or with momentum (K1b).  K2
+Algorithm 1 line-10 update, plain (K1a) or with momentum (K1b) — and takes
+every leaf of an event in one launch (`leaf_plan` mirrors its split of the
+leaves into chunks, `update_kernel_info` says what the kernel holds).  K2
 (`block_prefix_update`) replaces `repro/kernels/weighted_update.py:
 block_prefix_update` — the blocked engine's prefix sum plus the in-place
 scatter into the (C+1, P) snapshot ring.  K6 (`block_scatter_rows`)
 replaces `repro/kernels/weighted_update.py:block_scatter_rows` — the
-lane-sharded engine's scatter of precomputed iterates into the ring.  K6
-writes a lane's row only when the lane is live (`live_lanes`, the rule the
-CUDA kernel follows), so each distinct ring row is written once, by the
-last lane that targets it; `scatter_vec` asks the library how many ring
-values a thread moves per access, `scatter_kernel_info` what the kernel
-holds.
+lane-sharded engine's scatter of precomputed iterates into the ring.  K2
+and K6 write a lane's row only when the lane is live (`live_lanes`, the
+rule the CUDA kernels follow), so each distinct ring row is written once,
+by the last lane that targets it; `prefix_vec` and `scatter_vec` ask the
+library how many ring values a thread moves per access,
+`prefix_kernel_info` and `scatter_kernel_info` what the kernels hold.
 
 These wrappers take CUDA tensors only: they check dtype, shape, device and
 contiguity, allocate the outputs, launch on PyTorch's current stream and
 raise if the launch is refused.  They never synchronise.  `kernels.ops`
 picks between them and the plain versions in `kernels.ref` by the tensor's
 device.  Each wrapper adds one to its entry of `launches` per launch, and
-nowhere else, so a run can show that it went through the kernels.
+nowhere else, so a run can show that it went through the kernels; K1 also
+adds the leaves each launch covered to ``weighted_update_leaves`` (or
+``weighted_update_momentum_leaves``).
 """
 from __future__ import annotations
 
+import array
 import ctypes
+import functools
+from bisect import bisect_right
 from collections.abc import Sequence
 
 import torch
 
 from . import build
 
-__all__ = ["BLOCK_TILE", "MAX_SCATTER_LANES", "launches", "live_lanes", "reset_launches",
-           "scatter_kernel_info", "scatter_vec", "weighted_update", "block_prefix_update",
-           "block_scatter_rows"]
+__all__ = ["BLOCK_TILE", "LEAF_THREADS", "LEAF_UNROLL", "MAX_BLOCK_LANES", "MAX_LEAVES",
+           "launches", "leaf_of", "leaf_plan", "live_lanes", "reset_launches",
+           "prefix_kernel_info", "prefix_vec", "scatter_kernel_info", "scatter_vec",
+           "update_kernel_info", "weighted_update", "weighted_update_leaves",
+           "block_prefix_update", "block_scatter_rows"]
 
 # the blocked engine pads the packed parameter vector to a multiple of this
 # once at init, as the TPU path does (its column tile); the CUDA kernel
 # itself takes any P
 BLOCK_TILE = 1024
-# K6 keeps a block's slots in shared memory: at most this many lanes
-MAX_SCATTER_LANES = 4096
+# K2 and K6 keep a block's slots in shared memory: at most this many lanes
+MAX_BLOCK_LANES = 4096
+# K1's split, as csrc/weighted_update.cu fixes it: a launch takes at most
+# MAX_LEAVES leaves; a chunk (one CTA) is LEAF_THREADS * LEAF_UNROLL accesses
+MAX_LEAVES = 64
+LEAF_THREADS, LEAF_UNROLL = 256, 4
 
-launches = {"weighted_update": 0, "weighted_update_momentum": 0, "block_prefix_update": 0,
+launches = {"weighted_update": 0, "weighted_update_leaves": 0, "weighted_update_momentum": 0,
+            "weighted_update_momentum_leaves": 0, "block_prefix_update": 0,
             "block_scatter_rows": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# bytes of a value, by dtype code
+_ESZ = (4, 2)
+# K1's C entry point with its argtypes, resolved at first launch
+_leaves_fn = None
 
 
 def reset_launches() -> None:
@@ -52,10 +70,14 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def _code_of(dtype: torch.dtype, what: str) -> int:
+    if dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {dtype} not supported (float32 | bfloat16)")
+    return _DTYPES[dtype]
+
+
 def _code(t: torch.Tensor, what: str) -> int:
-    if t.dtype not in _DTYPES:
-        raise TypeError(f"{what}: dtype {t.dtype} not supported (float32 | bfloat16)")
-    return _DTYPES[t.dtype]
+    return _code_of(t.dtype, what)
 
 
 def _check_cuda(*ts: torch.Tensor) -> None:
@@ -79,7 +101,8 @@ def _raise_on(err: int, fn: str) -> None:
 def _block_operands(snaps, w, rows, slots, name: str) -> tuple[int, int, int, int, int]:
     """Check the operands of K2 / K6: ring ``snaps`` (R, P) and ``w`` (P,)
     float32 | bfloat16, ``rows`` (E, P) float32, ``slots`` (E,) int64, all
-    contiguous on one CUDA device.  Returns ``(R, P, E, ring code, w code)``."""
+    contiguous on one CUDA device, 1 <= E <= `MAX_BLOCK_LANES`.  Returns
+    ``(R, P, E, ring code, w code)``."""
     R, P = snaps.shape
     E = rows.shape[0]
     if w.shape != (P,) or rows.shape != (E, P) or slots.shape != (E,):
@@ -87,8 +110,8 @@ def _block_operands(snaps, w, rows, slots, name: str) -> tuple[int, int, int, in
             f"shapes snaps {tuple(snaps.shape)}, w {tuple(w.shape)}, "
             f"{name} {tuple(rows.shape)}, slots {tuple(slots.shape)} do not agree"
         )
-    if E < 1:
-        raise ValueError("a block needs at least one event")
+    if not 1 <= E <= MAX_BLOCK_LANES:
+        raise ValueError(f"a block takes 1 to {MAX_BLOCK_LANES} events, got {E}")
     if rows.dtype != torch.float32:
         raise TypeError(f"{name} must be float32 (fp32 rows)")
     if slots.dtype != torch.int64:
@@ -99,48 +122,171 @@ def _block_operands(snaps, w, rows, slots, name: str) -> tuple[int, int, int, in
 
 
 def live_lanes(slots: Sequence[int], R: int) -> list[bool]:
-    """K6's rule (``csrc/weighted_update.cu:block_scatter_rows_kernel``):
-    lane i writes its row of W to the ring when its slot lies in [0, R) and
-    no later lane has the same slot.  Writing only the live lanes, in any
-    order, leaves the ring as writing every lane in event order does."""
+    """K2's and K6's rule (``csrc/weighted_update.cu``): lane i writes its
+    row to the ring when its slot lies in [0, R) and no later lane has the
+    same slot.  Writing only the live lanes, in any order, leaves the ring
+    as writing every lane in event order does."""
     s = [int(v) for v in slots]
     return [0 <= s[i] < R and s[i] not in s[i + 1:] for i in range(len(s))]
 
 
+def leaf_plan(numels: Sequence[int], widths: Sequence[int]) -> list[list[tuple[int, int, int]]]:
+    """K1's split of a list of leaves (``csrc/weighted_update.cu:
+    weighted_update_leaves``), for the CPU tests: the leaves with values go,
+    in order, at most `MAX_LEAVES` a launch; each launch lists ``(leaf,
+    first chunk, chunks)``.  Leaf i moves ``widths[i]`` values an access, so
+    a chunk covers LEAF_THREADS * LEAF_UNROLL * widths[i] of its values:
+    CTA b of a launch takes chunk ``b - first`` of leaf `leaf_of`(launch, b)."""
+    live = [i for i, n in enumerate(numels) if n > 0]
+    plan = []
+    for k in range(0, len(live), MAX_LEAVES):
+        first, rows = 0, []
+        for i in live[k:k + MAX_LEAVES]:
+            chunks = -(-int(numels[i]) // (LEAF_THREADS * LEAF_UNROLL * int(widths[i])))
+            rows.append((i, first, chunks))
+            first += chunks
+        plan.append(rows)
+    return plan
+
+
+def leaf_of(launch: Sequence[tuple[int, int, int]], b: int) -> int:
+    """The row of ``launch`` (`leaf_plan`) that CTA ``b`` takes: the last
+    whose first chunk is <= b (the kernel's binary search)."""
+    return bisect_right([first for _, first, _ in launch], b) - 1
+
+
+def _leaves_kernel():
+    global _leaves_fn
+    if _leaves_fn is None:
+        _leaves_fn = build.load("weighted_update").weighted_update_leaves
+    return _leaves_fn
+
+
+@functools.lru_cache(maxsize=64)
+def _leaf_layout(key: tuple, with_m: bool):
+    """Where K1's outputs of a leaf list go, from its (w shape, w dtype, g
+    shape, g dtype) per leaf: ``(totals, leaves, m_total)``.  ``totals``
+    maps each w dtype to the values of its one output buffer; ``leaves``
+    holds per leaf (w dtype, offset in that buffer, shape, strides, numel,
+    dtype codes, offset in the m' buffer).  Every offset starts a leaf on a
+    16-byte boundary."""
+    totals: dict[torch.dtype, int] = {}
+    leaves, m_total = [], 0
+    for w_shape, w_dtype, g_shape, g_dtype in key:
+        if g_shape != w_shape:
+            raise ValueError(f"g shape {tuple(g_shape)} != w shape {tuple(w_shape)}")
+        wc = _code_of(w_dtype, "weighted_update w")
+        codes = wc | _code_of(g_dtype, "weighted_update g") << 8
+        n = w_shape.numel()
+        off = totals.get(w_dtype, 0)
+        totals[w_dtype] = off + n + (-n % (16 // _ESZ[wc]))
+        strides, step = [], 1
+        for d in reversed(w_shape):
+            strides.append(step)
+            step *= d
+        leaves.append((w_dtype, off, w_shape, tuple(reversed(strides)), n, codes, m_total))
+        m_total += n + (-n % 4) if with_m else 0
+    return totals, leaves, m_total
+
+
+def weighted_update_leaves(
+    ws: Sequence[torch.Tensor], gs: Sequence[torch.Tensor], scale,
+    ms: Sequence[torch.Tensor] | None = None, momentum: float = 0.0,
+) -> tuple[list[torch.Tensor], list[torch.Tensor] | None]:
+    """K1 over a list of parameter tensors of any shapes, in one launch (one
+    more for each further `MAX_LEAVES` leaves): ``(ws', ms')``, ``ms'`` None
+    without momentum.
+
+    Each leaf keeps its dtype (float32 | bfloat16; a list may mix them);
+    ``gs[i]`` (float32 | bfloat16, ``ws[i]``'s shape) is rounded to
+    ``ws[i]``'s dtype in the kernel (the TPU kernel's rule); ``ms[i]`` is
+    float32.  ``scale`` is a float32 device scalar (a number is copied to the
+    device).  Non-contiguous leaves are made contiguous.  The outputs of a
+    dtype are views of one allocation, each starting on a 16-byte boundary.
+    """
+    if len(gs) != len(ws) or (ms is not None and len(ms) != len(ws)):
+        raise ValueError("ws, gs (and ms) must have one entry per leaf")
+    if not ws:
+        return [], (None if ms is None else [])
+    dev = ws[0].device
+    if not ws[0].is_cuda:
+        raise ValueError(f"CUDA kernel needs all operands on one CUDA device, got {dev}")
+    index = ws[0].get_device()
+    if not (isinstance(scale, torch.Tensor) and scale.dtype == torch.float32
+            and scale.get_device() == index):
+        scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    if scale.numel() != 1:
+        raise ValueError(f"scale must hold one value, got shape {tuple(scale.shape)}")
+    with_m = ms is not None
+    totals, leaves, m_total = _leaf_layout(
+        tuple((w.shape, w.dtype, g.shape, g.dtype) for w, g in zip(ws, gs)), with_m)
+    bufs = {dt: torch.empty(n, dtype=dt, device=dev) for dt, n in totals.items()}
+    bases = {dt: (b.data_ptr(), b.element_size()) for dt, b in bufs.items()}
+    outs = [bufs[dt].as_strided(shape, strides, off) for dt, off, shape, strides, *_ in leaves]
+    if with_m:
+        mbuf = torch.empty(m_total, dtype=torch.float32, device=dev)
+        m_base = mbuf.data_ptr()
+        out_ms = [mbuf.as_strided(shape, strides, moff) for _, _, shape, strides, _, _, moff in leaves]
+    else:
+        out_ms = None
+    table = []
+    for i, (dt, off, shape, _, n, codes, moff) in enumerate(leaves):
+        w, g = ws[i], gs[i]
+        if w.get_device() != index or g.get_device() != index:
+            raise ValueError("CUDA kernel needs all operands on one CUDA device")
+        if not n:
+            continue
+        if not w.is_contiguous():
+            w = w.contiguous()
+        if not g.is_contiguous():
+            g = g.contiguous()
+        base, esz = bases[dt]
+        if with_m:
+            m = ms[i]
+            if m.dtype != torch.float32 or m.shape != shape or m.get_device() != index:
+                raise ValueError("momentum buffer must be float32 with w's shape, on w's device")
+            m = m if m.is_contiguous() else m.contiguous()
+            # keep the contiguous copies alive until the launch is queued
+            table.append((w, g, m, (w.data_ptr(), g.data_ptr(), base + off * esz, m.data_ptr(),
+                                    m_base + moff * 4, n, codes)))
+        else:
+            table.append((w, g, None, (w.data_ptr(), g.data_ptr(), base + off * esz, 0, 0, n,
+                                       codes)))
+    if table:
+        fn = _leaves_kernel()
+        stream = _stream(ws[0])
+        key = "weighted_update_momentum" if with_m else "weighted_update"
+        for k in range(0, len(table), MAX_LEAVES):
+            part = table[k:k + MAX_LEAVES]
+            rows = array.array("q", [x for *_, row in part for x in row])
+            _raise_on(fn(rows.buffer_info()[0], len(part), scale.data_ptr(), float(momentum),
+                         int(with_m), stream), "weighted_update_leaves")
+            launches[key] += 1
+            launches[key + "_leaves"] += len(part)
+    return outs, out_ms
+
+
 def weighted_update(
-    w: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+    w: torch.Tensor, g: torch.Tensor, scale,
     m: torch.Tensor | None = None, momentum: float = 0.0,
 ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """K1 on one parameter tensor of any shape: ``(w', m')`` (``m'`` None
-    without momentum).  ``scale`` is a float32 device scalar; ``g`` is cast
-    to ``w.dtype`` first (the TPU kernel's rule); ``m`` is float32."""
-    code = _code(w, "weighted_update")
-    if g.shape != w.shape:
-        raise ValueError(f"g shape {tuple(g.shape)} != w shape {tuple(w.shape)}")
-    g = g.to(w.dtype).contiguous()
-    w = w.contiguous()
-    scale = scale.to(device=w.device, dtype=torch.float32).reshape(1)
-    _check_cuda(w, g, scale)
-    out = torch.empty_like(w)
-    n = w.numel()
+    """K1 on one parameter tensor: `weighted_update_leaves` of one leaf,
+    ``(w', m')`` (``m'`` None without momentum)."""
+    outs, out_ms = weighted_update_leaves([w], [g], scale, None if m is None else [m], momentum)
+    return outs[0], (None if out_ms is None else out_ms[0])
+
+
+def update_kernel_info(momentum: bool = False) -> dict:
+    """Registers, static shared memory, local (spill) bytes and CTAs an SM
+    of the K1 kernel (with momentum or not), and the bytes of its leaf table
+    and the leaves it holds (builds the library)."""
     lib = build.load("weighted_update")
-    if m is None:
-        if n:
-            _raise_on(lib.wu_plain(code, w.data_ptr(), g.data_ptr(), scale.data_ptr(),
-                                   out.data_ptr(), n, _stream(w)), "wu_plain")
-            launches["weighted_update"] += 1
-        return out, None
-    if m.dtype != torch.float32 or m.shape != w.shape:
-        raise ValueError("momentum buffer must be float32 with w's shape")
-    m = m.contiguous()
-    _check_cuda(w, m)
-    out_m = torch.empty_like(m)
-    if n:
-        _raise_on(lib.wu_momentum(code, w.data_ptr(), g.data_ptr(), m.data_ptr(),
-                                  scale.data_ptr(), float(momentum), out.data_ptr(),
-                                  out_m.data_ptr(), n, _stream(w)), "wu_momentum")
-        launches["weighted_update_momentum"] += 1
-    return out, out_m
+    out = (ctypes.c_int * 6)()
+    _raise_on(lib.weighted_update_leaves_kernel_info(int(momentum),
+                                                     ctypes.cast(out, ctypes.c_void_p)),
+              "weighted_update_leaves_kernel_info")
+    return dict(registers=out[0], static_smem=out[1], local_bytes=out[3], ctas_per_sm=out[4],
+                table_bytes=out[5], max_leaves=lib.weighted_update_max_leaves())
 
 
 def block_prefix_update(
@@ -151,7 +297,8 @@ def block_prefix_update(
     ``snaps`` (R, P) float32 | bfloat16 is updated in place (the CUDA
     counterpart of the TPU kernel's ``input_output_aliases``); ``w`` (P,),
     ``D`` (E, P) float32, ``slots`` (E,) int64 with the trash row R-1 on
-    padded lanes.  Returns ``(snaps, w')``.
+    padded lanes; only live lanes (`live_lanes`) store.  Returns
+    ``(snaps, w')``.
     """
     R, P, E, sc, wc = _block_operands(snaps, w, D, slots, "D")
     w_out = torch.empty_like(w)
@@ -174,8 +321,6 @@ def block_scatter_rows(
     the last row cast to ``w.dtype``.
     """
     R, P, E, sc, wc = _block_operands(snaps, w, W, slots, "W")
-    if E > MAX_SCATTER_LANES:
-        raise ValueError(f"block_scatter_rows takes at most {MAX_SCATTER_LANES} lanes, got {E}")
     w_out = torch.empty_like(w)
     lib = build.load("weighted_update")
     _raise_on(lib.block_scatter_rows(sc, wc, snaps.data_ptr(), W.data_ptr(), slots.data_ptr(),
@@ -193,15 +338,33 @@ def scatter_vec(snaps: torch.Tensor, W: torch.Tensor) -> int:
         _code(snaps, "snaps"), snaps.data_ptr(), W.data_ptr(), snaps.shape[1])
 
 
-def scatter_kernel_info(ring_dtype: torch.dtype, vec: int, E: int = 8,
-                        w_dtype: torch.dtype = torch.float32) -> dict:
-    """Registers, static and dynamic shared memory, local (spill) bytes and
-    CTAs an SM holds of the K6 kernel for a ring of ``ring_dtype`` moving
-    ``vec`` values per access (1, or 16 bytes of them), at ``E`` lanes
-    (builds the library)."""
+def prefix_vec(snaps: torch.Tensor, w: torch.Tensor, D: torch.Tensor) -> int:
+    """Ring values one thread of K2 moves per access on these CUDA operands,
+    as the library picks it (``csrc/weighted_update.cu:prefix_vec``): 16
+    bytes (4 fp32, 8 bf16) when P and the alignment of ``snaps``, ``w`` and
+    ``D`` allow it, else 1 value."""
+    return build.load("weighted_update").block_prefix_update_vec(
+        _code(snaps, "snaps"), snaps.data_ptr(), w.data_ptr(), D.data_ptr(), snaps.shape[1])
+
+
+def _block_kernel_info(fn: str, ring_dtype, vec, E, w_dtype) -> dict:
     out = (ctypes.c_int * 5)()
-    _raise_on(build.load("weighted_update").block_scatter_rows_kernel_info(
-        _DTYPES[ring_dtype], _DTYPES[w_dtype], vec, E, ctypes.cast(out, ctypes.c_void_p)),
-        "block_scatter_rows_kernel_info")
+    _raise_on(getattr(build.load("weighted_update"), fn)(
+        _DTYPES[ring_dtype], _DTYPES[w_dtype], vec, E, ctypes.cast(out, ctypes.c_void_p)), fn)
     return dict(zip(("registers", "static_smem", "dynamic_smem", "local_bytes", "ctas_per_sm"),
                     out))
+
+
+def prefix_kernel_info(ring_dtype: torch.dtype, vec: int, E: int = 8,
+                       w_dtype: torch.dtype = torch.float32) -> dict:
+    """Registers, static and dynamic shared memory, local (spill) bytes and
+    CTAs an SM holds of the K2 kernel for a ring of ``ring_dtype`` moving
+    ``vec`` values per access (1, or 16 bytes of them), at ``E`` lanes
+    (builds the library)."""
+    return _block_kernel_info("block_prefix_update_kernel_info", ring_dtype, vec, E, w_dtype)
+
+
+def scatter_kernel_info(ring_dtype: torch.dtype, vec: int, E: int = 8,
+                        w_dtype: torch.dtype = torch.float32) -> dict:
+    """The same for the K6 kernel."""
+    return _block_kernel_info("block_scatter_rows_kernel_info", ring_dtype, vec, E, w_dtype)

@@ -85,6 +85,141 @@ def test_block_prefix_update_matches_plain(dev, dtype, E):
     assert _err(ks, rs) <= TOL[dtype] and _err(kw, rw) <= 1e-5
 
 
+# K1 leaf lists: (shapes, w dtypes, g dtypes); "f" float32, "b" bfloat16
+LEAF_LISTS = {
+    "mlp": ([(128,), (128,), (10,), (64, 128), (128, 128), (128, 10)], "ffffff", "ffffff"),
+    "mixed": ([(2048, 3), (1000,), (3, 5, 7), (8197,), (40, 33)], "fbbfb", "fbfbf"),
+    "ragged": ([(1,), (4097,), (8191,), (8193,), (12345,), (3,)], "bbffbf", "bbffbf"),
+    "empty_and_0d": ([(0,), (), (5, 0), (17,), ()], "fbfbb", "fbfbf"),
+    "more_than_max_leaves": ([((7 * i) % 300 + 1,) for i in range(150)], "fb" * 75, "bf" * 75),
+}
+_DT = {"f": torch.float32, "b": torch.bfloat16}
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+@pytest.mark.parametrize("case", sorted(LEAF_LISTS))
+def test_weighted_update_leaves_matches_plain(dev, case, momentum):
+    """K1 over a leaf list: ceil(leaves with values / MAX_LEAVES) launches,
+    every leaf (and m') bitwise equal to the plain version, and to a second
+    launch; each leaf keeps its dtype and shape."""
+    shapes, wd, gd = LEAF_LISTS[case]
+    gen = torch.Generator().manual_seed(len(shapes))
+    ws = [torch.randn(sh, generator=gen).to(dev, _DT[d]) for sh, d in zip(shapes, wd)]
+    gs = [torch.randn(sh, generator=gen).to(dev, _DT[d]) for sh, d in zip(shapes, gd)]
+    ms = [torch.randn(sh, generator=gen).to(dev) for sh in shapes] if momentum else None
+    s = torch.tensor(0.37, device=dev)
+    key = "weighted_update_momentum" if momentum else "weighted_update"
+    covered = sum(1 for w in ws if w.numel())
+    cuda_kernels.reset_launches()
+    out, out_m = cuda_kernels.weighted_update_leaves(ws, gs, s, ms, momentum)
+    assert cuda_kernels.launches[key] == -(-covered // cuda_kernels.MAX_LEAVES)
+    assert cuda_kernels.launches[key + "_leaves"] == covered
+    again, again_m = cuda_kernels.weighted_update_leaves(ws, gs, s, ms, momentum)
+    for i in range(len(ws)):
+        rw, rm = ref.weighted_update_ref(ws[i], gs[i], s, m=None if ms is None else ms[i],
+                                         momentum=momentum)
+        assert out[i].dtype == ws[i].dtype and out[i].shape == ws[i].shape
+        assert torch.equal(out[i], rw) and torch.equal(again[i], rw)
+        if momentum:
+            assert torch.equal(out_m[i], rm) and torch.equal(again_m[i], rm)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.9])
+def test_weighted_update_leaves_on_misaligned_views(dev, momentum):
+    """Leaves that start one value into their storage (one value an access)
+    and non-contiguous leaves, beside aligned ones, in one launch."""
+    gen = torch.Generator().manual_seed(3)
+    base = [torch.randn((4099,), generator=gen).to(dev), torch.randn((64, 130), generator=gen)
+            .to(dev, torch.bfloat16), torch.randn((33, 17), generator=gen).to(dev)]
+    ws = [_misaligned(base[0], 1), _misaligned(base[1], 1), base[2].t()]
+    gs = [_misaligned(torch.randn((4099,), generator=gen).to(dev), 1),
+          torch.randn((64, 130), generator=gen).to(dev), torch.randn((17, 33), generator=gen)
+          .to(dev)]
+    ms = [_misaligned(torch.randn(w.shape, generator=gen).to(dev), 1) for w in ws] \
+        if momentum else None
+    s = torch.tensor(0.37, device=dev)
+    cuda_kernels.reset_launches()
+    out, out_m = cuda_kernels.weighted_update_leaves(ws, gs, s, ms, momentum)
+    key = "weighted_update_momentum" if momentum else "weighted_update"
+    assert cuda_kernels.launches[key] == 1
+    for i in range(3):
+        rw, rm = ref.weighted_update_ref(ws[i], gs[i], s, m=None if ms is None else ms[i],
+                                         momentum=momentum)
+        assert torch.equal(out[i], rw)
+        if momentum:
+            assert torch.equal(out_m[i], rm)
+
+
+def test_weighted_update_tree_is_one_launch(dev):
+    params = {"w": torch.randn(64, 128, device=dev), "b": torch.randn(128, device=dev),
+              "e": torch.randn(50, 24, device=dev).to(torch.bfloat16)}
+    grads = {k: torch.randn_like(v) for k, v in params.items()}
+    cuda_kernels.reset_launches()
+    new = ops.tree_weighted_update(params, grads, torch.tensor(0.1, device=dev))
+    assert cuda_kernels.launches["weighted_update"] == 1
+    assert cuda_kernels.launches["weighted_update_leaves"] == 3
+    for k in params:
+        assert torch.equal(new[k], ref.weighted_update_ref(params[k], grads[k], 0.1)[0])
+
+
+# K2 cells (R, P, E, slots, ring dtype, w dtype, storage offset of the ring):
+# the MLP's ring, a ragged P, a misaligned ring, repeated non-trash slots and
+# Mamba2-130M's blocked ring (fp32 and bf16, the ring and w both)
+PREFIX_CELLS = [
+    (65, 26624, 8, [5, 9, 60, 1, 33, 2, 64, 64], torch.float32, torch.float32, 0),
+    (65, 26624, 8, [5, 9, 60, 1, 33, 2, 64, 64], torch.bfloat16, torch.float32, 0),
+    (65, 26122, 8, [5, 9, 60, 1, 33, 2, 64, 64], torch.float32, torch.float32, 0),
+    (65, 4096, 8, [5, 9, 60, 1, 33, 2, 64, 64], torch.float32, torch.float32, 1),
+    (65, 4096, 8, [5, 9, 60, 1, 33, 2, 64, 64], torch.bfloat16, torch.bfloat16, 2),
+    (9, 4096, 12, [3, 1, 3, 5, 3, 2, 1, 1, 7, 8, 7, 8], torch.float32, torch.float32, 0),
+    (9, 4096, 16, [5, 5, 5, 5, 2, 2, 8, 8, 8, 8, 7, 6, 5, 4, 3, 8], torch.bfloat16,
+     torch.float32, 0),
+    (9, 128_984_064, 4, [6, 0, 3, 7], torch.float32, torch.float32, 0),
+    (9, 128_984_064, 4, [6, 0, 3, 7], torch.bfloat16, torch.bfloat16, 0),
+]
+
+
+@pytest.mark.parametrize("R,P,E,slots,dtype,w_dtype,offset", PREFIX_CELLS)
+def test_block_prefix_update_bitwise(dev, R, P, E, slots, dtype, w_dtype, offset):
+    """K2 stores only the live lanes; every ring row and w' equal the plain
+    version's (every lane in event order) bitwise, in one launch, twice; the
+    library moves 16 bytes of ring values an access where P and alignment
+    allow it, else one."""
+    gen = torch.Generator(device=dev).manual_seed(P + E)
+    snaps = torch.randn((R, P), generator=gen, device=dev).to(dtype)
+    w = torch.randn((P,), generator=gen, device=dev).to(w_dtype)
+    D = 0.01 * torch.randn((E, P), generator=gen, device=dev)
+    st = torch.tensor(slots, device=dev)
+    ring = lambda: _misaligned(snaps, offset) if offset else snaps.clone()  # noqa: E731
+    wide = 4 if dtype == torch.float32 else 8
+    assert cuda_kernels.prefix_vec(ring(), w, D) == (1 if offset or P % wide else wide)
+    rs, rw = ref.block_prefix_update_ref(snaps.clone(), w, D, st)
+    cuda_kernels.reset_launches()
+    ks, kw = cuda_kernels.block_prefix_update(ring(), w, D, st)  # in place: keeps the offset
+    assert cuda_kernels.launches["block_prefix_update"] == 1
+    assert torch.equal(ks, rs) and torch.equal(kw, rw) and kw.dtype == w_dtype
+    del rs, rw
+    again, again_w = cuda_kernels.block_prefix_update(ring(), w, D, st)
+    assert torch.equal(ks, again) and torch.equal(kw, again_w)
+
+
+@pytest.mark.parametrize("momentum", [False, True])
+def test_weighted_update_leaves_kernel_does_not_spill(dev, momentum):
+    info = cuda_kernels.update_kernel_info(momentum)
+    assert info["local_bytes"] == 0 and info["registers"] > 0 and info["ctas_per_sm"] >= 3
+    assert info["max_leaves"] == cuda_kernels.MAX_LEAVES and info["table_bytes"] <= 4096
+
+
+@pytest.mark.parametrize("dtype,w_dtype,vec", [
+    (torch.float32, torch.float32, 4), (torch.float32, torch.float32, 1),
+    (torch.bfloat16, torch.float32, 8), (torch.bfloat16, torch.float32, 1),
+    (torch.bfloat16, torch.bfloat16, 8), (torch.float32, torch.bfloat16, 4),
+])
+def test_block_prefix_update_kernels_do_not_spill(dev, dtype, w_dtype, vec):
+    info = cuda_kernels.prefix_kernel_info(dtype, vec, 8, w_dtype)
+    assert info["local_bytes"] == 0 and info["registers"] > 0 and info["ctas_per_sm"] >= 4
+
+
 # K6 grid (C+1, P, E, padded lanes, ring dtype), as chip_smoke.py checks it:
 # the MLP's blocked ring, a ragged P, and Mamba2-130M's ring at C=8 (P padded
 # to a multiple of 1024) in fp32 and bf16
@@ -190,7 +325,9 @@ def test_per_event_kernel_path_matches_plain_path(dev):
     cuda_kernels.reset_launches()
     w_k, tr_k = run_generalized_async_sgd(setup.params, setup.clients,
                                           replace(cfg, update="pallas"), eval_fn=setup.eval_fn)
-    assert cuda_kernels.launches["weighted_update"] == 300 * 6
+    # one launch an event, covering the MLP's 6 leaves
+    assert cuda_kernels.launches["weighted_update"] == 300
+    assert cuda_kernels.launches["weighted_update_leaves"] == 300 * 6
     w_p, tr_p = run_generalized_async_sgd(setup.params, setup.clients, cfg,
                                           eval_fn=setup.eval_fn)
     assert max(_err(w_k[k], w_p[k]) for k in w_k) <= 1e-5
@@ -220,7 +357,7 @@ def test_blocked_kernel_path_matches_plain_path(dev):
 
 
 def test_fedbuff_kernel_paths_match_plain_path(dev):
-    """FedBuff (Z=5) on the card: per event with K1 per leaf, blocked (E=4)
+    """FedBuff (Z=5) on the card: per event with K1 (one launch), blocked (E=4)
     with K2, against the plain flat update, the Python loop and each other."""
     from repro_torch.core.async_sgd import run_fedbuff
 
@@ -235,7 +372,8 @@ def test_fedbuff_kernel_paths_match_plain_path(dev):
                           step_scales(stream, 0.05, u, "plain"), 100)[0].shape[0]
     cuda_kernels.reset_launches()
     w_k1, tr_k1 = run(replace(cfg, update="pallas"))
-    assert cuda_kernels.launches["weighted_update"] == 300 * 6
+    assert cuda_kernels.launches["weighted_update"] == 300
+    assert cuda_kernels.launches["weighted_update_leaves"] == 300 * 6
     w_k2, tr_k2 = run(replace(cfg, update="pallas", block_size=4))
     assert cuda_kernels.launches["block_prefix_update"] == rows
     w_p, tr_p = run(cfg)
