@@ -101,13 +101,44 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    `MOE_CURVE_TOL` (plain) of the kernel run's, peak device memory, and a
    profile of a few events.
 
-Phases 4, 5, 8, 10 and 13 are the kernel paths: each launch count is zeroed
+14.-16. FedBuff on the MLP, the lane-sharded MLP slice on 2 gloo ranks
+   sharing the card, the FL launcher's defaults, FedAvg and FAVANO;
+17. the scenario matrix on the host stream (``--only matrix``; it runs
+   right after the build, see `phase_matrix`): the Mamba2-130M
+   matrix below, then the paper's grid as `examples/scenario_matrix.py`
+   runs it (the MLP, n=40, C=16,
+   T=2000, seeds 0-2 x policies uniform / optimal / physical_time x speed
+   ratios 1, 4, 16 = 27 cells, eta 0.08, eval every 200) through
+   ``run_matrix`` per event and blocked E=8 (curves within 10/2048 of each
+   other, one cell against ``run_experiment`` of it alone: eval times
+   bitwise, curve within 10/2048), then the kernel paths on the same stacked
+   inputs: K1 across cells per event (3 launches an event, the final weights
+   bitwise the flat update's or within 1e-5) and K2 across cells blocked
+   (one launch a block, bitwise its plain version), events/s summed over
+   cells beside one run's, and profiles.  The Mamba2-130M matrix (phase
+   10's run over 3 policies) per event and blocked E=2 (E=4 folds 96 rows
+   into one gradient call, more than the card's memory), K4 folded over
+   the cells (24 launches a forward), curves finite and within
+   `MAMBA_CURVE_TOL["blocked"]` of each other and of each cell run alone
+   (per event; the "optimal" cell blocked too),
+   peak device memory; then the cells' final weights from ``jit_runner``
+   on the same stacked inputs (curves bitwise run_matrix's, or within 1e-5
+   relative): each cell's training loss over its trained minibatches
+   falls, and each cell's weights lie nearer its own run alone (per event)
+   or its own per-event cell (blocked) than `MAMBA_OWN_GAP` of the nearest
+   other cell's.  Phase 2 also holds K2 and K1 across the matrix's 27 cells
+   alone (bitwise; K2 timed over rotating copies of its operands, three
+   L2s in all, K1 beside ``torch._foreach_addcmul``) and K4 at the
+   matrix's folds.
+
+Phases 4, 5, 8, 10, 13 and 17 are the kernel paths: each launch count is zeroed
 just before the run and read just after.  fp32 matmuls run in full fp32 (TF32
 off for matmul and cuDNN).  The line before the last is the ``kernels``
 JSON object; the last line is the result object.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
@@ -123,6 +154,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+L2_BYTES = 50 * 2**20       # H100 SXM L2 cache
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
@@ -164,9 +196,10 @@ LM_LEAVES = 11
 LM_CURVE_TOL = 1e-3
 # K4 shapes (B, S, H, P, N, chunk, A range, dt range): the grid of
 # tests/test_kernels.py, Mamba2-130M's path shape and the same folded to
-# B=32 (blocked E=4), Zamba2-2.7B's shape, a long sequence (32 chunks of
-# carried state), S < chunk, and the overflow case (A in -[1, 16], dt up to
-# 1: the masked exp(cs_i - cs_j) is inf, so the kernel must select)
+# B=32 (blocked E=4), to B=24, 48 and 96 (the matrix's 3 cells per event,
+# x 2 lanes blocked on the path, x 4 lanes), Zamba2-2.7B's shape, a long sequence (32
+# chunks of carried state), S < chunk, and the overflow case (A in -[1, 16],
+# dt up to 1: the masked exp(cs_i - cs_j) is inf, so the kernel must select)
 SSD_PATH_SHAPE = (8, 128, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1))
 SSD_SHAPES = [
     (2, 128, 3, 32, 16, 32, (0.5, 2.0), (0.01, 0.2)),
@@ -174,6 +207,9 @@ SSD_SHAPES = [
     (1, 256, 4, 16, 8, 16, (0.5, 2.0), (0.01, 0.2)),
     SSD_PATH_SHAPE,
     (32, 128, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1)),
+    (24, 128, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1)),
+    (48, 128, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1)),
+    (96, 128, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1)),
     (2, 128, 80, 64, 64, 64, (1.0, 16.0), (0.001, 0.1)),
     (1, 2048, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1)),
     (2, 40, 4, 32, 16, 64, (0.5, 2.0), (0.01, 0.2)),
@@ -181,9 +217,11 @@ SSD_SHAPES = [
 ]
 SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # the shapes that must take the tensor-core kernel in bf16 (Mamba2-130M's
-# path shape, its blocked fold, Zamba2-2.7B's), and the ones timed in full
-SSD_TC_SHAPES = SSD_SHAPES[3:6]
+# path shape, its blocked and matrix folds, Zamba2-2.7B's), and the ones
+# timed in full
+SSD_TC_SHAPES = SSD_SHAPES[3:9]
 SSD_TIMED_SHAPES = SSD_SHAPES[3:5]
+SSD_MATRIX_SHAPES = SSD_SHAPES[5:8]
 # the Mamba2 LM slice: run_lm's configuration at full width and depth
 MAMBA_ARCH, MAMBA_C, MAMBA_E = "mamba2-130m", 8, 4
 MAMBA_PARAMS, MAMBA_LEAVES = 128_983_488, 11
@@ -254,6 +292,31 @@ PREFIX_SHAPES = [
 ]
 # the lane-sharded MLP slice: 2 gloo ranks sharing the one card
 LANE_RANKS, MLP_E, FEDBUFF_Z = 2, 8, 10
+# the scenario matrix (phase 17): examples/scenario_matrix.py's configuration,
+# 3 seeds x 3 policies x 3 speed ratios = 27 cells, uncut; MATRIX_CELL is the
+# (seed, policy, ratio) index of the cell run alone (flc's: seed 0, "optimal",
+# ratio 4)
+MATRIX_N, MATRIX_C, MATRIX_T, MATRIX_ETA, MATRIX_EVAL, MATRIX_E = 40, 16, 2000, 0.08, 200, 8
+MATRIX_GRID = dict(seeds=(0, 1, 2), policies=("uniform", "optimal", "physical_time"),
+                   speed_ratios=(1.0, 4.0, 16.0))
+MATRIX_CELL = (0, 1, 1)
+# K2 and K1 across the matrix's cells, alone: 27 blocked rings of (C+1, P)
+# at E = 8 with 2 padded lanes a cell (P padded to a multiple of 1024, as
+# the kernel path pads it), fp32 and bf16 rings; K1 over 27 x the MLP's 6
+# leaves
+CELLS_PREFIX_SHAPES = [(27, 17, 26624, 8, 2, torch.float32), (27, 17, 26624, 8, 2, torch.bfloat16)]
+CELLS = 27
+# the Mamba2-130M matrix: phase 10's configuration over 3 policies (seed 0,
+# ratio 10), per event and blocked.  Blocked at E=4 the gradient call folds
+# 3 x 4 x 8 = 96 rows and ran out of the card's memory (75.9 GiB allocated,
+# NVIDIA H100 80GB HBM3, 700 W); E=2 folds 48
+MAMBA_MATRIX_GRID = dict(seeds=(0,), policies=("uniform", "optimal", "physical_time"),
+                         speed_ratios=(10.0,))
+MAMBA_MATRIX_E = 2
+# a matrix cell's final weights lie at most this fraction of the distance to
+# the nearest other cell's from its own reference run (`_own_gap`); measured
+# 0.12-0.23 (bf16 weights; NVIDIA H100 80GB HBM3, 700 W)
+MAMBA_OWN_GAP = 0.4
 
 failures: list[str] = []
 
@@ -339,6 +402,14 @@ def _timings(kernel, plain, library=None) -> dict:
         out[key + "ms"] = time_ms(fn)
         out[key + "device_ms"] = profile(fn, calls=50)[0]
     return out
+
+
+def _rotating(fn, copies: list):
+    """``fn`` over the operand tuples of ``copies`` in turn, one tuple a
+    call: with copies that add up to several times the L2, no call finds
+    the previous calls' operands in the cache."""
+    it = itertools.cycle(copies)
+    return lambda: fn(*next(it))
 
 
 def _sum_rows(rows: list[dict]) -> dict:
@@ -499,7 +570,99 @@ def phase_kernels(dev, gen):
 
     rows.update(_phase_prefix_update(dev))
     rows.update(_phase_scatter_rows(dev))
+    _phase_cells(dev, rows)
     return rows
+
+
+def _phase_cells(dev, rows: dict) -> None:
+    """K2 and K1 across the scenario matrix's cells, alone: K2 over
+    `CELLS_PREFIX_SHAPES` in one launch (every cell's ring rows and w'
+    bitwise equal to the plain version with a cell axis and to a second
+    launch), K1 over `CELLS` x the MLP's 6 leaves with one scale a cell
+    (bitwise, ceil(6 x 27 / 64) = 3 launches); each timed beside its plain
+    version with its byte bound.  Adds them to ``rows`` as ``cells``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import weighted_update as wu
+
+    cells = []
+    for B, R, P, E, pad, dtype in CELLS_PREFIX_SHAPES:
+        rng = np.random.default_rng(B + E)
+        slots_np = np.stack([np.concatenate([rng.choice(R - 1, size=E - pad, replace=False),
+                                             np.full(pad, R - 1)]) for _ in range(B)])
+        slots = torch.as_tensor(slots_np, device=dev)
+        g = torch.Generator(device=dev).manual_seed(B + P)
+        snaps0 = torch.randn((B, R, P), generator=g, device=dev).to(dtype)
+        w = torch.randn((B, P), generator=g, device=dev)
+        D = 0.01 * torch.randn((B, E, P), generator=g, device=dev)
+        D[:, E - pad:] = 0.0
+        wu.reset_launches()
+        ks, kw_ = wu.block_prefix_update(snaps0.clone(), w, D, slots)
+        n_launch = wu.launches["block_prefix_update"]
+        rs, rw_ = ref.block_prefix_update_ref(snaps0.clone(), w, D, slots)
+        again, again_w = wu.block_prefix_update(snaps0.clone(), w, D, slots)
+        torch.cuda.synchronize()
+        same = torch.equal(ks, rs) and torch.equal(kw_, rw_)
+        twice = torch.equal(ks, again) and torch.equal(kw_, again_w)
+        err = max(max_err(ks, rs), max_err(kw_, rw_))
+        tag = (f"block_prefix_update across {B} cells, {str(dtype)[6:]} rings {(R, P)} E={E} "
+               f"({pad} padded a cell)")
+        check(n_launch == 1 and same and twice,
+              f"{tag}: {n_launch} launch == 1, every cell's ring rows and w' bitwise equal to "
+              f"the plain version {same} (max abs err {err:.3e}), two launches bitwise {twice}")
+        del ks, kw_, rs, rw_, again, again_w
+        esz = torch.finfo(dtype).bits // 8
+        distinct = sum(len(set(r.tolist())) for r in slots_np)
+        # read w, D, slots; write each cell's distinct ring rows and w'
+        b, by = bound_ms(B * (4 * P + 4 * E * P + 8 * E + 4 * P) + distinct * P * esz, B * E * P)
+        vec = wu.prefix_vec(snaps0, w, D)
+        row = dict(name="block_prefix_update", shape=[B, R, P, E, pad, str(dtype)[6:]],
+                   launches=n_launch, max_abs_err=err, bitwise=same, bound_ms=b, bound_by=by,
+                   library_ms=None, kernel_info=wu.prefix_kernel_info(dtype, vec, E))
+        # timed over rotating copies of the operands, three L2s of them in
+        # all: back to back on one copy the rings, w and D stay in the L2
+        ops = (snaps0, w, D, slots)
+        work = sum(t.numel() * t.element_size() for t in ops)
+        copies = [ops] + [tuple(t.clone() for t in ops) for _ in range(-(-3 * L2_BYTES // work) - 1)]
+        row.update(copies=len(copies), **_timings(_rotating(wu.block_prefix_update, copies),
+                                                  _rotating(ref.block_prefix_update_ref, copies)))
+        print(f"     {tag}: {json.dumps(row)}")
+        cells.append(row)
+        del snaps0, w, D, ops, copies
+        torch.cuda.empty_cache()
+    rows["block_prefix_update"]["cells"] = cells
+
+    g = torch.Generator(device=dev).manual_seed(CELLS)
+    shapes = list(MLP_LEAVES.values())
+    ws = [torch.randn((CELLS, *sh), generator=g, device=dev) for sh in shapes]
+    gs = [torch.randn((CELLS, *sh), generator=g, device=dev) for sh in shapes]
+    sc = 0.05 + torch.rand((CELLS,), generator=g, device=dev)
+    wu.reset_launches()
+    out, _ = wu.weighted_update_leaves(ws, gs, sc)
+    counted = (wu.launches["weighted_update"], wu.launches["weighted_update_leaves"])
+    again, _ = wu.weighted_update_leaves(ws, gs, sc)
+    plain = [ref.weighted_update_ref(w, x, sc)[0] for w, x in zip(ws, gs)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(out, plain))
+    twice = all(torch.equal(a, b) for a, b in zip(out, again))
+    err = max(max_err(a, b) for a, b in zip(out, plain))
+    want = (-(-CELLS * len(shapes) // wu.MAX_LEAVES), CELLS * len(shapes))
+    tag = f"weighted_update across {CELLS} cells (the MLP's {len(shapes)} fp32 leaves a cell)"
+    check(counted == want and same and twice,
+          f"{tag}: launches {counted} == {want}, every cell of every leaf bitwise equal to the "
+          f"plain version {same} (max abs err {err:.3e}), two launches bitwise equal {twice}")
+    b, by = bound_ms(*(CELLS * x for x in _k1_cost([(sh, torch.float32) for sh in shapes],
+                                                   False)))
+    row = dict(name="weighted_update", leaves=CELLS * len(shapes), launches=counted[0],
+               max_abs_err=err, bitwise=same, bound_ms=b, bound_by=by,
+               kernel_info=wu.update_kernel_info(False))
+    # the library's one call for w - s[c] g: addcmul over the leaf list,
+    # each leaf's scale a (B, 1, ...) view of the cells' scales
+    views = [sc.view(-1, *(1,) * (w.ndim - 1)) for w in ws]
+    row.update(_timings(lambda: wu.weighted_update_leaves(ws, gs, sc),
+                        lambda: [ref.weighted_update_ref(w, x, sc) for w, x in zip(ws, gs)],
+                        lambda: torch._foreach_addcmul(ws, gs, views, value=-1.0)))
+    print(f"     {tag}: {json.dumps(row)}")
+    rows["weighted_update"]["cells"] = [row]
 
 
 def _prefix_cell(dev, shape: tuple, timed: str) -> dict:
@@ -893,6 +1056,9 @@ def phase_ssd_scan(dev) -> dict:
                 quick = dict(batches=5, per_batch=10, warmup=3)
                 row.update(ms=time_ms(kernel, **quick), plain_ms=time_ms(plain, **quick),
                            library_ms=None)
+                if shape in SSD_MATRIX_SHAPES and dtype == torch.bfloat16:
+                    row["device_ms"] = profile(kernel, calls=10)[0]
+                    path_rows[shape] = row
             print(f"     {tag}: {json.dumps(row)}")
             del x, dt, A, A_rows, Bm, Cm, y, st, ey, est
     torch.cuda.empty_cache()
@@ -943,7 +1109,8 @@ def phase_ssd_scan(dev) -> dict:
           f"ssd_scan under vmap with a batched A: {n} launch(es) == 1, equal to a loop "
           f"(allclose tol {close:.3e} <= {FA_TOL[torch.float32]})")
     first = dict(path_rows[SSD_PATH_SHAPE])
-    first.update(path_shapes=[path_rows[sh] for sh in SSD_TIMED_SHAPES], kernel_info=info)
+    first.update(path_shapes=[path_rows[sh] for sh in SSD_TIMED_SHAPES],
+                 matrix_shapes=[path_rows[sh] for sh in SSD_MATRIX_SHAPES], kernel_info=info)
     return {"ssd_scan": first}
 
 
@@ -1492,6 +1659,18 @@ def phase_lm(dev, launches: dict) -> None:
           f"LM eval curve, K3 vs plain attention: relative gap {gap:.3e} <= {LM_CURVE_TOL}")
 
 
+def _train_loss(setup, params, J) -> float:
+    """Mean loss of ``params`` over a run's trained minibatches (event k:
+    client J[k]'s window at step k), four minibatches a forward."""
+    out = []
+    with torch.no_grad():
+        for i in range(0, len(J), 4):
+            bs = [setup.clients.client_batch(int(j), i + k) for k, j in enumerate(J[i:i + 4])]
+            batch = {key: torch.cat([b[key] for b in bs]) for key in bs[0]}
+            out.append(float(setup.clients.loss_fn(params, batch)))
+    return float(np.mean(out))
+
+
 def _forwards(T: int, every: int) -> int:
     """Forward passes of a per-event run: one per gradient, one per eval."""
     return T + T // every
@@ -1543,18 +1722,6 @@ def phase_mamba(dev, launches: dict) -> None:
     p = sampling_for(flc, mu)
     stream = export_stream(SimConfig(mu=mu, p=p, C=MAMBA_C, T=LM_T, seed=flc.seed))
 
-    def train_loss(setup, params) -> float:
-        """Mean loss of ``params`` over the run's trained minibatches (event
-        k: client J[k]'s window at step k), four minibatches a forward."""
-        out = []
-        with torch.no_grad():
-            for i in range(0, LM_T, 4):
-                bs = [setup.clients.client_batch(int(j), i + k)
-                      for k, j in enumerate(stream.J[i:i + 4])]
-                batch = {key: torch.cat([b[key] for b in bs]) for key in bs[0]}
-                out.append(float(setup.clients.loss_fn(params, batch)))
-        return float(np.mean(out))
-
     def learns(label: str, task, curve, final) -> float:
         """After a run, outside its timed window and its launch counts: the
         eval curve from the initial weights, and the check that the
@@ -1562,7 +1729,8 @@ def phase_mamba(dev, launches: dict) -> None:
         setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
         with torch.no_grad():
             loss0 = float(setup.eval_fn(setup.params))
-        before, after = train_loss(setup, setup.params), train_loss(setup, final)
+        before = _train_loss(setup, setup.params, stream.J)
+        after = _train_loss(setup, final, stream.J)
         print(f"Mamba2 eval loss ({label}) from the initial weights: {loss0:.5f} -> "
               f"{curve.tolist()}")
         check(after < before, f"Mamba2 training loss ({label}) over the run's {LM_T} trained "
@@ -1780,7 +1948,258 @@ def phase_moe_lm(dev, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
-GROUPS = ("k1k2k6", "fa", "ssd", "gmm", "mlp", "lanes", "granite", "ssm", "moe")
+def _matrix_inputs(flc, grid: dict, eta: float, every: int, E: int, dev):
+    """The scenario grid's stacked replay inputs on ``dev``, as `run_matrix`
+    builds them (`matrix_streams`): per event ``(J, slot, scale)`` (B, T),
+    and blocked E ``(J, slot, scale, k, mask)`` (B, rows, E) with its
+    ``(chunk_blocks, n_chunks)``."""
+    from repro_torch.core.engine_scan import blocked_inputs_batch
+    from repro_torch.core.queue_sim import EventBlocks
+    from repro_torch.fl.engine import matrix_streams
+
+    _, streams = matrix_streams(flc, eta=eta, **grid)
+    idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=dev)  # noqa: E731
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    per_event = (idx([es.J for es, _ in streams]), idx([es.slot for es, _ in streams]),
+                 f32([s for _, s in streams]))
+    J, slot, sc, kb, mask, G, nc = blocked_inputs_batch(
+        [EventBlocks.from_stream(es, E, cut_every=every, method=flc.segmentation)
+         for es, _ in streams], [s for _, s in streams], every)
+    blocked = (idx(J), idx(slot), f32(sc), idx(kb), torch.as_tensor(mask, device=dev))
+    return per_event, blocked, dict(chunk_blocks=G, n_chunks=nc)
+
+
+def phase_matrix(dev, launches: dict) -> None:
+    """17. The scenario matrix on the host stream (see the module
+    docstring): the 3-cell Mamba2-130M grid first, then the paper's 27-cell
+    MLP grid and its profiles; adds the kernel paths' launches to
+    ``launches`` under "matrix_mamba2" (K4) and "matrix" (K1, K2).  `main`
+    runs it before any other phase: the blocked Mamba2 matrix needs up to
+    73.3 GiB of the card's 79.2, and after the other phases it ran out of
+    memory with 5.9-6.3 GiB of the allocator's cache reserved but unused
+    (PERF.md)."""
+    _phase_matrix_mamba(dev, launches)
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.engine_scan import jit_runner
+    from repro_torch.data.pipeline import FederatedClassification
+    from repro_torch.fl.engine import _cached_fl_setup, run_experiment, run_matrix
+    from repro_torch.kernels import weighted_update as wu
+    from repro_torch.kernels.ops import tree_weighted_update
+
+    # (a) the paper's matrix at full width: 27 runs in lockstep
+    flc = FLConfig(n_clients=MATRIX_N, concurrency=MATRIX_C, server_steps=MATRIX_T,
+                   engine="scan", device=dev.type)
+    T, every, B = MATRIX_T, MATRIX_EVAL, 27
+    shape = (3, 3, 3, T // every)
+    mk = dict(MATRIX_GRID, eta=MATRIX_ETA, eval_every=every)
+    data = FederatedClassification(n_clients=MATRIX_N, seed=flc.seed)
+    res = {}
+    for label, E in (("per event", 1), (f"blocked E={MATRIX_E}", MATRIX_E)):
+        m, wall = _timed(lambda: run_matrix(flc, data=data, block_size=E, **mk))
+        acc, final = np.asarray(m.eval_acc), np.asarray(m.final_acc)
+        print(f"run_matrix {label}, {B} cells n={MATRIX_N} C={MATRIX_C} T={T}: {wall:.3f} s, "
+              f"{B * T / wall:.1f} events/s summed over cells; final acc (seed-mean, policy x "
+              f"ratio) {final.mean(axis=0).round(4).tolist()}")
+        check(acc.shape == shape and final.shape == shape[:3] and bool(np.isfinite(acc).all())
+              and bool(np.isfinite(final).all())
+              and m.eval_steps.tolist() == list(range(every, T + 1, every))
+              and bool(np.all(np.diff(m.eval_times, axis=-1) >= 0)),
+              f"run_matrix {label}: eval curves {acc.shape} == {shape}, finite, eval_times "
+              "monotone in every cell")
+        res[E] = (m, wall)
+    (m, wall_pe), (mb, wall_bl) = res[1], res[MATRIX_E]
+    dacc = float(np.max(np.abs(mb.eval_acc - m.eval_acc)))
+    check(dacc <= 10 / 2048, f"run_matrix blocked vs per event: eval accuracy gap {dacc:.5f} "
+          "<= 10/2048")
+    s_i, p_i, h_i = MATRIX_CELL
+    one = replace(flc, seed=MATRIX_GRID["seeds"][s_i], sampling=MATRIX_GRID["policies"][p_i],
+                  speed_ratio=MATRIX_GRID["speed_ratios"][h_i])
+    r, wall_1 = _timed(lambda: run_experiment(one, "gen_async", eta=MATRIX_ETA, eval_every=every,
+                                              data=data))
+    dacc = _acc_gap(list(r.eval_acc), list(m.eval_acc[MATRIX_CELL]))
+    check(np.array_equal(r.eval_times, m.eval_times[MATRIX_CELL]) and dacc <= 10 / 2048,
+          f"matrix cell {MATRIX_CELL} vs run_experiment alone: eval_times bitwise "
+          f"{np.array_equal(r.eval_times, m.eval_times[MATRIX_CELL])}, accuracy gap "
+          f"{dacc:.5f} <= 10/2048")
+    print(f"events/s: matrix per event {B * T / wall_pe:.1f} summed over {B} cells, blocked "
+          f"E={MATRIX_E} {B * T / wall_bl:.1f}; one run_experiment alone {T / wall_1:.1f} "
+          f"(x{B * T / wall_pe / (T / wall_1):.2f} per event)")
+
+    # the kernel paths on the same stacked inputs: K1 and K2 across cells
+    setup = _cached_fl_setup(data, flc.seed, None, device=dev)
+    grad = setup.clients.device_grad
+    pe, bl, layout = _matrix_inputs(flc, MATRIX_GRID, MATRIX_ETA, every, MATRIX_E, dev)
+    path = launches.setdefault("matrix", {})
+    plain = jit_runner(grad, MATRIX_C, eval_fn=setup.eval_fn, eval_every=every, vmap_streams=True)
+    w_p, ev_p = plain(setup.params, *pe)
+    wu.reset_launches()
+    (w_k, ev_k), wall = _timed(lambda: jit_runner(
+        grad, MATRIX_C, eval_fn=setup.eval_fn, eval_every=every,
+        update_fn=tree_weighted_update, vmap_streams=True)(setup.params, *pe))
+    per = -(-B * 6 // wu.MAX_LEAVES)
+    got, covered = wu.launches["weighted_update"], wu.launches["weighted_update_leaves"]
+    path.update(weighted_update=got, weighted_update_leaves=covered)
+    check(got == per * T and covered == T * B * 6,
+          f"matrix per event K1 across cells: launches {got} == {per} x T, leaves covered "
+          f"{covered} == T x {B} x 6 ({B * T / wall:.1f} events/s summed)")
+    same = all(torch.equal(w_k[k], w_p[k]) for k in w_p)
+    gap = _tree_gap(w_k, w_p)
+    check(same or gap <= 1e-5, f"matrix per event K1 vs the flat update: final weights bitwise "
+          f"{same} (max gap {gap:.3e} <= 1e-5), curves bitwise {torch.equal(ev_k, ev_p)}")
+    del w_k, ev_k
+    blocked = lambda kernel: jit_runner(  # noqa: E731
+        grad, MATRIX_C, eval_fn=setup.eval_fn, block_size=MATRIX_E, kernel=kernel,
+        vmap_streams=True)(setup.params, *bl, **layout)
+    wu.reset_launches()
+    (w_b, ev_b), wall = _timed(lambda: blocked("pallas"))
+    rows = bl[0].shape[1]
+    path["block_prefix_update"] = wu.launches["block_prefix_update"]
+    check(wu.launches["block_prefix_update"] == rows,
+          f"matrix blocked E={MATRIX_E} K2 across cells: launches "
+          f"{wu.launches['block_prefix_update']} == block rows {rows} ({B * T / wall:.1f} "
+          "events/s summed)")
+    w_j, ev_j = blocked("jnp")
+    check(all(torch.equal(w_b[k], w_j[k]) for k in w_j) and torch.equal(ev_b, ev_j),
+          f"matrix blocked K2 vs its plain version with the cell axis: final weights and "
+          f"curves bitwise (max gap {_tree_gap(w_b, w_j):.3e})")
+    del w_b, w_j, w_p
+    few = 200
+    _print_profile(f"MLP matrix per event, {B} cells in lockstep, T={few} (event steps)",
+                   lambda: plain(setup.params, *(a[:, :few] for a in pe)), few)
+    _print_profile(f"MLP matrix per event, K1 across cells, T={few} (event steps)",
+                   lambda: jit_runner(grad, MATRIX_C, eval_fn=setup.eval_fn, eval_every=every,
+                                      update_fn=tree_weighted_update, vmap_streams=True)(
+                       setup.params, *(a[:, :few] for a in pe)), few)
+    del setup, plain, data
+    torch.cuda.empty_cache()
+
+
+def _flat_cpu(params) -> torch.Tensor:
+    """A weight tree as one fp32 vector in host memory."""
+    from repro_torch.tree import tree_leaves
+
+    return torch.cat([x.detach().float().reshape(-1).cpu() for x in tree_leaves(params)])
+
+
+def _own_gap(label: str, cells: list, refs: list, names) -> None:
+    """Each cell's final weights (`_flat_cpu`) against the reference run of
+    that cell (``refs[c]``) and of every other cell, as ||a - b|| / ||b||:
+    the own gap must be below `MAMBA_OWN_GAP` of the nearest other one, so
+    swapped or untrained cells fail."""
+    for c, name in enumerate(names):
+        gaps = [float(torch.linalg.vector_norm(cells[c] - r) / torch.linalg.vector_norm(r))
+                for r in refs]
+        other = min(g for i, g in enumerate(gaps) if i != c)
+        check(gaps[c] <= MAMBA_OWN_GAP * other,
+              f"Mamba2 matrix {label}, cell {name!r}: final weights' relative gap to its own "
+              f"run {gaps[c]:.3e} <= {MAMBA_OWN_GAP} x the nearest other cell's {other:.3e} "
+              f"(all {[float(f'{g:.3e}') for g in gaps]})")
+
+
+def _phase_matrix_mamba(dev, launches: dict) -> None:
+    """17 (c). The 3-cell Mamba2-130M matrix at full width and depth, per
+    event and blocked, K4 folded over the cells (and cells x lanes); then
+    the cells' final weights from the engine on the same stacked inputs:
+    each cell's training loss falls, and each cell is nearest its own
+    single run (per event) and its own per-event cell (blocked)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.engine_scan import jit_runner
+    from repro_torch.fl.engine import LMTask, _cached_fl_setup, run_experiment, run_matrix
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
+    nL, T, every = cfg.num_layers, LM_T, LM_EVAL
+    flc = FLConfig(n_clients=LM_N, concurrency=MAMBA_C, server_steps=T, speed_ratio=10.0,
+                   engine="scan", device=dev.type)
+    task = LMTask(cfg, batch_size=LM_BATCH, seq_len=LM_SEQ, shard_size=LM_SHARD)
+    policies = MAMBA_MATRIX_GRID["policies"]
+    B, E = len(policies), MAMBA_MATRIX_E
+    mk = dict(MAMBA_MATRIX_GRID, eta=0.05, eval_every=every)
+    pe, bl, layout = _matrix_inputs(flc, MAMBA_MATRIX_GRID, 0.05, every, E, dev)
+    rows = bl[0].shape[1]
+    path = launches.setdefault("matrix_mamba2", {"ssd_scan": 0})
+    ring = MAMBA_PARAMS * 4  # bytes of one fp32 ring row
+    curves = {}
+    for label, bs, steps, folded in (("per event", 1, T, LM_BATCH * B),
+                                     (f"blocked E={E}", E, rows, LM_BATCH * B * E)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        k4.reset_launches()
+        m, wall = _timed(lambda: run_matrix(flc, task=task, block_size=bs, **mk))
+        n = k4.launches["ssd_scan"]
+        path["ssd_scan"] += n
+        curve = np.asarray(m.eval_acc, np.float64).reshape(B, -1)
+        curves[bs] = curve
+        forwards = steps + T // every + 1  # gradients, evals, the final eval
+        peak = torch.cuda.max_memory_allocated()
+        print(f"Mamba2 run_matrix {label}, {B} cells n={LM_N} C={MAMBA_C} T={T}: {wall:.3f} s, "
+              f"{B * T / wall:.3f} events/s summed over cells, K4 launches {n}; peak device "
+              f"memory {peak / 2**30:.3f} GiB (rings {B} x {ring * (MAMBA_C + (bs > 1)) / 1e9:.2f} GB); "
+              f"loss {curve.tolist()}")
+        check(curve.shape == (B, T // every) and bool(np.isfinite(curve).all())
+              and bool(np.isfinite(m.final_acc).all()),
+              f"Mamba2 run_matrix {label}: {B} finite eval-loss curves of {T // every} points")
+        check(n == nL * forwards,
+              f"Mamba2 run_matrix {label}: K4 launches {n} == {nL} x {forwards} forwards, each "
+              f"over the {folded} rows the cells{' x lanes' if bs > 1 else ''} fold into")
+    tol = MAMBA_CURVE_TOL["blocked"]
+    gap = float(np.max(np.abs(curves[E] - curves[1]) / np.abs(curves[1])))
+    check(gap <= tol, f"Mamba2 matrix blocked vs per event: relative gap {gap:.3e} <= {tol}")
+
+    # the cells' final weights: the memoized runner `run_matrix` replays,
+    # driven on the same stacked inputs (its curves held to run_matrix's);
+    # kept in host memory, as the blocked runs need most of the card
+    setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
+    grad, J = setup.clients.device_grad, pe[0].cpu().numpy()
+    finals = {}
+    for bs, args, kw in ((1, pe, dict(eval_every=every)), (E, bl, dict(block_size=E))):
+        torch.cuda.empty_cache()
+        w, ev = jit_runner(grad, MAMBA_C, eval_fn=setup.eval_fn, vmap_streams=True, **kw)(
+            setup.params, *args, **(layout if bs > 1 else {}))
+        ev = ev.cpu().numpy().astype(np.float64)
+        gap = float(np.max(np.abs(ev - curves[bs]) / np.abs(curves[bs])))
+        check(np.array_equal(ev, curves[bs]) or gap <= 1e-5,
+              f"Mamba2 matrix E={bs} through jit_runner: curves bitwise run_matrix's "
+              f"{np.array_equal(ev, curves[bs])} (relative gap {gap:.3e} <= 1e-5)")
+        cells = [tree_map(lambda x, c=c: x[c], w) for c in range(B)]
+        del w
+        for c, pol in enumerate(policies):
+            before = _train_loss(setup, setup.params, J[c])
+            after = _train_loss(setup, cells[c], J[c])
+            check(after < before, f"Mamba2 matrix E={bs}, cell {pol!r}: training loss over its "
+                  f"{T} trained minibatches falls: {before:.5f} -> {after:.5f}")
+        finals[bs] = [_flat_cpu(w) for w in cells]
+        del cells
+    # each cell alone, per event, and the "optimal" cell blocked at the
+    # matrix's E
+    opt = policies.index("optimal")
+    alone = {}
+    for c, pol in enumerate(policies):
+        torch.cuda.empty_cache()
+        r = run_experiment(replace(flc, sampling=pol), "gen_async", eval_every=every, task=task)
+        alone[c] = (np.asarray(r.eval_acc), _flat_cpu(r.final_params))
+        del r
+    _own_gap("per event vs each cell run alone", finals[1], [alone[c][1] for c in range(B)],
+             policies)
+    _own_gap(f"blocked E={E} vs the per-event matrix", finals[E], finals[1], policies)
+    torch.cuda.empty_cache()
+    blocked_alone = np.asarray(run_experiment(replace(flc, sampling="optimal", block_size=E),
+                                              "gen_async", eval_every=every, task=task).eval_acc)
+    for c, pol in enumerate(policies):
+        gap = float(np.max(np.abs(curves[1][c] - alone[c][0]) / np.abs(alone[c][0])))
+        check(gap <= tol, f"Mamba2 matrix cell {pol!r} (per event) vs the run alone: relative "
+              f"curve gap {gap:.3e} <= {tol}")
+    gap = float(np.max(np.abs(curves[E][opt] - blocked_alone) / np.abs(blocked_alone)))
+    check(gap <= tol, f"Mamba2 matrix \"optimal\" cell (blocked) vs the run alone: relative "
+          f"curve gap {gap:.3e} <= {tol}")
+    del finals, alone, setup
+    task.__dict__.pop("_fl_setup_cache", None)
+    torch.cuda.empty_cache()
+
+
+GROUPS = ("k1k2k6", "fa", "ssd", "gmm", "mlp", "lanes", "granite", "ssm", "matrix", "moe")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -1827,6 +2246,13 @@ def main(argv: list[str] | None = None) -> int:
     print(f"build: {srcs} in {time.perf_counter() - t0:.2f} s")
     done("1")
 
+    # 17. the scenario matrix, first (`phase_matrix`)
+    launches: dict = {}
+    if "matrix" in groups:
+        phase_matrix(dev, launches)
+        done("17")
+        torch.cuda.empty_cache()
+
     # 2. and 11. kernels against their plain versions
     gen = torch.Generator().manual_seed(0)
     rows = {}
@@ -1841,7 +2267,6 @@ def main(argv: list[str] | None = None) -> int:
     done("2, 11")
 
     # 3.-8. the MLP and dense LM slices, each kernel path's launches counted per path
-    launches: dict = {}
     if "mlp" in groups:
         blocked = phase_mlp(dev, launches)
         done("3-6")

@@ -28,7 +28,12 @@ depend on the gradient values, so it is simulated on the host first
     `kernels.weighted_update.block_scatter_rows` writes the iterates);
   * evaluation runs every ``eval_every`` events (per event) or after each
     eval-interval group of blocks (blocked), on micro-block boundaries by
-    construction (`segment_blocks(cut_every=)`).
+    construction (`segment_blocks(cut_every=)`);
+  * ``vmap_streams=True`` replays B streams (the scenario matrix's cells)
+    in lockstep along an explicit cell axis: a (B, C, P) ring, one gather,
+    one vmapped gradient call, one update and one scatter per event or
+    block for all cells (`_make_host_cells_runner`,
+    `_make_cells_block_step`).
 
 Where JAX runs one `lax.scan`, this engine runs a Python loop over events
 whose arrays already live on the device: the loop indexes them with Python
@@ -51,6 +56,7 @@ from .queue_sim import KIND_COMPLETE, EventBlocks, EventStream
 
 __all__ = [
     "blocked_inputs",
+    "blocked_inputs_batch",
     "jit_runner",
     "make_runner",
     "step_scales",
@@ -170,6 +176,33 @@ def blocked_inputs(blocks: EventBlocks, scale: np.ndarray, eval_every: int = 0):
     return _blocked_layout(blocks, scale, eval_every)
 
 
+def blocked_inputs_batch(
+    blocks_list: list[EventBlocks],
+    scales_list: list[np.ndarray],
+    eval_every: int = 0,
+):
+    """Stacked blocked inputs over cells, padded to one common layout.
+
+    The per-cell cuts give different block counts; every cell is padded
+    (all-masked no-op rows) to the batch-wide maximum, so the cells replay
+    in lockstep as (S, B, E) arrays with shared ``(chunk_blocks, n_chunks)``
+    (`jit_runner(..., vmap_streams=True)`).
+    """
+    layouts = [_blocked_layout(b, s, eval_every) for b, s in zip(blocks_list, scales_list)]
+    if eval_every:
+        G = max(lay[5] for lay in layouts)
+        n_chunks = layouts[0][6]
+        tail = max(lay[0].shape[0] - n_chunks * lay[5] for lay in layouts)
+        layouts = [_blocked_layout(b, s, eval_every, chunk_blocks=G, tail_blocks=tail)
+                   for b, s in zip(blocks_list, scales_list)]
+    else:
+        rows = max(lay[0].shape[0] for lay in layouts)
+        layouts = [_blocked_layout(b, s, 0, tail_blocks=rows)
+                   for b, s in zip(blocks_list, scales_list)]
+    stacked = tuple(np.stack([lay[i] for lay in layouts]) for i in range(5))
+    return stacked + (layouts[0][5], layouts[0][6])
+
+
 # ------------------------------------------------------------------ #
 # shared pieces: snapshot codec + the algorithm step
 # ------------------------------------------------------------------ #
@@ -234,13 +267,17 @@ def _flat_axpy(w: torch.Tensor, g: torch.Tensor, scale: torch.Tensor) -> torch.T
     JAX promotes a bf16 vector times a float32 scale to float32 and rounds
     once at the end; torch would keep bf16 and round twice.  So a narrow
     dtype goes through float32, a chunk at a time: at 2.5 G parameters one
-    unchunked pass would hold ~30 GB of float32 temporaries."""
+    unchunked pass would hold ~30 GB of float32 temporaries.  With a cell
+    axis ``w`` and ``g`` are (B, P) and ``scale`` is (B, 1); the chunks then
+    cut the columns."""
     if w.dtype == torch.float32 and g.dtype == torch.float32:
         return w - scale * g
     out = torch.empty_like(w)
-    for i in range(0, w.numel(), _AXPY_CHUNK):
-        sl = slice(i, i + _AXPY_CHUNK)
-        out[sl] = w[sl].float() - scale * g[sl].float()
+    P = w.shape[-1]
+    step = max(1, _AXPY_CHUNK * P // max(w.numel(), 1))
+    for i in range(0, P, step):
+        sl = slice(i, i + step)
+        out[..., sl] = w[..., sl].float() - scale * g[..., sl].float()
     return out
 
 
@@ -424,23 +461,67 @@ def _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z=0, lane_group=None
     return block_step
 
 
-def _init_update_carry(w0, rows, pack, unpack, flat_mode, enc, fedbuff_Z=0):
+def _make_cells_block_step(grad_fn, pack, unpack, kernel):
+    """One micro-block of B cells in lockstep (flat-packed mode, gen_async).
+
+    ``block_step(w, snaps, j, s, scale, k, mask) -> (w, snaps)`` over (B, P)
+    weights, the (B, C+1, P) ring and (B, E) block columns: one gather of
+    the B·E snapshot rows, one vmapped gradient call over the B·E lanes
+    (cells and lanes flattened into one vmap level), the (B, E, P) deltas,
+    and one K2 update over all cells (``kernel="pallas"``: the CUDA kernel
+    on a CUDA ring; "jnp" and a CPU ring: its plain version, which writes
+    the lanes in event order).
+    """
+    if kernel == "pallas":
+        from ..kernels.ops import block_prefix_update as apply_block
+    elif kernel == "jnp":
+        from ..kernels.ref import block_prefix_update_ref as apply_block
+    else:
+        raise ValueError(kernel)
+    grads = _make_batched_grads(grad_fn, pack, unpack)
+
+    def block_step(w, snaps, j, s, sc, k, m):
+        B, R, P = snaps.shape
+        E = j.shape[1]
+        base = torch.arange(B, dtype=torch.int64, device=s.device)[:, None] * R
+        rows = snaps.view(B * R, P).index_select(0, (base + s).reshape(-1))
+        G = grads(j.reshape(-1), rows, k.reshape(-1)).view(B, E, -1)
+        D = torch.where(m, sc, 0.0).to(torch.float32)[..., None] * G.to(torch.float32)
+        snaps, w = apply_block(snaps, w, D, s)
+        return w, snaps
+
+    return block_step
+
+
+def _init_update_carry(w0, rows, pack, unpack, flat_mode, enc, fedbuff_Z=0, cells=None):
     """``(w, snaps, acc)`` initial carry + the carry->pytree decoder.
 
     ``rows`` is the ring height — C for the per-event engine, C+1 for the
     blocked engine (the extra trash row absorbs padded scatters).  ``acc``
     is the FedBuff buffer, zeros like ``w`` (flat or tree), or None.
+    ``cells=B`` starts B cells from the one w0: every part gains a leading
+    axis of B (the ring (B, rows, P)) and the decoder maps (B, P) packed
+    weights to a tree of (B, ...) leaves.
     """
     flat0 = pack(w0)
-    snaps0 = enc(flat0)[None].expand(rows, -1).clone()
+    lead = () if cells is None else (cells,)
+    snaps0 = enc(flat0).expand(*lead, rows, -1).clone()
     w_init = flat0 if flat_mode else w0
+    if cells is not None:
+        w_init = tree_map(lambda x: x.expand(cells, *x.shape).clone(), w_init)
     acc0 = tree_map(torch.zeros_like, w_init) if fedbuff_Z > 0 else None
-    to_tree = unpack if flat_mode else (lambda w: w)
+    if not flat_mode:
+        to_tree = lambda w: w  # noqa: E731
+    else:
+        to_tree = unpack if cells is None else torch.func.vmap(unpack)
     return (w_init, snaps0, acc0), to_tree
 
 
-def _stack_evals(evals: list, device) -> torch.Tensor:
-    return torch.stack(evals) if evals else torch.zeros((0,), device=device)
+def _stack_evals(evals: list, device, cells=None) -> torch.Tensor:
+    """The eval curve, (n_evals,), or (B, n_evals) with ``cells=B`` (each
+    eval point then a (B,) tensor)."""
+    lead = () if cells is None else (cells,)
+    return torch.stack(evals, dim=len(lead)) if evals else torch.zeros((*lead, 0), device=device)
 
 
 # ------------------------------------------------------------------ #
@@ -455,6 +536,7 @@ def _make_host_runner(
     eval_every: int = 0,
     update_fn: Callable[[Pytree, Pytree, Any], Pytree] | None = None,
     snapshot_dtype=None,
+    vmap_streams: bool = False,
 ):
     """Build the per-event replay engine.
 
@@ -465,8 +547,12 @@ def _make_host_runner(
 
     grad_fn(j, w, k): stochastic gradient of client j at params w, server
     step k (0-d device tensors).  update_fn(w, g, scale) defaults to
-    w - scale*g.  ``fedbuff_Z > 0`` replays FedBuff.
+    w - scale*g.  ``fedbuff_Z > 0`` replays FedBuff.  ``vmap_streams=True``
+    replays B streams in lockstep (`_make_host_cells_runner`).
     """
+    if vmap_streams:
+        return _make_host_cells_runner(grad_fn, C, eval_fn=eval_fn, eval_every=eval_every,
+                                       update_fn=update_fn, snapshot_dtype=snapshot_dtype)
     eval_every_default = eval_every
 
     def run(w0, J, slot, scale, eval_every=eval_every_default):
@@ -484,6 +570,73 @@ def _make_host_runner(
             if every and (k + 1) % every == 0:
                 evals.append(eval_fn(to_tree(carry[0])))
         return to_tree(carry[0]), _stack_evals(evals, J.device)
+
+    return run
+
+
+# ------------------------------------------------------------------ #
+# the cell axis: B streams replayed in lockstep (run_matrix)
+# ------------------------------------------------------------------ #
+def _cells_eval_fn(eval_fn, unpack, flat_mode: bool):
+    """``eval_fn`` vmapped over the cells' weights ((B, P) packed rows in
+    flat mode, else a tree of (B, ...) leaves), as the reference vmaps it."""
+    if eval_fn is None:
+        return None
+    return torch.func.vmap(lambda v: eval_fn(unpack(v)) if flat_mode else eval_fn(v))
+
+
+def _make_host_cells_runner(grad_fn, C: int, *, eval_fn=None, eval_every: int = 0,
+                            update_fn=None, snapshot_dtype=None):
+    """The per-event engine over B streams in lockstep, with an explicit
+    cell axis: the ring is (B, C, P), the weights (B, P) in flat mode (else
+    a tree of (B, ...) leaves).
+
+    ``run(w0, J, slot, scale, eval_every=...) -> (w_final, evals)`` over
+    (B, T) device tensors; ``w_final`` has a leading B axis on every leaf and
+    ``evals`` is (B, n_evals).  Each event makes, for all cells at once, one
+    gather of the B snapshot rows, one gradient call (`torch.func.vmap` of
+    ``grad_fn`` over (j, w, k)), one update (a (B,) scale broadcast down P;
+    ``update_fn`` takes the (B, ...) leaves and the (B,) scale, e.g.
+    `kernels.ops.tree_weighted_update`, K1 across cells) and one scatter of
+    the B new rows; an eval point runs ``eval_fn`` once, vmapped over the
+    cells.  The ring is written in place, so the loop itself is not vmapped.
+    """
+    eval_every_default = eval_every
+
+    def run(w0, J, slot, scale, eval_every=eval_every_default):
+        pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype)
+        if unpack is None:
+            raise ValueError("the torch engine needs all-float parameters (flat-packed "
+                             "snapshot storage)")
+        flat_mode = update_fn is None
+        B, T = (int(d) for d in J.shape)
+        dev = J.device
+        (w, snaps, _), to_tree = _init_update_carry(w0, C, pack, unpack, flat_mode, enc,
+                                                    cells=B)
+        ring = snaps.view(B * C, -1)
+        grads = torch.func.vmap(lambda j, wi, k: grad_fn(j, unpack(wi), k))
+        pack_cells = torch.func.vmap(pack)
+        base = torch.arange(B, dtype=torch.int64, device=dev) * C
+        # event-major copies: row k of each is one contiguous (B,) column
+        Jt, rows_t = J.t().contiguous(), (slot.t() + base).contiguous()
+        sct = scale.t().contiguous()
+        ks = torch.arange(T, dtype=torch.int64, device=dev)[:, None].expand(T, B)
+        every = eval_every if (eval_fn is not None and eval_every and T >= eval_every) else 0
+        evaluate = _cells_eval_fn(eval_fn, unpack, flat_mode)
+        evals = []
+        for k in range(T):
+            rows = rows_t[k]
+            g = grads(Jt[k], ring.index_select(0, rows), ks[k])
+            if flat_mode:
+                w = _flat_axpy(w, pack_cells(g), sct[k][:, None])
+                new = enc(w)
+            else:
+                w = update_fn(w, g, sct[k])
+                new = enc(pack_cells(w))
+            ring.index_copy_(0, rows, new)
+            if every and (k + 1) % every == 0:
+                evals.append(evaluate(w))
+        return to_tree(w), _stack_evals(evals, dev, cells=B)
 
     return run
 
@@ -544,6 +697,7 @@ def _make_host_block_runner(
     kernel: str = "jnp",
     snapshot_dtype=None,
     lanes=None,
+    vmap_streams: bool = False,
 ):
     """Build the blocked replay engine over `queue_sim.EventBlocks` arrays.
 
@@ -564,6 +718,11 @@ def _make_host_block_runner(
     E/D lanes, and returns the same replicated ``(w_final, evals)`` (see
     `_make_block_step`).  Sharded and unsharded replay agree to the
     re-association of the fp32 lane prefix (<= 1e-5 on the Quadratic).
+
+    ``vmap_streams=True`` replays B cells in lockstep over (B, nb, E)
+    arrays (`blocked_inputs_batch`) with a (B, C+1, P) ring, returning the
+    final weights with a leading B axis and (B, n_evals) evals
+    (`_make_cells_block_step`; gen_async, unsharded).
     """
     if update_fn is not None:
         raise ValueError(
@@ -590,6 +749,9 @@ def _make_host_block_runner(
                 "block_size > 1 requires all-float parameters "
                 "(flat-packed snapshot storage)"
             )
+        if vmap_streams:
+            return run_cells(pack, unpack, enc, w0, J, slot, scale, k, mask, chunk_blocks,
+                             n_chunks)
         if lane_group is not None:  # this rank's contiguous E/D lanes
             J, slot, scale, k, mask = (a[:, lo : lo + El].contiguous()
                                        for a in (J, slot, scale, k, mask))
@@ -604,6 +766,23 @@ def _make_host_block_runner(
             if every and b < Bm and (b + 1) % every == 0:
                 evals.append(eval_fn(to_tree(carry[0])))
         return to_tree(carry[0]), _stack_evals(evals, J.device)
+
+    def run_cells(pack, unpack, enc, w0, J, slot, scale, k, mask, chunk_blocks, n_chunks):
+        block_step = _make_cells_block_step(grad_fn, pack, unpack, kernel)
+        B, nb = (int(d) for d in J.shape[:2])
+        (w, snaps, _), to_tree = _init_update_carry(w0, C + 1, pack, unpack, True, enc,
+                                                    cells=B)
+        every = chunk_blocks if (eval_fn is not None and n_chunks and chunk_blocks) else 0
+        evaluate = _cells_eval_fn(eval_fn, unpack, True)
+        # block-major copies: row b of each is one contiguous (B, E) block
+        J, slot, scale, k, mask = (a.transpose(0, 1).contiguous()
+                                   for a in (J, slot, scale, k, mask))
+        evals = []
+        for b in range(nb):
+            w, snaps = block_step(w, snaps, J[b], slot[b], scale[b], k[b], mask[b])
+            if every and b < n_chunks * chunk_blocks and (b + 1) % every == 0:
+                evals.append(evaluate(w))
+        return to_tree(w), _stack_evals(evals, J.device, cells=B)
 
     return run
 
@@ -628,6 +807,7 @@ def make_runner(
     kernel: str = "jnp",
     snapshot_dtype=None,
     lane_devices: int = 1,
+    vmap_streams: bool = False,
 ):
     """Build the replay engine for a pre-simulated event stream.
 
@@ -637,11 +817,15 @@ def make_runner(
     FedBuff, ``kernel`` picks the plain path or the CUDA kernels,
     ``snapshot_dtype`` an optional narrower ring storage dtype and
     ``lane_devices`` the number of ranks the blocked lanes are sharded over.
+    ``vmap_streams=True`` takes the same arrays with a leading cell axis
+    (stacked streams, `blocked_inputs_batch`) and replays the cells in
+    lockstep.
     """
     if stream != "host":
         if stream == "device":
             raise unported("stream='device'", 6)
         raise ValueError(stream)
+    _check_cells(vmap_streams, lane_devices, fedbuff_Z)
     lanes = _check_lane_devices(lane_devices, block_size)  # rejects D > 1 at E = 1
     if block_size > 1:
         if eval_every:
@@ -649,12 +833,23 @@ def make_runner(
         return _make_host_block_runner(
             grad_fn, C, block_size, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn,
             update_fn=update_fn, kernel=kernel, snapshot_dtype=snapshot_dtype,
-            lanes=lanes,
+            lanes=lanes, vmap_streams=vmap_streams,
         )
     return _make_host_runner(
         grad_fn, C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
-        update_fn=update_fn, snapshot_dtype=snapshot_dtype,
+        update_fn=update_fn, snapshot_dtype=snapshot_dtype, vmap_streams=vmap_streams,
     )
+
+
+def _check_cells(vmap_streams: bool, lane_devices: int, fedbuff_Z: int) -> None:
+    """The cell axis replays Generalized AsyncSGD unsharded: its lanes (the
+    reference's cell × lane layout) wait for ROADMAP item 12."""
+    if not vmap_streams:
+        return
+    if lane_devices > 1:
+        raise unported("run_matrix lanes (vmap_streams with lane_devices > 1)", 12)
+    if fedbuff_Z:
+        raise ValueError("vmap_streams=True replays Generalized AsyncSGD (fedbuff_Z=0)")
 
 
 def _runner_cache(grad_fn):
@@ -681,24 +876,28 @@ def jit_runner(
     kernel: str = "jnp",
     snapshot_dtype=None,
     lane_devices: int = 1,
+    vmap_streams: bool = False,
 ):
     """Memoized `make_runner` (host stream).
 
     PyTorch runs eagerly, so there is nothing to compile: this keeps
     `repro`'s entry point and memo (one runner per gradient source and
     algorithm shape; the per-event eval cadence stays a call-time argument).
+    ``vmap_streams=True`` returns the runner over stacked streams (a
+    leading cell axis on every array, the cells replayed in lockstep).
     """
     if block_size > 1 and eval_every:
         raise ValueError(_EVAL_CADENCE_MSG)
+    _check_cells(vmap_streams, lane_devices, fedbuff_Z)
     cache, func = _runner_cache(grad_fn)
     # the lanes' (group, rank) is in the key: a runner holds the group it was built for
-    key = ("host", func, C, fedbuff_Z, eval_fn, update_fn, block_size, kernel,
+    key = ("host", func, C, fedbuff_Z, eval_fn, update_fn, vmap_streams, block_size, kernel,
            snapshot_dtype, _check_lane_devices(lane_devices, block_size))
     if key not in cache:
         cache[key] = make_runner(
             grad_fn, C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, update_fn=update_fn,
             block_size=block_size, kernel=kernel, snapshot_dtype=snapshot_dtype,
-            lane_devices=lane_devices,
+            lane_devices=lane_devices, vmap_streams=vmap_streams,
         )
     run = cache[key]
     return run if block_size > 1 else partial(run, eval_every=eval_every)

@@ -46,6 +46,7 @@ __all__ = [
     "ClassificationTask",
     "LMTask",
     "FLRun",
+    "MatrixResult",
     "params_from_numpy",
     "run_experiment",
     "run_matrix",
@@ -129,6 +130,20 @@ def _window_starts(starts, seed: int, shard_size: int, batch_size: int, block: i
     return starts.to(device)
 
 
+def _func_grad(fn):
+    """`torch.func.grad` of ``fn``, with `torch._dynamo` imported first.
+
+    The first `torch.func.grad` call of a process imports `torch._dynamo`;
+    `torch.fx.wrap`, run by that import, keeps its own frame in a local, a
+    cycle whose chain of calling frames holds the first gradient's tensors
+    and its callers' locals until Python's cyclic collector runs.
+    Imported here, before any gradient, it holds none.
+    """
+    import torch._dynamo  # noqa: F401
+
+    return torch.func.grad(fn)
+
+
 class FLClients:
     """Host gradient source for the per-event Python loop: streaming numpy
     minibatches (`FederatedClassification.client_batch`) moved to the
@@ -140,7 +155,7 @@ class FLClients:
         self.model = model
         self.batch_size = batch_size
         self.device = resolve_device(device)
-        self._grad = torch.func.grad(model.loss)
+        self._grad = _func_grad(model.loss)
         self.grad_calls = 0
 
     def grad(self, client_id: int, params, server_step: int):
@@ -191,7 +206,7 @@ class DeviceTaskClients:
         self.batch_size = int(batch_size)
         self.loss_fn = loss_fn
         self._window = torch.arange(self.batch_size, dtype=torch.int64, device=dev)
-        self._loss_grad = torch.func.grad(loss_fn)
+        self._loss_grad = _func_grad(loss_fn)
         self.grad_calls = 0
 
     def client_batch(self, client_id, server_step) -> dict:
@@ -537,6 +552,162 @@ def run_experiment(
     )
 
 
-def run_matrix(flc: FLConfig, *args, **kwargs):
-    """The batched scenario matrix — not ported yet."""
-    raise unported("run_matrix", 5)
+# ------------------------------------------------------------------ #
+# scenario matrix: seeds x sampling policies x heterogeneity levels
+# ------------------------------------------------------------------ #
+@dataclass
+class MatrixResult:
+    """Output of `run_matrix`: eval curves over the full scenario grid."""
+
+    seeds: tuple[int, ...]
+    policies: tuple[str, ...]
+    speed_ratios: tuple[float, ...]
+    eval_steps: np.ndarray    # (n_evals,) CS steps at which accuracy was taken
+    eval_acc: np.ndarray      # (S, P, H, n_evals)
+    eval_times: np.ndarray    # (S, P, H, n_evals) physical time at each eval
+    final_acc: np.ndarray     # (S, P, H)
+    p_vectors: np.ndarray     # (P, H, n) sampling vector per (policy, ratio)
+    extras: dict = field(default_factory=dict)
+
+
+def matrix_streams(flc: FLConfig, seeds, policies, speed_ratios, eta: float):
+    """The scenario grid's sampling vectors and event streams, as
+    `run_matrix` replays them: ``(p_vectors (P, H, n), [(EventStream, (T,)
+    step scales)] in seed, policy, ratio order)``.  The speeds of a ratio
+    and the sampling vector of a (policy, ratio) do not depend on the seed
+    (``flc.seed`` draws the speeds); each cell's stream is simulated with
+    its own seed."""
+    from ..core.engine_scan import step_scales
+    from ..core.queue_sim import SimConfig, export_stream
+
+    n, C, T = flc.n_clients, flc.concurrency, flc.server_steps
+    mus = [make_client_speeds(n, flc.frac_fast, ratio, seed=flc.seed) for ratio in speed_ratios]
+    p_vectors = np.empty((len(policies), len(speed_ratios), n))
+    for pi, pol in enumerate(policies):
+        for hi, mu in enumerate(mus):
+            p_vectors[pi, hi] = sampling_for(replace(flc, sampling=pol), mu)
+    streams = []
+    for seed in seeds:
+        for pi in range(len(policies)):
+            for hi, mu in enumerate(mus):
+                p = p_vectors[pi, hi]
+                es = export_stream(SimConfig(mu=mu, p=p, C=C, T=T, service=flc.service,
+                                             seed=seed))
+                streams.append((es, step_scales(es, eta, p, flc.weighting)))
+    return p_vectors, streams
+
+
+def run_matrix(
+    flc: FLConfig,
+    seeds: tuple[int, ...] = (0, 1, 2),
+    policies: tuple[str, ...] = ("uniform", "optimal", "physical_time"),
+    speed_ratios: tuple[float, ...] | None = None,
+    eta: float = 0.05,
+    eval_every: int = 50,
+    data: FederatedClassification | None = None,
+    stream: str | None = None,
+    block_size: int | str | None = None,
+    devices: int | None = None,
+    segmentation: str | None = None,
+    task=None,
+    scenario: str | None = None,
+) -> MatrixResult:
+    """Run the whole scenario grid (seeds x policies x speed ratios) in one
+    lockstep replay on ``flc.device``.
+
+    The host stream, as `repro.fl.engine.run_matrix` runs it: one event
+    stream is simulated per cell (`queue_sim.export_stream`), the streams
+    are stacked — or, with ``block_size`` E > 1 (default
+    ``flc.block_size``; ``"auto"`` picks E from all cells' slots), cut into
+    one common blocked layout (`engine_scan.blocked_inputs_batch`) — and the
+    replay engine runs every cell at once along an explicit cell axis
+    (`engine_scan.jit_runner(..., vmap_streams=True)`): one gather, one
+    vmapped gradient call, one update and one scatter per event (or block)
+    for all cells.  ``final_acc`` is the eval fn vmapped over the cells.
+
+    ``task`` picks the workload as in `run_experiment` (`LMTask`: ``eval_acc``
+    and ``final_acc`` then carry eval loss).  The model and dataset are
+    shared across cells; only the queueing clock, the sampling vector and
+    the event realization differ.  Pass a persistent ``data`` (or the same
+    ``task``) to reuse the cached gradient source and with it the memoized
+    runner; the eval cadence is a call-time argument of the runner, so a
+    sweep over ``eval_every`` does not rebuild it.  ``stream="device"``,
+    ``flc.adaptive``, an enabled ``scenario`` and ``devices`` > 1 raise
+    `NotImplementedError`, each naming its ROADMAP item.
+    """
+    from ..core.async_sgd import _auto_block_size
+    from ..core.engine_scan import blocked_inputs_batch, jit_runner
+    from ..core.queue_sim import EventBlocks
+    from ..core.scenario import get_scenario
+
+    stream = flc.stream if stream is None else stream
+    if stream not in ("host", "device"):
+        raise ValueError(stream)
+    if stream == "device":
+        raise unported("run_matrix(stream='device')", 6)
+    if flc.adaptive:
+        raise unported("run_matrix with adaptive=True", 6)
+    sc = get_scenario(scenario if scenario is not None else flc.scenario)
+    if sc is not None and sc.enabled:
+        raise unported("run_matrix with scenario=", 10)
+    lane = max(int(flc.devices if devices is None else devices), 1)
+    if lane > 1:
+        raise unported("run_matrix lanes (devices > 1)", 12)
+    if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
+        raise unported(f"task={type(task).__name__}", "7d")
+    block_size = flc.block_size if block_size is None else block_size
+    if block_size != "auto":
+        block_size = int(block_size)
+    segmentation = flc.segmentation if segmentation is None else segmentation
+    speed_ratios = (flc.speed_ratio,) if speed_ratios is None else tuple(speed_ratios)
+    seeds, policies = tuple(seeds), tuple(policies)
+    device = resolve_device(flc.device)
+    if task is None or isinstance(task, ClassificationTask):
+        data = data or FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
+    setup = _cached_fl_setup(data, flc.seed, task, n_clients=flc.n_clients, device=device)
+    clients, acc_fn = setup.clients, setup.eval_fn
+
+    C = flc.concurrency
+    S, P, H = len(seeds), len(policies), len(speed_ratios)
+    w0 = setup.params
+    p_vectors, streams = matrix_streams(flc, seeds, policies, speed_ratios, eta)
+    t_phys = np.stack([es.t for es, _ in streams])
+    if block_size == "auto":
+        # the single run's resolution policy, over all cells' measured slots
+        block_size = _auto_block_size([es.slot for es, _ in streams], lane,
+                                      cut_every=eval_every)
+    idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)  # noqa: E731
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
+    if block_size > 1:
+        blocks = [EventBlocks.from_stream(es, block_size, cut_every=eval_every,
+                                          method=segmentation) for es, _ in streams]
+        Jb, slotb, scb, kb, maskb, chunk_blocks, n_chunks = blocked_inputs_batch(
+            blocks, [s for _, s in streams], eval_every)
+        runner = jit_runner(clients.device_grad, C, eval_fn=acc_fn, block_size=block_size,
+                            vmap_streams=True)
+        w_final, evals = runner(w0, idx(Jb), idx(slotb), f32(scb), idx(kb),
+                                torch.as_tensor(maskb, device=device),
+                                chunk_blocks=chunk_blocks, n_chunks=n_chunks)
+    else:
+        runner = jit_runner(clients.device_grad, C, eval_fn=acc_fn, eval_every=eval_every,
+                            vmap_streams=True)
+        w_final, evals = runner(w0, idx([es.J for es, _ in streams]),
+                                idx([es.slot for es, _ in streams]),
+                                f32([s for _, s in streams]))
+
+    final_acc = torch.func.vmap(acc_fn)(w_final).detach().cpu().numpy()
+    evals = evals.detach().cpu().numpy()
+    n_evals = evals.shape[1]
+    eval_steps = (np.arange(n_evals) + 1) * eval_every
+    eval_times = t_phys[:, eval_every - 1 :: eval_every][:, :n_evals]
+    return MatrixResult(
+        seeds=seeds,
+        policies=policies,
+        speed_ratios=speed_ratios,
+        eval_steps=eval_steps,
+        eval_acc=evals.reshape(S, P, H, n_evals),
+        eval_times=eval_times.reshape(S, P, H, n_evals),
+        final_acc=final_acc.reshape(S, P, H),
+        p_vectors=p_vectors,
+        extras={"stream": "host"},
+    )

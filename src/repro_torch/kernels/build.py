@@ -31,10 +31,10 @@ _INT = ctypes.c_int
 # argtypes of every C entry point, by source file
 SIGNATURES = {
     "weighted_update": {
-        "weighted_update_leaves": (_P, _INT, _P, ctypes.c_float, _INT, _P),
+        "weighted_update_leaves": (_P, _INT, _P, _INT, ctypes.c_float, _INT, _P),
         "weighted_update_max_leaves": (),
         "weighted_update_leaves_kernel_info": (_INT, _P),
-        "block_prefix_update": (_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+        "block_prefix_update": (_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
         "block_prefix_update_vec": (_INT, _P, _P, _P, _I64),
         "block_prefix_update_kernel_info": (_INT, _INT, _INT, _I64, _P),
         "block_scatter_rows": (_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P),

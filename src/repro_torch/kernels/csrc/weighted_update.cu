@@ -44,6 +44,13 @@
 //     math, so enough bytes are in flight to stream at the card's rate.
 //   - g is rounded to w's dtype in registers (__float2bfloat16_rn, the rule
 //     of g.to(w.dtype)), not by a separate device op.
+//   - Across cells (the scenario matrix, B runs in lockstep) each cell's
+//     view of a (B, ...) leaf is a leaf of the table, and the table's scale
+//     pointer holds B float32 scales: a leaf reads scale[cell], its cell
+//     index carried in the table beside its dtype codes.  The MLP's 27 x 6
+//     leaves take ceil(162 / 64) = 3 launches an event.  A cell view whose
+//     operands are off the 16-byte grid (a leaf of 10 fp32 values) takes one
+//     value an access.
 //
 // K2 (block_prefix_update_kernel).  At the MLP's ring and block ((65,
 // 26,624), E = 8) one launch moves ~1.2 MB, 0.00054 ms of bytes: latency
@@ -69,6 +76,10 @@
 //     plain version's bit for bit.  The grid is sized to the work.
 //   - The TPU kernel's column tile table (repro/kernels/autotune.py) has no
 //     counterpart: this kernel takes any P at one fixed design.
+//   - Across cells (the scenario matrix) one launch takes B rings, B w, B
+//     blocks of D and B rows of slots, each cell's after the previous
+//     cell's: blockIdx.y is the cell, the rest of the design is per cell as
+//     above (at B = 1 the grid and the arithmetic are those of one block).
 //
 // K6 is a copy and a cast.  On a Mamba2-130M ring (E = 4 rows of 129 M fp32
 // columns) one call moves 4.6 GB and is bound by bytes; at the MLP's ring
@@ -121,6 +132,7 @@
 namespace {
 
 constexpr int64_t kMaxLanes = 4096;  // K2's and K6's slots live in shared memory
+constexpr int64_t kMaxGridY = 65535;  // K2's cells: one row of the grid each
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -149,6 +161,7 @@ constexpr int kLeafThreads = 256;
 constexpr int kLeafUnroll = 4;  // vectors of each operand a thread loads before the math
 constexpr int kMaxLeaves = 64;
 constexpr int kLeafFields = 7;  // int64 fields of a leaf row from the host (see below)
+constexpr int kMaxCells = 65536;  // a leaf's cell index is 16 bits
 
 struct LeafArg {
   const void* w;
@@ -158,15 +171,14 @@ struct LeafArg {
   float* out_m;
   int64_t n;       // values, > 0
   int32_t first;   // the leaf's first chunk (CTA) in its launch
-  int8_t w_dtype;
-  int8_t g_dtype;
+  uint16_t cell;   // the leaf's cell: its update scale is scale[cell]
+  int8_t dtypes;   // w's dtype code | g's << 1
   int8_t vec;      // values an access: 16 bytes of the widest operand, or 1
-  int8_t unused;
 };
 
 struct LeafTable {
   LeafArg leaf[kMaxLeaves];
-  const float* scale;
+  const float* scale;  // one float32 a cell, on the device
   float momentum;
   int32_t count;
 };
@@ -275,15 +287,16 @@ weighted_update_leaves_kernel(const __grid_constant__ LeafTable t) {
   }
   const LeafArg L = t.leaf[lo];
   const int64_t chunk = b - L.first;
-  const float s = *t.scale;
+  const float s = t.scale[L.cell];
   const float beta = t.momentum;
-  if (L.w_dtype == kF32) {
-    if (L.g_dtype == kF32) {
+  const int w_dtype = L.dtypes & 1, g_dtype = L.dtypes >> 1;
+  if (w_dtype == kF32) {
+    if (g_dtype == kF32) {
       update_leaf_chunk<float, float, 4, kMomentum>(L, chunk, s, beta);
     } else {
       update_leaf_chunk<float, __nv_bfloat16, 4, kMomentum>(L, chunk, s, beta);
     }
-  } else if (L.g_dtype == kF32) {
+  } else if (g_dtype == kF32) {
     update_leaf_chunk<__nv_bfloat16, float, 4, kMomentum>(L, chunk, s, beta);
   } else {
     update_leaf_chunk<__nv_bfloat16, __nv_bfloat16, kMomentum ? 4 : 8, kMomentum>(L, chunk, s,
@@ -310,14 +323,21 @@ int leaf_vec(int w_dtype, int g_dtype, bool momentum, const void* const* ptrs) {
 constexpr int kPrefixThreads = 64;
 constexpr int kPrefixGroup = 8;  // rows of D a thread holds before the adds
 
-// K2 (see the note above): thread v of the grid owns columns [v * VEC,
-// (v + 1) * VEC).  Shared memory: the E slots, then the ring row each lane
-// stores (-1: none).
+// K2 (see the note above): thread v of row x of the grid owns columns
+// [v * VEC, (v + 1) * VEC) of cell blockIdx.y, whose ring, w, D, slots and
+// w' follow the previous cell's.  Shared memory: the cell's E slots, then
+// the ring row each lane stores (-1: none).
 template <typename S, typename W, int VEC>
 __global__ void __launch_bounds__(kPrefixThreads)
 block_prefix_update_kernel(S* __restrict__ snaps, const W* __restrict__ w,
                            const float* __restrict__ D, const int64_t* __restrict__ slots,
                            W* __restrict__ w_out, int64_t R, int64_t P, int64_t E) {
+  const int64_t cell = blockIdx.y;
+  snaps += cell * R * P;
+  w += cell * P;
+  D += cell * E * P;
+  slots += cell * E;
+  w_out += cell * P;
   extern __shared__ int64_t slot_sh[];
   int32_t* row_sh = reinterpret_cast<int32_t*>(slot_sh + E);
   using PF = Pack<float, VEC>;
@@ -392,11 +412,11 @@ int prefix_vec(int snap_dtype, const void* snaps, const void* w, const void* D, 
 
 template <typename S, typename W, int VEC>
 cudaError_t launch_prefix_vec(void* snaps, const void* w, const void* D, const void* slots,
-                              void* w_out, int64_t R, int64_t P, int64_t E,
+                              void* w_out, int64_t B, int64_t R, int64_t P, int64_t E,
                               cudaStream_t stream) {
-  const int64_t grid = (P / VEC + kPrefixThreads - 1) / kPrefixThreads;
-  block_prefix_update_kernel<S, W, VEC><<<static_cast<unsigned>(grid), kPrefixThreads,
-                                          prefix_smem(E), stream>>>(
+  const dim3 grid(static_cast<unsigned>((P / VEC + kPrefixThreads - 1) / kPrefixThreads),
+                  static_cast<unsigned>(B));
+  block_prefix_update_kernel<S, W, VEC><<<grid, kPrefixThreads, prefix_smem(E), stream>>>(
       static_cast<S*>(snaps), static_cast<const W*>(w), static_cast<const float*>(D),
       static_cast<const int64_t*>(slots), static_cast<W*>(w_out), R, P, E);
   return cudaGetLastError();
@@ -408,11 +428,11 @@ constexpr int kWide = 16 / sizeof(S);
 
 template <typename S, typename W>
 cudaError_t launch_prefix(void* snaps, const void* w, const void* D, const void* slots,
-                          void* w_out, int64_t R, int64_t P, int64_t E, int vec,
+                          void* w_out, int64_t B, int64_t R, int64_t P, int64_t E, int vec,
                           cudaStream_t stream) {
   return vec == 1
-      ? launch_prefix_vec<S, W, 1>(snaps, w, D, slots, w_out, R, P, E, stream)
-      : launch_prefix_vec<S, W, kWide<S>>(snaps, w, D, slots, w_out, R, P, E, stream);
+      ? launch_prefix_vec<S, W, 1>(snaps, w, D, slots, w_out, B, R, P, E, stream)
+      : launch_prefix_vec<S, W, kWide<S>>(snaps, w, D, slots, w_out, B, R, P, E, stream);
 }
 
 // The K2 kernel of this dtype pair and VEC (1 or 16 bytes), for kernel_info.
@@ -534,11 +554,13 @@ bool valid_pair(int snap_dtype, int w_dtype) {
 extern "C" {
 
 // K1 over `count` leaves, one launch.  rows[i * 7 + k]: the pointers of w,
-// g, w' and (with momentum) m and m', the leaf's numel (> 0), and its dtype
-// codes w | g << 8.  scale: one float32 on the device.
-int weighted_update_leaves(const int64_t* rows, int count, const void* scale, float momentum,
-                           int with_momentum, void* stream) {
-  if (count < 1 || count > kMaxLeaves || scale == nullptr) {
+// g, w' and (with momentum) m and m', the leaf's numel (> 0), and its codes
+// w | g << 8 | cell << 16 (dtype codes, the cell whose scale it takes).
+// scale: n_scales float32 on the device, one a cell.
+int weighted_update_leaves(const int64_t* rows, int count, const void* scale, int n_scales,
+                           float momentum, int with_momentum, void* stream) {
+  if (count < 1 || count > kMaxLeaves || scale == nullptr || n_scales < 1 ||
+      n_scales > kMaxCells) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool mom = with_momentum != 0;
@@ -546,12 +568,14 @@ int weighted_update_leaves(const int64_t* rows, int count, const void* scale, fl
   int64_t chunks = 0;
   for (int i = 0; i < count; ++i) {
     const int64_t* r = rows + static_cast<int64_t>(i) * kLeafFields;
-    const int w_dtype = static_cast<int>(r[6] & 0xff), g_dtype = static_cast<int>(r[6] >> 8);
+    const int w_dtype = static_cast<int>(r[6] & 0xff);
+    const int g_dtype = static_cast<int>((r[6] >> 8) & 0xff);
+    const int64_t cell = r[6] >> 16;
     const void* ptrs[5] = {reinterpret_cast<const void*>(r[0]), reinterpret_cast<const void*>(r[1]),
                            reinterpret_cast<const void*>(r[2]), reinterpret_cast<const void*>(r[3]),
                            reinterpret_cast<const void*>(r[4])};
-    if (!valid_pair(w_dtype, g_dtype) || r[5] <= 0 || !ptrs[0] || !ptrs[1] || !ptrs[2] ||
-        (mom && (!ptrs[3] || !ptrs[4]))) {
+    if (!valid_pair(w_dtype, g_dtype) || r[5] <= 0 || cell < 0 || cell >= n_scales ||
+        !ptrs[0] || !ptrs[1] || !ptrs[2] || (mom && (!ptrs[3] || !ptrs[4]))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     LeafArg& L = t.leaf[i];
@@ -561,8 +585,8 @@ int weighted_update_leaves(const int64_t* rows, int count, const void* scale, fl
     L.m = mom ? static_cast<const float*>(ptrs[3]) : nullptr;
     L.out_m = mom ? static_cast<float*>(const_cast<void*>(ptrs[4])) : nullptr;
     L.n = r[5];
-    L.w_dtype = static_cast<int8_t>(w_dtype);
-    L.g_dtype = static_cast<int8_t>(g_dtype);
+    L.cell = static_cast<uint16_t>(cell);
+    L.dtypes = static_cast<int8_t>(w_dtype | g_dtype << 1);
     L.vec = static_cast<int8_t>(leaf_vec(w_dtype, g_dtype, mom, ptrs));
     L.first = static_cast<int32_t>(chunks);
     const int64_t per_chunk = int64_t{kLeafThreads} * kLeafUnroll * L.vec;
@@ -596,11 +620,13 @@ int weighted_update_leaves_kernel_info(int with_momentum, int* out) {
   return err;
 }
 
+// K2 over B cells, one launch: cell c's (R, P) ring, (P,) w, (E, P) D, (E,)
+// slots and (P,) w' follow cell c-1's in their buffers.
 int block_prefix_update(int snap_dtype, int w_dtype, void* snaps, const void* w, const void* D,
-                        const void* slots, void* w_out, int64_t R, int64_t P, int64_t E,
-                        void* stream) {
-  if (E < 1 || E > kMaxLanes || R > INT32_MAX || !valid_pair(snap_dtype, w_dtype) ||
-      !aligned_to(w_out, 16)) {
+                        const void* slots, void* w_out, int64_t B, int64_t R, int64_t P,
+                        int64_t E, void* stream) {
+  if (B < 1 || B > kMaxGridY || E < 1 || E > kMaxLanes || R > INT32_MAX ||
+      !valid_pair(snap_dtype, w_dtype) || !aligned_to(w_out, 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (P == 0) return static_cast<int>(cudaSuccess);
@@ -608,14 +634,14 @@ int block_prefix_update(int snap_dtype, int w_dtype, void* snaps, const void* w,
   const int vec = prefix_vec(snap_dtype, snaps, w, D, P);
   cudaError_t err;
   if (snap_dtype == kF32 && w_dtype == kF32) {
-    err = launch_prefix<float, float>(snaps, w, D, slots, w_out, R, P, E, vec, st);
+    err = launch_prefix<float, float>(snaps, w, D, slots, w_out, B, R, P, E, vec, st);
   } else if (snap_dtype == kBF16 && w_dtype == kF32) {
-    err = launch_prefix<__nv_bfloat16, float>(snaps, w, D, slots, w_out, R, P, E, vec, st);
+    err = launch_prefix<__nv_bfloat16, float>(snaps, w, D, slots, w_out, B, R, P, E, vec, st);
   } else if (snap_dtype == kF32 && w_dtype == kBF16) {
-    err = launch_prefix<float, __nv_bfloat16>(snaps, w, D, slots, w_out, R, P, E, vec, st);
+    err = launch_prefix<float, __nv_bfloat16>(snaps, w, D, slots, w_out, B, R, P, E, vec, st);
   } else {
-    err = launch_prefix<__nv_bfloat16, __nv_bfloat16>(snaps, w, D, slots, w_out, R, P, E, vec,
-                                                       st);
+    err = launch_prefix<__nv_bfloat16, __nv_bfloat16>(snaps, w, D, slots, w_out, B, R, P, E,
+                                                       vec, st);
   }
   return static_cast<int>(err);
 }

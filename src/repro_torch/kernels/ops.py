@@ -30,7 +30,8 @@ def weighted_update(w, g, scale, m=None, momentum=0.0):
 
 
 def block_prefix_update(snaps, w, D, slots):
-    """K2: ``(snaps', w')`` — the blocked update, ``snaps`` written in place."""
+    """K2: ``(snaps', w')`` — the blocked update, ``snaps`` written in place;
+    with a leading cell axis on every operand, one launch for all cells."""
     if on_cuda(snaps):
         return _cuda.block_prefix_update(snaps, w, D, slots)
     return ref.block_prefix_update_ref(snaps, w, D, slots)
@@ -85,7 +86,8 @@ def moe_gmm(x, w, bc=128, bf=128, bd=128):
 def weighted_update_tree(params, grads, scale, momenta=None, momentum=0.0):
     """K1 across a parameter pytree: one launch over all its leaves on the
     card (`weighted_update.weighted_update_leaves`), the plain version leaf
-    by leaf on the CPU.
+    by leaf on the CPU.  A (B,) ``scale`` updates B cells at once: every
+    leaf has a leading axis of B cells and cell c takes scale[c].
 
     Returns ``(params', momenta')`` (``momenta'`` None without momentum).
     """
@@ -105,5 +107,6 @@ def weighted_update_tree(params, grads, scale, momenta=None, momentum=0.0):
 
 def tree_weighted_update(w, g, scale):
     """The engine's ``update="pallas"`` path: K1, no momentum, one launch
-    an event on the card."""
+    an event on the card (across cells, one for each `MAX_LEAVES` cell
+    leaves)."""
     return weighted_update_tree(w, g, scale)[0]

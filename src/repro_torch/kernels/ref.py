@@ -25,9 +25,14 @@ def weighted_update_ref(
     TPU kernel (`repro/kernels/weighted_update.py:weighted_update`) and of the
     CUDA kernel; the JAX reference skips that cast.  The two agree whenever
     ``g`` already has ``w``'s dtype, as on the fp32 main path.
+
+    Across cells ``scale`` is (B,) and the leaves have a leading axis of B
+    cells: cell c takes scale[c].
     """
     gf = g.to(w.dtype).float()
     s = torch.as_tensor(scale, dtype=torch.float32, device=w.device)
+    if s.ndim:  # one scale a cell, broadcast down the cell's values
+        s = s.reshape(s.shape + (1,) * (w.ndim - s.ndim))
     if m is not None:
         mf = momentum * m.float() + gf
         step = mf
@@ -53,13 +58,22 @@ def block_prefix_update_ref(
     duplicate (padded, trash-row) slots resolve last-writer-wins as in the
     kernels; a batched ``index_put_`` with duplicates is nondeterministic on
     CUDA.  Returns ``(snaps, w')``.
+
+    Across cells every operand has a leading axis of B cells — ``snaps``
+    (B, R, P), ``w`` (B, P), ``D`` (B, E, P), ``slots`` (B, E) in [0, R) —
+    and lane i writes ``snaps[arange(B), slots[:, i]] = W[:, i]``, lane by
+    lane in event order; one cell is the case B = 1.
     """
-    W = w.float()[None, :] - torch.cumsum(D.float(), dim=0)
+    if snaps.ndim == 2:
+        _, w1 = block_prefix_update_ref(snaps[None], w[None], D[None], slots[None])
+        return snaps, w1[0]
+    W = w.float()[:, None, :] - torch.cumsum(D.float(), dim=1)
     rows = W.to(snaps.dtype)
+    cells = torch.arange(snaps.shape[0], device=slots.device)
     idx = slots.to(torch.int64)
-    for i in range(rows.shape[0]):  # E <= 16
-        snaps.index_copy_(0, idx[i : i + 1], rows[i : i + 1])
-    return snaps, W[-1].to(w.dtype)
+    for i in range(rows.shape[1]):  # E <= 16; distinct cells, so no duplicate in a lane
+        snaps[cells, idx[:, i]] = rows[:, i]
+    return snaps, W[:, -1].to(w.dtype)
 
 
 def block_scatter_rows_ref(

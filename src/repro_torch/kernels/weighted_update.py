@@ -15,6 +15,10 @@ rule the CUDA kernels follow), so each distinct ring row is written once,
 by the last lane that targets it; `prefix_vec` and `scatter_vec` ask the
 library how many ring values a thread moves per access,
 `prefix_kernel_info` and `scatter_kernel_info` what the kernels hold.
+K1 and K2 also take a cell axis (the scenario matrix's B runs in lockstep):
+K1 one scale a cell, each cell's slice of a leaf a leaf of its table
+(`cell_rows`, `leaf_code`); K2 B rings, weights, deltas and slots in one
+launch.
 
 These wrappers take CUDA tensors only: they check dtype, shape, device and
 contiguity, allocate the outputs, launch on PyTorch's current stream and
@@ -37,8 +41,9 @@ import torch
 
 from . import build
 
-__all__ = ["BLOCK_TILE", "LEAF_THREADS", "LEAF_UNROLL", "MAX_BLOCK_LANES", "MAX_LEAVES",
-           "launches", "leaf_of", "leaf_plan", "live_lanes", "reset_launches",
+__all__ = ["BLOCK_TILE", "LEAF_THREADS", "LEAF_UNROLL", "MAX_BLOCK_LANES", "MAX_CELLS",
+           "MAX_LEAVES", "cell_rows", "launches", "leaf_code", "leaf_of", "leaf_plan",
+           "live_lanes", "reset_launches",
            "prefix_kernel_info", "prefix_vec", "scatter_kernel_info", "scatter_vec",
            "update_kernel_info", "weighted_update", "weighted_update_leaves",
            "block_prefix_update", "block_scatter_rows"]
@@ -53,6 +58,8 @@ MAX_BLOCK_LANES = 4096
 # MAX_LEAVES leaves; a chunk (one CTA) is LEAF_THREADS * LEAF_UNROLL accesses
 MAX_LEAVES = 64
 LEAF_THREADS, LEAF_UNROLL = 256, 4
+# K1's cell index of a leaf is 16 bits
+MAX_CELLS = 1 << 16
 
 launches = {"weighted_update": 0, "weighted_update_leaves": 0, "weighted_update_momentum": 0,
             "weighted_update_momentum_leaves": 0, "block_prefix_update": 0,
@@ -98,14 +105,19 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"CUDA kernel {fn} failed to launch: cudaError {err}")
 
 
-def _block_operands(snaps, w, rows, slots, name: str) -> tuple[int, int, int, int, int]:
+def _block_operands(snaps, w, rows, slots, name: str,
+                    cells: bool = False) -> tuple[int, int, int, int, int]:
     """Check the operands of K2 / K6: ring ``snaps`` (R, P) and ``w`` (P,)
     float32 | bfloat16, ``rows`` (E, P) float32, ``slots`` (E,) int64, all
-    contiguous on one CUDA device, 1 <= E <= `MAX_BLOCK_LANES`.  Returns
-    ``(R, P, E, ring code, w code)``."""
-    R, P = snaps.shape
-    E = rows.shape[0]
-    if w.shape != (P,) or rows.shape != (E, P) or slots.shape != (E,):
+    contiguous on one CUDA device, 1 <= E <= `MAX_BLOCK_LANES`; with
+    ``cells`` each has a leading axis of B cells.  Returns ``(R, P, E, ring
+    code, w code)``."""
+    lead = tuple(snaps.shape[:1]) if cells else ()
+    if snaps.ndim != len(lead) + 2:
+        raise ValueError(f"snaps must be ({'B, ' if cells else ''}R, P), got {tuple(snaps.shape)}")
+    R, P = snaps.shape[-2:]
+    E = rows.shape[-2] if rows.ndim >= 2 else 0
+    if w.shape != lead + (P,) or rows.shape != lead + (E, P) or slots.shape != lead + (E,):
         raise ValueError(
             f"shapes snaps {tuple(snaps.shape)}, w {tuple(w.shape)}, "
             f"{name} {tuple(rows.shape)}, slots {tuple(slots.shape)} do not agree"
@@ -155,6 +167,31 @@ def leaf_of(launch: Sequence[tuple[int, int, int]], b: int) -> int:
     return bisect_right([first for _, first, _ in launch], b) - 1
 
 
+def leaf_code(w_dtype: torch.dtype, g_dtype: torch.dtype, cell: int = 0) -> int:
+    """The code field of a K1 leaf row: w's dtype code | g's << 8 | the
+    leaf's cell << 16 (the cell whose scale it takes; 16 bits)."""
+    if not 0 <= cell < MAX_CELLS:
+        raise ValueError(f"cell {cell} outside [0, {MAX_CELLS})")
+    return (_code_of(w_dtype, "weighted_update w") | _code_of(g_dtype, "weighted_update g") << 8
+            | cell << 16)
+
+
+def cell_rows(ptrs: Sequence[int], sizes: Sequence[int], n: int, code: int,
+              cells: int = 1) -> list[tuple[int, ...]]:
+    """K1's table rows of one leaf of ``n`` values over its ``cells``: the
+    rows (w, g, w', m, m' pointers, numel, code) of each cell's slice, cell
+    c's ``n / cells`` values at c * (n / cells) values from each base
+    pointer (``ptrs``, 0 for an operand that is absent), ``sizes`` the
+    operands' bytes a value, and c in bits 16 and up of the code."""
+    if n % cells:
+        raise ValueError(f"{n} values do not split over {cells} cells")
+    per = n // cells
+    if not per:
+        return []
+    return [tuple(p + c * per * sz if p else 0 for p, sz in zip(ptrs, sizes))
+            + (per, code | c << 16) for c in range(cells)]
+
+
 def _leaves_kernel():
     global _leaves_fn
     if _leaves_fn is None:
@@ -176,7 +213,7 @@ def _leaf_layout(key: tuple, with_m: bool):
         if g_shape != w_shape:
             raise ValueError(f"g shape {tuple(g_shape)} != w shape {tuple(w_shape)}")
         wc = _code_of(w_dtype, "weighted_update w")
-        codes = wc | _code_of(g_dtype, "weighted_update g") << 8
+        codes = leaf_code(w_dtype, g_dtype)
         n = w_shape.numel()
         off = totals.get(w_dtype, 0)
         totals[w_dtype] = off + n + (-n % (16 // _ESZ[wc]))
@@ -203,6 +240,11 @@ def weighted_update_leaves(
     float32.  ``scale`` is a float32 device scalar (a number is copied to the
     device).  Non-contiguous leaves are made contiguous.  The outputs of a
     dtype are views of one allocation, each starting on a 16-byte boundary.
+
+    Across cells: a (B,) ``scale`` means every leaf has a leading axis of B
+    cells, and cell c's slice takes scale[c].  Each cell's slice of a leaf
+    is a leaf of the kernel's table (`cell_rows`), so B x L leaves take
+    ceil(B L / `MAX_LEAVES`) launches.
     """
     if len(gs) != len(ws) or (ms is not None and len(ms) != len(ws)):
         raise ValueError("ws, gs (and ms) must have one entry per leaf")
@@ -215,8 +257,16 @@ def weighted_update_leaves(
     if not (isinstance(scale, torch.Tensor) and scale.dtype == torch.float32
             and scale.get_device() == index):
         scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
-    if scale.numel() != 1:
-        raise ValueError(f"scale must hold one value, got shape {tuple(scale.shape)}")
+    if scale.ndim > 1 or (scale.ndim == 0 and scale.numel() != 1):
+        raise ValueError(f"scale must be one value or one a cell, got shape {tuple(scale.shape)}")
+    cells = scale.shape[0] if scale.ndim == 1 else 1
+    if scale.ndim == 1:
+        if not 1 <= cells <= MAX_CELLS:
+            raise ValueError(f"K1 takes 1 to {MAX_CELLS} cells, got {cells}")
+        if any(w.ndim < 1 or w.shape[0] != cells for w in ws):
+            raise ValueError(f"a ({cells},) scale needs a leading axis of {cells} cells on "
+                             "every leaf")
+        scale = scale.contiguous()
     with_m = ms is not None
     totals, leaves, m_total = _leaf_layout(
         tuple((w.shape, w.dtype, g.shape, g.dtype) for w, g in zip(ws, gs)), with_m)
@@ -229,7 +279,7 @@ def weighted_update_leaves(
         out_ms = [mbuf.as_strided(shape, strides, moff) for _, _, shape, strides, _, _, moff in leaves]
     else:
         out_ms = None
-    table = []
+    table, keep = [], []
     for i, (dt, off, shape, _, n, codes, moff) in enumerate(leaves):
         w, g = ws[i], gs[i]
         if w.get_device() != index or g.get_device() != index:
@@ -241,26 +291,26 @@ def weighted_update_leaves(
         if not g.is_contiguous():
             g = g.contiguous()
         base, esz = bases[dt]
+        m = None
         if with_m:
             m = ms[i]
             if m.dtype != torch.float32 or m.shape != shape or m.get_device() != index:
                 raise ValueError("momentum buffer must be float32 with w's shape, on w's device")
             m = m if m.is_contiguous() else m.contiguous()
-            # keep the contiguous copies alive until the launch is queued
-            table.append((w, g, m, (w.data_ptr(), g.data_ptr(), base + off * esz, m.data_ptr(),
-                                    m_base + moff * 4, n, codes)))
-        else:
-            table.append((w, g, None, (w.data_ptr(), g.data_ptr(), base + off * esz, 0, 0, n,
-                                       codes)))
+        ptrs = (w.data_ptr(), g.data_ptr(), base + off * esz,
+                m.data_ptr() if with_m else 0, m_base + moff * 4 if with_m else 0)
+        # keep the contiguous copies alive until the launch is queued
+        keep.append((w, g, m))
+        table += cell_rows(ptrs, (esz, g.element_size(), esz, 4, 4), n, codes, cells)
     if table:
         fn = _leaves_kernel()
         stream = _stream(ws[0])
         key = "weighted_update_momentum" if with_m else "weighted_update"
         for k in range(0, len(table), MAX_LEAVES):
             part = table[k:k + MAX_LEAVES]
-            rows = array.array("q", [x for *_, row in part for x in row])
-            _raise_on(fn(rows.buffer_info()[0], len(part), scale.data_ptr(), float(momentum),
-                         int(with_m), stream), "weighted_update_leaves")
+            rows = array.array("q", [x for row in part for x in row])
+            _raise_on(fn(rows.buffer_info()[0], len(part), scale.data_ptr(), cells,
+                         float(momentum), int(with_m), stream), "weighted_update_leaves")
             launches[key] += 1
             launches[key + "_leaves"] += len(part)
     return outs, out_ms
@@ -298,13 +348,19 @@ def block_prefix_update(
     counterpart of the TPU kernel's ``input_output_aliases``); ``w`` (P,),
     ``D`` (E, P) float32, ``slots`` (E,) int64 with the trash row R-1 on
     padded lanes; only live lanes (`live_lanes`) store.  Returns
-    ``(snaps, w')``.
+    ``(snaps, w')``.  With a cell axis — ``snaps`` (B, R, P), ``w`` (B, P),
+    ``D`` (B, E, P), ``slots`` (B, E) — one launch applies each cell's block
+    to its own ring (at most 65,535 cells).
     """
-    R, P, E, sc, wc = _block_operands(snaps, w, D, slots, "D")
+    cells = snaps.ndim == 3
+    R, P, E, sc, wc = _block_operands(snaps, w, D, slots, "D", cells=cells)
+    B = snaps.shape[0] if cells else 1
+    if not 1 <= B <= 65535:
+        raise ValueError(f"K2 takes 1 to 65535 cells a launch, got {B}")
     w_out = torch.empty_like(w)
     lib = build.load("weighted_update")
     _raise_on(lib.block_prefix_update(sc, wc, snaps.data_ptr(), w.data_ptr(), D.data_ptr(),
-                                      slots.data_ptr(), w_out.data_ptr(), R, P, E,
+                                      slots.data_ptr(), w_out.data_ptr(), B, R, P, E,
                                       _stream(w)), "block_prefix_update")
     launches["block_prefix_update"] += 1
     return snaps, w_out

@@ -8,12 +8,12 @@ from __future__ import annotations
 __all__ = ["ROADMAP_ITEMS", "unported"]
 
 ROADMAP_ITEMS = {
-    5: "run_matrix and MatrixResult",
     6: "device event stream and adaptive sampling",
     "7d": "optimizers (optim/), api.train_step and duck-typed tasks",
     8: "faults, guard and checkpointing",
     10: "scenario device steps",
     11: "serving plane",
+    12: "lane sharding of the scenario matrix and of the device stream",
 }
 
 

@@ -147,8 +147,8 @@ def test_run_experiment_unported_raise(kw, item):
     flc = FLConfig(n_clients=4, concurrency=2, server_steps=10, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         t_fl.run_experiment(flc, method, **kw)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_fl.run_matrix(flc)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        t_fl.run_matrix(flc, stream="device")
 
 
 @pytest.mark.parametrize("method", ["fedbuff", "fedavg", "favano"])

@@ -220,6 +220,111 @@ def test_block_prefix_update_kernels_do_not_spill(dev, dtype, w_dtype, vec):
     assert info["local_bytes"] == 0 and info["registers"] > 0 and info["ctas_per_sm"] >= 4
 
 
+# the cell axis (the scenario matrix): B cells in one launch, each cell's
+# slots with duplicate trash-row lanes and a real row targeted twice
+@pytest.mark.parametrize("dtype,w_dtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B", [1, 3, 27])
+def test_block_prefix_update_across_cells_bitwise(dev, B, dtype, w_dtype):
+    """K2 over B cells, one launch: every cell's ring rows and w' bitwise
+    equal to the plain version with a cell axis and to that cell's own
+    launch, and to a second launch; at B = 1 the (1, R, P) call equals the
+    (R, P) call."""
+    R, P, E = 17, 26624, 8
+    rng = np.random.default_rng(B)
+    slots = np.stack([np.concatenate([rng.choice(R - 1, size=E - 3, replace=False),
+                                      [R - 1, R - 1, R - 1]]) for _ in range(B)])
+    slots[:, 1] = slots[:, 0]  # a real row twice: the later lane wins
+    st = torch.tensor(slots, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(B)
+    snaps = torch.randn((B, R, P), generator=gen, device=dev).to(dtype)
+    w = torch.randn((B, P), generator=gen, device=dev).to(w_dtype)
+    D = 0.01 * torch.randn((B, E, P), generator=gen, device=dev)
+    rs, rw = ref.block_prefix_update_ref(snaps.clone(), w, D, st)
+    cuda_kernels.reset_launches()
+    ks, kw = cuda_kernels.block_prefix_update(snaps.clone(), w, D, st)
+    assert cuda_kernels.launches["block_prefix_update"] == 1
+    assert torch.equal(ks, rs) and torch.equal(kw, rw) and kw.shape == (B, P)
+    again, again_w = cuda_kernels.block_prefix_update(snaps.clone(), w, D, st)
+    assert torch.equal(ks, again) and torch.equal(kw, again_w)
+    for c in range(B):
+        cs, cw = cuda_kernels.block_prefix_update(snaps[c].clone(), w[c], D[c], st[c])
+        assert torch.equal(ks[c], cs) and torch.equal(kw[c], cw)
+
+
+# K1 leaf sets across cells: (shapes, w dtypes, g dtypes) of one cell
+CELL_LEAVES = {
+    "mlp": LEAF_LISTS["mlp"],
+    "mixed": LEAF_LISTS["mixed"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CELL_LEAVES))
+@pytest.mark.parametrize("B", [1, 3, 27])
+def test_weighted_update_leaves_across_cells_bitwise(dev, B, case):
+    """K1 with one scale a cell over (B, ...) leaves: ceil(B L / MAX_LEAVES)
+    launches covering B L leaves, every cell of every leaf bitwise equal to
+    the plain version with that cell's scale, and to a second launch."""
+    shapes, wd, gd = CELL_LEAVES[case]
+    gen = torch.Generator().manual_seed(B)
+    ws = [torch.randn((B, *sh), generator=gen).to(dev, _DT[d]) for sh, d in zip(shapes, wd)]
+    gs = [torch.randn((B, *sh), generator=gen).to(dev, _DT[d]) for sh, d in zip(shapes, gd)]
+    sc = torch.rand((B,), generator=gen).to(dev) + 0.1
+    L = len(shapes)
+    cuda_kernels.reset_launches()
+    out, _ = cuda_kernels.weighted_update_leaves(ws, gs, sc)
+    assert cuda_kernels.launches["weighted_update"] == -(-B * L // cuda_kernels.MAX_LEAVES)
+    assert cuda_kernels.launches["weighted_update_leaves"] == B * L
+    again, _ = cuda_kernels.weighted_update_leaves(ws, gs, sc)
+    for i in range(L):
+        assert out[i].shape == ws[i].shape and out[i].dtype == ws[i].dtype
+        assert torch.equal(out[i], ref.weighted_update_ref(ws[i], gs[i], sc)[0])
+        assert torch.equal(out[i], again[i])
+        for c in range(B):
+            assert torch.equal(out[i][c], ref.weighted_update_ref(ws[i][c], gs[i][c], sc[c])[0])
+
+
+def test_cell_axis_kernel_paths_match_plain_paths(dev):
+    """The lockstep replay of 3 cells on the card: per event K1 across cells
+    (3 x 6 leaves: one launch an event) against the flat update, blocked E=4
+    K2 across cells (one launch a block) bitwise against the plain version."""
+    from repro_torch.core import jit_runner
+    from repro_torch.core.engine_scan import blocked_inputs_batch
+
+    setup, mu = _setup(dev)
+    T, streams = 120, []
+    for seed in range(3):
+        p = np.full(16, 1 / 16)
+        es = export_stream(SimConfig(mu=mu, p=p, C=4, T=T, seed=seed))
+        streams.append((es, step_scales(es, 0.05, p, "importance")))
+    idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=dev)  # noqa: E731
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)  # noqa: E731
+    args = (idx([es.J for es, _ in streams]), idx([es.slot for es, _ in streams]),
+            f32([s for _, s in streams]))
+    grad = setup.clients.device_grad
+    cuda_kernels.reset_launches()
+    w_k, ev_k = jit_runner(grad, 4, eval_fn=setup.eval_fn, eval_every=40,
+                           update_fn=ops.tree_weighted_update, vmap_streams=True)(setup.params, *args)
+    assert cuda_kernels.launches["weighted_update"] == T
+    assert cuda_kernels.launches["weighted_update_leaves"] == T * 3 * 6
+    w_p, ev_p = jit_runner(grad, 4, eval_fn=setup.eval_fn, eval_every=40,
+                           vmap_streams=True)(setup.params, *args)
+    assert max(_err(w_k[k], w_p[k]) for k in w_k) <= 1e-5 and ev_k.shape == (3, 3)
+    J, slot, sc, kb, mask, G, nc = blocked_inputs_batch(
+        [EventBlocks.from_stream(es, 4, cut_every=40) for es, _ in streams],
+        [s for _, s in streams], 40)
+    bargs = (idx(J), idx(slot), f32(sc), idx(kb), torch.as_tensor(mask, device=dev))
+    run = lambda kernel: jit_runner(grad, 4, eval_fn=setup.eval_fn, block_size=4,  # noqa: E731
+                                    kernel=kernel, vmap_streams=True)(
+        setup.params, *bargs, chunk_blocks=G, n_chunks=nc)
+    cuda_kernels.reset_launches()
+    w_b, ev_b = run("pallas")
+    assert cuda_kernels.launches["block_prefix_update"] == J.shape[1]
+    w_j, ev_j = run("jnp")
+    assert all(torch.equal(w_b[k], w_j[k]) for k in w_b) and torch.equal(ev_b, ev_j)
+
+
 # K6 grid (C+1, P, E, padded lanes, ring dtype), as chip_smoke.py checks it:
 # the MLP's blocked ring, a ragged P, and Mamba2-130M's ring at C=8 (P padded
 # to a multiple of 1024) in fp32 and bf16
