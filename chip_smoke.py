@@ -129,10 +129,37 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    other cell's.  Phase 2 also holds K2 and K1 across the matrix's 27 cells
    alone (bitwise; K2 timed over rotating copies of its operands, three
    L2s in all, K1 beside ``torch._foreach_addcmul``) and K4 at the
-   matrix's folds.
+   matrix's folds;
+18. faults, the divergence guard, scenarios and kill-and-resume
+   checkpointing on the host stream (``--only robust``; `phase_robust`), at
+   the reference's benchmark settings (`ROBUST_FAULT`, ``GuardConfig(
+   max_grad_norm=1e3, stale_cutoff=4 C)``).  The MLP slice (n=256, C=64,
+   T=2000, eval every 500): per event (flat update) and blocked E=8 with K2
+   under faults and the guard (K2 bitwise ``update="jnp"``, ``kind_count``
+   the stream's, ``stale_drops`` computed from ``delay_steps`` and the
+   scales, no rejects), per event with K1 under faults (bitwise the flat
+   update or within 1e-5); a gradient that spikes by 1e6 every 50th step
+   and is NaN at one step (the rejects equal the injected live events, the
+   weights stay finite; unguarded the run ends non-finite or above 1e4);
+   scenarios ``erlang2_onoff`` and ``hyperexp2`` per event and blocked with
+   K2 (``kind_count`` the stream's over 6 kinds); ``run_matrix(scenario=
+   "erlang2")`` blocked over phase 17's 27 cells, K2 across cells on the
+   same stacked inputs bitwise its curves, one cell against
+   ``run_experiment`` alone.  Kill and resume: the blocked checkpointed run
+   (``ckpt_every=500``) is bitwise the un-checkpointed run; the same run in
+   a child process SIGKILLs itself after its second save and a fresh child
+   resumes it, bitwise the uninterrupted run (the children run beside the
+   matrix and Mamba2 parts, which their timings then include); per event,
+   truncate and resume in process.  Mamba2-130M at full width and depth
+   (phase 10's blocked E=4 run, K4 + K2, with T cut to
+   `ROBUST_MAMBA_T` = 32) with faults, the guard, a bf16 ring and
+   ``ckpt_every=16``, truncated to step 16 and resumed: bitwise; events/s
+   with and without checkpoints, a save's bytes and the time the carry
+   copy holds the loop, peak device memory and the free disk.  The
+   checkpoints go under ``build/`` and are deleted.
 
-Phases 4, 5, 8, 10, 13 and 17 are the kernel paths: each launch count is zeroed
-just before the run and read just after.  fp32 matmuls run in full fp32 (TF32
+Phases 4, 5, 8, 10, 13, 17 and 18 are the kernel paths: each launch count is
+zeroed just before the run and read just after.  fp32 matmuls run in full fp32 (TF32
 off for matmul and cuDNN).  The line before the last is the ``kernels``
 JSON object; the last line is the result object.
 """
@@ -140,6 +167,9 @@ from __future__ import annotations
 
 import itertools
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -148,8 +178,15 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
-import numpy as np
-import torch
+# The blocked Mamba2 matrix (phase 17) peaks at 62.8-73.3 GiB of the card's
+# 79.2 and has run out of memory with 6 GiB of the allocator's cache reserved
+# but too fragmented to use; expandable segments let the allocator reuse
+# that memory (the cause of the swing stays open: ROADMAP Queue 3).  Set
+# before torch first touches the card; the phase-18 children inherit it.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -317,6 +354,20 @@ MAMBA_MATRIX_E = 2
 # the nearest other cell's from its own reference run (`_own_gap`); measured
 # 0.12-0.23 (bf16 weights; NVIDIA H100 80GB HBM3, 700 W)
 MAMBA_OWN_GAP = 0.4
+# 18. faults, the guard, scenarios and checkpoints on the host stream, at the
+# reference's benchmark settings (benchmarks/engine.py:371-374); the guard's
+# stale cutoff is ROBUST_STALE x C.  The MLP checkpoints every 500 events (a
+# multiple of its eval cadence, as the blocked layout needs).  Mamba2-130M
+# runs phase 10's blocked configuration with T cut from LM_T = 64 to 32 (the
+# whole script's time) and checkpoints every 16 events.  The checkpoints live
+# under build/ and are deleted.
+ROBUST_FAULT = dict(off_rate=0.2, on_rate=1.0, crash_rate=0.05, timeout_rate=0.1)
+ROBUST_NORM, ROBUST_STALE = 1e3, 4
+ROBUST_CKPT_EVERY, ROBUST_MAMBA_T, ROBUST_MAMBA_CKPT_EVERY = 500, 32, 16
+ROBUST_SPIKE_EVERY = 50
+ROBUST_SCENARIOS = ("erlang2_onoff", "hyperexp2")
+ROBUST_MATRIX_SCENARIO = "erlang2"
+CKPT_ROOT = Path(__file__).resolve().parent / "build" / "robust_ckpt"
 
 failures: list[str] = []
 
@@ -1948,16 +1999,16 @@ def phase_moe_lm(dev, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _matrix_inputs(flc, grid: dict, eta: float, every: int, E: int, dev):
+def _matrix_inputs(flc, grid: dict, eta: float, every: int, E: int, dev, scenario=None):
     """The scenario grid's stacked replay inputs on ``dev``, as `run_matrix`
-    builds them (`matrix_streams`): per event ``(J, slot, scale)`` (B, T),
-    and blocked E ``(J, slot, scale, k, mask)`` (B, rows, E) with its
-    ``(chunk_blocks, n_chunks)``."""
+    builds them (`matrix_streams`, under ``scenario`` when given): per event
+    ``(J, slot, scale)`` (B, T), and blocked E ``(J, slot, scale, k, mask)``
+    (B, rows, E) with its ``(chunk_blocks, n_chunks)``."""
     from repro_torch.core.engine_scan import blocked_inputs_batch
     from repro_torch.core.queue_sim import EventBlocks
     from repro_torch.fl.engine import matrix_streams
 
-    _, streams = matrix_streams(flc, eta=eta, **grid)
+    _, streams = matrix_streams(flc, eta=eta, scenario=scenario, **grid)
     idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=dev)  # noqa: E731
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=dev)  # noqa: E731
     per_event = (idx([es.J for es, _ in streams]), idx([es.slot for es, _ in streams]),
@@ -2199,7 +2250,471 @@ def _phase_matrix_mamba(dev, launches: dict) -> None:
     torch.cuda.empty_cache()
 
 
-GROUPS = ("k1k2k6", "fa", "ssd", "gmm", "mlp", "lanes", "granite", "ssm", "matrix", "moe")
+# ------------------------------------------------------------------ #
+# 18. faults, the divergence guard, scenarios and checkpoints
+# ------------------------------------------------------------------ #
+def _robust_settings(C: int):
+    """The reference's benchmark fault and guard settings at concurrency C."""
+    from repro_torch.core import FaultConfig, GuardConfig
+
+    return (FaultConfig(**ROBUST_FAULT),
+            GuardConfig(max_grad_norm=ROBUST_NORM, stale_cutoff=ROBUST_STALE * C))
+
+
+class _Spiky:
+    """A device gradient source that adds 1e6 to every gradient of every
+    ``ROBUST_SPIKE_EVERY``-th server step and returns NaN at ``nan_step``
+    (`tests/test_faults.py`'s `_SpikeSource` around the MLP's clients)."""
+
+    def __init__(self, clients, nan_step: int):
+        self.clients, self.nan_step = clients, nan_step
+
+    def device_grad(self, j, w, k):
+        g = self.clients.device_grad(j, w, k)
+        spike = (k % ROBUST_SPIKE_EVERY) == ROBUST_SPIKE_EVERY - 1
+        nan = k == self.nan_step
+        return {name: torch.where(nan, torch.full_like(x, float("nan")),
+                                  torch.where(spike, x + 1e6, x)) for name, x in g.items()}
+
+
+def _same_extras(a: dict, b: dict) -> bool:
+    """Two traces' extras (counters and kind counts) equal, key by key."""
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def _truncate_ckpts(d, keep_step: int) -> list[int]:
+    from repro_torch.ckpt import checkpoint as ck
+
+    for s in ck.available_steps(str(d)):
+        if s > keep_step:
+            shutil.rmtree(os.path.join(str(d), f"step_{s:010d}"))
+    return ck.available_steps(str(d))
+
+
+def _print_saves(label: str) -> list[dict]:
+    """The saves of the checkpointed run that just ended (`engine_ckpt.saves`)."""
+    from repro_torch.core import engine_ckpt as ec
+
+    for s in ec.saves:
+        print(f"     {label} save at event {s['step']}: {s['bytes']:,} bytes copied to the host "
+              f"({s.get('file_bytes', 0):,} in arrays.npz), the loop held {s['copy_s'] * 1e3:.2f} "
+              f"ms for the copy and {s['wait_s'] * 1e3:.2f} ms for the previous write")
+    return list(ec.saves)
+
+
+def _mlp_robust_cfg(base, C: int):
+    """The MLP slice's ServerConfig with faults and the guard."""
+    fault, guard = _robust_settings(C)
+    return replace(base, faults=fault, guard=guard)
+
+
+def _robust_child(ckpt_dir: str, mode: str, dev) -> int:
+    """Phase 18's kill-and-resume child: the blocked E=8 MLP run with faults,
+    the guard, K2 and ``ckpt_every=500`` under ``ckpt_dir``.  ``mode="kill"``
+    SIGKILLs this process after its second checkpoint lands; ``"resume"``
+    resumes from the latest checkpoint and writes the final weights and
+    eval curve to ``ckpt_dir/result.npz``."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.core.async_sgd import run_generalized_async_sgd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if mode == "kill":
+        saved, real = [0], ck.save
+
+        def killing_save(*a, **k):
+            out = real(*a, **k)
+            saved[0] += 1
+            if saved[0] == 2:
+                os.kill(os.getpid(), signal.SIGKILL)
+            return out
+
+        ck.save = killing_save
+    setup, base = _mlp_setup(dev)
+    cfg = replace(_mlp_robust_cfg(base, base.C), update="pallas", block_size=MLP_E,
+                  ckpt_dir=ckpt_dir, ckpt_every=ROBUST_CKPT_EVERY, resume=mode == "resume")
+    w, tr = run_generalized_async_sgd(setup.params, setup.clients, cfg, eval_fn=setup.eval_fn)
+    if mode == "kill":
+        print("robust child survived past its second checkpoint", file=sys.stderr)
+        return 1
+    np.savez(os.path.join(ckpt_dir, "result.npz"), evals=np.asarray(tr.eval_values),
+             gcnt=np.asarray([tr.extras["guard_rejects"], tr.extras["stale_drops"]]),
+             **{k: v.cpu().numpy() for k, v in w.items()})
+    return 0
+
+
+def _run_robust_child(ckpt_dir, mode: str):
+    """``(CompletedProcess, seconds)`` of one `_robust_child` in a fresh
+    process (``python3 chip_smoke.py --robust-child DIR MODE``)."""
+    t0 = time.perf_counter()
+    p = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--robust-child", str(ckpt_dir), mode],
+        capture_output=True, text=True, timeout=600)
+    return p, time.perf_counter() - t0
+
+
+def _robust_mlp(dev, launches: dict) -> dict:
+    """18., the MLP slice under faults, the guard, spikes, scenarios and
+    checkpoints (see the module docstring); its kernel launches go to
+    ``launches["robust_mlp"]``.  Returns the uninterrupted blocked
+    checkpointed run's final weights (numpy), curve and guard counter, the
+    reference of the kill-and-resume children."""
+    from repro_torch.core import engine_ckpt as ec
+    from repro_torch.core.async_sgd import run_generalized_async_sgd
+    from repro_torch.core.engine_scan import blocked_inputs, step_scales
+    from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream
+    from repro_torch.core.scenario import get_scenario
+    from repro_torch.kernels import weighted_update as wu
+
+    setup, base = _mlp_setup(dev)
+    C, T, E, every = base.C, base.T, MLP_E, base.eval_every
+    guarded = _mlp_robust_cfg(base, C)
+    fault, guard = guarded.faults, guarded.guard
+    faulty = replace(guarded, guard=None)
+    path = launches.setdefault("robust_mlp", {"weighted_update": 0, "weighted_update_leaves": 0,
+                                              "block_prefix_update": 0})
+
+    def run(cfg, src=setup.clients):
+        return run_generalized_async_sgd(setup.params, src, cfg, eval_fn=setup.eval_fn)
+
+    def k2_run(label, cfg, rows, src=setup.clients):
+        wu.reset_launches()
+        out, wall = _timed(lambda: run(cfg, src))
+        got = wu.launches["block_prefix_update"]
+        path["block_prefix_update"] += got
+        check(got == rows, f"{label}: K2 launches {got} == block rows {rows}")
+        return out, wall
+
+    def finite(w) -> bool:
+        return all(bool(torch.isfinite(v).all()) for v in w.values())
+
+    def same(a, b) -> bool:
+        return all(torch.equal(a[k], b[k]) for k in a)
+
+    # the stream every fault run replays, and what its counters must read
+    stream = export_stream(SimConfig(mu=base.mu, p=base.p, C=C, T=T, seed=base.seed, fault=fault))
+    scale = step_scales(stream, base.eta, base.p, "importance")
+    stale = (stream.delay_steps > guard.stale_cutoff) & (scale != 0)
+    live = (scale != 0) & ~stale
+    kinds = np.bincount(stream.kind, minlength=4)
+    n_stale = int(stale.sum())
+    rows = blocked_inputs(EventBlocks.from_stream(stream, E, cut_every=every), scale,
+                          every)[0].shape[0]
+    print(f"robust MLP stream n={base.n} C={C} T={T}: kinds (complete, crash, timeout, flip) "
+          f"{kinds.tolist()}, {n_stale} of {int((scale != 0).sum())} completions staler than "
+          f"{guard.stale_cutoff} steps, {int((stream.slot == C).sum())} events on the trash "
+          f"slot; blocked E={E}: {rows} rows")
+
+    def counters(label, tr, rejects=0):
+        x = tr.extras
+        check(np.array_equal(x["kind_count"], kinds) and x["stale_drops"] == n_stale
+              and x["guard_rejects"] == rejects,
+              f"{label}: kind_count {x['kind_count'].tolist()} == the stream's, stale_drops "
+              f"{x['stale_drops']} == {n_stale} from delay_steps and the scales, guard_rejects "
+              f"{x['guard_rejects']} == {rejects}")
+
+    # per event (flat update) and blocked with K2, faults + guard
+    (w_pe, tr_pe), wall_pe = _timed(lambda: run(guarded))
+    print(f"robust MLP per event, faults + guard: {wall_pe:.3f} s ({T / wall_pe:.1f} events/s), "
+          f"acc {tr_pe.eval_values}")
+    counters("robust MLP per event", tr_pe)
+    check(finite(w_pe) and len(tr_pe.eval_values) == T // every
+          and bool(np.isfinite(tr_pe.eval_values).all()),
+          f"robust MLP per event: weights finite, {T // every} finite eval points")
+    (w_bl, tr_bl), wall_bl = k2_run(f"robust MLP blocked E={E}",
+                                    replace(guarded, update="pallas", block_size=E), rows)
+    print(f"robust MLP blocked E={E} K2, faults + guard: {wall_bl:.3f} s ({T / wall_bl:.1f} "
+          f"events/s), acc {tr_bl.eval_values}")
+    counters(f"robust MLP blocked E={E} K2", tr_bl)
+    w_j, tr_j = run(replace(guarded, update="jnp", block_size=E))
+    check(same(w_bl, w_j) and tr_bl.eval_values == tr_j.eval_values
+          and tr_bl.extras["guard_rejects"] == tr_j.extras["guard_rejects"],
+          f"robust MLP blocked K2 vs update=\"jnp\": weights and curve bitwise (max gap "
+          f"{_tree_gap(w_bl, w_j):.3e})")
+    dacc = _acc_gap(tr_bl.eval_values, tr_pe.eval_values)
+    check(dacc <= 10 / 2048, f"robust MLP blocked vs per event: accuracy gap {dacc:.5f} <= 10/2048")
+    del w_j
+
+    # K1 per event under faults (no guard: it needs the flat update)
+    wu.reset_launches()
+    (w_k1, tr_k1), wall = _timed(lambda: run(replace(faulty, update="pallas")))
+    _k1_counts(path, "robust MLP per event (faults)", T, 6)
+    print(f"robust MLP per event K1, faults: {wall:.3f} s ({T / wall:.1f} events/s)")
+    w_f, tr_f = run(faulty)
+    gap = _tree_gap(w_k1, w_f)
+    check((same(w_k1, w_f) or gap <= 1e-5)
+          and np.array_equal(tr_k1.extras["kind_count"], kinds),
+          f"robust MLP per event K1 vs the flat update under faults: bitwise {same(w_k1, w_f)} "
+          f"(max gap {gap:.3e} <= 1e-5), kind_count the stream's")
+    del w_k1, w_f
+
+    # a gradient that spikes every 50th step and is NaN at one live step
+    steps = np.arange(T)
+    nan_step = int(next(k for k in range(T // 2, T)
+                        if live[k] and k % ROBUST_SPIKE_EVERY != ROBUST_SPIKE_EVERY - 1))
+    injected = (steps % ROBUST_SPIKE_EVERY == ROBUST_SPIKE_EVERY - 1) | (steps == nan_step)
+    expect = int((injected & live).sum())
+    spiky = _Spiky(setup.clients, nan_step)
+    (w_s, tr_s), wall = _timed(lambda: run(guarded, spiky))
+    print(f"robust MLP spikes (every {ROBUST_SPIKE_EVERY}th step, NaN at {nan_step}) per event: "
+          f"{wall:.3f} s, rejects {tr_s.extras['guard_rejects']}, acc {tr_s.eval_values}")
+    counters("robust MLP spikes per event", tr_s, rejects=expect)
+    check(finite(w_s), "robust MLP spikes per event: weights finite")
+    (w_sb, tr_sb), wall = k2_run(f"robust MLP spikes blocked E={E}",
+                                 replace(guarded, update="pallas", block_size=E), rows, spiky)
+    counters(f"robust MLP spikes blocked E={E} K2", tr_sb, rejects=expect)
+    check(finite(w_sb), f"robust MLP spikes blocked E={E} K2: weights finite")
+    (w_o, _), _ = k2_run(f"robust MLP spikes blocked E={E}, no guard",
+                         replace(faulty, update="pallas", block_size=E), rows, spiky)
+    big = max(float(v.abs().max()) for v in w_o.values())
+    check(not finite(w_o) or big > 1e4,
+          f"robust MLP spikes without the guard: weights finite {finite(w_o)}, max |w| {big:.3e} "
+          "(non-finite or > 1e4)")
+    del w_s, w_sb, w_o
+
+    # scenarios, per event and blocked with K2
+    for name in ROBUST_SCENARIOS:
+        es = export_stream(SimConfig(mu=base.mu, p=base.p, C=C, T=T, seed=base.seed,
+                                     scenario=get_scenario(name)))
+        kinds6 = np.bincount(es.kind, minlength=6)
+        srows = blocked_inputs(EventBlocks.from_stream(es, E, cut_every=every),
+                               step_scales(es, base.eta, base.p, "importance"), every)[0].shape[0]
+        for label, cfg in (("per event", replace(base, scenario=name)),
+                           (f"blocked E={E} K2", replace(base, scenario=name, update="pallas",
+                                                          block_size=E))):
+            if "K2" in label:
+                (w, tr), wall = k2_run(f"robust MLP {name} {label}", cfg, srows)
+            else:
+                (w, tr), wall = _timed(lambda: run(cfg))
+            print(f"robust MLP {name} {label}: {wall:.3f} s ({T / wall:.1f} events/s), kinds "
+                  f"{tr.extras['kind_count'].tolist()}, acc {tr.eval_values}")
+            check(np.array_equal(tr.extras["kind_count"], kinds6) and finite(w)
+                  and len(tr.eval_values) == T // every
+                  and bool(np.isfinite(tr.eval_values).all()),
+                  f"robust MLP {name} {label}: kind_count == the stream's over 6 kinds, weights "
+                  f"and {T // every} eval points finite")
+
+    # the blocked checkpointed run: the kill-and-resume children's reference
+    d_full, d_pe = CKPT_ROOT / "mlp_full", CKPT_ROOT / "mlp_per_event"
+    ec.reset_saves()
+    blocked_ck = replace(guarded, update="pallas", block_size=E, ckpt_dir=str(d_full),
+                         ckpt_every=ROBUST_CKPT_EVERY)
+    (w_ck, tr_ck), wall_ck = k2_run("robust MLP blocked, checkpointed", blocked_ck, rows)
+    saves = _print_saves("robust MLP blocked")
+    print(f"robust MLP blocked E={E} K2: {T / wall_ck:.1f} events/s checkpointed every "
+          f"{ROBUST_CKPT_EVERY} ({len(saves)} saves), {T / wall_bl:.1f} without")
+    check(same(w_ck, w_bl) and tr_ck.eval_values == tr_bl.eval_values
+          and _same_extras(tr_ck.extras, tr_bl.extras),
+          "robust MLP blocked: the uninterrupted checkpointed run bitwise the un-checkpointed "
+          f"run (max gap {_tree_gap(w_ck, w_bl):.3e})")
+    ref = dict(w={k: v.cpu().numpy() for k, v in w_ck.items()}, evals=tr_ck.eval_values,
+               gcnt=[tr_ck.extras["guard_rejects"], tr_ck.extras["stale_drops"]])
+
+    # per event: truncate and resume in this process
+    ec.reset_saves()
+    pe_ck = replace(guarded, ckpt_dir=str(d_pe), ckpt_every=ROBUST_CKPT_EVERY)
+    (w_pc, tr_pc), wall_pc = _timed(lambda: run(pe_ck))
+    _print_saves("robust MLP per event")
+    print(f"robust MLP per event: {T / wall_pc:.1f} events/s checkpointed every "
+          f"{ROBUST_CKPT_EVERY}, {T / wall_pe:.1f} without")
+    check(same(w_pc, w_pe) and tr_pc.eval_values == tr_pe.eval_values,
+          "robust MLP per event: the checkpointed run bitwise the un-checkpointed run")
+    left = _truncate_ckpts(d_pe, 2 * ROBUST_CKPT_EVERY)
+    (w_pr, tr_pr), wall = _timed(lambda: run(replace(pe_ck, resume=True)))
+    check(left[-1] == 2 * ROBUST_CKPT_EVERY and same(w_pr, w_pc)
+          and tr_pr.eval_values == tr_pc.eval_values and _same_extras(tr_pr.extras, tr_pc.extras),
+          f"robust MLP per event truncated to step {left[-1]} and resumed ({wall:.3f} s): "
+          "weights, curve and counters bitwise")
+    shutil.rmtree(d_full, ignore_errors=True)
+    shutil.rmtree(d_pe, ignore_errors=True)
+    return ref
+
+
+def _robust_matrix(dev, launches: dict) -> None:
+    """18., `run_matrix` under a scenario over phase 17's 27 cells, blocked,
+    and K2 across the cells on the same stacked inputs (launches under
+    ``launches["robust_matrix"]``)."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.engine_scan import jit_runner
+    from repro_torch.core.scenario import get_scenario
+    from repro_torch.data.pipeline import FederatedClassification
+    from repro_torch.fl.engine import _cached_fl_setup, run_experiment, run_matrix
+    from repro_torch.kernels import weighted_update as wu
+
+    flc = FLConfig(n_clients=MATRIX_N, concurrency=MATRIX_C, server_steps=MATRIX_T,
+                   engine="scan", device=dev.type)
+    T, every, E, name = MATRIX_T, MATRIX_EVAL, MATRIX_E, ROBUST_MATRIX_SCENARIO
+    grid = tuple(len(MATRIX_GRID[k]) for k in ("seeds", "policies", "speed_ratios"))
+    B = int(np.prod(grid))
+    data = FederatedClassification(n_clients=MATRIX_N, seed=flc.seed)
+    m, wall = _timed(lambda: run_matrix(flc, data=data, block_size=E, scenario=name,
+                                        eta=MATRIX_ETA, eval_every=every, **MATRIX_GRID))
+    acc = np.asarray(m.eval_acc)
+    print(f"run_matrix scenario={name!r} blocked E={E}, {B} cells: {wall:.3f} s, "
+          f"{B * T / wall:.1f} events/s summed; final acc (seed-mean) "
+          f"{np.asarray(m.final_acc).mean(axis=0).round(4).tolist()}")
+    check(acc.shape == (*grid, T // every) and bool(np.isfinite(acc).all()),
+          f"run_matrix scenario={name!r}: {B} finite curves of {T // every} points")
+    s_i, p_i, h_i = MATRIX_CELL
+    one = replace(flc, seed=MATRIX_GRID["seeds"][s_i], sampling=MATRIX_GRID["policies"][p_i],
+                  speed_ratio=MATRIX_GRID["speed_ratios"][h_i], block_size=E, scenario=name)
+    r = run_experiment(one, "gen_async", eta=MATRIX_ETA, eval_every=every, data=data)
+    dacc = _acc_gap(list(r.eval_acc), list(acc[MATRIX_CELL]))
+    check(np.array_equal(r.eval_times, m.eval_times[MATRIX_CELL]) and dacc <= 10 / 2048,
+          f"run_matrix scenario={name!r} cell {MATRIX_CELL} vs run_experiment alone: eval_times "
+          f"bitwise {np.array_equal(r.eval_times, m.eval_times[MATRIX_CELL])}, accuracy gap "
+          f"{dacc:.5f} <= 10/2048; kinds {r.extras['kind_count'].tolist()}")
+    setup = _cached_fl_setup(data, flc.seed, None, device=dev)
+    _, bl, layout = _matrix_inputs(flc, MATRIX_GRID, MATRIX_ETA, every, E, dev,
+                                   scenario=get_scenario(name))
+    rows = bl[0].shape[1]
+    wu.reset_launches()
+    (w_b, ev_b), wall = _timed(lambda: jit_runner(
+        setup.clients.device_grad, MATRIX_C, eval_fn=setup.eval_fn, block_size=E,
+        kernel="pallas", vmap_streams=True)(setup.params, *bl, **layout))
+    got = wu.launches["block_prefix_update"]
+    launches.setdefault("robust_matrix", {})["block_prefix_update"] = got
+    check(got == rows, f"run_matrix scenario={name!r} K2 across cells: launches {got} == block "
+          f"rows {rows} ({B * T / wall:.1f} events/s summed)")
+    check(np.array_equal(ev_b.cpu().numpy(), acc.reshape(B, -1)),
+          f"run_matrix scenario={name!r}: K2 across cells gives run_matrix's curves bitwise")
+    del w_b, setup, data
+    torch.cuda.empty_cache()
+
+
+def _robust_mamba(dev, launches: dict) -> None:
+    """18., Mamba2-130M at full width and depth: phase 10's blocked E=4 run
+    with faults, the guard, a bf16 ring and checkpoints every
+    ``ROBUST_MAMBA_CKPT_EVERY`` events, then truncated to its first
+    checkpoint and resumed (launches under
+    ``launches["robust_mamba2"]``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import engine_ckpt as ec
+    from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
+    from repro_torch.core.engine_scan import blocked_inputs, step_scales
+    from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.fl.engine import LMTask, _cached_fl_setup, sampling_for
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import weighted_update as wu
+
+    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
+    nL, T, every, E, C = cfg.num_layers, ROBUST_MAMBA_T, LM_EVAL, MAMBA_E, MAMBA_C
+    flc = FLConfig(n_clients=LM_N, concurrency=C, server_steps=T, sampling="optimal",
+                   speed_ratio=10.0, engine="scan", device=dev.type)
+    task = LMTask(cfg, batch_size=LM_BATCH, seq_len=LM_SEQ, shard_size=LM_SHARD)
+    setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
+    mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    p = sampling_for(flc, mu)
+    fault, guard = _robust_settings(C)
+    d = CKPT_ROOT / "mamba2"
+    shutil.rmtree(d, ignore_errors=True)
+    base = ServerConfig(n=LM_N, C=C, T=T, eta=0.05, mu=mu, p=p, seed=flc.seed, eval_every=every,
+                        engine="scan", weighting="importance", update="pallas", block_size=E,
+                        snapshot_dtype="bfloat16", faults=fault, guard=guard, ckpt_dir=str(d),
+                        ckpt_every=ROBUST_MAMBA_CKPT_EVERY, device=dev.type)
+    stream = export_stream(SimConfig(mu=mu, p=p, C=C, T=T, seed=flc.seed, fault=fault))
+    scale = step_scales(stream, base.eta, p, "importance")
+    stale = (stream.delay_steps > guard.stale_cutoff) & (scale != 0)
+    kinds = np.bincount(stream.kind, minlength=4)
+    lay = blocked_inputs(EventBlocks.from_stream(stream, E, cut_every=every), scale, every)
+    rows, G, evals = lay[0].shape[0], lay[5], T // every
+    path = launches.setdefault("robust_mamba2", {"block_prefix_update": 0, "ssd_scan": 0})
+    run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+    free = lambda: shutil.disk_usage(str(CKPT_ROOT.parent)).free / 2**30  # noqa: E731
+
+    def counted(label, c, want_k2, want_evals):
+        wu.reset_launches()
+        k4.reset_launches()
+        ec.reset_saves()
+        out, wall = _timed(lambda: run(c))
+        k2, n4 = wu.launches["block_prefix_update"], k4.launches["ssd_scan"]
+        path["block_prefix_update"] += k2
+        path["ssd_scan"] += n4
+        check(k2 == want_k2 and n4 == nL * (want_k2 + want_evals),
+              f"{label}: K2 launches {k2} == block rows {want_k2}, K4 launches {n4} == {nL} x "
+              f"({want_k2} block rows + {want_evals} evals)")
+        return out, wall
+
+    disk0 = free()
+    torch.cuda.reset_peak_memory_stats()
+    (w, tr), wall = counted("robust Mamba2 blocked, checkpointed", base, rows, evals)
+    saves = _print_saves("robust Mamba2")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    disk1 = free()
+    print(f"robust Mamba2 blocked E={E} K4 + K2, bf16 ring, faults + guard, checkpointed every "
+          f"{ROBUST_MAMBA_CKPT_EVERY}: {wall:.3f} s ({T / wall:.3f} events/s, "
+          f"{T * LM_BATCH * LM_SEQ / wall:.1f} tokens/s), {len(saves)} saves, kinds "
+          f"{tr.extras['kind_count'].tolist()}, rejects {tr.extras['guard_rejects']}, stale "
+          f"{tr.extras['stale_drops']}, loss {tr.eval_values}; peak device memory {peak:.3f} GiB; "
+          f"free disk {disk0:.2f} -> {disk1:.2f} GiB")
+    check(len(tr.eval_values) == evals and bool(np.isfinite(tr.eval_values).all())
+          and np.array_equal(tr.extras["kind_count"], kinds)
+          and tr.extras["stale_drops"] == int(stale.sum()),
+          f"robust Mamba2: {evals} finite eval points, kind_count the stream's, stale_drops "
+          f"{tr.extras['stale_drops']} == {int(stale.sum())}")
+    w_full = _flat_cpu(w)
+    del w
+    torch.cuda.empty_cache()
+    left = _truncate_ckpts(d, ROBUST_MAMBA_CKPT_EVERY)
+    done_rows = (ROBUST_MAMBA_CKPT_EVERY // every) * G
+    (w2, tr2), wall2 = counted("robust Mamba2 resumed", replace(base, resume=True),
+                               rows - done_rows, evals - ROBUST_MAMBA_CKPT_EVERY // every)
+    check(left == [ROBUST_MAMBA_CKPT_EVERY] and torch.equal(_flat_cpu(w2), w_full)
+          and tr2.eval_values == tr.eval_values and _same_extras(tr2.extras, tr.extras),
+          f"robust Mamba2 truncated to step {left} and resumed ({wall2:.3f} s): weights, loss "
+          "curve and counters bitwise the uninterrupted run's")
+    del w2, setup
+    task.__dict__.pop("_fl_setup_cache", None)
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"robust Mamba2: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB over both runs; free disk {free():.2f} GiB after deleting the checkpoints")
+    torch.cuda.empty_cache()
+
+
+def phase_robust(dev, launches: dict) -> None:
+    """18. Faults, the divergence guard, scenarios and kill-and-resume
+    checkpointing on the host stream (see the module docstring).  The
+    kill-and-resume children run one after the other beside the matrix and
+    Mamba2 parts (their start-up is mostly host time)."""
+    from repro_torch.ckpt import checkpoint as ck
+
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    CKPT_ROOT.mkdir(parents=True)
+    ref = _robust_mlp(dev, launches)
+    d_kill = CKPT_ROOT / "mlp_killed"
+    with ThreadPoolExecutor(1) as pool:
+        kill = pool.submit(_run_robust_child, d_kill, "kill")
+        _robust_matrix(dev, launches)
+        p1, wall1 = kill.result()
+        left = ck.available_steps(str(d_kill))
+        resume = pool.submit(_run_robust_child, d_kill, "resume")
+        _robust_mamba(dev, launches)
+        p2, wall2 = resume.result()
+    print(f"robust MLP kill-and-resume children: the killed child exited {p1.returncode} after "
+          f"{wall1:.3f} s and left steps {left}; the resumed child exited {p2.returncode} after "
+          f"{wall2:.3f} s")
+    for p in (p1, p2):
+        if p.returncode not in (0, -signal.SIGKILL):
+            print(p.stderr[-4000:], file=sys.stderr)
+    check(p1.returncode == -signal.SIGKILL and left == [ROBUST_CKPT_EVERY, 2 * ROBUST_CKPT_EVERY]
+          and p2.returncode == 0,
+          f"robust MLP child SIGKILLed after its second save (steps left {left}), a fresh "
+          "child resumed")
+    if p2.returncode == 0:
+        res = np.load(d_kill / "result.npz")
+        bitwise = all(np.array_equal(res[k], v) for k, v in ref["w"].items())
+        check(bitwise and res["evals"].tolist() == ref["evals"]
+              and res["gcnt"].tolist() == ref["gcnt"],
+              "robust MLP killed and resumed in fresh processes: final weights, eval curve and "
+              "guard counter bitwise the uninterrupted checkpointed run's")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+
+GROUPS = ("k1k2k6", "fa", "ssd", "gmm", "mlp", "lanes", "granite", "ssm", "matrix", "moe",
+          "robust")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2210,7 +2725,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="comma list of phase groups to run after the build (default: all "
                          f"of {', '.join(GROUPS)}); 'lanes' implies 'mlp'.  A partial run "
                          "prints no kernels line and no result line")
-    groups = set(ap.parse_args(argv).only.split(","))
+    ap.add_argument("--robust-child", nargs=2, metavar=("DIR", "MODE"),
+                    help=argparse.SUPPRESS)  # phase 18's kill-and-resume child
+    args = ap.parse_args(argv)
+    groups = set(args.only.split(","))
     unknown = groups - set(GROUPS)
     if unknown:
         ap.error(f"unknown phase groups {sorted(unknown)}")
@@ -2225,6 +2743,8 @@ def main(argv: list[str] | None = None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
               file=sys.stderr)
         return 2
+    if args.robust_child:
+        return _robust_child(*args.robust_child, torch.device("cuda"))
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2292,6 +2812,11 @@ def main(argv: list[str] | None = None) -> int:
         phase_grad_check(dev, MOE_ARCH, num_layers=MOE_LAYERS)
         phase_moe_lm(dev, launches)
         done("12-13")
+        torch.cuda.empty_cache()
+    # 18. faults, the guard, scenarios and checkpoints on the host stream
+    if "robust" in groups:
+        phase_robust(dev, launches)
+        done("18")
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)

@@ -18,12 +18,18 @@ from .jackson import (
 )
 from .classes import ClassSpec, build_class_spec
 from .engine_scan import (
+    GuardConfig,
     blocked_inputs,
     blocked_inputs_batch,
     jit_runner,
     make_runner,
     step_scales,
     stream_arrays,
+)
+from .engine_ckpt import (
+    run_checkpointed,
+    run_checkpointed_host,
+    run_checkpointed_host_blocked,
 )
 from .scenario import (
     SCENARIOS,

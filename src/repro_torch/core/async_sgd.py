@@ -15,10 +15,12 @@ Faithfulness notes
 
 Engines
 -------
-  * "python" — the per-event reference loop below (the port's own oracle);
+  * "python" — the per-event reference loop below (the port's own oracle;
+    with faults, a guard or a scenario, `_python_fault_loop`);
   * "scan"   — the device-resident replay engine (`core.engine_scan`): the
     event stream is pre-simulated on the host and Algorithm 1 replays it
-    over a flat snapshot ring buffer on the device.
+    over a flat snapshot ring buffer on the device (with ``ckpt_dir``,
+    chunk by chunk through `core.engine_ckpt`, kill-and-resume safe).
 Identical (seed, block) => identical event stream => iterates agree to
 float-associativity tolerance.
 
@@ -37,7 +39,15 @@ import torch
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
 from ..unported import unported
-from .queue_sim import ClosedNetworkSim, FaultConfig, SimConfig, export_stream
+from .queue_sim import (
+    KIND_COMPLETE,
+    KIND_FLIP,
+    KIND_STAGE,
+    ClosedNetworkSim,
+    FaultConfig,
+    SimConfig,
+    export_stream,
+)
 
 __all__ = [
     "GradientSource",
@@ -70,7 +80,8 @@ class ServerConfig:
 
     The field names are `repro.core.async_sgd.ServerConfig`'s, so one config
     drives both packages, plus ``device``.  Options this port does not run
-    yet raise `NotImplementedError` naming their ROADMAP item.
+    yet (the device event stream and what rides on it, the serving plane)
+    raise `NotImplementedError` naming their ROADMAP item.
     """
 
     n: int                      # number of clients
@@ -101,19 +112,30 @@ class ServerConfig:
     devices: int = 1            # lane-shard rank count: the blocked engine's E
                                 # lanes over this many torch.distributed ranks
     segmentation: str = "greedy"  # blocked cut placement: "greedy" | "dp"
-    snapshot_dtype: str | None = None  # ring-buffer storage dtype (blocked
-                                       # engine; e.g. "bfloat16")
+    snapshot_dtype: str | None = None  # ring-buffer storage dtype of the
+                                       # scan engine (e.g. "bfloat16")
     pallas_interpret: bool = True  # a TPU-only knob (Pallas interpret mode):
                                    # accepted so configs carry over, ignored
     collect_extras: bool = True  # record per-event delays in the host stream
-    faults: "FaultConfig | None" = None  # not ported (ROADMAP item 8)
-    guard: Any | None = None     # not ported (ROADMAP item 8)
-    ckpt_dir: str | None = None  # not ported (ROADMAP item 8)
-    ckpt_every: int = 0
-    resume: bool = False
+    faults: "FaultConfig | None" = None  # client churn / crash / straggler
+                                 # injection (queue_sim.FaultConfig) on the
+                                 # host stream, both engines: non-completion
+                                 # events apply no update and re-dispatch
+                                 # with the current weights
+    guard: Any | None = None     # engine_scan.GuardConfig: reject non-finite /
+                                 # norm-exploding gradients and updates staler
+                                 # than stale_cutoff CS steps
+    ckpt_dir: str | None = None  # scan engine: checkpoint directory; routes the
+                                 # host replay through core.engine_ckpt, saving
+                                 # the full carry every ckpt_every CS steps
+    ckpt_every: int = 0          # checkpoint cadence in CS steps
+    resume: bool = False         # resume from the latest checkpoint in ckpt_dir
+                                 # (config-fingerprint validated)
     serving: Any | None = None   # not ported (ROADMAP item 11)
-    scenario: Any | None = None  # not ported beyond the exponential law
-                                 # (ROADMAP item 10)
+    scenario: Any | None = None  # scenario.ScenarioConfig or a registry name:
+                                 # phase-type service + Markov-modulated
+                                 # availability on the host stream, both
+                                 # engines; exclusive with `faults`
     device: str = "cuda"         # torch device of the run
 
 
@@ -136,14 +158,22 @@ def _resolve(cfg: ServerConfig) -> tuple[np.ndarray, np.ndarray]:
     return p, mu
 
 
+def _resolve_scenario_cfg(cfg: ServerConfig):
+    """``cfg.scenario`` (name | ScenarioConfig | None) -> enabled config or
+    None.  A disabled scenario (exponential + always-on) resolves to None so
+    every engine takes its unmodified — bitwise-identical — path."""
+    if cfg.scenario is None:
+        return None
+    from .scenario import get_scenario
+
+    sc = get_scenario(cfg.scenario)
+    return sc if sc.enabled else None
+
+
 def _reject_unported(cfg: ServerConfig) -> None:
-    """Raise for every option of `repro`'s ServerConfig the port does not run."""
-    if cfg.faults is not None and cfg.faults.enabled:
-        raise unported("faults=", 8)
-    if cfg.guard is not None:
-        raise unported("guard=", 8)
-    if cfg.ckpt_dir is not None:
-        raise unported("ckpt_dir=", 8)
+    """Raise for every option of `repro`'s ServerConfig the port does not
+    run: the device event stream first (faults, guard, checkpoints and
+    scenarios on it ride on item 6), then the serving plane."""
     if cfg.stream == "device":
         raise unported("stream='device'", 6)
     if cfg.stream != "host":
@@ -152,11 +182,6 @@ def _reject_unported(cfg: ServerConfig) -> None:
         raise unported("adaptive=True", 6)
     if cfg.serving is not None and cfg.serving.enabled:
         raise unported("serving=", 11)
-    if cfg.scenario is not None:
-        from .scenario import get_scenario
-
-        if get_scenario(cfg.scenario).enabled:
-            raise unported("scenario=", 10)
 
 
 def _device_grad_fn(source) -> Callable:
@@ -229,23 +254,57 @@ def _run_scan(
     fedbuff_Z: int = 0,
 ) -> tuple[Pytree, TraceRecord]:
     """Replay-engine run of Generalized AsyncSGD or FedBuff: pre-simulate
-    the event stream with `queue_sim.export_stream` and replay it on
-    ``device``; ``cfg.devices > 1`` lane-shards the blocked replay over that
-    many `torch.distributed` ranks (every rank makes the same call)."""
+    the event stream with `queue_sim.export_stream` (faults and scenarios
+    enter only there) and replay it on ``device``; ``cfg.devices > 1``
+    lane-shards the blocked replay over that many `torch.distributed` ranks
+    (every rank makes the same call).  The guard's staleness cutoff zeroes
+    the scales here, where the exported delays live; ``cfg.ckpt_dir``
+    routes the replay through the checkpointed drivers of
+    `core.engine_ckpt`."""
     from .engine_scan import blocked_inputs, jit_runner, step_scales, stream_arrays
     from .queue_sim import EventBlocks
 
     if cfg.track_virtual:
         raise NotImplementedError("track_virtual requires engine='python'")
     weighting = "plain" if fedbuff_Z else cfg.weighting
+    faults = cfg.faults if (cfg.faults is not None and cfg.faults.enabled) else None
+    scenario = _resolve_scenario_cfg(cfg)
+    if scenario is not None:
+        if faults is not None:
+            raise ValueError(
+                "scenario= and faults= are separate injection paths; model "
+                "suspension via ScenarioConfig modulation (rate_scale)"
+            )
+        if fedbuff_Z:
+            raise ValueError("scenario= composes with Algorithm 1, not FedBuff")
+        if cfg.service != "exp":
+            raise ValueError("scenario= replaces the service law; leave service='exp'")
+    guard = cfg.guard
+    guard_stale = guard is not None and int(guard.stale_cutoff) > 0
+    ckpt_on = cfg.ckpt_dir is not None
+    if ckpt_on and cfg.ckpt_every <= 0:
+        raise ValueError("ckpt_dir requires ckpt_every > 0")
+    if fedbuff_Z and (faults is not None or guard_stale):
+        raise ValueError(
+            "fault injection / staleness cutoff compose with Algorithm 1, "
+            "not FedBuff (the buffer flush has no per-event masking)"
+        )
     w0_dev = _to_device(w0, device)
     eval_every = cfg.eval_every if eval_fn is not None else 0
     block_size = cfg.block_size
     stream = export_stream(
-        SimConfig(mu=mu, p=p, C=cfg.C, T=cfg.T, service=cfg.service,
-                  seed=cfg.seed, record_delays=cfg.collect_extras)
+        SimConfig(mu=mu, p=p, C=cfg.C, T=cfg.T, service=cfg.service, seed=cfg.seed,
+                  record_delays=cfg.collect_extras or guard_stale,
+                  fault=faults, scenario=scenario)
     )
     scale = step_scales(stream, cfg.eta, p, weighting)
+    host_stale_drops = 0
+    if guard_stale:
+        # the host replay drops stale updates here, where the exported
+        # per-event delays live: the in-replay counter's second slot stays 0
+        stale = (stream.delay_steps > int(guard.stale_cutoff)) & (scale != 0)
+        host_stale_drops = int(stale.sum())
+        scale = np.where(stale, 0.0, scale).astype(scale.dtype)
     if cfg.update not in ("jnp", "pallas"):
         raise ValueError(cfg.update)
     if block_size == "auto":
@@ -253,47 +312,87 @@ def _run_scan(
     block_size = int(block_size)
     if block_size > 1 and cfg.apply_update is not None:
         raise ValueError("block_size > 1 requires the default update w - scale*g")
+    if ckpt_on and cfg.devices > 1:
+        raise ValueError("checkpointing does not compose with lane sharding")
+    if guard is not None and cfg.devices > 1:
+        raise unported("guard= on lane-sharded replay (the reject count's sum over lanes)", 12)
     grad_fn = _device_grad_fn(source)
     if block_size > 1:
+        group_events = eval_every
+        if ckpt_on:
+            # checkpoint cursors need exact event counts per row group,
+            # which only the grouped (cut_every) layout provides
+            group_events = eval_every if eval_every else min(cfg.ckpt_every, cfg.T)
         blocks = EventBlocks.from_stream(
-            stream, block_size, cut_every=eval_every, method=cfg.segmentation
+            stream, block_size, cut_every=group_events, method=cfg.segmentation
         )
         J, slot, sc, kb, mask, chunk_blocks, n_chunks = blocked_inputs(
-            blocks, scale, eval_every
+            blocks, scale, group_events
         )
-        runner = jit_runner(
-            grad_fn, cfg.C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, block_size=block_size,
-            kernel=cfg.update, snapshot_dtype=cfg.snapshot_dtype, lane_devices=cfg.devices,
-        )
-        idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
-        w, evals = runner(
-            w0_dev, idx(J), idx(slot),
-            torch.as_tensor(sc, dtype=torch.float32, device=device),
-            idx(kb), torch.as_tensor(mask, device=device),
-            chunk_blocks=chunk_blocks, n_chunks=n_chunks,
-        )
+        if ckpt_on:
+            from .engine_ckpt import run_checkpointed_host_blocked
+
+            out = run_checkpointed_host_blocked(
+                grad_fn, cfg.C, block_size, w0_dev, J, slot, sc, kb, mask,
+                group_events=group_events, chunk_blocks=chunk_blocks, n_chunks=n_chunks,
+                ckpt_dir=cfg.ckpt_dir, ckpt_every=cfg.ckpt_every, eval_fn=eval_fn,
+                kernel=cfg.update, snapshot_dtype=cfg.snapshot_dtype, fedbuff_Z=fedbuff_Z,
+                guard=guard, resume=cfg.resume,
+            )
+        else:
+            runner = jit_runner(
+                grad_fn, cfg.C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, block_size=block_size,
+                kernel=cfg.update, snapshot_dtype=cfg.snapshot_dtype, lane_devices=cfg.devices,
+                guard=guard,
+            )
+            idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)  # noqa: E731
+            out = runner(
+                w0_dev, idx(J), idx(slot),
+                torch.as_tensor(sc, dtype=torch.float32, device=device),
+                idx(kb), torch.as_tensor(mask, device=device),
+                chunk_blocks=chunk_blocks, n_chunks=n_chunks,
+            )
     else:
         if cfg.devices > 1:
             raise ValueError(
                 "devices > 1 lane-shards micro-blocks and requires the "
                 "blocked engine (block_size > 1)"
             )
-        # as in `repro`, the per-event replay keeps the ring in the
-        # parameter dtype (snapshot_dtype applies to the blocked engine)
-        runner = jit_runner(
-            grad_fn, cfg.C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
-            update_fn=_scan_update_fn(cfg),
-        )
-        J_dev, slot_dev = stream_arrays(stream, device)
-        w, evals = runner(
-            w0_dev, J_dev, slot_dev,
-            torch.as_tensor(scale, dtype=torch.float32, device=device),
-        )
+        if ckpt_on:
+            from .engine_ckpt import run_checkpointed_host
+
+            out = run_checkpointed_host(
+                grad_fn, cfg.C, w0_dev, stream.J, stream.slot, scale,
+                ckpt_dir=cfg.ckpt_dir, ckpt_every=cfg.ckpt_every, eval_fn=eval_fn,
+                eval_every=eval_every, fedbuff_Z=fedbuff_Z, update_fn=_scan_update_fn(cfg),
+                snapshot_dtype=cfg.snapshot_dtype, guard=guard, resume=cfg.resume,
+            )
+        else:
+            # the ring in snapshot_dtype, as with checkpoints (`repro`'s
+            # un-checkpointed per-event replay ignores it: ROADMAP Queue 3)
+            runner = jit_runner(
+                grad_fn, cfg.C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
+                update_fn=_scan_update_fn(cfg), snapshot_dtype=cfg.snapshot_dtype, guard=guard,
+            )
+            J_dev, slot_dev = stream_arrays(stream, device)
+            out = runner(
+                w0_dev, J_dev, slot_dev,
+                torch.as_tensor(scale, dtype=torch.float32, device=device),
+            )
+    w, evals = out[0], out[1]
     trace = TraceRecord(steps=np.arange(cfg.T), times=np.asarray(stream.t))
     trace.delays = stream.delays
     trace.mean_queue_lengths = (
         stream.queue_len_sum / cfg.T if stream.queue_len_sum is not None else None
     )
+    if guard is not None:
+        gcnt = out[2].cpu().numpy()
+        trace.extras["guard_rejects"] = int(gcnt[0])
+        trace.extras["stale_drops"] = int(gcnt[1]) + host_stale_drops
+    if stream.kind is not None and (faults is not None or scenario is not None):
+        trace.extras["kind_count"] = np.bincount(
+            stream.kind, minlength=6 if scenario is not None else 4
+        )
     if eval_fn is not None and cfg.eval_every:
         vals = evals.detach().cpu().numpy()  # the run's one host sync
         trace.eval_steps = [(i + 1) * cfg.eval_every for i in range(vals.shape[0])]
@@ -321,11 +420,21 @@ def run_generalized_async_sgd(
         return _run_scan(w0, source, cfg, eval_fn, p, mu, device)
     if cfg.engine != "python":
         raise ValueError(cfg.engine)
+    if cfg.ckpt_dir is not None:
+        raise ValueError("checkpointing requires engine='scan'")
+    scenario = _resolve_scenario_cfg(cfg)
     sim = ClosedNetworkSim(
         SimConfig(mu=mu, p=p, C=cfg.C, T=cfg.T, service=cfg.service,
-                  seed=cfg.seed, record_delays=True)
+                  seed=cfg.seed, record_delays=True, fault=cfg.faults, scenario=scenario)
     )
     apply_update = cfg.apply_update or (lambda w, g, s: _axpy(w, g, -s))
+    faults_on = cfg.faults is not None and cfg.faults.enabled
+    if faults_on or cfg.guard is not None or scenario is not None:
+        if cfg.track_virtual:
+            raise NotImplementedError(
+                "track_virtual does not compose with faults/guards/scenarios"
+            )
+        return _python_fault_loop(w0, source, cfg, eval_fn, p, sim, apply_update, device)
 
     w = _to_device(w0, device)
     mu_virtual = w if cfg.track_virtual else None
@@ -366,6 +475,82 @@ def run_generalized_async_sgd(
     return w, trace
 
 
+def _python_fault_loop(
+    w0: Pytree,
+    source: GradientSource,
+    cfg: ServerConfig,
+    eval_fn,
+    p: np.ndarray,
+    sim: ClosedNetworkSim,
+    apply_update,
+    device: torch.device,
+) -> tuple[Pytree, TraceRecord]:
+    """Fault-, guard- and scenario-aware reference loop: the oracle of the
+    replay engine's fault semantics (`repro`'s, on tensors).
+
+    One iteration consumes one merged event (`ClosedNetworkSim.step_event`):
+    a completion computes the gradient at the dispatch-time snapshot and,
+    guards permitting, applies it; a crash or straggler timeout discards
+    the in-flight work and re-dispatches the freed slot with the current
+    weights; an availability flip or a service-stage advance moves no task.
+    The guard's order (staleness before divergence, each reject counted
+    once) is `engine_scan._make_flat_guard`'s, with staleness measured in
+    merged-event steps, the clock the exported ``delay_steps`` count in.
+    The verdicts are host floats: this loop syncs every event anyway.
+    """
+    guard = cfg.guard
+    max_sq = float(guard.max_grad_norm) ** 2 if guard is not None else 0.0
+    cutoff = int(guard.stale_cutoff) if guard is not None else 0
+    gcnt = [0, 0]  # [guard_rejects, stale_drops]
+    w = _to_device(w0, device)
+    # per-node FIFO of (dispatch-time snapshot, dispatch step + 1)
+    snaps: list[deque] = [deque((w, 0) for _ in q) for q in sim.queues]
+    times = np.zeros(cfg.T)
+    trace = TraceRecord(steps=np.arange(cfg.T), times=times)
+    for k in range(cfg.T):
+        kind, j, k_new = sim.step_event()
+        times[k] = sim.now
+        if kind == KIND_FLIP or kind == KIND_STAGE:
+            # no task moved: flips touch no queue, a stage advance keeps the
+            # head task in service — no snapshot pop, no update
+            continue
+        w_disp, disp_k = snaps[j].popleft()
+        if kind == KIND_COMPLETE:
+            live = True
+            if cutoff and (k - disp_k) > cutoff:
+                gcnt[1] += 1
+                live = False
+            if live:
+                g = source.grad(j, w_disp, k)
+                if guard is not None:
+                    sq = sum(float(torch.sum(torch.square(torch.as_tensor(x).float())))
+                             for x in tree_leaves(g))
+                    if not np.isfinite(sq) or (max_sq > 0.0 and sq > max_sq):
+                        gcnt[0] += 1
+                        live = False
+            if live:
+                if cfg.weighting == "importance":
+                    scale = cfg.eta / (cfg.n * p[j])
+                elif cfg.weighting == "plain":
+                    scale = cfg.eta
+                else:
+                    raise ValueError(cfg.weighting)
+                w = apply_update(w, g, scale)
+        # crash / timeout: the work is discarded; the slot re-dispatches at w
+        snaps[k_new].append((w, k + 1))
+        _record_eval(trace, cfg, eval_fn, w, k + 1)
+    trace.delays = sim.delays
+    trace.mean_queue_lengths = sim.queue_len_sum / cfg.T
+    trace.extras = {
+        "guard_rejects": gcnt[0],
+        "stale_drops": gcnt[1],
+        "kind_count": np.asarray(sim.kind_counts)
+        if getattr(sim, "_fault", False) or getattr(sim, "_scenario", False)
+        else None,
+    }
+    return w, trace
+
+
 def _record_eval(trace: TraceRecord, cfg: ServerConfig, eval_fn, w, step: int) -> None:
     if eval_fn is not None and cfg.eval_every and step % cfg.eval_every == 0:
         trace.eval_steps.append(step)
@@ -392,6 +577,14 @@ def run_fedbuff(
         return _run_scan(w0, source, cfg, eval_fn, pu, mu, device, fedbuff_Z=Z)
     if cfg.engine != "python":
         raise ValueError(cfg.engine)
+    if ((cfg.faults is not None and cfg.faults.enabled) or cfg.guard is not None
+            or _resolve_scenario_cfg(cfg) is not None):
+        raise ValueError(
+            "faults/guards/scenarios compose with Algorithm 1 "
+            "(run_generalized_async_sgd), not the FedBuff reference loop"
+        )
+    if cfg.ckpt_dir is not None:
+        raise ValueError("checkpointing requires engine='scan'")
     sim = ClosedNetworkSim(
         SimConfig(mu=mu, p=pu, C=cfg.C, T=cfg.T, service=cfg.service,
                   seed=cfg.seed, record_delays=True)

@@ -17,6 +17,10 @@ depend on the gradient values, so it is simulated on the host first
     updates, written back in one pass (``kernel="pallas"``: the CUDA kernel
     `kernels.weighted_update.block_prefix_update`; the blocked ring has a
     trash row C that padded lanes write);
+  * ``guard=GuardConfig(...)`` rejects non-finite or norm-exploding
+    gradients (the update is suppressed, the re-dispatch still happens)
+    and counts them in a (2,) ``[guard_rejects, stale_drops]`` counter the
+    guarded runners return beside the weights;
   * ``fedbuff_Z > 0`` replays FedBuff instead: the gradients accumulate in
     a buffer that is flushed (averaged and applied) every Z-th server step;
     the blocked engine decomposes the flushes into the same prefix form
@@ -39,11 +43,16 @@ Where JAX runs one `lax.scan`, this engine runs a Python loop over events
 whose arrays already live on the device: the loop indexes them with Python
 ints, which gives 0-d device tensors, and every gather and scatter takes
 them through `index_select` / `index_copy_` — no `.item()`, so the host
-never waits for the device inside a run.  The ring buffer is updated in
-place (JAX donates it).
+never waits for the device inside a run (the guard's verdict and counter
+stay device tensors too).  The ring buffer is updated in place (JAX
+donates it).  Both rings have a trash row C: on a fault or scenario
+stream a flip or stage event carries slot C and scale 0, so it reads and
+writes that row and changes nothing (JAX clamps the gather and drops the
+scatter instead).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import partial, reduce
 from typing import Any, Callable
 
@@ -55,6 +64,7 @@ from ..unported import unported
 from .queue_sim import KIND_COMPLETE, EventBlocks, EventStream
 
 __all__ = [
+    "GuardConfig",
     "blocked_inputs",
     "blocked_inputs_batch",
     "jit_runner",
@@ -281,38 +291,123 @@ def _flat_axpy(w: torch.Tensor, g: torch.Tensor, scale: torch.Tensor) -> torch.T
     return out
 
 
-def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc, fedbuff_Z=0):
+@dataclass(frozen=True)
+class GuardConfig:
+    """Divergence guard on the server update (`repro`'s, same fields).
+
+    Guard order per event, after fault-kind masking (a crash, timeout,
+    flip or stage event already carries scale 0 and is never counted):
+
+      1. staleness cutoff: an update whose task has been in flight for more
+         than ``stale_cutoff`` server steps is dropped (scale -> 0) and
+         counted in ``stale_drops`` (the host stream applies it to the step
+         scales before the replay, `async_sgd._run_scan`);
+      2. divergence: a gradient that is non-finite, or whose l2 norm
+         exceeds ``max_grad_norm`` (0 disables the cap; non-finite
+         rejection is always on), is suppressed and counted in
+         ``guard_rejects``; the re-dispatch scatter still happens, so the
+         queue dynamics are untouched.
+
+    Guarded runners return the (2,) int32 counter ``[guard_rejects,
+    stale_drops]`` beside the final iterate.  Requires the flat-packed
+    snapshot codec (all-float parameters, default linear update).
+    """
+
+    max_grad_norm: float = 0.0
+    stale_cutoff: int = 0
+
+    @property
+    def enabled(self) -> bool:
+        return True  # non-finite rejection is unconditional
+
+    def cache_key(self):
+        return (float(self.max_grad_norm), int(self.stale_cutoff))
+
+
+def _guard_bad(g, max_sq: float):
+    """The guard's verdict on packed gradients: the fp32 squared norm over
+    the last dim is non-finite, or above ``max_sq`` when the cap is on (> 0).
+    A (P,) vector gives a 0-d verdict, (E, P) rows an (E,) one."""
+    sq = torch.sum(torch.square(g.to(torch.float32)), dim=-1)
+    bad = ~torch.isfinite(sq)
+    return bad | (sq > max_sq) if max_sq > 0.0 else bad
+
+
+def _make_flat_guard(guard: GuardConfig):
+    """``check(g, scale, gcnt, stale) -> (bad, scale, gcnt)`` on one packed
+    gradient: the one place the per-event guard's order and counting live
+    (the verdict itself is `_guard_bad`'s, shared with the blocked rows).
+
+    ``bad`` is returned rather than a zeroed gradient, so the caller
+    computes the candidate update and then selects (``where(bad, w,
+    w_new)``).  Every value stays a device tensor: a ``bool(bad)`` per
+    event would stall the replay.  The counter is added to in place.
+    """
+    max_sq = float(guard.max_grad_norm) ** 2
+    cutoff = int(guard.stale_cutoff)
+
+    def check(g, scale, gcnt, stale=None):
+        live = scale != 0
+        if cutoff > 0 and stale is not None:
+            st = live & (stale > cutoff)
+            gcnt[1] += st.to(torch.int32)
+            scale = torch.where(st, 0.0, scale)
+            live = live & ~st
+        bad = _guard_bad(g, max_sq)
+        gcnt[0] += (bad & live).to(torch.int32)
+        return bad, scale, gcnt
+
+    return check
+
+
+def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc, fedbuff_Z=0,
+                      guard=None):
     """The algorithm half of a CS step, independent of the event source.
 
-    ``update_step((w, snaps, acc), j, s, scale, k) -> (w, snaps, acc)``
-    consumes one event (completing client j, ring slot s, update scale,
-    server step k — all 0-d device tensors) exactly as Algorithm 1 lines
-    9-11.  In flat mode ``w`` (and the FedBuff buffer ``acc``) is the packed
-    vector and the update is one axpy; otherwise (a given ``update_fn``,
-    e.g. K1 over the leaves) ``w`` and ``acc`` are pytrees.  With
-    ``fedbuff_Z > 0`` the gradient joins the buffer, which is applied with
-    scale ``scale / Z`` and emptied on every Z-th server step.  ``snaps`` is
-    written in place.
+    ``update_step((w, snaps, acc, gcnt), j, s, scale, k[, stale])`` consumes
+    one event (completing client j, ring slot s, update scale, server step
+    k — all 0-d device tensors) exactly as Algorithm 1 lines 9-11 and
+    returns the new carry.  In flat mode ``w`` (and the FedBuff buffer
+    ``acc``) is the packed vector and the update is one axpy; otherwise (a
+    given ``update_fn``, e.g. K1 over the leaves) ``w`` and ``acc`` are
+    pytrees.  With ``fedbuff_Z > 0`` the gradient joins the buffer, which
+    is applied with scale ``scale / Z`` and emptied on every Z-th server
+    step.  ``guard`` (flat mode only) checks the gradient first
+    (`_make_flat_guard`; ``stale``, the steps the task spent in flight,
+    feeds its staleness cutoff) and counts in ``gcnt``; under FedBuff a bad
+    gradient is zeroed before the buffer takes it.  ``snaps`` is written in
+    place.
     """
     if unpack is None:
         raise ValueError(
             "the torch engine needs all-float parameters (flat-packed "
             "snapshot storage)"
         )
+    if guard is not None and not flat_mode:
+        raise ValueError(
+            "the divergence guard requires the flat-packed snapshot codec "
+            "(uniform-dtype parameters, default linear update)"
+        )
+    check = _make_flat_guard(guard) if guard is not None else None
 
-    def update_step(ucarry, j, s, scale, k):
-        w, snaps, acc = ucarry
+    def update_step(ucarry, j, s, scale, k, stale=None):
+        w, snaps, acc, gcnt = ucarry
         s1 = s.reshape(1)
         # gather the completing task's dispatch-time snapshot (Alg. 1 line 9)
         w_disp = unpack(snaps.index_select(0, s1)[0])
         g = grad_fn(j, w_disp, k)
         if flat_mode:
             g = pack(g)
+        bad = None
+        if check is not None:
+            bad, scale, gcnt = check(g, scale, gcnt, stale)
         if fedbuff_Z > 0:
             fire = ((k + 1) % fedbuff_Z) == 0
             eff = torch.where(fire, scale / fedbuff_Z, 0.0)
             keep = lambda a: a * (~fire).to(a.dtype)  # noqa: E731
             if flat_mode:
+                if bad is not None:  # the buffer consumes g beyond this event
+                    g = torch.where(bad, 0.0, g)
                 acc = acc + g
                 # JAX promotes the narrow buffer times the fp32 scale and
                 # rounds once: `_flat_axpy`'s fp32 path
@@ -323,13 +418,15 @@ def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc, fedbuff_
                 w = update_fn(w, acc, eff)
                 acc = tree_map(keep, acc)
         elif flat_mode:
-            w = _flat_axpy(w, g, scale)
+            w_new = _flat_axpy(w, g, scale)
+            # the candidate axpy, then a select: no host sync on the verdict
+            w = torch.where(bad, w, w_new) if bad is not None else w_new
         else:
             w = update_fn(w, g, scale)
         row = enc(w) if flat_mode else enc(pack(w))
         # the freed slot hosts the new dispatch with the updated params
         snaps.index_copy_(0, s1, row[None])
-        return w, snaps, acc
+        return w, snaps, acc, gcnt
 
     return update_step
 
@@ -398,7 +495,7 @@ def _all_gather_lanes(group, *ts):
     return res
 
 
-def _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z=0, lane_group=None):
+def _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z=0, lane_group=None, guard=None):
     """One event micro-block of the blocked engine (flat-packed mode).
 
     ``block_step((w, snaps, acc), j, s, scale, k, mask) -> (w, snaps, acc)``
@@ -419,7 +516,16 @@ def _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z=0, lane_group=None
     FedBuff gathers the masked lane gradients instead — its flush positions
     couple all lanes — and runs the closed form on the full block,
     replicated (K2 or its plain version).
+
+    ``guard`` checks each lane's gradient row before the deltas: a
+    non-finite or over-norm row is zeroed (an exact no-op through the
+    prefix sum and K2) and counted in ``gcnt`` if its scale is live.  The
+    staleness cutoff is the host's (the scales arrive already zeroed).  A
+    guard under lanes needs the rejects summed over the ranks (ROADMAP
+    item 12) and raises.
     """
+    if guard is not None and lane_group is not None:
+        raise unported("guard= on lane-sharded replay (the reject count's sum over lanes)", 12)
     if kernel == "pallas":
         # the hand-written CUDA kernels on a CUDA ring, the plain versions
         # on a CPU ring (dispatch by the tensor's device)
@@ -431,22 +537,30 @@ def _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z=0, lane_group=None
     else:
         raise ValueError(kernel)
     grads = _make_batched_grads(grad_fn, pack, unpack)
+    max_sq = float(guard.max_grad_norm) ** 2 if guard is not None else 0.0
+
+    def guard_rows(G, scm, gcnt):
+        bad = _guard_bad(G, max_sq)
+        gcnt[0] += torch.sum(bad & (scm != 0)).to(torch.int32)
+        return torch.where(bad[:, None], 0.0, G)
 
     def block_step(ucarry, j, s, sc, k, m):
-        w, snaps, acc = ucarry
+        w, snaps, acc, gcnt = ucarry
         G = grads(j, snaps.index_select(0, s), k)  # (E or E/D, P)
         scm = torch.where(m, sc, 0.0).to(torch.float32)
+        if guard is not None:
+            G = guard_rows(G, scm, gcnt)
         if fedbuff_Z > 0:
             Gm = torch.where(m[:, None], G, 0.0).to(torch.float32)
             if lane_group is not None:
                 Gm, s, scm, k, m = _all_gather_lanes(lane_group, Gm, s, scm, k, m)
             D, acc = _fedbuff_block_deltas(Gm, scm, k, m, acc, fedbuff_Z)
             snaps, w = apply_block(snaps, w, D, s)
-            return w, snaps, acc
+            return w, snaps, acc, gcnt
         D = scm[:, None] * G.to(torch.float32)
         if lane_group is None:
             snaps, w = apply_block(snaps, w, D, s)
-            return w, snaps, acc
+            return w, snaps, acc, gcnt
         # gen_async, sharded: local lane prefix + one collective, then the
         # global iterates W_i = w - (S_all + exclusive rank offset), replicated
         S = torch.cumsum(D, dim=0)
@@ -456,7 +570,7 @@ def _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z=0, lane_group=None
         off = torch.cumsum(totals, dim=0) - totals
         W = w.float()[None] - (S_all + off[:, None, :]).reshape(s_all.shape[0], -1)
         snaps, w = scatter_rows(snaps, w, W, s_all)
-        return w, snaps, acc
+        return w, snaps, acc, gcnt
 
     return block_step
 
@@ -494,11 +608,15 @@ def _make_cells_block_step(grad_fn, pack, unpack, kernel):
 
 
 def _init_update_carry(w0, rows, pack, unpack, flat_mode, enc, fedbuff_Z=0, cells=None):
-    """``(w, snaps, acc)`` initial carry + the carry->pytree decoder.
+    """``(w, snaps, acc, gcnt)`` initial carry + the carry->pytree decoder.
 
-    ``rows`` is the ring height — C for the per-event engine, C+1 for the
-    blocked engine (the extra trash row absorbs padded scatters).  ``acc``
-    is the FedBuff buffer, zeros like ``w`` (flat or tree), or None.
+    ``rows`` is the ring height: C+1 for the blocked engine, whose trash
+    row C absorbs padded lanes and slot-C events; for the per-event engine
+    C, plus that trash row only when the stream has slot-C events (a fault
+    or scenario stream's flip and stage events, `_ring_rows`).  ``acc`` is the FedBuff buffer, zeros
+    like ``w`` (flat or tree), or None.  ``gcnt`` is the (2,) int32
+    ``[guard_rejects, stale_drops]`` counter, carried whether or not a
+    guard is on.
     ``cells=B`` starts B cells from the one w0: every part gains a leading
     axis of B (the ring (B, rows, P)) and the decoder maps (B, P) packed
     weights to a tree of (B, ...) leaves.
@@ -510,11 +628,19 @@ def _init_update_carry(w0, rows, pack, unpack, flat_mode, enc, fedbuff_Z=0, cell
     if cells is not None:
         w_init = tree_map(lambda x: x.expand(cells, *x.shape).clone(), w_init)
     acc0 = tree_map(torch.zeros_like, w_init) if fedbuff_Z > 0 else None
+    gcnt0 = torch.zeros(2, dtype=torch.int32, device=flat0.device)
     if not flat_mode:
         to_tree = lambda w: w  # noqa: E731
     else:
         to_tree = unpack if cells is None else torch.func.vmap(unpack)
-    return (w_init, snaps0, acc0), to_tree
+    return (w_init, snaps0, acc0, gcnt0), to_tree
+
+
+def _ring_rows(C: int, slot) -> int:
+    """The per-event ring's height: C, plus the trash row C when the stream
+    sends an event there (one host sync a run).  A clean stream keeps C
+    rows: at full width a ring row is the whole parameter vector."""
+    return C + int(bool((slot == C).any()))
 
 
 def _stack_evals(evals: list, device, cells=None) -> torch.Tensor:
@@ -537,13 +663,20 @@ def _make_host_runner(
     update_fn: Callable[[Pytree, Pytree, Any], Pytree] | None = None,
     snapshot_dtype=None,
     vmap_streams: bool = False,
+    guard: GuardConfig | None = None,
 ):
     """Build the per-event replay engine.
 
-    Returns ``run(w0, J, slot, scale, eval_every=...) -> (w_final, evals)``
-    over (T,) device tensors (J, slot int64; scale float32).  ``evals`` is
-    the eval_fn curve sampled every `eval_every` steps (an empty tensor
-    when evaluation is off); events past the last eval point still replay.
+    Returns ``run(w0, J, slot, scale, eval_every=..., ckpt=None) ->
+    (w_final, evals)`` over (T,) device tensors (J, slot int64; scale
+    float32) — with ``guard``, ``(w_final, evals, gcnt)``, the (2,)
+    ``[guard_rejects, stale_drops]`` counter (the host stream drops stale
+    updates in the scales before the call, so only the first slot counts
+    here).  ``evals`` is the eval_fn curve sampled every `eval_every` steps
+    (an empty tensor when evaluation is off); events past the last eval
+    point still replay.  ``ckpt`` (`engine_ckpt._Checkpoints`) gives the
+    carry, curve and event to start from and saves the carry after the
+    events it names and after the last.
 
     grad_fn(j, w, k): stochastic gradient of client j at params w, server
     step k (0-d device tensors).  update_fn(w, g, scale) defaults to
@@ -555,21 +688,29 @@ def _make_host_runner(
                                        update_fn=update_fn, snapshot_dtype=snapshot_dtype)
     eval_every_default = eval_every
 
-    def run(w0, J, slot, scale, eval_every=eval_every_default):
+    def run(w0, J, slot, scale, eval_every=eval_every_default, ckpt=None):
         pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype)
         flat_mode = update_fn is None  # the default update is one flat axpy
         update_step = _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc,
-                                        fedbuff_Z)
-        carry, to_tree = _init_update_carry(w0, C, pack, unpack, flat_mode, enc, fedbuff_Z)
+                                        fedbuff_Z, guard)
+        carry, to_tree = _init_update_carry(w0, _ring_rows(C, slot), pack, unpack, flat_mode,
+                                            enc, fedbuff_Z)
         T = int(J.shape[0])
         ks = torch.arange(T, dtype=torch.int64, device=J.device)
         every = eval_every if (eval_fn is not None and eval_every and T >= eval_every) else 0
-        evals = []
-        for k in range(T):
+        evals, k0 = [], 0
+        if ckpt is not None:
+            carry, evals, k0 = ckpt.start(carry)
+        for k in range(k0, T):
             carry = update_step(carry, J[k], slot[k], scale[k], ks[k])
             if every and (k + 1) % every == 0:
                 evals.append(eval_fn(to_tree(carry[0])))
-        return to_tree(carry[0]), _stack_evals(evals, J.device)
+            if ckpt is not None:
+                ckpt.after(k + 1, carry, evals)
+        if ckpt is not None:
+            ckpt.end(carry, evals)
+        out = to_tree(carry[0]), _stack_evals(evals, J.device)
+        return out + (carry[3],) if guard is not None else out
 
     return run
 
@@ -588,8 +729,9 @@ def _cells_eval_fn(eval_fn, unpack, flat_mode: bool):
 def _make_host_cells_runner(grad_fn, C: int, *, eval_fn=None, eval_every: int = 0,
                             update_fn=None, snapshot_dtype=None):
     """The per-event engine over B streams in lockstep, with an explicit
-    cell axis: the ring is (B, C, P), the weights (B, P) in flat mode (else
-    a tree of (B, ...) leaves).
+    cell axis: the ring is (B, C, P) (each cell's trash row C added when a
+    stream sends an event there, `_ring_rows`), the weights (B, P) in flat
+    mode (else a tree of (B, ...) leaves).
 
     ``run(w0, J, slot, scale, eval_every=...) -> (w_final, evals)`` over
     (B, T) device tensors; ``w_final`` has a leading B axis on every leaf and
@@ -611,12 +753,13 @@ def _make_host_cells_runner(grad_fn, C: int, *, eval_fn=None, eval_every: int = 
         flat_mode = update_fn is None
         B, T = (int(d) for d in J.shape)
         dev = J.device
-        (w, snaps, _), to_tree = _init_update_carry(w0, C, pack, unpack, flat_mode, enc,
-                                                    cells=B)
-        ring = snaps.view(B * C, -1)
+        R = _ring_rows(C, slot)
+        (w, snaps, _, _), to_tree = _init_update_carry(w0, R, pack, unpack, flat_mode, enc,
+                                                       cells=B)
+        ring = snaps.view(B * R, -1)
         grads = torch.func.vmap(lambda j, wi, k: grad_fn(j, unpack(wi), k))
         pack_cells = torch.func.vmap(pack)
-        base = torch.arange(B, dtype=torch.int64, device=dev) * C
+        base = torch.arange(B, dtype=torch.int64, device=dev) * R
         # event-major copies: row k of each is one contiguous (B,) column
         Jt, rows_t = J.t().contiguous(), (slot.t() + base).contiguous()
         sct = scale.t().contiguous()
@@ -698,13 +841,18 @@ def _make_host_block_runner(
     snapshot_dtype=None,
     lanes=None,
     vmap_streams: bool = False,
+    guard: GuardConfig | None = None,
 ):
     """Build the blocked replay engine over `queue_sim.EventBlocks` arrays.
 
-    Returns ``run(w0, J, slot, scale, k, mask, chunk_blocks=0, n_chunks=0)
-    -> (w_final, evals)`` over (B, E) device tensors (see `blocked_inputs`).
-    The first ``n_chunks * chunk_blocks`` rows are eval-interval groups
-    (eval fires after each group); trailing rows replay without eval.
+    Returns ``run(w0, J, slot, scale, k, mask, chunk_blocks=0, n_chunks=0,
+    ckpt=None) -> (w_final, evals)`` over (B, E) device tensors (see
+    `blocked_inputs`) — with ``guard``, ``(w_final, evals, gcnt)``
+    (`_make_block_step`).  The first ``n_chunks * chunk_blocks`` rows are
+    eval-interval groups (eval fires after each group); trailing rows
+    replay without eval.  ``ckpt`` (`engine_ckpt._Checkpoints`, unsharded
+    only) gives the carry, curve and row to start from and saves the carry
+    after the rows it names and after the last.
 
     The blocked engine needs the flat-packed codec and the default linear
     update; ``kernel`` picks the plain path ("jnp") or the CUDA kernels
@@ -742,36 +890,46 @@ def _make_host_block_runner(
 
         pad_to = BLOCK_TILE
 
-    def run(w0, J, slot, scale, k, mask, chunk_blocks=0, n_chunks=0):
+    def run(w0, J, slot, scale, k, mask, chunk_blocks=0, n_chunks=0, ckpt=None):
         pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype, pad_to=pad_to)
         if unpack is None:
             raise ValueError(
                 "block_size > 1 requires all-float parameters "
                 "(flat-packed snapshot storage)"
             )
+        if ckpt is not None and (vmap_streams or lane_group is not None):
+            raise ValueError("checkpointing replays one unsharded stream")
         if vmap_streams:
             return run_cells(pack, unpack, enc, w0, J, slot, scale, k, mask, chunk_blocks,
                              n_chunks)
         if lane_group is not None:  # this rank's contiguous E/D lanes
             J, slot, scale, k, mask = (a[:, lo : lo + El].contiguous()
                                        for a in (J, slot, scale, k, mask))
-        block_step = _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z, lane_group)
+        block_step = _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z, lane_group,
+                                      guard)
         carry, to_tree = _init_update_carry(w0, C + 1, pack, unpack, True, enc, fedbuff_Z)
         B = int(J.shape[0])
         every = chunk_blocks if (eval_fn is not None and n_chunks and chunk_blocks) else 0
         Bm = n_chunks * chunk_blocks
-        evals = []
-        for b in range(B):
+        evals, b0 = [], 0
+        if ckpt is not None:
+            carry, evals, b0 = ckpt.start(carry)
+        for b in range(b0, B):
             carry = block_step(carry, J[b], slot[b], scale[b], k[b], mask[b])
             if every and b < Bm and (b + 1) % every == 0:
                 evals.append(eval_fn(to_tree(carry[0])))
-        return to_tree(carry[0]), _stack_evals(evals, J.device)
+            if ckpt is not None:
+                ckpt.after(b + 1, carry, evals)
+        if ckpt is not None:
+            ckpt.end(carry, evals)
+        out = to_tree(carry[0]), _stack_evals(evals, J.device)
+        return out + (carry[3],) if guard is not None else out
 
     def run_cells(pack, unpack, enc, w0, J, slot, scale, k, mask, chunk_blocks, n_chunks):
         block_step = _make_cells_block_step(grad_fn, pack, unpack, kernel)
         B, nb = (int(d) for d in J.shape[:2])
-        (w, snaps, _), to_tree = _init_update_carry(w0, C + 1, pack, unpack, True, enc,
-                                                    cells=B)
+        (w, snaps, _, _), to_tree = _init_update_carry(w0, C + 1, pack, unpack, True, enc,
+                                                       cells=B)
         every = chunk_blocks if (eval_fn is not None and n_chunks and chunk_blocks) else 0
         evaluate = _cells_eval_fn(eval_fn, unpack, True)
         # block-major copies: row b of each is one contiguous (B, E) block
@@ -808,6 +966,7 @@ def make_runner(
     snapshot_dtype=None,
     lane_devices: int = 1,
     vmap_streams: bool = False,
+    guard: GuardConfig | None = None,
 ):
     """Build the replay engine for a pre-simulated event stream.
 
@@ -819,13 +978,14 @@ def make_runner(
     ``lane_devices`` the number of ranks the blocked lanes are sharded over.
     ``vmap_streams=True`` takes the same arrays with a leading cell axis
     (stacked streams, `blocked_inputs_batch`) and replays the cells in
-    lockstep.
+    lockstep.  ``guard`` adds the divergence guard and returns its counter
+    third (`GuardConfig`).
     """
     if stream != "host":
         if stream == "device":
             raise unported("stream='device'", 6)
         raise ValueError(stream)
-    _check_cells(vmap_streams, lane_devices, fedbuff_Z)
+    _check_cells(vmap_streams, lane_devices, fedbuff_Z, guard)
     lanes = _check_lane_devices(lane_devices, block_size)  # rejects D > 1 at E = 1
     if block_size > 1:
         if eval_every:
@@ -833,23 +993,27 @@ def make_runner(
         return _make_host_block_runner(
             grad_fn, C, block_size, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn,
             update_fn=update_fn, kernel=kernel, snapshot_dtype=snapshot_dtype,
-            lanes=lanes, vmap_streams=vmap_streams,
+            lanes=lanes, vmap_streams=vmap_streams, guard=guard,
         )
     return _make_host_runner(
         grad_fn, C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
         update_fn=update_fn, snapshot_dtype=snapshot_dtype, vmap_streams=vmap_streams,
+        guard=guard,
     )
 
 
-def _check_cells(vmap_streams: bool, lane_devices: int, fedbuff_Z: int) -> None:
-    """The cell axis replays Generalized AsyncSGD unsharded: its lanes (the
-    reference's cell × lane layout) wait for ROADMAP item 12."""
+def _check_cells(vmap_streams: bool, lane_devices: int, fedbuff_Z: int, guard=None) -> None:
+    """The cell axis replays Generalized AsyncSGD unsharded and unguarded
+    (`run_matrix` passes no guard): its lanes (the reference's cell × lane
+    layout) wait for ROADMAP item 12."""
     if not vmap_streams:
         return
     if lane_devices > 1:
         raise unported("run_matrix lanes (vmap_streams with lane_devices > 1)", 12)
     if fedbuff_Z:
         raise ValueError("vmap_streams=True replays Generalized AsyncSGD (fedbuff_Z=0)")
+    if guard is not None:
+        raise ValueError("vmap_streams=True replays without a guard (guard=None)")
 
 
 def _runner_cache(grad_fn):
@@ -877,6 +1041,7 @@ def jit_runner(
     snapshot_dtype=None,
     lane_devices: int = 1,
     vmap_streams: bool = False,
+    guard: GuardConfig | None = None,
 ):
     """Memoized `make_runner` (host stream).
 
@@ -888,16 +1053,17 @@ def jit_runner(
     """
     if block_size > 1 and eval_every:
         raise ValueError(_EVAL_CADENCE_MSG)
-    _check_cells(vmap_streams, lane_devices, fedbuff_Z)
+    _check_cells(vmap_streams, lane_devices, fedbuff_Z, guard)
     cache, func = _runner_cache(grad_fn)
     # the lanes' (group, rank) is in the key: a runner holds the group it was built for
     key = ("host", func, C, fedbuff_Z, eval_fn, update_fn, vmap_streams, block_size, kernel,
-           snapshot_dtype, _check_lane_devices(lane_devices, block_size))
+           snapshot_dtype, _check_lane_devices(lane_devices, block_size),
+           None if guard is None else guard.cache_key())
     if key not in cache:
         cache[key] = make_runner(
             grad_fn, C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, update_fn=update_fn,
             block_size=block_size, kernel=kernel, snapshot_dtype=snapshot_dtype,
-            lane_devices=lane_devices, vmap_streams=vmap_streams,
+            lane_devices=lane_devices, vmap_streams=vmap_streams, guard=guard,
         )
     run = cache[key]
     return run if block_size > 1 else partial(run, eval_every=eval_every)

@@ -420,21 +420,19 @@ def _cached_fl_setup(data: FederatedClassification | None, seed: int, task=None,
     return setup
 
 
-def _reject_unported(flc: FLConfig, method, task, faults, guard, serving, ckpt_dir):
+def _reject_unported(flc: FLConfig, method, task, serving):
+    """The device event stream (with the faults, guard, checkpoints and
+    scenarios that ride on it) raises first, then the serving plane."""
     if method not in ("gen_async", "async_sgd", "fedbuff", "fedavg", "favano"):
         raise ValueError(method)
-    if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
-        raise unported(f"task={type(task).__name__}", "7d")
-    if faults is not None or guard is not None:
-        raise unported("faults= / guard=", 8)
-    if ckpt_dir is not None:
-        raise unported("ckpt_dir=", 8)
-    if serving is not None:
-        raise unported("serving=", 11)
     if flc.stream == "device":
         raise unported("stream='device'", 6)
     if flc.adaptive:
         raise unported("adaptive=True", 6)
+    if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
+        raise unported(f"task={type(task).__name__}", "7d")
+    if serving is not None:
+        raise unported("serving=", 11)
 
 
 def run_experiment(
@@ -467,11 +465,20 @@ def run_experiment(
     (an int E, or "auto"), ``flc.segmentation`` its cut placement, and
     ``flc.devices = D > 1`` shards its lanes over the D ranks of a
     `torch.distributed` process group (every rank makes the same call and
-    gets the same result).  The other keywords keep
-    `repro.fl.engine.run_experiment`'s signature; the options the port does
-    not run yet raise `NotImplementedError`.
+    gets the same result).
+
+    Robustness knobs (async methods, host stream): ``faults`` injects client
+    churn / crashes / straggler timeouts (`core.FaultConfig`), ``guard``
+    rejects divergent or over-stale updates (`core.GuardConfig`),
+    ``flc.scenario`` swaps in a phase-type service law and modulated
+    availability, and ``ckpt_dir`` + ``ckpt_every`` checkpoint the full
+    engine state every ``ckpt_every`` CS steps (scan engine); ``resume=True``
+    restores the latest checkpoint and continues, bitwise.  The other
+    keywords keep `repro.fl.engine.run_experiment`'s signature; the options
+    the port does not run yet (the device stream, serving) raise
+    `NotImplementedError`.
     """
-    _reject_unported(flc, method, task, faults, guard, serving, ckpt_dir)
+    _reject_unported(flc, method, task, serving)
     device = resolve_device(flc.device)
     engine = flc.engine if engine is None else engine
     if engine not in ("python", "scan"):
@@ -508,6 +515,11 @@ def run_experiment(
         block_size=flc.block_size if use_scan else 1,
         devices=flc.devices if use_scan else 1,
         segmentation=flc.segmentation,
+        faults=faults,
+        guard=guard,
+        ckpt_dir=ckpt_dir,
+        ckpt_every=ckpt_every,
+        resume=resume,
         scenario=flc.scenario,
         device=flc.device,
     )
@@ -570,13 +582,15 @@ class MatrixResult:
     extras: dict = field(default_factory=dict)
 
 
-def matrix_streams(flc: FLConfig, seeds, policies, speed_ratios, eta: float):
+def matrix_streams(flc: FLConfig, seeds, policies, speed_ratios, eta: float,
+                   scenario=None):
     """The scenario grid's sampling vectors and event streams, as
     `run_matrix` replays them: ``(p_vectors (P, H, n), [(EventStream, (T,)
     step scales)] in seed, policy, ratio order)``.  The speeds of a ratio
     and the sampling vector of a (policy, ratio) do not depend on the seed
     (``flc.seed`` draws the speeds); each cell's stream is simulated with
-    its own seed."""
+    its own seed, under ``scenario`` (an enabled `ScenarioConfig`) when
+    given."""
     from ..core.engine_scan import step_scales
     from ..core.queue_sim import SimConfig, export_stream
 
@@ -592,7 +606,7 @@ def matrix_streams(flc: FLConfig, seeds, policies, speed_ratios, eta: float):
             for hi, mu in enumerate(mus):
                 p = p_vectors[pi, hi]
                 es = export_stream(SimConfig(mu=mu, p=p, C=C, T=T, service=flc.service,
-                                             seed=seed))
+                                             seed=seed, scenario=scenario))
                 streams.append((es, step_scales(es, eta, p, flc.weighting)))
     return p_vectors, streams
 
@@ -624,6 +638,10 @@ def run_matrix(
     (`engine_scan.jit_runner(..., vmap_streams=True)`): one gather, one
     vmapped gradient call, one update and one scatter per event (or block)
     for all cells.  ``final_acc`` is the eval fn vmapped over the cells.
+    ``scenario`` (default ``flc.scenario``; a registry name or a
+    `ScenarioConfig`) simulates every cell's stream under that service law
+    and availability; its stage and flip events replay as no-ops through
+    each cell's trash ring row.
 
     ``task`` picks the workload as in `run_experiment` (`LMTask`: ``eval_acc``
     and ``final_acc`` then carry eval loss).  The model and dataset are
@@ -632,8 +650,8 @@ def run_matrix(
     ``task``) to reuse the cached gradient source and with it the memoized
     runner; the eval cadence is a call-time argument of the runner, so a
     sweep over ``eval_every`` does not rebuild it.  ``stream="device"``,
-    ``flc.adaptive``, an enabled ``scenario`` and ``devices`` > 1 raise
-    `NotImplementedError`, each naming its ROADMAP item.
+    ``flc.adaptive`` and ``devices`` > 1 raise `NotImplementedError`, each
+    naming its ROADMAP item.
     """
     from ..core.async_sgd import _auto_block_size
     from ..core.engine_scan import blocked_inputs_batch, jit_runner
@@ -648,8 +666,8 @@ def run_matrix(
     if flc.adaptive:
         raise unported("run_matrix with adaptive=True", 6)
     sc = get_scenario(scenario if scenario is not None else flc.scenario)
-    if sc is not None and sc.enabled:
-        raise unported("run_matrix with scenario=", 10)
+    if sc is not None and not sc.enabled:
+        sc = None
     lane = max(int(flc.devices if devices is None else devices), 1)
     if lane > 1:
         raise unported("run_matrix lanes (devices > 1)", 12)
@@ -670,7 +688,7 @@ def run_matrix(
     C = flc.concurrency
     S, P, H = len(seeds), len(policies), len(speed_ratios)
     w0 = setup.params
-    p_vectors, streams = matrix_streams(flc, seeds, policies, speed_ratios, eta)
+    p_vectors, streams = matrix_streams(flc, seeds, policies, speed_ratios, eta, scenario=sc)
     t_phys = np.stack([es.t for es, _ in streams])
     if block_size == "auto":
         # the single run's resolution policy, over all cells' measured slots

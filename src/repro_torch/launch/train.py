@@ -9,6 +9,8 @@ Two modes, with the reference's flags:
     the server applies importance-weighted updates (Alg. 1 line 10).
     ``--engine`` picks the server loop: "python" (the per-event oracle) or
     "scan" (the replay engine; ``--block-size`` micro-blocks it).
+    ``--ckpt-dir`` saves the final parameters there (`repro_torch.ckpt`,
+    the reference's layout).
 
 Runs on the GPU unless ``--device cpu`` is given:
 
@@ -25,6 +27,7 @@ import time
 import numpy as np
 
 from ..configs import get_config, smoke_config
+from ..ckpt import save
 from ..configs.base import FLConfig
 from ..fl import LMTask, run_experiment
 from ..unported import unported
@@ -42,8 +45,6 @@ def lm_config(args):
 def run_lm(args) -> None:
     if args.engine == "fused":
         raise unported("--engine fused (device event stream)", 6)
-    if args.ckpt_dir:
-        raise unported("--ckpt-dir", 8)
     cfg = lm_config(args)
     n, C = args.clients, args.concurrency
     task = LMTask(cfg=cfg, batch_size=args.batch, seq_len=args.seq,
@@ -63,6 +64,10 @@ def run_lm(args) -> None:
         print(f"step {s:6d} eval_loss {v:.4f}")
     if r.mean_delays is not None:
         print(f"mean delay overall {np.nanmean(r.mean_delays):.1f} steps")
+    if args.ckpt_dir:
+        save(args.ckpt_dir, args.steps, r.final_params,
+             metadata={"arch": args.arch, "mode": "lm"})
+        print(f"checkpoint saved to {args.ckpt_dir}")
 
 
 def run_fl(args) -> None:

@@ -150,18 +150,22 @@ def test_scan_rejects_host_only_source():
 
 
 @pytest.mark.parametrize("option", [
-    dict(faults=queue_sim.FaultConfig(crash_rate=0.1)),
-    dict(guard=object()),
-    dict(ckpt_dir="ckpt"),
+    dict(faults=queue_sim.FaultConfig(crash_rate=0.1), stream="device"),
+    dict(guard=engine_scan.GuardConfig(max_grad_norm=10.0), stream="device"),
+    dict(ckpt_dir="ckpt", ckpt_every=5, stream="device"),
     dict(stream="device"),
     dict(adaptive=True),
-    dict(scenario="erlang2"),
+    dict(scenario="erlang2", stream="device"),
 ])
 @pytest.mark.parametrize("engine", ["python", "scan"])
 def test_unported_options_raise(option, engine):
+    """Faults, the guard, checkpoints and scenarios run on the host stream
+    (`tests/test_torch_faults.py`, `test_torch_ckpt.py`,
+    `test_torch_scenarios.py`); on the device stream, which is not ported,
+    each raises item 6 first, as does adaptive sampling."""
     prob = Quadratic(4)
     cfg = ServerConfig(n=4, C=2, T=10, eta=0.1, engine=engine, device="cpu", **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
         run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
 
 

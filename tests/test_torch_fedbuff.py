@@ -165,7 +165,8 @@ def test_bf16_fedbuff_flush_rounds_once_like_jax(Z):
     grads = [torch.tensor(g).to(torch.bfloat16) for g in gs]
     step = engine_scan._make_update_step(lambda j, w, k: grads[int(k)], None, pack, unpack,
                                          True, lambda x: x, Z)
-    tcarry = (tw, tw[None].expand(C, P).clone(), torch.zeros_like(tw))
+    tcarry = (tw, tw[None].expand(C, P).clone(), torch.zeros_like(tw),
+              torch.zeros(2, dtype=torch.int32))
     for k in range(steps):
         jcarry = j_apply(jcarry, jnp.asarray(gs[k], jnp.bfloat16), int(slots[k]),
                          jnp.asarray(scale), jnp.int32(k))

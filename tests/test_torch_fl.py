@@ -137,14 +137,17 @@ def test_cuda_device_raises_without_a_card():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(task=object()), "item 7"),
-    (dict(faults=object()), "item 8"),
-    (dict(ckpt_dir="ckpt"), "item 8"),
+    (dict(faults=object(), flc=dict(stream="device")), "item 6"),
+    (dict(ckpt_dir="ckpt", ckpt_every=5, flc=dict(stream="device")), "item 6"),
     (dict(serving=object()), "item 11"),
 ])
 def test_run_experiment_unported_raise(kw, item):
+    """Faults and checkpoints run on the host stream (`tests/test_torch_faults.py`,
+    `tests/test_torch_ckpt.py`); on the device stream they raise its item 6."""
     kw = dict(kw)
     method = kw.pop("method", "gen_async")
-    flc = FLConfig(n_clients=4, concurrency=2, server_steps=10, device="cpu")
+    flc = FLConfig(n_clients=4, concurrency=2, server_steps=10, device="cpu",
+                   **kw.pop("flc", {}))
     with pytest.raises(NotImplementedError, match=item):
         t_fl.run_experiment(flc, method, **kw)
     with pytest.raises(NotImplementedError, match="item 6"):

@@ -978,3 +978,104 @@ def test_moe_loss_and_grads_kernel_vs_plain(dev, arch, dtype):
     if dtype == "float32":  # bf16: the loss only (a near-tied router choice may flip)
         for a, b in zip(tree_leaves(gk), tree_leaves(gp)):
             assert _err(a, b) <= tol_grad * float(b.float().abs().max())
+
+
+# ------------------------------------------------------------------ #
+# faults, the guard and checkpoints on the host stream, on the card
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("dtype,w_dtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16)])
+def test_block_prefix_update_with_guard_and_fault_rows_bitwise(dev, dtype, w_dtype):
+    """A guarded block of a fault stream: rows the guard zeroed (their slot
+    live), scale-0 fault rows on live slots and flip / stage rows on the
+    trash row C, among ordinary rows; K2 equals its plain version bitwise."""
+    C, P, E = 64, 26624, 8
+    gen = torch.Generator(device=dev).manual_seed(20)
+    snaps = torch.randn((C + 1, P), generator=gen, device=dev).to(dtype)
+    w = torch.randn((P,), generator=gen, device=dev).to(w_dtype)
+    D = 0.01 * torch.randn((E, P), generator=gen, device=dev)
+    D[1] = 0.0          # guard-zeroed (non-finite or over-norm gradient)
+    D[[3, 4, 6]] = 0.0  # scale 0: a crash on slot 9, flip / stage rows on C
+    slots = torch.tensor([5, 17, 2, 9, C, 40, C, 63], device=dev)
+    rs, rw = ref.block_prefix_update_ref(snaps.clone(), w, D, slots)
+    cuda_kernels.reset_launches()
+    ks, kw = cuda_kernels.block_prefix_update(snaps.clone(), w, D, slots)
+    assert cuda_kernels.launches["block_prefix_update"] == 1
+    assert torch.equal(ks, rs) and torch.equal(kw, rw)
+
+
+def test_guarded_fault_kernel_paths_match_plain_paths(dev):
+    """The MLP with faults and the guard on the card: blocked with K2 bitwise
+    ``update="jnp"``; the guard's counter and kind counts equal; a
+    per-event fault stream (slot C on every flip) replays without a device
+    assert and K1 per event (no guard) matches the flat update."""
+    from repro_torch.core import FaultConfig, GuardConfig
+
+    setup, mu = _setup(dev)
+    cfg = ServerConfig(n=16, C=4, T=300, eta=0.05, mu=mu, eval_every=100, engine="scan",
+                       device="cuda", faults=FaultConfig(0.2, 1.0, 0.05, 0.1))
+    run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+    guarded = replace(cfg, guard=GuardConfig(max_grad_norm=1e3, stale_cutoff=16))
+    cuda_kernels.reset_launches()
+    w_k, tr_k = run(replace(guarded, update="pallas", block_size=4))
+    assert cuda_kernels.launches["block_prefix_update"] > 0
+    w_j, tr_j = run(replace(guarded, block_size=4))
+    assert all(torch.equal(w_k[k], w_j[k]) for k in w_k) and tr_k.eval_values == tr_j.eval_values
+    assert tr_k.extras["guard_rejects"] == tr_j.extras["guard_rejects"] == 0
+    assert tr_k.extras["stale_drops"] == tr_j.extras["stale_drops"] > 0
+    w_e, tr_e = run(guarded)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v).all()) for v in w_e.values())
+    np.testing.assert_array_equal(tr_e.extras["kind_count"], tr_k.extras["kind_count"])
+    w_k1, _ = run(replace(cfg, update="pallas"))
+    w_f, _ = run(cfg)
+    assert max(_err(w_k1[k], w_f[k]) for k in w_f) <= 1e-5
+
+
+def test_bf16_ring_checkpoint_roundtrip_on_card(dev, tmp_path):
+    """A CUDA bf16 ring (every bit pattern) and an fp32 w through
+    `ckpt.save` / `restore`: bitwise, back on the card."""
+    from repro_torch.ckpt import checkpoint as ck
+
+    bits = torch.arange(-(1 << 15), 1 << 15, dtype=torch.int32).to(torch.int16)
+    ring = bits.view(torch.bfloat16).reshape(2, -1).to(dev)
+    w = torch.randn(1000, device=dev)
+    ck.save(str(tmp_path), 7, {"ring": ring, "w": w})
+    back = ck.restore(str(tmp_path), 7, {"ring": torch.empty_like(ring), "w": torch.empty_like(w)})
+    assert back["ring"].is_cuda and back["ring"].dtype == torch.bfloat16
+    assert torch.equal(back["ring"].view(torch.int16), ring.view(torch.int16))
+    assert torch.equal(back["w"], w)
+
+
+@pytest.mark.parametrize("block_size", [1, 4])
+def test_checkpointed_resume_on_card_is_bitwise(dev, tmp_path, block_size):
+    """The checkpointed MLP replay on the card with faults and the guard:
+    truncated and resumed, bitwise the uninterrupted run, which is bitwise
+    the un-checkpointed run (K2 blocked, bf16 ring per event)."""
+    import shutil
+
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.core import FaultConfig, GuardConfig
+
+    setup, mu = _setup(dev)
+    d = str(tmp_path / "ck")
+    cfg = ServerConfig(n=16, C=4, T=300, eta=0.05, mu=mu, eval_every=100, engine="scan",
+                       device="cuda", faults=FaultConfig(0.2, 1.0, 0.05, 0.1),
+                       guard=GuardConfig(1e3, 16), block_size=block_size, update="pallas"
+                       if block_size > 1 else "jnp", ckpt_dir=d, ckpt_every=100,
+                       snapshot_dtype="bfloat16" if block_size == 1 else None)
+    run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+    w_full, tr_full = run(cfg)
+    for s in ck.available_steps(d):
+        if s > 100:
+            shutil.rmtree(f"{d}/step_{s:010d}")
+    w_res, tr_res = run(replace(cfg, resume=True))
+    assert all(torch.equal(w_full[k], w_res[k]) for k in w_full)
+    assert tr_full.eval_values == tr_res.eval_values
+    if block_size > 1:
+        w_0, tr_0 = run(replace(cfg, ckpt_dir=None, ckpt_every=0))
+        assert all(torch.equal(w_full[k], w_0[k]) for k in w_full)
+        assert tr_full.eval_values == tr_0.eval_values

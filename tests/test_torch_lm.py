@@ -363,11 +363,39 @@ def test_cuda_device_raises_without_a_card():
 
 @pytest.mark.parametrize("argv,item", [
     (["--mode", "lm", "--engine", "fused"], "item 6"),
-    (["--mode", "lm", "--ckpt-dir", "ckpt"], "item 8"),
+    (["--mode", "lm", "--engine", "fused", "--ckpt-dir", "ckpt"], "item 6"),
 ])
 def test_cli_unported_options_raise(argv, item):
+    """``--ckpt-dir`` runs on the host stream (`test_cli_ckpt_dir_saves_the_final_params`);
+    with the device stream (``--engine fused``) it raises that stream's item 6."""
     with pytest.raises(NotImplementedError, match=item):
         t_train.main(argv + ["--device", "cpu"])
+
+
+def test_cli_ckpt_dir_saves_the_final_params(tmp_path, capsys):
+    """``--ckpt-dir`` saves the run's final parameters through
+    `repro_torch.ckpt` at step ``--steps``, as `repro.launch.train` does;
+    restoring them gives weights whose eval loss is the run's last."""
+    from repro_torch.ckpt import checkpoint as ck
+
+    d = str(tmp_path / "lm")
+    argv = ["--mode", "lm", "--device", "cpu", "--clients", "4", "--concurrency", "2",
+            "--steps", "4", "--batch", "2", "--seq", "16", "--shard-size", "32",
+            "--eval-every", "4", "--ckpt-dir", d]
+    t_train.main(argv)
+    out = capsys.readouterr().out
+    assert f"checkpoint saved to {d}" in out
+    assert ck.available_steps(d) == [4]
+    assert ck.load_metadata(d, 4) == {"arch": "granite-3-2b", "mode": "lm"}
+    cfg = t_configs.smoke_config("granite-3-2b")
+    task = t_fl.LMTask(cfg=cfg, batch_size=2, seq_len=16, shard_size=32)
+    setup = task.build(None, 0, 4, device="cpu")
+    back = ck.restore(d, 4, setup.params)
+    assert all(a.dtype == b.dtype and a.shape == b.shape
+               for a, b in zip(tree_leaves(back), tree_leaves(setup.params)))
+    assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(setup.params)))
+    last = float([line for line in out.splitlines() if "eval_loss" in line][-1].split()[-1])
+    assert abs(float(setup.eval_fn(back)) - last) <= 1e-4
 
 
 def test_unported_model_entry_points_raise():

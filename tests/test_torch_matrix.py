@@ -228,10 +228,12 @@ def test_one_runner_across_eval_cadences():
 @pytest.mark.parametrize("kw,item", [
     (dict(stream="device"), "item 6"),
     (dict(flc=dict(adaptive=True)), "item 6"),
-    (dict(scenario="erlang2"), "item 10"),
+    (dict(scenario="erlang2", stream="device"), "item 6"),
     (dict(devices=2, block_size=4), "item 12"),
 ])
 def test_run_matrix_unported_raise(kw, item):
+    """A scenario runs on the host stream (`tests/test_torch_scenarios.py`);
+    on the device stream it raises that stream's item 6."""
     kw = dict(kw)
     flc = FLConfig(n_clients=4, concurrency=2, server_steps=10, device="cpu",
                    **kw.pop("flc", {}))
