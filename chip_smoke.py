@@ -158,10 +158,44 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    copy holds the loop, peak device memory and the free disk.  The
    checkpoints go under ``build/`` and are deleted.
 
-Phases 4, 5, 8, 10, 13, 17 and 18 are the kernel paths: each launch count is
-zeroed just before the run and read just after.  fp32 matmuls run in full fp32 (TF32
-off for matmul and cuDNN).  The line before the last is the ``kernels``
-JSON object; the last line is the result object.
+19. the device event stream, its control plane and adaptive sampling
+   (``--only stream``; `phase_stream`, last in a whole run; its sizes are
+   cut for time, `STREAM_CARD_T` and below).  (a) The stream at the MLP
+   slice's network (n=256, C=64, its speeds and sampling p; T cut from
+   2000 to 1000) from uniforms drawn on the CPU: on the card equal to the
+   CPU's run of the same draws (J, K, slot, delay and the integer
+   statistics exactly; times and float statistics within 1e-6 relative),
+   also over 27 cells of T=250 on the cell axis; the replay check of
+   `tests/test_stream_device.py` (FIFO, Lemma 9, delays); under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync) one chunk of
+   the stream, and one chunk of the fused runner on the MLP,
+   importance-weighted and adaptive (slot scales, replay, ``ctrl_refresh``);
+   `generate_stream` events/s against `export_stream`'s and device
+   operations an event.  (e) MVA on the card against the numpy Buzen (<=
+   1e-5 relative) and the milliseconds of one ``ctrl_refresh`` at n=256,
+   C=64.  (b) ``run_experiment(FLConfig(stream="device"))`` on the
+   full-width MLP (T=2000, eval every 500; per event, plain), then on the
+   same draws per event with K1 (launches == T, weights within 1e-5 of the
+   plain run) and blocked E=8 (the plain prefix: the reference's blocked
+   device path takes only the default update; eval accuracies within
+   10/2048 of per event), FedBuff Z=10 with K1 and adaptive
+   (refresh every 250: ``p_final`` sums to 1, its Theorem-1 bound below
+   uniform's); every accuracy rises and ends within the host stream's
+   range at seeds 0-2 (blocked E=8) widened by 0.02; a
+   profile of the K1 run.  (d) ``run_matrix(stream="device")`` over phase
+   17's 27 cells at T=1000, plain and adaptive (p refreshed at each eval
+   point, every 200): finite curves, accuracy rising in every cell,
+   events/s summed, and every adaptive cell with unequal speeds ending
+   below uniform's bound.  (c) Mamba2-130M at full width and depth (phase
+   10's configuration, n=20, C=8, T=64) per
+   event on the device stream, K4 + K1: K1 launches == T, K4 == 24 x
+   forwards, the clients' training loss over the run's trained minibatches
+   falling, events/s and peak memory.
+
+Phases 4, 5, 8, 10, 13, 17, 18 and 19 are the kernel paths: each launch
+count is zeroed just before the run and read just after.  fp32 matmuls run
+in full fp32 (TF32 off for matmul and cuDNN).  The line before the last is
+the ``kernels`` JSON object; the last line is the result object.
 """
 from __future__ import annotations
 
@@ -368,6 +402,17 @@ ROBUST_SPIKE_EVERY = 50
 ROBUST_SCENARIOS = ("erlang2_onoff", "hyperexp2")
 ROBUST_MATRIX_SCENARIO = "erlang2"
 CKPT_ROOT = Path(__file__).resolve().parent / "build" / "robust_ckpt"
+# 19. the device event stream: the MLP slice's network (n=256, C=64; its
+# runs T=2000, adaptive refreshing p every 250 events).  Cut for time (the
+# whole command must end within 1200 s, and phases 1-18 alone take 940-1030
+# s on an NVIDIA H100 80GB HBM3 at 700 W, by host): the stream alone on the
+# card against the CPU at T=1000 and over 27 cells of T=250 on the cell
+# axis; the 27-cell device matrix at T=1000 (its time follows the events,
+# not the cells, so cutting cells saves nothing); the profiles over 100
+# events.  The host stream's accuracy range is taken at three seeds.
+STREAM_N, STREAM_C, STREAM_T, STREAM_CARD_T = 256, 64, 2000, 1000
+STREAM_CELLS_T, STREAM_REFRESH, STREAM_SEEDS = 250, 250, (0, 1, 2)
+STREAM_MATRIX_T, STREAM_PROFILE_T, STREAM_MAMBA_T = 1000, 100, 64
 
 failures: list[str] = []
 
@@ -887,24 +932,25 @@ def _mlp_flc(dev):
                     device=dev.type)
 
 
-def _mlp_setup(dev):
+def _mlp_setup(dev, data=None):
     """``(setup, ServerConfig)`` of the MLP slice's gen_async run, built as
-    `run_experiment` builds it (eval every 500 events)."""
+    `run_experiment` builds it (eval every 500 events; on ``data``, a
+    `FederatedClassification` whose cached setup a run already built)."""
     from repro_torch.core.async_sgd import ServerConfig
 
     flc = _mlp_flc(dev)
-    setup, mu, p = _build_task(flc, dev)
+    setup, mu, p = _build_task(flc, dev, data)
     return setup, ServerConfig(n=flc.n_clients, C=flc.concurrency, T=flc.server_steps,
                                eta=0.05, mu=mu, p=p, seed=flc.seed, eval_every=500,
                                engine="scan", weighting="importance", device=dev.type)
 
 
-def _build_task(flc, dev):
+def _build_task(flc, dev, data=None):
     """The task, clients, p and mu exactly as `run_experiment` builds them."""
     from repro_torch.data.pipeline import FederatedClassification, make_client_speeds
     from repro_torch.fl.engine import _cached_fl_setup, sampling_for
 
-    data = FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
+    data = data or FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
     mu = make_client_speeds(flc.n_clients, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
     setup = _cached_fl_setup(data, flc.seed, None, n_clients=flc.n_clients, device=dev)
     return setup, mu, sampling_for(flc, mu)
@@ -2713,8 +2759,371 @@ def phase_robust(dev, launches: dict) -> None:
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ #
+# 19. the device event stream, its control plane and adaptive sampling
+# ------------------------------------------------------------------ #
+def _fifo_ok(J, K, slot, delay, nodes, n: int, C: int) -> bool:
+    """`tests/test_stream_device.py`'s replay check of an exported stream:
+    FIFO completions, C - 1 tasks in flight at each completion (Lemma 9),
+    every freed slot reused once, and the stream's delays those of an
+    exact recount."""
+    fifo = [[] for _ in range(n)]
+    for s, node in enumerate(nodes):
+        fifo[int(node)].append((0, s))
+    for k in range(len(J)):
+        j, k_new, s = int(J[k]), int(K[k]), int(slot[k])
+        if not fifo[j]:
+            return False
+        disp_step, disp_slot = fifo[j].pop(0)
+        if disp_slot != s or int(delay[k]) != k - disp_step:
+            return False
+        if sum(len(q) for q in fifo) != C - 1:
+            return False
+        fifo[k_new].append((k + 1, s))
+    return sum(len(q) for q in fifo) == C
+
+
+def _same_stream(label: str, a, b) -> None:
+    """Two `stream_device.scan_draws` results (the card's, the CPU's on the
+    same draws): J, K, slot, delay and the integer statistics equal, the
+    times and the float statistics within 1e-6 relative."""
+    (_, ea, sa), (_, eb, sb) = a, b
+    ints = all(torch.equal(ea[i].cpu(), eb[i].cpu()) for i in (0, 1, 3, 4)) and all(
+        torch.equal(getattr(sa, f).cpu(), getattr(sb, f).cpu())
+        for f in ("occ_sum", "comp", "slot_step"))
+    rel = max(float(((x.cpu().double() - y.cpu().double()).abs()
+                     / y.cpu().double().abs().clamp_min(1e-30)).max())
+              for x, y in [(ea[2], eb[2])] + [(getattr(sa, f), getattr(sb, f))
+                                              for f in ("occ_tw", "busy_t", "delay_sum")])
+    check(ints and rel <= 1e-6, f"{label}: J, K, slot, delay and the integer statistics equal "
+          f"the CPU's on the same draws; times and float statistics within {rel:.2e} <= 1e-6 "
+          "relative")
+
+
+def _stream_card(dev, mu, p, setup) -> dict:
+    """19 (a): the stream on the card against the CPU, its FIFO law, no host
+    sync in a chunk of the stream or of the fused runner (the MLP's
+    ``setup``), events/s against `export_stream`, device ops an event."""
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.async_sgd import _device_grad_fn
+    from repro_torch.core.engine_scan import make_fused_runner
+    from repro_torch.core.queue_sim import SimConfig, export_stream
+
+    n, C, T = STREAM_N, STREAM_C, STREAM_CARD_T
+    f32 = torch.float32
+    nodes, ur, ue, ud = sd.draw_uniforms(0, n, C, T, p, device="cpu")
+    K = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32)), ud)
+    args = (torch.tensor(mu, dtype=f32), nodes, ur, ue, K)
+    t0 = time.perf_counter()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the CPU's runs: tiny operations, no gain from threads
+    cpu = sd.scan_draws(*args)
+    card, wall = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in args)))
+    _same_stream(f"stream on the card n={n} C={C} T={T}", card, cpu)
+    _, (J, Kg, _, slot, delay), _ = card
+    check(_fifo_ok(J.cpu(), Kg.cpu(), slot.cpu(), delay.cpu(), nodes, n, C),
+          f"the card's stream passes the FIFO / Lemma-9 / delay replay check ({T} events)")
+    # B cells on the cell axis
+    B, Tb = CELLS, STREAM_CELLS_T
+    draws = [sd.draw_uniforms(1000 + b, n, C, Tb, p, device="cpu") for b in range(B)]
+    nb, urb, ueb, udb = (torch.stack(a) for a in zip(*draws))
+    Kb = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32).expand(B, n)), udb)
+    argsb = (torch.tensor(mu, dtype=f32).expand(B, n), nb, urb, ueb, Kb)
+    cardb, wall_b = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in argsb)))
+    _same_stream(f"stream on the card, {B} cells on the cell axis, T={Tb}", cardb,
+                 sd.scan_draws(*argsb))
+    torch.set_num_threads(threads)
+    t_cmp = time.perf_counter() - t0
+    # one chunk of the fused runner's stream under the sync check
+    state, _ = sd.stream_init(nodes.to(dev)[None], n, C)
+    stats = sd.stats_init(n, C, cells=1, device=dev)
+    cst = sd._Consts((1,), C, dev)
+    L = STREAM_REFRESH
+    mu_g, p_g = torch.tensor(mu, dtype=f32, device=dev)[None], torch.tensor(p, dtype=f32,
+                                                                             device=dev)[None]
+    ur_g, ue_g, ud_g = (a.to(dev)[None, :L] for a in (ur, ue, ud))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Kc = sd.tree_sample(sd.tree_build(p_g), ud_g)
+        sd._advance(state, stats, mu_g, -torch.log1p(-ue_g), ur_g, Kc, 0, cst)
+        synced = False
+    except RuntimeError as e:
+        synced = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(synced is False, f"a chunk of {L} stream events makes no host sync "
+          f"(set_sync_debug_mode('error')){'' if synced is False else ': ' + synced[:200]}")
+    # one chunk of the fused runner itself: importance-weighted and adaptive
+    # (dispatch-time slot scales, the MLP's per-event replay, ctrl_refresh at
+    # the chunk's end)
+    fused = make_fused_runner(_device_grad_fn(setup.clients), n, C, L, weighting="importance",
+                              adaptive=True, refresh_every=L)
+    draws = sd.draw_uniforms(5, n, C, L, p_g[0], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w_f, _, ex_f = fused.from_draws(setup.params, mu_g[0], p_g[0], 0.05, *draws)
+        synced = False
+    except RuntimeError as e:
+        synced = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ok = synced is False and all(bool(torch.isfinite(v).all()) for v in w_f.values())
+    check(ok and tuple(ex_f["p_traj"].shape) == (1, n),
+          f"one chunk of the fused runner ({L} events, importance-weighted, adaptive: slot "
+          "scales, the MLP's per-event replay and ctrl_refresh) makes no host sync "
+          f"(set_sync_debug_mode('error')){'' if synced is False else ': ' + synced[:200]}")
+    # events/s: generate_stream on the card against the host simulator
+    _, w_gen = _timed(lambda: sd.generate_stream(mu, p, C, T, seed=0, device=dev))
+    t0 = time.perf_counter()
+    export_stream(SimConfig(mu=mu, p=p, C=C, T=T, seed=0))
+    w_exp = time.perf_counter() - t0
+    Tp = STREAM_PROFILE_T
+    short = (mu_g[0], nodes.to(dev), *(a.to(dev)[:Tp] for a in (ur, ue, K)))
+    dms, wms, _, ops = profile(lambda: sd.scan_draws(*short))
+    idle = None if dms is None else 1.0 - dms / wms
+    print(f"stream n={n} C={C} T={T}: scan on the card {wall:.3f} s ({T / wall:.1f} events/s), "
+          f"{B} cells x {Tb} on the cell axis {wall_b:.3f} s ({B * Tb / wall_b:.1f} events/s "
+          f"summed); generate_stream {T / w_gen:.1f} events/s vs export_stream "
+          f"{T / w_exp:.1f} events/s; profile ({Tp} events): {ops / Tp:.1f} device ops/event, "
+          f"wall {wms / Tp:.4f} ms/event, device busy "
+          f"{None if dms is None else round(dms / Tp, 6)} ms/event, idle share {idle}; the "
+          f"card-against-CPU checks took {t_cmp:.1f} s, (a) {time.perf_counter() - t0:.1f} s")
+    return dict(gen_eps=T / w_gen, export_eps=T / w_exp, ops=ops / Tp)
+
+
+def _stream_mlp(dev, launches: dict, data) -> dict:
+    """19 (b): the full-width MLP on the device stream, five ways, each
+    against the host stream's accuracy range at three seeds (on ``data``,
+    the slice's `FederatedClassification`)."""
+    from repro_torch.core.async_sgd import run_fedbuff, run_generalized_async_sgd
+    from repro_torch.core.sampling import bound_for_p
+    from repro_torch.core.theory import BoundConstants
+    from repro_torch.fl.engine import run_experiment
+    from repro_torch.kernels import weighted_update as wu
+
+    path = launches.setdefault("stream_mlp", {"weighted_update": 0})
+    flc = replace(_mlp_flc(dev), stream="device")
+    T = flc.server_steps
+    # the entry point is the per-event plain run: the same setup (cached on
+    # ``data``), p and draws (seed 0) as the runs below
+    r, wall = _timed(lambda: run_experiment(flc, "gen_async", eval_every=500, data=data))
+    w_pe = r.final_params
+    accs = {"per event (run_experiment)": (list(r.eval_acc), T / wall, "gen_async")}
+    setup, base = _mlp_setup(dev, data)
+    dbase = replace(base, stream="device")
+    run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+    fedbuff = lambda c: run_fedbuff(setup.params, setup.clients,  # noqa: E731
+                                    replace(c, weighting="plain"), Z=FEDBUFF_Z,
+                                    eval_fn=setup.eval_fn)
+    wu.reset_launches()
+    (w_k1, tr), wall = _timed(lambda: run(replace(dbase, update="pallas")))
+    _k1_counts(path, "MLP device stream per event", T, 6)
+    accs["per event K1"] = (tr.eval_values, T / wall, "gen_async")
+    gap = _tree_gap(w_k1, w_pe)
+    check(gap <= 1e-5, f"MLP device stream: K1 vs the flat update, max weight gap {gap:.3e} "
+          "<= 1e-5")
+    (w_bl, tr), wall = _timed(lambda: run(replace(dbase, block_size=MLP_E)))
+    accs[f"blocked E={MLP_E}"] = (tr.eval_values, T / wall, "gen_async")
+    dacc = _acc_gap(tr.eval_values, accs["per event (run_experiment)"][0])
+    check(dacc <= 10 / 2048, f"MLP device stream: blocked E={MLP_E} (plain prefix) vs per event "
+          f"on the same draws, eval accuracy gap {dacc:.5f} <= 10/2048")
+    wu.reset_launches()
+    (w_fb, tr), wall = _timed(lambda: fedbuff(replace(dbase, update="pallas")))
+    _k1_counts(path, "MLP device stream FedBuff", T, 6)
+    accs[f"FedBuff Z={FEDBUFF_Z} K1"] = (tr.eval_values, T / wall, "fedbuff")
+    (w_ad, tr_ad), wall = _timed(lambda: run(replace(dbase, adaptive=True,
+                                                      refresh_every=STREAM_REFRESH)))
+    accs[f"adaptive every {STREAM_REFRESH}"] = (tr_ad.eval_values, T / wall, "gen_async")
+    p_fin = tr_ad.extras["p_final"]
+    k = BoundConstants(C=base.C, T=T)
+    b_ad = bound_for_p(base.mu, p_fin / p_fin.sum(), k)[0]
+    b_un = bound_for_p(base.mu, np.full(base.n, 1.0 / base.n), k)[0]
+    check(abs(p_fin.sum() - 1.0) <= 1e-5 and b_ad < b_un,
+          f"MLP adaptive: p_final sums to {p_fin.sum():.7f}, its Theorem-1 bound {b_ad:.5f} < "
+          f"uniform's {b_un:.5f} for the run's mu")
+    # the host stream's curves at three seeds (blocked E=8, plain prefix)
+    host = {"gen_async": [run(replace(base, seed=s, block_size=MLP_E))[1].eval_values
+                          for s in STREAM_SEEDS],
+            "fedbuff": [fedbuff(replace(base, seed=s, block_size=MLP_E))[1].eval_values
+                        for s in STREAM_SEEDS]}
+    for label, (acc, eps, algo) in accs.items():
+        at = [curve[len(acc) - 1] for curve in host[algo]]
+        lo, hi = min(at), max(at)
+        print(f"MLP device stream {label}: {eps:.1f} events/s, acc {acc}")
+        check(len(acc) >= 2 and bool(np.isfinite(acc).all()) and acc[-1] > acc[0]
+              and lo - 0.02 <= acc[-1] <= hi + 0.02,
+              f"MLP device stream {label}: accuracy rises {acc[0]:.4f} -> {acc[-1]:.4f}, within "
+              f"the host stream's [{lo:.4f}, {hi:.4f}] at seeds {STREAM_SEEDS} +- 0.02")
+    small = replace(dbase, update="pallas", T=STREAM_PROFILE_T, eval_every=0)
+    _print_profile(f"MLP device stream per-event K1, T={STREAM_PROFILE_T}", lambda: run(small),
+                   STREAM_PROFILE_T)
+    del w_pe, w_k1, w_bl, w_fb, w_ad
+    return {k: v[1] for k, v in accs.items()}
+
+
+def _stream_mamba(dev, launches: dict) -> None:
+    """19 (c): Mamba2-130M at full width and depth on the device stream,
+    per event, K4 + K1."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.fl.engine import LMTask, _cached_fl_setup, sampling_for
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import weighted_update as wu
+
+    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
+    nL, T = cfg.num_layers, STREAM_MAMBA_T
+    flc = FLConfig(n_clients=LM_N, concurrency=MAMBA_C, server_steps=T, sampling="optimal",
+                   speed_ratio=10.0, engine="scan", stream="device", device=dev.type)
+    task = LMTask(cfg, batch_size=LM_BATCH, seq_len=LM_SEQ, shard_size=LM_SHARD)
+    setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
+    mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    p = sampling_for(flc, mu)
+    base = ServerConfig(n=LM_N, C=MAMBA_C, T=T, eta=0.05, mu=mu, p=p, seed=flc.seed,
+                        eval_every=LM_EVAL, engine="scan", stream="device", update="pallas",
+                        device=dev.type)
+    path = launches.setdefault("stream_mamba2", {"weighted_update": 0, "ssd_scan": 0})
+    torch.cuda.reset_peak_memory_stats()
+    wu.reset_launches()
+    k4.reset_launches()
+    (w, tr), wall = _timed(lambda: run_generalized_async_sgd(setup.params, setup.clients, base,
+                                                             eval_fn=setup.eval_fn))
+    _k1_counts(path, "Mamba2 device stream", T, MAMBA_LEAVES)
+    n4 = k4.launches["ssd_scan"]
+    path["ssd_scan"] += n4
+    forwards = _forwards(T, LM_EVAL)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"Mamba2 device stream per event, K4 + K1, n={LM_N} C={MAMBA_C} T={T}: {wall:.3f} s, "
+          f"{T / wall:.3f} events/s, {T * LM_BATCH * LM_SEQ / wall:.1f} tokens/s, K4 launches "
+          f"{n4}, loss {tr.eval_values}; peak device memory {peak:.3f} GiB")
+    check(n4 == nL * forwards, f"Mamba2 device stream: K4 launches {n4} == {nL} x {forwards} "
+          "forwards")
+    check(len(tr.eval_values) == T // LM_EVAL and bool(np.isfinite(tr.eval_values).all()),
+          f"Mamba2 device stream: {T // LM_EVAL} finite eval points")
+    # the run's events: its own draws again (the generator is seeded from cfg.seed)
+    nodes, ur, ue, ud = sd.draw_uniforms(flc.seed, LM_N, MAMBA_C, T, p, device=dev)
+    K = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=torch.float32, device=dev)), ud)
+    _, (J, _, _, _, _), _ = sd.scan_draws(torch.tensor(mu, dtype=torch.float32, device=dev),
+                                          nodes, ur, ue, K)
+    J = J.cpu().numpy()
+    before, after = _train_loss(setup, setup.params, J), _train_loss(setup, w, J)
+    check(after < before, f"Mamba2 device stream: the clients' training loss over the run's {T} "
+          f"trained minibatches falls: {before:.5f} -> {after:.5f}")
+    del w, setup
+    task.__dict__.pop("_fl_setup_cache", None)
+    torch.cuda.empty_cache()
+
+
+def _stream_matrix(dev) -> None:
+    """19 (d): phase 17's 27-cell MLP matrix on the device stream (T cut to
+    `STREAM_MATRIX_T`), per event, plain and adaptive."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.sampling import bound_for_p
+    from repro_torch.core.theory import BoundConstants
+    from repro_torch.data.pipeline import FederatedClassification, make_client_speeds
+    from repro_torch.fl.engine import run_matrix
+
+    flc = FLConfig(n_clients=MATRIX_N, concurrency=MATRIX_C, server_steps=MATRIX_T,
+                   engine="scan", stream="device", device=dev.type)
+    grid = MATRIX_GRID
+    T, B = STREAM_MATRIX_T, CELLS
+    flc = replace(flc, server_steps=T)
+    data = FederatedClassification(n_clients=MATRIX_N, seed=flc.seed)
+    mk = dict(grid, eta=MATRIX_ETA, eval_every=MATRIX_EVAL, data=data)
+    k = BoundConstants(C=MATRIX_C, T=T)
+    # the adaptive matrix refreshes p at each eval point (the eval cadence
+    # must be a multiple of the refresh cadence)
+    for label, f in (("plain", flc), ("adaptive", replace(flc, adaptive=True,
+                                                          refresh_every=MATRIX_EVAL))):
+        m, wall = _timed(lambda: run_matrix(f, **mk))
+        acc = np.asarray(m.eval_acc)
+        print(f"run_matrix(stream='device') {label}, {B} cells n={MATRIX_N} C={MATRIX_C} T={T}: "
+              f"{wall:.3f} s, {B * T / wall:.1f} events/s summed over cells; final acc "
+              f"(seed-mean, policy x ratio) {np.asarray(m.final_acc).mean(0).round(4).tolist()}")
+        shape = tuple(len(grid[k]) for k in ("seeds", "policies", "speed_ratios"))
+        check(acc.shape == shape + (T // MATRIX_EVAL,) and bool(np.isfinite(acc).all())
+              and bool((acc[..., -1] > acc[..., 0]).all())
+              and bool(np.all(np.diff(m.eval_times, axis=-1) >= 0)),
+              f"run_matrix(stream='device') {label}: finite curves, accuracy rises in every cell, "
+              "eval times monotone")
+        if label == "adaptive":
+            worse = []
+            for (s, pi, h), _ in np.ndenumerate(m.final_acc):
+                ratio = grid["speed_ratios"][h]
+                if ratio == 1.0:  # equal speeds: uniform is already the optimum
+                    continue
+                mu = make_client_speeds(MATRIX_N, flc.frac_fast, ratio, seed=flc.seed)
+                pf = m.extras["p_final"][s, pi, h]
+                if not (bound_for_p(mu, pf / pf.sum(), k)[0]
+                        < bound_for_p(mu, np.full(MATRIX_N, 1 / MATRIX_N), k)[0]):
+                    worse.append((s, pi, h))
+            check(not worse, "run_matrix adaptive: every cell with unequal speeds ends with a "
+                  f"Theorem-1 bound below uniform's (cells that do not: {worse})")
+
+
+def _stream_control(dev, mu, p) -> None:
+    """19 (e): MVA on the card against the numpy Buzen; ms per ctrl_refresh."""
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.jackson import JacksonNetwork
+    from repro_torch.core.theory import BoundConstants
+
+    n, C = STREAM_N, STREAM_C
+    mu_g = torch.tensor(mu, dtype=torch.float32, device=dev)
+    p_g = torch.tensor(p, dtype=torch.float32, device=dev)
+    m, lam = sd.mva_throughput_delays(mu_g, p_g, C)
+    net = JacksonNetwork(mu=mu, p=p, C=C)
+    want = net.expected_delays()
+    rel = float(np.max(np.abs(m.cpu().double().numpy() - want) / np.abs(want)))
+    rl = abs(float(lam) / net.throughput() - 1.0)
+    check(rel <= 1e-5 and rl <= 1e-5, f"MVA on the card n={n} C={C} vs the numpy Buzen: delays "
+          f"{rel:.2e}, throughput {rl:.2e} <= 1e-5 relative")
+    rng = np.random.default_rng(0)
+    comp = torch.tensor(rng.integers(1, 60, n), device=dev)
+    busy = torch.tensor(rng.uniform(5.0, 50.0, n), dtype=torch.float32, device=dev)
+    k = BoundConstants(C=C, T=STREAM_T)
+    ms = []
+    for _ in range(4):
+        _, wall = _timed(lambda: sd.ctrl_refresh(p_g, comp, busy, k))
+        ms.append(wall * 1e3)
+    out = sd.ctrl_refresh(p_g, comp, busy, k)
+    check(bool(torch.isfinite(out).all()) and abs(float(out.sum()) - 1.0) <= 1e-5,
+          "ctrl_refresh on the card: a finite p summing to 1")
+    print(f"ctrl_refresh n={n} C={C} (4 exponentiated-gradient steps through the MVA): "
+          f"{float(np.median(ms[1:])):.3f} ms (median of 3 after one warm-up; first "
+          f"{ms[0]:.3f} ms)")
+
+
+def phase_stream(dev, launches: dict) -> None:
+    """19. The device event stream, its control plane and adaptive sampling
+    (see the module docstring); adds the kernel launches to ``launches``
+    under "stream_mlp" (K1) and "stream_mamba2" (K4, K1)."""
+    from repro_torch.data.pipeline import FederatedClassification
+
+    t0 = time.perf_counter()
+    flc = _mlp_flc(dev)
+    data = FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
+    setup, base = _mlp_setup(dev, data)
+    mu, p = base.mu, base.p
+    _stream_card(dev, mu, p, setup)
+    _stream_control(dev, mu, p)
+    t1 = time.perf_counter()
+    _stream_mlp(dev, launches, data)
+    t2 = time.perf_counter()
+    _stream_matrix(dev)
+    t3 = time.perf_counter()
+    _stream_mamba(dev, launches)
+    t4 = time.perf_counter()
+    print(f"phase 19 times: stream and control plane {t1 - t0:.1f} s, MLP {t2 - t1:.1f} s, "
+          f"matrix {t3 - t2:.1f} s, Mamba2 {t4 - t3:.1f} s; phase 19 {t4 - t0:.1f} s")
+
+
 GROUPS = ("k1k2k6", "fa", "ssd", "gmm", "mlp", "lanes", "granite", "ssm", "matrix", "moe",
-          "robust")
+          "robust", "stream")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2817,6 +3226,11 @@ def main(argv: list[str] | None = None) -> int:
     if "robust" in groups:
         phase_robust(dev, launches)
         done("18")
+        torch.cuda.empty_cache()
+    # 19. the device event stream, its control plane and adaptive sampling
+    if "stream" in groups:
+        phase_stream(dev, launches)
+        done("19")
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)

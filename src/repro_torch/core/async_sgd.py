@@ -17,10 +17,14 @@ Engines
 -------
   * "python" — the per-event reference loop below (the port's own oracle;
     with faults, a guard or a scenario, `_python_fault_loop`);
-  * "scan"   — the device-resident replay engine (`core.engine_scan`): the
-    event stream is pre-simulated on the host and Algorithm 1 replays it
-    over a flat snapshot ring buffer on the device (with ``ckpt_dir``,
-    chunk by chunk through `core.engine_ckpt`, kill-and-resume safe).
+  * "scan"   — the device-resident replay engine (`core.engine_scan`):
+    ``stream="host"`` pre-simulates the event stream on the host and
+    Algorithm 1 replays it over a flat snapshot ring buffer on the device
+    (with ``ckpt_dir``, chunk by chunk through `core.engine_ckpt`,
+    kill-and-resume safe); ``stream="device"`` generates the events on the
+    device chunk by chunk and replays each chunk with the same steps (the
+    fused runner, `engine_scan.make_fused_runner`), the only mode of
+    ``adaptive`` sampling.
 Identical (seed, block) => identical event stream => iterates agree to
 float-associativity tolerance.
 
@@ -80,8 +84,9 @@ class ServerConfig:
 
     The field names are `repro.core.async_sgd.ServerConfig`'s, so one config
     drives both packages, plus ``device``.  Options this port does not run
-    yet (the device event stream and what rides on it, the serving plane)
-    raise `NotImplementedError` naming their ROADMAP item.
+    yet (faults, the guard, checkpoints and scenarios on the device stream,
+    the sparse stream, the serving plane) raise `NotImplementedError`
+    naming their ROADMAP item.
     """
 
     n: int                      # number of clients
@@ -101,9 +106,13 @@ class ServerConfig:
     update: str = "jnp"         # scan engine update path: "jnp" (plain torch) |
                                 # "pallas" (the hand-written CUDA kernels; the
                                 # plain versions on a CPU device)
-    stream: str = "host"        # scan engine event source: "host" only here
-    sparse: bool | str = "auto"  # device-stream knob; the host stream ignores it
-    adaptive: bool = False      # device-stream control loop (not ported)
+    stream: str = "host"        # scan engine event source: "host" (pre-simulated
+                                # replay) | "device" (fused on-device generator)
+    sparse: bool | str = "auto"  # device stream: "auto" stays dense below
+                                 # SPARSE_AUTO_N; True (the O(C) stream) raises
+                                 # item 9; the host stream ignores it
+    adaptive: bool = False      # device stream: re-optimize p from the measured
+                                # rates every refresh_every CS steps
     refresh_every: int = 0
     ctrl_lr: float = 0.3
     ctrl_iters: int = 4
@@ -172,14 +181,33 @@ def _resolve_scenario_cfg(cfg: ServerConfig):
 
 def _reject_unported(cfg: ServerConfig) -> None:
     """Raise for every option of `repro`'s ServerConfig the port does not
-    run: the device event stream first (faults, guard, checkpoints and
-    scenarios on it ride on item 6), then the serving plane."""
-    if cfg.stream == "device":
-        raise unported("stream='device'", 6)
-    if cfg.stream != "host":
+    run: faults, the guard, checkpoints (item 8) and scenarios (item 10) on
+    the device stream, the sparse stream (item 9), then the serving plane.
+    The engine's own validation raises first, as the reference's does."""
+    if cfg.stream not in ("host", "device"):
         raise ValueError(cfg.stream)
-    if cfg.adaptive:
-        raise unported("adaptive=True", 6)
+    if cfg.engine == "python" and (cfg.stream == "device" or cfg.adaptive):
+        raise ValueError("stream='device' / adaptive require engine='scan'")
+    if cfg.stream == "host" and cfg.adaptive and cfg.engine == "scan":
+        raise ValueError("adaptive sampling requires stream='device'")
+    if cfg.stream == "device" and cfg.engine == "scan":
+        if cfg.service != "exp":
+            raise ValueError(
+                "stream='device' supports exponential service only "
+                "(the on-device race relies on memorylessness)"
+            )
+        if cfg.faults is not None and cfg.faults.enabled:
+            raise unported("faults= on the device stream", 8)
+        if cfg.guard is not None:
+            raise unported("guard= on the device stream", 8)
+        if cfg.ckpt_dir is not None:
+            raise unported("ckpt_dir= on the device stream (run_checkpointed)", 8)
+        if _resolve_scenario_cfg(cfg) is not None:
+            raise unported("scenario= on the device stream", 10)
+        if cfg.sparse is True:
+            raise unported("sparse=True (the sparse O(C) stream)", 9)
+        if cfg.sparse not in (False, "auto"):
+            raise ValueError(f"sparse={cfg.sparse!r} (expected bool or 'auto')")
     if cfg.serving is not None and cfg.serving.enabled:
         raise unported("serving=", 11)
 
@@ -208,6 +236,25 @@ def _pallas_update_fn():
 
 #: cap for block_size="auto" selection
 DEFAULT_BLOCK_SIZE_MAX = 16
+#: probe length for "auto" when no event stream is materialized (device path)
+AUTO_PROBE_STEPS = 4000
+#: sparse="auto" would switch the device stream to the O(C) class-collapsed
+#: stream at and above this population size (ROADMAP item 9: the port keeps
+#: the dense stream, so "auto" stays dense and larger n raises)
+SPARSE_AUTO_N = 50_000
+
+
+def _probe_stream_slots(mu, p, C: int, T: int, seed, device) -> np.ndarray:
+    """A short device-generated probe stream for block-size auto-selection.
+
+    The fused engine never materializes its event stream, so ``"auto"`` on
+    the device path measures conflict rates on a law-identical probe of at
+    most `AUTO_PROBE_STEPS` CS steps from `stream_device.generate_stream`.
+    Shared by `_run_scan` and `fl.run_matrix`, so both resolve "auto" alike.
+    """
+    from .stream_device import generate_stream
+
+    return generate_stream(mu, p, C, min(T, AUTO_PROBE_STEPS), seed=seed, device=device).slot
 
 
 def _auto_block_size(slots, devices: int = 1, cut_every: int = 0) -> int:
@@ -253,19 +300,23 @@ def _run_scan(
     *,
     fedbuff_Z: int = 0,
 ) -> tuple[Pytree, TraceRecord]:
-    """Replay-engine run of Generalized AsyncSGD or FedBuff: pre-simulate
-    the event stream with `queue_sim.export_stream` (faults and scenarios
-    enter only there) and replay it on ``device``; ``cfg.devices > 1``
-    lane-shards the blocked replay over that many `torch.distributed` ranks
-    (every rank makes the same call).  The guard's staleness cutoff zeroes
-    the scales here, where the exported delays live; ``cfg.ckpt_dir``
-    routes the replay through the checkpointed drivers of
-    `core.engine_ckpt`."""
+    """Scan-engine run of Generalized AsyncSGD or FedBuff on ``device``.
+
+    ``cfg.stream == "device"`` generates the events on the device
+    (`_run_fused`).  The host stream pre-simulates them with
+    `queue_sim.export_stream` (faults and scenarios enter only there) and
+    replays them; ``cfg.devices > 1`` lane-shards the blocked replay over
+    that many `torch.distributed` ranks (every rank makes the same call).
+    The guard's staleness cutoff zeroes the scales here, where the exported
+    delays live; ``cfg.ckpt_dir`` routes the replay through the
+    checkpointed drivers of `core.engine_ckpt`."""
     from .engine_scan import blocked_inputs, jit_runner, step_scales, stream_arrays
     from .queue_sim import EventBlocks
 
     if cfg.track_virtual:
         raise NotImplementedError("track_virtual requires engine='python'")
+    if cfg.stream == "device":
+        return _run_fused(w0, source, cfg, eval_fn, p, mu, device, fedbuff_Z=fedbuff_Z)
     weighting = "plain" if fedbuff_Z else cfg.weighting
     faults = cfg.faults if (cfg.faults is not None and cfg.faults.enabled) else None
     scenario = _resolve_scenario_cfg(cfg)
@@ -368,11 +419,12 @@ def _run_scan(
                 snapshot_dtype=cfg.snapshot_dtype, guard=guard, resume=cfg.resume,
             )
         else:
-            # the ring in snapshot_dtype, as with checkpoints (`repro`'s
-            # un-checkpointed per-event replay ignores it: ROADMAP Queue 3)
+            # the ring in the weights' dtype: `repro`'s un-checkpointed
+            # per-event replay does not pass snapshot_dtype (the checkpointed
+            # drivers and the blocked runner honour it, in both packages)
             runner = jit_runner(
                 grad_fn, cfg.C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
-                update_fn=_scan_update_fn(cfg), snapshot_dtype=cfg.snapshot_dtype, guard=guard,
+                update_fn=_scan_update_fn(cfg), guard=guard,
             )
             J_dev, slot_dev = stream_arrays(stream, device)
             out = runner(
@@ -395,6 +447,73 @@ def _run_scan(
         )
     if eval_fn is not None and cfg.eval_every:
         vals = evals.detach().cpu().numpy()  # the run's one host sync
+        trace.eval_steps = [(i + 1) * cfg.eval_every for i in range(vals.shape[0])]
+        trace.eval_values = [float(v) for v in vals]
+    return w, trace
+
+
+def _resolve_sparse(cfg: ServerConfig, mu, p, block_size) -> None:
+    """The reference's ``sparse="auto"`` decision on the device stream: the
+    dense stream for a blocked or lane-sharded run, below `SPARSE_AUTO_N`
+    clients, or when the speed profile does not collapse to few classes;
+    otherwise it would take the sparse O(C) stream, which is not ported
+    (item 9; ``sparse=True`` raises in `_reject_unported`)."""
+    if (cfg.sparse != "auto" or (block_size != "auto" and int(block_size) > 1)
+            or cfg.devices > 1 or cfg.n < SPARSE_AUTO_N):
+        return
+    from .classes import build_class_spec
+
+    try:
+        build_class_spec(mu, p)
+    except ValueError:
+        return
+    raise unported(f"the sparse O(C) stream (sparse='auto' at n >= {SPARSE_AUTO_N})", 9)
+
+
+def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff_Z: int = 0):
+    """The device-stream branch of `_run_scan` (`repro`'s ``stream="device"``):
+    the fused runner (`engine_scan.jit_fused_runner`) generates the closed
+    network's events on ``device`` chunk by chunk and replays them; the
+    trace carries the event times and the on-device statistics (p_final,
+    p_traj, mean delays, completions, busy time, mean queue lengths)."""
+    from .engine_scan import jit_fused_runner
+
+    weighting = "plain" if fedbuff_Z else cfg.weighting
+    block_size = cfg.block_size
+    if block_size != "auto" and int(block_size) > 1 and cfg.apply_update is not None:
+        raise ValueError("block_size > 1 requires the default update w - scale*g")
+    if cfg.update not in ("jnp", "pallas"):
+        raise ValueError(cfg.update)
+    _resolve_sparse(cfg, mu, p, block_size)
+    eval_every = cfg.eval_every if eval_fn is not None else 0
+    if block_size == "auto":
+        block_size = _auto_block_size(
+            _probe_stream_slots(mu, p, cfg.C, cfg.T, cfg.seed, device), cfg.devices)
+    runner = jit_fused_runner(
+        _device_grad_fn(source), cfg.n, cfg.C, cfg.T,
+        weighting=weighting, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
+        adaptive=cfg.adaptive, refresh_every=cfg.refresh_every, ctrl_lr=cfg.ctrl_lr,
+        ctrl_iters=cfg.ctrl_iters, update_fn=_scan_update_fn(cfg), block_size=int(block_size),
+        snapshot_dtype=cfg.snapshot_dtype, collect_extras=cfg.collect_extras,
+        lane_devices=cfg.devices,
+    )
+    w, evals, extras = runner(_to_device(w0, device), mu, p, cfg.seed, cfg.eta)
+    extras = {k: v.detach().cpu().numpy() for k, v in extras.items()}  # one host sync
+    # collect_extras=False prunes the per-step clock: NaN, not made-up times
+    times = np.asarray(extras["t"], np.float64) if "t" in extras else np.full(cfg.T, np.nan)
+    trace = TraceRecord(steps=np.arange(cfg.T), times=times)
+    trace.extras = {"p_final": np.asarray(extras["p_final"], np.float64)}
+    if "occ_mean" in extras:
+        trace.mean_queue_lengths = np.asarray(extras["occ_mean"], np.float64)
+        comp = np.asarray(extras["comp"], np.float64)
+        trace.extras.update(
+            p_traj=np.asarray(extras["p_traj"], np.float64),
+            mean_delays=np.asarray(extras["delay_sum"], np.float64) / np.maximum(comp, 1.0),
+            comp=comp,
+            busy_time=np.asarray(extras["busy_time"], np.float64),
+        )
+    if eval_fn is not None and cfg.eval_every:
+        vals = evals.detach().cpu().numpy()
         trace.eval_steps = [(i + 1) * cfg.eval_every for i in range(vals.shape[0])]
         trace.eval_values = [float(v) for v in vals]
     return w, trace

@@ -23,8 +23,8 @@ host memory and waits for that copy, once per save, before the chunk loop
 goes on; the background writer then works on the host copy.  `saves`
 records each save's bytes and how long it held the loop.
 
-The fused device-stream driver (`run_checkpointed`) waits for the device
-event stream (ROADMAP item 6).
+The fused device-stream driver (`run_checkpointed`) waits for checkpoints
+on the device event stream (ROADMAP item 8).
 """
 from __future__ import annotations
 
@@ -260,7 +260,7 @@ def _cache_key(guard: GuardConfig | None):
 
 def run_checkpointed(*args, **kwargs):
     """The checkpointed fused (device-stream) engine: not ported yet."""
-    raise unported("run_checkpointed (the checkpointed device-stream engine)", 6)
+    raise unported("run_checkpointed (the checkpointed device-stream engine)", 8)
 
 
 class _Checkpoints:

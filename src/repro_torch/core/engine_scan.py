@@ -1,9 +1,11 @@
-"""Device-resident Generalized-AsyncSGD replay engine (host event stream).
+"""Device-resident Generalized-AsyncSGD scan engine.
 
-The PyTorch counterpart of `repro.core.engine_scan`'s host stream.  The
-event stream (J_k, K_{k+1}, t_k) of the closed Jackson network does not
-depend on the gradient values, so it is simulated on the host first
-(`queue_sim.export_stream`) and Algorithm 1 replays it on the device:
+The PyTorch counterpart of `repro.core.engine_scan`.  The event stream
+(J_k, K_{k+1}, t_k) of the closed Jackson network does not depend on the
+gradient values, so it is simulated first — on the host
+(`queue_sim.export_stream`), or on the device a chunk at a time by the
+fused runner (`make_fused_runner`, ``stream="device"``, with adaptive
+sampling between chunks) — and Algorithm 1 replays it on the device:
 
   * the C in-flight dispatch snapshots live in ONE flat-packed (C, P) ring
     buffer (optionally stored in a narrower ``snapshot_dtype``);
@@ -59,7 +61,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from ..tree import tree_flatten, tree_map
+from ..tree import tree_flatten, tree_leaves, tree_map
 from ..unported import unported
 from .queue_sim import KIND_COMPLETE, EventBlocks, EventStream
 
@@ -67,7 +69,9 @@ __all__ = [
     "GuardConfig",
     "blocked_inputs",
     "blocked_inputs_batch",
+    "jit_fused_runner",
     "jit_runner",
+    "make_fused_runner",
     "make_runner",
     "step_scales",
     "stream_arrays",
@@ -747,9 +751,7 @@ def _make_host_cells_runner(grad_fn, C: int, *, eval_fn=None, eval_every: int = 
 
     def run(w0, J, slot, scale, eval_every=eval_every_default):
         pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype)
-        if unpack is None:
-            raise ValueError("the torch engine needs all-float parameters (flat-packed "
-                             "snapshot storage)")
+        _require_flat_codec(unpack)
         flat_mode = update_fn is None
         B, T = (int(d) for d in J.shape)
         dev = J.device
@@ -757,8 +759,7 @@ def _make_host_cells_runner(grad_fn, C: int, *, eval_fn=None, eval_every: int = 
         (w, snaps, _, _), to_tree = _init_update_carry(w0, R, pack, unpack, flat_mode, enc,
                                                        cells=B)
         ring = snaps.view(B * R, -1)
-        grads = torch.func.vmap(lambda j, wi, k: grad_fn(j, unpack(wi), k))
-        pack_cells = torch.func.vmap(pack)
+        step = _make_cells_event_step(grad_fn, update_fn, pack, unpack, enc, flat_mode)
         base = torch.arange(B, dtype=torch.int64, device=dev) * R
         # event-major copies: row k of each is one contiguous (B,) column
         Jt, rows_t = J.t().contiguous(), (slot.t() + base).contiguous()
@@ -768,20 +769,41 @@ def _make_host_cells_runner(grad_fn, C: int, *, eval_fn=None, eval_every: int = 
         evaluate = _cells_eval_fn(eval_fn, unpack, flat_mode)
         evals = []
         for k in range(T):
-            rows = rows_t[k]
-            g = grads(Jt[k], ring.index_select(0, rows), ks[k])
-            if flat_mode:
-                w = _flat_axpy(w, pack_cells(g), sct[k][:, None])
-                new = enc(w)
-            else:
-                w = update_fn(w, g, sct[k])
-                new = enc(pack_cells(w))
-            ring.index_copy_(0, rows, new)
+            w = step(w, ring, Jt[k], rows_t[k], sct[k], ks[k])
             if every and (k + 1) % every == 0:
                 evals.append(evaluate(w))
         return to_tree(w), _stack_evals(evals, dev, cells=B)
 
     return run
+
+
+def _require_flat_codec(unpack) -> None:
+    if unpack is None:
+        raise ValueError("the torch engine needs all-float parameters (flat-packed "
+                         "snapshot storage)")
+
+
+def _make_cells_event_step(grad_fn, update_fn, pack, unpack, enc, flat_mode: bool):
+    """One event of B cells in lockstep: ``step(w, ring, j, rows, scale, k)
+    -> w`` over the (B*R, P) ring view, the (B,) columns of clients, ring
+    rows (slot + cell offset), scales and server steps.  One gather of the B
+    snapshot rows, one `torch.func.vmap` gradient call, one update and one
+    scatter of the B new rows (the ring in place)."""
+    grads = torch.func.vmap(lambda j, wi, k: grad_fn(j, unpack(wi), k))
+    pack_cells = torch.func.vmap(pack)
+
+    def step(w, ring, j, rows, sc, k):
+        g = grads(j, ring.index_select(0, rows), k)
+        if flat_mode:
+            w = _flat_axpy(w, pack_cells(g), sc[:, None])
+            new = enc(w)
+        else:
+            w = update_fn(w, g, sc)
+            new = enc(pack_cells(w))
+        ring.index_copy_(0, rows, new)
+        return w
+
+    return step
 
 
 def _check_lane_devices(lane_devices: int, block_size: int):
@@ -945,6 +967,308 @@ def _make_host_block_runner(
     return run
 
 
+# ------------------------------------------------------------------ #
+# device stream: the fused runner (the closed network and Algorithm 1)
+# ------------------------------------------------------------------ #
+def _reject_fused_unported(*, fault, guard, scenario, serving, classes, lane_devices,
+                           lane_axis, shard_devices=1) -> None:
+    """Options the reference's fused runner takes that wait for their own
+    ROADMAP items here."""
+    from .stream_device import _enabled
+
+    if _enabled(fault):
+        raise unported("fault= on the device stream", 8)
+    if guard is not None:
+        raise unported("guard= on the device stream", 8)
+    if _enabled(scenario):
+        raise unported("scenario= on the device stream", 10)
+    if serving is not None and serving.enabled:
+        raise unported("serving=", 11)
+    if classes is not None:
+        raise unported("classes= (the sparse O(C) stream)", 9)
+    if lane_devices > 1 or lane_axis is not None or shard_devices > 1:
+        raise unported("lanes and shards of the device stream", 12)
+
+
+def _fused_chunking(T: int, eval_on: bool, eval_every: int, adaptive: bool,
+                    refresh_every: int) -> tuple[int, int, int]:
+    """``(L, n_chunks, eval_stride)``: the chunk length (refresh and eval
+    both happen at chunk ends), the number of whole chunks, and the eval
+    cadence in chunks (0 without eval); events past ``n_chunks * L`` run as
+    a tail with no refresh and no eval, as in the reference."""
+    if adaptive:
+        L = min(refresh_every, T)
+    elif eval_on:
+        L = min(eval_every, T)
+    else:
+        L = T
+    return L, T // L, (max(eval_every // L, 1) if eval_on else 0)
+
+
+def make_fused_runner(
+    grad_fn: Callable[[Any, Pytree, Any], Pytree],
+    n: int,
+    C: int,
+    T: int,
+    *,
+    weighting: str = "importance",
+    fedbuff_Z: int = 0,
+    eval_fn: Callable[[Pytree], Any] | None = None,
+    eval_every: int = 0,
+    adaptive: bool = False,
+    refresh_every: int = 0,
+    bound=None,
+    ctrl_lr: float = 0.3,
+    ctrl_iters: int = 4,
+    update_fn: Callable[[Pytree, Pytree, Any], Pytree] | None = None,
+    init: str = "distinct",
+    block_size: int = 1,
+    collect_extras: bool = True,
+    snapshot_dtype=None,
+    lane_devices: int = 1,
+    lane_axis: str | None = None,
+    fault=None,
+    guard: GuardConfig | None = None,
+    classes=None,
+    serving=None,
+    scenario=None,
+    vmap_scenarios: bool = False,
+):
+    """Build the fused engine: the device stream (`stream_device`) feeding
+    the replay's own steps.  ``run(w0, mu, p0, key, eta) -> (w_final,
+    evals, extras)``; ``key`` is a seed or a `torch.Generator` on the
+    run's device (with ``vmap_scenarios``, a sequence of B of them).
+
+    Inside a chunk the stream never reads the weights: the dispatch targets
+    K of a chunk are drawn at its start from the current p, and p changes
+    only at chunk ends.  So each chunk (1) advances the closed network L
+    events on the device, emitting (J, slot, scale, t) tensors, (2) replays
+    them with the host runners' steps (`_make_update_step`, or
+    `_make_block_step` over the chunk cut into conflict-free blocks by
+    `queue_sim.segment_blocks`: one host copy of the chunk's slots), and
+    (3) refreshes p (``adaptive``, `stream_device.ctrl_refresh`) and
+    evaluates.  The carry runs across chunks; per event this is the
+    reference's fused computation, operation for operation.  The blocked
+    layout differs from the reference's E-event windows only in how the
+    fp32 update sums associate.
+
+    Each in-flight task keeps the importance scale of its dispatch-time p,
+    so the weighted update stays unbiased under the time-varying policy.
+    ``extras`` carries the per-step event times, the final and per-chunk
+    sampling vectors and the on-device occupancy, busy-time, delay and
+    completion statistics (``collect_extras=False``: ``p_final`` only).
+    ``vmap_scenarios=True`` runs B cells in lockstep along an explicit cell
+    axis: (B, n) ``mu`` / ``p0``, one stream state with a leading B, one
+    gather, one vmapped gradient call, one update and one scatter per event
+    (or block) for all cells.  Faults, the guard, scenarios, serving, the
+    sparse stream and lanes raise their ROADMAP items.
+    """
+    from . import stream_device as sd
+    from .theory import BoundConstants
+
+    if weighting not in ("importance", "plain"):
+        raise ValueError(weighting)
+    if adaptive:
+        if fedbuff_Z:
+            raise ValueError("adaptive sampling applies to Algorithm 1, not FedBuff")
+        if refresh_every <= 0:
+            raise ValueError("adaptive=True requires refresh_every > 0")
+        if eval_fn is not None and eval_every and eval_every % refresh_every:
+            raise ValueError("eval_every must be a multiple of refresh_every")
+    if block_size > 1 and update_fn is not None:
+        raise ValueError("block_size > 1 requires the default update w - scale*g")
+    _reject_fused_unported(fault=fault, guard=guard, scenario=scenario, serving=serving,
+                           classes=classes, lane_devices=lane_devices, lane_axis=lane_axis)
+    if vmap_scenarios and fedbuff_Z:
+        raise ValueError("vmap_scenarios=True runs Generalized AsyncSGD (fedbuff_Z=0)")
+    bound = bound if bound is not None else BoundConstants(C=C, T=T)
+    importance = weighting == "importance"
+    E = max(int(block_size), 1)
+    need_stats = collect_extras or adaptive
+    eval_on = eval_fn is not None and eval_every > 0
+    L, n_chunks, eval_stride = _fused_chunking(T, eval_on, eval_every, adaptive, refresh_every)
+    flat_mode = update_fn is None
+
+    def run_draws(w0, mu, p0, eta, nodes, u_race, u_exp, u_disp):
+        """The run on given draws: ``nodes`` (C,), ``u_race`` / ``u_exp`` /
+        ``u_disp`` (T,) (a leading B with ``vmap_scenarios``): the port's
+        generator's (`run`) or the reference's (parity tests)."""
+        dev = u_race.device
+        lead = u_race.shape[:-1]
+        B = lead[0] if vmap_scenarios else 1
+        as2 = lambda a, dt: torch.as_tensor(a).to(device=dev, dtype=dt).reshape(B, -1)  # noqa: E731
+        mu, p = as2(mu, torch.float32), as2(p0, torch.float32)
+        nodes = as2(nodes, torch.int64)
+        u_race, u_disp = as2(u_race, torch.float32), as2(u_disp, torch.float32)
+        e_hold = -torch.log1p(-as2(u_exp, torch.float32))
+        eta_t = torch.full((), float(eta), dtype=torch.float32, device=dev)
+        pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype)
+        _require_flat_codec(unpack)
+        rows = C + 1 if E > 1 else C
+        replay = (_FusedCellsReplay if vmap_scenarios else _FusedReplay)(
+            grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z, E, n, C, B,
+            dev)
+
+        sstate, _ = sd.stream_init(nodes, n, C)
+        stats = sd.stats_init(n, C, cells=B, device=dev) if need_stats else None
+        if importance:
+            slot_scale = eta_t / (n * p.gather(-1, nodes))
+        cst = sd._Consts((B,), C, dev)
+        evals, p_traj, ts = [], [], []
+        for c in range(n_chunks + (T > n_chunks * L)):
+            a, b = c * L, min((c + 1) * L, T)
+            K = sd.tree_sample(sd.tree_build(p), u_disp[:, a:b])
+            scales = []
+            if importance:
+                psc = eta_t / (n * p.gather(-1, K))
+
+                def on_event(i, ev):
+                    # the completing task's dispatch-time scale; the freed
+                    # slot takes the new dispatch's
+                    nonlocal slot_scale
+                    scales.append(sd._take(slot_scale, ev.slot))
+                    slot_scale = slot_scale.scatter(-1, ev.slot[:, None], psc[:, i : i + 1])
+            else:
+                on_event = None
+            sstate, stats, (J, t, slot, _) = sd._advance(
+                sstate, stats, mu, e_hold[:, a:b], u_race[:, a:b], K, a, cst, need_stats,
+                on_event)
+            scale = torch.stack(scales, dim=-1) if importance else eta_t.expand(B, b - a)
+            replay.events(J, slot, scale, a)
+            if collect_extras:
+                ts.append(t)
+            if c < n_chunks:
+                if adaptive:
+                    p = sd.ctrl_refresh(p, stats.comp, stats.busy_t, bound, lr=ctrl_lr,
+                                        iters=ctrl_iters)
+                if eval_on and (c + 1) % eval_stride == 0:
+                    evals.append(replay.evaluate(eval_fn))
+                if collect_extras:
+                    p_traj.append(p)
+        w = replay.weights()
+        evals = _stack_evals(evals, dev, cells=B if vmap_scenarios else None)
+        one = (lambda x: x) if vmap_scenarios else (lambda x: x[0])  # noqa: E731
+        extras = {"p_final": one(p)}
+        if collect_extras:
+            t_all = torch.cat(ts, dim=-1)
+            extras.update(
+                t=one(t_all),
+                p_traj=one(torch.stack(p_traj, dim=1)),
+                occ_mean=one(stats.occ_sum.to(torch.float32) / T),
+                occ_time_avg=one(stats.occ_tw / t_all[:, -1:]),
+                busy_time=one(stats.busy_t),
+                delay_sum=one(stats.delay_sum),
+                comp=one(stats.comp),
+            )
+        return w, evals, extras
+
+    def run(w0, mu, p0, key, eta):
+        dev = tree_leaves(w0)[0].device
+        keys = list(key) if vmap_scenarios else [key]
+        ps = torch.as_tensor(np.asarray(p0) if not isinstance(p0, torch.Tensor) else p0)
+        ps = ps.to(device=dev, dtype=torch.float32).reshape(len(keys), n)
+        draws = [sd.draw_uniforms(k, n, C, T, ps[i], init, dev) for i, k in enumerate(keys)]
+        stacked = [torch.stack(d) for d in zip(*draws)]
+        if not vmap_scenarios:
+            stacked = [d[0] for d in stacked]
+        return run_draws(w0, mu, p0, eta, *stacked)
+
+    run.from_draws = run_draws
+    return run
+
+
+class _FusedReplay:
+    """The replay half of one fused run: the host runners' carry and steps,
+    fed a chunk of device-generated events at a time."""
+
+    def __init__(self, grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z,
+                 E, n, C, B, dev):
+        self.E, self.n, self.C, self.dev = E, n, C, dev
+        if E > 1:
+            self.step = _make_block_step(grad_fn, pack, unpack, "jnp", fedbuff_Z)
+        else:
+            self.step = _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc,
+                                          fedbuff_Z)
+        self.carry, self.to_tree = _init_update_carry(w0, rows, pack, unpack, flat_mode, enc,
+                                                      fedbuff_Z)
+
+    def events(self, J, slot, scale, k0: int):
+        J, slot, scale = J[0], slot[0], scale[0]
+        Lc = int(J.shape[0])
+        if self.E == 1:
+            ks = torch.arange(k0, k0 + Lc, dtype=torch.int64, device=self.dev)
+            for i in range(Lc):
+                self.carry = self.step(self.carry, J[i], slot[i], scale[i], ks[i])
+            return
+        Jb, sb, scb, kb, mb = _chunk_blocks(J[None], slot[None], scale[None], k0, self.E,
+                                            self.n, self.C)
+        for r in range(Jb.shape[1]):
+            self.carry = self.step(self.carry, Jb[0, r], sb[0, r], scb[0, r], kb[0, r],
+                                   mb[0, r])
+
+    def evaluate(self, eval_fn):
+        return eval_fn(self.to_tree(self.carry[0]))
+
+    def weights(self):
+        return self.to_tree(self.carry[0])
+
+
+class _FusedCellsReplay:
+    """The replay half of B fused runs in lockstep (`vmap_scenarios`): the
+    cell-axis steps of the host matrix (`_make_cells_event_step`,
+    `_make_cells_block_step`)."""
+
+    def __init__(self, grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z,
+                 E, n, C, B, dev):
+        self.E, self.n, self.C, self.B, self.R = E, n, C, B, rows
+        (self.w, self.snaps, _, _), self.to_tree = _init_update_carry(
+            w0, rows, pack, unpack, flat_mode, enc, cells=B)
+        self.flat_mode, self.unpack = flat_mode, unpack
+        if E > 1:
+            self.step = _make_cells_block_step(grad_fn, pack, unpack, "jnp")
+        else:
+            self.step = _make_cells_event_step(grad_fn, update_fn, pack, unpack, enc, flat_mode)
+            self.ring = self.snaps.view(B * rows, -1)
+            self.base = torch.arange(B, dtype=torch.int64, device=dev) * rows
+        self.dev = dev
+
+    def events(self, J, slot, scale, k0: int):
+        B, Lc = (int(d) for d in J.shape)
+        if self.E == 1:
+            Jt, rows_t = J.t().contiguous(), (slot.t() + self.base).contiguous()
+            sct = scale.t().contiguous()
+            ks = torch.arange(k0, k0 + Lc, dtype=torch.int64, device=self.dev)[:, None].expand(Lc, B)
+            for i in range(Lc):
+                self.w = self.step(self.w, self.ring, Jt[i], rows_t[i], sct[i], ks[i])
+            return
+        Jb, sb, scb, kb, mb = _chunk_blocks(J, slot, scale, k0, self.E, self.n, self.C)
+        for r in range(Jb.shape[1]):
+            self.w, self.snaps = self.step(self.w, self.snaps, Jb[:, r], sb[:, r], scb[:, r],
+                                           kb[:, r], mb[:, r])
+
+    def evaluate(self, eval_fn):
+        return _cells_eval_fn(eval_fn, self.unpack, self.flat_mode)(self.w)
+
+    def weights(self):
+        return self.to_tree(self.w)
+
+
+def _chunk_blocks(J, slot, scale, k0: int, E: int, n: int, C: int):
+    """One chunk of B cells' device events as (B, rows, E) blocked columns.
+
+    The chunk comes to the host (one copy a chunk); each cell's run is cut
+    into conflict-free blocks (`EventBlocks.from_columns`) and the cells are
+    laid out and padded as `blocked_inputs_batch` lays out host streams."""
+    Jh, sh = torch.stack((J, slot)).cpu().numpy()
+    blocks = [EventBlocks.from_columns(j, s, n, C, E) for j, s in zip(Jh, sh)]
+    Jb, sb, scb, kb, mb, _, _ = blocked_inputs_batch(blocks, list(scale.cpu().numpy()))
+    dev = J.device
+    idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)  # noqa: E731
+    m = torch.as_tensor(mb, device=dev)
+    return (idx(Jb), idx(sb), torch.as_tensor(scb, dtype=scale.dtype, device=dev),
+            torch.where(m, idx(kb) + k0, 0), m)
+
+
 _EVAL_CADENCE_MSG = (
     "block_size > 1: the eval cadence is encoded in the blocked "
     "layout — pass chunk_blocks/n_chunks from blocked_inputs(..., "
@@ -967,9 +1291,11 @@ def make_runner(
     lane_devices: int = 1,
     vmap_streams: bool = False,
     guard: GuardConfig | None = None,
+    **device_kw,
 ):
-    """Build the replay engine for a pre-simulated event stream.
+    """Build the scan engine; ``stream`` selects the event source.
 
+    ``stream="host"`` (default) replays a pre-simulated event stream:
     ``run(w0, J, slot, scale[, eval_every])`` per event; with
     ``block_size=E > 1`` ``run(w0, J, slot, scale, k, mask[, chunk_blocks,
     n_chunks])`` over `blocked_inputs` arrays.  ``fedbuff_Z > 0`` replays
@@ -980,11 +1306,27 @@ def make_runner(
     (stacked streams, `blocked_inputs_batch`) and replays the cells in
     lockstep.  ``guard`` adds the divergence guard and returns its counter
     third (`GuardConfig`).
+
+    ``stream="device"`` generates the events next to the replay
+    (`make_fused_runner`): ``run(w0, mu, p0, key, eta)``.  It requires
+    ``n=`` and ``T=`` and takes `make_fused_runner`'s other keywords.
     """
+    if stream == "device":
+        try:
+            n, T = device_kw.pop("n"), device_kw.pop("T")
+        except KeyError as e:
+            raise TypeError(f"stream='device' requires {e.args[0]}=") from None
+        if vmap_streams:
+            raise ValueError("stream='device' runs cells with vmap_scenarios=True")
+        return make_fused_runner(
+            grad_fn, n, C, T, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
+            update_fn=update_fn, block_size=block_size, snapshot_dtype=snapshot_dtype,
+            lane_devices=lane_devices, guard=guard, **device_kw,
+        )
     if stream != "host":
-        if stream == "device":
-            raise unported("stream='device'", 6)
         raise ValueError(stream)
+    if device_kw:
+        raise TypeError(f"host stream does not accept {sorted(device_kw)}")
     _check_cells(vmap_streams, lane_devices, fedbuff_Z, guard)
     lanes = _check_lane_devices(lane_devices, block_size)  # rejects D > 1 at E = 1
     if block_size > 1:
@@ -1067,3 +1409,32 @@ def jit_runner(
         )
     run = cache[key]
     return run if block_size > 1 else partial(run, eval_every=eval_every)
+
+
+def jit_fused_runner(grad_fn, n: int, C: int, T: int, *, vmap_scenarios: bool = False,
+                     shard_devices: int = 1, lane_devices: int = 1, **kw):
+    """Memoized fused (device-stream) runner, `repro`'s entry point.
+
+    Memoized on the gradient source like `jit_runner`; ``vmap_scenarios``
+    runs stacked (mu, p0, key) cells with shared (w0, eta) in lockstep, the
+    cells' streams generated together.  Extra keywords forward to
+    `make_fused_runner` and take part in the memo key.  ``shard_devices``
+    and ``lane_devices`` > 1 (the scenario and lane meshes) raise item 12.
+    """
+    _reject_fused_unported(fault=None, guard=None, scenario=None, serving=None, classes=None,
+                           lane_devices=lane_devices, lane_axis=None,
+                           shard_devices=shard_devices)
+    cache, func = _runner_cache(grad_fn)
+
+    def entry(k, v):
+        if k == "bound":
+            return (k, None if v is None else (v.A, v.L, v.B, v.C, v.T, v.rho))
+        if k in ("fault", "guard", "serving", "scenario", "classes"):
+            return (k, None if v is None else v.cache_key())
+        return (k, v)
+
+    key = ("device", func, n, C, T, vmap_scenarios,
+           tuple(entry(k, v) for k, v in sorted(kw.items())))
+    if key not in cache:
+        cache[key] = make_fused_runner(grad_fn, n, C, T, vmap_scenarios=vmap_scenarios, **kw)
+    return cache[key]

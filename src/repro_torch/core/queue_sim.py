@@ -527,15 +527,33 @@ class EventBlocks:
         cut_every: int = 0,
         method: str = "greedy",
     ) -> "EventBlocks":
-        idx, mask = segment_blocks(stream.slot, block_size, cut_every, method)
+        return cls.from_columns(stream.J, stream.slot, stream.n, stream.C, block_size,
+                                cut_every, method, stream)
+
+    @classmethod
+    def from_columns(
+        cls,
+        J: np.ndarray,
+        slot: np.ndarray,
+        n: int,
+        C: int,
+        block_size: int,
+        cut_every: int = 0,
+        method: str = "greedy",
+        stream: EventStream | None = None,
+    ) -> "EventBlocks":
+        """Blocks of a bare (T,) ``J`` / ``slot`` pair: the replay columns of
+        a stream, or of a chunk of the device stream's events."""
+        J, slot = np.asarray(J), np.asarray(slot)
+        idx, mask = segment_blocks(slot, block_size, cut_every, method)
         return cls(
             idx=idx,
             mask=mask,
-            J=np.where(mask, stream.J[idx], 0).astype(np.int32),
-            slot=np.where(mask, stream.slot[idx], stream.C).astype(np.int32),
-            n=stream.n,
-            C=stream.C,
-            T=stream.T,
+            J=np.where(mask, J[idx], 0).astype(np.int32),
+            slot=np.where(mask, slot[idx], C).astype(np.int32),
+            n=int(n),
+            C=int(C),
+            T=int(slot.size),
             block_size=int(block_size),
             cut_every=int(cut_every),
             method=method,

@@ -1,0 +1,655 @@
+"""Device-resident closed-Jackson-network simulator and the adaptive
+sampling control plane, in PyTorch.
+
+The counterpart of `repro.core.stream_device`, dense and fault-free:
+`queue_sim.ClosedNetworkSim` is the host oracle (exact, per-event Python);
+this module is the same closed network as tensor operations on the stream's
+device, so the event stream can be generated next to the replay
+(`engine_scan.make_runner(stream="device")`) instead of being
+pre-simulated on the host:
+
+  * `StreamState` carries per-node queue occupancy, fixed-shape ``(n, C)``
+    FIFO ring buffers of slot ids and per-node head/tail counters;
+  * `stream_step` advances one CS step: the exponential completion race is
+    an inverse-CDF draw over the busy-rate vector by segment-tree descent
+    (`tree_build` / `tree_sample`), driven by pre-drawn uniforms, and the
+    step emits the ``(J, K, t, slot)`` tuple `queue_sim.EventStream` carries;
+  * `StatsState` / `stats_step` accumulate running occupancy, busy time,
+    completion counts and FIFO delays on the device, the float integrals as
+    Kahan-compensated pairs;
+  * the control plane: `mva_throughput_delays` (Mean Value Analysis),
+    `optimal_eta_jnp`, `generalized_bound_jnp`, `make_bound_value_and_grad`
+    (the Theorem-1 objective with its simplex gradient by autograd through
+    the MVA recurrence), `estimate_mu` and `ctrl_refresh`, one adaptive
+    sampling update from measured rates.  The names keep the reference's
+    ``_jnp`` suffixes so a reader finds each counterpart.
+
+Every state tensor may carry a leading cell axis B (one closed network per
+scenario-matrix cell, all advanced in lockstep): the steps index through
+``gather`` / ``scatter`` on the last axis, so the same code runs one
+network or B of them.  Integer state is int64 (torch's index dtype) where
+the reference keeps int32; the values are the same.  No step reads a device
+value on the host: indices stay tensors, so a chunk of events makes no host
+sync.
+
+Random draws come from a `torch.Generator` (seeded from ``seed``, or
+passed in) in the reference's order: the initial placement, then the race,
+holding-time and dispatch uniforms.  Threefry streams cannot be reproduced
+in torch, so the stream is held against the reference in law, and bitwise
+on the reference's own draws through `scan_draws`.  Faults, scenarios (ROADMAP items 8 and 10) and the
+sparse O(C) stream (item 9) raise.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..unported import unported
+from .queue_sim import EventBlocks, EventStream
+from .theory import BoundConstants
+
+__all__ = [
+    "StreamState",
+    "StatsState",
+    "Event",
+    "stream_init",
+    "stream_step",
+    "stats_init",
+    "stats_step",
+    "scan_draws",
+    "draw_uniforms",
+    "stats_stream_fn",
+    "generate_stream",
+    "generate_blocks",
+    "tree_build",
+    "tree_sample",
+    "tree_update",
+    "kahan_add",
+    "kahan_value",
+    "mva_throughput_delays",
+    "optimal_eta_jnp",
+    "generalized_bound_jnp",
+    "make_bound_value_and_grad",
+    "ctrl_refresh",
+    "estimate_mu",
+]
+
+_I64 = torch.int64
+_F32 = torch.float32
+
+
+# ---------------------------------------------------------------------- #
+# segment-tree CDF sampler: pairwise sums; the descent never lands on a
+# zero-weight leaf
+# ---------------------------------------------------------------------- #
+def _next_pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length() if n > 1 else 1
+
+
+def tree_build(w: torch.Tensor) -> torch.Tensor:
+    """Flattened-heap sum tree over the last axis of ``w``.
+
+    Returns ``(..., 2N)`` (N the next power of two >= n): ``tree[..., 1]``
+    is the root total, the children of node i sit at ``2i`` / ``2i+1`` and
+    the zero-padded leaves at ``tree[..., N:]``.  Each level is one add of
+    adjacent pairs, so every node is the same fp32 sum of two values as in
+    the reference.
+    """
+    n = w.shape[-1]
+    N = _next_pow2(n)
+    level = torch.nn.functional.pad(w, (0, N - n)) if N != n else w
+    levels = [level]
+    while levels[-1].shape[-1] > 1:
+        lv = levels[-1]
+        levels.append(lv[..., 0::2] + lv[..., 1::2])
+    return torch.cat([w.new_zeros(*w.shape[:-1], 1)] + levels[::-1], dim=-1)
+
+
+def tree_sample(tree: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Inverse-CDF draws from a `tree_build` tree: the leaf index per draw.
+
+    Descends ``x = u * total``: go right iff the left mass is exhausted and
+    the right subtree has positive mass, so a zero-weight leaf is never
+    drawn.  ``tree`` is ``(2N,)`` or ``(B, 2N)``; ``u`` holds any number
+    of draws per tree (``(M,)`` for one tree, ``(B,)`` or ``(B, M)`` for B).
+    """
+    N = tree.shape[-1] // 2
+    depth = max(N.bit_length() - 1, 0)
+    lead = tree.shape[:-1]
+    t2 = tree.reshape(-1, 2 * N)
+    Bt = t2.shape[0]
+    squeeze = u.dim() == len(lead)  # one draw per tree
+    x = u.reshape(Bt, -1) if not squeeze else u.reshape(Bt, 1)
+    x = x * t2[:, 1:2]
+    idx = torch.ones(x.shape, dtype=_I64, device=x.device)
+    if depth:
+        # per node: (the left child's mass, or +inf where the right subtree
+        # is empty, so ``x >= .`` is the reference's go-right test in one
+        # compare; the left child's mass, which a right step subtracts)
+        pairs = t2.view(Bt, N, 2)  # pairs[:, i] = children of node i
+        left = pairs[..., 0]
+        table = torch.stack([torch.where(pairs[..., 1] > 0, left, torch.inf), left], dim=-1)
+    for _ in range(depth):
+        lr = table.gather(1, idx[..., None].expand(*idx.shape, 2))
+        go = x >= lr[..., 0]
+        x = torch.where(go, x - lr[..., 1], x)
+        idx = torch.add(go, idx, alpha=2)
+    out = idx - N
+    return out.reshape(u.shape)
+
+
+def tree_update(tree: torch.Tensor, idx: torch.Tensor, value: torch.Tensor) -> torch.Tensor:
+    """Set leaf ``idx`` to ``value`` and refresh its root path (O(log n)):
+    the root path gets ``value - old`` added once per node."""
+    N = tree.shape[-1] // 2
+    depth = max(N.bit_length() - 1, 0)
+    pos = torch.as_tensor(idx, dtype=_I64, device=tree.device) + N
+    delta = value - tree.gather(-1, pos[..., None])[..., 0]
+    path = torch.stack([pos >> d for d in range(depth + 1)], dim=-1)
+    return tree.scatter_add(-1, path, delta[..., None].expand(path.shape).to(tree.dtype))
+
+
+# ---------------------------------------------------------------------- #
+# Kahan-compensated accumulation: an fp32 time integral stalls once it
+# passes ~2^24; a compensated (sum, c) pair keeps relative O(eps) accuracy
+# ---------------------------------------------------------------------- #
+def kahan_add(s, c, x):
+    """One compensated add: the new ``(s, c)`` pair.  The represented total
+    is ``s - c``; ``s`` alone is the correctly rounded fp32 running sum."""
+    y = x - c
+    t = s + y
+    return t, (t - s) - y
+
+
+def kahan_value(s, c) -> np.ndarray:
+    """Host-side exact readout of a compensated pair (float64)."""
+    f64 = lambda a: np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor) else a,  # noqa: E731
+                               np.float64)
+    return f64(s) - f64(c)
+
+
+def _take(a: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``a[..., i]`` with one index per leading position."""
+    return a.gather(-1, i[..., None])[..., 0]
+
+
+def _kahan_scatter_add(s, c, idx, x):
+    """Compensated ``s.at[idx].add(x)`` for one index per leading position."""
+    sj, cj = _take(s, idx), _take(c, idx)
+    y = x - cj
+    t = sj + y
+    i = idx[..., None]
+    return s.scatter(-1, i, t[..., None]), c.scatter(-1, i, ((t - sj) - y)[..., None])
+
+
+class StreamState(NamedTuple):
+    """State of the closed network (one cell, or B along a leading axis)."""
+
+    occ: Any    # (n,) int64: queue length per node (X_i)
+    ring: Any   # (n, C) int64: FIFO ring buffer of slot ids per node
+    head: Any   # (n,) int64: pop counter per node (ring index = head % C)
+    tail: Any   # (n,) int64: push counter per node
+    t: Any      # () float32: physical time (Kahan sum; see t_c)
+    avail: Any = None  # fault mode only (ROADMAP item 8)
+    t_c: Any = 0.0     # () float32: Kahan compensation of t
+    phase: Any = None  # scenario mode only (ROADMAP item 10)
+
+
+class Event(NamedTuple):
+    """One CS step, as `stream_step` emits it (EventStream's columns)."""
+
+    j: Any      # completing client J_k
+    k: Any      # newly sampled client K_{k+1}
+    t: Any      # physical completion time
+    slot: Any   # ring slot of the completing task (freed and reused)
+    dt: Any     # time since the previous CS step
+    kind: Any = 0  # KIND_COMPLETE: a fault-free stream has no other kind
+
+
+class StatsState(NamedTuple):
+    """Running observables on the device; float accumulators are Kahan
+    pairs (``x`` plus compensation ``x_c``; host readout `kahan_value`)."""
+
+    occ_sum: Any    # (n,) int64: sum over steps of post-step X_{i,k} (Palm)
+    occ_tw: Any     # (n,) float32: time-weighted integral of X_i(t)
+    busy_t: Any     # (n,) float32: integral of 1{X_i > 0} dt
+    comp: Any       # (n,) int64: completions per node
+    delay_sum: Any  # (n,) float32: sum of CS-step delays per node
+    slot_step: Any  # (C,) int64: dispatch step of the task in each slot
+    avail_tw: Any = None    # fault mode only (ROADMAP item 8)
+    kind_count: Any = None  # fault mode only
+    occ_tw_c: Any = 0.0     # Kahan compensations of the float integrals
+    busy_t_c: Any = 0.0
+    delay_sum_c: Any = 0.0
+    avail_tw_c: Any = None
+
+
+def _enabled(opt) -> bool:
+    """A fault / scenario option (a bool flag or a config) is switched on."""
+    return bool(opt) if isinstance(opt, bool) else opt is not None and opt.enabled
+
+
+def _reject_fault_scenario(fault, scenario=None) -> None:
+    if _enabled(fault):
+        raise unported("fault= on the device stream", 8)
+    if _enabled(scenario):
+        raise unported("scenario= on the device stream", 10)
+
+
+def _init_nodes(gen: torch.Generator, n: int, C: int, p: torch.Tensor, init: str) -> torch.Tensor:
+    """The initial placement of the C tasks, drawn from ``gen``:
+    ``"distinct"`` a uniform random subset of C clients (round-robin when
+    C > n), ``"sampled"`` C iid draws from ``p`` (`queue_sim.SimConfig.initial`'s
+    two conventions)."""
+    dev = p.device
+    if init == "distinct":
+        if C <= n:
+            return torch.randperm(n, generator=gen, device=dev)[:C]
+        return torch.arange(C, dtype=_I64, device=dev) % n
+    if init == "sampled":
+        u = torch.rand(C, generator=gen, device=dev)
+        return tree_sample(tree_build(p.to(_F32)), u)
+    raise ValueError(init)
+
+
+def stream_init(nodes, n: int, C: int, fault: bool = False) -> tuple[StreamState, torch.Tensor]:
+    """The state with the C tasks at ``nodes`` (``(C,)``, or ``(B, C)`` for
+    B cells): task s sits at the FIFO position of the earlier tasks at its
+    node.  Returns ``(state, nodes)`` as the reference's does; the nodes
+    come from `draw_uniforms` (the port's generator) or from the caller
+    (the reference's draws, in parity tests)."""
+    _reject_fault_scenario(fault)
+    nodes = torch.as_tensor(nodes).to(_I64)
+    dev = nodes.device
+    lead = nodes.shape[:-1]
+    eq = nodes[..., None, :] == nodes[..., :, None]
+    pos = torch.tril(eq, -1).sum(-1)
+    occ = torch.zeros(*lead, n, dtype=_I64, device=dev).scatter_add(
+        -1, nodes, torch.ones_like(nodes))
+    ring = torch.zeros(*lead, n * C, dtype=_I64, device=dev).scatter(
+        -1, nodes * C + pos, torch.arange(C, dtype=_I64, device=dev).expand(nodes.shape))
+    zero = torch.zeros(lead, dtype=_F32, device=dev)
+    state = StreamState(occ=occ, ring=ring.view(*lead, n, C),
+                        head=torch.zeros_like(occ), tail=occ.clone(), t=zero,
+                        t_c=zero.clone())
+    return state, nodes
+
+
+class _Consts:
+    """Per-shape constants of the step (built once a run, not per event)."""
+
+    def __init__(self, lead, C: int, device):
+        self.one = torch.ones(*lead, 1, dtype=_I64, device=device)
+        self.neg = -self.one
+        self.C = C
+
+
+def _stream_step(state: StreamState, mu, e_hold, u_race, k_new, cst: _Consts):
+    """One CS step; ``e_hold = -log1p(-u_exp)`` (precomputed for a chunk)."""
+    occ, ring, head, tail = state.occ, state.ring, state.head, state.tail
+    C = cst.C
+    lead = occ.shape[:-1]
+    rates = torch.where(occ > 0, mu, 0.0)
+    rtree = tree_build(rates)
+    dt = e_hold / rtree[..., 1]
+    t, t_c = kahan_add(state.t, state.t_c, dt)
+    j = tree_sample(rtree, u_race)
+    # pop the oldest in-flight task at j; its freed slot hosts the dispatch
+    flat = ring.reshape(*lead, -1)
+    s = _take(flat, torch.add(_take(head, j) % C, j, alpha=C))
+    jj, kk = j[..., None], k_new[..., None]
+    head = head.scatter_add(-1, jj, cst.one)
+    occ = occ.scatter_add(-1, jj, cst.neg)
+    flat = flat.scatter(-1, torch.add(_take(tail, k_new) % C, k_new, alpha=C)[..., None],
+                        s[..., None])
+    tail = tail.scatter_add(-1, kk, cst.one)
+    occ = occ.scatter_add(-1, kk, cst.one)
+    new = StreamState(occ=occ, ring=flat.view(ring.shape), head=head, tail=tail, t=t, t_c=t_c)
+    return new, Event(j=j, k=k_new, t=t, slot=s, dt=dt)
+
+
+def stream_step(state: StreamState, mu, xs) -> tuple[StreamState, Event]:
+    """One CS step of the closed network.
+
+    ``xs = (u_race, u_exp, k_new)``: the race and holding-time uniforms and
+    the pre-sampled dispatch target K_{k+1} ~ p (one each per cell).  With
+    exponential service the network is a CTMC: given the occupancy the next
+    completion is at node j w.p. mu_j 1{X_j>0} / sum(...) after an
+    Exp(sum) holding time.
+    """
+    u_race, u_exp, k_new = xs
+    cst = _Consts(state.occ.shape[:-1], state.ring.shape[-1], state.occ.device)
+    e_hold = -torch.log1p(-torch.as_tensor(u_exp, dtype=_F32, device=state.occ.device))
+    return _stream_step(state, torch.as_tensor(mu, dtype=_F32, device=state.occ.device),
+                        e_hold, torch.as_tensor(u_race, dtype=_F32, device=state.occ.device),
+                        torch.as_tensor(k_new, dtype=_I64, device=state.occ.device), cst)
+
+
+def stats_init(n: int, C: int, fault: bool = False, scenario: bool = False, *,
+               cells: int | None = None, device="cpu") -> StatsState:
+    _reject_fault_scenario(fault, scenario)
+    lead = () if cells is None else (cells,)
+    zi = lambda m: torch.zeros(*lead, m, dtype=_I64, device=device)  # noqa: E731
+    zf = lambda: torch.zeros(*lead, n, dtype=_F32, device=device)  # noqa: E731
+    return StatsState(occ_sum=zi(n), occ_tw=zf(), busy_t=zf(), comp=zi(n), delay_sum=zf(),
+                      slot_step=zi(C), occ_tw_c=zf(), busy_t_c=zf(), delay_sum_c=zf())
+
+
+def _stats_step(stats: StatsState, ev: Event, occ_pre, occ_post, k, delay, cst: _Consts):
+    """`stats_step` given the step's integer delay ``k - slot_step[slot]``."""
+    dt = ev.dt[..., None]
+    occ_tw, occ_tw_c = kahan_add(stats.occ_tw, stats.occ_tw_c, torch.mul(occ_pre, dt))
+    busy_t, busy_t_c = kahan_add(stats.busy_t, stats.busy_t_c, torch.where(occ_pre > 0, dt, 0.0))
+    delay_sum, delay_sum_c = _kahan_scatter_add(stats.delay_sum, stats.delay_sum_c, ev.j,
+                                                delay.to(_F32))
+    return StatsState(
+        occ_sum=stats.occ_sum + occ_post,
+        occ_tw=occ_tw,
+        busy_t=busy_t,
+        comp=stats.comp.scatter_add(-1, ev.j[..., None], cst.one),
+        delay_sum=delay_sum,
+        slot_step=stats.slot_step.scatter(-1, ev.slot[..., None], k + 1),
+        occ_tw_c=occ_tw_c,
+        busy_t_c=busy_t_c,
+        delay_sum_c=delay_sum_c,
+    )
+
+
+def stats_step(stats: StatsState, ev: Event, occ_pre, occ_post, k) -> StatsState:
+    """Accumulate observables for step k (0-based): ``occ_pre`` persisted
+    over ``ev.dt`` (its time integral is what product form predicts),
+    ``occ_post`` is the X_{i,k} the Palm accumulators count."""
+    cst = _Consts(occ_pre.shape[:-1], stats.slot_step.shape[-1], occ_pre.device)
+    delay = k - _take(stats.slot_step, ev.slot)
+    return _stats_step(stats, ev, occ_pre, occ_post, k, delay, cst)
+
+
+# ---------------------------------------------------------------------- #
+# the scan harness: T fused steps of stream_step + stats_step
+# ---------------------------------------------------------------------- #
+def _advance(state, stats, mu, e_hold, u_race, K, k0: int, cst, need_stats=True, on_event=None):
+    """Advance the network over one block of pre-drawn inputs.
+
+    ``e_hold``, ``u_race``, ``K`` are ``(L,)`` (or ``(B, L)``); returns the
+    new ``(state, stats)`` and the stacked ``(J, t, slot, delay)`` columns
+    (delay None without stats).  ``on_event(i, ev)`` runs after each event's
+    stream step (the fused runner's slot-scale bookkeeping).
+    """
+    L = K.shape[-1]
+    Js, ts, ss, ds = [], [], [], []
+    for i in range(L):
+        occ_pre = state.occ
+        state, ev = _stream_step(state, mu, e_hold[..., i], u_race[..., i], K[..., i], cst)
+        if need_stats:
+            delay = (k0 + i) - _take(stats.slot_step, ev.slot)
+            stats = _stats_step(stats, ev, occ_pre, state.occ, k0 + i, delay, cst)
+            ds.append(delay)
+        if on_event is not None:
+            on_event(i, ev)
+        Js.append(ev.j)
+        ts.append(ev.t)
+        ss.append(ev.slot)
+    st = lambda xs: torch.stack(xs, dim=-1) if xs else None  # noqa: E731
+    return state, stats, (st(Js), st(ts), st(ss), st(ds))
+
+
+def scan_draws(mu, nodes, u_race, u_exp, K, emit_events: bool = True):
+    """The stream over pre-drawn inputs: the reference's ``xs``.
+
+    ``nodes`` (the initial placement, ``(C,)`` or ``(B, C)``), ``u_race``,
+    ``u_exp`` and ``K`` (``(T,)`` or ``(B, T)``) are given, so parity tests
+    pass the reference's own draws (`jax.random.split(key, 4)`, then
+    ``stream_init`` and the three uniform blocks) and get its J, K, slot and
+    delays bitwise.  Returns ``(nodes, events, stats)`` with ``events =
+    (J, K, t, slot, delay)`` tensors, or None without ``emit_events``.
+    """
+    mu = torch.as_tensor(mu)
+    dev = mu.device
+    nodes = torch.as_tensor(nodes, device=dev).to(_I64)
+    n, C = mu.shape[-1], nodes.shape[-1]
+    lead = nodes.shape[:-1]
+    mu = mu.to(_F32).expand(*lead, n)
+    state, nodes = stream_init(nodes, n, C)
+    stats = stats_init(n, C, cells=lead[0] if lead else None, device=dev)
+    u_race = torch.as_tensor(u_race, device=dev).to(_F32)
+    e_hold = -torch.log1p(-torch.as_tensor(u_exp, device=dev).to(_F32))
+    K = torch.as_tensor(K, device=dev).to(_I64)
+    cst = _Consts(lead, C, dev)
+    _, stats, (J, t, slot, delay) = _advance(state, stats, mu, e_hold, u_race, K, 0, cst)
+    return nodes, ((J, K, t, slot, delay) if emit_events else None), stats
+
+
+def _generator(seed, device) -> torch.Generator:
+    """``seed`` (an int) as a `torch.Generator` on ``device``, or the
+    generator itself."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def draw_uniforms(seed, n: int, C: int, T: int, p, init: str = "distinct", device="cuda"):
+    """One cell's draws from the port's generator, in the reference's order:
+    ``(nodes (C,), u_race (T,), u_exp (T,), u_disp (T,))`` on ``device``."""
+    dev = resolve_device(device)
+    gen = _generator(seed, dev)
+    p = torch.as_tensor(np.asarray(p) if not isinstance(p, torch.Tensor) else p).to(
+        device=dev, dtype=_F32)
+    nodes = _init_nodes(gen, n, C, p, init)
+    u_race, u_exp, u_disp = (torch.rand(T, generator=gen, device=dev) for _ in range(3))
+    return nodes, u_race, u_exp, u_disp
+
+
+def _inputs(mu, p, C: int, T: int, seed, init: str, device):
+    mu = np.asarray(mu, dtype=np.float64)
+    p = np.asarray(p, dtype=np.float64)
+    if abs(p.sum() - 1.0) > 1e-8:
+        raise ValueError("p must sum to 1")
+    dev = resolve_device(device)
+    n = mu.size
+    p_t = torch.as_tensor(p, dtype=_F32, device=dev)
+    nodes, u_race, u_exp, u_disp = draw_uniforms(seed, n, C, T, p_t, init, dev)
+    K = tree_sample(tree_build(p_t), u_disp)
+    return torch.as_tensor(mu, dtype=_F32, device=dev), p, nodes, u_race, u_exp, K
+
+
+def stats_stream_fn(n: int, C: int, T: int, init: str = "distinct", fault: bool = False,
+                    scenario: bool = False):
+    """Stats-only network run: ``gen(seed, mu, p, device="cuda") ->
+    StatsState`` (no per-event outputs), the observables the control loop
+    and the stream benchmarks consume."""
+    _reject_fault_scenario(fault, scenario)
+
+    def gen(seed, mu, p, device="cuda"):
+        mu_t, _, nodes, u_race, u_exp, K = _inputs(mu, p, C, T, seed, init, device)
+        if mu_t.shape[-1] != n:
+            raise ValueError(f"mu has {mu_t.shape[-1]} clients, the function was made for {n}")
+        return scan_draws(mu_t, nodes, u_race, u_exp, K, emit_events=False)[2]
+
+    return gen
+
+
+def generate_stream(mu, p, C: int, T: int, seed: int | torch.Generator = 0,
+                    init: str = "distinct", fault=None, scenario=None,
+                    device="cuda") -> EventStream:
+    """Simulate T CS steps on ``device`` and export a host `EventStream`.
+
+    Drop-in for `queue_sim.export_stream` (exponential service only): same
+    arrays, same invariants, a different but law-identical realization.
+    ``seed`` is an int or a `torch.Generator` on ``device``.
+    """
+    _reject_fault_scenario(fault, scenario)
+    mu_t, p, nodes, u_race, u_exp, K = _inputs(mu, p, C, T, seed, init, device)
+    nodes, (J, K, t, slot, delay), stats = scan_draws(mu_t, nodes, u_race, u_exp, K)
+    return EventStream(
+        J=J.cpu().numpy().astype(np.int32),
+        K=K.cpu().numpy().astype(np.int32),
+        t=t.cpu().numpy().astype(np.float64),
+        slot=slot.cpu().numpy().astype(np.int32),
+        init_nodes=nodes.cpu().numpy().astype(np.int32),
+        n=int(mu_t.shape[-1]),
+        C=int(C),
+        p=p.copy(),
+        delay_steps=delay.cpu().numpy().astype(np.int64),
+        queue_len_sum=stats.occ_sum.cpu().numpy().astype(np.float64),
+        queue_len_tw=kahan_value(stats.occ_tw, stats.occ_tw_c),
+    )
+
+
+def generate_blocks(mu, p, C: int, T: int, block_size: int, seed: int | torch.Generator = 0,
+                    init: str = "distinct", cut_every: int = 0, method: str = "greedy",
+                    fault=None, scenario=None, device="cuda") -> EventBlocks:
+    """The device-generated stream cut into conflict-free ``(B, E)``
+    micro-blocks by `queue_sim.segment_blocks`: the blocked engine's feed."""
+    return EventBlocks.from_stream(
+        generate_stream(mu, p, C, T, seed=seed, init=init, fault=fault, scenario=scenario,
+                        device=device),
+        block_size, cut_every, method,
+    )
+
+
+# ---------------------------------------------------------------------- #
+# the control plane: exact Jackson analysis and the Theorem-1 bound in
+# torch, differentiable; every function takes (n,) or (B, n) vectors
+# ---------------------------------------------------------------------- #
+def _rdiv(a: float, t: torch.Tensor) -> torch.Tensor:
+    """``a / t`` as a true division (torch rewrites a Python scalar over a
+    tensor as a reciprocal times the scalar, which rounds differently)."""
+    return torch.div(torch.full_like(t, a), t)
+
+
+def _reject_counts(counts) -> None:
+    if counts is not None:
+        raise unported("counts= (the class-collapsed control plane)", 9)
+
+
+def mva_throughput_delays(mu, p, C: int, normalized: bool = True, counts=None):
+    """Exact ``(m, lam)`` of the closed network by Mean Value Analysis.
+
+    Over populations M = 1..C: W = (1 + Q_{M-1}) / mu, lam_M = M / (p . W),
+    Q_M = lam_M p W.  Returns the delays in CS steps (Prop. 3, with the
+    (C-1)/C Little's-law normalization by default) and the throughput; the
+    same values as the Buzen pipeline of `jackson.JacksonNetwork`, and a
+    C-step recurrence that autograd differentiates.
+    """
+    _reject_counts(counts)
+    p = torch.as_tensor(p)
+    mu = torch.as_tensor(mu, dtype=p.dtype, device=p.device)
+    w = torch.ones_like(p)
+    Q = torch.zeros_like(p)
+    lam = None
+    for M in range(1, C + 1):
+        W = (1.0 + Q) / mu
+        lam = _rdiv(float(M), torch.sum(w * p * W, dim=-1, keepdim=True))
+        Q = lam * p * W
+    if C == 1:
+        Q_prev = torch.zeros_like(p)
+    else:
+        # invert the last MVA step: Q_C = lam_C p (1 + Q_{C-1}) / mu
+        Q_prev = mu * Q / (lam * p) - 1.0
+    m = lam * (Q_prev + 1.0) / mu
+    if normalized:
+        m = m * (C - 1.0) / C
+    return m, lam[..., 0]
+
+
+def generalized_bound_jnp(eta, p, m, k: BoundConstants, counts=None):
+    """G(p, eta) of Eq. (3), `theory.generalized_bound` in torch."""
+    _reject_counts(counts)
+    w = torch.ones_like(p)
+    n2 = float(p.shape[-1]) ** 2
+    t1 = _rdiv(k.A, eta * (k.T + 1))
+    t2 = eta * k.L * k.B * torch.sum(w / (n2 * p), dim=-1)
+    t3 = eta**2 * k.L**2 * k.B * k.C * torch.sum(w * m / (n2 * p**2), dim=-1)
+    return t1 + t2 + t3
+
+
+def optimal_eta_jnp(p, m, k: BoundConstants, newton_iters: int = 20, counts=None):
+    """argmin_eta G(p, eta) s.t. eta <= eta_max, differentiable.
+
+    The stationary point solves 2c eta^3 + b eta^2 = D; Newton from eta0 =
+    cbrt(D / 2c) (``pow(., 1/3)`` on the positive argument) converges
+    monotonically.  The Theorem-1 cap min(a, b) mirrors
+    `theory.eta_max_components`.
+    """
+    _reject_counts(counts)
+    w = torch.ones_like(p)
+    n2 = float(p.shape[-1]) ** 2
+    D = k.A / (k.T + 1)
+    b = k.L * k.B * torch.sum(w / (n2 * p), dim=-1)
+    c = k.L**2 * k.B * k.C * torch.sum(w * m / (n2 * p**2), dim=-1)
+    eta = torch.pow(_rdiv(D, 2.0 * c), 1.0 / 3.0)
+    for _ in range(newton_iters):
+        f = 2.0 * c * eta**3 + b * eta**2 - D
+        fp = 6.0 * c * eta**2 + 2.0 * b * eta
+        eta = eta - f / fp
+    growth = 1.0 + k.rho**2
+    m_k = torch.sum(w * m / (n2 * p**2), dim=-1)
+    a_cap = _rdiv(1.0, torch.sqrt(16.0 * k.L**2 * k.C * m_k * growth))
+    b_cap = _rdiv(n2, 8.0 * k.L * growth * torch.sum(w / p, dim=-1))
+    return torch.minimum(eta, torch.minimum(a_cap, b_cap))
+
+
+def make_bound_value_and_grad(k: BoundConstants, counts=None):
+    """``vg(p, mu) -> (value, grad)`` of f(p) = G(p, eta*(p)) with the
+    delays from MVA: `sampling.bound_value_and_grad` in torch.
+
+    The gradient is autograd through the MVA recurrence, the explicit 1/p
+    terms and eta*(p) (the Newton iterates' channel vanishes at an interior
+    stationary point by the envelope theorem; where the cap is active,
+    ``torch.minimum`` routes the chain rule through it).  With a leading
+    cell axis each cell gets its own value and gradient.
+    """
+    _reject_counts(counts)
+
+    def vg(p, mu):
+        with torch.enable_grad():
+            pp = torch.as_tensor(p).detach().requires_grad_(True)
+            m, _ = mva_throughput_delays(torch.as_tensor(mu).detach(), pp, int(k.C))
+            eta = optimal_eta_jnp(pp, m, k)
+            val = generalized_bound_jnp(eta, pp, m, k)
+            (g,) = torch.autograd.grad(val.sum(), pp)
+        return val.detach(), g
+
+    return vg
+
+
+def estimate_mu(comp, busy_t, prior_weight: float = 1.0, floor_frac: float = 1e-3):
+    """Per-node service-rate MLE from observed (completions, busy time),
+    shrunk toward the busy-time-weighted global rate and floored at
+    ``floor_frac`` of it (a dark node reads as very slow but finite)."""
+    comp = comp.to(_F32)
+    mu_bar = torch.sum(comp, dim=-1, keepdim=True) / torch.clamp_min(
+        torch.sum(busy_t, dim=-1, keepdim=True), 1e-20)
+    mu_bar = torch.clamp_min(mu_bar, 1e-8)
+    est = (comp + prior_weight) / torch.clamp_min(busy_t + _rdiv(prior_weight, mu_bar), 1e-20)
+    return torch.maximum(est, floor_frac * mu_bar)
+
+
+def ctrl_refresh(p, comp, busy_t, k: BoundConstants, lr: float = 0.3, iters: int = 4,
+                 floor_scale: float = 1e-5, counts=None):
+    """One adaptive-sampling refresh: re-estimate the rates from the
+    observed stream, then ``iters`` exponentiated-gradient steps on the
+    Theorem-1 bound (`sampling.optimize_general`'s mirror descent, on
+    measured rates).  Non-finite gradient components are scrubbed to 0 and
+    each iterate is re-floored and renormalized, so p never collapses to
+    NaN or exact zeros.  ``counts`` (the class-collapsed form) raises item 9.
+    """
+    _reject_counts(counts)
+    vg = make_bound_value_and_grad(k)
+    mu_hat = estimate_mu(comp, busy_t)
+    w = torch.ones_like(p)
+    floor = floor_scale / p.shape[-1]
+    for _ in range(iters):
+        _, g = vg(p, mu_hat)
+        g = torch.where(torch.isfinite(g), g, 0.0)
+        z = w * p
+        gz = g / w
+        gz = gz - torch.sum(gz * z, dim=-1, keepdim=True)
+        z = z * torch.exp(-lr * gz / (torch.amax(torch.abs(gz), dim=-1, keepdim=True) + 1e-12))
+        z = torch.where(torch.isfinite(z), z, w * floor)
+        z = torch.maximum(z, w * floor)
+        p = (z / torch.sum(z, dim=-1, keepdim=True)) / w
+    return p

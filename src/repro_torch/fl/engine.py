@@ -17,6 +17,7 @@ come from `torch.Generator`s; parity tests pass the JAX package's arrays in.
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from functools import lru_cache
 from typing import Any, Callable
 
 import numpy as np
@@ -249,6 +250,16 @@ class DeviceFLClients(DeviceTaskClients):
 
 
 # ------------------------------------------------------------------ #
+@lru_cache(maxsize=64)
+def _two_cluster_p(policy: str, mu_f: float, mu_s: float, n: int, n_f: int, k: tuple):
+    """(p_fast, p_slow) of the two-cluster optimum: a pure function of its
+    scalars, memoized because every run of a configuration asks again (the
+    n=256 optimum takes seconds of host time)."""
+    opt = optimize_two_cluster if policy == "optimal" else optimize_physical_time
+    res = opt(mu_f, mu_s, n, n_f, BoundConstants(*k))
+    return float(res.p[0]), float(res.p[-1])
+
+
 def sampling_for(flc: FLConfig, mu: np.ndarray, constants: BoundConstants | None = None) -> np.ndarray:
     """Sampling probabilities per the configured policy."""
     n = flc.n_clients
@@ -259,15 +270,12 @@ def sampling_for(flc: FLConfig, mu: np.ndarray, constants: BoundConstants | None
     n_f = int(np.sum(mu > (mu_f + mu_s) / 2))
     if mu_f == mu_s or n_f in (0, n):
         return np.full(n, 1.0 / n)
-    if flc.sampling == "optimal":
-        res = optimize_two_cluster(mu_f, mu_s, n, n_f, k)
-    elif flc.sampling == "physical_time":
-        res = optimize_physical_time(mu_f, mu_s, n, n_f, k)
-    else:
+    if flc.sampling not in ("optimal", "physical_time"):
         raise ValueError(flc.sampling)
-    # res.p has fast-first layout; map onto actual fast/slow indices
+    p_fast, p_slow = _two_cluster_p(flc.sampling, mu_f, mu_s, n, n_f,
+                                    (k.A, k.L, k.B, k.C, k.T, k.rho))
+    # the optimum has a fast-first layout; map onto actual fast/slow indices
     p = np.empty(n)
-    p_fast, p_slow = res.p[0], res.p[-1]
     p[mu > (mu_f + mu_s) / 2] = p_fast
     p[mu <= (mu_f + mu_s) / 2] = p_slow
     return p / p.sum()
@@ -421,14 +429,10 @@ def _cached_fl_setup(data: FederatedClassification | None, seed: int, task=None,
 
 
 def _reject_unported(flc: FLConfig, method, task, serving):
-    """The device event stream (with the faults, guard, checkpoints and
-    scenarios that ride on it) raises first, then the serving plane."""
+    """Duck-typed tasks (item 7d), then the serving plane (item 11); the
+    device stream's own unported options raise in `core.async_sgd`."""
     if method not in ("gen_async", "async_sgd", "fedbuff", "fedavg", "favano"):
         raise ValueError(method)
-    if flc.stream == "device":
-        raise unported("stream='device'", 6)
-    if flc.adaptive:
-        raise unported("adaptive=True", 6)
     if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
         raise unported(f"task={type(task).__name__}", "7d")
     if serving is not None:
@@ -467,6 +471,10 @@ def run_experiment(
     `torch.distributed` process group (every rank makes the same call and
     gets the same result).
 
+    ``flc.stream`` picks the scan engine's event source: "host" replay, or
+    "device" generation (the fused runner; it implies the scan engine and
+    is the only one that runs ``flc.adaptive`` sampling).
+
     Robustness knobs (async methods, host stream): ``faults`` injects client
     churn / crashes / straggler timeouts (`core.FaultConfig`), ``guard``
     rejects divergent or over-stale updates (`core.GuardConfig`),
@@ -475,12 +483,17 @@ def run_experiment(
     engine state every ``ckpt_every`` CS steps (scan engine); ``resume=True``
     restores the latest checkpoint and continues, bitwise.  The other
     keywords keep `repro.fl.engine.run_experiment`'s signature; the options
-    the port does not run yet (the device stream, serving) raise
-    `NotImplementedError`.
+    the port does not run yet (these knobs on the device stream, serving)
+    raise `NotImplementedError`.
     """
     _reject_unported(flc, method, task, serving)
     device = resolve_device(flc.device)
-    engine = flc.engine if engine is None else engine
+    if flc.stream == "device":
+        if engine == "python":
+            raise ValueError("stream='device' requires the scan engine")
+        engine = "scan"
+    else:
+        engine = flc.engine if engine is None else engine
     if engine not in ("python", "scan"):
         raise ValueError(engine)
     classification = task is None or isinstance(task, ClassificationTask)
@@ -490,6 +503,8 @@ def run_experiment(
 
     async_method = method in ("gen_async", "async_sgd", "fedbuff")
     use_scan = engine == "scan" and async_method
+    if flc.adaptive and async_method and not use_scan:
+        raise ValueError("adaptive sampling requires engine='scan' with stream='device'")
     if use_scan or not classification:
         setup = _cached_fl_setup(data, flc.seed, task, n_clients=flc.n_clients,
                                  device=device)
@@ -511,7 +526,10 @@ def run_experiment(
         seed=flc.seed,
         eval_every=eval_every,
         engine="scan" if use_scan else "python",
-        stream="host",
+        stream=flc.stream if use_scan else "host",
+        sparse=flc.sparse,
+        adaptive=flc.adaptive if use_scan else False,
+        refresh_every=flc.refresh_every,
         block_size=flc.block_size if use_scan else 1,
         devices=flc.devices if use_scan else 1,
         segmentation=flc.segmentation,
@@ -552,7 +570,9 @@ def run_experiment(
         delays = np.array([np.mean(d) if d else np.nan for d in tr.delays])
     grad_calls = flc.server_steps if use_scan else clients.grad_calls
     extras = {"grad_calls": grad_calls, "engine": "scan" if use_scan else "python"}
-    extras.update(tr.extras)
+    extras.update(tr.extras)  # device stream: p_final, p_traj, ...
+    if delays is None and "mean_delays" in extras:
+        delays = extras.pop("mean_delays")
     return FLRun(
         name=method,
         eval_steps=ev_steps,
@@ -579,7 +599,20 @@ class MatrixResult:
     eval_times: np.ndarray    # (S, P, H, n_evals) physical time at each eval
     final_acc: np.ndarray     # (S, P, H)
     p_vectors: np.ndarray     # (P, H, n) sampling vector per (policy, ratio)
-    extras: dict = field(default_factory=dict)
+    extras: dict = field(default_factory=dict)  # device stream: p_final,
+                                                # mean_delays, comp, occ_mean
+
+
+def _matrix_policies(flc: FLConfig, policies, speed_ratios):
+    """The grid's client speeds, one (n,) vector a ratio (``flc.seed`` draws
+    them), and its (P, H, n) sampling vectors, one a (policy, ratio)."""
+    n = flc.n_clients
+    mus = [make_client_speeds(n, flc.frac_fast, ratio, seed=flc.seed) for ratio in speed_ratios]
+    p_vectors = np.empty((len(policies), len(speed_ratios), n))
+    for pi, pol in enumerate(policies):
+        for hi, mu in enumerate(mus):
+            p_vectors[pi, hi] = sampling_for(replace(flc, sampling=pol), mu)
+    return mus, p_vectors
 
 
 def matrix_streams(flc: FLConfig, seeds, policies, speed_ratios, eta: float,
@@ -595,11 +628,7 @@ def matrix_streams(flc: FLConfig, seeds, policies, speed_ratios, eta: float,
     from ..core.queue_sim import SimConfig, export_stream
 
     n, C, T = flc.n_clients, flc.concurrency, flc.server_steps
-    mus = [make_client_speeds(n, flc.frac_fast, ratio, seed=flc.seed) for ratio in speed_ratios]
-    p_vectors = np.empty((len(policies), len(speed_ratios), n))
-    for pi, pol in enumerate(policies):
-        for hi, mu in enumerate(mus):
-            p_vectors[pi, hi] = sampling_for(replace(flc, sampling=pol), mu)
+    mus, p_vectors = _matrix_policies(flc, policies, speed_ratios)
     streams = []
     for seed in seeds:
         for pi in range(len(policies)):
@@ -627,44 +656,53 @@ def run_matrix(
     scenario: str | None = None,
 ) -> MatrixResult:
     """Run the whole scenario grid (seeds x policies x speed ratios) in one
-    lockstep replay on ``flc.device``.
+    lockstep run on ``flc.device``, along an explicit cell axis.
 
-    The host stream, as `repro.fl.engine.run_matrix` runs it: one event
-    stream is simulated per cell (`queue_sim.export_stream`), the streams
-    are stacked — or, with ``block_size`` E > 1 (default
-    ``flc.block_size``; ``"auto"`` picks E from all cells' slots), cut into
-    one common blocked layout (`engine_scan.blocked_inputs_batch`) — and the
-    replay engine runs every cell at once along an explicit cell axis
-    (`engine_scan.jit_runner(..., vmap_streams=True)`): one gather, one
-    vmapped gradient call, one update and one scatter per event (or block)
-    for all cells.  ``final_acc`` is the eval fn vmapped over the cells.
-    ``scenario`` (default ``flc.scenario``; a registry name or a
-    `ScenarioConfig`) simulates every cell's stream under that service law
-    and availability; its stage and flip events replay as no-ops through
-    each cell's trash ring row.
+    ``stream`` (default ``flc.stream``) picks the event source, as in
+    `repro.fl.engine.run_matrix`:
+
+      "host"    one event stream is simulated per cell
+                (`queue_sim.export_stream`), the streams are stacked — or,
+                with ``block_size`` E > 1 (default ``flc.block_size``;
+                ``"auto"`` picks E from all cells' slots), cut into one
+                common blocked layout (`engine_scan.blocked_inputs_batch`)
+                — and the replay runs every cell at once
+                (`engine_scan.jit_runner(..., vmap_streams=True)`).
+      "device"  no host pre-simulation: the fused runner
+                (`engine_scan.jit_fused_runner(..., vmap_scenarios=True)`)
+                generates every cell's events on the device in lockstep and
+                replays them, per event or blocked.  Exponential service
+                only; runs ``flc.adaptive`` sampling per cell (the "uniform"
+                rows then double as adaptive-from-uniform runs).  Each
+                cell's generator is seeded from (seed, policy, ratio), as
+                the reference folds its key; ``extras`` gains ``p_final``,
+                ``mean_delays``, ``comp`` and ``occ_mean`` per cell.
+
+    Either way each event (or block) makes one gather, one vmapped gradient
+    call, one update and one scatter for all cells; ``final_acc`` is the
+    eval fn vmapped over the cells.  ``scenario`` (default
+    ``flc.scenario``; a registry name or a `ScenarioConfig`) simulates
+    every host cell's stream under that service law and availability; its
+    stage and flip events replay as no-ops through each cell's trash ring
+    row (on the device stream it raises item 10).
 
     ``task`` picks the workload as in `run_experiment` (`LMTask`: ``eval_acc``
     and ``final_acc`` then carry eval loss).  The model and dataset are
     shared across cells; only the queueing clock, the sampling vector and
     the event realization differ.  Pass a persistent ``data`` (or the same
     ``task``) to reuse the cached gradient source and with it the memoized
-    runner; the eval cadence is a call-time argument of the runner, so a
-    sweep over ``eval_every`` does not rebuild it.  ``stream="device"``,
-    ``flc.adaptive`` and ``devices`` > 1 raise `NotImplementedError`, each
-    naming its ROADMAP item.
+    runner; the host replay's eval cadence is a call-time argument of the
+    runner, so a sweep over ``eval_every`` does not rebuild it.
+    ``devices`` > 1 raises `NotImplementedError` (ROADMAP item 12).
     """
-    from ..core.async_sgd import _auto_block_size
-    from ..core.engine_scan import blocked_inputs_batch, jit_runner
+    from ..core.async_sgd import _auto_block_size, _probe_stream_slots
+    from ..core.engine_scan import blocked_inputs_batch, jit_fused_runner, jit_runner
     from ..core.queue_sim import EventBlocks
     from ..core.scenario import get_scenario
 
     stream = flc.stream if stream is None else stream
     if stream not in ("host", "device"):
         raise ValueError(stream)
-    if stream == "device":
-        raise unported("run_matrix(stream='device')", 6)
-    if flc.adaptive:
-        raise unported("run_matrix with adaptive=True", 6)
     sc = get_scenario(scenario if scenario is not None else flc.scenario)
     if sc is not None and not sc.enabled:
         sc = None
@@ -673,6 +711,12 @@ def run_matrix(
         raise unported("run_matrix lanes (devices > 1)", 12)
     if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
         raise unported(f"task={type(task).__name__}", "7d")
+    if stream == "device":
+        if flc.service != "exp":
+            raise ValueError("stream='device' supports exponential service only; use "
+                             "stream='host' for service='det'")
+        if sc is not None:
+            raise unported("run_matrix(stream='device', scenario=)", 10)
     block_size = flc.block_size if block_size is None else block_size
     if block_size != "auto":
         block_size = int(block_size)
@@ -685,33 +729,61 @@ def run_matrix(
     setup = _cached_fl_setup(data, flc.seed, task, n_clients=flc.n_clients, device=device)
     clients, acc_fn = setup.clients, setup.eval_fn
 
-    C = flc.concurrency
+    n, C, T = flc.n_clients, flc.concurrency, flc.server_steps
     S, P, H = len(seeds), len(policies), len(speed_ratios)
     w0 = setup.params
-    p_vectors, streams = matrix_streams(flc, seeds, policies, speed_ratios, eta, scenario=sc)
-    t_phys = np.stack([es.t for es, _ in streams])
-    if block_size == "auto":
-        # the single run's resolution policy, over all cells' measured slots
-        block_size = _auto_block_size([es.slot for es, _ in streams], lane,
-                                      cut_every=eval_every)
+    extras: dict = {"stream": stream}
     idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)  # noqa: E731
     f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)  # noqa: E731
-    if block_size > 1:
-        blocks = [EventBlocks.from_stream(es, block_size, cut_every=eval_every,
-                                          method=segmentation) for es, _ in streams]
-        Jb, slotb, scb, kb, maskb, chunk_blocks, n_chunks = blocked_inputs_batch(
-            blocks, [s for _, s in streams], eval_every)
-        runner = jit_runner(clients.device_grad, C, eval_fn=acc_fn, block_size=block_size,
-                            vmap_streams=True)
-        w_final, evals = runner(w0, idx(Jb), idx(slotb), f32(scb), idx(kb),
-                                torch.as_tensor(maskb, device=device),
-                                chunk_blocks=chunk_blocks, n_chunks=n_chunks)
+    if stream == "device":
+        mus, p_vectors = _matrix_policies(flc, policies, speed_ratios)
+        mu_b = np.stack([mus[hi] for _ in seeds for _ in range(P) for hi in range(H)])
+        p_b = np.stack([p_vectors[pi, hi] for _ in seeds for pi in range(P) for hi in range(H)])
+        # each cell's generator from (seed, policy, ratio): the reference
+        # folds the cell index pi * H + hi into the seed's key
+        keys = [torch.Generator(device=device).manual_seed(
+                    int(np.random.SeedSequence([seed, pi * H + hi]).generate_state(1)[0]))
+                for seed in seeds for pi in range(P) for hi in range(H)]
+        if block_size == "auto":
+            block_size = _auto_block_size(
+                _probe_stream_slots(mu_b[0], p_b[0], C, T, int(seeds[0]), device), lane)
+        runner = jit_fused_runner(
+            clients.device_grad, n, C, T, vmap_scenarios=True, weighting=flc.weighting,
+            eval_fn=acc_fn, eval_every=eval_every, adaptive=flc.adaptive,
+            refresh_every=flc.refresh_every, block_size=block_size,
+        )
+        w_final, evals, dev_extras = runner(w0, mu_b, p_b, keys, eta)
+        dev_extras = {k: v.detach().cpu().numpy() for k, v in dev_extras.items()}
+        t_phys = np.asarray(dev_extras["t"], np.float64)
+        comp = np.asarray(dev_extras["comp"], np.float64)
+        cells = lambda a: np.asarray(a, np.float64).reshape(S, P, H, n)  # noqa: E731
+        extras.update(p_final=cells(dev_extras["p_final"]),
+                      mean_delays=cells(dev_extras["delay_sum"] / np.maximum(comp, 1.0)),
+                      comp=cells(comp), occ_mean=cells(dev_extras["occ_mean"]))
     else:
-        runner = jit_runner(clients.device_grad, C, eval_fn=acc_fn, eval_every=eval_every,
-                            vmap_streams=True)
-        w_final, evals = runner(w0, idx([es.J for es, _ in streams]),
-                                idx([es.slot for es, _ in streams]),
-                                f32([s for _, s in streams]))
+        p_vectors, streams = matrix_streams(flc, seeds, policies, speed_ratios, eta,
+                                            scenario=sc)
+        t_phys = np.stack([es.t for es, _ in streams])
+        if block_size == "auto":
+            # the single run's resolution policy, over all cells' measured slots
+            block_size = _auto_block_size([es.slot for es, _ in streams], lane,
+                                          cut_every=eval_every)
+        if block_size > 1:
+            blocks = [EventBlocks.from_stream(es, block_size, cut_every=eval_every,
+                                              method=segmentation) for es, _ in streams]
+            Jb, slotb, scb, kb, maskb, chunk_blocks, n_chunks = blocked_inputs_batch(
+                blocks, [s for _, s in streams], eval_every)
+            runner = jit_runner(clients.device_grad, C, eval_fn=acc_fn, block_size=block_size,
+                                vmap_streams=True)
+            w_final, evals = runner(w0, idx(Jb), idx(slotb), f32(scb), idx(kb),
+                                    torch.as_tensor(maskb, device=device),
+                                    chunk_blocks=chunk_blocks, n_chunks=n_chunks)
+        else:
+            runner = jit_runner(clients.device_grad, C, eval_fn=acc_fn, eval_every=eval_every,
+                                vmap_streams=True)
+            w_final, evals = runner(w0, idx([es.J for es, _ in streams]),
+                                    idx([es.slot for es, _ in streams]),
+                                    f32([s for _, s in streams]))
 
     final_acc = torch.func.vmap(acc_fn)(w_final).detach().cpu().numpy()
     evals = evals.detach().cpu().numpy()
@@ -727,5 +799,5 @@ def run_matrix(
         eval_times=eval_times.reshape(S, P, H, n_evals),
         final_acc=final_acc.reshape(S, P, H),
         p_vectors=p_vectors,
-        extras={"stream": "host"},
+        extras=extras,
     )

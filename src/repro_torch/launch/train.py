@@ -7,8 +7,9 @@ Two modes, with the reference's flags:
     architecture (reduced preset by default) with the same queueing
     engine: clients are data-parallel groups with heterogeneous speeds and
     the server applies importance-weighted updates (Alg. 1 line 10).
-    ``--engine`` picks the server loop: "python" (the per-event oracle) or
-    "scan" (the replay engine; ``--block-size`` micro-blocks it).
+    ``--engine`` picks the server loop: "python" (the per-event oracle),
+    "scan" (the replay engine; ``--block-size`` micro-blocks it) or
+    "fused" (the scan engine on the device event stream).
     ``--ckpt-dir`` saves the final parameters there (`repro_torch.ckpt`,
     the reference's layout).
 
@@ -30,7 +31,6 @@ from ..configs import get_config, smoke_config
 from ..ckpt import save
 from ..configs.base import FLConfig
 from ..fl import LMTask, run_experiment
-from ..unported import unported
 
 
 def lm_config(args):
@@ -43,20 +43,20 @@ def lm_config(args):
 
 
 def run_lm(args) -> None:
-    if args.engine == "fused":
-        raise unported("--engine fused (device event stream)", 6)
     cfg = lm_config(args)
     n, C = args.clients, args.concurrency
+    engine = "python" if args.engine == "python" else "scan"
+    stream = "device" if args.engine == "fused" else "host"
     task = LMTask(cfg=cfg, batch_size=args.batch, seq_len=args.seq,
                   shard_size=args.shard_size)
     flc = FLConfig(n_clients=n, concurrency=C, server_steps=args.steps,
                    sampling=args.sampling, speed_ratio=args.speed_ratio,
-                   seed=args.seed, engine=args.engine, block_size=args.block_size,
+                   seed=args.seed, engine=engine, stream=stream, block_size=args.block_size,
                    device=args.device)
 
     t0 = time.time()
     r = run_experiment(flc, "gen_async", eta=args.lr,
-                       eval_every=args.eval_every, engine=args.engine, task=task)
+                       eval_every=args.eval_every, engine=engine, task=task)
     print(f"# lm training done in {time.time()-t0:.1f}s "
           f"(engine={args.engine}, block_size={args.block_size}); "
           f"grad calls offloaded to {n} clients")

@@ -8,9 +8,9 @@ from __future__ import annotations
 __all__ = ["ROADMAP_ITEMS", "unported"]
 
 ROADMAP_ITEMS = {
-    6: "device event stream and adaptive sampling",
     "7d": "optimizers (optim/), api.train_step and duck-typed tasks",
     8: "faults, guard and checkpointing on the device stream",
+    9: "sparse O(C) million-client stream",
     10: "scenario device steps",
     11: "serving plane",
     12: "lane sharding of the scenario matrix and of the device stream",

@@ -319,7 +319,7 @@ def test_layout_errors_and_the_fused_driver():
         run_checkpointed_host_blocked(_grad, _C, 8, _w0(), J, slot, sc, k, mask,
                                       group_events=50, chunk_blocks=cb, n_chunks=nc,
                                       ckpt_dir="unused", ckpt_every=75)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 8"):
         run_checkpointed(_grad, _N, _C, _T)
 
 
@@ -346,12 +346,20 @@ def test_run_experiment_resume_bitwise(tmp_path):
     assert r1.extras["guard_rejects"] == r2.extras["guard_rejects"]
 
 
-def test_per_event_snapshot_dtype_same_with_and_without_checkpoints(tmp_path):
-    """``snapshot_dtype`` sets the per-event ring's dtype whether or not the
-    run checkpoints: the un-checkpointed bf16-ring run is bitwise the
-    checkpointed one, and differs from the fp32 ring's."""
+@pytest.mark.parametrize("ckpt", [False, True])
+def test_per_event_snapshot_dtype_same_with_and_without_checkpoints(tmp_path, ckpt):
+    """``snapshot_dtype="bfloat16"`` on the per-event host replay follows
+    the reference path by path.  Without checkpoints `repro`'s `_run_scan`
+    does not pass it to the runner, so the ring stays in the weights'
+    dtype: the port's run equals the reference's (<= 1e-5) and is bitwise
+    its own fp32-ring run.  With checkpoints both packages store a bf16 ring
+    (`run_checkpointed_host`): the port's run equals the reference driver's
+    on the same stream (<= 1e-5)."""
     from types import SimpleNamespace
 
+    from repro.core import FaultConfig as JFaultConfig
+    from repro.core import ServerConfig as JServerConfig
+    from repro.core import run_generalized_async_sgd as j_run
     from repro_torch.core import ServerConfig, run_generalized_async_sgd
 
     cfg = ServerConfig(n=_N, C=_C, T=_T, eta=0.05, mu=_MU, p=_P, seed=5, eval_every=50,
@@ -359,12 +367,26 @@ def test_per_event_snapshot_dtype_same_with_and_without_checkpoints(tmp_path):
                        device="cpu")
     src = SimpleNamespace(device_grad=_grad)
     run = lambda c: run_generalized_async_sgd(_w0(), src, c, eval_fn=_loss)  # noqa: E731
-    w, tr = run(cfg)
-    w_ck, tr_ck = run(ServerConfig(**{**cfg.__dict__, "ckpt_dir": str(tmp_path / "pe"),
-                                      "ckpt_every": 50}))
-    assert (_bits(w) == _bits(w_ck)).all() and tr.eval_values == tr_ck.eval_values
-    w32, _ = run(ServerConfig(**{**cfg.__dict__, "snapshot_dtype": None}))
-    assert not (_bits(w) == _bits(w32)).all()
+    jw0 = {"a": jnp.zeros(6), "b": jnp.ones(3)}
+    if not ckpt:
+        w, tr = run(cfg)
+        jcfg = JServerConfig(n=_N, C=_C, T=_T, eta=0.05, mu=_MU, p=_P, seed=5, eval_every=50,
+                             engine="scan", faults=JFaultConfig(**_FAULT),
+                             snapshot_dtype="bfloat16")
+        wj, trj = j_run(jw0, SimpleNamespace(device_grad=_j_grad), jcfg, eval_fn=_j_loss)
+        w32, _ = run(ServerConfig(**{**cfg.__dict__, "snapshot_dtype": None}))
+        assert (_bits(w) == _bits(w32)).all()
+    else:
+        w, tr = run(ServerConfig(**{**cfg.__dict__, "ckpt_dir": str(tmp_path / "pe"),
+                                    "ckpt_every": 50}))
+        stream, scale = _host_arrays()
+        wj, ej = j_run_host(_j_grad, _C, jw0, stream.J, stream.slot, scale,
+                            ckpt_dir=str(tmp_path / "j"), ckpt_every=50, eval_fn=_j_loss,
+                            eval_every=50, snapshot_dtype="bfloat16")
+        trj = SimpleNamespace(eval_values=[float(v) for v in np.asarray(ej)])
+    for key in ("a", "b"):
+        np.testing.assert_allclose(w[key].numpy(), np.asarray(wj[key]), atol=1e-5)
+    np.testing.assert_allclose(tr.eval_values, trj.eval_values, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -149,24 +149,57 @@ def test_scan_rejects_host_only_source():
         run_generalized_async_sgd(np.zeros(2, np.float32), HostOnly(), cfg)
 
 
-@pytest.mark.parametrize("option", [
-    dict(faults=queue_sim.FaultConfig(crash_rate=0.1), stream="device"),
-    dict(guard=engine_scan.GuardConfig(max_grad_norm=10.0), stream="device"),
-    dict(ckpt_dir="ckpt", ckpt_every=5, stream="device"),
-    dict(stream="device"),
-    dict(adaptive=True),
-    dict(scenario="erlang2", stream="device"),
-])
+_OPTIONS = {
+    "faults": dict(faults=queue_sim.FaultConfig(crash_rate=0.1), stream="device"),
+    "guard": dict(guard=engine_scan.GuardConfig(max_grad_norm=10.0), stream="device"),
+    "ckpt": dict(ckpt_dir="ckpt", ckpt_every=5, stream="device"),
+    "device": dict(stream="device"),
+    "adaptive": dict(adaptive=True),
+    "scenario": dict(scenario="erlang2", stream="device"),
+}
+# what the port does with each option on the scan engine: the reference's
+# ValueError, a finite run, or the ROADMAP item that will port it (the
+# reference runs those); on the Python engine every option raises the
+# reference's ValueError ("stream='device' / adaptive require engine='scan'")
+_ON_SCAN = {"faults": 8, "guard": 8, "ckpt": 8, "device": None,
+            "adaptive": "requires stream='device'", "scenario": 10}
+
+
+def _jax_option(option):
+    from repro.core import FaultConfig as JFaultConfig
+    from repro.core import GuardConfig as JGuardConfig
+
+    conv = {"faults": lambda f: JFaultConfig(crash_rate=f.crash_rate),
+            "guard": lambda g: JGuardConfig(max_grad_norm=g.max_grad_norm)}
+    return {k: conv[k](v) if k in conv else v for k, v in option.items()}
+
+
+@pytest.mark.parametrize("option", sorted(_OPTIONS))
 @pytest.mark.parametrize("engine", ["python", "scan"])
 def test_unported_options_raise(option, engine):
-    """Faults, the guard, checkpoints and scenarios run on the host stream
-    (`tests/test_torch_faults.py`, `test_torch_ckpt.py`,
-    `test_torch_scenarios.py`); on the device stream, which is not ported,
-    each raises item 6 first, as does adaptive sampling."""
+    """Each option of the device stream does what the reference does with
+    it: the Python engine raises the reference's ValueError for all of
+    them, as does adaptive sampling on the host stream; bare
+    ``stream="device"`` runs on the scan engine (finite weights); faults,
+    the guard and checkpoints on the device stream raise item 8 and a
+    scenario item 10, where the reference runs them."""
     prob = Quadratic(4)
-    cfg = ServerConfig(n=4, C=2, T=10, eta=0.1, engine=engine, device="cpu", **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6"):
-        run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
+    opt = _OPTIONS[option]
+    cfg = ServerConfig(n=4, C=2, T=10, eta=0.1, engine=engine, device="cpu", **opt)
+    expect = _ON_SCAN[option] if engine == "scan" else "require engine='scan'"
+    if isinstance(expect, str):
+        with pytest.raises(ValueError, match=expect):
+            run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
+        jcfg = JServerConfig(n=4, C=2, T=10, eta=0.1, engine=engine, **_jax_option(opt))
+        with pytest.raises(ValueError, match=expect):
+            j_run(jnp.zeros(prob.d, jnp.float32), JQuadratic(prob.c), jcfg)
+    elif expect is None:
+        w, tr = run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
+        assert bool(torch.isfinite(w).all()) and tr.times.shape == (10,)
+        assert np.all(np.diff(tr.times) >= 0) and tr.extras["p_final"].shape == (4,)
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {expect}"):
+            run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
 
 
 @pytest.mark.parametrize("engine", ["python", "scan"])
@@ -192,13 +225,16 @@ def test_devices_option_is_ported(engine):
 def test_unported_baselines_raise(fn):
     """The baselines are ported (ROADMAP Queue 1 item 4): each runs on the
     CPU and returns finite weights (their parity with the JAX package is in
-    `tests/test_torch_fedbuff.py`).  What still raises is FedBuff on the
-    device event stream, which is not ported (item 6)."""
+    `tests/test_torch_fedbuff.py`).  FedBuff also runs on the device event
+    stream (ROADMAP item 2 asked for it; its parity with the reference's
+    fused runner is in `tests/test_torch_fused.py`)."""
     cfg = ServerConfig(n=12, C=2, T=10, eta=0.1, device="cpu")  # FedAvg samples 10 a round
     w, tr = fn(np.zeros(4, np.float32), Quadratic(12), cfg)
     assert bool(torch.isfinite(w).all()) and len(tr.times) == 10
-    with pytest.raises(NotImplementedError, match="item 6"):
-        engine_scan.make_runner(Quadratic(4).device_grad, 2, fedbuff_Z=5, stream="device")
+    run = engine_scan.make_runner(Quadratic(4).device_grad, 2, fedbuff_Z=5, stream="device",
+                                  n=4, T=20, weighting="plain")
+    w_dev, _, extras = run(torch.zeros(4), np.ones(4), np.full(4, 0.25), 0, 0.1)
+    assert bool(torch.isfinite(w_dev).all()) and extras["t"].shape == (20,)
     assert callable(engine_scan.make_runner(Quadratic(4).device_grad, 2, fedbuff_Z=5))
 
 

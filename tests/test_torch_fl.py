@@ -137,21 +137,27 @@ def test_cuda_device_raises_without_a_card():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(task=object()), "item 7"),
-    (dict(faults=object(), flc=dict(stream="device")), "item 6"),
-    (dict(ckpt_dir="ckpt", ckpt_every=5, flc=dict(stream="device")), "item 6"),
+    (dict(faults="crash", flc=dict(stream="device")), "item 8"),
+    (dict(ckpt_dir="ckpt", ckpt_every=5, flc=dict(stream="device")), "item 8"),
     (dict(serving=object()), "item 11"),
 ])
 def test_run_experiment_unported_raise(kw, item):
     """Faults and checkpoints run on the host stream (`tests/test_torch_faults.py`,
-    `tests/test_torch_ckpt.py`); on the device stream they raise its item 6."""
+    `tests/test_torch_ckpt.py`); on the device stream they raise item 8.
+    The device stream itself runs (`tests/test_torch_fused.py`); a scenario
+    on it raises item 10."""
+    from repro_torch.core import FaultConfig
+
     kw = dict(kw)
+    if kw.get("faults") == "crash":
+        kw["faults"] = FaultConfig(crash_rate=0.1)
     method = kw.pop("method", "gen_async")
     flc = FLConfig(n_clients=4, concurrency=2, server_steps=10, device="cpu",
                    **kw.pop("flc", {}))
     with pytest.raises(NotImplementedError, match=item):
         t_fl.run_experiment(flc, method, **kw)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_fl.run_matrix(flc, stream="device")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        t_fl.run_matrix(flc, stream="device", scenario="erlang2")
 
 
 @pytest.mark.parametrize("method", ["fedbuff", "fedavg", "favano"])

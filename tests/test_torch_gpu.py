@@ -1079,3 +1079,135 @@ def test_checkpointed_resume_on_card_is_bitwise(dev, tmp_path, block_size):
         w_0, tr_0 = run(replace(cfg, ckpt_dir=None, ckpt_every=0))
         assert all(torch.equal(w_full[k], w_0[k]) for k in w_full)
         assert tr_full.eval_values == tr_0.eval_values
+
+
+# ------------------------------------------------------------------ #
+# the device event stream on the card (the CPU side is held against the
+# JAX package in tests/test_torch_stream.py and test_torch_fused.py)
+# ------------------------------------------------------------------ #
+def _stream_inputs(n, C, T, cells=None, seed=0):
+    """Draws made on the CPU by the port's generator, so the card and the
+    CPU run the same inputs (a CUDA and a CPU generator differ)."""
+    from repro_torch.core import stream_device as sd
+
+    p = np.random.default_rng(seed).uniform(0.5, 1.5, n)
+    p /= p.sum()
+    mu = np.random.default_rng(seed + 1).uniform(0.5, 4.0, n)
+    draws = [sd.draw_uniforms(seed * 100 + b, n, C, T, p, device="cpu")
+             for b in range(cells or 1)]
+    nodes, ur, ue, ud = (torch.stack(a) for a in zip(*draws))
+    pt = torch.tensor(p, dtype=torch.float32).expand(cells or 1, n)
+    K = sd.tree_sample(sd.tree_build(pt), ud)
+    mu_t = torch.tensor(mu, dtype=torch.float32).expand(cells or 1, n)
+    out = [mu_t, nodes, ur, ue, K]
+    return [a[0] for a in out] if cells is None else out
+
+
+@pytest.mark.parametrize("cells", [None, 5])
+def test_device_stream_on_card_equals_cpu(dev, cells):
+    from repro_torch.core import stream_device as sd
+
+    args = _stream_inputs(64, 16, 400, cells)
+    n_c, ev_c, st_c = sd.scan_draws(*args)
+    n_g, ev_g, st_g = sd.scan_draws(*(a.to(dev) for a in args))
+    for i in (0, 1, 3, 4):  # J, K, slot, delay
+        assert torch.equal(ev_g[i].cpu(), ev_c[i])
+    torch.testing.assert_close(ev_g[2].cpu(), ev_c[2], rtol=1e-6, atol=0)
+    for f in ("occ_sum", "comp", "slot_step"):
+        assert torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f))
+    for f in ("occ_tw", "busy_t", "delay_sum"):
+        torch.testing.assert_close(getattr(st_g, f).cpu(), getattr(st_c, f), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_device_stream_chunk_makes_no_host_sync(dev):
+    from repro_torch.core import stream_device as sd
+
+    mu, nodes, ur, ue, K = (a.to(dev) for a in _stream_inputs(64, 16, 200, cells=3))
+    state, _ = sd.stream_init(nodes, 64, 16)
+    stats = sd.stats_init(64, 16, cells=3, device=dev)
+    cst = sd._Consts((3,), 16, dev)
+    e_hold = -torch.log1p(-ue)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        K2 = sd.tree_sample(sd.tree_build(torch.full((3, 64), 1 / 64, device=dev)), ur)
+        sd._advance(state, stats, mu, e_hold, ur, K2, 0, cst)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_fused_chunk_makes_no_host_sync(dev):
+    """One chunk of the fused runner itself, importance-weighted and
+    adaptive: the stream, the dispatch-time slot scales, the MLP's per-event
+    replay and the `ctrl_refresh` at the chunk's end, under the sync check."""
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.async_sgd import _device_grad_fn
+    from repro_torch.core.engine_scan import make_fused_runner
+
+    n, C, T = 16, 4, 200
+    setup, mu = _setup(dev, n=n)
+    p = np.full(n, 1.0 / n)
+    run = make_fused_runner(_device_grad_fn(setup.clients), n, C, T, weighting="importance",
+                            adaptive=True, refresh_every=T)
+    draws = sd.draw_uniforms(3, n, C, T, p, device=dev)
+    mu_g, p_g = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (mu, p))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w, _, ex = run.from_draws(setup.params, mu_g, p_g, 0.05, *draws)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(v).all()) for v in w.values())
+    assert ex["p_traj"].shape == (1, n) and abs(float(ex["p_final"].sum()) - 1.0) <= 1e-5
+
+
+def test_control_plane_on_card_equals_cpu(dev):
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.theory import BoundConstants
+
+    n, C = 64, 16
+    rng = np.random.default_rng(2)
+    mu = torch.tensor(rng.uniform(0.5, 6.0, n), dtype=torch.float32)
+    p = torch.tensor(rng.uniform(0.5, 1.5, n), dtype=torch.float32)
+    p = p / p.sum()
+    k = BoundConstants(C=C, T=2000)
+    m_c, lam_c = sd.mva_throughput_delays(mu, p, C)
+    m_g, lam_g = sd.mva_throughput_delays(mu.to(dev), p.to(dev), C)
+    torch.testing.assert_close(m_g.cpu(), m_c, rtol=1e-5, atol=0)
+    comp = torch.tensor(rng.integers(10, 200, n))
+    busy = torch.tensor(rng.uniform(10.0, 100.0, n), dtype=torch.float32)
+    p1_c = sd.ctrl_refresh(p, comp, busy, k)
+    p1_g = sd.ctrl_refresh(p.to(dev), comp.to(dev), busy.to(dev), k)
+    torch.testing.assert_close(p1_g.cpu(), p1_c, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(update="pallas"), dict(block_size=4),
+                                dict(adaptive=True, refresh_every=100)])
+def test_fused_run_on_card_equals_cpu(dev, kw):
+    """The fused runner on the card against the CPU on the same draws: the
+    Quadratic's weights within 1e-5 (K1 on the card, its plain version on
+    the CPU, with ``update="pallas"``)."""
+    from repro_torch.core import engine_scan
+    from repro_torch.kernels.ops import tree_weighted_update
+
+    n, C, T = 16, 4, 400
+    c = torch.tensor(np.random.default_rng(0).normal(size=(n, 5)), dtype=torch.float32)
+
+    def grad_on(cc):
+        return lambda j, w, k: {"w": w["w"] - cc.index_select(0, j.reshape(1))[0]}
+
+    kw = dict(kw)
+    if kw.pop("update", None) == "pallas":
+        kw["update_fn"] = tree_weighted_update
+    mu, nodes, ur, ue, _ = _stream_inputs(n, C, T)
+    ud = torch.rand(T, generator=torch.Generator().manual_seed(9))
+    p = np.full(n, 1.0 / n)
+    out = []
+    for d in (torch.device("cpu"), dev):
+        run = engine_scan.make_fused_runner(grad_on(c.to(d)), n, C, T, **kw)
+        w, _, x = run.from_draws({"w": torch.zeros(5, device=d)}, mu.numpy(), p, 0.05,
+                                 *(a.to(d) for a in (nodes, ur, ue, ud)))
+        out.append((w["w"].cpu(), x["comp"].cpu()))
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=1e-5)
+    assert torch.equal(out[1][1], out[0][1])

@@ -361,15 +361,24 @@ def test_cuda_device_raises_without_a_card():
         t_train.main(["--mode", "lm", "--steps", "2", "--clients", "2", "--concurrency", "1"])
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--mode", "lm", "--engine", "fused"], "item 6"),
-    (["--mode", "lm", "--engine", "fused", "--ckpt-dir", "ckpt"], "item 6"),
-])
-def test_cli_unported_options_raise(argv, item):
-    """``--ckpt-dir`` runs on the host stream (`test_cli_ckpt_dir_saves_the_final_params`);
-    with the device stream (``--engine fused``) it raises that stream's item 6."""
-    with pytest.raises(NotImplementedError, match=item):
-        t_train.main(argv + ["--device", "cpu"])
+@pytest.mark.parametrize("ckpt", [False, True])
+def test_cli_unported_options_raise(tmp_path, capsys, ckpt):
+    """``--engine fused`` runs the LM on the device event stream, as the
+    reference's launcher does (``stream="device"`` on the scan engine), and
+    ``--ckpt-dir`` saves its final parameters as on the host stream."""
+    from repro_torch.ckpt import checkpoint as ck
+
+    d = str(tmp_path / "fused")
+    argv = ["--mode", "lm", "--engine", "fused", "--device", "cpu", "--clients", "4",
+            "--concurrency", "2", "--steps", "4", "--batch", "2", "--seq", "16",
+            "--shard-size", "32", "--eval-every", "2"] + (["--ckpt-dir", d] if ckpt else [])
+    t_train.main(argv)
+    out = capsys.readouterr().out
+    losses = [float(line.split()[-1]) for line in out.splitlines() if "eval_loss" in line]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    assert "engine=fused" in out
+    if ckpt:
+        assert ck.available_steps(d) == [4]
 
 
 def test_cli_ckpt_dir_saves_the_final_params(tmp_path, capsys):
