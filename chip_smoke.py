@@ -159,8 +159,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    checkpoints go under ``build/`` and are deleted.
 
 19. the device event stream, its control plane and adaptive sampling
-   (``--only stream``; `phase_stream`, last in a whole run; its sizes are
-   cut for time, `STREAM_CARD_T` and below).  (a) The stream at the MLP
+   (``--only stream``; `phase_stream`, after phase 18 in a whole run; its
+   sizes are cut for time, `STREAM_CARD_T` and below).  (a) The stream at the MLP
    slice's network (n=256, C=64, its speeds and sampling p; T cut from
    2000 to 1000) from uniforms drawn on the CPU: on the card equal to the
    CPU's run of the same draws (J, K, slot, delay and the integer
@@ -192,7 +192,55 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    forwards, the clients' training loss over the run's trained minibatches
    falling, events/s and peak memory.
 
-Phases 4, 5, 8, 10, 13, 17, 18 and 19 are the kernel paths: each launch
+20. faults, the divergence guard, scenarios and the checkpointed fused
+   driver on the device stream (``--only stream_robust``;
+   `phase_stream_robust`, last in a whole run; phase 18's settings on the
+   MLP slice's network, sizes cut for time, `ROBUST_DEV_*`).  (a) The fault
+   stream and the ``erlang2_onoff`` / ``hyperexp2`` scenario streams at
+   T=1000 from uniforms drawn on the CPU: on the card equal to the CPU's
+   run of the same draws (J, K, slot, kind, delay and the integer
+   statistics exactly; times and float statistics within 1e-6 relative),
+   the fault stream also over 27 cells of T=250 on the cell axis.  (b)
+   ``run_experiment(FLConfig(stream="device"))`` on the full-width MLP
+   (T=2000, eval every 500) with faults and the guard, per event and
+   blocked E=8 (accuracies within 10/2048 of per event, ``kind_count``
+   equal), and per event with K1 under faults (T cut to 1000; launches ==
+   T, flips included; weights within 1e-5 of the flat update on the same
+   draws);
+   each run's ``kind_count`` the stream's (`generate_stream` of the same
+   seed), summing to T, its stale drops those of the stream's delays and
+   scales; the accuracy rises and ends within the host stream's range under
+   the same faults (phase 18's runs and seeds 0-7, replayed in lockstep on
+   the cell axis) widened by 0.02.
+   (c) A gradient that spikes by 1e6 every 50th step and is NaN at one live
+   step, T=500: guarded, the rejects equal the injected live events and the
+   weights stay finite; unguarded, non-finite or above 1e4.  (d)
+   ``erlang2_onoff`` per event (T cut to 1000; ``kind_count`` the stream's
+   over 6 kinds, accuracy rising) and ``run_matrix(stream="device",
+   scenario="erlang2")`` over phase 17's 27 cells at T=1000 (finite curves,
+   accuracy rising in every cell, each cell's kinds summing to T, events/s
+   summed).  (e) Checkpoints: the MLP per event with faults and the guard
+   through `engine_ckpt.run_checkpointed` (``ckpt_every=250``, T=1000),
+   truncated to its second save and resumed in process (bitwise), and a
+   child process (``--robust-child DIR fused_kill``) that SIGKILLs itself
+   after its second save, then a fresh child (``fused_resume``) that
+   resumes, bitwise the uninterrupted run (the children run beside
+   (b)-(d)); Mamba2-130M at full width and depth (phase 19
+   (c)'s configuration, T cut to 32) per event with faults and the guard,
+   ``ckpt_every=16``, truncated to step 16 and resumed (bitwise; K4
+   launches == 24 x forwards; the clients' training loss over the run's
+   trained minibatches falls).  Events/s, a save's bytes, the milliseconds
+   the carry copy holds the loop and peak memory are printed; the
+   checkpoints go under ``build/`` and are deleted.
+
+Phase 10 reuses phase 17's run of its "optimal" Mamba2 cell alone (the
+same configuration, asserted), and phases 10 and 17-20 share one Mamba2-130M
+task and its setup (`_mamba_task`); every LM part prints its set-up time
+apart from its timed runs.  ``--memory-history`` records the allocator's
+history around phase 17's blocked Mamba2 matrix and prints the owners of
+the live memory at K2's plain-version entry and at the peak.
+
+Phases 4, 5, 8, 10, 13, 17, 18, 19 and 20 are the kernel paths: each launch
 count is zeroed just before the run and read just after.  fp32 matmuls run
 in full fp32 (TF32 off for matmul and cuDNN).  The line before the last is
 the ``kernels`` JSON object; the last line is the result object.
@@ -404,8 +452,9 @@ ROBUST_MATRIX_SCENARIO = "erlang2"
 CKPT_ROOT = Path(__file__).resolve().parent / "build" / "robust_ckpt"
 # 19. the device event stream: the MLP slice's network (n=256, C=64; its
 # runs T=2000, adaptive refreshing p every 250 events).  Cut for time (the
-# whole command must end within 1200 s, and phases 1-18 alone take 940-1030
-# s on an NVIDIA H100 80GB HBM3 at 700 W, by host): the stream alone on the
+# whole command must end within 1200 s; in a whole run on an NVIDIA H100
+# 80GB HBM3 at 700 W phases 1-18 took 734 s and phases 1-19 822 s, with
+# phase 20 after them 990 s): the stream alone on the
 # card against the CPU at T=1000 and over 27 cells of T=250 on the cell
 # axis; the 27-cell device matrix at T=1000 (its time follows the events,
 # not the cells, so cutting cells saves nothing); the profiles over 100
@@ -414,7 +463,32 @@ STREAM_N, STREAM_C, STREAM_T, STREAM_CARD_T = 256, 64, 2000, 1000
 STREAM_CELLS_T, STREAM_REFRESH, STREAM_SEEDS = 250, 250, (0, 1, 2)
 STREAM_MATRIX_T, STREAM_PROFILE_T, STREAM_MAMBA_T = 1000, 100, 64
 
+# 20. faults, the guard, scenarios and the checkpointed fused driver on the
+# device stream, at phase 18's settings (ROBUST_FAULT, the guard) on the MLP
+# slice's network (n=256, C=64; T=2000, eval every 500).  Cut for time (the
+# whole command must end within 1200 s, and on a host 10% slower than the
+# fastest seen it took 1089 s with these at T=2000): K1 under faults and its
+# flat reference run T=1000, as does `erlang2_onoff` per event; the spiking
+# gradient runs T=500 events, the 27-cell scenario matrix T=1000 (as phase
+# 19's device matrix), the checkpointed MLP T=1000 with a save every 250
+# events and Mamba2-130M T=32 (phase 18's ROBUST_MAMBA_T) with a save every
+# 16.  The host stream's
+# accuracy range under faults is phase 18's runs (seed 0) and eight seeds
+# (ROBUST_DEV_SEEDS) replayed in lockstep: three seeds spanned less than
+# one realization's spread (PERF.md section 6).  The checkpoints live under
+# build/ and are deleted.
+ROBUST_DEV_SPIKE_T, ROBUST_DEV_MATRIX_T = 500, 1000
+ROBUST_DEV_K1_T, ROBUST_DEV_SCENARIO_T = 1000, 1000
+ROBUST_DEV_CKPT_T, ROBUST_DEV_CKPT_EVERY = 1000, 250
+ROBUST_DEV_MAMBA_T, ROBUST_DEV_MAMBA_CKPT_EVERY = 32, 16
+ROBUST_DEV_SEEDS = tuple(range(8))
+ROBUST_DEV_SCENARIO = "erlang2_onoff"
+DEV_CKPT_ROOT = Path(__file__).resolve().parent / "build" / "robust_device_ckpt"
+
 failures: list[str] = []
+# results one phase hands to a later one (the phases of a partial run
+# recompute what they need when it is missing)
+_SHARED: dict = {}
 
 
 def check(ok: bool, what: str) -> None:
@@ -443,10 +517,27 @@ def time_ms(fn, batches: int = 11, per_batch: int = 50, warmup: int = 10) -> flo
     return float(np.median(times))
 
 
-def _device_events(prof) -> list:
-    from torch.autograd import DeviceType
+_PROFILER_UTILITY_OPS = ("[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+                         "profiler::_record_function_enter_new",
+                         "profiler::_record_function_exit", "aten::is_leaf", "aten::output_nr",
+                         "aten::_version")
 
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+def _device_events(prof, device_type=None) -> list:
+    """``(name, ms)`` of the profiled window's device events (kernels and
+    copies on the card; ``device_type`` another one), read from the
+    profiler's raw kineto events: the same events and durations as
+    ``prof.events()`` gives, without building its tree of Python objects
+    (which took most of a profiled LM part's time: ~12 s per 200k events
+    on a CPU), and skipping the utility ops it skips."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _rewrite_name
+
+    want = DeviceType.CUDA if device_type is None else device_type
+    return [(_rewrite_name(e.name(), with_wildcard=True), (e.end_ns() - e.start_ns()) / 1e6)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == want and e.name() not in _PROFILER_UTILITY_OPS
+            and not getattr(e, "is_hidden_event", lambda: False)()]
 
 
 def profile(fn, calls: int = 1):
@@ -471,8 +562,8 @@ def profile(fn, calls: int = 1):
     if not evs:
         return None, wall, [], 0
     by_name: dict[str, float] = {}
-    for e in evs:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+    for name, ms in evs:
+        by_name[name] = by_name.get(name, 0.0) + ms / calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     return sum(by_name.values()), wall, top, len(evs) / calls
 
@@ -965,7 +1056,44 @@ def _timed(fn):
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    _TIMED[0] += wall
+    return out, wall
+
+
+_TIMED = [0.0]  # seconds spent inside `_timed` (the timed runs) so far
+
+
+class _Part:
+    """Splits an LM part's wall time into its timed runs (`_timed`) and the
+    rest: model and task set-up, loss passes, checks and profiles."""
+
+    def __init__(self, label: str):
+        self.label, self.t0, self.timed0 = label, time.perf_counter(), _TIMED[0]
+
+    def end(self) -> None:
+        total, runs = time.perf_counter() - self.t0, _TIMED[0] - self.timed0
+        print(f"{self.label} part: {total:.1f} s, of which timed runs {runs:.1f} s and set-up, "
+              f"loss passes, checks and profiles {total - runs:.1f} s")
+
+
+def _mamba_task(dev):
+    """The Mamba2-130M `LMTask` at full width and depth with K4
+    (``use_pallas=True``): built once and shared by phases 10, 17, 18, 19
+    and 20, its setup (weights, client shards, eval batch) cached on it."""
+    from repro_torch.configs import get_config
+    from repro_torch.fl.engine import LMTask, _cached_fl_setup
+
+    if "mamba_task" not in _SHARED:
+        task = LMTask(get_config(MAMBA_ARCH).replace(use_pallas=True), batch_size=LM_BATCH,
+                      seq_len=LM_SEQ, shard_size=LM_SHARD)
+        t0 = time.perf_counter()
+        _cached_fl_setup(None, 0, task, n_clients=LM_N, device=dev)
+        torch.cuda.synchronize()
+        print(f"Mamba2-130M task set-up (weights, client shards, eval batch; shared by phases "
+              f"10 and 17-20): {time.perf_counter() - t0:.3f} s")
+        _SHARED["mamba_task"] = task
+    return _SHARED["mamba_task"]
 
 
 def _allclose_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1593,11 +1721,13 @@ def phase_lanes(dev, launches: dict, blocked: dict) -> None:
 
 
 def _print_profile(label: str, fn, events: int) -> None:
+    t0 = time.perf_counter()
     dms, wms, top, ops = profile(fn)
     idle = None if dms is None else 1.0 - dms / wms
     print(f"profile {label}: wall {wms / events:.4f} ms/event, device busy "
           f"{None if dms is None else round(dms / events, 6)} ms/event, idle share {idle}, "
-          f"{ops / events:.1f} device ops/event")
+          f"{ops / events:.1f} device ops/event (warm-up, profiled window and reading "
+          f"{time.perf_counter() - t0:.1f} s)")
     for k, v in top:
         print(f"     {v / events:.6f} ms/event  {k[:110]}")
 
@@ -1682,6 +1812,7 @@ def phase_lm(dev, launches: dict) -> None:
     from repro_torch.models import api
     from repro_torch.models.module import param_count
 
+    part = _Part("Granite LM (phase 8)")
     cfg = get_config(LM_ARCH).replace(use_pallas=True)
     n_params = param_count(api.model_meta(cfg))
     check(n_params == LM_PARAMS, f"{LM_ARCH} parameters {n_params:,} == {LM_PARAMS:,}")
@@ -1754,15 +1885,18 @@ def phase_lm(dev, launches: dict) -> None:
     gap = float(np.max(np.abs(curve - curve0) / np.abs(curve0)))
     check(gap <= LM_CURVE_TOL,
           f"LM eval curve, K3 vs plain attention: relative gap {gap:.3e} <= {LM_CURVE_TOL}")
+    part.end()
 
 
-def _train_loss(setup, params, J) -> float:
+def _train_loss(setup, params, J, steps=None) -> float:
     """Mean loss of ``params`` over a run's trained minibatches (event k:
-    client J[k]'s window at step k), four minibatches a forward."""
+    client J[k]'s window at step k; ``steps`` the trained events, default
+    all), four minibatches a forward."""
+    ks = list(range(len(J)) if steps is None else steps)
     out = []
     with torch.no_grad():
-        for i in range(0, len(J), 4):
-            bs = [setup.clients.client_batch(int(j), i + k) for k, j in enumerate(J[i:i + 4])]
+        for i in range(0, len(ks), 4):
+            bs = [setup.clients.client_batch(int(J[k]), int(k)) for k in ks[i:i + 4]]
             batch = {key: torch.cat([b[key] for b in bs]) for key in bs[0]}
             out.append(float(setup.clients.loss_fn(params, batch)))
     return float(np.mean(out))
@@ -1788,7 +1922,9 @@ def phase_mamba(dev, launches: dict) -> None:
     from repro_torch.kernels import weighted_update as wu
     from repro_torch.models import api
     from repro_torch.models.module import param_count
+    from repro_torch.tree import tree_map
 
+    part = _Part("Mamba2 (phase 10)")
     cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
     n_params = param_count(api.model_meta(cfg))
     check(n_params == MAMBA_PARAMS, f"{MAMBA_ARCH} parameters {n_params:,} == {MAMBA_PARAMS:,}")
@@ -1801,16 +1937,32 @@ def phase_mamba(dev, launches: dict) -> None:
                                           "ssd_scan": 0})
 
     def task_for(use_pallas: bool):
-        return LMTask(cfg.replace(use_pallas=use_pallas), batch_size=LM_BATCH, seq_len=LM_SEQ,
+        if use_pallas:
+            return _mamba_task(dev)
+        return LMTask(cfg.replace(use_pallas=False), batch_size=LM_BATCH, seq_len=LM_SEQ,
                       shard_size=LM_SHARD)
 
     def experiment(task, label: str):
-        r, wall = _timed(lambda: run_experiment(flc, "gen_async", eval_every=LM_EVAL, task=task))
+        """``(curve, final weights, K4 launches)`` of `run_experiment`; with
+        K4, phase 17's run of its "optimal" cell alone when that was the
+        same configuration (`_phase_matrix_mamba` keeps it)."""
+        done = _SHARED.get("mamba_alone")
+        if (task.cfg.use_pallas and done is not None and done["flc"] == flc
+                and done["every"] == LM_EVAL and done["task"] == task.cache_key()):
+            r, wall, n4, peak = done["run"], done["wall"], done["k4"], done["peak"]
+            final = tree_map(lambda v: v.to(dev), r.final_params)
+            source = " (phase 17's run of its \"optimal\" cell alone: the same configuration)"
+        else:
+            k4.reset_launches()
+            r, wall = _timed(lambda: run_experiment(flc, "gen_async", eval_every=LM_EVAL,
+                                                    task=task))
+            n4, final, source = k4.launches["ssd_scan"], r.final_params, ""
+            peak = torch.cuda.max_memory_allocated()
         curve = np.asarray(r.eval_acc, np.float64)
-        print(f"Mamba2 run_experiment ({label}) n={LM_N} C={MAMBA_C} T={LM_T}: {wall:.3f} s, "
-              f"{LM_T / wall:.3f} events/s, {tokens / wall:.1f} tokens/s, "
+        print(f"Mamba2 run_experiment ({label}) n={LM_N} C={MAMBA_C} T={LM_T}{source}: "
+              f"{wall:.3f} s, {LM_T / wall:.3f} events/s, {tokens / wall:.1f} tokens/s, "
               f"eval steps {r.eval_steps.tolist()} loss {curve.tolist()}")
-        return curve, r.final_params
+        return curve, final, n4, peak
 
     def curve_gap(a, b) -> float:
         return float(np.max(np.abs(np.asarray(a) - b) / np.abs(b)))
@@ -1841,15 +1993,12 @@ def phase_mamba(dev, launches: dict) -> None:
     # the plain SSD on the curve and on the initial weights' eval loss
     torch.cuda.reset_peak_memory_stats()
     task = task_for(True)
-    k4.reset_launches()
-    curve, final = experiment(task, "K4")
-    path["ssd_scan"] += k4.launches["ssd_scan"]
-    print(f"Mamba2 peak device memory (run_experiment): "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    curve, final, n4, peak = experiment(task, "K4")
+    path["ssd_scan"] += n4
+    print(f"Mamba2 peak device memory (run_experiment): {peak / 2**30:.3f} GiB")
     check(curve.shape == (LM_T // LM_EVAL,) and bool(np.all(np.isfinite(curve))),
           f"Mamba2 eval losses finite, {LM_T // LM_EVAL} points")
-    check(k4.launches["ssd_scan"] == nL * forwards,
-          f"K4 launches {k4.launches['ssd_scan']} == {nL} x {forwards} forwards")
+    check(n4 == nL * forwards, f"K4 launches {n4} == {nL} x {forwards} forwards")
     loss0 = learns("K4", task, curve, final)
     del final
     setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
@@ -1912,12 +2061,11 @@ def phase_mamba(dev, launches: dict) -> None:
                    "(incl. ring set-up)",
                    lambda: run(replace(blocked, T=2 * few, eval_every=0)), 2 * few)
     del setup, run
-    task.__dict__.pop("_fl_setup_cache")
     torch.cuda.empty_cache()
 
     # 4. the same run with the plain SSD
     task0 = task_for(False)
-    curve0, final = experiment(task0, "plain SSD")
+    curve0, final, _, _ = experiment(task0, "plain SSD")
     loss0_plain = learns("plain SSD", task0, curve0, final)
     del final
     tol = MAMBA_CURVE_TOL["plain_ssd"]
@@ -1926,6 +2074,7 @@ def phase_mamba(dev, launches: dict) -> None:
           f"{gap:.3e} <= {tol}")
     gap = curve_gap(curve, curve0)
     check(gap <= tol, f"Mamba2 eval curve, K4 vs plain SSD: relative gap {gap:.3e} <= {tol}")
+    part.end()
 
 
 def phase_moe_lm(dev, launches: dict) -> None:
@@ -1943,6 +2092,7 @@ def phase_moe_lm(dev, launches: dict) -> None:
     from repro_torch.models import api
     from repro_torch.models.module import param_count
 
+    part = _Part("Qwen1.5-MoE LM (phase 13)")
     cfg = get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS, use_pallas=True,
                                        moe_dispatch="sort")
     n_params = param_count(api.model_meta(cfg))
@@ -2042,6 +2192,7 @@ def phase_moe_lm(dev, launches: dict) -> None:
     gap = float(np.max(np.abs(curve - curve0) / np.abs(curve0)))
     check(gap <= MOE_CURVE_TOL, f"Qwen-MoE eval curve, K3 + K5 vs plain: relative gap "
           f"{gap:.3e} <= {MOE_CURVE_TOL}")
+    part.end()
     torch.cuda.empty_cache()
 
 
@@ -2193,24 +2344,128 @@ def _own_gap(label: str, cells: list, refs: list, names) -> None:
               f"(all {[float(f'{g:.3e}') for g in gaps]})")
 
 
+def _frames_key(frames) -> str:
+    """The first three repository frames of an allocation's stack (else
+    its first two frames): the key `_MemoryOwners` groups blocks by."""
+    mine = [f"{os.path.basename(f.get('filename', '?'))}:{f.get('line')} {f.get('name')}"
+            for f in frames or []
+            if "repro_torch" in f.get("filename", "") or "chip_smoke" in f.get("filename", "")]
+    return " <- ".join(mine[:3]) or (" <- ".join(
+        f"{os.path.basename(f.get('filename', '?'))}:{f.get('name')}"
+        for f in (frames or [])[:2]) or "no frames")
+
+
+def _owner_lines(title: str, blocks, top: int) -> list[str]:
+    """``blocks``: (size, frames) pairs, grouped by `_frames_key`, largest
+    first."""
+    owners: dict = {}
+    for size, frames in blocks:
+        key = _frames_key(frames)
+        cnt, tot = owners.get(key, (0, 0))
+        owners[key] = (cnt + 1, tot + size)
+    rows = sorted(owners.items(), key=lambda kv: -kv[1][1])[:top]
+    return [title] + [f"     {tot / 2**30:8.3f} GiB in {cnt:5d} blocks  {key[:200]}"
+                      for key, (cnt, tot) in rows]
+
+
+class _MemoryOwners:
+    """``--memory-history`` (ROADMAP Queue 3): record the allocator's history
+    (`torch.cuda.memory._record_memory_history`) over a block, and at each
+    entry of K2's plain version (`kernels.ref.block_prefix_update_ref`, the
+    blocked matrix's update) where the allocated bytes reach a new high,
+    take `torch.cuda.memory._snapshot()` and print the live blocks grouped
+    by the repository frames that allocated them, largest first.  At the
+    block's end, the recorded trace is replayed backwards from the final
+    snapshot to the point where the most bytes were live, and the owners
+    of those bytes are printed the same way."""
+
+    def __init__(self, label: str, top: int = 14):
+        self.label, self.top, self.high, self.lines = label, top, 0, []
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+
+        self.ref, self.orig = ref, ref.block_prefix_update_ref
+        owner = self
+
+        def entry(*a, **k):
+            if owner.active:
+                owner.look()
+            return owner.orig(*a, **k)
+
+        self.active = True
+        ref.block_prefix_update_ref = entry
+        torch.cuda.memory._record_memory_history(max_entries=100_000)
+        return self
+
+    def look(self) -> None:
+        alloc = torch.cuda.memory_allocated()
+        if alloc < self.high + 2**30:
+            return
+        self.high = alloc
+        blocks = [(b.get("size", 0), b.get("frames"))
+                  for seg in torch.cuda.memory._snapshot().get("segments", [])
+                  for b in seg.get("blocks", []) if b.get("state") == "active_allocated"]
+        self.lines = _owner_lines(
+            f"memory owners at K2's plain-version entry ({self.label}): {alloc / 2**30:.2f} GiB "
+            f"allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved", blocks,
+            self.top)
+
+    def peak_lines(self) -> list[str]:
+        """The owners at the trace's peak: live blocks replayed backwards
+        from the final snapshot (an ``alloc`` did not exist before it, a
+        ``free_completed`` did)."""
+        snap = torch.cuda.memory._snapshot()
+        live = {b["address"]: (b.get("size", 0), b.get("frames"))
+                for seg in snap.get("segments", []) for b in seg.get("blocks", [])
+                if b.get("state") == "active_allocated"}
+        trace = (snap.get("device_traces") or [[]])[torch.cuda.current_device()]
+        cur = sum(size for size, _ in live.values())
+        best, at = cur, len(trace)
+        for i in range(len(trace) - 1, -1, -1):
+            ev = trace[i]
+            if ev.get("action") == "alloc":
+                cur -= ev.get("size", 0)
+            elif ev.get("action") == "free_completed":
+                cur += ev.get("size", 0)
+            if cur > best:
+                best, at = cur, i
+        for ev in reversed(trace[at:]):
+            if ev.get("action") == "alloc":
+                live.pop(ev.get("addr"), None)
+            elif ev.get("action") == "free_completed":
+                live[ev.get("addr")] = (ev.get("size", 0), ev.get("frames"))
+        return _owner_lines(
+            f"memory owners at the peak of the last {len(trace)} recorded allocator events "
+            f"({self.label}): {best / 2**30:.2f} GiB live", live.values(), self.top)
+
+    def __exit__(self, *exc):
+        self.active = False
+        self.ref.block_prefix_update_ref = self.orig
+        lines = self.lines + self.peak_lines()
+        torch.cuda.memory._record_memory_history(enabled=None)
+        for line in lines:
+            print(line)
+        return False
+
+
 def _phase_matrix_mamba(dev, launches: dict) -> None:
     """17 (c). The 3-cell Mamba2-130M matrix at full width and depth, per
     event and blocked, K4 folded over the cells (and cells x lanes); then
     the cells' final weights from the engine on the same stacked inputs:
     each cell's training loss falls, and each cell is nearest its own
     single run (per event) and its own per-event cell (blocked)."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import FLConfig
     from repro_torch.core.engine_scan import jit_runner
-    from repro_torch.fl.engine import LMTask, _cached_fl_setup, run_experiment, run_matrix
+    from repro_torch.fl.engine import _cached_fl_setup, run_experiment, run_matrix
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.tree import tree_map
 
-    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
-    nL, T, every = cfg.num_layers, LM_T, LM_EVAL
+    part = _Part("Mamba2 matrix (phase 17)")
+    task = _mamba_task(dev)
+    nL, T, every = task.cfg.num_layers, LM_T, LM_EVAL
     flc = FLConfig(n_clients=LM_N, concurrency=MAMBA_C, server_steps=T, speed_ratio=10.0,
                    engine="scan", device=dev.type)
-    task = LMTask(cfg, batch_size=LM_BATCH, seq_len=LM_SEQ, shard_size=LM_SHARD)
     policies = MAMBA_MATRIX_GRID["policies"]
     B, E = len(policies), MAMBA_MATRIX_E
     mk = dict(MAMBA_MATRIX_GRID, eta=0.05, eval_every=every)
@@ -2224,7 +2479,11 @@ def _phase_matrix_mamba(dev, launches: dict) -> None:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         k4.reset_launches()
-        m, wall = _timed(lambda: run_matrix(flc, task=task, block_size=bs, **mk))
+        if bs > 1 and _SHARED.get("memory_history"):
+            with _MemoryOwners(f"Mamba2 run_matrix {label}"):
+                m, wall = _timed(lambda: run_matrix(flc, task=task, block_size=bs, **mk))
+        else:
+            m, wall = _timed(lambda: run_matrix(flc, task=task, block_size=bs, **mk))
         n = k4.launches["ssd_scan"]
         path["ssd_scan"] += n
         curve = np.asarray(m.eval_acc, np.float64).reshape(B, -1)
@@ -2275,8 +2534,16 @@ def _phase_matrix_mamba(dev, launches: dict) -> None:
     alone = {}
     for c, pol in enumerate(policies):
         torch.cuda.empty_cache()
-        r = run_experiment(replace(flc, sampling=pol), "gen_async", eval_every=every, task=task)
+        torch.cuda.reset_peak_memory_stats()
+        k4.reset_launches()
+        one = replace(flc, sampling=pol)
+        r, wall = _timed(lambda: run_experiment(one, "gen_async", eval_every=every, task=task))
         alone[c] = (np.asarray(r.eval_acc), _flat_cpu(r.final_params))
+        if pol == "optimal":  # phase 10's run_experiment: the same configuration
+            _SHARED["mamba_alone"] = dict(
+                flc=one, every=every, task=task.cache_key(), wall=wall,
+                k4=k4.launches["ssd_scan"], peak=torch.cuda.max_memory_allocated(),
+                run=replace(r, final_params=tree_map(lambda v: v.cpu(), r.final_params)))
         del r
     _own_gap("per event vs each cell run alone", finals[1], [alone[c][1] for c in range(B)],
              policies)
@@ -2292,7 +2559,7 @@ def _phase_matrix_mamba(dev, launches: dict) -> None:
     check(gap <= tol, f"Mamba2 matrix \"optimal\" cell (blocked) vs the run alone: relative "
           f"curve gap {gap:.3e} <= {tol}")
     del finals, alone, setup
-    task.__dict__.pop("_fl_setup_cache", None)
+    part.end()
     torch.cuda.empty_cache()
 
 
@@ -2355,16 +2622,21 @@ def _mlp_robust_cfg(base, C: int):
 
 
 def _robust_child(ckpt_dir: str, mode: str, dev) -> int:
-    """Phase 18's kill-and-resume child: the blocked E=8 MLP run with faults,
-    the guard, K2 and ``ckpt_every=500`` under ``ckpt_dir``.  ``mode="kill"``
-    SIGKILLs this process after its second checkpoint lands; ``"resume"``
-    resumes from the latest checkpoint and writes the final weights and
-    eval curve to ``ckpt_dir/result.npz``."""
+    """The kill-and-resume child of phase 18 (``mode`` "kill" / "resume"):
+    the blocked E=8 MLP run with faults, the guard, K2 and
+    ``ckpt_every=500`` under ``ckpt_dir``; and of phase 20 ("fused_kill" /
+    "fused_resume"): `_dev_ckpt_cfg`'s per-event MLP run on the device
+    stream through `engine_ckpt.run_checkpointed`.  A "kill" mode SIGKILLs
+    this process after its second checkpoint lands; a "resume" mode resumes
+    from the latest checkpoint and writes the final weights and eval curve
+    to ``ckpt_dir/result.npz``."""
     from repro_torch.ckpt import checkpoint as ck
     from repro_torch.core.async_sgd import run_generalized_async_sgd
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    fused = mode.startswith("fused_")
+    mode = mode.removeprefix("fused_")
     if mode == "kill":
         saved, real = [0], ck.save
 
@@ -2377,8 +2649,11 @@ def _robust_child(ckpt_dir: str, mode: str, dev) -> int:
 
         ck.save = killing_save
     setup, base = _mlp_setup(dev)
-    cfg = replace(_mlp_robust_cfg(base, base.C), update="pallas", block_size=MLP_E,
-                  ckpt_dir=ckpt_dir, ckpt_every=ROBUST_CKPT_EVERY, resume=mode == "resume")
+    if fused:
+        cfg = replace(_dev_ckpt_cfg(base, ckpt_dir), resume=mode == "resume")
+    else:
+        cfg = replace(_mlp_robust_cfg(base, base.C), update="pallas", block_size=MLP_E,
+                      ckpt_dir=ckpt_dir, ckpt_every=ROBUST_CKPT_EVERY, resume=mode == "resume")
     w, tr = run_generalized_async_sgd(setup.params, setup.clients, cfg, eval_fn=setup.eval_fn)
     if mode == "kill":
         print("robust child survived past its second checkpoint", file=sys.stderr)
@@ -2555,6 +2830,8 @@ def _robust_mlp(dev, launches: dict) -> dict:
           f"run (max gap {_tree_gap(w_ck, w_bl):.3e})")
     ref = dict(w={k: v.cpu().numpy() for k, v in w_ck.items()}, evals=tr_ck.eval_values,
                gcnt=[tr_ck.extras["guard_rejects"], tr_ck.extras["stale_drops"]])
+    # phase 20 holds the device stream's faulted MLP runs to these curves
+    _SHARED["robust_host_curves"] = [tr_pe.eval_values, tr_bl.eval_values, tr_k1.eval_values]
 
     # per event: truncate and resume in this process
     ec.reset_saves()
@@ -2634,22 +2911,21 @@ def _robust_mamba(dev, launches: dict) -> None:
     ``ROBUST_MAMBA_CKPT_EVERY`` events, then truncated to its first
     checkpoint and resumed (launches under
     ``launches["robust_mamba2"]``)."""
-    from repro_torch.configs import get_config
     from repro_torch.configs.base import FLConfig
     from repro_torch.core import engine_ckpt as ec
     from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
     from repro_torch.core.engine_scan import blocked_inputs, step_scales
     from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream
     from repro_torch.data.pipeline import make_client_speeds
-    from repro_torch.fl.engine import LMTask, _cached_fl_setup, sampling_for
+    from repro_torch.fl.engine import _cached_fl_setup, sampling_for
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.kernels import weighted_update as wu
 
-    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
-    nL, T, every, E, C = cfg.num_layers, ROBUST_MAMBA_T, LM_EVAL, MAMBA_E, MAMBA_C
+    part = _Part("robust Mamba2 (phase 18)")
+    task = _mamba_task(dev)
+    nL, T, every, E, C = task.cfg.num_layers, ROBUST_MAMBA_T, LM_EVAL, MAMBA_E, MAMBA_C
     flc = FLConfig(n_clients=LM_N, concurrency=C, server_steps=T, sampling="optimal",
                    speed_ratio=10.0, engine="scan", device=dev.type)
-    task = LMTask(cfg, batch_size=LM_BATCH, seq_len=LM_SEQ, shard_size=LM_SHARD)
     setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
     mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
     p = sampling_for(flc, mu)
@@ -2713,10 +2989,10 @@ def _robust_mamba(dev, launches: dict) -> None:
           f"robust Mamba2 truncated to step {left} and resumed ({wall2:.3f} s): weights, loss "
           "curve and counters bitwise the uninterrupted run's")
     del w2, setup
-    task.__dict__.pop("_fl_setup_cache", None)
     shutil.rmtree(d, ignore_errors=True)
     print(f"robust Mamba2: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
           f"GiB over both runs; free disk {free():.2f} GiB after deleting the checkpoints")
+    part.end()
     torch.cuda.empty_cache()
 
 
@@ -2785,19 +3061,22 @@ def _fifo_ok(J, K, slot, delay, nodes, n: int, C: int) -> bool:
 
 def _same_stream(label: str, a, b) -> None:
     """Two `stream_device.scan_draws` results (the card's, the CPU's on the
-    same draws): J, K, slot, delay and the integer statistics equal, the
-    times and the float statistics within 1e-6 relative."""
+    same draws): J, K, slot, delay (and a fault or scenario stream's kind)
+    and the integer statistics equal, the times and the float statistics
+    within 1e-6 relative."""
     (_, ea, sa), (_, eb, sb) = a, b
-    ints = all(torch.equal(ea[i].cpu(), eb[i].cpu()) for i in (0, 1, 3, 4)) and all(
+    tagged = len(ea) > 5
+    ints = all(torch.equal(ea[i].cpu(), eb[i].cpu()) for i in (0, 1, 3, 4, 5)[:4 + tagged]) and all(
         torch.equal(getattr(sa, f).cpu(), getattr(sb, f).cpu())
-        for f in ("occ_sum", "comp", "slot_step"))
+        for f in ("occ_sum", "comp", "slot_step") + (("kind_count",) if tagged else ()))
     rel = max(float(((x.cpu().double() - y.cpu().double()).abs()
                      / y.cpu().double().abs().clamp_min(1e-30)).max())
-              for x, y in [(ea[2], eb[2])] + [(getattr(sa, f), getattr(sb, f))
-                                              for f in ("occ_tw", "busy_t", "delay_sum")])
-    check(ints and rel <= 1e-6, f"{label}: J, K, slot, delay and the integer statistics equal "
-          f"the CPU's on the same draws; times and float statistics within {rel:.2e} <= 1e-6 "
-          "relative")
+              for x, y in [(ea[2], eb[2])] + [
+                  (getattr(sa, f), getattr(sb, f))
+                  for f in ("occ_tw", "busy_t", "delay_sum") + (("avail_tw",) if tagged else ())])
+    check(ints and rel <= 1e-6, f"{label}: J, K, slot, delay{', kind' if tagged else ''} and the "
+          f"integer statistics equal the CPU's on the same draws; times and float statistics "
+          f"within {rel:.2e} <= 1e-6 relative")
 
 
 def _stream_card(dev, mu, p, setup) -> dict:
@@ -2967,20 +3246,19 @@ def _stream_mlp(dev, launches: dict, data) -> dict:
 def _stream_mamba(dev, launches: dict) -> None:
     """19 (c): Mamba2-130M at full width and depth on the device stream,
     per event, K4 + K1."""
-    from repro_torch.configs import get_config
     from repro_torch.core import stream_device as sd
     from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
     from repro_torch.data.pipeline import make_client_speeds
     from repro_torch.configs.base import FLConfig
-    from repro_torch.fl.engine import LMTask, _cached_fl_setup, sampling_for
+    from repro_torch.fl.engine import _cached_fl_setup, sampling_for
     from repro_torch.kernels import ssd_scan as k4
     from repro_torch.kernels import weighted_update as wu
 
-    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
-    nL, T = cfg.num_layers, STREAM_MAMBA_T
+    part = _Part("Mamba2 device stream (phase 19)")
+    task = _mamba_task(dev)
+    nL, T = task.cfg.num_layers, STREAM_MAMBA_T
     flc = FLConfig(n_clients=LM_N, concurrency=MAMBA_C, server_steps=T, sampling="optimal",
                    speed_ratio=10.0, engine="scan", stream="device", device=dev.type)
-    task = LMTask(cfg, batch_size=LM_BATCH, seq_len=LM_SEQ, shard_size=LM_SHARD)
     setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
     mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
     p = sampling_for(flc, mu)
@@ -3015,7 +3293,7 @@ def _stream_mamba(dev, launches: dict) -> None:
     check(after < before, f"Mamba2 device stream: the clients' training loss over the run's {T} "
           f"trained minibatches falls: {before:.5f} -> {after:.5f}")
     del w, setup
-    task.__dict__.pop("_fl_setup_cache", None)
+    part.end()
     torch.cuda.empty_cache()
 
 
@@ -3122,8 +3400,439 @@ def phase_stream(dev, launches: dict) -> None:
           f"matrix {t3 - t2:.1f} s, Mamba2 {t4 - t3:.1f} s; phase 19 {t4 - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ #
+# 20. faults, the guard, scenarios and checkpoints on the device stream
+# ------------------------------------------------------------------ #
+def _dev_ckpt_cfg(base, ckpt_dir):
+    """Phase 20's checkpointed MLP run: the slice's ServerConfig on the
+    device stream, per event with faults and the guard, T cut to
+    `ROBUST_DEV_CKPT_T`, a save every `ROBUST_DEV_CKPT_EVERY` events
+    (`engine_ckpt.run_checkpointed`)."""
+    return replace(_mlp_robust_cfg(base, base.C), stream="device", T=ROBUST_DEV_CKPT_T,
+                   ckpt_dir=str(ckpt_dir), ckpt_every=ROBUST_DEV_CKPT_EVERY)
+
+
+def _ckpt_events(mu, p, C: int, T: int, L: int, seed: int, fault, dev):
+    """The events of a checkpointed fused run (`engine_ckpt.run_checkpointed`,
+    static p): its initial placement and chunk draws (`engine_ckpt.chunk_seed`),
+    K from ``cumsum(p)``, through `stream_device.scan_draws`: ``(J, kind,
+    delay)`` as numpy arrays."""
+    from repro_torch.core import engine_ckpt as ec
+    from repro_torch.core import stream_device as sd
+
+    n = len(mu)
+    p_t = torch.tensor(p, dtype=torch.float32, device=dev).reshape(1, n)
+    cdf = torch.cumsum(p_t, dim=-1)
+    nodes, chunk_draws = ec._port_draws(seed, n, C, p_t[0], "distinct", dev)
+    parts = [chunk_draws(c, min(L, T - c * L)) for c in range(-(-T // L))]
+    K = torch.cat([torch.clamp_max(torch.searchsorted(cdf, ud[None], right=True), n - 1)[0]
+                   for _, _, ud in parts])
+    ur, ue = (torch.cat(x) for x in list(zip(*parts))[:2])
+    _, ev, _ = sd.scan_draws(torch.tensor(mu, dtype=torch.float32, device=dev), nodes, ur, ue, K,
+                             fault=fault)
+    return ev[0].cpu().numpy(), ev[5].cpu().numpy(), ev[4].cpu().numpy()
+
+
+def _robust_dev_card(dev, mu, p) -> None:
+    """20 (a): the fault stream and the scenario streams on the card against
+    the CPU on the same CPU-drawn uniforms (T=`STREAM_CARD_T`), and the fault
+    stream over 27 cells of T=`STREAM_CELLS_T` on the cell axis."""
+    from repro_torch.core import FaultConfig, get_scenario
+    from repro_torch.core import stream_device as sd
+
+    n, C, T = STREAM_N, STREAM_C, STREAM_CARD_T
+    f32 = torch.float32
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the CPU's runs: tiny operations, no gain from threads
+    fault = FaultConfig(**ROBUST_FAULT)
+    for name in ("fault",) + ROBUST_SCENARIOS:
+        scen = name != "fault"
+        nodes, ur, ue, ud, *ph = sd.draw_uniforms(0, n, C, T, p, device="cpu", scenario=scen)
+        K = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32)), ud)
+        args = (torch.tensor(mu, dtype=f32), nodes, ur, ue, K)
+
+        def mode(d, ph=ph, scen=scen, name=name):
+            if not scen:
+                return dict(fault=fault)
+            return dict(scenario=get_scenario(name), u_ph=ph[0].to(d), u_phase0=ph[1].to(d))
+
+        cpu = sd.scan_draws(*args, **mode("cpu"))
+        card, wall = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in args), **mode(dev)))
+        _same_stream(f"{name} stream on the card n={n} C={C} T={T}", card, cpu)
+        kinds = card[2].kind_count.cpu().tolist()
+        Tp = STREAM_PROFILE_T
+        short = (args[0].to(dev), args[1].to(dev), *(a.to(dev)[:Tp] for a in args[2:]))
+        extra = mode(dev)
+        if scen:
+            extra["u_ph"] = extra["u_ph"][:Tp]
+        dms, wms, _, ops = profile(lambda: sd.scan_draws(*short, **extra))
+        print(f"{name} stream on the card: {T / wall:.1f} events/s, kinds {kinds}; profile "
+              f"({Tp} events): {ops / Tp:.1f} device ops/event, wall {wms / Tp:.4f} ms/event, "
+              f"device busy {None if dms is None else round(dms / Tp, 6)} ms/event")
+        check(sum(kinds) == T, f"{name} stream: kind counts {kinds} sum to T = {T}")
+    B, Tb = CELLS, STREAM_CELLS_T
+    draws = [sd.draw_uniforms(2000 + b, n, C, Tb, p, device="cpu") for b in range(B)]
+    nb, urb, ueb, udb = (torch.stack(a) for a in zip(*draws))
+    Kb = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32).expand(B, n)), udb)
+    argsb = (torch.tensor(mu, dtype=f32).expand(B, n), nb, urb, ueb, Kb)
+    cardb, wall_b = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in argsb), fault=fault))
+    _same_stream(f"fault stream on the card, {B} cells on the cell axis, T={Tb}", cardb,
+                 sd.scan_draws(*argsb, fault=fault))
+    torch.set_num_threads(threads)
+    print(f"fault stream, {B} cells x {Tb} on the cell axis: {B * Tb / wall_b:.1f} events/s "
+          "summed")
+
+
+def _host_fault_curves(dev, setup, base) -> list:
+    """The host stream's eval curves under phase 18's faults and guard at
+    the seeds `ROBUST_DEV_SEEDS`, replayed in lockstep on the cell axis
+    (`jit_runner(..., vmap_streams=True)`): each seed's `export_stream`
+    with its stale completions dropped from the scales, as the host
+    replay's guard drops them (`async_sgd._run_scan`); the norm cap, which
+    rejects nothing on this MLP, is not on the cell axis."""
+    from repro_torch.core.engine_scan import jit_runner, step_scales
+    from repro_torch.core.queue_sim import SimConfig, export_stream
+
+    fault, guard = _robust_settings(base.C)
+    J, slot, scale = [], [], []
+    for s in ROBUST_DEV_SEEDS:
+        es = export_stream(SimConfig(mu=base.mu, p=base.p, C=base.C, T=base.T, seed=s, fault=fault,
+                                     record_delays=True))
+        sc = step_scales(es, base.eta, base.p, "importance")
+        J.append(es.J)
+        slot.append(es.slot)
+        scale.append(np.where((es.delay_steps > guard.stale_cutoff) & (sc != 0), 0.0, sc))
+    idx = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=dev)  # noqa: E731
+    run = jit_runner(setup.clients.device_grad, base.C, eval_fn=setup.eval_fn,
+                     eval_every=base.eval_every, vmap_streams=True)
+    (_, ev), wall = _timed(lambda: run(setup.params, idx(J), idx(slot),
+                                       torch.as_tensor(np.asarray(scale), dtype=torch.float32,
+                                                       device=dev)))
+    curves = ev.cpu().numpy().tolist()
+    print(f"host stream under faults + guard, seeds {list(ROBUST_DEV_SEEDS)} in lockstep: "
+          f"{wall:.3f} s, final acc {[round(c[-1], 4) for c in curves]}")
+    return curves
+
+
+def _robust_dev_mlp(dev, launches: dict, data) -> None:
+    """20 (b), (c), (d): the full-width MLP on the device stream under faults
+    and the guard (per event, blocked E=8, K1), a spiking / NaN gradient,
+    the ``erlang2_onoff`` scenario per event and the 27-cell ``erlang2``
+    device matrix.  K1's launches go to ``launches["robust_device_mlp"]``."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.async_sgd import run_generalized_async_sgd
+    from repro_torch.core.scenario import get_scenario
+    from repro_torch.fl.engine import run_experiment, run_matrix
+    from repro_torch.kernels import weighted_update as wu
+
+    path = launches.setdefault("robust_device_mlp", {"weighted_update": 0})
+    flc = replace(_mlp_flc(dev), stream="device")
+    setup, base = _mlp_setup(dev, data)
+    T, every = flc.server_steps, base.eval_every
+    fault, guard = _robust_settings(base.C)
+    cutoff = guard.stale_cutoff
+    dbase = replace(base, stream="device", faults=fault)
+    run = lambda c, src=setup.clients: run_generalized_async_sgd(  # noqa: E731
+        setup.params, src, c, eval_fn=setup.eval_fn)
+
+    def finite(w) -> bool:
+        return all(bool(torch.isfinite(v).all()) for v in w.values())
+
+    def stream_of(T_, **kw):
+        """The events a fused run of seed ``base.seed`` replays (its own
+        draws, from the same generator): kinds and stale completions."""
+        es = sd.generate_stream(base.mu, base.p, base.C, T_, seed=base.seed, device=dev, **kw)
+        return es, (es.delay_steps > cutoff) & (es.kind == 0)
+
+    es, stale = stream_of(T, fault=fault)
+    kinds = np.bincount(es.kind, minlength=4)
+    print(f"robust device MLP stream n={base.n} C={base.C} T={T}: kinds (complete, crash, "
+          f"timeout, flip) {kinds.tolist()}, {int(stale.sum())} completions staler than {cutoff} "
+          "steps")
+
+    def counters(label, x, rejects=0):
+        check(np.array_equal(x["kind_count"], kinds) and int(np.sum(x["kind_count"])) == T
+              and int(x["stale_drops"]) == int(stale.sum())
+              and int(x["guard_rejects"]) == rejects,
+              f"{label}: kind_count {np.asarray(x['kind_count']).tolist()} == the stream's, "
+              f"summing to T; stale_drops {int(x['stale_drops'])} == {int(stale.sum())} from the "
+              f"stream's delays and scales; guard_rejects {int(x['guard_rejects'])} == {rejects}")
+
+    accs = {}
+    r, wall = _timed(lambda: run_experiment(flc, "gen_async", eval_every=every, data=data,
+                                            faults=fault, guard=guard))
+    accs["per event, faults + guard"] = (list(r.eval_acc), T / wall)
+    counters("robust device MLP per event (run_experiment)", r.extras)
+    rb, wall = _timed(lambda: run_experiment(replace(flc, block_size=MLP_E), "gen_async",
+                                             eval_every=every, data=data, faults=fault,
+                                             guard=guard))
+    accs[f"blocked E={MLP_E}, faults + guard"] = (list(rb.eval_acc), T / wall)
+    counters(f"robust device MLP blocked E={MLP_E} (run_experiment)", rb.extras)
+    dacc = _acc_gap(list(rb.eval_acc), list(r.eval_acc))
+    check(dacc <= 10 / 2048, f"robust device MLP blocked E={MLP_E} vs per event: accuracy gap "
+          f"{dacc:.5f} <= 10/2048")
+    # K1 under faults (no guard: it needs the flat update), flips included,
+    # at T cut to ROBUST_DEV_K1_T (its stream's own kinds)
+    Tk = ROBUST_DEV_K1_T
+    kinds_k = np.bincount(stream_of(Tk, fault=fault)[0].kind, minlength=4)
+    wu.reset_launches()
+    (w_k1, tr_k1), wall = _timed(lambda: run(replace(dbase, T=Tk, update="pallas")))
+    _k1_counts(path, "robust device MLP per event (faults)", Tk, 6)
+    accs["per event K1, faults"] = (tr_k1.eval_values, Tk / wall)
+    w_f, tr_f = run(replace(dbase, T=Tk))
+    gap = _tree_gap(w_k1, w_f)
+    check(gap <= 1e-5 and np.array_equal(tr_k1.extras["kind_count"], kinds_k),
+          f"robust device MLP K1 vs the flat update under faults on the same draws (T={Tk}): "
+          f"max gap {gap:.3e} <= 1e-5, kind_count {kinds_k.tolist()} the stream's")
+    del w_k1, w_f
+    # the host stream's range under the same faults and guard: phase 18's
+    # runs (seed 0) and `_host_fault_curves`' seeds, in lockstep
+    curves = _SHARED.get("robust_host_curves", []) + _host_fault_curves(dev, setup, base)
+    for label, (acc, eps) in accs.items():
+        # the host stream at the run's last eval point (a cut T: an earlier one)
+        at = [c[len(acc) - 1] for c in curves]
+        lo, hi = min(at), max(at)
+        print(f"robust device MLP {label}: {eps:.1f} events/s, acc {acc}")
+        check(len(acc) >= 2 and bool(np.isfinite(acc).all()) and acc[-1] > acc[0]
+              and lo - 0.02 <= acc[-1] <= hi + 0.02,
+              f"robust device MLP {label}: accuracy rises {acc[0]:.4f} -> {acc[-1]:.4f}, within "
+              f"the host stream's [{lo:.4f}, {hi:.4f}] under the same faults (phase 18's runs, "
+              f"seeds {list(ROBUST_DEV_SEEDS)}) +- 0.02")
+
+    # (c) a gradient that spikes every 50th step and is NaN at one live step
+    Ts = ROBUST_DEV_SPIKE_T
+    es_s, stale_s = stream_of(Ts, fault=fault)
+    live = (es_s.kind == 0) & ~stale_s
+    steps = np.arange(Ts)
+    nan_step = int(next(k for k in range(Ts // 2, Ts)
+                        if live[k] and k % ROBUST_SPIKE_EVERY != ROBUST_SPIKE_EVERY - 1))
+    injected = (steps % ROBUST_SPIKE_EVERY == ROBUST_SPIKE_EVERY - 1) | (steps == nan_step)
+    expect = int((injected & live).sum())
+    spiky = _Spiky(setup.clients, nan_step)
+    dspike = replace(dbase, T=Ts, guard=guard, eval_every=0)
+    (w_s, tr_s), wall = _timed(lambda: run(dspike, spiky))
+    check(int(tr_s.extras["guard_rejects"]) == expect
+          and int(tr_s.extras["stale_drops"]) == int(stale_s.sum()) and finite(w_s),
+          f"robust device MLP spikes (every {ROBUST_SPIKE_EVERY}th step, NaN at {nan_step}), "
+          f"T={Ts}: rejects {int(tr_s.extras['guard_rejects'])} == the injected live events "
+          f"{expect}, stale_drops {int(tr_s.extras['stale_drops'])} == {int(stale_s.sum())}, "
+          f"weights finite ({wall:.3f} s)")
+    w_o, _ = run(replace(dspike, guard=None), spiky)
+    big = max(float(v.abs().max()) for v in w_o.values())
+    check(not finite(w_o) or big > 1e4,
+          f"robust device MLP spikes without the guard: weights finite {finite(w_o)}, max |w| "
+          f"{big:.3e} (non-finite or > 1e4)")
+    del w_s, w_o
+
+    # (d) a scenario per event, and the 27-cell device matrix under one
+    name, Ts6 = ROBUST_DEV_SCENARIO, ROBUST_DEV_SCENARIO_T
+    es6, _ = stream_of(Ts6, scenario=get_scenario(name))
+    kinds6 = np.bincount(es6.kind, minlength=6)
+    rs, wall = _timed(lambda: run_experiment(replace(flc, server_steps=Ts6, scenario=name),
+                                             "gen_async", eval_every=every, data=data))
+    acc = list(rs.eval_acc)
+    print(f"robust device MLP {name} per event, T={Ts6}: {Ts6 / wall:.1f} events/s, kinds "
+          f"{rs.extras['kind_count'].tolist()}, acc {acc}")
+    check(np.array_equal(rs.extras["kind_count"], kinds6) and bool(np.isfinite(acc).all())
+          and acc[-1] > acc[0],
+          f"robust device MLP {name} per event: kind_count == the stream's over 6 kinds, "
+          f"accuracy finite and rising {acc[0]:.4f} -> {acc[-1]:.4f}")
+    mflc = FLConfig(n_clients=MATRIX_N, concurrency=MATRIX_C, server_steps=ROBUST_DEV_MATRIX_T,
+                    engine="scan", stream="device", device=dev.type)
+    from repro_torch.data.pipeline import FederatedClassification
+
+    mdata = FederatedClassification(n_clients=MATRIX_N, seed=mflc.seed)
+    Tm = ROBUST_DEV_MATRIX_T
+    B = int(np.prod([len(v) for v in MATRIX_GRID.values()]))
+    m, wall = _timed(lambda: run_matrix(mflc, data=mdata, scenario=ROBUST_MATRIX_SCENARIO,
+                                        eta=MATRIX_ETA, eval_every=MATRIX_EVAL, **MATRIX_GRID))
+    acc = np.asarray(m.eval_acc)
+    kc = np.asarray(m.extras["kind_count"])
+    print(f"run_matrix(stream='device', scenario={ROBUST_MATRIX_SCENARIO!r}), {B} cells "
+          f"n={MATRIX_N} C={MATRIX_C} T={Tm}: {wall:.3f} s, {B * Tm / wall:.1f} events/s summed "
+          f"over cells; kinds summed {kc.reshape(-1, 6).sum(0).tolist()}; final acc (seed-mean) "
+          f"{np.asarray(m.final_acc).mean(0).round(4).tolist()}")
+    grid = tuple(len(MATRIX_GRID[k]) for k in ("seeds", "policies", "speed_ratios"))
+    check(acc.shape == grid + (Tm // MATRIX_EVAL,) and bool(np.isfinite(acc).all())
+          and bool((acc[..., -1] > acc[..., 0]).all()) and kc.shape == grid + (6,)
+          and bool((kc.sum(-1) == Tm).all()),
+          f"run_matrix(stream='device', scenario={ROBUST_MATRIX_SCENARIO!r}): finite curves, "
+          "accuracy rises in every cell, each cell's kinds over 6 tags sum to T")
+
+
+def _robust_dev_ckpt_mlp(dev, data) -> dict:
+    """20 (e), the MLP: the checkpointed fused run (`_dev_ckpt_cfg`), then
+    truncated to its second save and resumed in this process.  Returns the
+    uninterrupted run's weights (numpy), curve and counters: the reference
+    of the kill-and-resume children."""
+    from repro_torch.core import engine_ckpt as ec
+    from repro_torch.core.async_sgd import run_generalized_async_sgd
+
+    setup, base = _mlp_setup(dev, data)
+    d = DEV_CKPT_ROOT / "mlp"
+    cfg = _dev_ckpt_cfg(base, d)
+    T = cfg.T
+    run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+    ec.reset_saves()
+    (w, tr), wall = _timed(lambda: run(cfg))
+    saves = _print_saves("robust device MLP")
+    print(f"robust device MLP per event, faults + guard, checkpointed every "
+          f"{ROBUST_DEV_CKPT_EVERY}: {T / wall:.1f} events/s, {len(saves)} saves, acc "
+          f"{tr.eval_values}, kinds {tr.extras['kind_count'].tolist()}, rejects "
+          f"{int(tr.extras['guard_rejects'])}, stale {int(tr.extras['stale_drops'])}")
+    check(len(tr.eval_values) == T // base.eval_every and bool(np.isfinite(tr.eval_values).all())
+          and int(tr.extras["kind_count"].sum()) == T and np.isnan(tr.times).all(),
+          f"robust device MLP checkpointed: {T // base.eval_every} finite eval points, kinds of "
+          "all T events, NaN event times (the chunked driver keeps the final clock)")
+    left = _truncate_ckpts(d, 2 * ROBUST_DEV_CKPT_EVERY)
+    (w2, tr2), wall2 = _timed(lambda: run(replace(cfg, resume=True)))
+    check(left[-1] == 2 * ROBUST_DEV_CKPT_EVERY and all(torch.equal(w2[k], w[k]) for k in w)
+          and tr2.eval_values == tr.eval_values and _same_extras(tr2.extras, tr.extras),
+          f"robust device MLP truncated to step {left[-1]} and resumed ({wall2:.3f} s): weights, "
+          "curve and counters bitwise the uninterrupted run's")
+    shutil.rmtree(d, ignore_errors=True)
+    return dict(w={k: v.cpu().numpy() for k, v in w.items()}, evals=tr.eval_values,
+                gcnt=[int(tr.extras["guard_rejects"]), int(tr.extras["stale_drops"])])
+
+
+def _robust_dev_mamba(dev, launches: dict) -> None:
+    """20 (e), Mamba2-130M at full width and depth (phase 19 (c)'s
+    configuration, T cut to `ROBUST_DEV_MAMBA_T`) per event on the device
+    stream with faults and the guard, checkpointed every
+    `ROBUST_DEV_MAMBA_CKPT_EVERY` events, truncated to its first save and
+    resumed; K4's launches go to ``launches["robust_device_mamba2"]``."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import engine_ckpt as ec
+    from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.fl.engine import _cached_fl_setup, sampling_for
+    from repro_torch.kernels import ssd_scan as k4
+
+    part = _Part("robust device Mamba2")
+    task = _mamba_task(dev)
+    nL, T, every, C = task.cfg.num_layers, ROBUST_DEV_MAMBA_T, LM_EVAL, MAMBA_C
+    every_ck = ROBUST_DEV_MAMBA_CKPT_EVERY
+    flc = FLConfig(n_clients=LM_N, concurrency=C, server_steps=T, sampling="optimal",
+                   speed_ratio=10.0, engine="scan", stream="device", device=dev.type)
+    setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
+    mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    p = sampling_for(flc, mu)
+    fault, guard = _robust_settings(C)
+    d = DEV_CKPT_ROOT / "mamba2"
+    shutil.rmtree(d, ignore_errors=True)
+    base = ServerConfig(n=LM_N, C=C, T=T, eta=0.05, mu=mu, p=p, seed=flc.seed, eval_every=every,
+                        engine="scan", stream="device", faults=fault, guard=guard,
+                        ckpt_dir=str(d), ckpt_every=every_ck, device=dev.type)
+    path = launches.setdefault("robust_device_mamba2", {"ssd_scan": 0})
+    run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+
+    def counted(label, c, forwards):
+        k4.reset_launches()
+        ec.reset_saves()
+        out, wall = _timed(lambda: run(c))
+        n4 = k4.launches["ssd_scan"]
+        path["ssd_scan"] += n4
+        check(n4 == nL * forwards, f"{label}: K4 launches {n4} == {nL} x {forwards} forwards "
+              "(a gradient every event, flips included, and an eval every "
+              f"{every})")
+        return out, wall
+
+    torch.cuda.reset_peak_memory_stats()
+    (w, tr), wall = counted("robust device Mamba2, checkpointed", base, _forwards(T, every))
+    saves = _print_saves("robust device Mamba2")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"robust device Mamba2 per event, faults + guard, checkpointed every {every_ck}: "
+          f"{wall:.3f} s ({T / wall:.3f} events/s, {T * LM_BATCH * LM_SEQ / wall:.1f} tokens/s), "
+          f"{len(saves)} saves, kinds {tr.extras['kind_count'].tolist()}, rejects "
+          f"{int(tr.extras['guard_rejects'])}, stale {int(tr.extras['stale_drops'])}, loss "
+          f"{tr.eval_values}; peak device memory {peak:.3f} GiB")
+    check(len(tr.eval_values) == T // every and bool(np.isfinite(tr.eval_values).all())
+          and int(tr.extras["kind_count"].sum()) == T,
+          f"robust device Mamba2: {T // every} finite eval points, kinds of all T events")
+    J, kind, delay = _ckpt_events(mu, p, C, T, every_ck, flc.seed, fault, dev)
+    trained = np.flatnonzero((kind == 0) & (delay <= guard.stale_cutoff))
+    before = _train_loss(setup, setup.params, J, trained)
+    after = _train_loss(setup, w, J, trained)
+    check(after < before, f"robust device Mamba2: the clients' training loss over the run's "
+          f"{trained.size} trained minibatches falls: {before:.5f} -> {after:.5f}")
+    w_full = _flat_cpu(w)
+    del w
+    left = _truncate_ckpts(d, every_ck)
+    (w2, tr2), wall2 = counted("robust device Mamba2 resumed", replace(base, resume=True),
+                               _forwards(T - every_ck, every))
+    check(left == [every_ck] and torch.equal(_flat_cpu(w2), w_full)
+          and tr2.eval_values == tr.eval_values and _same_extras(tr2.extras, tr.extras),
+          f"robust device Mamba2 truncated to step {left} and resumed ({wall2:.3f} s): weights, "
+          "loss curve and counters bitwise the uninterrupted run's")
+    del w2
+    shutil.rmtree(d, ignore_errors=True)
+    part.end()
+    torch.cuda.empty_cache()
+
+
+def phase_stream_robust(dev, launches: dict) -> None:
+    """20. Faults, the guard, scenarios and the checkpointed fused driver on
+    the device stream (see the module docstring); adds the kernel launches
+    to ``launches`` under "robust_device_mlp" (K1) and
+    "robust_device_mamba2" (K4).  The kill-and-resume children run one
+    after the other on a thread, beside the MLP part (not beside Mamba2:
+    a child there halved its events/s)."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.data.pipeline import FederatedClassification
+
+    t0 = time.perf_counter()
+    shutil.rmtree(DEV_CKPT_ROOT, ignore_errors=True)
+    DEV_CKPT_ROOT.mkdir(parents=True)
+    flc = _mlp_flc(dev)
+    data = FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
+    setup, base = _mlp_setup(dev, data)
+    _robust_dev_card(dev, base.mu, base.p)
+    t1 = time.perf_counter()
+    ref = _robust_dev_ckpt_mlp(dev, data)
+    t2 = time.perf_counter()
+    d_kill = DEV_CKPT_ROOT / "mlp_killed"
+
+    def children():
+        killed = _run_robust_child(d_kill, "fused_kill")
+        left = ck.available_steps(str(d_kill))
+        return killed, left, _run_robust_child(d_kill, "fused_resume")
+
+    with ThreadPoolExecutor(1) as pool:
+        both = pool.submit(children)
+        _robust_dev_mlp(dev, launches, data)
+        t3 = time.perf_counter()
+        (p1, wall1), left, (p2, wall2) = both.result()
+        t4 = time.perf_counter()
+    _robust_dev_mamba(dev, launches)
+    t5 = time.perf_counter()
+    print(f"robust device MLP kill-and-resume children: the killed child exited {p1.returncode} "
+          f"after {wall1:.3f} s and left steps {left}; the resumed child exited {p2.returncode} "
+          f"after {wall2:.3f} s")
+    for p in (p1, p2):
+        if p.returncode not in (0, -signal.SIGKILL):
+            print(p.stderr[-4000:], file=sys.stderr)
+    every = ROBUST_DEV_CKPT_EVERY
+    check(p1.returncode == -signal.SIGKILL and left == [every, 2 * every] and p2.returncode == 0,
+          f"robust device MLP child SIGKILLed after its second save (steps left {left}), a fresh "
+          "child resumed")
+    if p2.returncode == 0:
+        res = np.load(d_kill / "result.npz")
+        bitwise = all(np.array_equal(res[k], v) for k, v in ref["w"].items())
+        check(bitwise and res["evals"].tolist() == ref["evals"]
+              and res["gcnt"].tolist() == ref["gcnt"],
+              "robust device MLP killed and resumed in fresh processes: final weights, eval "
+              "curve and guard counter bitwise the uninterrupted checkpointed run's")
+    shutil.rmtree(DEV_CKPT_ROOT, ignore_errors=True)
+    print(f"phase 20 times: streams on the card {t1 - t0:.1f} s, checkpointed MLP {t2 - t1:.1f} "
+          f"s, MLP under faults, spikes and scenarios (children beside) {t3 - t2:.1f} s, the "
+          f"children's rest {t4 - t3:.1f} s, Mamba2 {t5 - t4:.1f} s; phase 20 {t5 - t0:.1f} s")
+
+
 GROUPS = ("k1k2k6", "fa", "ssd", "gmm", "mlp", "lanes", "granite", "ssm", "matrix", "moe",
-          "robust", "stream")
+          "robust", "stream", "stream_robust")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3135,8 +3844,13 @@ def main(argv: list[str] | None = None) -> int:
                          f"of {', '.join(GROUPS)}); 'lanes' implies 'mlp'.  A partial run "
                          "prints no kernels line and no result line")
     ap.add_argument("--robust-child", nargs=2, metavar=("DIR", "MODE"),
-                    help=argparse.SUPPRESS)  # phase 18's kill-and-resume child
+                    help=argparse.SUPPRESS)  # phases 18 and 20's kill-and-resume child
+    ap.add_argument("--memory-history", action="store_true",
+                    help="record the allocator's history around phase 17's blocked Mamba2 "
+                         "matrix and print the owners of the live memory at K2's plain-version "
+                         "entry (ROADMAP Queue 3); slows that run")
     args = ap.parse_args(argv)
+    _SHARED["memory_history"] = args.memory_history
     groups = set(args.only.split(","))
     unknown = groups - set(GROUPS)
     if unknown:
@@ -3231,6 +3945,11 @@ def main(argv: list[str] | None = None) -> int:
     if "stream" in groups:
         phase_stream(dev, launches)
         done("19")
+        torch.cuda.empty_cache()
+    # 20. faults, the guard, scenarios and checkpoints on the device stream
+    if "stream_robust" in groups:
+        phase_stream_robust(dev, launches)
+        done("20")
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)

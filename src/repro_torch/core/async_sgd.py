@@ -19,12 +19,13 @@ Engines
     with faults, a guard or a scenario, `_python_fault_loop`);
   * "scan"   — the device-resident replay engine (`core.engine_scan`):
     ``stream="host"`` pre-simulates the event stream on the host and
-    Algorithm 1 replays it over a flat snapshot ring buffer on the device
-    (with ``ckpt_dir``, chunk by chunk through `core.engine_ckpt`,
-    kill-and-resume safe); ``stream="device"`` generates the events on the
-    device chunk by chunk and replays each chunk with the same steps (the
-    fused runner, `engine_scan.make_fused_runner`), the only mode of
-    ``adaptive`` sampling.
+    Algorithm 1 replays it over a flat snapshot ring buffer on the device;
+    ``stream="device"`` generates the events on the device chunk by chunk
+    and replays each chunk with the same steps (the fused runner,
+    `engine_scan.make_fused_runner`), the only mode of ``adaptive``
+    sampling.  Faults, the guard and scenarios run on both streams; with
+    ``ckpt_dir`` either stream runs chunk by chunk through
+    `core.engine_ckpt`, kill-and-resume safe.
 Identical (seed, block) => identical event stream => iterates agree to
 float-associativity tolerance.
 
@@ -84,8 +85,7 @@ class ServerConfig:
 
     The field names are `repro.core.async_sgd.ServerConfig`'s, so one config
     drives both packages, plus ``device``.  Options this port does not run
-    yet (faults, the guard, checkpoints and scenarios on the device stream,
-    the sparse stream, the serving plane) raise `NotImplementedError`
+    yet (the sparse stream, the serving plane) raise `NotImplementedError`
     naming their ROADMAP item.
     """
 
@@ -127,24 +127,25 @@ class ServerConfig:
                                    # accepted so configs carry over, ignored
     collect_extras: bool = True  # record per-event delays in the host stream
     faults: "FaultConfig | None" = None  # client churn / crash / straggler
-                                 # injection (queue_sim.FaultConfig) on the
-                                 # host stream, both engines: non-completion
+                                 # injection (queue_sim.FaultConfig), both
+                                 # engines and streams: non-completion
                                  # events apply no update and re-dispatch
                                  # with the current weights
     guard: Any | None = None     # engine_scan.GuardConfig: reject non-finite /
                                  # norm-exploding gradients and updates staler
                                  # than stale_cutoff CS steps
     ckpt_dir: str | None = None  # scan engine: checkpoint directory; routes the
-                                 # host replay through core.engine_ckpt, saving
-                                 # the full carry every ckpt_every CS steps
+                                 # run through core.engine_ckpt, saving the
+                                 # full carry every ckpt_every CS steps
     ckpt_every: int = 0          # checkpoint cadence in CS steps
     resume: bool = False         # resume from the latest checkpoint in ckpt_dir
                                  # (config-fingerprint validated)
     serving: Any | None = None   # not ported (ROADMAP item 11)
     scenario: Any | None = None  # scenario.ScenarioConfig or a registry name:
                                  # phase-type service + Markov-modulated
-                                 # availability on the host stream, both
-                                 # engines; exclusive with `faults`
+                                 # availability, both engines and streams
+                                 # (per event on the device stream);
+                                 # exclusive with `faults`
     device: str = "cuda"         # torch device of the run
 
 
@@ -181,9 +182,8 @@ def _resolve_scenario_cfg(cfg: ServerConfig):
 
 def _reject_unported(cfg: ServerConfig) -> None:
     """Raise for every option of `repro`'s ServerConfig the port does not
-    run: faults, the guard, checkpoints (item 8) and scenarios (item 10) on
-    the device stream, the sparse stream (item 9), then the serving plane.
-    The engine's own validation raises first, as the reference's does."""
+    run: the sparse stream (item 9), then the serving plane (item 11).  The
+    engine's own validation raises first, as the reference's does."""
     if cfg.stream not in ("host", "device"):
         raise ValueError(cfg.stream)
     if cfg.engine == "python" and (cfg.stream == "device" or cfg.adaptive):
@@ -196,15 +196,7 @@ def _reject_unported(cfg: ServerConfig) -> None:
                 "stream='device' supports exponential service only "
                 "(the on-device race relies on memorylessness)"
             )
-        if cfg.faults is not None and cfg.faults.enabled:
-            raise unported("faults= on the device stream", 8)
-        if cfg.guard is not None:
-            raise unported("guard= on the device stream", 8)
-        if cfg.ckpt_dir is not None:
-            raise unported("ckpt_dir= on the device stream (run_checkpointed)", 8)
-        if _resolve_scenario_cfg(cfg) is not None:
-            raise unported("scenario= on the device stream", 10)
-        if cfg.sparse is True:
+        if cfg.sparse is True and _resolve_scenario_cfg(cfg) is None:
             raise unported("sparse=True (the sparse O(C) stream)", 9)
         if cfg.sparse not in (False, "auto"):
             raise ValueError(f"sparse={cfg.sparse!r} (expected bool or 'auto')")
@@ -244,17 +236,22 @@ AUTO_PROBE_STEPS = 4000
 SPARSE_AUTO_N = 50_000
 
 
-def _probe_stream_slots(mu, p, C: int, T: int, seed, device) -> np.ndarray:
+def _probe_stream_slots(mu, p, C: int, T: int, seed, device, fault=None,
+                        scenario=None) -> np.ndarray:
     """A short device-generated probe stream for block-size auto-selection.
 
     The fused engine never materializes its event stream, so ``"auto"`` on
     the device path measures conflict rates on a law-identical probe of at
     most `AUTO_PROBE_STEPS` CS steps from `stream_device.generate_stream`.
     Shared by `_run_scan` and `fl.run_matrix`, so both resolve "auto" alike.
+    The probe draws from the configured stream: a clean probe under faults
+    or a scenario would misjudge the conflict rates (flip and stage events
+    carry the trash slot C).
     """
     from .stream_device import generate_stream
 
-    return generate_stream(mu, p, C, min(T, AUTO_PROBE_STEPS), seed=seed, device=device).slot
+    return generate_stream(mu, p, C, min(T, AUTO_PROBE_STEPS), seed=seed, fault=fault,
+                           scenario=scenario, device=device).slot
 
 
 def _auto_block_size(slots, devices: int = 1, cut_every: int = 0) -> int:
@@ -309,14 +306,13 @@ def _run_scan(
     that many `torch.distributed` ranks (every rank makes the same call).
     The guard's staleness cutoff zeroes the scales here, where the exported
     delays live; ``cfg.ckpt_dir`` routes the replay through the
-    checkpointed drivers of `core.engine_ckpt`."""
+    checkpointed drivers of `core.engine_ckpt`.  The options' validation
+    is shared by both streams, as in the reference."""
     from .engine_scan import blocked_inputs, jit_runner, step_scales, stream_arrays
     from .queue_sim import EventBlocks
 
     if cfg.track_virtual:
         raise NotImplementedError("track_virtual requires engine='python'")
-    if cfg.stream == "device":
-        return _run_fused(w0, source, cfg, eval_fn, p, mu, device, fedbuff_Z=fedbuff_Z)
     weighting = "plain" if fedbuff_Z else cfg.weighting
     faults = cfg.faults if (cfg.faults is not None and cfg.faults.enabled) else None
     scenario = _resolve_scenario_cfg(cfg)
@@ -340,6 +336,9 @@ def _run_scan(
             "fault injection / staleness cutoff compose with Algorithm 1, "
             "not FedBuff (the buffer flush has no per-event masking)"
         )
+    if cfg.stream == "device":
+        return _run_fused(w0, source, cfg, eval_fn, p, mu, device, fedbuff_Z=fedbuff_Z,
+                          faults=faults, scenario=scenario)
     w0_dev = _to_device(w0, device)
     eval_every = cfg.eval_every if eval_fn is not None else 0
     block_size = cfg.block_size
@@ -452,30 +451,42 @@ def _run_scan(
     return w, trace
 
 
-def _resolve_sparse(cfg: ServerConfig, mu, p, block_size) -> None:
+def _resolve_sparse(cfg: ServerConfig, mu, p, block_size, ckpt_on: bool = False) -> None:
     """The reference's ``sparse="auto"`` decision on the device stream: the
-    dense stream for a blocked or lane-sharded run, below `SPARSE_AUTO_N`
-    clients, or when the speed profile does not collapse to few classes;
-    otherwise it would take the sparse O(C) stream, which is not ported
-    (item 9; ``sparse=True`` raises in `_reject_unported`)."""
+    dense stream for a blocked, lane-sharded or checkpointed run, below
+    `SPARSE_AUTO_N` clients, or when the speed profile does not collapse to
+    few classes or the fault rates vary within a class; otherwise it would
+    take the sparse O(C) stream, which is not ported (item 9; ``sparse=True``
+    raises in `_reject_unported`)."""
     if (cfg.sparse != "auto" or (block_size != "auto" and int(block_size) > 1)
-            or cfg.devices > 1 or cfg.n < SPARSE_AUTO_N):
+            or cfg.devices > 1 or ckpt_on or cfg.n < SPARSE_AUTO_N):
         return
     from .classes import build_class_spec
 
     try:
-        build_class_spec(mu, p)
+        spec, _, _ = build_class_spec(mu, p)
     except ValueError:
         return
+    if cfg.faults is not None and cfg.faults.enabled:
+        rates = np.stack(cfg.faults.resolve(cfg.n))[:, np.asarray(spec.perm)]
+        for o, c in zip(np.asarray(spec.offsets), np.asarray(spec.counts)):
+            seg = rates[:, o : o + c]
+            if not np.allclose(seg, seg[:, :1]):
+                return  # the reference's resolve_fault_rates_classes refuses: dense
     raise unported(f"the sparse O(C) stream (sparse='auto' at n >= {SPARSE_AUTO_N})", 9)
 
 
-def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff_Z: int = 0):
+def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff_Z: int = 0,
+               faults=None, scenario=None):
     """The device-stream branch of `_run_scan` (`repro`'s ``stream="device"``):
     the fused runner (`engine_scan.jit_fused_runner`) generates the closed
-    network's events on ``device`` chunk by chunk and replays them; the
-    trace carries the event times and the on-device statistics (p_final,
-    p_traj, mean delays, completions, busy time, mean queue lengths)."""
+    network's events on ``device`` chunk by chunk and replays them, under
+    ``faults`` or ``scenario`` (resolved by `_run_scan`) and ``cfg.guard``;
+    the trace carries the event times and the on-device statistics
+    (p_final, p_traj, mean delays, completions, busy time, mean queue
+    lengths, and the guard's and the kinds' counters).  ``cfg.ckpt_dir``
+    runs `engine_ckpt.run_checkpointed` instead, whose trace has NaN times
+    (the chunked driver keeps only the final clock)."""
     from .engine_scan import jit_fused_runner
 
     weighting = "plain" if fedbuff_Z else cfg.weighting
@@ -484,18 +495,35 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
         raise ValueError("block_size > 1 requires the default update w - scale*g")
     if cfg.update not in ("jnp", "pallas"):
         raise ValueError(cfg.update)
-    _resolve_sparse(cfg, mu, p, block_size)
+    ckpt_on = cfg.ckpt_dir is not None
+    if scenario is not None:
+        if cfg.sparse is True:
+            raise ValueError("the fused engine's scenario path is dense-only; use "
+                             "sparse_stats_stream_fn(scenario=True) for class-level laws")
+        if ckpt_on:
+            raise ValueError("scenario= does not compose with checkpointing yet")
+        if block_size == "auto":
+            block_size = 1  # the scenario stream is per event
+        elif int(block_size) > 1:
+            raise ValueError("scenario= requires block_size=1")
+    else:
+        _resolve_sparse(cfg, mu, p, block_size, ckpt_on)
     eval_every = cfg.eval_every if eval_fn is not None else 0
     if block_size == "auto":
         block_size = _auto_block_size(
-            _probe_stream_slots(mu, p, cfg.C, cfg.T, cfg.seed, device), cfg.devices)
+            _probe_stream_slots(mu, p, cfg.C, cfg.T, cfg.seed, device, fault=faults),
+            cfg.devices)
+    grad_fn = _device_grad_fn(source)
+    if ckpt_on:
+        return _run_fused_checkpointed(w0, grad_fn, cfg, eval_fn, eval_every, p, mu, device,
+                                       weighting, int(block_size), fedbuff_Z, faults)
     runner = jit_fused_runner(
-        _device_grad_fn(source), cfg.n, cfg.C, cfg.T,
+        grad_fn, cfg.n, cfg.C, cfg.T,
         weighting=weighting, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
         adaptive=cfg.adaptive, refresh_every=cfg.refresh_every, ctrl_lr=cfg.ctrl_lr,
         ctrl_iters=cfg.ctrl_iters, update_fn=_scan_update_fn(cfg), block_size=int(block_size),
         snapshot_dtype=cfg.snapshot_dtype, collect_extras=cfg.collect_extras,
-        lane_devices=cfg.devices,
+        lane_devices=cfg.devices, fault=faults, guard=cfg.guard, scenario=scenario,
     )
     w, evals, extras = runner(_to_device(w0, device), mu, p, cfg.seed, cfg.eta)
     extras = {k: v.detach().cpu().numpy() for k, v in extras.items()}  # one host sync
@@ -503,6 +531,9 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
     times = np.asarray(extras["t"], np.float64) if "t" in extras else np.full(cfg.T, np.nan)
     trace = TraceRecord(steps=np.arange(cfg.T), times=times)
     trace.extras = {"p_final": np.asarray(extras["p_final"], np.float64)}
+    for name in ("guard_rejects", "stale_drops", "kind_count", "avail_time"):
+        if name in extras:
+            trace.extras[name] = np.asarray(extras[name])
     if "occ_mean" in extras:
         trace.mean_queue_lengths = np.asarray(extras["occ_mean"], np.float64)
         comp = np.asarray(extras["comp"], np.float64)
@@ -512,11 +543,43 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
             comp=comp,
             busy_time=np.asarray(extras["busy_time"], np.float64),
         )
+    _trace_evals(trace, cfg, eval_fn, evals)
+    return w, trace
+
+
+def _run_fused_checkpointed(w0, grad_fn, cfg: ServerConfig, eval_fn, eval_every: int, p, mu,
+                            device, weighting: str, block_size: int, fedbuff_Z: int, faults):
+    """`_run_fused` with ``cfg.ckpt_dir``: `engine_ckpt.run_checkpointed`,
+    seeded by ``cfg.seed``, with a full-carry checkpoint every
+    ``cfg.ckpt_every`` events.  The trace's times are NaN (the chunked
+    driver keeps only the final clock, ``extras["t_final"]``)."""
+    from .engine_ckpt import run_checkpointed
+
+    if cfg.devices > 1:
+        raise ValueError("checkpointing does not compose with lane sharding — checkpoint the "
+                         "unsharded run")
+    if fedbuff_Z or _scan_update_fn(cfg) is not None:
+        raise ValueError("the checkpointed fused engine supports the default update w - "
+                         "scale*g with fedbuff_Z=0")
+    w, evals, extras = run_checkpointed(
+        grad_fn, cfg.n, cfg.C, cfg.T, w0=_to_device(w0, device), mu=mu, p0=p, key=cfg.seed,
+        eta=cfg.eta, ckpt_dir=cfg.ckpt_dir, ckpt_every=cfg.ckpt_every, weighting=weighting,
+        eval_fn=eval_fn, eval_every=eval_every, adaptive=cfg.adaptive,
+        refresh_every=cfg.refresh_every, ctrl_lr=cfg.ctrl_lr, ctrl_iters=cfg.ctrl_iters,
+        block_size=block_size, snapshot_dtype=cfg.snapshot_dtype, fault=faults, guard=cfg.guard,
+        resume=cfg.resume,
+    )
+    trace = TraceRecord(steps=np.arange(cfg.T), times=np.full(cfg.T, np.nan))
+    trace.extras = {k: v.detach().cpu().numpy() for k, v in extras.items()}  # one host sync
+    _trace_evals(trace, cfg, eval_fn, evals)
+    return w, trace
+
+
+def _trace_evals(trace: TraceRecord, cfg: ServerConfig, eval_fn, evals) -> None:
     if eval_fn is not None and cfg.eval_every:
         vals = evals.detach().cpu().numpy()
         trace.eval_steps = [(i + 1) * cfg.eval_every for i in range(vals.shape[0])]
         trace.eval_values = [float(v) for v in vals]
-    return w, trace
 
 
 def run_generalized_async_sgd(

@@ -1,8 +1,8 @@
-"""Checkpointed host-replay drivers: kill-and-resume with a bitwise guarantee.
+"""Checkpointed engine drivers: kill-and-resume with a bitwise guarantee.
 
-The counterpart of `repro.core.engine_ckpt`'s host half.  The replay
-runners of `engine_scan` keep their whole state in memory — a SIGKILL loses
-everything.  These drivers run the same runners' loops with a checkpoint
+The counterpart of `repro.core.engine_ckpt`.  The replay runners of
+`engine_scan` keep their whole state in memory — a SIGKILL loses
+everything.  The host drivers run the same runners' loops with a checkpoint
 hook (`_Checkpoints`), which saves the complete carry at the checkpoint
 cadence through `repro_torch.ckpt` and restores it on resume:
 
@@ -23,8 +23,16 @@ host memory and waits for that copy, once per save, before the chunk loop
 goes on; the background writer then works on the host copy.  `saves`
 records each save's bytes and how long it held the loop.
 
-The fused device-stream driver (`run_checkpointed`) waits for checkpoints
-on the device event stream (ROADMAP item 8).
+The fused device-stream driver (`run_checkpointed`) runs the fused
+runner's chunks (`engine_scan._advance_chunk`) from a host loop and saves,
+besides the replay's carry, the closed network's `StreamState` and
+`StatsState`, the per-slot dispatch-time scales, p and its dispatch CDF.
+Chunk c's uniforms come from a generator seeded by a fixed function of
+(seed, c) (`chunk_seed`), as the reference folds the chunk index into its
+key: nothing depends on when a chunk runs, so a resume needs no generator
+state.  That is a different draw order than `make_fused_runner`'s single
+upfront draw, so the checkpointed fused run is its own deterministic
+trajectory, with the same law.
 """
 from __future__ import annotations
 
@@ -39,9 +47,19 @@ import torch
 
 from ..tree import tree_flatten
 from ..unported import unported
-from .engine_scan import GuardConfig, _make_host_block_runner, _make_host_runner
+from .engine_scan import (
+    GuardConfig,
+    _advance_chunk,
+    _FusedReplay,
+    _make_host_block_runner,
+    _make_host_runner,
+    _require_flat_codec,
+    _slot_scales,
+    _snapshot_codec,
+)
 
 __all__ = [
+    "chunk_seed",
     "run_checkpointed",
     "run_checkpointed_host",
     "run_checkpointed_host_blocked",
@@ -213,19 +231,22 @@ class _AsyncSaver:
             raise self._err
 
 
-def _chunk_layout(T: int, ckpt_every: int, eval_every: int) -> int:
-    """Chunk length L: eval and checkpoint both land on chunk boundaries,
-    so L divides both cadences."""
+def _chunk_layout(T: int, ckpt_every: int, eval_every: int, refresh_every: int = 0) -> int:
+    """Chunk length L: refresh, eval and checkpoint all land on chunk
+    boundaries, so L divides every active cadence."""
     if ckpt_every <= 0:
         raise ValueError("ckpt_every > 0 required")
     L = min(ckpt_every, T)
+    if refresh_every:
+        L = min(L, refresh_every)
     if eval_every:
         L = min(L, eval_every)
-    for name, every in (("eval_every", eval_every), ("ckpt_every", ckpt_every)):
+    for name, every in (("refresh_every", refresh_every), ("eval_every", eval_every),
+                        ("ckpt_every", ckpt_every)):
         if every and every % L:
             raise ValueError(
                 f"{name}={every} must be a multiple of the chunk length {L} "
-                "(eval/checkpoint cadences must nest)"
+                "(refresh/eval/checkpoint cadences must nest)"
             )
     return L
 
@@ -258,9 +279,181 @@ def _cache_key(guard: GuardConfig | None):
     return None if guard is None else guard.cache_key()
 
 
-def run_checkpointed(*args, **kwargs):
-    """The checkpointed fused (device-stream) engine: not ported yet."""
-    raise unported("run_checkpointed (the checkpointed device-stream engine)", 8)
+def chunk_seed(seed: int, c: int) -> int:
+    """The generator seed of the checkpointed fused driver's chunk ``c``
+    (``c = -1``: the initial placement), a fixed function of (seed, c)."""
+    return int(np.random.SeedSequence([int(seed), c + 1]).generate_state(1)[0])
+
+
+def _port_draws(seed: int, n: int, C: int, p, init: str, dev):
+    """``(nodes, chunk_draws)`` from the port's generators: the initial
+    placement, and ``chunk_draws(c, Lc) -> (u_race, u_exp, u_disp)`` of
+    chunk c, each from a generator seeded by `chunk_seed`."""
+    from .stream_device import _generator, _init_nodes
+
+    nodes = _init_nodes(_generator(chunk_seed(seed, -1), dev), n, C, p, init)
+
+    def chunk_draws(c: int, Lc: int):
+        gen = _generator(chunk_seed(seed, c), dev)
+        return tuple(torch.rand(Lc, generator=gen, device=dev) for _ in range(3))
+
+    return nodes, chunk_draws
+
+
+def run_checkpointed(
+    grad_fn,
+    n: int,
+    C: int,
+    T: int,
+    *,
+    w0,
+    mu,
+    p0,
+    key,
+    eta,
+    ckpt_dir: str,
+    ckpt_every: int,
+    weighting: str = "importance",
+    eval_fn=None,
+    eval_every: int = 0,
+    adaptive: bool = False,
+    refresh_every: int = 0,
+    bound=None,
+    ctrl_lr: float = 0.3,
+    ctrl_iters: int = 4,
+    init: str = "distinct",
+    block_size: int = 1,
+    snapshot_dtype=None,
+    fault=None,
+    guard: GuardConfig | None = None,
+    serving=None,
+    resume: bool = False,
+    keep: int = 3,
+    draws=None,
+):
+    """Checkpointed fused engine: host-driven chunks of the device stream.
+
+    The fused runner's event semantics (`engine_scan._advance_chunk`:
+    faults, the guard, adaptive refresh and the blocked replay compose) in
+    a host loop over L-event chunks, with a full-carry checkpoint every
+    ``ckpt_every`` events through `_AsyncSaver`: the replay's carry (the
+    weights, the ring, the guard counter), the stream state and statistics,
+    the per-slot dispatch-time scales, p and ``cumsum(p)``, the dispatch
+    CDF the chunk's K are drawn from.  ``key`` is an int seed: chunk c's
+    uniforms come from a generator seeded by ``chunk_seed(key, c)`` on w0's
+    device.  ``draws = (nodes, chunk_draws)`` replaces them (the initial
+    placement and ``chunk_draws(c, Lc) -> (u_race, u_exp, u_disp)``), so a
+    parity test can pass the reference's ``fold_in`` draws.  Returns
+    ``(w_final, evals, extras)``.  ``resume=True`` restores the latest
+    checkpoint under ``ckpt_dir`` (config-fingerprint validated) and goes
+    on; kill-and-resume is bitwise the uninterrupted call.  Serving raises
+    item 11; lanes and the cell axis are not taken (checkpoint each cell's
+    run alone), nor the reference's ``unroll`` (`make_fused_runner` has
+    none either).
+    """
+    from . import stream_device as sd
+    from .theory import BoundConstants
+
+    if weighting not in ("importance", "plain"):
+        raise ValueError(weighting)
+    if serving is not None and serving.enabled:
+        raise unported("serving=", 11)
+    if adaptive and refresh_every <= 0:
+        raise ValueError("adaptive=True requires refresh_every > 0")
+    E = max(int(block_size), 1)
+    faulty = sd._enabled(fault)
+    guard_stale = guard is not None and int(guard.stale_cutoff) > 0
+    importance = weighting == "importance"
+    eval_on = eval_fn is not None and eval_every > 0
+    L = _chunk_layout(T, ckpt_every, eval_every if eval_on else 0,
+                      refresh_every if adaptive else 0)
+    n_chunks, tail = T // L, T % L
+    eval_stride = max(eval_every // L, 1) if eval_on else 0
+    bound = bound if bound is not None else BoundConstants(C=C, T=T)
+
+    dev = _tree_device(w0)
+    pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype)
+    _require_flat_codec(unpack)
+    replay = _FusedReplay(grad_fn, w0, C + 1 if (E > 1 or faulty) else C, pack, unpack, enc,
+                          True, None, 0, E, n, C, 1, dev, guard)
+    f32 = lambda a: torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a  # noqa: E731
+                                    ).to(device=dev, dtype=torch.float32).reshape(1, -1)
+    mu_t, p_t = f32(mu), f32(p0)
+    eta_t = torch.full((), float(eta), dtype=torch.float32, device=dev)
+    fr = sd.resolve_fault_rates(fault, n, dev) if faulty else None
+    if draws is None:
+        nodes, chunk_draws = _port_draws(key, n, C, p_t[0], init, dev)
+    else:
+        nodes, chunk_draws = draws
+    nodes = torch.as_tensor(nodes).to(device=dev, dtype=torch.int64).reshape(1, C)
+    sstate0, _ = sd.stream_init(nodes, n, C, fault=faulty)
+    stats0 = sd.stats_init(n, C, fault=faulty, cells=1, device=dev)
+    slot_scale0 = (_slot_scales(eta_t, n, p_t, nodes, faulty) if importance
+                   else eta_t.expand(1, C + faulty).clone())
+    carry0 = (replay.carry, sstate0, stats0, slot_scale0, p_t, torch.cumsum(p_t, dim=-1))
+    cst = sd._Consts((1,), C, dev, n=n)
+
+    fingerprint = _fingerprint("fused", dict(
+        n=n, C=C, T=T, L=L, ckpt_every=ckpt_every, weighting=weighting,
+        eval_every=eval_every if eval_on else 0, adaptive=adaptive,
+        refresh_every=refresh_every, init=init, block_size=E,
+        snapshot_dtype=str(snapshot_dtype),
+        fault=fault.cache_key() if faulty else None, guard=_cache_key(guard),
+        key=None if draws is not None else int(key), given_draws=draws is not None,
+        eta=float(eta), mu=_array_digest(mu_t.cpu().numpy()),
+        p0=_array_digest(p_t.cpu().numpy()), ctrl=(float(ctrl_lr), int(ctrl_iters)),
+    ))
+    n_evals = T // eval_every if eval_on else 0
+    carry, evals, cursor0 = carry0, _EvalBuffer(n_evals), 0
+    if resume:
+        like = {"carry": carry0, "evals": np.full(n_evals, np.nan, np.float32),
+                "cursor": np.int64(0)}
+        state, _ = _resume_state(ckpt_dir, like, fingerprint)
+        carry = state["carry"]
+        evals = _EvalBuffer(n_evals, restored=state["evals"])
+        cursor0 = int(state["cursor"])
+
+    def chunk(carry, c: int, Lc: int):
+        ucarry, sstate, stats, slot_scale, p, cdf = carry
+        replay.carry = ucarry
+        ur, ue, ud = (torch.as_tensor(x).to(device=dev, dtype=torch.float32).reshape(1, Lc)
+                      for x in chunk_draws(c, Lc))
+        K = torch.clamp_max(torch.searchsorted(cdf, ud, right=True), n - 1)
+        sstate, stats, slot_scale, _ = _advance_chunk(
+            replay, sstate, stats, slot_scale if importance else None, p, mu_t,
+            -torch.log1p(-ue), ur, K, c * L, cst, eta_t=eta_t, n=n, need_stats=True, fr=fr,
+            guard_stale=guard_stale)
+        if not importance:
+            slot_scale = carry[3]
+        if adaptive:
+            p = sd.ctrl_refresh(p, stats.comp, stats.busy_t, bound, lr=ctrl_lr, iters=ctrl_iters)
+            cdf = torch.cumsum(p, dim=-1)
+        return replay.carry, sstate, stats, slot_scale, p, cdf
+
+    saver = _AsyncSaver(ckpt_dir, fingerprint, keep)
+    try:
+        for c in range(cursor0 // L, n_chunks):
+            carry = chunk(carry, c, L)
+            if eval_on and (c + 1) % eval_stride == 0:
+                evals.put((c + 1) // eval_stride - 1, eval_fn(replay.to_tree(carry[0][0])))
+            done = (c + 1) * L
+            if done % ckpt_every == 0 and done < T:
+                saver.put(done, carry, evals.buf)
+        if tail and cursor0 < T:  # cursor0 == T: resumed from the final save
+            carry = chunk(carry, n_chunks, tail)
+        saver.put(T, carry, evals.buf)  # a later resume returns from here
+        saver.close()
+    finally:
+        saver.abort()
+
+    ucarry, sstate, stats, _, p, _ = carry
+    extras = {"p_final": p[0], "comp": stats.comp[0], "busy_time": stats.busy_t[0],
+              "delay_sum": stats.delay_sum[0], "t_final": sstate.t[0]}
+    if guard is not None:
+        extras["guard_rejects"], extras["stale_drops"] = ucarry[3][0], ucarry[3][1]
+    if faulty:
+        extras.update(kind_count=stats.kind_count[0], avail_time=stats.avail_tw[0])
+    return (replay.to_tree(ucarry[0]), torch.as_tensor(evals.curve(), device=dev), extras)
 
 
 class _Checkpoints:

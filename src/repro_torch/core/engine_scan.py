@@ -970,24 +970,43 @@ def _make_host_block_runner(
 # ------------------------------------------------------------------ #
 # device stream: the fused runner (the closed network and Algorithm 1)
 # ------------------------------------------------------------------ #
-def _reject_fused_unported(*, fault, guard, scenario, serving, classes, lane_devices,
-                           lane_axis, shard_devices=1) -> None:
+def _reject_fused_unported(*, serving, classes, lane_devices, lane_axis,
+                           shard_devices=1) -> None:
     """Options the reference's fused runner takes that wait for their own
     ROADMAP items here."""
-    from .stream_device import _enabled
-
-    if _enabled(fault):
-        raise unported("fault= on the device stream", 8)
-    if guard is not None:
-        raise unported("guard= on the device stream", 8)
-    if _enabled(scenario):
-        raise unported("scenario= on the device stream", 10)
     if serving is not None and serving.enabled:
         raise unported("serving=", 11)
     if classes is not None:
         raise unported("classes= (the sparse O(C) stream)", 9)
     if lane_devices > 1 or lane_axis is not None or shard_devices > 1:
         raise unported("lanes and shards of the device stream", 12)
+
+
+def _check_fused_options(*, faulty: bool, scen_on: bool, guard, fedbuff_Z: int, E: int,
+                         serving, classes, vmap_scenarios: bool) -> None:
+    """The reference's `ValueError`s for fused options that do not compose
+    (`repro.core.engine_scan.make_fused_runner`), with its messages; the
+    cell axis replays without a guard, as the host cell axis does."""
+    if scen_on:
+        if faulty:
+            raise ValueError("scenario= and fault= are separate injection paths; model "
+                             "suspension via ScenarioConfig modulation (rate_scale)")
+        if classes is not None:
+            raise ValueError("the fused engine's scenario path is dense-only; use "
+                             "sparse_stats_stream_fn(scenario=True) for class-level laws")
+        if E > 1:
+            raise ValueError("scenario= requires block_size=1")
+        if fedbuff_Z:
+            raise ValueError("scenario= composes with Algorithm 1, not FedBuff")
+        if serving is not None and serving.enabled:
+            raise ValueError("scenario= does not compose with serving=")
+    if faulty and fedbuff_Z:
+        raise ValueError("fault injection composes with Algorithm 1, not FedBuff "
+                         "(a crash/timeout at a flush step has no masking semantics)")
+    if guard is not None and int(guard.stale_cutoff) > 0 and fedbuff_Z:
+        raise ValueError("the staleness cutoff requires the per-event update (fedbuff_Z=0)")
+    if vmap_scenarios and guard is not None:
+        raise ValueError("vmap_scenarios=True replays without a guard (guard=None)")
 
 
 def _fused_chunking(T: int, eval_on: bool, eval_every: int, adaptive: bool,
@@ -1060,8 +1079,28 @@ def make_fused_runner(
     ``vmap_scenarios=True`` runs B cells in lockstep along an explicit cell
     axis: (B, n) ``mu`` / ``p0``, one stream state with a leading B, one
     gather, one vmapped gradient call, one update and one scatter per event
-    (or block) for all cells.  Faults, the guard, scenarios, serving, the
-    sparse stream and lanes raise their ROADMAP items.
+    (or block) for all cells.
+
+    ``fault`` (a `FaultConfig`) races the fault clocks in the stream
+    (`stream_device.fault_stream_step`): a crash, timeout or flip event
+    carries scale 0, so its work is discarded and its slot re-dispatched
+    with the current weights; a flip carries the trash slot C, which the
+    ring's row C and the slot scales' entry C absorb.  ``scenario`` (a
+    `ScenarioConfig`, per event only, exclusive with ``fault`` and FedBuff)
+    swaps in `stream_device.scenario_stream_step` the same way; a disabled
+    scenario runs the plain stream, bitwise.  ``guard`` (`GuardConfig`)
+    checks each event's gradient (`_make_flat_guard`; per event the
+    staleness is the stream's own ``k - slot_step[slot]``, blocked it zeroes
+    the chunk's scales before the cut).  ``extras`` then gains
+    ``guard_rejects`` / ``stale_drops``, and with a fault or scenario the
+    kind counts ``kind_count`` and the availability integral
+    ``avail_time``.  The options that do not compose raise the reference's
+    `ValueError`s; serving, the sparse stream and lanes raise their ROADMAP
+    items.
+
+    ``run.from_draws(w0, mu, p0, eta, nodes, u_race, u_exp, u_disp[, u_ph,
+    u_phase0])`` takes given draws (the scenario stream's dispatch-phase
+    and initial-phase uniforms last), so parity tests pass the reference's.
     """
     from . import stream_device as sd
     from .theory import BoundConstants
@@ -1077,21 +1116,28 @@ def make_fused_runner(
             raise ValueError("eval_every must be a multiple of refresh_every")
     if block_size > 1 and update_fn is not None:
         raise ValueError("block_size > 1 requires the default update w - scale*g")
-    _reject_fused_unported(fault=fault, guard=guard, scenario=scenario, serving=serving,
-                           classes=classes, lane_devices=lane_devices, lane_axis=lane_axis)
+    E = max(int(block_size), 1)
+    faulty, scen_on = sd._enabled(fault), sd._enabled(scenario)
+    _check_fused_options(faulty=faulty, scen_on=scen_on, guard=guard, fedbuff_Z=fedbuff_Z, E=E,
+                         serving=serving, classes=classes, vmap_scenarios=vmap_scenarios)
+    _reject_fused_unported(serving=serving, classes=classes, lane_devices=lane_devices,
+                           lane_axis=lane_axis)
     if vmap_scenarios and fedbuff_Z:
         raise ValueError("vmap_scenarios=True runs Generalized AsyncSGD (fedbuff_Z=0)")
     bound = bound if bound is not None else BoundConstants(C=C, T=T)
     importance = weighting == "importance"
-    E = max(int(block_size), 1)
-    need_stats = collect_extras or adaptive
+    tagged = faulty or scen_on
+    guard_stale = guard is not None and int(guard.stale_cutoff) > 0
+    # the staleness cutoff reads the stream's slot_step, so stats must run
+    need_stats = collect_extras or adaptive or guard_stale
     eval_on = eval_fn is not None and eval_every > 0
     L, n_chunks, eval_stride = _fused_chunking(T, eval_on, eval_every, adaptive, refresh_every)
     flat_mode = update_fn is None
 
-    def run_draws(w0, mu, p0, eta, nodes, u_race, u_exp, u_disp):
+    def run_draws(w0, mu, p0, eta, nodes, u_race, u_exp, u_disp, u_ph=None, u_phase0=None):
         """The run on given draws: ``nodes`` (C,), ``u_race`` / ``u_exp`` /
-        ``u_disp`` (T,) (a leading B with ``vmap_scenarios``): the port's
+        ``u_disp`` (T,) (a leading B with ``vmap_scenarios``), and for a
+        scenario ``u_ph`` (T,) and ``u_phase0`` (C,): the port's
         generator's (`run`) or the reference's (parity tests)."""
         dev = u_race.device
         lead = u_race.shape[:-1]
@@ -1102,39 +1148,33 @@ def make_fused_runner(
         u_race, u_disp = as2(u_race, torch.float32), as2(u_disp, torch.float32)
         e_hold = -torch.log1p(-as2(u_exp, torch.float32))
         eta_t = torch.full((), float(eta), dtype=torch.float32, device=dev)
+        fr, sr = sd._resolve_modes(fault, scenario, n, dev)
         pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype)
         _require_flat_codec(unpack)
-        rows = C + 1 if E > 1 else C
+        # flip and stage events carry slot C: the ring's trash row takes them
+        rows = C + 1 if (E > 1 or tagged) else C
         replay = (_FusedCellsReplay if vmap_scenarios else _FusedReplay)(
             grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z, E, n, C, B,
-            dev)
+            dev, guard)
 
-        sstate, _ = sd.stream_init(nodes, n, C)
-        stats = sd.stats_init(n, C, cells=B, device=dev) if need_stats else None
-        if importance:
-            slot_scale = eta_t / (n * p.gather(-1, nodes))
-        cst = sd._Consts((B,), C, dev)
+        if sr is not None:
+            u_ph = as2(u_ph, torch.float32)
+            sstate, _ = sd.scenario_stream_init(nodes, n, C, sr, as2(u_phase0, torch.float32))
+        else:
+            sstate, _ = sd.stream_init(nodes, n, C, fault=fr is not None)
+        stats = (sd.stats_init(n, C, fault=fr is not None, scenario=sr is not None, cells=B,
+                               device=dev) if need_stats else None)
+        slot_scale = _slot_scales(eta_t, n, p, nodes, tagged) if importance else None
+        cst = sd._Consts((B,), C, dev, n=n)
         evals, p_traj, ts = [], [], []
         for c in range(n_chunks + (T > n_chunks * L)):
             a, b = c * L, min((c + 1) * L, T)
             K = sd.tree_sample(sd.tree_build(p), u_disp[:, a:b])
-            scales = []
-            if importance:
-                psc = eta_t / (n * p.gather(-1, K))
-
-                def on_event(i, ev):
-                    # the completing task's dispatch-time scale; the freed
-                    # slot takes the new dispatch's
-                    nonlocal slot_scale
-                    scales.append(sd._take(slot_scale, ev.slot))
-                    slot_scale = slot_scale.scatter(-1, ev.slot[:, None], psc[:, i : i + 1])
-            else:
-                on_event = None
-            sstate, stats, (J, t, slot, _) = sd._advance(
-                sstate, stats, mu, e_hold[:, a:b], u_race[:, a:b], K, a, cst, need_stats,
-                on_event)
-            scale = torch.stack(scales, dim=-1) if importance else eta_t.expand(B, b - a)
-            replay.events(J, slot, scale, a)
+            sstate, stats, slot_scale, t = _advance_chunk(
+                replay, sstate, stats, slot_scale if importance else None, p, mu,
+                e_hold[:, a:b], u_race[:, a:b], K, a, cst, eta_t=eta_t, n=n,
+                need_stats=need_stats, fr=fr, sr=sr,
+                u_ph=None if sr is None else u_ph[:, a:b], guard_stale=guard_stale)
             if collect_extras:
                 ts.append(t)
             if c < n_chunks:
@@ -1149,6 +1189,8 @@ def make_fused_runner(
         evals = _stack_evals(evals, dev, cells=B if vmap_scenarios else None)
         one = (lambda x: x) if vmap_scenarios else (lambda x: x[0])  # noqa: E731
         extras = {"p_final": one(p)}
+        if guard is not None:
+            extras["guard_rejects"], extras["stale_drops"] = replay.gcnt()
         if collect_extras:
             t_all = torch.cat(ts, dim=-1)
             extras.update(
@@ -1160,6 +1202,8 @@ def make_fused_runner(
                 delay_sum=one(stats.delay_sum),
                 comp=one(stats.comp),
             )
+            if tagged:
+                extras.update(kind_count=one(stats.kind_count), avail_time=one(stats.avail_tw))
         return w, evals, extras
 
     def run(w0, mu, p0, key, eta):
@@ -1167,7 +1211,8 @@ def make_fused_runner(
         keys = list(key) if vmap_scenarios else [key]
         ps = torch.as_tensor(np.asarray(p0) if not isinstance(p0, torch.Tensor) else p0)
         ps = ps.to(device=dev, dtype=torch.float32).reshape(len(keys), n)
-        draws = [sd.draw_uniforms(k, n, C, T, ps[i], init, dev) for i, k in enumerate(keys)]
+        draws = [sd.draw_uniforms(k, n, C, T, ps[i], init, dev, scenario=scen_on)
+                 for i, k in enumerate(keys)]
         stacked = [torch.stack(d) for d in zip(*draws)]
         if not vmap_scenarios:
             stacked = [d[0] for d in stacked]
@@ -1177,29 +1222,84 @@ def make_fused_runner(
     return run
 
 
+def _slot_scales(eta_t, n: int, p, nodes, tagged: bool):
+    """The (B, C) dispatch-time importance scales of the initial tasks; on
+    a fault or scenario stream with an entry C for the trash slot (read
+    only by flip and stage events, whose scale is masked to 0)."""
+    scale = eta_t / (n * p.gather(-1, nodes))
+    return torch.cat([scale, scale.new_zeros(scale.shape[0], 1)], dim=-1) if tagged else scale
+
+
+def _advance_chunk(replay, sstate, stats, slot_scale, p, mu, e_hold, u_race, K, k0: int, cst, *,
+                   eta_t, n: int, need_stats: bool, fr=None, sr=None, u_ph=None,
+                   guard_stale: bool = False):
+    """One chunk of fused events, shared by the fused runner and the
+    checkpointed driver (`engine_ckpt.run_checkpointed`): the stream
+    advanced over the chunk's (B, L) draws (`stream_device._advance`),
+    each event's scale (the completing task's dispatch-time importance
+    scale from ``slot_scale``, or plain ``eta_t`` when ``slot_scale`` is
+    None; 0 for a crash, timeout, flip or stage event), then ``replay``'s
+    steps over the chunk.  Returns ``(sstate, stats, slot_scale, t)``."""
+    from . import stream_device as sd
+
+    scales = []
+    on_event = None
+    if slot_scale is not None:
+        psc = eta_t / (n * p.gather(-1, K))
+        box = [slot_scale]
+
+        def on_event(i, ev):
+            # the completing task's dispatch-time scale; the freed slot
+            # takes the new dispatch's
+            scales.append(sd._take(box[0], ev.slot))
+            box[0] = box[0].scatter(-1, ev.slot[:, None], psc[:, i : i + 1])
+
+    sstate, stats, (J, t, slot, delay, kind) = sd._advance(
+        sstate, stats, mu, e_hold, u_race, K, k0, cst, need_stats, on_event, fr=fr, sr=sr,
+        u_ph=u_ph)
+    if slot_scale is not None:
+        slot_scale = box[0]
+        scale = torch.stack(scales, dim=-1)
+    else:
+        scale = eta_t.expand(*K.shape)
+    if kind is not None:  # crash, timeout, flip and stage events apply nothing
+        scale = torch.where(kind == KIND_COMPLETE, scale, 0.0)
+    replay.events(J, slot, scale, k0, delay if guard_stale else None)
+    return sstate, stats, slot_scale, t
+
+
 class _FusedReplay:
     """The replay half of one fused run: the host runners' carry and steps,
     fed a chunk of device-generated events at a time."""
 
     def __init__(self, grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z,
-                 E, n, C, B, dev):
+                 E, n, C, B, dev, guard=None):
         self.E, self.n, self.C, self.dev = E, n, C, dev
+        self.cutoff = int(guard.stale_cutoff) if guard is not None else 0
         if E > 1:
-            self.step = _make_block_step(grad_fn, pack, unpack, "jnp", fedbuff_Z)
+            self.step = _make_block_step(grad_fn, pack, unpack, "jnp", fedbuff_Z, guard=guard)
         else:
             self.step = _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc,
-                                          fedbuff_Z)
+                                          fedbuff_Z, guard)
         self.carry, self.to_tree = _init_update_carry(w0, rows, pack, unpack, flat_mode, enc,
                                                       fedbuff_Z)
 
-    def events(self, J, slot, scale, k0: int):
+    def events(self, J, slot, scale, k0: int, stale=None):
+        """One chunk's (1, L) events; ``stale`` (the stream's per-event
+        delays) feeds the guard's staleness cutoff."""
         J, slot, scale = J[0], slot[0], scale[0]
         Lc = int(J.shape[0])
         if self.E == 1:
             ks = torch.arange(k0, k0 + Lc, dtype=torch.int64, device=self.dev)
             for i in range(Lc):
-                self.carry = self.step(self.carry, J[i], slot[i], scale[i], ks[i])
+                self.carry = self.step(self.carry, J[i], slot[i], scale[i], ks[i],
+                                       None if stale is None else stale[0, i])
             return
+        if stale is not None and self.cutoff > 0:
+            # the cutoff needs no gradient: drop stale updates before the cut
+            st = (scale != 0) & (stale[0] > self.cutoff)
+            self.carry[3][1] += torch.sum(st).to(torch.int32)
+            scale = torch.where(st, 0.0, scale)
         Jb, sb, scb, kb, mb = _chunk_blocks(J[None], slot[None], scale[None], k0, self.E,
                                             self.n, self.C)
         for r in range(Jb.shape[1]):
@@ -1212,6 +1312,10 @@ class _FusedReplay:
     def weights(self):
         return self.to_tree(self.carry[0])
 
+    def gcnt(self):
+        """``(guard_rejects, stale_drops)``, 0-d device tensors."""
+        return self.carry[3][0], self.carry[3][1]
+
 
 class _FusedCellsReplay:
     """The replay half of B fused runs in lockstep (`vmap_scenarios`): the
@@ -1219,7 +1323,7 @@ class _FusedCellsReplay:
     `_make_cells_block_step`)."""
 
     def __init__(self, grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z,
-                 E, n, C, B, dev):
+                 E, n, C, B, dev, guard=None):
         self.E, self.n, self.C, self.B, self.R = E, n, C, B, rows
         (self.w, self.snaps, _, _), self.to_tree = _init_update_carry(
             w0, rows, pack, unpack, flat_mode, enc, cells=B)
@@ -1232,7 +1336,7 @@ class _FusedCellsReplay:
             self.base = torch.arange(B, dtype=torch.int64, device=dev) * rows
         self.dev = dev
 
-    def events(self, J, slot, scale, k0: int):
+    def events(self, J, slot, scale, k0: int, stale=None):
         B, Lc = (int(d) for d in J.shape)
         if self.E == 1:
             Jt, rows_t = J.t().contiguous(), (slot.t() + self.base).contiguous()
@@ -1421,9 +1525,8 @@ def jit_fused_runner(grad_fn, n: int, C: int, T: int, *, vmap_scenarios: bool = 
     `make_fused_runner` and take part in the memo key.  ``shard_devices``
     and ``lane_devices`` > 1 (the scenario and lane meshes) raise item 12.
     """
-    _reject_fused_unported(fault=None, guard=None, scenario=None, serving=None, classes=None,
-                           lane_devices=lane_devices, lane_axis=None,
-                           shard_devices=shard_devices)
+    _reject_fused_unported(serving=None, classes=None, lane_devices=lane_devices,
+                           lane_axis=None, shard_devices=shard_devices)
     cache, func = _runner_cache(grad_fn)
 
     def entry(k, v):

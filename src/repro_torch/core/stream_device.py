@@ -1,7 +1,7 @@
 """Device-resident closed-Jackson-network simulator and the adaptive
 sampling control plane, in PyTorch.
 
-The counterpart of `repro.core.stream_device`, dense and fault-free:
+The counterpart of `repro.core.stream_device`, dense:
 `queue_sim.ClosedNetworkSim` is the host oracle (exact, per-event Python);
 this module is the same closed network as tensor operations on the stream's
 device, so the event stream can be generated next to the replay
@@ -14,9 +14,16 @@ pre-simulated on the host:
     an inverse-CDF draw over the busy-rate vector by segment-tree descent
     (`tree_build` / `tree_sample`), driven by pre-drawn uniforms, and the
     step emits the ``(J, K, t, slot)`` tuple `queue_sim.EventStream` carries;
+  * `fault_stream_step` races 4n clocks instead (completion, crash,
+    straggler timeout, availability flip; `resolve_fault_rates`), and
+    `scenario_stream_step` 2n (phase-type service stages and modulated
+    availability; `resolve_scenario`): a flip or stage event moves no task
+    and carries the trash slot C, and every event a kind tag;
   * `StatsState` / `stats_step` accumulate running occupancy, busy time,
     completion counts and FIFO delays on the device, the float integrals as
-    Kahan-compensated pairs;
+    Kahan-compensated pairs (`fault_stats_step` / `scenario_stats_step`:
+    completions only, busy time gated on availability or scaled by the
+    modulated speed, the availability integral and a kind histogram);
   * the control plane: `mva_throughput_delays` (Mean Value Analysis),
     `optimal_eta_jnp`, `generalized_bound_jnp`, `make_bound_value_and_grad`
     (the Theorem-1 objective with its simplex gradient by autograd through
@@ -30,14 +37,17 @@ scenario-matrix cell, all advanced in lockstep): the steps index through
 network or B of them.  Integer state is int64 (torch's index dtype) where
 the reference keeps int32; the values are the same.  No step reads a device
 value on the host: indices stay tensors, so a chunk of events makes no host
-sync.
+sync.  Where the reference clamps a gather at the trash slot C or drops a
+scatter there (``mode="drop"``), a step here gathers at ``min(slot, C-1)``
+and writes back the old value under a mask, which gives the same values.
 
 Random draws come from a `torch.Generator` (seeded from ``seed``, or
 passed in) in the reference's order: the initial placement, then the race,
-holding-time and dispatch uniforms.  Threefry streams cannot be reproduced
-in torch, so the stream is held against the reference in law, and bitwise
-on the reference's own draws through `scan_draws`.  Faults, scenarios (ROADMAP items 8 and 10) and the
-sparse O(C) stream (item 9) raise.
+holding-time and dispatch uniforms; a scenario stream then draws its (T,)
+dispatch-phase uniforms and the C initial-phase uniforms.  Threefry streams
+cannot be reproduced in torch, so the stream is held against the reference
+in law, and bitwise on the reference's own draws through `scan_draws`.  The
+sparse O(C) stream (ROADMAP item 9) raises.
 """
 from __future__ import annotations
 
@@ -48,7 +58,14 @@ import torch
 
 from ..device import resolve_device
 from ..unported import unported
-from .queue_sim import EventBlocks, EventStream
+from .queue_sim import (
+    KIND_COMPLETE,
+    KIND_FLIP,
+    KIND_STAGE,
+    N_KINDS,
+    EventBlocks,
+    EventStream,
+)
 from .theory import BoundConstants
 
 __all__ = [
@@ -57,8 +74,18 @@ __all__ = [
     "Event",
     "stream_init",
     "stream_step",
+    "fault_stream_step",
+    "FaultRates",
+    "resolve_fault_rates",
+    "ScenarioRates",
+    "resolve_scenario",
+    "resolve_scenario_classes",
+    "scenario_stream_init",
+    "scenario_stream_step",
+    "scenario_stats_step",
     "stats_init",
     "stats_step",
+    "fault_stats_step",
     "scan_draws",
     "draw_uniforms",
     "stats_stream_fn",
@@ -193,9 +220,11 @@ class StreamState(NamedTuple):
     head: Any   # (n,) int64: pop counter per node (ring index = head % C)
     tail: Any   # (n,) int64: push counter per node
     t: Any      # () float32: physical time (Kahan sum; see t_c)
-    avail: Any = None  # fault mode only (ROADMAP item 8)
+    avail: Any = None  # (n,) float32 0/1 availability (fault and scenario
+                       # mode; else None)
     t_c: Any = 0.0     # () float32: Kahan compensation of t
-    phase: Any = None  # scenario mode only (ROADMAP item 10)
+    phase: Any = None  # (C,) int64: service stage of each slot's task
+                       # (scenario mode; else None)
 
 
 class Event(NamedTuple):
@@ -215,12 +244,16 @@ class StatsState(NamedTuple):
 
     occ_sum: Any    # (n,) int64: sum over steps of post-step X_{i,k} (Palm)
     occ_tw: Any     # (n,) float32: time-weighted integral of X_i(t)
-    busy_t: Any     # (n,) float32: integral of 1{X_i > 0} dt
+    busy_t: Any     # (n,) float32: integral of 1{X_i > 0} dt (fault mode:
+                    # gated on availability; scenario mode: the modulated
+                    # speed, so mu MLEs stay unbiased)
     comp: Any       # (n,) int64: completions per node
     delay_sum: Any  # (n,) float32: sum of CS-step delays per node
     slot_step: Any  # (C,) int64: dispatch step of the task in each slot
-    avail_tw: Any = None    # fault mode only (ROADMAP item 8)
-    kind_count: Any = None  # fault mode only
+    avail_tw: Any = None    # (n,) float32: integral of availability (fault
+                            # and scenario mode; else None)
+    kind_count: Any = None  # (4,) int64 events per KIND_* tag (fault mode),
+                            # (N_KINDS,) (scenario mode); else None
     occ_tw_c: Any = 0.0     # Kahan compensations of the float integrals
     busy_t_c: Any = 0.0
     delay_sum_c: Any = 0.0
@@ -230,13 +263,6 @@ class StatsState(NamedTuple):
 def _enabled(opt) -> bool:
     """A fault / scenario option (a bool flag or a config) is switched on."""
     return bool(opt) if isinstance(opt, bool) else opt is not None and opt.enabled
-
-
-def _reject_fault_scenario(fault, scenario=None) -> None:
-    if _enabled(fault):
-        raise unported("fault= on the device stream", 8)
-    if _enabled(scenario):
-        raise unported("scenario= on the device stream", 10)
 
 
 def _init_nodes(gen: torch.Generator, n: int, C: int, p: torch.Tensor, init: str) -> torch.Tensor:
@@ -258,10 +284,10 @@ def _init_nodes(gen: torch.Generator, n: int, C: int, p: torch.Tensor, init: str
 def stream_init(nodes, n: int, C: int, fault: bool = False) -> tuple[StreamState, torch.Tensor]:
     """The state with the C tasks at ``nodes`` (``(C,)``, or ``(B, C)`` for
     B cells): task s sits at the FIFO position of the earlier tasks at its
-    node.  Returns ``(state, nodes)`` as the reference's does; the nodes
-    come from `draw_uniforms` (the port's generator) or from the caller
-    (the reference's draws, in parity tests)."""
-    _reject_fault_scenario(fault)
+    node; with ``fault`` every node starts available.  Returns ``(state,
+    nodes)`` as the reference's does; the nodes come from `draw_uniforms`
+    (the port's generator) or from the caller (the reference's draws, in
+    parity tests)."""
     nodes = torch.as_tensor(nodes).to(_I64)
     dev = nodes.device
     lead = nodes.shape[:-1]
@@ -274,17 +300,20 @@ def stream_init(nodes, n: int, C: int, fault: bool = False) -> tuple[StreamState
     zero = torch.zeros(lead, dtype=_F32, device=dev)
     state = StreamState(occ=occ, ring=ring.view(*lead, n, C),
                         head=torch.zeros_like(occ), tail=occ.clone(), t=zero,
+                        avail=torch.ones(*lead, n, dtype=_F32, device=dev) if fault else None,
                         t_c=zero.clone())
     return state, nodes
 
 
 class _Consts:
-    """Per-shape constants of the step (built once a run, not per event)."""
+    """Per-shape constants of the step (built once a run, not per event);
+    ``cols`` (with ``n``) holds each node's first ring index, ``i * C``."""
 
-    def __init__(self, lead, C: int, device):
+    def __init__(self, lead, C: int, device, n: int | None = None):
         self.one = torch.ones(*lead, 1, dtype=_I64, device=device)
         self.neg = -self.one
         self.C = C
+        self.cols = None if n is None else torch.arange(n, dtype=_I64, device=device) * C
 
 
 def _stream_step(state: StreamState, mu, e_hold, u_race, k_new, cst: _Consts):
@@ -321,21 +350,269 @@ def stream_step(state: StreamState, mu, xs) -> tuple[StreamState, Event]:
     Exp(sum) holding time.
     """
     u_race, u_exp, k_new = xs
-    cst = _Consts(state.occ.shape[:-1], state.ring.shape[-1], state.occ.device)
-    e_hold = -torch.log1p(-torch.as_tensor(u_exp, dtype=_F32, device=state.occ.device))
-    return _stream_step(state, torch.as_tensor(mu, dtype=_F32, device=state.occ.device),
-                        e_hold, torch.as_tensor(u_race, dtype=_F32, device=state.occ.device),
-                        torch.as_tensor(k_new, dtype=_I64, device=state.occ.device), cst)
+    dev = state.occ.device
+    cst = _Consts(state.occ.shape[:-1], state.ring.shape[-1], dev)
+    return _stream_step(state, _f32(mu, dev), _hold(u_exp, dev), _f32(u_race, dev),
+                        torch.as_tensor(k_new, dtype=_I64, device=dev), cst)
+
+
+def _f32(x, dev) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=_F32, device=dev)
+
+
+def _hold(u_exp, dev) -> torch.Tensor:
+    """``-log1p(-u_exp)``, the unit-rate exponential holding times."""
+    return -torch.log1p(-_f32(u_exp, dev))
+
+
+class FaultRates(NamedTuple):
+    """Device-resident per-node fault intensities, in the operand order
+    `fault_stream_step` races over (`resolve_fault_rates`)."""
+
+    kappa: Any   # (n,) float32: crash rate while available
+    theta: Any   # (n,) float32: straggler timeout rate of the head task
+    q_off: Any   # (n,) float32: on -> off flip intensity
+    q_on: Any    # (n,) float32: off -> on flip intensity
+
+
+def _table(a, dtype, device) -> torch.Tensor:
+    """A host table on ``device``: on a card, an asynchronous copy from
+    pinned memory, so resolving a run's tables makes no host sync."""
+    t = torch.as_tensor(np.asarray(a), dtype=dtype)
+    dev = torch.device(device)
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
+
+def resolve_fault_rates(fault, n: int, device="cpu") -> FaultRates:
+    """`FaultConfig` -> float32 ``(kappa, theta, q_off, q_on)`` tensors on
+    ``device``, the operand order `fault_stream_step` races over."""
+    q_off, q_on, kappa, theta = fault.resolve(n)
+    return FaultRates(*(_table(a, _F32, device) for a in (kappa, theta, q_off, q_on)))
+
+
+def _push(flat, tail, k_new, s, move, C: int):
+    """The ring write of a masked step: the dispatched slot ``s`` at
+    ``k_new``'s tail where ``move``, else the old entry written back (the
+    reference drops that write)."""
+    pos = torch.add(_take(tail, k_new) % C, k_new, alpha=C)[..., None]
+    old = flat.gather(-1, pos)
+    return flat.scatter(-1, pos, torch.where(move[..., None], s[..., None], old))
+
+
+def _toggle(avail, j, flip):
+    """``avail[j] += flip * (1 - 2 avail[j])``: a flip event's toggle."""
+    aj = _take(avail, j)
+    return avail.scatter_add(-1, j[..., None], (flip.to(_F32) * (1.0 - 2.0 * aj))[..., None])
+
+
+def _fault_stream_step(state: StreamState, mu, fr: FaultRates, e_hold, u_race, k_new,
+                       cst: _Consts):
+    """`fault_stream_step` on precomputed holding times (a chunk's)."""
+    occ, ring, head, tail, avail = state.occ, state.ring, state.head, state.tail, state.avail
+    C = cst.C
+    n = occ.shape[-1]
+    lead = occ.shape[:-1]
+    busy = occ > 0
+    rates = torch.cat([torch.where(busy, mu * avail, 0.0),
+                       torch.where(busy, fr.kappa * avail, 0.0),
+                       torch.where(busy, fr.theta, 0.0),
+                       torch.where(avail > 0, fr.q_off, fr.q_on)], dim=-1)
+    rtree = tree_build(rates)
+    # all nodes off and no clock running: time still moves
+    dt = e_hold / torch.clamp_min(rtree[..., 1], 1e-30)
+    t, t_c = kahan_add(state.t, state.t_c, dt)
+    idx = tree_sample(rtree, u_race)
+    kind = torch.div(idx, n, rounding_mode="floor")
+    j = idx - kind * n
+    move = kind < KIND_FLIP
+    # pop the oldest in-flight task at j (a flip pops nothing: slot -> C)
+    flat = ring.reshape(*lead, -1)
+    s = torch.where(move, _take(flat, torch.add(_take(head, j) % C, j, alpha=C)), C)
+    mv = move.to(_I64)[..., None]
+    jj, kk = j[..., None], k_new[..., None]
+    head = head.scatter_add(-1, jj, mv)
+    occ = occ.scatter_add(-1, jj, -mv)
+    flat = _push(flat, tail, k_new, s, move, C)
+    tail = tail.scatter_add(-1, kk, mv)
+    occ = occ.scatter_add(-1, kk, mv)
+    avail = _toggle(avail, j, kind == KIND_FLIP)
+    new = StreamState(occ=occ, ring=flat.view(ring.shape), head=head, tail=tail, t=t,
+                      avail=avail, t_c=t_c)
+    return new, Event(j=j, k=k_new, t=t, slot=s, dt=dt, kind=kind)
+
+
+def fault_stream_step(state: StreamState, mu, fr: FaultRates, xs):
+    """One merged-CTMC event of the faulty closed network.
+
+    The same machinery as `stream_step`, but the inverse-CDF race runs over
+    ``4n`` competing exponential clocks:
+
+      ``[ mu_i a_i 1{X_i>0} | kappa_i a_i 1{X_i>0} | theta_i 1{X_i>0} |
+         q_off_i a_i + q_on_i (1 - a_i) ]``
+
+    completions, crashes, straggler timeouts (server-side deadlines, so
+    they fire while the node is off) and availability flips, with ``a`` the
+    0/1 availability vector.  The winner decodes as ``kind = idx // n``,
+    ``node = idx % n``.  Task movements (kind < 3) pop the head-of-line
+    slot and re-dispatch it at the pre-sampled ``k_new``; a flip toggles
+    availability, moves no task and carries the trash slot C.  ``fr =
+    resolve_fault_rates(...)``.
+    """
+    u_race, u_exp, k_new = xs
+    dev = state.occ.device
+    cst = _Consts(state.occ.shape[:-1], state.ring.shape[-1], dev)
+    return _fault_stream_step(state, _f32(mu, dev), fr, _hold(u_exp, dev), _f32(u_race, dev),
+                              torch.as_tensor(k_new, dtype=_I64, device=dev), cst)
+
+
+class ScenarioRates(NamedTuple):
+    """Device-resident tables of a resolved `ScenarioConfig`.
+
+    ``acdf`` is the cumulative initial-stage distribution (inverse-CDF
+    phase draws), ``srate`` / ``absorb`` / ``nxt`` the unit-mean stage chain
+    of `ServiceLaw.chain`, ``q_off`` / ``q_on`` the per-node modulation
+    intensities and ``rate_scale`` the service-speed multiplier while off.
+    """
+
+    acdf: Any        # (S,) float32: cumsum of alpha, tail pinned to 1
+    srate: Any       # (S,) float32: stage clock rates (unit-mean chain)
+    absorb: Any      # (S,) float32: 1.0 where firing completes service
+    nxt: Any         # (S,) int64: successor stage otherwise
+    q_off: Any       # (n,) float32: on -> off flip intensity
+    q_on: Any        # (n,) float32: off -> on flip intensity
+    rate_scale: Any  # () float32: service-speed multiplier while off
+
+
+def _scenario_tables(scenario):
+    from .scenario import ModulationConfig
+
+    alpha, srate, absorb, nxt = scenario.service.chain()
+    acdf = np.cumsum(alpha)
+    acdf[-1] = max(acdf[-1], 1.0)  # guard an fp undershoot at the tail
+    mod = scenario.modulation if scenario.modulation is not None else ModulationConfig()
+    return acdf, srate, absorb, nxt, mod
+
+
+def resolve_scenario(scenario, n: int, device="cpu") -> ScenarioRates:
+    """`ScenarioConfig` -> dense `ScenarioRates` ((n,) modulation) on
+    ``device``."""
+    acdf, srate, absorb, nxt, mod = _scenario_tables(scenario)
+    q_off, q_on = mod.resolve(n)
+    f = lambda a: _table(a, _F32, device)  # noqa: E731
+    return ScenarioRates(acdf=f(acdf), srate=f(srate), absorb=f(absorb),
+                         nxt=_table(nxt, _I64, device), q_off=f(q_off), q_on=f(q_on),
+                         rate_scale=f(mod.rate_scale))
+
+
+def resolve_scenario_classes(scenario, spec) -> ScenarioRates:
+    """Class-level `resolve_scenario` (the sparse stream's): not ported."""
+    raise unported("resolve_scenario_classes (the sparse O(C) stream)", 9)
+
+
+def _phase_draw(acdf, u):
+    """Inverse-CDF initial-stage draw from the (S,) cumulative alpha."""
+    return torch.clamp_max(torch.searchsorted(acdf, u.contiguous(), right=True), acdf.shape[0] - 1)
+
+
+def scenario_stream_init(nodes, n: int, C: int, sr: ScenarioRates, u_phase):
+    """`stream_init` (every node available) plus the C initial phases,
+    drawn from ``u_phase`` ((C,), or (B, C)).  Returns ``(state, nodes)``.
+
+    A task's phase is drawn at dispatch (here: at the initial placement);
+    the stage sequence is independent of the queue process, so this is
+    law-identical to drawing at service start, and it is the host oracle's
+    convention."""
+    state, nodes = stream_init(nodes, n, C, fault=True)
+    return state._replace(phase=_phase_draw(sr.acdf, _f32(u_phase, nodes.device))), nodes
+
+
+def _scenario_speed(avail, sr: ScenarioRates):
+    """The modulated service speed ``a + (1 - a) rate_scale``."""
+    return avail + (1.0 - avail) * sr.rate_scale
+
+
+def _scenario_stream_step(state: StreamState, mu, sr: ScenarioRates, e_hold, u_race, k_new,
+                          u_ph, cst: _Consts):
+    """`scenario_stream_step` on precomputed holding times (a chunk's)."""
+    occ, ring, head, tail, avail, phase = (state.occ, state.ring, state.head, state.tail,
+                                           state.avail, state.phase)
+    C = cst.C
+    n = occ.shape[-1]
+    lead = occ.shape[:-1]
+    busy = occ > 0
+    flat = ring.reshape(*lead, -1)
+    head_slots = flat.gather(-1, head % C + cst.cols)
+    ph_head = phase.gather(-1, head_slots)
+    r_serve = torch.where(busy, mu * torch.take(sr.srate, ph_head) * _scenario_speed(avail, sr),
+                          0.0)
+    rates = torch.cat([r_serve, torch.where(avail > 0, sr.q_off, sr.q_on)], dim=-1)
+    rtree = tree_build(rates)
+    # every node suspended: time still moves
+    dt = e_hold / torch.clamp_min(rtree[..., 1], 1e-30)
+    t, t_c = kahan_add(state.t, state.t_c, dt)
+    idx = tree_sample(rtree, u_race)
+    is_serve = idx < n
+    j = torch.where(is_serve, idx, idx - n)
+    s_head = _take(flat, torch.add(_take(head, j) % C, j, alpha=C))
+    ph_j = _take(phase, s_head)
+    complete = is_serve & (torch.take(sr.absorb, ph_j) > 0)
+    kind = torch.where(complete, KIND_COMPLETE, torch.where(is_serve, KIND_STAGE, KIND_FLIP))
+    # completions pop and re-dispatch; stages and flips carry slot C
+    s = torch.where(complete, s_head, C)
+    mv = complete.to(_I64)[..., None]
+    jj, kk = j[..., None], k_new[..., None]
+    head = head.scatter_add(-1, jj, mv)
+    occ = occ.scatter_add(-1, jj, -mv)
+    flat = _push(flat, tail, k_new, s, complete, C)
+    tail = tail.scatter_add(-1, kk, mv)
+    occ = occ.scatter_add(-1, kk, mv)
+    # a completion's freed slot hosts the dispatched task (a fresh phase
+    # draw), a stage advance steps the head task to nxt; a flip writes
+    # the old phase back (the reference drops that write)
+    ph_new = torch.where(complete, _phase_draw(sr.acdf, u_ph), torch.take(sr.nxt, ph_j))
+    phase = phase.scatter(-1, s_head[..., None],
+                          torch.where(is_serve, ph_new, ph_j)[..., None])
+    avail = _toggle(avail, j, kind == KIND_FLIP)
+    new = StreamState(occ=occ, ring=flat.view(ring.shape), head=head, tail=tail, t=t,
+                      avail=avail, t_c=t_c, phase=phase)
+    return new, Event(j=j, k=k_new, t=t, slot=s, dt=dt, kind=kind)
+
+
+def scenario_stream_step(state: StreamState, mu, sr: ScenarioRates, xs):
+    """One merged-CTMC event of the scenario closed network.
+
+    The race runs over ``2n`` clocks:
+
+      ``[ mu_i srate[phase_i] speed_i 1{X_i>0} | q_off_i a_i + q_on_i (1-a_i) ]``
+
+    where ``phase_i`` is the stage of node i's head-of-line task and
+    ``speed_i = a_i + (1-a_i) rate_scale`` the modulated service speed.  A
+    serve-clock win is a task completion (KIND_COMPLETE: pop and
+    re-dispatch, as in `fault_stream_step`) where ``absorb[phase]``, else a
+    stage advance (KIND_STAGE: the head task steps to ``nxt[phase]``, no
+    queue change, slot C).  Flips toggle availability like fault flips.
+    ``xs = (u_race, u_exp, k_new, u_ph)``: ``u_ph`` draws the phase of the
+    re-dispatched task.
+    """
+    u_race, u_exp, k_new, u_ph = xs
+    dev = state.occ.device
+    cst = _Consts(state.occ.shape[:-1], state.ring.shape[-1], dev, n=state.occ.shape[-1])
+    return _scenario_stream_step(state, _f32(mu, dev), sr, _hold(u_exp, dev), _f32(u_race, dev),
+                                 torch.as_tensor(k_new, dtype=_I64, device=dev), _f32(u_ph, dev),
+                                 cst)
 
 
 def stats_init(n: int, C: int, fault: bool = False, scenario: bool = False, *,
                cells: int | None = None, device="cpu") -> StatsState:
-    _reject_fault_scenario(fault, scenario)
     lead = () if cells is None else (cells,)
     zi = lambda m: torch.zeros(*lead, m, dtype=_I64, device=device)  # noqa: E731
     zf = lambda: torch.zeros(*lead, n, dtype=_F32, device=device)  # noqa: E731
+    tagged = bool(fault) or bool(scenario)
     return StatsState(occ_sum=zi(n), occ_tw=zf(), busy_t=zf(), comp=zi(n), delay_sum=zf(),
-                      slot_step=zi(C), occ_tw_c=zf(), busy_t_c=zf(), delay_sum_c=zf())
+                      slot_step=zi(C), avail_tw=zf() if tagged else None,
+                      kind_count=zi(N_KINDS if scenario else 4) if tagged else None,
+                      occ_tw_c=zf(), busy_t_c=zf(), delay_sum_c=zf(),
+                      avail_tw_c=zf() if tagged else None)
 
 
 def _stats_step(stats: StatsState, ev: Event, occ_pre, occ_post, k, delay, cst: _Consts):
@@ -367,44 +644,165 @@ def stats_step(stats: StatsState, ev: Event, occ_pre, occ_post, k) -> StatsState
     return _stats_step(stats, ev, occ_pre, occ_post, k, delay, cst)
 
 
+def _delay(stats: StatsState, slot, k: int, C: int):
+    """``k - slot_step[slot]`` with the reference's clamp at the trash slot
+    C (a flip or stage event reads slot C - 1's dispatch step)."""
+    return k - _take(stats.slot_step, torch.clamp_max(slot, C - 1))
+
+
+def _exposure(occ_pre, avail_pre, dt, speed_pre=None):
+    """The (n,) busy time a tagged event adds over ``dt``: ``1{X > 0 and
+    available} dt`` on the fault stream, ``speed 1{X > 0} dt`` on the
+    scenario stream (``speed_pre``, the modulated speed)."""
+    if speed_pre is None:
+        return torch.where((occ_pre > 0) & (avail_pre > 0), dt, 0.0)
+    return torch.where(occ_pre > 0, speed_pre, 0.0) * dt
+
+
+def _tagged_stats_step(stats: StatsState, ev: Event, occ_pre, busy_pre, avail_pre, occ_post,
+                       k: int, delay, C: int):
+    """The fault and scenario stats step: ``busy_pre`` is the (n,) exposure
+    integrated over ``ev.dt`` (`_exposure`)."""
+    dt = ev.dt[..., None]
+    comp = ev.kind == KIND_COMPLETE
+    occ_tw, occ_tw_c = kahan_add(stats.occ_tw, stats.occ_tw_c, torch.mul(occ_pre, dt))
+    busy_t, busy_t_c = kahan_add(stats.busy_t, stats.busy_t_c, busy_pre)
+    delay_sum, delay_sum_c = _kahan_scatter_add(stats.delay_sum, stats.delay_sum_c, ev.j,
+                                                delay.to(_F32) * comp.to(_F32))
+    avail_tw, avail_tw_c = kahan_add(stats.avail_tw, stats.avail_tw_c, avail_pre * dt)
+    # any task movement refreshes its slot's dispatch step; a flip or stage
+    # event writes the old value back (the reference drops the write)
+    sl = torch.clamp_max(ev.slot, C - 1)[..., None]
+    slot_step = stats.slot_step.scatter(
+        -1, sl, torch.where((ev.slot < C)[..., None], k + 1, stats.slot_step.gather(-1, sl)))
+    return StatsState(
+        occ_sum=stats.occ_sum + occ_post,
+        occ_tw=occ_tw,
+        busy_t=busy_t,
+        comp=stats.comp.scatter_add(-1, ev.j[..., None], comp.to(_I64)[..., None]),
+        delay_sum=delay_sum,
+        slot_step=slot_step,
+        avail_tw=avail_tw,
+        kind_count=stats.kind_count.scatter_add(-1, ev.kind[..., None],
+                                                torch.ones_like(ev.kind)[..., None]),
+        occ_tw_c=occ_tw_c,
+        busy_t_c=busy_t_c,
+        delay_sum_c=delay_sum_c,
+        avail_tw_c=avail_tw_c,
+    )
+
+
+def fault_stats_step(stats: StatsState, ev: Event, occ_pre, avail_pre, occ_post,
+                     k) -> StatsState:
+    """Fault-aware `stats_step`: completions and delays count only
+    KIND_COMPLETE events, ``busy_t`` integrates ``1{X_i > 0 and
+    available}`` (the time a node was serving, so `estimate_mu` stays
+    unbiased under churn), and the availability integral and the (4,) kind
+    counts accumulate.  Any task movement refreshes ``slot_step`` (a crash
+    or timeout re-dispatch resets staleness); a flip carries slot C."""
+    C = stats.slot_step.shape[-1]
+    return _tagged_stats_step(stats, ev, occ_pre, _exposure(occ_pre, avail_pre, ev.dt[..., None]),
+                              avail_pre, occ_post, k, _delay(stats, ev.slot, k, C), C)
+
+
+def scenario_stats_step(stats: StatsState, ev: Event, occ_pre, avail_pre, speed_pre, occ_post,
+                        k) -> StatsState:
+    """Scenario-aware `stats_step`: as `fault_stats_step`, but ``busy_t``
+    integrates the modulated exposure ``speed_i 1{X_i > 0}`` (in the time
+    change ``dtau = speed dt`` the head task's stages are the unmodulated
+    unit-mean chain at rate mu_i, so ``comp / busy_t -> mu``), and
+    ``kind_count`` is the full (N_KINDS,) histogram (stage advances are
+    tag 5)."""
+    C = stats.slot_step.shape[-1]
+    busy = _exposure(occ_pre, avail_pre, ev.dt[..., None], speed_pre)
+    return _tagged_stats_step(stats, ev, occ_pre, busy, avail_pre, occ_post, k,
+                              _delay(stats, ev.slot, k, C), C)
+
+
 # ---------------------------------------------------------------------- #
 # the scan harness: T fused steps of stream_step + stats_step
 # ---------------------------------------------------------------------- #
-def _advance(state, stats, mu, e_hold, u_race, K, k0: int, cst, need_stats=True, on_event=None):
+def _advance(state, stats, mu, e_hold, u_race, K, k0: int, cst, need_stats=True, on_event=None,
+             fr=None, sr=None, u_ph=None):
     """Advance the network over one block of pre-drawn inputs.
 
-    ``e_hold``, ``u_race``, ``K`` are ``(L,)`` (or ``(B, L)``); returns the
-    new ``(state, stats)`` and the stacked ``(J, t, slot, delay)`` columns
-    (delay None without stats).  ``on_event(i, ev)`` runs after each event's
-    stream step (the fused runner's slot-scale bookkeeping).
+    ``e_hold``, ``u_race``, ``K`` (and the scenario stream's ``u_ph``) are
+    ``(L,)`` (or ``(B, L)``); ``fr`` (`FaultRates`) selects the fault
+    stream, ``sr`` (`ScenarioRates`) the scenario stream.  Returns the new
+    ``(state, stats)`` and the stacked ``(J, t, slot, delay, kind)``
+    columns (delay None without stats, kind None on the plain stream).
+    ``on_event(i, ev)`` runs after each event's stream step (the fused
+    runner's slot-scale bookkeeping).
     """
     L = K.shape[-1]
-    Js, ts, ss, ds = [], [], [], []
+    C = cst.C
+    Js, ts, ss, ds, ks = [], [], [], [], []
     for i in range(L):
-        occ_pre = state.occ
-        state, ev = _stream_step(state, mu, e_hold[..., i], u_race[..., i], K[..., i], cst)
+        occ_pre, avail_pre, speed_pre = state.occ, state.avail, None
+        if sr is not None:
+            speed_pre = _scenario_speed(avail_pre, sr)
+            state, ev = _scenario_stream_step(state, mu, sr, e_hold[..., i], u_race[..., i],
+                                              K[..., i], u_ph[..., i], cst)
+        elif fr is not None:
+            state, ev = _fault_stream_step(state, mu, fr, e_hold[..., i], u_race[..., i],
+                                           K[..., i], cst)
+        else:
+            state, ev = _stream_step(state, mu, e_hold[..., i], u_race[..., i], K[..., i], cst)
         if need_stats:
-            delay = (k0 + i) - _take(stats.slot_step, ev.slot)
-            stats = _stats_step(stats, ev, occ_pre, state.occ, k0 + i, delay, cst)
+            k = k0 + i
+            if sr is None and fr is None:
+                delay = k - _take(stats.slot_step, ev.slot)
+                stats = _stats_step(stats, ev, occ_pre, state.occ, k, delay, cst)
+            else:
+                delay = _delay(stats, ev.slot, k, C)
+                busy = _exposure(occ_pre, avail_pre, ev.dt[..., None], speed_pre)
+                stats = _tagged_stats_step(stats, ev, occ_pre, busy, avail_pre, state.occ, k,
+                                           delay, C)
             ds.append(delay)
         if on_event is not None:
             on_event(i, ev)
         Js.append(ev.j)
         ts.append(ev.t)
         ss.append(ev.slot)
+        if fr is not None or sr is not None:
+            ks.append(ev.kind)
     st = lambda xs: torch.stack(xs, dim=-1) if xs else None  # noqa: E731
-    return state, stats, (st(Js), st(ts), st(ss), st(ds))
+    return state, stats, (st(Js), st(ts), st(ss), st(ds), st(ks))
 
 
-def scan_draws(mu, nodes, u_race, u_exp, K, emit_events: bool = True):
+def _resolve_modes(fault, scenario, n: int, device):
+    """``(fr, sr)``: the resolved fault rates and scenario tables of a run
+    (None where off); a disabled config is off, so it takes the plain
+    stream, bitwise.  Fault and scenario exclude each other."""
+    fr = sr = None
+    if isinstance(fault, FaultRates):
+        fr = fault
+    elif _enabled(fault):
+        fr = resolve_fault_rates(fault, n, device)
+    if isinstance(scenario, ScenarioRates):
+        sr = scenario
+    elif _enabled(scenario):
+        sr = resolve_scenario(scenario, n, device)
+    if fr is not None and sr is not None:
+        raise ValueError("fault= and scenario= are mutually exclusive")
+    return fr, sr
+
+
+def scan_draws(mu, nodes, u_race, u_exp, K, emit_events: bool = True, fault=None, scenario=None,
+               u_ph=None, u_phase0=None):
     """The stream over pre-drawn inputs: the reference's ``xs``.
 
     ``nodes`` (the initial placement, ``(C,)`` or ``(B, C)``), ``u_race``,
     ``u_exp`` and ``K`` (``(T,)`` or ``(B, T)``) are given, so parity tests
     pass the reference's own draws (`jax.random.split(key, 4)`, then
     ``stream_init`` and the three uniform blocks) and get its J, K, slot and
-    delays bitwise.  Returns ``(nodes, events, stats)`` with ``events =
-    (J, K, t, slot, delay)`` tensors, or None without ``emit_events``.
+    delays bitwise.  ``fault`` (a `FaultConfig` or `FaultRates`) runs the
+    fault stream; ``scenario`` (a `ScenarioConfig` or `ScenarioRates`) the
+    scenario stream, which also takes the dispatch-phase uniforms ``u_ph``
+    (like ``K``) and the initial-phase uniforms ``u_phase0`` (like
+    ``nodes``).  Returns ``(nodes, events, stats)`` with ``events = (J, K,
+    t, slot, delay)`` tensors (plus ``kind`` with a fault or scenario), or
+    None without ``emit_events``.
     """
     mu = torch.as_tensor(mu)
     dev = mu.device
@@ -412,14 +810,22 @@ def scan_draws(mu, nodes, u_race, u_exp, K, emit_events: bool = True):
     n, C = mu.shape[-1], nodes.shape[-1]
     lead = nodes.shape[:-1]
     mu = mu.to(_F32).expand(*lead, n)
-    state, nodes = stream_init(nodes, n, C)
-    stats = stats_init(n, C, cells=lead[0] if lead else None, device=dev)
+    fr, sr = _resolve_modes(fault, scenario, n, dev)
+    if sr is not None:
+        state, nodes = scenario_stream_init(nodes, n, C, sr, u_phase0)
+        u_ph = _f32(u_ph, dev)
+    else:
+        state, nodes = stream_init(nodes, n, C, fault=fr is not None)
+    stats = stats_init(n, C, fault=fr is not None, scenario=sr is not None,
+                       cells=lead[0] if lead else None, device=dev)
     u_race = torch.as_tensor(u_race, device=dev).to(_F32)
-    e_hold = -torch.log1p(-torch.as_tensor(u_exp, device=dev).to(_F32))
+    e_hold = _hold(torch.as_tensor(u_exp, device=dev), dev)
     K = torch.as_tensor(K, device=dev).to(_I64)
-    cst = _Consts(lead, C, dev)
-    _, stats, (J, t, slot, delay) = _advance(state, stats, mu, e_hold, u_race, K, 0, cst)
-    return nodes, ((J, K, t, slot, delay) if emit_events else None), stats
+    cst = _Consts(lead, C, dev, n=n)
+    _, stats, (J, t, slot, delay, kind) = _advance(state, stats, mu, e_hold, u_race, K, 0, cst,
+                                                   fr=fr, sr=sr, u_ph=u_ph)
+    events = (J, K, t, slot, delay) + ((kind,) if kind is not None else ())
+    return nodes, (events if emit_events else None), stats
 
 
 def _generator(seed, device) -> torch.Generator:
@@ -430,19 +836,25 @@ def _generator(seed, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
-def draw_uniforms(seed, n: int, C: int, T: int, p, init: str = "distinct", device="cuda"):
+def draw_uniforms(seed, n: int, C: int, T: int, p, init: str = "distinct", device="cuda",
+                  scenario: bool = False):
     """One cell's draws from the port's generator, in the reference's order:
-    ``(nodes (C,), u_race (T,), u_exp (T,), u_disp (T,))`` on ``device``."""
+    ``(nodes (C,), u_race (T,), u_exp (T,), u_disp (T,))`` on ``device``;
+    with ``scenario`` then ``u_ph (T,)``, the dispatch-phase uniforms, and
+    ``u_phase0 (C,)``, the initial phases'."""
     dev = resolve_device(device)
     gen = _generator(seed, dev)
     p = torch.as_tensor(np.asarray(p) if not isinstance(p, torch.Tensor) else p).to(
         device=dev, dtype=_F32)
     nodes = _init_nodes(gen, n, C, p, init)
     u_race, u_exp, u_disp = (torch.rand(T, generator=gen, device=dev) for _ in range(3))
-    return nodes, u_race, u_exp, u_disp
+    if not scenario:
+        return nodes, u_race, u_exp, u_disp
+    u_ph = torch.rand(T, generator=gen, device=dev)
+    return nodes, u_race, u_exp, u_disp, u_ph, torch.rand(C, generator=gen, device=dev)
 
 
-def _inputs(mu, p, C: int, T: int, seed, init: str, device):
+def _inputs(mu, p, C: int, T: int, seed, init: str, device, scenario: bool = False):
     mu = np.asarray(mu, dtype=np.float64)
     p = np.asarray(p, dtype=np.float64)
     if abs(p.sum() - 1.0) > 1e-8:
@@ -450,25 +862,34 @@ def _inputs(mu, p, C: int, T: int, seed, init: str, device):
     dev = resolve_device(device)
     n = mu.size
     p_t = torch.as_tensor(p, dtype=_F32, device=dev)
-    nodes, u_race, u_exp, u_disp = draw_uniforms(seed, n, C, T, p_t, init, dev)
+    nodes, u_race, u_exp, u_disp, *ph = draw_uniforms(seed, n, C, T, p_t, init, dev,
+                                                      scenario=scenario)
     K = tree_sample(tree_build(p_t), u_disp)
-    return torch.as_tensor(mu, dtype=_F32, device=dev), p, nodes, u_race, u_exp, K
+    return torch.as_tensor(mu, dtype=_F32, device=dev), p, nodes, u_race, u_exp, K, ph
 
 
 def stats_stream_fn(n: int, C: int, T: int, init: str = "distinct", fault: bool = False,
                     scenario: bool = False):
     """Stats-only network run: ``gen(seed, mu, p, device="cuda") ->
     StatsState`` (no per-event outputs), the observables the control loop
-    and the stream benchmarks consume."""
-    _reject_fault_scenario(fault, scenario)
+    and the stream benchmarks consume.  With ``fault`` or ``scenario`` it
+    is ``gen(seed, mu, p, fr, device="cuda")``, ``fr`` the
+    `resolve_fault_rates` / `resolve_scenario` tables (or the configs)."""
+    if fault and scenario:
+        raise ValueError("fault and scenario streams are mutually exclusive")
 
-    def gen(seed, mu, p, device="cuda"):
-        mu_t, _, nodes, u_race, u_exp, K = _inputs(mu, p, C, T, seed, init, device)
+    def run(seed, mu, p, fr, device):
+        mu_t, _, nodes, u_race, u_exp, K, ph = _inputs(mu, p, C, T, seed, init, device,
+                                                       scenario=scenario)
         if mu_t.shape[-1] != n:
             raise ValueError(f"mu has {mu_t.shape[-1]} clients, the function was made for {n}")
-        return scan_draws(mu_t, nodes, u_race, u_exp, K, emit_events=False)[2]
+        return scan_draws(mu_t, nodes, u_race, u_exp, K, emit_events=False,
+                          fault=fr if fault else None, scenario=fr if scenario else None,
+                          u_ph=ph[0] if ph else None, u_phase0=ph[1] if ph else None)[2]
 
-    return gen
+    if fault or scenario:
+        return lambda seed, mu, p, fr, device="cuda": run(seed, mu, p, fr, device)
+    return lambda seed, mu, p, device="cuda": run(seed, mu, p, None, device)
 
 
 def generate_stream(mu, p, C: int, T: int, seed: int | torch.Generator = 0,
@@ -476,13 +897,25 @@ def generate_stream(mu, p, C: int, T: int, seed: int | torch.Generator = 0,
                     device="cuda") -> EventStream:
     """Simulate T CS steps on ``device`` and export a host `EventStream`.
 
-    Drop-in for `queue_sim.export_stream` (exponential service only): same
-    arrays, same invariants, a different but law-identical realization.
-    ``seed`` is an int or a `torch.Generator` on ``device``.
+    Drop-in for `queue_sim.export_stream` (exponential service, or a
+    ``scenario``'s phase-type law): same arrays, same invariants, a
+    different but law-identical realization.  ``seed`` is an int or a
+    `torch.Generator` on ``device``.  With ``fault`` (a `FaultConfig`) or
+    ``scenario`` (a `ScenarioConfig`, exclusive with ``fault``) the stream
+    carries a kind column and T counts merged events, flips and stage
+    advances included, as `queue_sim.export_stream` counts them.  A
+    disabled config gives the plain stream, bitwise.
     """
-    _reject_fault_scenario(fault, scenario)
-    mu_t, p, nodes, u_race, u_exp, K = _inputs(mu, p, C, T, seed, init, device)
-    nodes, (J, K, t, slot, delay), stats = scan_draws(mu_t, nodes, u_race, u_exp, K)
+    dev = resolve_device(device)
+    n = np.asarray(mu).size
+    fr, sr = _resolve_modes(fault, scenario, n, dev)
+    mu_t, p, nodes, u_race, u_exp, K, ph = _inputs(mu, p, C, T, seed, init, device,
+                                                   scenario=sr is not None)
+    nodes, events, stats = scan_draws(mu_t, nodes, u_race, u_exp, K, fault=fr, scenario=sr,
+                                      u_ph=ph[0] if ph else None,
+                                      u_phase0=ph[1] if ph else None)
+    J, K, t, slot, delay = events[:5]
+    kind = events[5] if len(events) > 5 else None
     return EventStream(
         J=J.cpu().numpy().astype(np.int32),
         K=K.cpu().numpy().astype(np.int32),
@@ -495,6 +928,7 @@ def generate_stream(mu, p, C: int, T: int, seed: int | torch.Generator = 0,
         delay_steps=delay.cpu().numpy().astype(np.int64),
         queue_len_sum=stats.occ_sum.cpu().numpy().astype(np.float64),
         queue_len_tw=kahan_value(stats.occ_tw, stats.occ_tw_c),
+        kind=None if kind is None else kind.cpu().numpy().astype(np.int8),
     )
 
 

@@ -475,16 +475,17 @@ def run_experiment(
     "device" generation (the fused runner; it implies the scan engine and
     is the only one that runs ``flc.adaptive`` sampling).
 
-    Robustness knobs (async methods, host stream): ``faults`` injects client
-    churn / crashes / straggler timeouts (`core.FaultConfig`), ``guard``
-    rejects divergent or over-stale updates (`core.GuardConfig`),
+    Robustness knobs (async methods, either stream): ``faults`` injects
+    client churn / crashes / straggler timeouts (`core.FaultConfig`),
+    ``guard`` rejects divergent or over-stale updates (`core.GuardConfig`),
     ``flc.scenario`` swaps in a phase-type service law and modulated
-    availability, and ``ckpt_dir`` + ``ckpt_every`` checkpoint the full
-    engine state every ``ckpt_every`` CS steps (scan engine); ``resume=True``
-    restores the latest checkpoint and continues, bitwise.  The other
-    keywords keep `repro.fl.engine.run_experiment`'s signature; the options
-    the port does not run yet (these knobs on the device stream, serving)
-    raise `NotImplementedError`.
+    availability (per event on the device stream), and ``ckpt_dir`` +
+    ``ckpt_every`` checkpoint the full engine state every ``ckpt_every`` CS
+    steps (scan engine; on the device stream not with a scenario, as in
+    the reference); ``resume=True`` restores the latest checkpoint and
+    continues, bitwise.  The other keywords keep
+    `repro.fl.engine.run_experiment`'s signature; the serving plane, which
+    the port does not run yet, raises `NotImplementedError`.
     """
     _reject_unported(flc, method, task, serving)
     device = resolve_device(flc.device)
@@ -671,8 +672,9 @@ def run_matrix(
       "device"  no host pre-simulation: the fused runner
                 (`engine_scan.jit_fused_runner(..., vmap_scenarios=True)`)
                 generates every cell's events on the device in lockstep and
-                replays them, per event or blocked.  Exponential service
-                only; runs ``flc.adaptive`` sampling per cell (the "uniform"
+                replays them, per event or blocked (a scenario: per event
+                only).  Exponential service or a scenario's law; runs
+                ``flc.adaptive`` sampling per cell (the "uniform"
                 rows then double as adaptive-from-uniform runs).  Each
                 cell's generator is seeded from (seed, policy, ratio), as
                 the reference folds its key; ``extras`` gains ``p_final``,
@@ -681,10 +683,11 @@ def run_matrix(
     Either way each event (or block) makes one gather, one vmapped gradient
     call, one update and one scatter for all cells; ``final_acc`` is the
     eval fn vmapped over the cells.  ``scenario`` (default
-    ``flc.scenario``; a registry name or a `ScenarioConfig`) simulates
-    every host cell's stream under that service law and availability; its
-    stage and flip events replay as no-ops through each cell's trash ring
-    row (on the device stream it raises item 10).
+    ``flc.scenario``; a registry name or a `ScenarioConfig`) runs every
+    cell's stream under that service law and availability, on the host or
+    on the device (there ``extras`` also carries each cell's
+    ``kind_count``); its stage and flip events replay as no-ops through
+    each cell's trash ring row.
 
     ``task`` picks the workload as in `run_experiment` (`LMTask`: ``eval_acc``
     and ``final_acc`` then carry eval loss).  The model and dataset are
@@ -715,11 +718,14 @@ def run_matrix(
         if flc.service != "exp":
             raise ValueError("stream='device' supports exponential service only; use "
                              "stream='host' for service='det'")
-        if sc is not None:
-            raise unported("run_matrix(stream='device', scenario=)", 10)
     block_size = flc.block_size if block_size is None else block_size
     if block_size != "auto":
         block_size = int(block_size)
+    if stream == "device" and sc is not None:
+        if block_size == "auto":
+            block_size = 1  # the scenario stream is per event
+        elif block_size > 1:
+            raise ValueError("scenario= requires block_size=1")
     segmentation = flc.segmentation if segmentation is None else segmentation
     speed_ratios = (flc.speed_ratio,) if speed_ratios is None else tuple(speed_ratios)
     seeds, policies = tuple(seeds), tuple(policies)
@@ -746,11 +752,12 @@ def run_matrix(
                 for seed in seeds for pi in range(P) for hi in range(H)]
         if block_size == "auto":
             block_size = _auto_block_size(
-                _probe_stream_slots(mu_b[0], p_b[0], C, T, int(seeds[0]), device), lane)
+                _probe_stream_slots(mu_b[0], p_b[0], C, T, int(seeds[0]), device, scenario=sc),
+                lane)
         runner = jit_fused_runner(
             clients.device_grad, n, C, T, vmap_scenarios=True, weighting=flc.weighting,
             eval_fn=acc_fn, eval_every=eval_every, adaptive=flc.adaptive,
-            refresh_every=flc.refresh_every, block_size=block_size,
+            refresh_every=flc.refresh_every, block_size=block_size, scenario=sc,
         )
         w_final, evals, dev_extras = runner(w0, mu_b, p_b, keys, eta)
         dev_extras = {k: v.detach().cpu().numpy() for k, v in dev_extras.items()}
@@ -760,6 +767,8 @@ def run_matrix(
         extras.update(p_final=cells(dev_extras["p_final"]),
                       mean_delays=cells(dev_extras["delay_sum"] / np.maximum(comp, 1.0)),
                       comp=cells(comp), occ_mean=cells(dev_extras["occ_mean"]))
+        if sc is not None:  # the kinds of each cell's events, (S, P, H, N_KINDS)
+            extras["kind_count"] = dev_extras["kind_count"].reshape(S, P, H, -1)
     else:
         p_vectors, streams = matrix_streams(flc, seeds, policies, speed_ratios, eta,
                                             scenario=sc)

@@ -1,7 +1,7 @@
 """Minimal pytrees over tensors, in JAX's leaf order.
 
-Parameters travel as a tensor or as (nested) dicts, lists and tuples of
-tensors.  Dict leaves are visited in sorted-key order, as
+Parameters travel as a tensor or as (nested) dicts, lists and tuples
+(named tuples too) of tensors.  Dict leaves are visited in sorted-key order, as
 `jax.tree_util` visits them, so the flat-packed snapshot ring has the same
 layout and offsets in both packages (the MLP packs ``b1, b2, b3, w1, w2,
 w3``).
@@ -33,7 +33,7 @@ def tree_flatten(tree) -> tuple[list, Callable[[list], Any]]:
             i += size
         if keys is not None:
             return dict(zip(keys, out))
-        return type(tree)(out)
+        return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
 
     return leaves, unflatten
 

@@ -9,9 +9,7 @@ __all__ = ["ROADMAP_ITEMS", "unported"]
 
 ROADMAP_ITEMS = {
     "7d": "optimizers (optim/), api.train_step and duck-typed tasks",
-    8: "faults, guard and checkpointing on the device stream",
     9: "sparse O(C) million-client stream",
-    10: "scenario device steps",
     11: "serving plane",
     12: "lane sharding of the scenario matrix and of the device stream",
 }

@@ -319,8 +319,10 @@ def test_layout_errors_and_the_fused_driver():
         run_checkpointed_host_blocked(_grad, _C, 8, _w0(), J, slot, sc, k, mask,
                                       group_events=50, chunk_blocks=cb, n_chunks=nc,
                                       ckpt_dir="unused", ckpt_every=75)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        run_checkpointed(_grad, _N, _C, _T)
+    with pytest.raises(ValueError, match="multiple of the chunk length"):
+        run_checkpointed(_grad, _N, _C, _T, w0=_w0(), mu=np.ones(_N), p0=np.full(_N, 1 / _N),
+                         key=0, eta=0.05, ckpt_dir="unused", ckpt_every=50, eval_fn=_loss,
+                         eval_every=30)
 
 
 def test_run_experiment_resume_bitwise(tmp_path):

@@ -158,11 +158,11 @@ _OPTIONS = {
     "scenario": dict(scenario="erlang2", stream="device"),
 }
 # what the port does with each option on the scan engine: the reference's
-# ValueError, a finite run, or the ROADMAP item that will port it (the
-# reference runs those); on the Python engine every option raises the
-# reference's ValueError ("stream='device' / adaptive require engine='scan'")
-_ON_SCAN = {"faults": 8, "guard": 8, "ckpt": 8, "device": None,
-            "adaptive": "requires stream='device'", "scenario": 10}
+# ValueError, or a run like the reference's (None); on the Python engine
+# every option raises the reference's ValueError ("stream='device' /
+# adaptive require engine='scan'")
+_ON_SCAN = {"faults": None, "guard": None, "ckpt": None, "device": None,
+            "adaptive": "requires stream='device'", "scenario": None}
 
 
 def _jax_option(option):
@@ -176,30 +176,47 @@ def _jax_option(option):
 
 @pytest.mark.parametrize("option", sorted(_OPTIONS))
 @pytest.mark.parametrize("engine", ["python", "scan"])
-def test_unported_options_raise(option, engine):
+def test_unported_options_raise(option, engine, tmp_path):
     """Each option of the device stream does what the reference does with
     it: the Python engine raises the reference's ValueError for all of
-    them, as does adaptive sampling on the host stream; bare
-    ``stream="device"`` runs on the scan engine (finite weights); faults,
-    the guard and checkpoints on the device stream raise item 8 and a
-    scenario item 10, where the reference runs them."""
+    them, as does adaptive sampling on the host stream; on the scan engine
+    the device stream runs bare and with faults, the guard, checkpoints
+    (under ``tmp_path``) or a scenario, as the reference's does: finite
+    weights, the reference's trace extras (the realizations differ:
+    `tests/test_torch_stream_robust.py` holds them on the same draws), the
+    kinds and the guard's counters of all T events, and the event clock,
+    NaN under checkpoints in both packages."""
     prob = Quadratic(4)
-    opt = _OPTIONS[option]
+    opt = dict(_OPTIONS[option])
+    if "ckpt_dir" in opt:
+        opt["ckpt_dir"] = str(tmp_path / "ckpt")
     cfg = ServerConfig(n=4, C=2, T=10, eta=0.1, engine=engine, device="cpu", **opt)
+    jcfg = JServerConfig(n=4, C=2, T=10, eta=0.1, engine=engine, **_jax_option(opt))
     expect = _ON_SCAN[option] if engine == "scan" else "require engine='scan'"
     if isinstance(expect, str):
         with pytest.raises(ValueError, match=expect):
             run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
-        jcfg = JServerConfig(n=4, C=2, T=10, eta=0.1, engine=engine, **_jax_option(opt))
         with pytest.raises(ValueError, match=expect):
             j_run(jnp.zeros(prob.d, jnp.float32), JQuadratic(prob.c), jcfg)
-    elif expect is None:
-        w, tr = run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
-        assert bool(torch.isfinite(w).all()) and tr.times.shape == (10,)
-        assert np.all(np.diff(tr.times) >= 0) and tr.extras["p_final"].shape == (4,)
+        return
+    w, tr = run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
+    if option == "ckpt":
+        jcfg = replace(jcfg, ckpt_dir=str(tmp_path / "jax_ckpt"))
+    wj, trj = j_run(jnp.zeros(prob.d, jnp.float32), JQuadratic(prob.c), jcfg)
+    assert bool(torch.isfinite(w).all()) and bool(np.isfinite(np.asarray(wj)).all())
+    assert tr.times.shape == trj.times.shape == (10,)
+    if option == "ckpt":
+        assert np.isnan(tr.times).all() and np.isnan(trj.times).all()
     else:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 item {expect}"):
-            run_generalized_async_sgd(np.zeros(prob.d, np.float32), prob, cfg)
+        assert np.all(np.diff(tr.times) >= 0)
+    assert set(trj.extras) <= set(tr.extras)
+    assert tr.extras["p_final"].shape == np.asarray(trj.extras["p_final"]).shape == (4,)
+    if "kind_count" in trj.extras:
+        assert tr.extras["kind_count"].shape == np.asarray(trj.extras["kind_count"]).shape
+        assert int(tr.extras["kind_count"].sum()) == int(np.sum(trj.extras["kind_count"])) == 10
+    if "guard_rejects" in trj.extras:
+        for x in (tr.extras, trj.extras):
+            assert 0 <= int(x["guard_rejects"]) <= 10 and int(x["stale_drops"]) == 0
 
 
 @pytest.mark.parametrize("engine", ["python", "scan"])

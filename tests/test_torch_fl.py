@@ -137,27 +137,52 @@ def test_cuda_device_raises_without_a_card():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(task=object()), "item 7"),
-    (dict(faults="crash", flc=dict(stream="device")), "item 8"),
-    (dict(ckpt_dir="ckpt", ckpt_every=5, flc=dict(stream="device")), "item 8"),
+    (dict(faults="crash", flc=dict(stream="device")), None),
+    (dict(ckpt_dir="ckpt", ckpt_every=5, flc=dict(stream="device")), None),
     (dict(serving=object()), "item 11"),
 ])
-def test_run_experiment_unported_raise(kw, item):
-    """Faults and checkpoints run on the host stream (`tests/test_torch_faults.py`,
-    `tests/test_torch_ckpt.py`); on the device stream they raise item 8.
-    The device stream itself runs (`tests/test_torch_fused.py`); a scenario
-    on it raises item 10."""
+def test_run_experiment_unported_raise(kw, item, tmp_path):
+    """Duck-typed tasks raise item 7d and serving item 11.  Faults and
+    checkpoints run on the device stream (under ``tmp_path``) as the
+    reference's do: finite curves of the same eval points, the
+    reference's extras (the kinds of all T events under faults), NaN event
+    times under checkpoints.  ``run_matrix(stream="device",
+    scenario="erlang2")`` runs per event in every cell, as the reference's
+    does, with each cell's kinds over 6 tags."""
+    from repro.core import FaultConfig as JFaultConfig
     from repro_torch.core import FaultConfig
 
     kw = dict(kw)
     if kw.get("faults") == "crash":
         kw["faults"] = FaultConfig(crash_rate=0.1)
+    if "ckpt_dir" in kw:
+        kw["ckpt_dir"] = str(tmp_path / "ckpt")
     method = kw.pop("method", "gen_async")
-    flc = FLConfig(n_clients=4, concurrency=2, server_steps=10, device="cpu",
-                   **kw.pop("flc", {}))
-    with pytest.raises(NotImplementedError, match=item):
-        t_fl.run_experiment(flc, method, **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_fl.run_matrix(flc, stream="device", scenario="erlang2")
+    fkw = kw.pop("flc", {})
+    flc = FLConfig(n_clients=4, concurrency=2, server_steps=10, device="cpu", **fkw)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            t_fl.run_experiment(flc, method, **kw)
+    else:
+        r = t_fl.run_experiment(flc, method, eval_every=5, **kw)
+        jkw = dict(kw)
+        if "faults" in jkw:
+            jkw["faults"] = JFaultConfig(crash_rate=0.1)
+        if "ckpt_dir" in jkw:
+            jkw["ckpt_dir"] = str(tmp_path / "jax_ckpt")
+        rj = j_fl.run_experiment(JFLConfig(n_clients=4, concurrency=2, server_steps=10, **fkw),
+                                 method, eval_every=5, **jkw)
+        assert r.eval_steps.tolist() == rj.eval_steps.tolist() == [5, 10]
+        assert np.isfinite(r.eval_acc).all() and np.isfinite(rj.eval_acc).all()
+        assert set(rj.extras) <= set(r.extras)
+        if "faults" in kw:
+            assert int(r.extras["kind_count"].sum()) == int(np.sum(rj.extras["kind_count"])) == 10
+        else:
+            assert np.isnan(r.eval_times).all() and np.isnan(rj.eval_times).all()
+    m = t_fl.run_matrix(flc, seeds=(0,), stream="device", scenario="erlang2", eval_every=5)
+    assert m.eval_acc.shape == (1, 3, 1, 2) and np.isfinite(m.eval_acc).all()
+    assert m.extras["kind_count"].shape == (1, 3, 1, 6)
+    assert (m.extras["kind_count"].sum(-1) == 10).all()
 
 
 @pytest.mark.parametrize("method", ["fedbuff", "fedavg", "favano"])

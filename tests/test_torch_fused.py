@@ -315,8 +315,20 @@ def test_validation_errors():
                                   ServerConfig(n=N, C=2, T=10, eta=0.1, engine="scan",
                                                stream="device", update="pallas", block_size=4,
                                                device="cpu"))
-    for kw, item in ((dict(guard=engine_scan.GuardConfig()), 8), (dict(lane_devices=2), 12),
-                     (dict(classes=object()), 9)):
+    # the guard runs on the device stream; with a staleness cutoff under
+    # FedBuff it raises the reference's ValueError (as `jes.make_fused_runner`)
+    for kw, item in ((dict(guard=engine_scan.GuardConfig(stale_cutoff=5), fedbuff_Z=5,
+                           weighting="plain"), "per-event update"),
+                     (dict(lane_devices=2), 12), (dict(classes=object()), 9)):
+        if isinstance(item, str):
+            with pytest.raises(ValueError, match=item):
+                mk(n=N, T=100, **kw)
+            from repro.core.engine_scan import GuardConfig as JGuardConfig
+
+            with pytest.raises(ValueError, match=item):
+                jes.make_fused_runner(JQuadratic(prob.c).device_grad, N, C, 100, fedbuff_Z=5,
+                                      weighting="plain", guard=JGuardConfig(stale_cutoff=5))
+            continue
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             mk(n=N, T=100, **kw)
     with pytest.raises(NotImplementedError, match="item 12"):

@@ -1162,6 +1162,78 @@ def test_fused_chunk_makes_no_host_sync(dev):
     assert ex["p_traj"].shape == (1, n) and abs(float(ex["p_final"].sum()) - 1.0) <= 1e-5
 
 
+_ROBUST_FAULT = dict(off_rate=0.2, on_rate=1.0, crash_rate=0.05, timeout_rate=0.1)
+
+
+def _robust_mode(mode):
+    """``(fault, scenario)`` of a robust-stream test case."""
+    from repro_torch.core import FaultConfig, get_scenario
+
+    if mode == "fault":
+        return FaultConfig(**_ROBUST_FAULT), None
+    return None, get_scenario(mode)
+
+
+@pytest.mark.parametrize("mode,cells", [("fault", None), ("fault", 5), ("erlang2_onoff", None),
+                                        ("hyperexp2", None), ("onoff", 4)])
+def test_fault_and_scenario_streams_on_card_equal_cpu(dev, mode, cells):
+    """The fault and scenario streams on the card against the CPU on the
+    same CPU-drawn uniforms: J, K, slot, delay, kind and the integer
+    statistics equal, times and float statistics within 1e-6."""
+    from repro_torch.core import stream_device as sd
+
+    n, C, T = 64, 16, 400
+    fault, scenario = _robust_mode(mode)
+    mu, nodes, ur, ue, K = _stream_inputs(n, C, T, cells)
+    lead = () if cells is None else (cells,)
+    gen = torch.Generator().manual_seed(7)
+    u_ph = torch.rand(*lead, T, generator=gen) if scenario else None
+    u0 = torch.rand(*lead, C, generator=gen) if scenario else None
+    args = (mu, nodes, ur, ue, K)
+    on = lambda d: dict(fault=fault, scenario=scenario,  # noqa: E731
+                        u_ph=None if u_ph is None else u_ph.to(d),
+                        u_phase0=None if u0 is None else u0.to(d))
+    _, ev_c, st_c = sd.scan_draws(*args, **on("cpu"))
+    _, ev_g, st_g = sd.scan_draws(*(a.to(dev) for a in args), **on(dev))
+    for i in (0, 1, 3, 4, 5):  # J, K, slot, delay, kind
+        assert torch.equal(ev_g[i].cpu(), ev_c[i])
+    torch.testing.assert_close(ev_g[2].cpu(), ev_c[2], rtol=1e-6, atol=0)
+    for f in ("occ_sum", "comp", "slot_step", "kind_count"):
+        assert torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f))
+    for f in ("occ_tw", "busy_t", "delay_sum", "avail_tw"):
+        torch.testing.assert_close(getattr(st_g, f).cpu(), getattr(st_c, f), rtol=1e-6,
+                                   atol=1e-6)
+    assert int(st_c.kind_count.sum()) == T * (cells or 1)
+
+
+@pytest.mark.parametrize("mode", ["fault", "erlang2_onoff"])
+def test_robust_fused_chunk_makes_no_host_sync(dev, mode):
+    """One chunk of the fused runner under faults and the guard (stale
+    cutoff and norm cap), and one under a scenario, on the MLP per event:
+    the kind mask, the guard's verdicts and counters stay on the card."""
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.async_sgd import _device_grad_fn
+    from repro_torch.core.engine_scan import GuardConfig, make_fused_runner
+
+    n, C, T = 16, 4, 200
+    setup, mu = _setup(dev, n=n)
+    p = np.full(n, 1.0 / n)
+    fault, scenario = _robust_mode(mode)
+    run = make_fused_runner(_device_grad_fn(setup.clients), n, C, T, fault=fault,
+                            scenario=scenario, guard=GuardConfig(max_grad_norm=1e3,
+                                                                 stale_cutoff=4 * C))
+    draws = sd.draw_uniforms(3, n, C, T, p, device=dev, scenario=scenario is not None)
+    mu_g, p_g = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (mu, p))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w, _, ex = run.from_draws(setup.params, mu_g, p_g, 0.05, *draws)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(v).all()) for v in w.values())
+    assert int(ex["kind_count"].sum()) == T and int(ex["guard_rejects"]) == 0
+
+
 def test_control_plane_on_card_equals_cpu(dev):
     from repro_torch.core import stream_device as sd
     from repro_torch.core.theory import BoundConstants

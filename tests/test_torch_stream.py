@@ -274,13 +274,20 @@ def test_replayable_through_host_engine():
 
 
 def test_generators_reject_unported_options():
+    """Faults and scenarios run in the generators (held against the
+    reference in `tests/test_torch_stream_robust.py`): the kind column of T
+    merged events; the two exclude each other with the reference's
+    ValueError, and the class-collapsed control plane raises item 9."""
     from repro_torch.core import FaultConfig, get_scenario
 
-    with pytest.raises(NotImplementedError, match="item 8"):
+    es = sd.generate_stream(np.ones(3), np.full(3, 1 / 3), 2, 10, fault=FaultConfig(crash_rate=0.1),
+                            device="cpu")
+    assert es.kind.shape == (10,) and set(es.kind.tolist()) <= {0, 1}
+    es = sd.generate_stream(np.ones(3), np.full(3, 1 / 3), 2, 10,
+                            scenario=get_scenario("erlang2"), device="cpu")
+    assert es.kind.shape == (10,) and set(es.kind.tolist()) <= {0, 5}
+    with pytest.raises(ValueError, match="mutually exclusive"):
         sd.generate_stream(np.ones(3), np.full(3, 1 / 3), 2, 10, fault=FaultConfig(crash_rate=0.1),
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        sd.generate_stream(np.ones(3), np.full(3, 1 / 3), 2, 10,
                            scenario=get_scenario("erlang2"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         sd.mva_throughput_delays(torch.ones(2), torch.full((2,), 0.5), 3, counts=(1, 1))
