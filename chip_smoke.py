@@ -233,6 +233,37 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    the carry copy holds the loop and peak memory are printed; the
    checkpoints go under ``build/`` and are deleted.
 
+21. the sparse O(C) stream and the class-collapsed control plane
+   (``--only sparse``; `phase_sparse`, last in a whole run; `SPARSE_*`).  (a)
+   The sparse stream at n = 10^3 and 10^6 (`tests/test_scale.py`'s two speed
+   classes, C=64, T=1000), clean and under phase 18's faults, from uniforms
+   drawn on the CPU: on the card equal to the CPU's run of the same draws
+   (J, K, slot, kind, delay and the integer statistics exactly; times and
+   float statistics within 1e-6 relative); the class occupancy sums to C;
+   its laws over 8 cells x 2500 events at 10^6 (time-averaged occupancy C,
+   mean delay C-1 within 0.5 sqrt(C), class occupancy within 5% of the
+   class-collapsed MVA); the per-event time at 10^6 within 2x of that at
+   10^3 (warm streams, timed alternately); a chunk under
+   ``set_sync_debug_mode("error")``.  (b) The class MVA at 10^6 against the
+   numpy float64 MVA (<= 1e-5) and the milliseconds of one
+   ``ctrl_refresh(counts=)``.  (c) The slice's path: ``run_experiment(
+   FLConfig(n_clients=50_000, concurrency=64, server_steps=1000,
+   engine="scan", stream="device"), "gen_async", eval_every=250,
+   task=ClassificationTask(shard_size=128))`` on the full-width MLP (the
+   paper's two clusters, "optimal" p: m = 2 classes; ``sparse="auto"`` takes
+   the sparse stream), then per event with K1 on the same draws (launches ==
+   T, weights within 1e-5), K1 under phase 18's faults with the flip rates
+   scaled by 256/n (`_sparse_fault`; kinds sum to T), the plain update under
+   those faults and phase 18's guard (kinds sum to T), every accuracy rising,
+   a profile of the K1 run, and a chunk of the sparse fused runner under the
+   faults and the guard, importance-weighted and adaptive, under the sync
+   check.  Cuts: shard 1024 -> 128 and T 2000 -> 1000.
+
+The CPU runs that phases 19-21 hold the card to, and phase 21's client
+shards, are computed in three CPU-only worker processes beside the build;
+the script waits for them before phase 17, so nothing runs beside a
+measured phase but the phase-18 and phase-20 kill-and-resume children.
+
 Phase 10 reuses phase 17's run of its "optimal" Mamba2 cell alone (the
 same configuration, asserted), and phases 10 and 17-20 share one Mamba2-130M
 task and its setup (`_mamba_task`); every LM part prints its set-up time
@@ -240,7 +271,7 @@ apart from its timed runs.  ``--memory-history`` records the allocator's
 history around phase 17's blocked Mamba2 matrix and prints the owners of
 the live memory at K2's plain-version entry and at the peak.
 
-Phases 4, 5, 8, 10, 13, 17, 18, 19 and 20 are the kernel paths: each launch
+Phases 4, 5, 8, 10, 13, 17, 18, 19, 20 and 21 are the kernel paths: each launch
 count is zeroed just before the run and read just after.  fp32 matmuls run
 in full fp32 (TF32 off for matmul and cuDNN).  The line before the last is
 the ``kernels`` JSON object; the last line is the result object.
@@ -484,6 +515,22 @@ ROBUST_DEV_MAMBA_T, ROBUST_DEV_MAMBA_CKPT_EVERY = 32, 16
 ROBUST_DEV_SEEDS = tuple(range(8))
 ROBUST_DEV_SCENARIO = "erlang2_onoff"
 DEV_CKPT_ROOT = Path(__file__).resolve().parent / "build" / "robust_device_ckpt"
+
+# 21. the sparse O(C) stream and the class-collapsed control plane: the
+# stream alone at n = 10^3 and 10^6 (two speed classes, `tests/test_scale.py`'s
+# mix; C = 64, T = 1000) clean and under phase 18's faults, and its laws over
+# 8 cells x 2500 events on the cell axis at n = 10^6; the control plane there; the
+# slice's path, the full-width MLP at n = 50,000 (the paper's two clusters,
+# "optimal" p: m = 2 classes), where sparse="auto" takes the sparse stream.
+# Cut for time (the whole command must end within 1200 s): the MLP's shard
+# from 1024 to 128 examples (the host builds the shards client by client: ~15
+# s at 128, over a minute and 13 GB at 1024) and T from 2000 to 1000.  The
+# MLP's n client shards are built in a CPU-only worker beside the build.
+SPARSE_SHARDS = Path(__file__).resolve().parent / "build" / "sparse_shards"
+SPARSE_NS, SPARSE_C, SPARSE_T = (1_000, 1_000_000), 64, 1000
+SPARSE_LAW_CELLS, SPARSE_LAW_T, SPARSE_CHUNK = 8, 2500, 100
+SPARSE_MLP_N, SPARSE_MLP_T, SPARSE_MLP_EVAL, SPARSE_SHARD = 50_000, 1000, 250, 128
+SPARSE_PROFILE_T = 100
 
 failures: list[str] = []
 # results one phase hands to a later one (the phases of a partial run
@@ -3079,6 +3126,120 @@ def _same_stream(label: str, a, b) -> None:
           f"within {rel:.2e} <= 1e-6 relative")
 
 
+def _stream_inputs(mu, p):
+    """Phase 19 (a)'s inputs, drawn on the CPU: ``(args, u_disp, args_cells)``
+    for `stream_device.scan_draws`, one stream of `STREAM_CARD_T` events
+    (seed 0) and `CELLS` of `STREAM_CELLS_T` (seeds 1000 + b)."""
+    from repro_torch.core import stream_device as sd
+
+    n, C, T = STREAM_N, STREAM_C, STREAM_CARD_T
+    f32 = torch.float32
+    nodes, ur, ue, ud = sd.draw_uniforms(0, n, C, T, p, device="cpu")
+    K = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32)), ud)
+    args = (torch.tensor(mu, dtype=f32), nodes, ur, ue, K)
+    B, Tb = CELLS, STREAM_CELLS_T
+    draws = [sd.draw_uniforms(1000 + b, n, C, Tb, p, device="cpu") for b in range(B)]
+    nb, urb, ueb, udb = (torch.stack(a) for a in zip(*draws))
+    Kb = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32).expand(B, n)), udb)
+    return args, ud, (torch.tensor(mu, dtype=f32).expand(B, n), nb, urb, ueb, Kb)
+
+
+def _robust_stream_inputs(mu, p):
+    """Phase 20 (a)'s inputs, drawn on the CPU: ``([(name, args, ph), ...],
+    args_cells)``: the fault stream and the `ROBUST_SCENARIOS` streams of
+    `STREAM_CARD_T` events (seed 0; ``ph`` a scenario's phase uniforms) and
+    the fault stream over `CELLS` of `STREAM_CELLS_T` (seeds 2000 + b)."""
+    from repro_torch.core import stream_device as sd
+
+    n, C, T = STREAM_N, STREAM_C, STREAM_CARD_T
+    f32 = torch.float32
+    streams = []
+    for name in ("fault",) + ROBUST_SCENARIOS:
+        nodes, ur, ue, ud, *ph = sd.draw_uniforms(0, n, C, T, p, device="cpu",
+                                                  scenario=name != "fault")
+        K = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32)), ud)
+        streams.append((name, (torch.tensor(mu, dtype=f32), nodes, ur, ue, K), ph))
+    B, Tb = CELLS, STREAM_CELLS_T
+    draws = [sd.draw_uniforms(2000 + b, n, C, Tb, p, device="cpu") for b in range(B)]
+    nb, urb, ueb, udb = (torch.stack(a) for a in zip(*draws))
+    Kb = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32).expand(B, n)), udb)
+    return streams, (torch.tensor(mu, dtype=f32).expand(B, n), nb, urb, ueb, Kb)
+
+
+def _robust_mode(name: str, ph, d) -> dict:
+    """`stream_device.scan_draws`'s keywords of a phase 20 (a) stream on
+    device ``d``."""
+    from repro_torch.core import FaultConfig, get_scenario
+
+    if name == "fault":
+        return dict(fault=FaultConfig(**ROBUST_FAULT))
+    return dict(scenario=get_scenario(name), u_ph=ph[0].to(d), u_phase0=ph[1].to(d))
+
+
+def _cpu_references(kind: str):
+    """The CPU runs the card's streams are held to, in a CPU-only worker
+    process (one thread) beside the build: ``"stream"`` phase 19 (a)'s two,
+    ``"stream_robust"`` phase 20 (a)'s four, ``"sparse"`` phase 21 (a)'s
+    four."""
+    from repro_torch.core import stream_device as sd
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.fl.engine import sampling_for
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # tiny operations: no gain from threads
+    try:
+        if kind == "sparse":
+            return {r: _sparse_cpu_run(*r) for r in _sparse_runs()}
+        flc = _mlp_flc(torch.device("cpu"))
+        mu = make_client_speeds(flc.n_clients, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+        p = sampling_for(flc, mu)
+        if kind == "stream":
+            args, _, argsb = _stream_inputs(mu, p)
+            return sd.scan_draws(*args), sd.scan_draws(*argsb)
+        streams, argsb = _robust_stream_inputs(mu, p)
+        return ({name: sd.scan_draws(*args, **_robust_mode(name, ph, "cpu"))
+                 for name, args, ph in streams},
+                sd.scan_draws(*argsb, fault=_robust_mode("fault", None, "cpu")["fault"]))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _start_cpu_references(groups):
+    """Start `_cpu_references` for the phase groups of this run, and phase
+    21's shards (`_build_sparse_shards`), in three spawned CPU-only worker
+    processes; `_collect_cpu_references` waits for them.  Returns the pool
+    and its jobs by name, or None when no group needs one."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    kinds = [k for k in ("sparse", "stream", "stream_robust") if k in groups]
+    if not kinds:
+        return None
+    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"))
+    jobs = {}
+    if "sparse" in groups:  # the longest job first
+        jobs["sparse_shards"] = pool.submit(_build_sparse_shards, SPARSE_MLP_N, 0, SPARSE_SHARD)
+    jobs.update({k: pool.submit(_cpu_references, k) for k in kinds})
+    return pool, jobs
+
+
+def _collect_cpu_references(started) -> None:
+    """Wait for the workers of `_start_cpu_references` and keep their results
+    for `_cpu_refs`: the workers run beside the build only, never beside a
+    measured phase."""
+    if started is None:
+        return
+    pool, jobs = started
+    _SHARED["cpu_refs"] = {k: job.result() for k, job in jobs.items()}
+    pool.shutdown()
+
+
+def _cpu_refs(kind: str):
+    """A result of `_collect_cpu_references`: `_cpu_references(kind)`, or
+    the seconds `_build_sparse_shards` took (``"sparse_shards"``)."""
+    return _SHARED["cpu_refs"].pop(kind)
+
+
 def _stream_card(dev, mu, p, setup) -> dict:
     """19 (a): the stream on the card against the CPU, its FIFO law, no host
     sync in a chunk of the stream or of the fused runner (the MLP's
@@ -3090,13 +3251,10 @@ def _stream_card(dev, mu, p, setup) -> dict:
 
     n, C, T = STREAM_N, STREAM_C, STREAM_CARD_T
     f32 = torch.float32
-    nodes, ur, ue, ud = sd.draw_uniforms(0, n, C, T, p, device="cpu")
-    K = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32)), ud)
-    args = (torch.tensor(mu, dtype=f32), nodes, ur, ue, K)
+    args, ud, argsb = _stream_inputs(mu, p)
+    nodes, ur, ue, K = args[1:]
     t0 = time.perf_counter()
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # the CPU's runs: tiny operations, no gain from threads
-    cpu = sd.scan_draws(*args)
+    cpu, cpub = _cpu_refs("stream")
     card, wall = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in args)))
     _same_stream(f"stream on the card n={n} C={C} T={T}", card, cpu)
     _, (J, Kg, _, slot, delay), _ = card
@@ -3104,14 +3262,8 @@ def _stream_card(dev, mu, p, setup) -> dict:
           f"the card's stream passes the FIFO / Lemma-9 / delay replay check ({T} events)")
     # B cells on the cell axis
     B, Tb = CELLS, STREAM_CELLS_T
-    draws = [sd.draw_uniforms(1000 + b, n, C, Tb, p, device="cpu") for b in range(B)]
-    nb, urb, ueb, udb = (torch.stack(a) for a in zip(*draws))
-    Kb = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32).expand(B, n)), udb)
-    argsb = (torch.tensor(mu, dtype=f32).expand(B, n), nb, urb, ueb, Kb)
     cardb, wall_b = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in argsb)))
-    _same_stream(f"stream on the card, {B} cells on the cell axis, T={Tb}", cardb,
-                 sd.scan_draws(*argsb))
-    torch.set_num_threads(threads)
+    _same_stream(f"stream on the card, {B} cells on the cell axis, T={Tb}", cardb, cpub)
     t_cmp = time.perf_counter() - t0
     # one chunk of the fused runner's stream under the sync check
     state, _ = sd.stream_init(nodes.to(dev)[None], n, C)
@@ -3437,28 +3589,17 @@ def _robust_dev_card(dev, mu, p) -> None:
     """20 (a): the fault stream and the scenario streams on the card against
     the CPU on the same CPU-drawn uniforms (T=`STREAM_CARD_T`), and the fault
     stream over 27 cells of T=`STREAM_CELLS_T` on the cell axis."""
-    from repro_torch.core import FaultConfig, get_scenario
+    from repro_torch.core import FaultConfig
     from repro_torch.core import stream_device as sd
 
     n, C, T = STREAM_N, STREAM_C, STREAM_CARD_T
-    f32 = torch.float32
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # the CPU's runs: tiny operations, no gain from threads
-    fault = FaultConfig(**ROBUST_FAULT)
-    for name in ("fault",) + ROBUST_SCENARIOS:
+    streams, argsb = _robust_stream_inputs(mu, p)
+    cpus, cpub = _cpu_refs("stream_robust")
+    for name, args, ph in streams:
         scen = name != "fault"
-        nodes, ur, ue, ud, *ph = sd.draw_uniforms(0, n, C, T, p, device="cpu", scenario=scen)
-        K = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32)), ud)
-        args = (torch.tensor(mu, dtype=f32), nodes, ur, ue, K)
-
-        def mode(d, ph=ph, scen=scen, name=name):
-            if not scen:
-                return dict(fault=fault)
-            return dict(scenario=get_scenario(name), u_ph=ph[0].to(d), u_phase0=ph[1].to(d))
-
-        cpu = sd.scan_draws(*args, **mode("cpu"))
+        mode = lambda d, ph=ph, name=name: _robust_mode(name, ph, d)  # noqa: E731
         card, wall = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in args), **mode(dev)))
-        _same_stream(f"{name} stream on the card n={n} C={C} T={T}", card, cpu)
+        _same_stream(f"{name} stream on the card n={n} C={C} T={T}", card, cpus[name])
         kinds = card[2].kind_count.cpu().tolist()
         Tp = STREAM_PROFILE_T
         short = (args[0].to(dev), args[1].to(dev), *(a.to(dev)[:Tp] for a in args[2:]))
@@ -3471,14 +3612,9 @@ def _robust_dev_card(dev, mu, p) -> None:
               f"device busy {None if dms is None else round(dms / Tp, 6)} ms/event")
         check(sum(kinds) == T, f"{name} stream: kind counts {kinds} sum to T = {T}")
     B, Tb = CELLS, STREAM_CELLS_T
-    draws = [sd.draw_uniforms(2000 + b, n, C, Tb, p, device="cpu") for b in range(B)]
-    nb, urb, ueb, udb = (torch.stack(a) for a in zip(*draws))
-    Kb = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32).expand(B, n)), udb)
-    argsb = (torch.tensor(mu, dtype=f32).expand(B, n), nb, urb, ueb, Kb)
-    cardb, wall_b = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in argsb), fault=fault))
-    _same_stream(f"fault stream on the card, {B} cells on the cell axis, T={Tb}", cardb,
-                 sd.scan_draws(*argsb, fault=fault))
-    torch.set_num_threads(threads)
+    cardb, wall_b = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in argsb),
+                                                 fault=FaultConfig(**ROBUST_FAULT)))
+    _same_stream(f"fault stream on the card, {B} cells on the cell axis, T={Tb}", cardb, cpub)
     print(f"fault stream, {B} cells x {Tb} on the cell axis: {B * Tb / wall_b:.1f} events/s "
           "summed")
 
@@ -3831,8 +3967,354 @@ def phase_stream_robust(dev, launches: dict) -> None:
           f"children's rest {t4 - t3:.1f} s, Mamba2 {t5 - t4:.1f} s; phase 20 {t5 - t0:.1f} s")
 
 
+# ------------------------------------------------------------------ #
+# 21. the sparse O(C) stream and the class-collapsed control plane
+# ------------------------------------------------------------------ #
+def _two_class_mu(n: int, seed: int = 7, frac: float = 0.3, ratio: float = 2.5) -> np.ndarray:
+    """`tests/test_scale.py`'s two speed classes: a fraction ``frac`` of the
+    clients ``ratio`` times faster."""
+    rng = np.random.default_rng(seed)
+    return np.where(rng.random(n) < frac, ratio, 1.0)
+
+
+def _sparse_inputs(n: int, tagged: bool):
+    """The stream of 21 (a) at ``n``: its class spec and its CPU-drawn
+    inputs ``(mu_m, nodes, u_race, u_exp, K[, u_bit])`` (seed 0)."""
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.classes import build_class_spec
+
+    spec, mu_m, p_m = build_class_spec(_two_class_mu(n))
+    p_c = torch.tensor(p_m, dtype=torch.float32)
+    nodes, ur, ue, ud, um, *ub = sd.draw_sparse_uniforms(0, spec, SPARSE_C, SPARSE_T, p_c,
+                                                         device="cpu", fault=tagged)
+    K = sd.sample_dispatch_classes(p_c, spec, ud, um)
+    return spec, (torch.tensor(mu_m, dtype=torch.float32), nodes, ur, ue, K, *ub)
+
+
+def _sparse_runs() -> list:
+    """21 (a)'s streams: ``(n, faults on)`` pairs."""
+    return [(n, tagged) for n in SPARSE_NS for tagged in (False, True)]
+
+
+def _sparse_cpu_run(n: int, tagged: bool):
+    """21 (a)'s CPU run of one stream: `sparse_scan_draws`'s ``(nodes,
+    events, stats)``."""
+    from repro_torch.core import FaultConfig
+    from repro_torch.core import stream_device as sd
+
+    spec, args = _sparse_inputs(n, tagged)
+    fault = FaultConfig(**ROBUST_FAULT) if tagged else None
+    return sd.sparse_scan_draws(args[0], spec, *args[1:], fault=fault)[:3]
+
+
+def _sparse_card(dev) -> dict:
+    """21 (a): the sparse stream on the card against the CPU on CPU-drawn
+    uniforms at each n of `SPARSE_NS`, clean and under phase 18's faults
+    (the CPU's runs: `_cpu_references("sparse")`); its laws over
+    `SPARSE_LAW_CELLS` cells at n = 10^6 (n = 10^3: the CPU tests); the
+    per-event time flat in n (every stream warmed up on its first
+    `SPARSE_CHUNK` events, the clean ones timed twice in the order 10^3,
+    10^6, 10^6, 10^3); one chunk with no host sync."""
+    from repro_torch.core import FaultConfig
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.classes import build_class_spec
+
+    C, T = SPARSE_C, SPARSE_T
+    f32 = torch.float32
+    eps, t0 = {}, time.perf_counter()
+    cpu_runs = _cpu_refs("sparse")
+    runs = {}
+    for n, tagged in _sparse_runs():
+        fault = FaultConfig(**ROBUST_FAULT) if tagged else None
+        spec, args = _sparse_inputs(n, tagged)
+        spec_g = sd._spec_on(spec, dev)
+        on_card = [a.to(dev) for a in args]
+
+        def run(a=on_card, spec_g=spec_g, fault=fault):
+            return sd.sparse_scan_draws(a[0], spec_g, *a[1:], fault=fault)
+
+        run([a[:SPARSE_CHUNK] if i >= 2 else a for i, a in enumerate(on_card)])  # warm-up
+        runs[(n, tagged)] = spec, run
+    lo, hi = SPARSE_NS
+    cards, walls = {}, {}
+    for key in [(lo, False), (hi, False), (lo, True), (hi, True), (hi, False), (lo, False)]:
+        out, wall = _timed(runs[key][1])
+        cards.setdefault(key, out)
+        walls.setdefault(key, []).append(wall)
+    for (n, tagged), card in cards.items():
+        label, spec, w = "faults" if tagged else "clean", runs[(n, tagged)][0], walls[(n, tagged)]
+        _same_stream(f"sparse stream ({label}) on the card n={n} C={C} T={T}", card[:3],
+                     cpu_runs[(n, tagged)])
+        st = card[2]
+        check(int(st.occ_sum.sum()) == C * T and int(st.comp.sum()) == (
+            int(st.kind_count[0]) if tagged else T),
+              f"sparse stream ({label}) n={n}: the class occupancy sums to C at every step "
+              f"(Palm sum {int(st.occ_sum.sum())} == C x T), completions counted once")
+        eps[(n, label)] = T * len(w) / sum(w)
+        print(f"sparse stream ({label}) n={n} m={spec.m} C={C} T={T}: "
+              f"{' and '.join(f'{x:.3f}' for x in w)} s on the card, {eps[(n, label)]:.1f} "
+              "events/s" + (f", kinds {st.kind_count.tolist()}" if tagged else ""))
+    t_cmp = time.perf_counter() - t0
+    # the laws, on the card at n = 10^6: SPARSE_LAW_CELLS cells on the cell axis
+    n = SPARSE_NS[-1]
+    spec, mu_m, p_m = build_class_spec(_two_class_mu(n))
+    spec_g = sd._spec_on(spec, dev)
+    mu_g = torch.tensor(mu_m, dtype=f32, device=dev)
+    p_g = torch.tensor(p_m, dtype=f32, device=dev)
+    B, L = SPARSE_LAW_CELLS, SPARSE_LAW_T
+    draws = [sd.draw_sparse_uniforms(100 + b, spec_g, C, L, p_g, device=dev) for b in range(B)]
+    nb, urb, ueb, udb, umb = (torch.stack(a) for a in zip(*draws))
+    Kb = sd.sample_dispatch_classes(p_g.expand(B, -1), spec_g, udb, umb)
+    (_, _, stl, state), wall_l = _timed(lambda: sd.sparse_scan_draws(
+        mu_g, spec_g, nb, urb, ueb, Kb, emit_events=False))
+    t_s = sd.kahan_value(state.t, state.t_c)
+    occ = (sd.kahan_value(stl.occ_tw, stl.occ_tw_c) / t_s[:, None]).mean(0)
+    delay = float(sd.kahan_value(stl.delay_sum, stl.delay_sum_c).sum()) / (B * L)
+    md, _ = sd.mva_throughput_delays(torch.tensor(mu_m), torch.tensor(p_m), C,
+                                     counts=tuple(int(c) for c in spec.counts))
+    occ_mva = np.asarray(spec.counts) * p_m * md.numpy() * C / (C - 1.0)
+    rel = float(np.max(np.abs(occ - occ_mva) / occ_mva))
+    check(abs(occ.sum() - C) <= 1e-5 * C and abs(delay - (C - 1)) < 0.5 * np.sqrt(C)
+          and rel <= 0.05,
+          f"sparse stream laws n={n}, {B} cells x {L} events on the card: time-averaged "
+          f"occupancy sums to {occ.sum():.6f} = C, mean delay {delay:.3f} within "
+          f"{0.5 * np.sqrt(C):.1f} of C - 1 = {C - 1}, class occupancy {occ.round(3).tolist()} "
+          f"within {rel:.4f} <= 5% of the class-collapsed MVA's {occ_mva.round(3).tolist()} "
+          f"({wall_l:.3f} s, {B * L / wall_l:.1f} events/s summed over cells)")
+    ratio = eps[(lo, "clean")] / eps[(hi, "clean")]
+    check(ratio <= 2.0, f"sparse stream per-event time at n={hi} is {ratio:.3f}x that at n={lo} "
+          f"(<= 2: flat in n; two warm timed runs at each n; under faults "
+          f"{eps[(lo, 'faults')] / eps[(hi, 'faults')]:.3f}x)")
+    # one chunk under the sync check, faults on (the widest race, the pools)
+    fr = sd.resolve_fault_rates_classes(FaultConfig(**ROBUST_FAULT), spec, dev)
+    L = SPARSE_CHUNK
+    nodes, ur, ue, ud, um, ub = sd.draw_sparse_uniforms(1, spec_g, C, L, p_g, device=dev,
+                                                        fault=True)
+    state, _ = sd.sparse_stream_init(nodes[None], spec_g, C, fault=True)
+    stats = sd.sparse_stats_init(spec.m, C, fault=True, cells=1, device=dev)
+    cst = sd._Consts((1,), C, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Kc = sd.sample_dispatch_classes(p_g[None], spec_g, ud[None], um[None])
+        sd._advance(state, stats, mu_g[None], -torch.log1p(-ue[None]), ur[None], Kc, 0, cst,
+                    fr=fr, spec=spec_g, u_bit=ub[None])
+        synced = False
+    except RuntimeError as e:
+        synced = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(synced is False, f"a chunk of {L} sparse stream events (faults, n={n}) makes no host "
+          f"sync (set_sync_debug_mode('error')){'' if synced is False else ': ' + synced[:200]}")
+    print(f"sparse stream events/s on the card: "
+          + ", ".join(f"n={k[0]} {k[1]} {v:.1f}" for k, v in eps.items())
+          + f"; the card-against-CPU runs {t_cmp:.1f} s, (a) {time.perf_counter() - t0:.1f} s")
+    return eps
+
+
+def _sparse_control(dev) -> None:
+    """21 (b): the class-collapsed MVA on the card at n = 10^6 against the
+    numpy float64 MVA; the milliseconds of one ``ctrl_refresh(counts=)``."""
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.classes import build_class_spec
+    from repro_torch.core.sampling import _mva_delays_f64
+    from repro_torch.core.theory import BoundConstants
+
+    n, C = SPARSE_NS[-1], SPARSE_C
+    spec, mu_m, p_m = build_class_spec(_two_class_mu(n))
+    counts = tuple(int(c) for c in spec.counts)
+    mu_g = torch.tensor(mu_m, dtype=torch.float32, device=dev)
+    p_g = torch.tensor(p_m, dtype=torch.float32, device=dev)
+    m, lam = sd.mva_throughput_delays(mu_g, p_g, C, counts=counts)
+    want, lam64 = _mva_delays_f64(mu_m, p_m, np.asarray(spec.counts), C)
+    rel = float(np.max(np.abs(m.cpu().double().numpy() - want) / np.abs(want)))
+    rl = abs(float(lam) / lam64 - 1.0)
+    check(rel <= 1e-5 and rl <= 1e-5, f"class-collapsed MVA on the card n={n} m={spec.m} C={C} "
+          f"vs the numpy float64 MVA: delays {rel:.2e}, throughput {rl:.2e} <= 1e-5 relative")
+    comp = torch.tensor([4000, 9000], device=dev)
+    busy = torch.tensor([3900.0, 3700.0], dtype=torch.float32, device=dev)
+    k = BoundConstants(C=C, T=SPARSE_T)
+    ms = []
+    for _ in range(4):
+        _, wall = _timed(lambda: sd.ctrl_refresh(p_g, comp, busy, k, counts=counts))
+        ms.append(wall * 1e3)
+    out = sd.ctrl_refresh(p_g, comp, busy, k, counts=counts)
+    mass = float((out.double() * torch.tensor(counts, dtype=torch.float64, device=dev)).sum())
+    check(bool(torch.isfinite(out).all()) and abs(mass - 1.0) <= 1e-5,
+          f"ctrl_refresh(counts=) on the card: a finite class-level p, class masses summing to "
+          f"{mass:.7f}")
+    print(f"ctrl_refresh(counts=) n={n} m={spec.m} C={C} (4 exponentiated-gradient steps "
+          f"through the class MVA): {float(np.median(ms[1:])):.3f} ms (median of 3 after one "
+          f"warm-up; first {ms[0]:.3f} ms)")
+
+
+def _sparse_fault(n: int):
+    """Phase 18's faults (`ROBUST_FAULT`) for a population of n clients: the
+    crash and timeout rates as they are, the availability flip rates scaled
+    by 256 / n, so that the n nodes flip as often in all as phase 18's 256
+    (the same stationary availability, 5/6).  Unscaled, at n = 50,000 the
+    idle nodes' flips were 97.3% of the events (26 completions in 1000:
+    PERF.md section 6)."""
+    from repro_torch.core import FaultConfig
+
+    scale = 256 / n
+    return FaultConfig(**dict(ROBUST_FAULT, off_rate=ROBUST_FAULT["off_rate"] * scale,
+                              on_rate=ROBUST_FAULT["on_rate"] * scale))
+
+
+def _build_sparse_shards(n: int, seed: int, m: int) -> float:
+    """Phase 21's MLP shards, in a CPU-only child process: `FederatedClassification`
+    's ``device_shards(m)`` for n clients, saved under `SPARSE_SHARDS`;
+    returns the seconds it took."""
+    from repro_torch.data.pipeline import FederatedClassification
+
+    t0 = time.perf_counter()
+    xs, ys = FederatedClassification(n_clients=n, seed=seed).device_shards(m)
+    SPARSE_SHARDS.parent.mkdir(parents=True, exist_ok=True)
+    np.save(f"{SPARSE_SHARDS}_x.npy", xs)
+    np.save(f"{SPARSE_SHARDS}_y.npy", ys)
+    return time.perf_counter() - t0
+
+
+def _sparse_mlp(dev, launches: dict) -> None:
+    """21 (c): the slice's path, the full-width MLP at n = `SPARSE_MLP_N` on
+    the sparse stream: ``run_experiment`` (plain update), K1 per event on
+    the same draws, K1 under phase 18's faults (flips scaled to n,
+    `_sparse_fault`), the plain update under those faults and phase 18's
+    guard (the reference takes the guard on the plain update only); one
+    chunk of the sparse fused runner under the faults and the guard
+    (importance-weighted, adaptive) under the sync check."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.async_sgd import (ServerConfig, _device_grad_fn,
+                                            run_generalized_async_sgd)
+    from repro_torch.core.classes import build_class_spec
+    from repro_torch.core.engine_scan import make_fused_runner
+    from repro_torch.data.pipeline import FederatedClassification, make_client_speeds
+    from repro_torch.fl.engine import ClassificationTask, _cached_fl_setup, run_experiment, \
+        sampling_for
+    from repro_torch.kernels import weighted_update as wu
+
+    n, C, T, every = SPARSE_MLP_N, SPARSE_C, SPARSE_MLP_T, SPARSE_MLP_EVAL
+    flc = FLConfig(n_clients=n, concurrency=C, server_steps=T, engine="scan", stream="device",
+                   sparse="auto", device=dev.type)
+    task = ClassificationTask(shard_size=SPARSE_SHARD)
+    t0 = time.perf_counter()
+    data = FederatedClassification(n_clients=n, seed=flc.seed)
+    # the shards a CPU-only worker built beside the build, as `device_shards` builds them
+    secs = _cpu_refs("sparse_shards")
+    xs, ys = (np.load(f"{SPARSE_SHARDS}_{k}.npy") for k in ("x", "y"))
+    for k in ("x", "y"):
+        os.remove(f"{SPARSE_SHARDS}_{k}.npy")
+    data.device_shards = lambda m: (xs, ys) if m == SPARSE_SHARD else None
+    print(f"sparse MLP: the {n} client shards were built in a CPU-only worker beside the build "
+          f"in {secs:.1f} s (FederatedClassification.device_shards)")
+    setup = _cached_fl_setup(data, flc.seed, task, n_clients=n, device=dev)
+    mu = make_client_speeds(n, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    p = sampling_for(flc, mu)
+    spec, mu_m, p_m = build_class_spec(mu, p)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    print(f"sparse MLP n={n} C={C} T={T} (cut from shard 1024 to {SPARSE_SHARD} and T 2000 to "
+          f"{T}): set-up (the data, the clients' shards on the card, the model, p) "
+          f"{t_setup:.1f} s; m = {spec.m} classes of sizes {spec.counts.tolist()}")
+    check(spec.m == 2, f"sparse MLP: the paper's two clusters with 'optimal' p give m = {spec.m} "
+          "== 2 classes")
+    r, wall = _timed(lambda: run_experiment(flc, "gen_async", eval_every=every, data=data,
+                                            task=task))
+    accs = {"run_experiment (plain update)": (list(r.eval_acc), T / wall)}
+    base = ServerConfig(n=n, C=C, T=T, eta=0.05, mu=mu, p=p, seed=flc.seed, eval_every=every,
+                        engine="scan", stream="device", weighting="importance", device=dev.type)
+    run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
+                                              eval_fn=setup.eval_fn)
+    path = launches.setdefault("sparse_mlp", {"weighted_update": 0})
+    wu.reset_launches()
+    (w_k1, tr), wall = _timed(lambda: run(replace(base, update="pallas")))
+    _k1_counts(path, "sparse MLP per event", T, 6)
+    accs["per event K1"] = (tr.eval_values, T / wall)
+    ql = np.asarray(tr.mean_queue_lengths)
+    check(ql.shape == (n,) and bool(np.all(ql > 0)) and abs(ql.sum() - C) <= 1e-3 * C,
+          f"sparse MLP: the run took the sparse stream (every client's mean queue length is its "
+          f"class's share, > 0; sum {ql.sum():.4f} == C)")
+    gap = _tree_gap(w_k1, r.final_params)
+    check(gap <= 1e-5, f"sparse MLP: K1 vs run_experiment's plain update on the same draws, max "
+          f"weight gap {gap:.3e} <= 1e-5")
+    # phase 18's faults with the availability flips scaled to the population
+    # (`_sparse_fault`): K1 per event, then the plain update under the guard
+    fault, guard = _sparse_fault(n), _robust_settings(C)[1]
+    wu.reset_launches()
+    (w_f, tr_f), wall = _timed(lambda: run(replace(base, faults=fault, update="pallas")))
+    _k1_counts(path, "sparse MLP per event under faults", T, 6)
+    accs["per event K1, faults"] = (tr_f.eval_values, T / wall)
+    kc = tr_f.extras["kind_count"]
+    check(int(kc.sum()) == T and int(kc[3]) > 0 and all(
+        bool(torch.isfinite(v).all()) for v in w_f.values()),
+          f"sparse MLP under faults: kind_count {kc.tolist()} sums to T = {T}, flips included; "
+          "weights finite")
+    (w_g, tr_g), wall = _timed(lambda: run(replace(base, faults=fault, guard=guard)))
+    accs["per event, faults + guard"] = (tr_g.eval_values, T / wall)
+    kc, ex = tr_g.extras["kind_count"], tr_g.extras
+    check(int(kc.sum()) == T and int(kc[3]) > 0 and all(
+        bool(torch.isfinite(v).all()) for v in w_g.values()),
+          f"sparse MLP under faults and the guard (plain update): kind_count {kc.tolist()} sums "
+          f"to T = {T}, flips included; guard rejects {int(ex['guard_rejects'])}, stale drops "
+          f"{int(ex['stale_drops'])}; weights finite")
+    for label, (acc, eps) in accs.items():
+        print(f"sparse MLP {label}: {eps:.1f} events/s, acc {acc}")
+        check(len(acc) == T // every and bool(np.isfinite(acc).all()) and acc[-1] > acc[0],
+              f"sparse MLP {label}: accuracy rises {acc[0]:.4f} -> {acc[-1]:.4f}")
+    small = replace(base, update="pallas", T=SPARSE_PROFILE_T, eval_every=0)
+    _print_profile(f"sparse MLP per-event K1, n={n}, T={SPARSE_PROFILE_T}", lambda: run(small),
+                   SPARSE_PROFILE_T)
+    # one chunk of the sparse fused runner under the sync check: under the
+    # faults and the guard, importance-weighted and adaptive
+    L = SPARSE_CHUNK
+    fused = make_fused_runner(_device_grad_fn(setup.clients), n, C, L, weighting="importance",
+                              adaptive=True, refresh_every=L, classes=spec, fault=fault,
+                              guard=guard)
+    mu_g = torch.tensor(mu_m, dtype=torch.float32, device=dev)
+    p_g = torch.tensor(p_m, dtype=torch.float32, device=dev)
+    nodes, ur, ue, ud, um, ub = sd.draw_sparse_uniforms(5, spec, C, L, p_g, device=dev,
+                                                        fault=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w_c, _, ex_c = fused.from_draws(setup.params, mu_g, p_g, 0.05, nodes, ur, ue, ud, u_mem=um,
+                                        u_bit=ub)
+        synced = False
+    except RuntimeError as e:
+        synced = str(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ok = synced is False and all(bool(torch.isfinite(v).all()) for v in w_c.values())
+    kinds = ex_c["kind_count"].tolist() if ok else None
+    check(ok and tuple(ex_c["p_traj"].shape) == (1, spec.m) and sum(kinds) == L,
+          f"one chunk of the sparse fused runner ({L} events at n={n}, importance-weighted, "
+          "adaptive, under the faults and the guard: class draws, the idle pools, slot scales, "
+          "the MLP's per-event replay and the guard, ctrl_refresh(counts=)) makes no host sync "
+          f"(set_sync_debug_mode('error')); kinds {kinds}, guard rejects "
+          f"{int(ex_c['guard_rejects']) if ok else None}, stale drops "
+          f"{int(ex_c['stale_drops']) if ok else None}{'' if synced is False else ': ' + synced[:200]}")
+    del w_k1, w_f, w_g, w_c, setup, data
+    print(f"sparse MLP part: set-up {t_setup:.1f} s of {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sparse(dev, launches: dict) -> None:
+    """21. The sparse O(C) stream and the class-collapsed control plane (see
+    the module docstring); adds K1's launches to ``launches`` under
+    "sparse_mlp"."""
+    t0 = time.perf_counter()
+    _sparse_card(dev)
+    _sparse_control(dev)
+    t1 = time.perf_counter()
+    _sparse_mlp(dev, launches)
+    t2 = time.perf_counter()
+    print(f"phase 21 times: stream and control plane {t1 - t0:.1f} s, MLP {t2 - t1:.1f} s; "
+          f"phase 21 {t2 - t0:.1f} s")
+
+
 GROUPS = ("k1k2k6", "fa", "ssd", "gmm", "mlp", "lanes", "granite", "ssm", "matrix", "moe",
-          "robust", "stream", "stream_robust")
+          "robust", "stream", "stream_robust", "sparse")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -3879,6 +4361,9 @@ def main(argv: list[str] | None = None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
 
+    # the CPU runs phases 19-21 hold the card to, and phase 21's MLP shards,
+    # in CPU-only worker processes beside the build
+    workers = _start_cpu_references(groups)
     # 1. build every kernel source of the checkout, one nvcc each, in parallel
     t0 = time.perf_counter()
     srcs = sorted(p.stem for p in build.CSRC.glob("*.cu"))
@@ -3888,6 +4373,8 @@ def main(argv: list[str] | None = None) -> int:
         build.load(name)
     print(f"build: {srcs} in {time.perf_counter() - t0:.2f} s")
     done("1")
+    _collect_cpu_references(workers)
+    done("1 and the CPU workers")
 
     # 17. the scenario matrix, first (`phase_matrix`)
     launches: dict = {}
@@ -3950,6 +4437,11 @@ def main(argv: list[str] | None = None) -> int:
     if "stream_robust" in groups:
         phase_stream_robust(dev, launches)
         done("20")
+        torch.cuda.empty_cache()
+    # 21. the sparse O(C) stream and the class-collapsed control plane
+    if "sparse" in groups:
+        phase_sparse(dev, launches)
+        done("21")
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)

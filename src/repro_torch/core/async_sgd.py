@@ -85,8 +85,8 @@ class ServerConfig:
 
     The field names are `repro.core.async_sgd.ServerConfig`'s, so one config
     drives both packages, plus ``device``.  Options this port does not run
-    yet (the sparse stream, the serving plane) raise `NotImplementedError`
-    naming their ROADMAP item.
+    yet (the serving plane) raise `NotImplementedError` naming their
+    ROADMAP item.
     """
 
     n: int                      # number of clients
@@ -108,9 +108,11 @@ class ServerConfig:
                                 # plain versions on a CPU device)
     stream: str = "host"        # scan engine event source: "host" (pre-simulated
                                 # replay) | "device" (fused on-device generator)
-    sparse: bool | str = "auto"  # device stream: "auto" stays dense below
-                                 # SPARSE_AUTO_N; True (the O(C) stream) raises
-                                 # item 9; the host stream ignores it
+    sparse: bool | str = "auto"  # device stream: the sparse O(C) class-collapsed
+                                 # stream; "auto" takes it at n >= SPARSE_AUTO_N
+                                 # where it composes (else dense), True always
+                                 # (raising where it does not); the host
+                                 # stream ignores it
     adaptive: bool = False      # device stream: re-optimize p from the measured
                                 # rates every refresh_every CS steps
     refresh_every: int = 0
@@ -182,8 +184,8 @@ def _resolve_scenario_cfg(cfg: ServerConfig):
 
 def _reject_unported(cfg: ServerConfig) -> None:
     """Raise for every option of `repro`'s ServerConfig the port does not
-    run: the sparse stream (item 9), then the serving plane (item 11).  The
-    engine's own validation raises first, as the reference's does."""
+    run: the serving plane (item 11).  The engine's own validation raises
+    first, as the reference's does."""
     if cfg.stream not in ("host", "device"):
         raise ValueError(cfg.stream)
     if cfg.engine == "python" and (cfg.stream == "device" or cfg.adaptive):
@@ -196,9 +198,7 @@ def _reject_unported(cfg: ServerConfig) -> None:
                 "stream='device' supports exponential service only "
                 "(the on-device race relies on memorylessness)"
             )
-        if cfg.sparse is True and _resolve_scenario_cfg(cfg) is None:
-            raise unported("sparse=True (the sparse O(C) stream)", 9)
-        if cfg.sparse not in (False, "auto"):
+        if cfg.sparse not in (True, False, "auto"):
             raise ValueError(f"sparse={cfg.sparse!r} (expected bool or 'auto')")
     if cfg.serving is not None and cfg.serving.enabled:
         raise unported("serving=", 11)
@@ -230,9 +230,9 @@ def _pallas_update_fn():
 DEFAULT_BLOCK_SIZE_MAX = 16
 #: probe length for "auto" when no event stream is materialized (device path)
 AUTO_PROBE_STEPS = 4000
-#: sparse="auto" would switch the device stream to the O(C) class-collapsed
-#: stream at and above this population size (ROADMAP item 9: the port keeps
-#: the dense stream, so "auto" stays dense and larger n raises)
+#: sparse="auto" switches the device stream to the O(C) class-collapsed
+#: stream at and above this population size (below it the dense (n, C)
+#: stream is already fast and stays the oracle)
 SPARSE_AUTO_N = 50_000
 
 
@@ -451,29 +451,68 @@ def _run_scan(
     return w, trace
 
 
-def _resolve_sparse(cfg: ServerConfig, mu, p, block_size, ckpt_on: bool = False) -> None:
-    """The reference's ``sparse="auto"`` decision on the device stream: the
-    dense stream for a blocked, lane-sharded or checkpointed run, below
-    `SPARSE_AUTO_N` clients, or when the speed profile does not collapse to
-    few classes or the fault rates vary within a class; otherwise it would
-    take the sparse O(C) stream, which is not ported (item 9; ``sparse=True``
-    raises in `_reject_unported`)."""
-    if (cfg.sparse != "auto" or (block_size != "auto" and int(block_size) > 1)
-            or cfg.devices > 1 or ckpt_on or cfg.n < SPARSE_AUTO_N):
-        return
-    from .classes import build_class_spec
+def _resolve_sparse(cfg: ServerConfig, mu, p, block_size, ckpt_on: bool = False):
+    """Decide whether the device stream runs sparse, and collapse to classes.
 
+    Returns ``(ClassSpec, mu_m, p_m)``, the class-level rates and per-node
+    sampling probabilities, or ``(None, None, None)`` to keep the dense
+    stream.  ``sparse=True`` raises on a blocked, lane-sharded or
+    checkpointed run and where the population does not collapse (too many
+    speed classes, fault rates that vary within a class);
+    ``sparse="auto"`` falls back to the dense stream in those cases and
+    below `SPARSE_AUTO_N` clients, as the reference does."""
+    from .stream_device import build_class_spec, resolve_fault_rates_classes
+
+    forced = cfg.sparse is True
+    blockers = []
+    if block_size != "auto" and int(block_size) > 1:
+        blockers.append("block_size > 1")
+    if cfg.devices > 1:
+        blockers.append("devices > 1")
+    if ckpt_on:
+        blockers.append("checkpointing")
+    if blockers:
+        if forced:
+            raise ValueError("sparse=True does not compose with " + ", ".join(blockers))
+        return None, None, None
+    if not forced and cfg.n < SPARSE_AUTO_N:
+        return None, None, None
     try:
-        spec, _, _ = build_class_spec(mu, p)
+        spec, mu_m, p_m = build_class_spec(mu, p)
+        if cfg.faults is not None and cfg.faults.enabled:
+            resolve_fault_rates_classes(cfg.faults, spec)  # class-constant?
     except ValueError:
-        return
-    if cfg.faults is not None and cfg.faults.enabled:
-        rates = np.stack(cfg.faults.resolve(cfg.n))[:, np.asarray(spec.perm)]
-        for o, c in zip(np.asarray(spec.offsets), np.asarray(spec.counts)):
-            seg = rates[:, o : o + c]
-            if not np.allclose(seg, seg[:, :1]):
-                return  # the reference's resolve_fault_rates_classes refuses: dense
-    raise unported(f"the sparse O(C) stream (sparse='auto' at n >= {SPARSE_AUTO_N})", 9)
+        if forced:
+            raise
+        return None, None, None
+    return spec, np.asarray(mu_m, np.float64), np.asarray(p_m, np.float64)
+
+
+def _expand_class_extras(extras: dict, classes) -> dict:
+    """Expand the fused runner's (m,) class-level extras (numpy) back to
+    per-client (n,) arrays.
+
+    Per-node quantities (``p_final``, ``p_traj``) gather through
+    ``inv_cls``; class totals (``occ_mean``, ``busy_time``, ``comp``, ...)
+    divide by the class size first (within a class the clients are
+    exchangeable, so a client's expectation is the class total over the
+    class count).  ``mean_delays`` is computed per class (the class totals
+    keep the ratio exact) and gathered.
+    """
+    inv = np.asarray(classes.inv_cls)
+    cnt = np.asarray(classes.counts, np.float64)
+    out = {k: np.asarray(v) for k, v in extras.items()}
+    if "p_final" in out:
+        out["p_final"] = out["p_final"][inv]
+    if "p_traj" in out:
+        out["p_traj"] = out["p_traj"][..., inv]
+    if "comp" in out and "delay_sum" in out:
+        out["mean_delays"] = (np.asarray(out["delay_sum"], np.float64)
+                              / np.maximum(np.asarray(out["comp"], np.float64), 1.0))[inv]
+    for k in ("occ_mean", "occ_time_avg", "busy_time", "delay_sum", "comp", "avail_time"):
+        if k in out:
+            out[k] = (np.asarray(out[k], np.float64) / cnt)[inv]
+    return out
 
 
 def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff_Z: int = 0,
@@ -506,8 +545,11 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
             block_size = 1  # the scenario stream is per event
         elif int(block_size) > 1:
             raise ValueError("scenario= requires block_size=1")
-    else:
-        _resolve_sparse(cfg, mu, p, block_size, ckpt_on)
+    classes = class_mu = class_p = None
+    if scenario is None:
+        classes, class_mu, class_p = _resolve_sparse(cfg, mu, p, block_size, ckpt_on)
+    if classes is not None:
+        block_size = 1  # the sparse stream is per event: no "auto" probe
     eval_every = cfg.eval_every if eval_fn is not None else 0
     if block_size == "auto":
         block_size = _auto_block_size(
@@ -524,9 +566,13 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
         ctrl_iters=cfg.ctrl_iters, update_fn=_scan_update_fn(cfg), block_size=int(block_size),
         snapshot_dtype=cfg.snapshot_dtype, collect_extras=cfg.collect_extras,
         lane_devices=cfg.devices, fault=faults, guard=cfg.guard, scenario=scenario,
+        classes=classes,
     )
-    w, evals, extras = runner(_to_device(w0, device), mu, p, cfg.seed, cfg.eta)
+    run_mu, run_p = (mu, p) if classes is None else (class_mu, class_p)
+    w, evals, extras = runner(_to_device(w0, device), run_mu, run_p, cfg.seed, cfg.eta)
     extras = {k: v.detach().cpu().numpy() for k, v in extras.items()}  # one host sync
+    if classes is not None:
+        extras = _expand_class_extras(extras, classes)
     # collect_extras=False prunes the per-step clock: NaN, not made-up times
     times = np.asarray(extras["t"], np.float64) if "t" in extras else np.full(cfg.T, np.nan)
     trace = TraceRecord(steps=np.arange(cfg.T), times=times)
@@ -537,9 +583,12 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
     if "occ_mean" in extras:
         trace.mean_queue_lengths = np.asarray(extras["occ_mean"], np.float64)
         comp = np.asarray(extras["comp"], np.float64)
+        mean_delays = (np.asarray(extras["mean_delays"], np.float64)
+                       if "mean_delays" in extras  # sparse: the exact class-level ratio
+                       else np.asarray(extras["delay_sum"], np.float64) / np.maximum(comp, 1.0))
         trace.extras.update(
             p_traj=np.asarray(extras["p_traj"], np.float64),
-            mean_delays=np.asarray(extras["delay_sum"], np.float64) / np.maximum(comp, 1.0),
+            mean_delays=mean_delays,
             comp=comp,
             busy_time=np.asarray(extras["busy_time"], np.float64),
         )

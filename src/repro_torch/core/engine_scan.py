@@ -970,20 +970,18 @@ def _make_host_block_runner(
 # ------------------------------------------------------------------ #
 # device stream: the fused runner (the closed network and Algorithm 1)
 # ------------------------------------------------------------------ #
-def _reject_fused_unported(*, serving, classes, lane_devices, lane_axis,
-                           shard_devices=1) -> None:
+def _reject_fused_unported(*, serving, lane_devices, lane_axis, shard_devices=1) -> None:
     """Options the reference's fused runner takes that wait for their own
     ROADMAP items here."""
     if serving is not None and serving.enabled:
         raise unported("serving=", 11)
-    if classes is not None:
-        raise unported("classes= (the sparse O(C) stream)", 9)
     if lane_devices > 1 or lane_axis is not None or shard_devices > 1:
         raise unported("lanes and shards of the device stream", 12)
 
 
 def _check_fused_options(*, faulty: bool, scen_on: bool, guard, fedbuff_Z: int, E: int,
-                         serving, classes, vmap_scenarios: bool) -> None:
+                         serving, classes, vmap_scenarios: bool, n: int = 0,
+                         lane_devices: int = 1) -> None:
     """The reference's `ValueError`s for fused options that do not compose
     (`repro.core.engine_scan.make_fused_runner`), with its messages; the
     cell axis replays without a guard, as the host cell axis does."""
@@ -1000,6 +998,15 @@ def _check_fused_options(*, faulty: bool, scen_on: bool, guard, fedbuff_Z: int, 
             raise ValueError("scenario= composes with Algorithm 1, not FedBuff")
         if serving is not None and serving.enabled:
             raise ValueError("scenario= does not compose with serving=")
+    if classes is not None:
+        if E > 1:
+            raise ValueError("classes= (sparse stream) requires block_size=1")
+        if lane_devices > 1:
+            raise ValueError("classes= (sparse stream) requires lane_devices=1")
+        if classes.n != n:
+            raise ValueError(f"ClassSpec covers n={classes.n} clients, runner built for n={n}")
+        if serving is not None and serving.enabled:
+            raise ValueError("serving= requires the dense stream (classes=None)")
     if faulty and fedbuff_Z:
         raise ValueError("fault injection composes with Algorithm 1, not FedBuff "
                          "(a crash/timeout at a flush step has no masking semantics)")
@@ -1094,13 +1101,24 @@ def make_fused_runner(
     the chunk's scales before the cut).  ``extras`` then gains
     ``guard_rejects`` / ``stale_drops``, and with a fault or scenario the
     kind counts ``kind_count`` and the availability integral
-    ``avail_time``.  The options that do not compose raise the reference's
-    `ValueError`s; serving, the sparse stream and lanes raise their ROADMAP
-    items.
+    ``avail_time``.  ``classes`` (a `ClassSpec` of the n clients, from
+    `build_class_spec`) runs the sparse O(C) stream
+    (`stream_device.sparse_stream_step`, per event only): ``mu`` / ``p0``
+    are then the (m,) class-level values, each chunk's K comes from
+    `stream_device.sample_dispatch_classes` at the chunk's p, the
+    importance scale of a dispatch to K is ``eta / (n p[class of K])``, the
+    statistics extras are per class, ``extras["class_counts"]`` holds the
+    class sizes and the adaptive refresh runs on the class simplex
+    (`stream_device.ctrl_refresh(counts=)`).  The events still carry global
+    client ids and slots, so the replay, K1, the guard and FedBuff are the
+    dense stream's.  The options that do not compose raise the reference's
+    `ValueError`s; serving and lanes raise their ROADMAP items.
 
     ``run.from_draws(w0, mu, p0, eta, nodes, u_race, u_exp, u_disp[, u_ph,
-    u_phase0])`` takes given draws (the scenario stream's dispatch-phase
-    and initial-phase uniforms last), so parity tests pass the reference's.
+    u_phase0], u_mem=, u_bit=)`` takes given draws (the scenario stream's
+    dispatch-phase and initial-phase uniforms last; the sparse stream's
+    member uniforms ``u_mem`` and, under faults, availability-bit uniforms
+    ``u_bit`` by keyword), so parity tests pass the reference's.
     """
     from . import stream_device as sd
     from .theory import BoundConstants
@@ -1119,9 +1137,11 @@ def make_fused_runner(
     E = max(int(block_size), 1)
     faulty, scen_on = sd._enabled(fault), sd._enabled(scenario)
     _check_fused_options(faulty=faulty, scen_on=scen_on, guard=guard, fedbuff_Z=fedbuff_Z, E=E,
-                         serving=serving, classes=classes, vmap_scenarios=vmap_scenarios)
-    _reject_fused_unported(serving=serving, classes=classes, lane_devices=lane_devices,
-                           lane_axis=lane_axis)
+                         serving=serving, classes=classes, vmap_scenarios=vmap_scenarios, n=n,
+                         lane_devices=lane_devices)
+    _reject_fused_unported(serving=serving, lane_devices=lane_devices, lane_axis=lane_axis)
+    sparse = classes is not None
+    counts = tuple(int(c) for c in np.asarray(classes.counts)) if sparse else None
     if vmap_scenarios and fedbuff_Z:
         raise ValueError("vmap_scenarios=True runs Generalized AsyncSGD (fedbuff_Z=0)")
     bound = bound if bound is not None else BoundConstants(C=C, T=T)
@@ -1134,10 +1154,12 @@ def make_fused_runner(
     L, n_chunks, eval_stride = _fused_chunking(T, eval_on, eval_every, adaptive, refresh_every)
     flat_mode = update_fn is None
 
-    def run_draws(w0, mu, p0, eta, nodes, u_race, u_exp, u_disp, u_ph=None, u_phase0=None):
+    def run_draws(w0, mu, p0, eta, nodes, u_race, u_exp, u_disp, u_ph=None, u_phase0=None, *,
+                  u_mem=None, u_bit=None):
         """The run on given draws: ``nodes`` (C,), ``u_race`` / ``u_exp`` /
-        ``u_disp`` (T,) (a leading B with ``vmap_scenarios``), and for a
-        scenario ``u_ph`` (T,) and ``u_phase0`` (C,): the port's
+        ``u_disp`` (T,) (a leading B with ``vmap_scenarios``), for a
+        scenario ``u_ph`` (T,) and ``u_phase0`` (C,), and for the sparse
+        stream ``u_mem`` (T,) and under faults ``u_bit`` (T,): the port's
         generator's (`run`) or the reference's (parity tests)."""
         dev = u_race.device
         lead = u_race.shape[:-1]
@@ -1148,7 +1170,15 @@ def make_fused_runner(
         u_race, u_disp = as2(u_race, torch.float32), as2(u_disp, torch.float32)
         e_hold = -torch.log1p(-as2(u_exp, torch.float32))
         eta_t = torch.full((), float(eta), dtype=torch.float32, device=dev)
-        fr, sr = sd._resolve_modes(fault, scenario, n, dev)
+        if sparse:
+            spec = sd._spec_on(classes, dev)
+            fr, sr = sd._resolve_class_modes(fault, None, classes, dev)
+            u_mem = as2(u_mem, torch.float32)
+            u_bit = as2(u_bit, torch.float32) if faulty else None
+        else:
+            spec = None
+            fr, sr = sd._resolve_modes(fault, scenario, n, dev)
+        width = spec.m if sparse else n  # of the stream's mu, p and statistics
         pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype)
         _require_flat_codec(unpack)
         # flip and stage events carry slot C: the ring's trash row takes them
@@ -1157,30 +1187,38 @@ def make_fused_runner(
             grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z, E, n, C, B,
             dev, guard)
 
-        if sr is not None:
+        if sparse:
+            sstate, _ = sd.sparse_stream_init(nodes, spec, C, fault=faulty)
+        elif sr is not None:
             u_ph = as2(u_ph, torch.float32)
             sstate, _ = sd.scenario_stream_init(nodes, n, C, sr, as2(u_phase0, torch.float32))
         else:
             sstate, _ = sd.stream_init(nodes, n, C, fault=fr is not None)
-        stats = (sd.stats_init(n, C, fault=fr is not None, scenario=sr is not None, cells=B,
+        stats = (sd.stats_init(width, C, fault=fr is not None, scenario=sr is not None, cells=B,
                                device=dev) if need_stats else None)
-        slot_scale = _slot_scales(eta_t, n, p, nodes, tagged) if importance else None
-        cst = sd._Consts((B,), C, dev, n=n)
+        cls_of = spec.inv_cls if sparse else None
+        slot_scale = (_slot_scales(eta_t, n, p, nodes, tagged, cls_of=cls_of) if importance
+                      else None)
+        cst = sd._Consts((B,), C, dev, n=None if sparse else n)
         evals, p_traj, ts = [], [], []
         for c in range(n_chunks + (T > n_chunks * L)):
             a, b = c * L, min((c + 1) * L, T)
-            K = sd.tree_sample(sd.tree_build(p), u_disp[:, a:b])
+            if sparse:
+                K = sd.sample_dispatch_classes(p, spec, u_disp[:, a:b], u_mem[:, a:b])
+            else:
+                K = sd.tree_sample(sd.tree_build(p), u_disp[:, a:b])
             sstate, stats, slot_scale, t = _advance_chunk(
                 replay, sstate, stats, slot_scale if importance else None, p, mu,
                 e_hold[:, a:b], u_race[:, a:b], K, a, cst, eta_t=eta_t, n=n,
                 need_stats=need_stats, fr=fr, sr=sr,
-                u_ph=None if sr is None else u_ph[:, a:b], guard_stale=guard_stale)
+                u_ph=None if sr is None else u_ph[:, a:b], guard_stale=guard_stale, spec=spec,
+                u_bit=None if u_bit is None else u_bit[:, a:b])
             if collect_extras:
                 ts.append(t)
             if c < n_chunks:
                 if adaptive:
                     p = sd.ctrl_refresh(p, stats.comp, stats.busy_t, bound, lr=ctrl_lr,
-                                        iters=ctrl_iters)
+                                        iters=ctrl_iters, counts=counts)
                 if eval_on and (c + 1) % eval_stride == 0:
                     evals.append(replay.evaluate(eval_fn))
                 if collect_extras:
@@ -1204,48 +1242,61 @@ def make_fused_runner(
             )
             if tagged:
                 extras.update(kind_count=one(stats.kind_count), avail_time=one(stats.avail_tw))
+            if sparse:  # the statistics are per class: consumers expand by the sizes
+                extras["class_counts"] = sd._table(classes.counts, torch.int32, dev)
         return w, evals, extras
 
     def run(w0, mu, p0, key, eta):
         dev = tree_leaves(w0)[0].device
         keys = list(key) if vmap_scenarios else [key]
         ps = torch.as_tensor(np.asarray(p0) if not isinstance(p0, torch.Tensor) else p0)
-        ps = ps.to(device=dev, dtype=torch.float32).reshape(len(keys), n)
-        draws = [sd.draw_uniforms(k, n, C, T, ps[i], init, dev, scenario=scen_on)
-                 for i, k in enumerate(keys)]
+        ps = ps.to(device=dev, dtype=torch.float32).reshape(len(keys), -1)
+        if sparse:
+            draws = [sd.draw_sparse_uniforms(k, classes, C, T, ps[i], init, dev, fault=faulty)
+                     for i, k in enumerate(keys)]
+        else:
+            draws = [sd.draw_uniforms(k, n, C, T, ps[i], init, dev, scenario=scen_on)
+                     for i, k in enumerate(keys)]
         stacked = [torch.stack(d) for d in zip(*draws)]
         if not vmap_scenarios:
             stacked = [d[0] for d in stacked]
+        if sparse:
+            nodes, ur, ue, ud, um, *ub = stacked
+            return run_draws(w0, mu, p0, eta, nodes, ur, ue, ud, u_mem=um,
+                             u_bit=ub[0] if ub else None)
         return run_draws(w0, mu, p0, eta, *stacked)
 
     run.from_draws = run_draws
     return run
 
 
-def _slot_scales(eta_t, n: int, p, nodes, tagged: bool):
+def _slot_scales(eta_t, n: int, p, nodes, tagged: bool, cls_of=None):
     """The (B, C) dispatch-time importance scales of the initial tasks; on
     a fault or scenario stream with an entry C for the trash slot (read
-    only by flip and stage events, whose scale is masked to 0)."""
-    scale = eta_t / (n * p.gather(-1, nodes))
+    only by flip and stage events, whose scale is masked to 0).  On the
+    sparse stream ``p`` is per class and ``cls_of`` maps a client to its
+    class (`ClassSpec.inv_cls`)."""
+    scale = eta_t / (n * p.gather(-1, nodes if cls_of is None else torch.take(cls_of, nodes)))
     return torch.cat([scale, scale.new_zeros(scale.shape[0], 1)], dim=-1) if tagged else scale
 
 
 def _advance_chunk(replay, sstate, stats, slot_scale, p, mu, e_hold, u_race, K, k0: int, cst, *,
                    eta_t, n: int, need_stats: bool, fr=None, sr=None, u_ph=None,
-                   guard_stale: bool = False):
+                   guard_stale: bool = False, spec=None, u_bit=None):
     """One chunk of fused events, shared by the fused runner and the
     checkpointed driver (`engine_ckpt.run_checkpointed`): the stream
-    advanced over the chunk's (B, L) draws (`stream_device._advance`),
-    each event's scale (the completing task's dispatch-time importance
-    scale from ``slot_scale``, or plain ``eta_t`` when ``slot_scale`` is
-    None; 0 for a crash, timeout, flip or stage event), then ``replay``'s
-    steps over the chunk.  Returns ``(sstate, stats, slot_scale, t)``."""
+    advanced over the chunk's (B, L) draws (`stream_device._advance`; the
+    sparse stream with ``spec``), each event's scale (the completing task's
+    dispatch-time importance scale from ``slot_scale``, or plain ``eta_t``
+    when ``slot_scale`` is None; 0 for a crash, timeout, flip or stage
+    event), then ``replay``'s steps over the chunk.  Returns ``(sstate,
+    stats, slot_scale, t)``."""
     from . import stream_device as sd
 
     scales = []
     on_event = None
     if slot_scale is not None:
-        psc = eta_t / (n * p.gather(-1, K))
+        psc = eta_t / (n * p.gather(-1, K if spec is None else torch.take(spec.inv_cls, K)))
         box = [slot_scale]
 
         def on_event(i, ev):
@@ -1256,7 +1307,7 @@ def _advance_chunk(replay, sstate, stats, slot_scale, p, mu, e_hold, u_race, K, 
 
     sstate, stats, (J, t, slot, delay, kind) = sd._advance(
         sstate, stats, mu, e_hold, u_race, K, k0, cst, need_stats, on_event, fr=fr, sr=sr,
-        u_ph=u_ph)
+        u_ph=u_ph, spec=spec, u_bit=u_bit)
     if slot_scale is not None:
         slot_scale = box[0]
         scale = torch.stack(scales, dim=-1)
@@ -1525,8 +1576,8 @@ def jit_fused_runner(grad_fn, n: int, C: int, T: int, *, vmap_scenarios: bool = 
     `make_fused_runner` and take part in the memo key.  ``shard_devices``
     and ``lane_devices`` > 1 (the scenario and lane meshes) raise item 12.
     """
-    _reject_fused_unported(serving=None, classes=None, lane_devices=lane_devices,
-                           lane_axis=None, shard_devices=shard_devices)
+    _reject_fused_unported(serving=None, lane_devices=lane_devices, lane_axis=None,
+                           shard_devices=shard_devices)
     cache, func = _runner_cache(grad_fn)
 
     def entry(k, v):

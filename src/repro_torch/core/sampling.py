@@ -175,19 +175,42 @@ def optimize_two_cluster(
     k: BoundConstants,
     grid: int = 60,
 ) -> SamplingResult:
-    """Golden-section (after a batched coarse grid) over the fast-node probability."""
+    """Golden-section (after a batched coarse grid) over the fast-node probability.
+
+    From `_COLLAPSE_MIN_N` clients on, each bound takes its delays from the
+    two-class float64 MVA (`_mva_delays_f64`, O(C)) instead of the dense
+    Buzen pass (O(n C), a scipy call per node: ~50 s of host time at n =
+    50,000); the delays are the same up to float64 rounding.  Below it the
+    dense path stays, bitwise the reference's.
+    """
     mu = np.full(n, mu_s)
     mu[:n_f] = mu_f
+    collapse = n >= _COLLAPSE_MIN_N
+    if collapse:
+        counts = np.array([n_f, n - n_f], np.float64)
+        inv = np.repeat([0, 1], [n_f, n - n_f])
+
+        def bound_of(p: np.ndarray) -> tuple[float, float, np.ndarray]:
+            md, _ = _mva_delays_f64(np.array([mu_f, mu_s]), np.array([p[0], p[-1]]), counts,
+                                    k.C)
+            m = md[inv]
+            eta = optimal_eta(p, m, k)
+            return generalized_bound(eta, p, m, k), eta, m
+    else:
+        def bound_of(p: np.ndarray) -> tuple[float, float, np.ndarray]:
+            return bound_for_p(mu, p, k)
 
     def objective(p_fast: float) -> float:
-        p = two_cluster_p_vector(n, n_f, p_fast)
-        return bound_for_p(mu, p, k)[0]
+        return bound_of(two_cluster_p_vector(n, n_f, p_fast))[0]
 
     lo, hi = 1e-4 / n, (1.0 - 1e-6) / n_f
     # log-spaced coarse grid (optimum can sit orders of magnitude below 1/n),
-    # evaluated with a single batched Buzen pass
+    # evaluated with a single batched Buzen pass (dense)
     ps = np.geomspace(lo, hi, grid)
-    vals, _, _ = bound_for_p_batch(mu, _two_cluster_p_batch(n, n_f, ps), k)
+    if collapse:
+        vals = np.array([objective(float(pf)) for pf in ps])
+    else:
+        vals, _, _ = bound_for_p_batch(mu, _two_cluster_p_batch(n, n_f, ps), k)
     i = int(np.argmin(vals))
     a = float(ps[max(i - 1, 0)])
     b = float(ps[min(i + 1, grid - 1)])
@@ -207,9 +230,9 @@ def optimize_two_cluster(
             fd = objective(d)
     p_star = float(0.5 * (a + b))
     p_vec = two_cluster_p_vector(n, n_f, p_star)
-    bound, eta, m = bound_for_p(mu, p_vec, k)
+    bound, eta, m = bound_of(p_vec)
     u = np.full(n, 1.0 / n)
-    ub, _, _ = bound_for_p(mu, u, k)
+    ub, _, _ = bound_of(u)
     return SamplingResult(p=p_vec, eta=eta, bound=bound, uniform_bound=ub, m=m)
 
 

@@ -46,18 +46,31 @@ passed in) in the reference's order: the initial placement, then the race,
 holding-time and dispatch uniforms; a scenario stream then draws its (T,)
 dispatch-phase uniforms and the C initial-phase uniforms.  Threefry streams
 cannot be reproduced in torch, so the stream is held against the reference
-in law, and bitwise on the reference's own draws through `scan_draws`.  The
-sparse O(C) stream (ROADMAP item 9) raises.
+in law, and bitwise on the reference's own draws through `scan_draws`.
+
+The sparse O(C) stream is the same network for a population of few speed
+classes (`ClassSpec`): its state is the C in-flight tasks (`SparseStreamState`:
+node, class, FIFO stamp and head-of-line flag a slot, and under faults the
+per-class idle pools), each event races the <= C head-of-line tasks
+(`sparse_stream_step`; `sparse_fault_stream_step` 4C + 2m clocks,
+`sparse_scenario_stream_step` 2C + 2m), and the statistics are per class.
+Nothing per event touches an (n,) tensor but O(1) gathers from ``perm`` and
+``inv_cls``, so an event costs the same at n = 10^3 and n = 10^6.  Its draws
+(`draw_sparse_uniforms`) add the dispatch member uniforms ``u_mem`` and, under
+faults or a scenario, the availability-bit uniforms ``u_bit``;
+`sparse_scan_draws` runs it on given draws.  The control plane takes
+``counts=`` (the class sizes) and then runs on the class simplex.
 """
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..unported import unported
+from .classes import ClassSpec, build_class_spec
 from .queue_sim import (
     KIND_COMPLETE,
     KIND_FLIP,
@@ -96,6 +109,25 @@ __all__ = [
     "tree_update",
     "kahan_add",
     "kahan_value",
+    "ClassSpec",
+    "build_class_spec",
+    "resolve_fault_rates_classes",
+    "SparseStreamState",
+    "sample_dispatch_classes",
+    "sparse_stream_init",
+    "sparse_stream_step",
+    "sparse_fault_stream_step",
+    "sparse_scenario_stream_init",
+    "sparse_scenario_stream_step",
+    "sparse_scenario_class_stats",
+    "sparse_class_stats",
+    "class_occupancy",
+    "sparse_stats_init",
+    "sparse_stats_step",
+    "sparse_fault_stats_step",
+    "sparse_scan_draws",
+    "draw_sparse_uniforms",
+    "sparse_stats_stream_fn",
     "mva_throughput_delays",
     "optimal_eta_jnp",
     "generalized_bound_jnp",
@@ -307,13 +339,15 @@ def stream_init(nodes, n: int, C: int, fault: bool = False) -> tuple[StreamState
 
 class _Consts:
     """Per-shape constants of the step (built once a run, not per event);
-    ``cols`` (with ``n``) holds each node's first ring index, ``i * C``."""
+    ``cols`` (with ``n``) holds each node's first ring index, ``i * C``, and
+    ``ar`` the slot indices the sparse steps compare against."""
 
     def __init__(self, lead, C: int, device, n: int | None = None):
         self.one = torch.ones(*lead, 1, dtype=_I64, device=device)
         self.neg = -self.one
         self.C = C
         self.cols = None if n is None else torch.arange(n, dtype=_I64, device=device) * C
+        self.ar = torch.arange(C, dtype=_I64, device=device)
 
 
 def _stream_step(state: StreamState, mu, e_hold, u_race, k_new, cst: _Consts):
@@ -504,9 +538,40 @@ def resolve_scenario(scenario, n: int, device="cpu") -> ScenarioRates:
                          rate_scale=f(mod.rate_scale))
 
 
-def resolve_scenario_classes(scenario, spec) -> ScenarioRates:
-    """Class-level `resolve_scenario` (the sparse stream's): not ported."""
-    raise unported("resolve_scenario_classes (the sparse O(C) stream)", 9)
+def _host(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _class_values(rates, spec, what: str, group: str) -> list:
+    """Each class's value of each per-node rate in ``rates`` ((name, (n,))
+    pairs), as float64 (m,) arrays; a rate that varies within a speed class
+    raises the reference's ValueError (the sparse idle pools need
+    exchangeable nodes within a class)."""
+    perm, offsets, counts = (_host(a) for a in (spec.perm, spec.offsets, spec.counts))
+    out = []
+    for name, r in rates:
+        rc = np.asarray(r, np.float64)[perm]
+        vals = rc[offsets]
+        for c in range(counts.size):
+            if not np.allclose(rc[offsets[c]: offsets[c] + counts[c]], vals[c]):
+                raise ValueError(f"{what}.{name} varies within speed class {c}; the sparse "
+                                 f"stream requires class-constant {group}")
+        out.append(vals)
+    return out
+
+
+def resolve_scenario_classes(scenario, spec, device="cpu") -> ScenarioRates:
+    """Class-level `resolve_scenario`: the modulation rates as ``(m,)``
+    tensors.  Modulation must be constant within each speed class, as the
+    fault rates must (`resolve_fault_rates_classes`)."""
+    acdf, srate, absorb, nxt, mod = _scenario_tables(scenario)
+    q_off, q_on = mod.resolve(spec.n)
+    q_off, q_on = _class_values((("off_rate", q_off), ("on_rate", q_on)), spec,
+                                "ModulationConfig", "modulation")
+    f = lambda a: _table(a, _F32, device)  # noqa: E731
+    return ScenarioRates(acdf=f(acdf), srate=f(srate), absorb=f(absorb),
+                         nxt=_table(nxt, _I64, device), q_off=f(q_off), q_on=f(q_on),
+                         rate_scale=f(mod.rate_scale))
 
 
 def _phase_draw(acdf, u):
@@ -615,18 +680,24 @@ def stats_init(n: int, C: int, fault: bool = False, scenario: bool = False, *,
                       avail_tw_c=zf() if tagged else None)
 
 
-def _stats_step(stats: StatsState, ev: Event, occ_pre, occ_post, k, delay, cst: _Consts):
-    """`stats_step` given the step's integer delay ``k - slot_step[slot]``."""
+def _stats_step(stats: StatsState, ev: Event, occ_pre, occ_post, k, delay, cst: _Consts,
+                busy=None, at=None):
+    """`stats_step` given the step's integer delay ``k - slot_step[slot]``;
+    the sparse stream's passes its per-class ``busy`` exposure over ``ev.dt``
+    and the completing node's class ``at`` (default: ``1{X > 0} dt`` at
+    node ``ev.j``)."""
     dt = ev.dt[..., None]
+    at = ev.j if at is None else at
     occ_tw, occ_tw_c = kahan_add(stats.occ_tw, stats.occ_tw_c, torch.mul(occ_pre, dt))
-    busy_t, busy_t_c = kahan_add(stats.busy_t, stats.busy_t_c, torch.where(occ_pre > 0, dt, 0.0))
-    delay_sum, delay_sum_c = _kahan_scatter_add(stats.delay_sum, stats.delay_sum_c, ev.j,
+    busy_t, busy_t_c = kahan_add(stats.busy_t, stats.busy_t_c,
+                                 torch.where(occ_pre > 0, dt, 0.0) if busy is None else busy)
+    delay_sum, delay_sum_c = _kahan_scatter_add(stats.delay_sum, stats.delay_sum_c, at,
                                                 delay.to(_F32))
     return StatsState(
         occ_sum=stats.occ_sum + occ_post,
         occ_tw=occ_tw,
         busy_t=busy_t,
-        comp=stats.comp.scatter_add(-1, ev.j[..., None], cst.one),
+        comp=stats.comp.scatter_add(-1, at[..., None], cst.one),
         delay_sum=delay_sum,
         slot_step=stats.slot_step.scatter(-1, ev.slot[..., None], k + 1),
         occ_tw_c=occ_tw_c,
@@ -660,14 +731,16 @@ def _exposure(occ_pre, avail_pre, dt, speed_pre=None):
 
 
 def _tagged_stats_step(stats: StatsState, ev: Event, occ_pre, busy_pre, avail_pre, occ_post,
-                       k: int, delay, C: int):
+                       k: int, delay, C: int, at=None):
     """The fault and scenario stats step: ``busy_pre`` is the (n,) exposure
-    integrated over ``ev.dt`` (`_exposure`)."""
+    integrated over ``ev.dt`` (`_exposure`); the sparse stream's passes
+    per-class counts and the completing node's class ``at``."""
     dt = ev.dt[..., None]
+    at = ev.j if at is None else at
     comp = ev.kind == KIND_COMPLETE
     occ_tw, occ_tw_c = kahan_add(stats.occ_tw, stats.occ_tw_c, torch.mul(occ_pre, dt))
     busy_t, busy_t_c = kahan_add(stats.busy_t, stats.busy_t_c, busy_pre)
-    delay_sum, delay_sum_c = _kahan_scatter_add(stats.delay_sum, stats.delay_sum_c, ev.j,
+    delay_sum, delay_sum_c = _kahan_scatter_add(stats.delay_sum, stats.delay_sum_c, at,
                                                 delay.to(_F32) * comp.to(_F32))
     avail_tw, avail_tw_c = kahan_add(stats.avail_tw, stats.avail_tw_c, avail_pre * dt)
     # any task movement refreshes its slot's dispatch step; a flip or stage
@@ -679,7 +752,7 @@ def _tagged_stats_step(stats: StatsState, ev: Event, occ_pre, busy_pre, avail_pr
         occ_sum=stats.occ_sum + occ_post,
         occ_tw=occ_tw,
         busy_t=busy_t,
-        comp=stats.comp.scatter_add(-1, ev.j[..., None], comp.to(_I64)[..., None]),
+        comp=stats.comp.scatter_add(-1, at[..., None], comp.to(_I64)[..., None]),
         delay_sum=delay_sum,
         slot_step=slot_step,
         avail_tw=avail_tw,
@@ -722,42 +795,56 @@ def scenario_stats_step(stats: StatsState, ev: Event, occ_pre, avail_pre, speed_
 # ---------------------------------------------------------------------- #
 # the scan harness: T fused steps of stream_step + stats_step
 # ---------------------------------------------------------------------- #
+def _dense_event(state, stats, mu, e_hold, u_race, k_new, u_ph, k: int, cst, need_stats: bool,
+                 fr, sr):
+    """One event of the dense stream and its statistics: ``(state, stats,
+    ev, delay)`` (delay None without stats)."""
+    occ_pre, avail_pre, speed_pre = state.occ, state.avail, None
+    if sr is not None:
+        speed_pre = _scenario_speed(avail_pre, sr)
+        state, ev = _scenario_stream_step(state, mu, sr, e_hold, u_race, k_new, u_ph, cst)
+    elif fr is not None:
+        state, ev = _fault_stream_step(state, mu, fr, e_hold, u_race, k_new, cst)
+    else:
+        state, ev = _stream_step(state, mu, e_hold, u_race, k_new, cst)
+    if not need_stats:
+        return state, stats, ev, None
+    if sr is None and fr is None:
+        delay = k - _take(stats.slot_step, ev.slot)
+        return state, _stats_step(stats, ev, occ_pre, state.occ, k, delay, cst), ev, delay
+    delay = _delay(stats, ev.slot, k, cst.C)
+    busy = _exposure(occ_pre, avail_pre, ev.dt[..., None], speed_pre)
+    stats = _tagged_stats_step(stats, ev, occ_pre, busy, avail_pre, state.occ, k, delay, cst.C)
+    return state, stats, ev, delay
+
+
 def _advance(state, stats, mu, e_hold, u_race, K, k0: int, cst, need_stats=True, on_event=None,
-             fr=None, sr=None, u_ph=None):
+             fr=None, sr=None, u_ph=None, spec=None, u_bit=None):
     """Advance the network over one block of pre-drawn inputs.
 
     ``e_hold``, ``u_race``, ``K`` (and the scenario stream's ``u_ph``) are
     ``(L,)`` (or ``(B, L)``); ``fr`` (`FaultRates`) selects the fault
-    stream, ``sr`` (`ScenarioRates`) the scenario stream.  Returns the new
-    ``(state, stats)`` and the stacked ``(J, t, slot, delay, kind)``
-    columns (delay None without stats, kind None on the plain stream).
-    ``on_event(i, ev)`` runs after each event's stream step (the fused
-    runner's slot-scale bookkeeping).
+    stream, ``sr`` (`ScenarioRates`) the scenario stream, and ``spec`` (a
+    `ClassSpec` with int64 tables on the device, `_spec_on`) the sparse
+    stream, whose tagged streams also take the availability-bit uniforms
+    ``u_bit``.  Returns the new ``(state, stats)`` and the stacked ``(J, t,
+    slot, delay, kind)`` columns (delay None without stats, kind None on
+    the plain stream).  ``on_event(i, ev)`` runs after each event's stream
+    step (the fused runner's slot-scale bookkeeping).
     """
     L = K.shape[-1]
-    C = cst.C
     Js, ts, ss, ds, ks = [], [], [], [], []
     for i in range(L):
-        occ_pre, avail_pre, speed_pre = state.occ, state.avail, None
-        if sr is not None:
-            speed_pre = _scenario_speed(avail_pre, sr)
-            state, ev = _scenario_stream_step(state, mu, sr, e_hold[..., i], u_race[..., i],
-                                              K[..., i], u_ph[..., i], cst)
-        elif fr is not None:
-            state, ev = _fault_stream_step(state, mu, fr, e_hold[..., i], u_race[..., i],
-                                           K[..., i], cst)
+        if spec is not None:
+            state, stats, ev, delay = _sparse_event(
+                state, stats, mu, spec, e_hold[..., i], u_race[..., i], K[..., i],
+                None if u_bit is None else u_bit[..., i], None if u_ph is None else u_ph[..., i],
+                k0 + i, cst, need_stats, fr, sr)
         else:
-            state, ev = _stream_step(state, mu, e_hold[..., i], u_race[..., i], K[..., i], cst)
+            state, stats, ev, delay = _dense_event(
+                state, stats, mu, e_hold[..., i], u_race[..., i], K[..., i],
+                None if u_ph is None else u_ph[..., i], k0 + i, cst, need_stats, fr, sr)
         if need_stats:
-            k = k0 + i
-            if sr is None and fr is None:
-                delay = k - _take(stats.slot_step, ev.slot)
-                stats = _stats_step(stats, ev, occ_pre, state.occ, k, delay, cst)
-            else:
-                delay = _delay(stats, ev.slot, k, C)
-                busy = _exposure(occ_pre, avail_pre, ev.dt[..., None], speed_pre)
-                stats = _tagged_stats_step(stats, ev, occ_pre, busy, avail_pre, state.occ, k,
-                                           delay, C)
             ds.append(delay)
         if on_event is not None:
             on_event(i, ev)
@@ -945,6 +1032,577 @@ def generate_blocks(mu, p, C: int, T: int, block_size: int, seed: int | torch.Ge
 
 
 # ---------------------------------------------------------------------- #
+# the sparse O(C) closed network: state keyed by the C in-flight tasks of a
+# population of few speed classes
+# ---------------------------------------------------------------------- #
+#: the FIFO stamp no slot reaches (the reference's int32 2**31 - 1 sentinel,
+#: here on int64 stamps): sorts after every real stamp
+_SEQ_LAST = torch.iinfo(torch.int64).max
+
+
+def _same_device(t: torch.Tensor, dev: torch.device) -> bool:
+    return t.device.type == dev.type and (dev.index is None or t.device.index == dev.index)
+
+
+def _spec_on(spec: ClassSpec, device) -> ClassSpec:
+    """``spec`` with its tables as int64 tensors on ``device`` (the index
+    dtype of torch's gathers); a spec already there is returned as it is.
+    Built once a run: the steps take it as it is."""
+    dev = torch.device(device)
+    if (isinstance(spec.perm, torch.Tensor) and spec.perm.dtype == _I64
+            and _same_device(spec.perm, dev)):
+        return spec
+    return ClassSpec(*(a.to(device=dev, dtype=_I64) if isinstance(a, torch.Tensor)
+                       else _table(a, _I64, dev) for a in spec))
+
+
+def resolve_fault_rates_classes(fault, spec: ClassSpec, device="cpu") -> FaultRates:
+    """Class-level `resolve_fault_rates`: ``(kappa, theta, q_off, q_on)`` as
+    ``(m,)`` float32 tensors on ``device``.  The rates must be constant
+    within each speed class (the exchangeability the sparse idle pools rely
+    on): a rate that varies within a class raises the reference's
+    ValueError."""
+    q_off, q_on, kappa, theta = fault.resolve(spec.n)
+    vals = _class_values((("crash_rate", kappa), ("timeout_rate", theta),
+                          ("off_rate", q_off), ("on_rate", q_on)), spec,
+                         "FaultConfig", "fault rates")
+    return FaultRates(*(_table(v, _F32, device) for v in vals))
+
+
+class SparseStreamState(NamedTuple):
+    """Sparse state of the closed network: O(C + m), not O(n C).
+
+    Each of the C circulating tasks is one slot; FIFO order within a node is
+    the monotone ``seq`` stamp and ``head`` marks the head-of-line task (one
+    per busy node).  Under faults the availability is carried per slot (the
+    same on every slot of a node) and the idle nodes as per-class ``(idle_on,
+    idle_off)`` counts: within a class idle nodes are exchangeable, so the
+    collapse is exact in law for every per-class observable.  Integer state
+    is int64 where the reference keeps int32.
+    """
+
+    node: Any      # (C,) int64: global client id of each in-flight task
+    cls: Any       # (C,) int64: speed class of that node
+    seq: Any       # (C,) int64: dispatch stamp (FIFO: head = min seq per node)
+    head: Any      # (C,) bool: head-of-line flag
+    t: Any         # () float32: physical time (Kahan sum; see t_c)
+    t_c: Any       # () float32
+    next_seq: Any  # () int64: the next dispatch stamp
+    avail: Any = None     # (C,) float32: availability bit of the slot's node
+    idle_on: Any = None   # (m,) int64: idle and available nodes per class
+    idle_off: Any = None  # (m,) int64: idle and unavailable nodes per class
+    phase: Any = None     # (C,) int64: service stage of each slot's task
+                          # (scenario mode; else None)
+
+
+def _gather_cls(v, cls):
+    """``v[cls]`` for a per-class vector ``v`` ((m,) or with the leading
+    axes of ``cls``)."""
+    return v.expand(*cls.shape[:-1], v.shape[-1]).gather(-1, cls)
+
+
+def _add_at(v, i, x):
+    """``v.at[i].add(x)`` for one index per leading position (integers:
+    exact in any order)."""
+    return v.scatter_add(-1, i[..., None], x[..., None])
+
+
+def sample_dispatch_classes(p, spec: ClassSpec, u_cls, u_mem):
+    """Dispatch draws K ~ p for a class-structured population: the class
+    from the (m,) mass vector ``counts * p`` (fp32) by segment-tree descent,
+    then a uniform member ``min(int(u_mem * counts[c]), counts[c] - 1)``
+    (the product in fp32, as in the reference: a float64 product would
+    choose another member for some uniforms).  ``p`` is the (m,) per-node
+    probability by class (or (B, m)); returns global client ids shaped like
+    ``u_cls``."""
+    p = torch.as_tensor(p)
+    dev = p.device
+    sp = _spec_on(spec, dev)
+    mass = sp.counts.to(_F32) * p.to(_F32)
+    c = tree_sample(tree_build(mass), _f32(u_cls, dev))
+    cnt = torch.take(sp.counts, c)
+    member = torch.minimum((_f32(u_mem, dev) * cnt.to(_F32)).to(_I64), cnt - 1)
+    return torch.take(sp.perm, torch.take(sp.offsets, c) + member)
+
+
+def _rank_bump(ranks: torch.Tensor, n: int) -> torch.Tensor:
+    """A uniform C-subset of ``range(n)`` from C ranks, ``ranks[i]`` uniform
+    on ``[0, n - i)``: the i-th id is the ``ranks[i]``-th smallest id not
+    yet chosen, found by bumping the rank past every chosen id at or below
+    it (the reference's rank-bump, O(C^2), never an O(n) permutation).
+    Over the chosen ids sorted, ``s_j``, the bump passes exactly those with
+    ``s_j - j <= rank``, a prefix; so each draw is one sort and one count."""
+    C = ranks.shape[-1]
+    pos = torch.arange(C, dtype=_I64, device=ranks.device)
+    chosen = torch.full_like(ranks, n)  # the sentinels n sort last
+    for i in range(C):
+        s = torch.sort(chosen).values
+        r = ranks[i] + ((s - pos <= ranks[i]) & (pos < i)).sum()
+        chosen = torch.where(pos == i, r, chosen)
+    return chosen
+
+
+def _init_sparse_nodes(gen: torch.Generator, spec: ClassSpec, C: int, p: torch.Tensor,
+                       init: str) -> torch.Tensor:
+    """The initial placement of the C tasks, drawn from ``gen`` in O(C^2)
+    without an (n,) tensor: ``"distinct"`` a uniform C-subset by the
+    rank-bump draw (round-robin when C > n), ``"sampled"`` C draws of
+    `sample_dispatch_classes` from the (m,) class-level ``p``."""
+    dev = p.device
+    n = spec.n
+    if init == "distinct":
+        if C > n:
+            return torch.arange(C, dtype=_I64, device=dev) % n
+        hi = n - torch.arange(C, dtype=_I64, device=dev)
+        u = torch.rand(C, dtype=torch.float64, generator=gen, device=dev)
+        return _rank_bump(torch.minimum((u * hi).to(_I64), hi - 1), n)
+    if init == "sampled":
+        u_cls = torch.rand(C, generator=gen, device=dev)
+        return sample_dispatch_classes(p, spec, u_cls, torch.rand(C, generator=gen, device=dev))
+    raise ValueError(init)
+
+
+def sparse_stream_init(nodes, spec: ClassSpec, C: int, fault: bool = False):
+    """The sparse state with the C tasks at ``nodes`` ((C,) or (B, C)):
+    task s is head of line where no earlier slot holds its node; with
+    ``fault`` every node starts available and each class's idle nodes sit
+    in its ``idle_on`` pool.  Returns ``(state, nodes)``."""
+    nodes = torch.as_tensor(nodes).to(_I64)
+    dev = nodes.device
+    sp = _spec_on(spec, dev)
+    lead = nodes.shape[:-1]
+    eq = nodes[..., None, :] == nodes[..., :, None]
+    head = torch.tril(eq, -1).sum(-1) == 0
+    cls = torch.take(sp.inv_cls, nodes)
+    avail = idle_on = idle_off = None
+    if fault:
+        busy = torch.zeros(*lead, sp.m, dtype=_I64, device=dev).scatter_add(-1, cls,
+                                                                             head.to(_I64))
+        idle_on = sp.counts - busy
+        idle_off = torch.zeros_like(idle_on)
+        avail = torch.ones(*lead, C, dtype=_F32, device=dev)
+    zero = torch.zeros(lead, dtype=_F32, device=dev)
+    state = SparseStreamState(
+        node=nodes, cls=cls, seq=torch.arange(C, dtype=_I64, device=dev).expand(nodes.shape),
+        head=head, t=zero, t_c=zero.clone(),
+        next_seq=torch.full(lead, C, dtype=_I64, device=dev),
+        avail=avail, idle_on=idle_on, idle_off=idle_off)
+    return state, nodes
+
+
+def class_occupancy(cls, m: int):
+    """(m,) int64 per-class task counts from the (C,) slot classes."""
+    return torch.zeros(*cls.shape[:-1], m, dtype=_I64, device=cls.device).scatter_add(
+        -1, cls, torch.ones_like(cls))
+
+
+def sparse_class_stats(state: SparseStreamState, m: int, fault: bool = False):
+    """Per-class ``(occupancy, busy nodes, available nodes or None)``:
+    ``busy`` counts heads (one per busy node), under faults only available
+    ones (`estimate_mu`'s exposure), and ``avail`` the available heads plus
+    the idle-on pool."""
+    occ = class_occupancy(state.cls, m)
+    h = state.head.to(_I64)
+    if fault:
+        h = h * (state.avail > 0).to(_I64)
+    busy = torch.zeros_like(occ).scatter_add(-1, state.cls, h)
+    return occ, busy, (busy + state.idle_on if fault else None)
+
+
+def sparse_scenario_class_stats(state: SparseStreamState, m: int, rate_scale):
+    """Per-class ``(occupancy, modulated busy exposure, available nodes)``:
+    ``busy`` is the float ``sum over heads of the speed``, the denominator
+    that keeps `estimate_mu` unbiased under modulation."""
+    occ = class_occupancy(state.cls, m)
+    hf = state.head.to(_F32)
+    speed = state.avail + (1.0 - state.avail) * rate_scale
+    busy = torch.zeros(occ.shape, dtype=_F32, device=occ.device).scatter_add(-1, state.cls,
+                                                                             hf * speed)
+    ha = state.head.to(_I64) * (state.avail > 0).to(_I64)
+    return occ, busy, torch.zeros_like(occ).scatter_add(-1, state.cls, ha) + state.idle_on
+
+
+def _race(rates, e_hold, state, floor: bool):
+    """The race's tree, holding time and clock: ``(rtree, dt, t, t_c)``;
+    ``floor`` keeps time moving when no clock runs (all nodes off)."""
+    rtree = tree_build(rates)
+    tot = torch.clamp_min(rtree[..., 1], 1e-30) if floor else rtree[..., 1]
+    dt = e_hold / tot
+    t, t_c = kahan_add(state.t, state.t_c, dt)
+    return rtree, dt, t, t_c
+
+
+def _sparse_stream_step(state: SparseStreamState, mu, sp: ClassSpec, e_hold, u_race, k_new,
+                        cst: _Consts):
+    """`sparse_stream_step` on a precomputed holding time (a chunk's)."""
+    node, cls, seq, head = state.node, state.cls, state.seq, state.head
+    ar = cst.ar
+    rtree, dt, t, t_c = _race(torch.where(head, _gather_cls(mu, cls), 0.0), e_hold, state, False)
+    s = tree_sample(rtree, u_race)
+    j = _take(node, s)
+    at_s = ar == s[..., None]
+    # promote j's next-oldest task (if any) to head of line
+    others = (node == j[..., None]) & ~at_s
+    has_succ = others.any(-1)
+    succ = torch.where(others, seq, _SEQ_LAST).argmin(-1)
+    head = (head & ~at_s) | ((ar == succ[..., None]) & has_succ[..., None])
+    # the freed slot hosts the dispatch; join-or-fresh by O(C) membership
+    exists_k = ((node == k_new[..., None]) & ~at_s).any(-1)
+    new = state._replace(
+        node=torch.where(at_s, k_new[..., None], node),
+        cls=torch.where(at_s, torch.take(sp.inv_cls, k_new)[..., None], cls),
+        seq=torch.where(at_s, state.next_seq[..., None], seq),
+        head=torch.where(at_s, ~exists_k[..., None], head),
+        t=t, t_c=t_c, next_seq=state.next_seq + 1)
+    return new, Event(j=j, k=k_new, t=t, slot=s, dt=dt)
+
+
+def sparse_stream_step(state: SparseStreamState, mu, spec: ClassSpec, xs):
+    """One CS step of the sparse closed network, O(C + log m).
+
+    ``xs = (u_race, u_exp, k_new)`` as in `stream_step`; ``mu`` is the (m,)
+    class rate vector.  The completion race runs over the <= C head-of-line
+    tasks only (each busy node has exactly one head), so nothing scales
+    with n."""
+    u_race, u_exp, k_new = xs
+    dev = state.node.device
+    cst = _Consts(state.node.shape[:-1], state.node.shape[-1], dev)
+    return _sparse_stream_step(state, _f32(mu, dev), _spec_on(spec, dev), _hold(u_exp, dev),
+                               _f32(u_race, dev), torch.as_tensor(k_new, dtype=_I64, device=dev),
+                               cst)
+
+
+def _sparse_relocate(state: SparseStreamState, sp: ClassSpec, k_new, u_bit, move, s_mv, is_bf,
+                     s_bf, is_if, on2off, if_c, named, cst: _Consts):
+    """The task movement, availability flips and idle pools of a tagged
+    sparse event (shared by the fault and the scenario step).
+
+    ``move`` pops the head at slot ``s_mv`` and re-dispatches it at
+    ``k_new`` (joining a busy node, or a fresh one whose availability bit
+    comes from its class's idle pools through ``u_bit``); ``is_bf`` toggles
+    every slot of the node at ``s_bf``; ``is_if`` moves one node of class
+    ``if_c`` between the pools (``on2off`` says which way) and names the
+    class's representative ``perm[offsets[if_c]]``.  ``named`` selects the
+    events whose node is slot ``s_mv``'s.  Returns ``(state, j, slot)``."""
+    node, cls, seq, head, a = state.node, state.cls, state.seq, state.head, state.avail
+    ion, ioff = state.idle_on, state.idle_off
+    ar, C = cst.ar, cst.C
+    j_mv, cls_j, a_j = _take(node, s_mv), _take(cls, s_mv), _take(a, s_mv)
+    j_bf = _take(node, s_bf)
+    rep = torch.take(sp.perm, torch.take(sp.offsets, if_c))
+    j = torch.where(named, j_mv, torch.where(is_bf, j_bf, rep))
+    s = torch.where(move, s_mv, C)
+    at_mv = ar == s_mv[..., None]
+    mv = move[..., None]
+    # a movement pops the head at j_mv: its next-oldest task takes the head
+    others = mv & (node == j_mv[..., None]) & ~at_mv
+    has_succ = others.any(-1)
+    succ = torch.where(others, seq, _SEQ_LAST).argmin(-1)
+    head = (head & ~(mv & at_mv)) | ((ar == succ[..., None]) & has_succ[..., None])
+    cls_k = torch.take(sp.inv_cls, k_new)
+    k_is_j = move & (k_new == j_mv)
+    k_at = (node == k_new[..., None]) & ~at_mv
+    exists_k = move & k_at.any(-1)
+    j_idles = move & ~has_succ & ~k_is_j
+    # the pools the fresh draw sees: after j (possibly) went idle
+    ion1 = _add_at(ion, cls_j, (j_idles & (a_j > 0)).to(_I64))
+    ioff1 = _add_at(ioff, cls_j, (j_idles & (a_j == 0)).to(_I64))
+    pool_on = _take(ion1, cls_k).to(_F32)
+    pool = pool_on + _take(ioff1, cls_k).to(_F32)
+    bit_pool = (u_bit * torch.clamp_min(pool, 1.0) < pool_on).to(_F32)
+    bit_join = torch.where(k_at, a, 0.0).amax(-1)
+    bit_new = torch.where(exists_k, bit_join, torch.where(k_is_j, a_j, bit_pool))
+    fresh = move & ~exists_k & ~k_is_j
+    ion2 = _add_at(ion1, cls_k, -(fresh & (bit_new > 0)).to(_I64))
+    ioff2 = _add_at(ioff1, cls_k, -(fresh & (bit_new == 0)).to(_I64))
+    # a busy node's flip toggles every slot of that node; an idle-pool
+    # flip moves one node between the class's (on, off) counts
+    a = torch.where(is_bf[..., None] & (node == j_bf[..., None]), 1.0 - a, a)
+    step = torch.where(is_if, torch.where(on2off, -1, 1), 0)
+    at_s = mv & at_mv
+    new = state._replace(
+        node=torch.where(at_s, k_new[..., None], node),
+        cls=torch.where(at_s, cls_k[..., None], cls),
+        seq=torch.where(at_s, state.next_seq[..., None], seq),
+        head=torch.where(at_s, ~exists_k[..., None], head),
+        next_seq=state.next_seq + move.to(_I64),
+        avail=torch.where(at_s, bit_new[..., None], a),
+        idle_on=_add_at(ion2, if_c, step), idle_off=_add_at(ioff2, if_c, -step))
+    return new, j, s
+
+
+def _sparse_fault_stream_step(state: SparseStreamState, mu, sp: ClassSpec, fr: FaultRates,
+                              e_hold, u_race, k_new, u_bit, cst: _Consts):
+    """`sparse_fault_stream_step` on a precomputed holding time."""
+    cls, a, ion, ioff = state.cls, state.avail, state.idle_on, state.idle_off
+    C, m = cst.C, ion.shape[-1]
+    hf = state.head.to(_F32)
+    g = lambda v: _gather_cls(v, cls)  # noqa: E731
+    rates = torch.cat([g(mu) * a * hf, g(fr.kappa) * a * hf, g(fr.theta) * hf,
+                       (g(fr.q_off) * a + g(fr.q_on) * (1.0 - a)) * hf,
+                       ion.to(_F32) * fr.q_off, ioff.to(_F32) * fr.q_on], dim=-1)
+    rtree, dt, t, t_c = _race(rates, e_hold, state, True)
+    idx = tree_sample(rtree, u_race)
+    move = idx < 3 * C
+    kind = torch.where(move, torch.div(idx, C, rounding_mode="floor"), KIND_FLIP)
+    is_bf = (idx >= 3 * C) & (idx < 4 * C)
+    is_if = idx >= 4 * C
+    on2off = is_if & (idx < 4 * C + m)
+    if_c = torch.where(is_if, torch.where(on2off, idx - 4 * C, idx - 4 * C - m), 0)
+    new, j, s = _sparse_relocate(state, sp, k_new, u_bit, move, torch.where(move, idx % C, 0),
+                                 is_bf, torch.where(is_bf, idx - 3 * C, 0), is_if, on2off, if_c,
+                                 move, cst)
+    return new._replace(t=t, t_c=t_c), Event(j=j, k=k_new, t=t, slot=s, dt=dt, kind=kind)
+
+
+def sparse_fault_stream_step(state: SparseStreamState, mu, spec: ClassSpec, fr: FaultRates, xs):
+    """One merged-CTMC event of the faulty sparse network, O(C + m).
+
+    The race runs over ``4C + 2m`` clocks: per head slot [completion |
+    crash | timeout | availability flip] plus per class [idle on -> off |
+    idle off -> on], the exact class-collapse of the dense 4n race.  ``xs =
+    (u_race, u_exp, k_new, u_bit)``: ``u_bit`` draws the availability bit
+    of a dispatch that lands on an idle node from the class's (idle_on,
+    idle_off) composition.  An idle-pool flip emits the class's
+    representative id ``perm[offsets[c]]`` with the trash slot C.  ``fr =
+    resolve_fault_rates_classes(...)``."""
+    u_race, u_exp, k_new, u_bit = xs
+    dev = state.node.device
+    cst = _Consts(state.node.shape[:-1], state.node.shape[-1], dev)
+    return _sparse_fault_stream_step(state, _f32(mu, dev), _spec_on(spec, dev), fr,
+                                     _hold(u_exp, dev), _f32(u_race, dev),
+                                     torch.as_tensor(k_new, dtype=_I64, device=dev),
+                                     _f32(u_bit, dev), cst)
+
+
+def sparse_scenario_stream_init(nodes, spec: ClassSpec, C: int, sr: ScenarioRates, u_phase):
+    """`sparse_stream_init` (every node available) plus the C initial
+    phases, drawn from ``u_phase``.  Returns ``(state, nodes)``."""
+    state, nodes = sparse_stream_init(nodes, spec, C, fault=True)
+    return state._replace(phase=_phase_draw(sr.acdf, _f32(u_phase, nodes.device))), nodes
+
+
+def _sparse_scenario_stream_step(state: SparseStreamState, mu, sp: ClassSpec, sr: ScenarioRates,
+                                 e_hold, u_race, k_new, u_bit, u_ph, cst: _Consts):
+    """`sparse_scenario_stream_step` on a precomputed holding time."""
+    cls, a, ion, ioff, phase = state.cls, state.avail, state.idle_on, state.idle_off, state.phase
+    C, m = cst.C, ion.shape[-1]
+    hf = state.head.to(_F32)
+    speed = a + (1.0 - a) * sr.rate_scale
+    rates = torch.cat([_gather_cls(mu, cls) * torch.take(sr.srate, phase) * speed * hf,
+                       (_gather_cls(sr.q_off, cls) * a + _gather_cls(sr.q_on, cls) * (1.0 - a))
+                       * hf,
+                       ion.to(_F32) * sr.q_off, ioff.to(_F32) * sr.q_on], dim=-1)
+    rtree, dt, t, t_c = _race(rates, e_hold, state, True)
+    idx = tree_sample(rtree, u_race)
+    is_sv = idx < C
+    s_sv = torch.where(is_sv, idx, 0)
+    ph_sv = _take(phase, s_sv)
+    complete = is_sv & (torch.take(sr.absorb, ph_sv) > 0)
+    is_bf = (idx >= C) & (idx < 2 * C)
+    is_if = idx >= 2 * C
+    on2off = is_if & (idx < 2 * C + m)
+    if_c = torch.where(is_if, torch.where(on2off, idx - 2 * C, idx - 2 * C - m), 0)
+    kind = torch.where(complete, KIND_COMPLETE, torch.where(is_sv, KIND_STAGE, KIND_FLIP))
+    new, j, s = _sparse_relocate(state, sp, k_new, u_bit, complete, s_sv, is_bf,
+                                 torch.where(is_bf, idx - C, 0), is_if, on2off, if_c, is_sv, cst)
+    # a completion's slot takes the dispatched task's fresh phase, a stage
+    # advance steps the head task to nxt; a flip writes the old phase back
+    # (the reference drops that write)
+    ph_w = torch.where(complete, _phase_draw(sr.acdf, u_ph), torch.take(sr.nxt, ph_sv))
+    phase = phase.scatter(-1, s_sv[..., None], torch.where(is_sv, ph_w, ph_sv)[..., None])
+    return (new._replace(t=t, t_c=t_c, phase=phase),
+            Event(j=j, k=k_new, t=t, slot=s, dt=dt, kind=kind))
+
+
+def sparse_scenario_stream_step(state: SparseStreamState, mu, spec: ClassSpec, sr: ScenarioRates,
+                                xs):
+    """One merged-CTMC event of the scenario sparse network, O(C + m).
+
+    The race runs over ``2C + 2m`` clocks: per head slot [serve or stage |
+    availability flip] plus per class [idle on -> off | idle off -> on], the
+    class-collapse of `scenario_stream_step`'s 2n race.  A serve win is a
+    completion where ``absorb[phase]``, else a stage advance; only
+    completions move a task (the idle pools and the join bit as in
+    `sparse_fault_stream_step`).  ``xs = (u_race, u_exp, k_new, u_bit,
+    u_ph)``; ``sr = resolve_scenario_classes(...)``."""
+    u_race, u_exp, k_new, u_bit, u_ph = xs
+    dev = state.node.device
+    cst = _Consts(state.node.shape[:-1], state.node.shape[-1], dev)
+    return _sparse_scenario_stream_step(state, _f32(mu, dev), _spec_on(spec, dev), sr,
+                                        _hold(u_exp, dev), _f32(u_race, dev),
+                                        torch.as_tensor(k_new, dtype=_I64, device=dev),
+                                        _f32(u_bit, dev), _f32(u_ph, dev), cst)
+
+
+def sparse_stats_init(m: int, C: int, fault: bool = False, scenario: bool = False, *,
+                      cells: int | None = None, device="cpu") -> StatsState:
+    """Per-class `StatsState`: the same fields, (m,) where the dense ones
+    are (n,)."""
+    return stats_init(m, C, fault=fault, scenario=scenario, cells=cells, device=device)
+
+
+def sparse_stats_step(stats: StatsState, ev: Event, cls_j, occ_pre, busy_pre, occ_post,
+                      k) -> StatsState:
+    """Per-class `stats_step`: ``occ_pre`` / ``busy_pre`` / ``occ_post`` are
+    the (m,) counts of `sparse_class_stats` and ``cls_j`` the completing
+    node's class."""
+    cst = _Consts(occ_pre.shape[:-1], stats.slot_step.shape[-1], occ_pre.device)
+    delay = k - _take(stats.slot_step, ev.slot)
+    return _stats_step(stats, ev, occ_pre, occ_post, k, delay, cst,
+                       busy=busy_pre.to(_F32) * ev.dt[..., None], at=cls_j)
+
+
+def sparse_fault_stats_step(stats: StatsState, ev: Event, cls_j, occ_pre, busy_pre, avail_pre,
+                            occ_post, k) -> StatsState:
+    """Fault-aware per-class stats, `fault_stats_step` on (m,) vectors
+    (``avail_pre``: the available nodes per class, busy plus idle-on); a
+    flip's slot C writes no dispatch step."""
+    C = stats.slot_step.shape[-1]
+    return _tagged_stats_step(stats, ev, occ_pre, busy_pre.to(_F32) * ev.dt[..., None],
+                              avail_pre, occ_post, k, _delay(stats, ev.slot, k, C), C, at=cls_j)
+
+
+def _sparse_event(state, stats, mu, sp: ClassSpec, e_hold, u_race, k_new, u_bit, u_ph, k: int,
+                  cst, need_stats: bool, fr, sr):
+    """One event of the sparse stream and its per-class statistics:
+    ``(state, stats, ev, delay)`` (delay None without stats)."""
+    m = sp.counts.shape[0]
+    if need_stats:
+        if sr is not None:
+            pre = sparse_scenario_class_stats(state, m, sr.rate_scale)
+        else:
+            pre = sparse_class_stats(state, m, fault=fr is not None)
+    if sr is not None:
+        state, ev = _sparse_scenario_stream_step(state, mu, sp, sr, e_hold, u_race, k_new, u_bit,
+                                                 u_ph, cst)
+    elif fr is not None:
+        state, ev = _sparse_fault_stream_step(state, mu, sp, fr, e_hold, u_race, k_new, u_bit,
+                                              cst)
+    else:
+        state, ev = _sparse_stream_step(state, mu, sp, e_hold, u_race, k_new, cst)
+    if not need_stats:
+        return state, stats, ev, None
+    occ_pre, busy_pre, avail_pre = pre
+    cls_j = torch.take(sp.inv_cls, ev.j)
+    occ_post = class_occupancy(state.cls, m)
+    busy = busy_pre.to(_F32) * ev.dt[..., None]
+    if sr is None and fr is None:
+        delay = k - _take(stats.slot_step, ev.slot)
+        return (state, _stats_step(stats, ev, occ_pre, occ_post, k, delay, cst, busy=busy,
+                                   at=cls_j), ev, delay)
+    delay = _delay(stats, ev.slot, k, cst.C)
+    stats = _tagged_stats_step(stats, ev, occ_pre, busy, avail_pre, occ_post, k, delay, cst.C,
+                               at=cls_j)
+    return state, stats, ev, delay
+
+
+def _resolve_class_modes(fault, scenario, spec: ClassSpec, device):
+    """`_resolve_modes` for the sparse stream: class-level tables."""
+    fr = sr = None
+    if isinstance(fault, FaultRates):
+        fr = fault
+    elif _enabled(fault):
+        fr = resolve_fault_rates_classes(fault, spec, device)
+    if isinstance(scenario, ScenarioRates):
+        sr = scenario
+    elif _enabled(scenario):
+        sr = resolve_scenario_classes(scenario, spec, device)
+    if fr is not None and sr is not None:
+        raise ValueError("fault= and scenario= are mutually exclusive")
+    return fr, sr
+
+
+def sparse_scan_draws(mu, spec: ClassSpec, nodes, u_race, u_exp, K, u_bit=None, u_ph=None,
+                      u_phase0=None, *, fault=None, scenario=None, emit_events: bool = True):
+    """The sparse stream over pre-drawn inputs, `scan_draws`'s analogue.
+
+    ``mu`` is the (m,) class rate vector, ``nodes`` the initial placement
+    ((C,) or (B, C)), ``u_race`` / ``u_exp`` / ``K`` (global client ids,
+    `sample_dispatch_classes`) ``(T,)`` or ``(B, T)``; a fault or scenario
+    stream also takes ``u_bit`` (like ``K``), a scenario stream ``u_ph``
+    (like ``K``) and ``u_phase0`` (like ``nodes``).  Parity tests pass the
+    reference's draws (`jax.random.split(key, 6)`, or 7 with a scenario).
+    Returns ``(nodes, events, stats, state)``: ``events = (J, K, t, slot,
+    delay)`` (plus ``kind`` with a fault or scenario; None without
+    ``emit_events``), the per-class stats and the final sparse state.
+    """
+    mu = torch.as_tensor(mu)
+    dev = mu.device
+    sp = _spec_on(spec, dev)
+    nodes = torch.as_tensor(nodes, device=dev).to(_I64)
+    m, C = sp.m, nodes.shape[-1]
+    lead = nodes.shape[:-1]
+    mu = mu.to(_F32).expand(*lead, m)
+    fr, sr = _resolve_class_modes(fault, scenario, spec, dev)
+    if sr is not None:
+        state, nodes = sparse_scenario_stream_init(nodes, sp, C, sr, u_phase0)
+        u_ph = _f32(u_ph, dev)
+    else:
+        state, nodes = sparse_stream_init(nodes, sp, C, fault=fr is not None)
+    if fr is not None or sr is not None:
+        u_bit = _f32(u_bit, dev)
+    stats = sparse_stats_init(m, C, fault=fr is not None, scenario=sr is not None,
+                              cells=lead[0] if lead else None, device=dev)
+    K = torch.as_tensor(K, device=dev).to(_I64)
+    cst = _Consts(lead, C, dev)
+    state, stats, (J, t, slot, delay, kind) = _advance(
+        state, stats, mu, _hold(torch.as_tensor(u_exp, device=dev), dev), _f32(u_race, dev), K,
+        0, cst, fr=fr, sr=sr, u_ph=u_ph, spec=sp, u_bit=u_bit)
+    events = (J, K, t, slot, delay) + ((kind,) if kind is not None else ())
+    return nodes, (events if emit_events else None), stats, state
+
+
+def draw_sparse_uniforms(seed, spec: ClassSpec, C: int, T: int, p, init: str = "distinct",
+                         device="cuda", fault: bool = False, scenario: bool = False):
+    """One sparse stream's draws from the port's generator, in the
+    reference's order (`_sparse_network_scan`'s key split): ``(nodes (C,),
+    u_race, u_exp, u_disp, u_mem)`` (T,) each on ``device``; with ``fault``
+    or ``scenario`` then ``u_bit (T,)``; with ``scenario`` then ``u_ph
+    (T,)`` and ``u_phase0 (C,)``.  ``p`` is the (m,) class-level p."""
+    dev = resolve_device(device)
+    gen = _generator(seed, dev)
+    p = torch.as_tensor(np.asarray(p) if not isinstance(p, torch.Tensor) else p).to(
+        device=dev, dtype=_F32)
+    nodes = _init_sparse_nodes(gen, _spec_on(spec, dev), C, p, init)
+    out = [nodes] + [torch.rand(T, generator=gen, device=dev) for _ in range(4)]
+    if fault or scenario:
+        out.append(torch.rand(T, generator=gen, device=dev))
+    if scenario:
+        out += [torch.rand(T, generator=gen, device=dev), torch.rand(C, generator=gen, device=dev)]
+    return tuple(out)
+
+
+def sparse_stats_stream_fn(m: int, C: int, T: int, init: str = "distinct", fault: bool = False,
+                           scenario: bool = False):
+    """Stats-only sparse network run: ``gen(seed, mu, p, spec,
+    device="cuda") -> (StatsState, SparseStreamState)`` with (m,)
+    class-level ``mu`` / ``p``; with ``fault`` or ``scenario`` it is
+    ``gen(seed, mu, p, spec, fr, device="cuda")``, ``fr`` the
+    `resolve_fault_rates_classes` / `resolve_scenario_classes` tables (or
+    the configs).  Its per-event cost is flat in n."""
+    if fault and scenario:
+        raise ValueError("fault and scenario streams are mutually exclusive")
+
+    def run(seed, mu, p, spec, fr, device):
+        dev = resolve_device(device)
+        sp = _spec_on(spec, dev)
+        if sp.m != m:
+            raise ValueError(f"the ClassSpec has {sp.m} classes, the function was made for {m}")
+        p_t = _f32(p, dev)
+        nodes, ur, ue, ud, um, *rest = draw_sparse_uniforms(seed, sp, C, T, p_t, init, dev,
+                                                            fault=fault, scenario=scenario)
+        K = sample_dispatch_classes(p_t, sp, ud, um)
+        return sparse_scan_draws(_f32(mu, dev), sp, nodes, ur, ue, K, *rest,
+                                 fault=fr if fault else None, scenario=fr if scenario else None,
+                                 emit_events=False)[2:]
+
+    if fault or scenario:
+        return lambda seed, mu, p, spec, fr, device="cuda": run(seed, mu, p, spec, fr, device)
+    return lambda seed, mu, p, spec, device="cuda": run(seed, mu, p, spec, None, device)
+
+
+# ---------------------------------------------------------------------- #
 # the control plane: exact Jackson analysis and the Theorem-1 bound in
 # torch, differentiable; every function takes (n,) or (B, n) vectors
 # ---------------------------------------------------------------------- #
@@ -954,9 +1612,22 @@ def _rdiv(a: float, t: torch.Tensor) -> torch.Tensor:
     return torch.div(torch.full_like(t, a), t)
 
 
-def _reject_counts(counts) -> None:
-    if counts is not None:
-        raise unported("counts= (the class-collapsed control plane)", 9)
+@lru_cache(maxsize=64)
+def _counts_on(counts: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The class sizes as a tensor on ``device``, made once (an asynchronous
+    copy on a card, so a refresh inside a chunk makes no host sync)."""
+    return _table(np.asarray(counts, np.float64), dtype, device)
+
+
+def _class_weights(p, counts):
+    """``(weights, total n)`` of the node sums: ones and the vector's length
+    (dense, ``counts=None``), or the class sizes and their sum (the
+    class-collapsed form, ``p`` the (m,) per-node probability by class)."""
+    if counts is None:
+        return torch.ones_like(p), float(p.shape[-1])
+    counts = tuple(int(c) for c in (counts.tolist() if isinstance(counts, torch.Tensor)
+                                    else np.asarray(counts).ravel()))
+    return _counts_on(counts, p.dtype, p.device), float(sum(counts))
 
 
 def mva_throughput_delays(mu, p, C: int, normalized: bool = True, counts=None):
@@ -966,12 +1637,13 @@ def mva_throughput_delays(mu, p, C: int, normalized: bool = True, counts=None):
     Q_M = lam_M p W.  Returns the delays in CS steps (Prop. 3, with the
     (C-1)/C Little's-law normalization by default) and the throughput; the
     same values as the Buzen pipeline of `jackson.JacksonNetwork`, and a
-    C-step recurrence that autograd differentiates.
+    C-step recurrence that autograd differentiates.  ``counts`` (the class
+    sizes) collapses identical nodes to classes: ``mu`` / ``p`` are then the
+    (m,) class-level values and the dot products counts-weighted, O(m C).
     """
-    _reject_counts(counts)
     p = torch.as_tensor(p)
     mu = torch.as_tensor(mu, dtype=p.dtype, device=p.device)
-    w = torch.ones_like(p)
+    w, _ = _class_weights(p, counts)
     Q = torch.zeros_like(p)
     lam = None
     for M in range(1, C + 1):
@@ -990,10 +1662,10 @@ def mva_throughput_delays(mu, p, C: int, normalized: bool = True, counts=None):
 
 
 def generalized_bound_jnp(eta, p, m, k: BoundConstants, counts=None):
-    """G(p, eta) of Eq. (3), `theory.generalized_bound` in torch."""
-    _reject_counts(counts)
-    w = torch.ones_like(p)
-    n2 = float(p.shape[-1]) ** 2
+    """G(p, eta) of Eq. (3), `theory.generalized_bound` in torch; with
+    ``counts`` every node sum is a counts-weighted class sum."""
+    w, n = _class_weights(p, counts)
+    n2 = n**2
     t1 = _rdiv(k.A, eta * (k.T + 1))
     t2 = eta * k.L * k.B * torch.sum(w / (n2 * p), dim=-1)
     t3 = eta**2 * k.L**2 * k.B * k.C * torch.sum(w * m / (n2 * p**2), dim=-1)
@@ -1006,11 +1678,11 @@ def optimal_eta_jnp(p, m, k: BoundConstants, newton_iters: int = 20, counts=None
     The stationary point solves 2c eta^3 + b eta^2 = D; Newton from eta0 =
     cbrt(D / 2c) (``pow(., 1/3)`` on the positive argument) converges
     monotonically.  The Theorem-1 cap min(a, b) mirrors
-    `theory.eta_max_components`.
+    `theory.eta_max_components`.  ``counts`` collapses the node sums to
+    counts-weighted class sums.
     """
-    _reject_counts(counts)
-    w = torch.ones_like(p)
-    n2 = float(p.shape[-1]) ** 2
+    w, n = _class_weights(p, counts)
+    n2 = n**2
     D = k.A / (k.T + 1)
     b = k.L * k.B * torch.sum(w / (n2 * p), dim=-1)
     c = k.L**2 * k.B * k.C * torch.sum(w * m / (n2 * p**2), dim=-1)
@@ -1034,16 +1706,18 @@ def make_bound_value_and_grad(k: BoundConstants, counts=None):
     terms and eta*(p) (the Newton iterates' channel vanishes at an interior
     stationary point by the envelope theorem; where the cap is active,
     ``torch.minimum`` routes the chain rule through it).  With a leading
-    cell axis each cell gets its own value and gradient.
+    cell axis each cell gets its own value and gradient.  ``counts`` (the
+    class sizes) switches everything to the O(m C) class-collapsed form
+    with (m,) per-node class probabilities.
     """
-    _reject_counts(counts)
 
     def vg(p, mu):
         with torch.enable_grad():
             pp = torch.as_tensor(p).detach().requires_grad_(True)
-            m, _ = mva_throughput_delays(torch.as_tensor(mu).detach(), pp, int(k.C))
-            eta = optimal_eta_jnp(pp, m, k)
-            val = generalized_bound_jnp(eta, pp, m, k)
+            m, _ = mva_throughput_delays(torch.as_tensor(mu).detach(), pp, int(k.C),
+                                         counts=counts)
+            eta = optimal_eta_jnp(pp, m, k, counts=counts)
+            val = generalized_bound_jnp(eta, pp, m, k, counts=counts)
             (g,) = torch.autograd.grad(val.sum(), pp)
         return val.detach(), g
 
@@ -1069,13 +1743,17 @@ def ctrl_refresh(p, comp, busy_t, k: BoundConstants, lr: float = 0.3, iters: int
     Theorem-1 bound (`sampling.optimize_general`'s mirror descent, on
     measured rates).  Non-finite gradient components are scrubbed to 0 and
     each iterate is re-floored and renormalized, so p never collapses to
-    NaN or exact zeros.  ``counts`` (the class-collapsed form) raises item 9.
+    NaN or exact zeros.  With ``counts`` (the class sizes) it runs in the
+    class-collapsed form: ``p`` is the (m,) per-node probability by class,
+    ``comp`` / ``busy_t`` the per-class totals, and the exponentiated
+    gradient steps the class masses ``z = counts p`` (the simplex the
+    collapsed problem lives on); within a class the dense optimum is
+    symmetric, so the collapsed optimum is exact.
     """
-    _reject_counts(counts)
-    vg = make_bound_value_and_grad(k)
+    vg = make_bound_value_and_grad(k, counts=counts)
     mu_hat = estimate_mu(comp, busy_t)
-    w = torch.ones_like(p)
-    floor = floor_scale / p.shape[-1]
+    w, n = _class_weights(p, counts)
+    floor = floor_scale / n
     for _ in range(iters):
         _, g = vg(p, mu_hat)
         g = torch.where(torch.isfinite(g), g, 0.0)

@@ -319,7 +319,7 @@ def test_validation_errors():
     # FedBuff it raises the reference's ValueError (as `jes.make_fused_runner`)
     for kw, item in ((dict(guard=engine_scan.GuardConfig(stale_cutoff=5), fedbuff_Z=5,
                            weighting="plain"), "per-event update"),
-                     (dict(lane_devices=2), 12), (dict(classes=object()), 9)):
+                     (dict(lane_devices=2), 12)):
         if isinstance(item, str):
             with pytest.raises(ValueError, match=item):
                 mk(n=N, T=100, **kw)
@@ -333,15 +333,35 @@ def test_validation_errors():
             mk(n=N, T=100, **kw)
     with pytest.raises(NotImplementedError, match="item 12"):
         engine_scan.jit_fused_runner(prob.device_grad, N, C, 100, shard_devices=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_generalized_async_sgd(np.zeros(4, np.float32), prob,
-                                  ServerConfig(n=N, C=2, T=10, eta=0.1, engine="scan",
-                                               stream="device", sparse=True, device="cpu"))
-    big = Quadratic(60_000, d=2)  # "auto" at n >= SPARSE_AUTO_N, one speed class: sparse
-    with pytest.raises(NotImplementedError, match="item 9"):
-        run_generalized_async_sgd(np.zeros(2, np.float32), big,
-                                  ServerConfig(n=60_000, C=2, T=10, eta=0.1, engine="scan",
-                                               stream="device", device="cpu"))
+    # the sparse stream's ClassSpec must cover the runner's n (the reference's ValueError)
+    from repro.core.stream_device import build_class_spec
+
+    other = build_class_spec(np.ones(N + 1))[0]
+    with pytest.raises(ValueError, match="ClassSpec covers"):
+        mk(n=N, T=100, classes=other)
+    with pytest.raises(ValueError, match="ClassSpec covers"):
+        jes.make_fused_runner(JQuadratic(prob.c).device_grad, N, C, 100, classes=other)
+    # sparse=True, and "auto" at n >= SPARSE_AUTO_N (one speed class), run the
+    # sparse stream, as the reference's do: every client's expanded mean
+    # queue length is its class's share (the dense stream leaves idle
+    # clients at 0), summing to C, and the weights approach the clients' mean
+    from repro.core.async_sgd import ServerConfig as JServerConfig
+    from repro.core.async_sgd import run_generalized_async_sgd as j_run
+
+    for n_, T_, sparse in ((N, 400, True), (60_000, 200, "auto")):
+        pr = prob if n_ == N else Quadratic(n_, d=2)
+        kw = dict(n=n_, C=2, T=T_, eta=0.1, engine="scan", stream="device", sparse=sparse)
+        w, tr = run_generalized_async_sgd(np.zeros(pr.d, np.float32), pr,
+                                          ServerConfig(device="cpu", **kw))
+        wj, trj = j_run(jnp.zeros(pr.d), JQuadratic(pr.c), JServerConfig(**kw))
+        for t_ in (tr, trj):
+            mql = np.asarray(t_.mean_queue_lengths)
+            assert mql.shape == (n_,) and bool(np.all(mql > 0))
+            np.testing.assert_allclose(mql.sum(), 2, rtol=1e-3)
+            assert np.asarray(t_.extras["comp"]).sum() == pytest.approx(T_)
+        target = pr.c.mean(0)
+        gap_t, gap_j = np.linalg.norm(w.numpy() - target), np.linalg.norm(np.asarray(wj) - target)
+        assert gap_t < 5 * max(gap_j, 0.05) and gap_j < 5 * max(gap_t, 0.05)
     r1 = engine_scan.jit_fused_runner(prob.device_grad, N, C, 100, adaptive=True,
                                       refresh_every=50)
     assert r1 is engine_scan.jit_fused_runner(prob.device_grad, N, C, 100, refresh_every=50,

@@ -1206,6 +1206,79 @@ def test_fault_and_scenario_streams_on_card_equal_cpu(dev, mode, cells):
     assert int(st_c.kind_count.sum()) == T * (cells or 1)
 
 
+def _sparse_inputs(n: int, C: int, T: int, mode: str, cells=None):
+    """A two-class population (`tests/test_scale.py`'s mix) and one sparse
+    stream's CPU-drawn uniforms: ``(spec, mu_m, args, kw)`` for
+    `stream_device.sparse_scan_draws`."""
+    from repro_torch.core import FaultConfig, get_scenario
+    from repro_torch.core import stream_device as sd
+
+    mu = np.where(np.random.default_rng(7).random(n) < 0.3, 2.5, 1.0)
+    spec, mu_m, p_m = sd.build_class_spec(mu)
+    fault = FaultConfig(**_ROBUST_FAULT) if mode == "fault" else None
+    scenario = get_scenario(mode) if mode not in ("plain", "fault") else None
+    draws = [sd.draw_sparse_uniforms(s, spec, C, T, p_m, device="cpu", fault=fault is not None,
+                                     scenario=scenario is not None) for s in range(cells or 1)]
+    nodes, ur, ue, ud, um, *rest = (torch.stack(a) if cells else a[0] for a in zip(*draws))
+    p_t = torch.tensor(p_m, dtype=torch.float32)
+    K = sd.sample_dispatch_classes(p_t.expand(cells, -1) if cells else p_t, spec, ud, um)
+    args = (torch.tensor(mu_m, dtype=torch.float32), nodes, ur, ue, K, *rest)
+    return spec, args, dict(fault=fault, scenario=scenario)
+
+
+@pytest.mark.parametrize("n,mode,cells", [(1000, "plain", None), (1_000_000, "plain", None),
+                                          (1_000_000, "fault", None), (1000, "fault", 3),
+                                          (1000, "erlang2_onoff", None)])
+def test_sparse_stream_on_card_equals_cpu(dev, n, mode, cells):
+    """The sparse stream on the card against the CPU on the same CPU-drawn
+    uniforms: J, K, slot, delay (and kind) and the integer statistics
+    equal, times and float statistics within 1e-6."""
+    from repro_torch.core import stream_device as sd
+
+    spec, args, kw = _sparse_inputs(n, 16, 300, mode, cells)
+    _, ev_c, st_c, _ = sd.sparse_scan_draws(args[0], spec, *args[1:], **kw)
+    _, ev_g, st_g, _ = sd.sparse_scan_draws(args[0].to(dev), sd._spec_on(spec, dev),
+                                            *(a.to(dev) for a in args[1:]), **kw)
+    tagged = mode != "plain"
+    for i in (0, 1, 3, 4) + ((5,) if tagged else ()):  # J, K, slot, delay, kind
+        assert torch.equal(ev_g[i].cpu(), ev_c[i])
+    torch.testing.assert_close(ev_g[2].cpu(), ev_c[2], rtol=1e-6, atol=0)
+    for f in ("occ_sum", "comp", "slot_step") + (("kind_count",) if tagged else ()):
+        assert torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f))
+    for f in ("occ_tw", "busy_t", "delay_sum") + (("avail_tw",) if tagged else ()):
+        torch.testing.assert_close(getattr(st_g, f).cpu(), getattr(st_c, f), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_sparse_fused_chunk_makes_no_host_sync(dev):
+    """One chunk of the sparse fused runner on the MLP, importance-weighted
+    and adaptive under faults: the class draws, the pools, the slot scales
+    and `ctrl_refresh(counts=)` stay on the card."""
+    from repro_torch.core import FaultConfig
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.async_sgd import _device_grad_fn
+    from repro_torch.core.engine_scan import make_fused_runner
+
+    n, C, T = 16, 4, 200
+    setup, mu = _setup(dev, n=n)
+    spec, mu_m, p_m = sd.build_class_spec(mu)
+    run = make_fused_runner(_device_grad_fn(setup.clients), n, C, T, weighting="importance",
+                            adaptive=True, refresh_every=T, classes=spec,
+                            fault=FaultConfig(**_ROBUST_FAULT))
+    nodes, ur, ue, ud, um, ub = sd.draw_sparse_uniforms(3, spec, C, T, p_m, device=dev,
+                                                        fault=True)
+    mu_g, p_g = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (mu_m, p_m))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w, _, ex = run.from_draws(setup.params, mu_g, p_g, 0.05, nodes, ur, ue, ud, u_mem=um,
+                                  u_bit=ub)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(bool(torch.isfinite(v).all()) for v in w.values())
+    assert ex["p_traj"].shape == (1, spec.m) and int(ex["kind_count"].sum()) == T
+
+
 @pytest.mark.parametrize("mode", ["fault", "erlang2_onoff"])
 def test_robust_fused_chunk_makes_no_host_sync(dev, mode):
     """One chunk of the fused runner under faults and the guard (stale

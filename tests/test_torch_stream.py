@@ -277,7 +277,8 @@ def test_generators_reject_unported_options():
     """Faults and scenarios run in the generators (held against the
     reference in `tests/test_torch_stream_robust.py`): the kind column of T
     merged events; the two exclude each other with the reference's
-    ValueError, and the class-collapsed control plane raises item 9."""
+    ValueError, and the class-collapsed control plane (``counts=``) gives
+    the reference's numbers."""
     from repro_torch.core import FaultConfig, get_scenario
 
     es = sd.generate_stream(np.ones(3), np.full(3, 1 / 3), 2, 10, fault=FaultConfig(crash_rate=0.1),
@@ -289,8 +290,11 @@ def test_generators_reject_unported_options():
     with pytest.raises(ValueError, match="mutually exclusive"):
         sd.generate_stream(np.ones(3), np.full(3, 1 / 3), 2, 10, fault=FaultConfig(crash_rate=0.1),
                            scenario=get_scenario("erlang2"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sd.mva_throughput_delays(torch.ones(2), torch.full((2,), 0.5), 3, counts=(1, 1))
+    md, lam = sd.mva_throughput_delays(_t([1.0, 2.5]), _t([0.25, 0.125]), 3, counts=(2, 4))
+    mdj, lamj = jsd.mva_throughput_delays(jnp.asarray([1.0, 2.5]), jnp.asarray([0.25, 0.125]), 3,
+                                          counts=(2, 4))
+    np.testing.assert_allclose(md.numpy(), np.asarray(mdj), rtol=1e-6)
+    assert float(lam) == pytest.approx(float(lamj), rel=1e-6)
     with pytest.raises(ValueError, match="sum to 1"):
         sd.generate_stream(np.ones(3), np.full(3, 0.3), 2, 10, device="cpu")
     stats = sd.stats_stream_fn(4, 2, 50)(0, np.ones(4), np.full(4, 0.25), device="cpu")
