@@ -103,9 +103,9 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
 
 14.-16. FedBuff on the MLP, the lane-sharded MLP slice on 2 gloo ranks
    sharing the card, the FL launcher's defaults, FedAvg and FAVANO;
-17. the scenario matrix on the host stream (``--only matrix``; it runs
-   right after the build, see `phase_matrix`): the Mamba2-130M
-   matrix below, then the paper's grid as `examples/scenario_matrix.py`
+17. the scenario matrix on the host stream (``--only matrix`` the MLP's,
+   `phase_matrix`; ``--only matrix_mamba`` the Mamba2-130M matrix below,
+   first in the LM lane, see `phase_matrix_mamba`): the paper's grid as `examples/scenario_matrix.py`
    runs it (the MLP, n=40, C=16,
    T=2000, seeds 0-2 x policies uniform / optimal / physical_time x speed
    ratios 1, 4, 16 = 27 cells, eta 0.08, eval every 200) through
@@ -131,7 +131,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    L2s in all, K1 beside ``torch._foreach_addcmul``) and K4 at the
    matrix's folds;
 18. faults, the divergence guard, scenarios and kill-and-resume
-   checkpointing on the host stream (``--only robust``; `phase_robust`), at
+   checkpointing on the host stream (``--only robust`` the MLP's,
+   `phase_robust`; ``--only robust_mamba`` Mamba2-130M's), at
    the reference's benchmark settings (`ROBUST_FAULT`, ``GuardConfig(
    max_grad_norm=1e3, stale_cutoff=4 C)``).  The MLP slice (n=256, C=64,
    T=2000, eval every 500): per event (flat update) and blocked E=8 with K2
@@ -149,7 +150,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    (``ckpt_every=500``) is bitwise the un-checkpointed run; the same run in
    a child process SIGKILLs itself after its second save and a fresh child
    resumes it, bitwise the uninterrupted run (the children run beside the
-   matrix and Mamba2 parts, which their timings then include); per event,
+   MLP and matrix parts, which their timings then include); per event,
    truncate and resume in process.  Mamba2-130M at full width and depth
    (phase 10's blocked E=4 run, K4 + K2, with T cut to
    `ROBUST_MAMBA_T` = 32) with faults, the guard, a bf16 ring and
@@ -159,7 +160,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    checkpoints go under ``build/`` and are deleted.
 
 19. the device event stream, its control plane and adaptive sampling
-   (``--only stream``; `phase_stream`, after phase 18 in a whole run; its
+   (``--only stream``; `phase_stream`, after phase 18 in the MLP lane; its
    sizes are cut for time, `STREAM_CARD_T` and below).  (a) The stream at the MLP
    slice's network (n=256, C=64, its speeds and sampling p; T cut from
    2000 to 1000) from uniforms drawn on the CPU: on the card equal to the
@@ -194,7 +195,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
 
 20. faults, the divergence guard, scenarios and the checkpointed fused
    driver on the device stream (``--only stream_robust``;
-   `phase_stream_robust`, last in a whole run; phase 18's settings on the
+   `phase_stream_robust`, after phase 19 in the MLP lane; phase 18's settings on the
    MLP slice's network, sizes cut for time, `ROBUST_DEV_*`).  (a) The fault
    stream and the ``erlang2_onoff`` / ``hyperexp2`` scenario streams at
    T=1000 from uniforms drawn on the CPU: on the card equal to the CPU's
@@ -234,7 +235,7 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    checkpoints go under ``build/`` and are deleted.
 
 21. the sparse O(C) stream and the class-collapsed control plane
-   (``--only sparse``; `phase_sparse`, last in a whole run; `SPARSE_*`).  (a)
+   (``--only sparse``; `phase_sparse`, last in the MLP lane; `SPARSE_*`).  (a)
    The sparse stream at n = 10^3 and 10^6 (`tests/test_scale.py`'s two speed
    classes, C=64, T=1000), clean and under phase 18's faults, from uniforms
    drawn on the CPU: on the card equal to the CPU's run of the same draws
@@ -259,25 +260,82 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    faults and the guard, importance-weighted and adaptive, under the sync
    check.  Cuts: shard 1024 -> 128 and T 2000 -> 1000.
 
-The CPU runs that phases 19-21 hold the card to, and phase 21's client
-shards, are computed in three CPU-only worker processes beside the build;
-the script waits for them before phase 17, so nothing runs beside a
-measured phase but the phase-18 and phase-20 kill-and-resume children.
+22. the serving plane (``--only serve``; `phase_serve`, last in the LM
+   lane; `SERVE_*`), under two serving configurations: `tests/test_serving.py`'s
+   2x overload (arrival 6, serve 3, queue cap 5, deadline 1, 2 retries,
+   backoff 0.1 / 0.4) and the serving driver's CLI defaults (arrival 2,
+   serve 4, queue cap 8, deadline 2, 2 retries).  (a) The stream merged with
+   the serving plane (`scan_draws(serving=)`) at the MLP slice's network
+   (n=256, C=64, T=1000) under each, from uniforms drawn on the CPU: on the
+   card equal to the CPU's run of the same draws (events, integer
+   statistics, the request table and its counters and histograms exactly;
+   times and float statistics within 1e-6 relative); the serving marginal's
+   law against `simulate_serving_host` at `test_device_matches_host_oracle_law`'s
+   configuration, network (n=8, C=4) and bars, 16 cells x 1000 events on
+   the cell axis; a chunk under ``set_sync_debug_mode("error")``.  (b) The
+   full-width MLP through ``run_experiment(FLConfig(stream="device"),
+   "gen_async", serving=overload)`` at T=1000, checkpointed every 250
+   events: requests conserved exactly (served + shed + timed out + pending
+   = arrivals), queue depth <= the cap, the read path's checksum finite,
+   accuracy rising; truncated after its second save and resumed, bitwise;
+   a gradient that spikes by 1e6 every 50th step and is NaN at step 333
+   under phase 18's guard (T=400: rejected updates never served, the
+   checksum finite) and unguarded (T=400: the poison reaches the served
+   rows); a chunk of the fused runner with serving and the guard under the
+   sync check, and its profile.  (c) Mamba2-130M at full width and depth
+   (``use_pallas=True``) through the driver's training plane
+   (`launch.serve._train_under_traffic`: 8 clients, C=4, T=32 merged events,
+   ``LMTask(batch 2, seq 16)``) under the CLI's traffic: K4 launches == 24
+   x T (a serve event computes a gradient too), requests conserved, the
+   known-good step moved; then `launch.serve._decode` from those weights
+   (B=4, prompt 16, 32 steps: prefill and decode ms, tokens/s), decode of
+   48 tokens against the full-sequence forward (bf16 within
+   `SERVE_DECODE_BF16_TOL`; the same weights in fp32 within 1e-4 of the
+   largest logit over 16 positions), profiles of the training plane and of
+   decode.  (d) Granite-3.0-2B decode at full width and depth (bf16, random
+   weights from the seed): the same checks.  (e)
+   Qwen1.5-MoE-A2.7B decode at full width, depth `MOE_LAYERS`, sort
+   dispatch: K5 (``use_pallas``) against the plain experts on the same
+   tokens, on the tokens routed to the same experts in both (bf16 2e-2 of
+   the largest logit); K5 launches == 3 x layers x steps.  (f) The serving
+   driver's command line (`tests/test_serve_driver.py`'s arguments) on the
+   card.  Phase 2 also holds K4 at the serve task's shape and K5 at
+   decode's 4-row capacity.
+
+A whole run builds the kernels, then runs phases 2 and 11 alone in a
+process of their own (``--lane-out``; the kernel lane), so that their
+timings see no other process on the card and their profiler has traced
+nothing before (after the other phases, in one process, it read half the
+kernels' device time).  Then it runs two lanes (`LM_LANE`, `MLP_LANE`):
+the MLP lane's groups (mlp, lanes, matrix, robust, stream, stream_robust,
+sparse: phases 3-6, 14-16, 17 and 18 on the MLP, 19-21) run in a second
+process (its output in ``build/lanes/MLP_lane.log``,
+printed whole when it ends) beside the LM lane's (matrix_mamba, granite,
+ssm, moe, robust_mamba, serve: phases 17 and 18 on Mamba2-130M, 7-13, 22)
+in this one: the card idles 82-98% of every path but MoE, so the two
+lanes share it with little wait.  Each part that holds more than a few
+GiB of the card declares it (`_card_memory`), and a declaration waits
+while both lanes' would pass `CARD_BUDGET_GIB`.  The events/s and
+profiles of phases 3-22 are taken beside the other lane.
+The CPU runs that phases 19-22 hold the card to, and phase 21's client
+shards, are computed in CPU-only worker processes of the lane that needs
+them, beside its first phases.
 
 Phase 10 reuses phase 17's run of its "optimal" Mamba2 cell alone (the
-same configuration, asserted), and phases 10 and 17-20 share one Mamba2-130M
-task and its setup (`_mamba_task`); every LM part prints its set-up time
+same configuration, asserted), and the phases of each lane share one
+Mamba2-130M task and its setup (`_mamba_task`); every LM part prints its set-up time
 apart from its timed runs.  ``--memory-history`` records the allocator's
 history around phase 17's blocked Mamba2 matrix and prints the owners of
 the live memory at K2's plain-version entry and at the peak.
 
-Phases 4, 5, 8, 10, 13, 17, 18, 19, 20 and 21 are the kernel paths: each launch
+Phases 4, 5, 8, 10, 13, 17, 18, 19, 20, 21 and 22 are the kernel paths: each launch
 count is zeroed just before the run and read just after.  fp32 matmuls run
 in full fp32 (TF32 off for matmul and cuDNN).  The line before the last is
 the ``kernels`` JSON object; the last line is the result object.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -365,12 +423,16 @@ SSD_SHAPES = [
     (2, 40, 4, 32, 16, 64, (0.5, 2.0), (0.01, 0.2)),
     (2, 128, 3, 32, 16, 64, (1.0, 16.0), (0.0, 1.0)),
 ]
+# the serving plane's training task (phase 22 (c), LMTask(batch 2, seq 16) on
+# Mamba2-130M): the chunk 64 covers the 16-token sequence, Q = 16
+SSD_SERVE_SHAPE = (2, 16, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1))
+SSD_SHAPES.append(SSD_SERVE_SHAPE)
 SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # the shapes that must take the tensor-core kernel in bf16 (Mamba2-130M's
 # path shape, its blocked and matrix folds, Zamba2-2.7B's), and the ones
 # timed in full
-SSD_TC_SHAPES = SSD_SHAPES[3:9]
-SSD_TIMED_SHAPES = SSD_SHAPES[3:5]
+SSD_TC_SHAPES = SSD_SHAPES[3:9] + [SSD_SERVE_SHAPE]
+SSD_TIMED_SHAPES = SSD_SHAPES[3:5] + [SSD_SERVE_SHAPE]
 SSD_MATRIX_SHAPES = SSD_SHAPES[5:8]
 # the Mamba2 LM slice: run_lm's configuration at full width and depth
 MAMBA_ARCH, MAMBA_C, MAMBA_E = "mamba2-130m", 8, 4
@@ -396,6 +458,10 @@ GMM_SHAPES = [
     (3, 130, 100, 70),
 ]
 GMM_ARCTIC = (16, 12, 7168, 4864)
+# decode (phase 22 (e)): B = 4 tokens a step route 16 choices over 60 experts,
+# the capacity floor of 4 rows an expert (layers._capacity); gate / up, down
+GMM_DECODE_SHAPES = [(60, 4, 2048, 1408), (60, 4, 1408, 2048)]
+GMM_SHAPES += GMM_DECODE_SHAPES
 # gradients and vmap: Qwen1.5-MoE's experts at the capacity of phase 12's
 # batch (2 x 128 tokens: 24)
 GMM_GRAD_SHAPE = (60, 24, 2048, 1408)
@@ -532,6 +598,70 @@ SPARSE_LAW_CELLS, SPARSE_LAW_T, SPARSE_CHUNK = 8, 2500, 100
 SPARSE_MLP_N, SPARSE_MLP_T, SPARSE_MLP_EVAL, SPARSE_SHARD = 50_000, 1000, 250, 128
 SPARSE_PROFILE_T = 100
 
+# 22. the serving plane (`--only serve`; last in the LM lane).  Two serving
+# configurations: tests/test_serving.py's 2x overload and the serving
+# driver's CLI defaults (src/repro/launch/serve.py:65-71).  (a) the merged
+# stream on the MLP slice's network (n=256, C=64) at T=1000, on the card
+# against the CPU; its law against the host oracle at
+# test_device_matches_host_oracle_law's configuration and bars on that
+# test's network (n=8, C=4), 8 cells x 4000 events on the cell axis.  (b) the
+# MLP through run_experiment(stream="device", serving=overload) at T=1000
+# (cut from the slice's 2000), checkpointed every 250 events.  (c)
+# Mamba2-130M at full width and depth through the driver's training plane
+# (8 clients, C=4, T=32 merged events, LMTask(batch 2, seq 16)), then decode
+# from its weights (B=4, prompt 16, 32 steps).  (d) Granite-3.0-2B decode at
+# full width and depth.  (e) Qwen1.5-MoE-A2.7B decode at full width, depth
+# MOE_LAYERS, K5 against the plain experts.  (f) the driver's command line.
+SERVE_OVERLOAD = dict(arrival_rate=6.0, serve_rate=3.0, queue_cap=5, deadline=1.0,
+                      max_retries=2, backoff_base=0.1, backoff_cap=0.4)
+SERVE_CLI = dict(arrival_rate=2.0, serve_rate=4.0, queue_cap=8, bucket_rate=0.0,
+                 bucket_cap=8.0, deadline=2.0, max_retries=2)
+SERVE_LAW = dict(arrival_rate=2.5, serve_rate=3.0, queue_cap=5, deadline=0.8, max_retries=1,
+                 backoff_base=0.2, backoff_cap=0.8)
+SERVE_T, SERVE_EVAL, SERVE_CKPT_EVERY = 1000, 250, 250
+# the spiking gradient's runs (NaN at step 333) and the chunk under the sync
+# check and the profile, cut for time
+SERVE_SPIKE_T, SERVE_CONTROL_T, SERVE_CHUNK_T = 400, 400, 100
+# the law: 16 cells x 1000 events (16,000 pooled, the reference's 3 x 4000)
+SERVE_LAW_N, SERVE_LAW_C, SERVE_LAW_CELLS, SERVE_LAW_T = 8, 4, 16, 1000
+SERVE_MAMBA_ARGS = ["--arch", "mamba2-130m", "--preset", "full", "--clients", "8",
+                    "--concurrency", "4", "--train-steps", "32", "--batch", "4",
+                    "--prompt-len", "16", "--steps", "32"]
+SERVE_DRIVER_ARGS = ["--arch", "mamba2-130m", "--preset", "small", "--batch", "2",
+                     "--prompt-len", "4", "--steps", "4", "--train-steps", "40", "--clients",
+                     "4", "--concurrency", "2", "--arrival-rate", "2.0", "--serve-rate", "4.0",
+                     "--deadline", "1.0", "--max-retries", "1"]
+SERVE_DECODE_B, SERVE_DECODE_PROMPT, SERVE_DECODE_STEPS = 4, 16, 32
+# decode against the full-sequence forward at full width and depth: in fp32
+# within 1e-4 of the largest logit (16 positions); in bf16 within 5x the gap
+# measured on the card (PR 24 call 1, NVIDIA H100 80GB HBM3, 700.00 W:
+# Mamba2-130M 3.673e-2, Granite-3.0-2B 2.266e-2 of the largest logit over 48
+# positions: bf16 rounds the residual stream at other places token by token)
+SERVE_DECODE_FP32_TOL, SERVE_DECODE_FP32_S = 1e-4, 16
+SERVE_DECODE_BF16_TOL = {MAMBA_ARCH: 0.18, LM_ARCH: 0.11}
+# MoE decode tokens within this of a router tie are counted (ROADMAP Queue 3,
+# "Routing flips in bf16"); the comparison leaves out the tokens routed to
+# other experts with and without K5
+SERVE_ROUTER_TIE = 1e-3
+SERVE_CKPT_ROOT = Path(__file__).resolve().parent / "build" / "serve_ckpt"
+
+# The two lanes of a whole run (`main`).  The LM parts, which hold most of
+# the card's memory, run in this process; the MLP and stream parts, which
+# hold little of it and leave the card idle 96-98% of their time, run beside
+# them in a second process; the kernels against their plain versions run
+# before both, alone in a process of their own, so that no other process
+# shares the card while they are timed.  A part that holds more than a few GiB
+# declares it (`_card_memory`) and waits while the two lanes' declarations
+# would pass CARD_BUDGET_GIB of the card's 79.2 (the rest: the processes'
+# contexts and the undeclared MLP parts).  Declared: each part's peak in PR
+# 24's whole runs (NVIDIA H100 80GB HBM3, 700.00 W) with room to spare.
+LM_LANE = ("matrix_mamba", "granite", "ssm", "moe", "robust_mamba", "serve")
+MLP_LANE = ("mlp", "lanes", "matrix", "robust", "stream", "stream_robust", "sparse")
+KERNEL_GROUPS = ("k1k2k6", "fa", "ssd", "gmm")
+CARD_BUDGET_GIB = 74.0
+LANE_DIR = Path(__file__).resolve().parent / "build" / "lanes"
+ROBUST_MAMBA_CKPT_ROOT = Path(__file__).resolve().parent / "build" / "robust_mamba_ckpt"
+
 failures: list[str] = []
 # results one phase hands to a later one (the phases of a partial run
 # recompute what they need when it is missing)
@@ -542,6 +672,134 @@ def check(ok: bool, what: str) -> None:
     print(("ok   " if ok else "FAIL ") + what, flush=True)
     if not ok:
         failures.append(what)
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        pass
+    return True
+
+
+@contextlib.contextmanager
+def _card_memory(gib: float, label: str):
+    """Declare that the enclosed part holds up to ``gib`` GiB of the card
+    and wait while the declarations of this run's processes (a ledger under
+    `LANE_DIR`) would pass `CARD_BUDGET_GIB`; on leaving, return the
+    allocator's cache to the card and withdraw the declaration."""
+    import fcntl
+
+    if gib > CARD_BUDGET_GIB:
+        raise ValueError(f"{label}: {gib} GiB is more than the budget {CARD_BUDGET_GIB}")
+    LANE_DIR.mkdir(parents=True, exist_ok=True)
+    ledger, key = LANE_DIR / "card_memory.json", f"{os.getpid()} {label}"
+
+    def update(change) -> bool:
+        with open(LANE_DIR / "card_memory.lock", "a+") as f:
+            fcntl.flock(f, fcntl.LOCK_EX)
+            held = json.loads(ledger.read_text() or "{}") if ledger.exists() else {}
+            held = {k: v for k, v in held.items() if _alive(int(k.split()[0]))}
+            ok = change(held)
+            ledger.write_text(json.dumps(held))
+            return ok
+
+    def take(held: dict) -> bool:
+        if sum(held.values()) + gib > CARD_BUDGET_GIB:
+            return False
+        held[key] = gib
+        return True
+
+    t0 = time.perf_counter()
+    while not update(take):
+        time.sleep(0.5)
+    waited = time.perf_counter() - t0
+    if waited >= 1.0:
+        print(f"card memory: {label} waited {waited:.1f} s for its {gib} GiB", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_reserved() / 2**30
+        torch.cuda.empty_cache()
+        update(lambda held: bool(held.pop(key, None)))
+        print(f"card memory: {label} declared {gib} GiB; reserved peak since the part's last "
+              f"reset of the peak {peak:.3f} GiB", flush=True)
+
+
+def _kill_tree(pid: int, keep_root: bool = False) -> None:
+    """SIGKILL every process descended from ``pid`` (read from /proc), and
+    ``pid`` itself unless ``keep_root``."""
+    kids: dict[int, list[int]] = {}
+    for d in Path("/proc").iterdir():
+        if d.name.isdigit():
+            try:
+                ppid = int((d / "stat").read_text().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                continue
+            kids.setdefault(ppid, []).append(int(d.name))
+    todo, tree = [pid], []
+    while todo:
+        q = todo.pop()
+        tree.append(q)
+        todo.extend(kids.get(q, []))
+    for q in tree[1:] if keep_root else tree:
+        try:
+            os.kill(q, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+
+def _die_with_parent() -> None:
+    """In a lane's process: once the parent is gone, stop this
+    process's descendants and exit."""
+    import threading
+
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        _kill_tree(os.getpid(), keep_root=True)
+        os._exit(3)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def _start_lane(name: str, groups: list[str], t_start: float):
+    """Start a lane: this script on ``groups`` in a process of its own, its
+    output to ``LANE_DIR/<name>_lane.log``, its failures, kernel launches and
+    kernel rows to ``LANE_DIR/<name>_lane.json``."""
+    out, log = LANE_DIR / f"{name}_lane.json", LANE_DIR / f"{name}_lane.log"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--only", ",".join(groups),
+           "--lane-out", str(out), "--t-start", repr(t_start)]
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    return name, groups, proc, out, log
+
+
+def _join_lane(lane, launches: dict) -> dict:
+    """Wait for a lane, print its output, take its kernel launches and
+    failures into this run's, and return its kernel rows."""
+    name, groups, proc, out, log = lane
+    t0 = time.perf_counter()
+    rc = proc.wait()
+    print(f"---- the {name} lane (groups {', '.join(groups)}), in a process of its own; "
+          f"waited {time.perf_counter() - t0:.1f} s for it ----")
+    print(log.read_text(), end="")
+    print(f"---- end of the {name} lane ----", flush=True)
+    res = json.loads(out.read_text()) if out.is_file() else None
+    if res is not None:
+        launches.update(res["launches"])
+        failures.extend(f"{name} lane: {w}" for w in res["failures"])
+    check(rc == 0 and res is not None,
+          f"the {name} lane exited {rc} and reported its results {res is not None}")
+    return {} if res is None else res["rows"]
 
 
 def time_ms(fn, batches: int = 11, per_batch: int = 50, warmup: int = 10) -> float:
@@ -1381,7 +1639,8 @@ def phase_ssd_scan(dev) -> dict:
           f"ssd_scan under vmap with a batched A: {n} launch(es) == 1, equal to a loop "
           f"(allclose tol {close:.3e} <= {FA_TOL[torch.float32]})")
     first = dict(path_rows[SSD_PATH_SHAPE])
-    first.update(path_shapes=[path_rows[sh] for sh in SSD_TIMED_SHAPES],
+    first.update(path_shapes=[path_rows[sh] for sh in SSD_TIMED_SHAPES[:2]],
+                 serve_shape=path_rows[SSD_SERVE_SHAPE],
                  matrix_shapes=[path_rows[sh] for sh in SSD_MATRIX_SHAPES], kernel_info=info)
     return {"ssd_scan": first}
 
@@ -1430,7 +1689,7 @@ def phase_moe_gmm(dev) -> dict:
         library = lambda: torch.bmm(x, w)  # noqa: E731
         row = dict(shape=list(shape), max_abs_err=err, allclose_tol=close, bound_ms=b,
                    bound_by=by)
-        if shape in GMM_PATH_SHAPES and dtype == torch.bfloat16:
+        if shape in GMM_PATH_SHAPES + GMM_DECODE_SHAPES and dtype == torch.bfloat16:
             row.update(_timings(kernel, plain, library))
             path_rows[shape] = row
         else:
@@ -1492,7 +1751,8 @@ def phase_moe_gmm(dev) -> dict:
           f"({k5.launches['moe_gmm']}), dtype mismatch raises {raised}")
     torch.cuda.empty_cache()
     first = dict(path_rows[GMM_PATH_SHAPES[0]])
-    first.update(path_shapes=[path_rows[sh] for sh in GMM_PATH_SHAPES], kernel_info=info)
+    first.update(path_shapes=[path_rows[sh] for sh in GMM_PATH_SHAPES],
+                 decode_shapes=[path_rows[sh] for sh in GMM_DECODE_SHAPES], kernel_info=info)
     return {"moe_gmm": first}
 
 
@@ -1643,7 +1903,6 @@ def phase_lanes(dev, launches: dict, blocked: dict) -> None:
     the FL launcher's defaults, FedAvg and FAVANO; adds the kernel paths'
     launch counts to ``launches`` ("fedbuff", "lanes_rank0", "lanes_rank1").
     ``blocked`` is phase 5's unsharded K2 run (`phase_mlp`)."""
-    import contextlib
     import io
 
     from repro_torch.core.async_sgd import run_fedbuff
@@ -1938,15 +2197,25 @@ def phase_lm(dev, launches: dict) -> None:
 def _train_loss(setup, params, J, steps=None) -> float:
     """Mean loss of ``params`` over a run's trained minibatches (event k:
     client J[k]'s window at step k; ``steps`` the trained events, default
-    all), four minibatches a forward."""
+    all), sixteen minibatches a forward (each forward's mean weighted by its
+    minibatches); memoized for the initial weights, which several checks
+    share."""
+    import weakref
+
     ks = list(range(len(J)) if steps is None else steps)
-    out = []
+    memo = _SHARED.setdefault("train_loss", {})
+    key = (id(setup), np.asarray(J)[ks].tobytes()) if params is setup.params else None
+    if key in memo and memo[key][0]() is setup:
+        return memo[key][1]
+    total = 0.0
     with torch.no_grad():
-        for i in range(0, len(ks), 4):
-            bs = [setup.clients.client_batch(int(J[k]), int(k)) for k in ks[i:i + 4]]
+        for i in range(0, len(ks), 16):
+            bs = [setup.clients.client_batch(int(J[k]), int(k)) for k in ks[i:i + 16]]
             batch = {key: torch.cat([b[key] for b in bs]) for key in bs[0]}
-            out.append(float(setup.clients.loss_fn(params, batch)))
-    return float(np.mean(out))
+            total += float(setup.clients.loss_fn(params, batch)) * len(bs)
+    if key is not None:
+        memo[key] = weakref.ref(setup), total / len(ks)
+    return total / len(ks)
 
 
 def _forwards(T: int, every: int) -> int:
@@ -1992,7 +2261,7 @@ def phase_mamba(dev, launches: dict) -> None:
     def experiment(task, label: str):
         """``(curve, final weights, K4 launches)`` of `run_experiment`; with
         K4, phase 17's run of its "optimal" cell alone when that was the
-        same configuration (`_phase_matrix_mamba` keeps it)."""
+        same configuration (`phase_matrix_mamba` keeps it)."""
         done = _SHARED.get("mamba_alone")
         if (task.cfg.use_pallas and done is not None and done["flc"] == flc
                 and done["every"] == LM_EVAL and done["task"] == task.cache_key()):
@@ -2266,14 +2535,9 @@ def _matrix_inputs(flc, grid: dict, eta: float, every: int, E: int, dev, scenari
 
 def phase_matrix(dev, launches: dict) -> None:
     """17. The scenario matrix on the host stream (see the module
-    docstring): the 3-cell Mamba2-130M grid first, then the paper's 27-cell
-    MLP grid and its profiles; adds the kernel paths' launches to
-    ``launches`` under "matrix_mamba2" (K4) and "matrix" (K1, K2).  `main`
-    runs it before any other phase: the blocked Mamba2 matrix needs up to
-    73.3 GiB of the card's 79.2, and after the other phases it ran out of
-    memory with 5.9-6.3 GiB of the allocator's cache reserved but unused
-    (PERF.md)."""
-    _phase_matrix_mamba(dev, launches)
+    docstring), the paper's 27-cell MLP grid and its profiles (the 3-cell
+    Mamba2-130M grid is `phase_matrix_mamba`); adds the kernel paths'
+    launches to ``launches`` under "matrix" (K1, K2)."""
     from repro_torch.configs.base import FLConfig
     from repro_torch.core.engine_scan import jit_runner
     from repro_torch.data.pipeline import FederatedClassification
@@ -2496,12 +2760,16 @@ class _MemoryOwners:
         return False
 
 
-def _phase_matrix_mamba(dev, launches: dict) -> None:
+def phase_matrix_mamba(dev, launches: dict) -> None:
     """17 (c). The 3-cell Mamba2-130M matrix at full width and depth, per
     event and blocked, K4 folded over the cells (and cells x lanes); then
     the cells' final weights from the engine on the same stacked inputs:
     each cell's training loss falls, and each cell is nearest its own
-    single run (per event) and its own per-event cell (blocked)."""
+    single run (per event) and its own per-event cell (blocked).  Adds K4's
+    launches to ``launches`` under "matrix_mamba2".  `main` runs it first
+    in its process: the blocked Mamba2 matrix needs up to 73.3 GiB of the
+    card's 79.2, and after the other phases it ran out of memory with
+    5.9-6.3 GiB of the allocator's cache reserved but unused (PERF.md)."""
     from repro_torch.configs.base import FLConfig
     from repro_torch.core.engine_scan import jit_runner
     from repro_torch.fl.engine import _cached_fl_setup, run_experiment, run_matrix
@@ -2977,7 +3245,7 @@ def _robust_mamba(dev, launches: dict) -> None:
     mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
     p = sampling_for(flc, mu)
     fault, guard = _robust_settings(C)
-    d = CKPT_ROOT / "mamba2"
+    d = ROBUST_MAMBA_CKPT_ROOT / "mamba2"
     shutil.rmtree(d, ignore_errors=True)
     base = ServerConfig(n=LM_N, C=C, T=T, eta=0.05, mu=mu, p=p, seed=flc.seed, eval_every=every,
                         engine="scan", weighting="importance", update="pallas", block_size=E,
@@ -2992,7 +3260,7 @@ def _robust_mamba(dev, launches: dict) -> None:
     path = launches.setdefault("robust_mamba2", {"block_prefix_update": 0, "ssd_scan": 0})
     run = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
                                               eval_fn=setup.eval_fn)
-    free = lambda: shutil.disk_usage(str(CKPT_ROOT.parent)).free / 2**30  # noqa: E731
+    free = lambda: shutil.disk_usage(str(ROBUST_MAMBA_CKPT_ROOT.parent)).free / 2**30  # noqa: E731
 
     def counted(label, c, want_k2, want_evals):
         wu.reset_launches()
@@ -3045,23 +3313,26 @@ def _robust_mamba(dev, launches: dict) -> None:
 
 def phase_robust(dev, launches: dict) -> None:
     """18. Faults, the divergence guard, scenarios and kill-and-resume
-    checkpointing on the host stream (see the module docstring).  The
-    kill-and-resume children run one after the other beside the matrix and
-    Mamba2 parts (their start-up is mostly host time)."""
+    checkpointing on the host stream, the MLP parts (see the module
+    docstring; Mamba2's is `phase_robust_mamba`).  The kill-and-resume
+    children run one after the other on a thread beside the MLP and matrix
+    parts (their start-up is mostly host time)."""
     from repro_torch.ckpt import checkpoint as ck
 
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
     CKPT_ROOT.mkdir(parents=True)
-    ref = _robust_mlp(dev, launches)
     d_kill = CKPT_ROOT / "mlp_killed"
-    with ThreadPoolExecutor(1) as pool:
-        kill = pool.submit(_run_robust_child, d_kill, "kill")
-        _robust_matrix(dev, launches)
-        p1, wall1 = kill.result()
+
+    def children():
+        killed = _run_robust_child(d_kill, "kill")
         left = ck.available_steps(str(d_kill))
-        resume = pool.submit(_run_robust_child, d_kill, "resume")
-        _robust_mamba(dev, launches)
-        p2, wall2 = resume.result()
+        return killed, left, _run_robust_child(d_kill, "resume")
+
+    with ThreadPoolExecutor(1) as pool:
+        both = pool.submit(children)
+        ref = _robust_mlp(dev, launches)
+        _robust_matrix(dev, launches)
+        (p1, wall1), left, (p2, wall2) = both.result()
     print(f"robust MLP kill-and-resume children: the killed child exited {p1.returncode} after "
           f"{wall1:.3f} s and left steps {left}; the resumed child exited {p2.returncode} after "
           f"{wall2:.3f} s")
@@ -3080,6 +3351,15 @@ def phase_robust(dev, launches: dict) -> None:
               "robust MLP killed and resumed in fresh processes: final weights, eval curve and "
               "guard counter bitwise the uninterrupted checkpointed run's")
     shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+
+
+def phase_robust_mamba(dev, launches: dict) -> None:
+    """18., Mamba2-130M under faults, the guard and checkpoints
+    (`_robust_mamba`), its checkpoints under their own root."""
+    shutil.rmtree(ROBUST_MAMBA_CKPT_ROOT, ignore_errors=True)
+    ROBUST_MAMBA_CKPT_ROOT.mkdir(parents=True)
+    _robust_mamba(dev, launches)
+    shutil.rmtree(ROBUST_MAMBA_CKPT_ROOT, ignore_errors=True)
 
 
 # ------------------------------------------------------------------ #
@@ -3180,16 +3460,19 @@ def _cpu_references(kind: str):
     """The CPU runs the card's streams are held to, in a CPU-only worker
     process (one thread) beside the build: ``"stream"`` phase 19 (a)'s two,
     ``"stream_robust"`` phase 20 (a)'s four, ``"sparse"`` phase 21 (a)'s
-    four."""
+    four, ``"serve"`` phase 22 (a)'s two."""
     from repro_torch.core import stream_device as sd
     from repro_torch.data.pipeline import make_client_speeds
     from repro_torch.fl.engine import sampling_for
 
+    os.nice(10)  # below the lanes, which wait for these results much later
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # tiny operations: no gain from threads
     try:
         if kind == "sparse":
             return {r: _sparse_cpu_run(*r) for r in _sparse_runs()}
+        if kind == "serve":
+            return _serve_cpu_refs()
         flc = _mlp_flc(torch.device("cpu"))
         mu = make_client_speeds(flc.n_clients, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
         p = sampling_for(flc, mu)
@@ -3204,39 +3487,43 @@ def _cpu_references(kind: str):
         torch.set_num_threads(threads)
 
 
-def _start_cpu_references(groups):
-    """Start `_cpu_references` for the phase groups of this run, and phase
-    21's shards (`_build_sparse_shards`), in three spawned CPU-only worker
-    processes; `_collect_cpu_references` waits for them.  Returns the pool
-    and its jobs by name, or None when no group needs one."""
+def _start_cpu_references(groups) -> None:
+    """Start `_cpu_references` for the phase groups of this process, and
+    phase 21's shards (`_build_sparse_shards`), in up to three spawned
+    CPU-only worker processes beside the build and the first phases;
+    `_cpu_refs` waits for them when a phase first needs one."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    kinds = [k for k in ("sparse", "stream", "stream_robust") if k in groups]
+    kinds = [k for k in ("sparse", "stream", "stream_robust", "serve") if k in groups]
     if not kinds:
-        return None
-    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context("spawn"))
+        return
+    pool = ProcessPoolExecutor(min(3, len(kinds) + ("sparse" in groups)),
+                               mp_context=multiprocessing.get_context("spawn"))
     jobs = {}
     if "sparse" in groups:  # the longest job first
         jobs["sparse_shards"] = pool.submit(_build_sparse_shards, SPARSE_MLP_N, 0, SPARSE_SHARD)
     jobs.update({k: pool.submit(_cpu_references, k) for k in kinds})
-    return pool, jobs
+    _SHARED["cpu_workers"] = pool, jobs
 
 
-def _collect_cpu_references(started) -> None:
-    """Wait for the workers of `_start_cpu_references` and keep their results
-    for `_cpu_refs`: the workers run beside the build only, never beside a
-    measured phase."""
+def _collect_cpu_references() -> None:
+    """Wait for the workers of `_start_cpu_references`, keep their results
+    for `_cpu_refs` and stop the workers."""
+    started = _SHARED.pop("cpu_workers", None)
     if started is None:
         return
     pool, jobs = started
+    t0 = time.perf_counter()
     _SHARED["cpu_refs"] = {k: job.result() for k, job in jobs.items()}
     pool.shutdown()
+    print(f"the CPU workers' results: waited {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def _cpu_refs(kind: str):
-    """A result of `_collect_cpu_references`: `_cpu_references(kind)`, or
-    the seconds `_build_sparse_shards` took (``"sparse_shards"``)."""
+    """A result of the CPU workers: `_cpu_references(kind)`, or the seconds
+    `_build_sparse_shards` took (``"sparse_shards"``)."""
+    _collect_cpu_references()
     return _SHARED["cpu_refs"].pop(kind)
 
 
@@ -3546,7 +3833,8 @@ def phase_stream(dev, launches: dict) -> None:
     t2 = time.perf_counter()
     _stream_matrix(dev)
     t3 = time.perf_counter()
-    _stream_mamba(dev, launches)
+    with _card_memory(16, "19 (c): Mamba2-130M on the device stream"):
+        _stream_mamba(dev, launches)
     t4 = time.perf_counter()
     print(f"phase 19 times: stream and control plane {t1 - t0:.1f} s, MLP {t2 - t1:.1f} s, "
           f"matrix {t3 - t2:.1f} s, Mamba2 {t4 - t3:.1f} s; phase 19 {t4 - t0:.1f} s")
@@ -3942,7 +4230,8 @@ def phase_stream_robust(dev, launches: dict) -> None:
         t3 = time.perf_counter()
         (p1, wall1), left, (p2, wall2) = both.result()
         t4 = time.perf_counter()
-    _robust_dev_mamba(dev, launches)
+    with _card_memory(21, "20: Mamba2-130M under faults, checkpointed"):
+        _robust_dev_mamba(dev, launches)
     t5 = time.perf_counter()
     print(f"robust device MLP kill-and-resume children: the killed child exited {p1.returncode} "
           f"after {wall1:.3f} s and left steps {left}; the resumed child exited {p2.returncode} "
@@ -4168,6 +4457,7 @@ def _build_sparse_shards(n: int, seed: int, m: int) -> float:
     returns the seconds it took."""
     from repro_torch.data.pipeline import FederatedClassification
 
+    os.nice(10)  # below the lanes, which wait for these shards much later
     t0 = time.perf_counter()
     xs, ys = FederatedClassification(n_clients=n, seed=seed).device_shards(m)
     SPARSE_SHARDS.parent.mkdir(parents=True, exist_ok=True)
@@ -4307,14 +4597,576 @@ def phase_sparse(dev, launches: dict) -> None:
     _sparse_card(dev)
     _sparse_control(dev)
     t1 = time.perf_counter()
-    _sparse_mlp(dev, launches)
+    with _card_memory(3, "21 (c): the MLP at n = 50,000"):
+        _sparse_mlp(dev, launches)
     t2 = time.perf_counter()
     print(f"phase 21 times: stream and control plane {t1 - t0:.1f} s, MLP {t2 - t1:.1f} s; "
           f"phase 21 {t2 - t0:.1f} s")
 
 
-GROUPS = ("k1k2k6", "fa", "ssd", "gmm", "mlp", "lanes", "granite", "ssm", "matrix", "moe",
-          "robust", "stream", "stream_robust", "sparse")
+# ------------------------------------------------------------------ #
+# 22. the serving plane: the merged stream, the known-good read path,
+# decode and the serving driver
+# ------------------------------------------------------------------ #
+def _serve_inputs(mu, p, n: int, C: int, T: int, seed: int, cells: int | None = None):
+    """`stream_device.scan_draws`'s positional inputs for the merged stream,
+    drawn on the CPU (seed ``seed``, or ``seed + b`` for cell b)."""
+    from repro_torch.core import stream_device as sd
+
+    f32 = torch.float32
+    seeds = [seed] if cells is None else [seed + b for b in range(cells)]
+    draws = [sd.draw_uniforms(s, n, C, T, p, device="cpu") for s in seeds]
+    nodes, ur, ue, ud = (torch.stack(a) for a in zip(*draws))
+    K = sd.tree_sample(sd.tree_build(torch.tensor(p, dtype=f32).expand(len(seeds), n)), ud)
+    args = (torch.tensor(mu, dtype=f32).expand(len(seeds), n), nodes, ur, ue, K)
+    return tuple(a[0] for a in args) if cells is None else args
+
+
+def _serve_cpu_refs():
+    """22 (a)'s CPU runs: the merged stream at the MLP slice's network under
+    each serving configuration (`_serve_inputs`, seed 0)."""
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.serving import ServingConfig
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.fl.engine import sampling_for
+
+    flc = _mlp_flc(torch.device("cpu"))
+    mu = make_client_speeds(flc.n_clients, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    p = sampling_for(flc, mu)
+    args = _serve_inputs(mu, p, STREAM_N, STREAM_C, SERVE_T, 0)
+    return {name: sd.scan_draws(*args, serving=ServingConfig(**kw))
+            for name, kw in (("overload", SERVE_OVERLOAD), ("cli", SERVE_CLI))}
+
+
+def _same_served(label: str, card, cpu) -> None:
+    """Two `scan_draws(serving=)` results: the events (J, K, slot, delay,
+    kind) and the integer statistics equal, the serving table and its
+    integer counters and histograms equal, times and float statistics
+    within 1e-6 relative."""
+    (_, ea, sa, (va, ta)), (_, eb, sb, (vb, tb)) = card, cpu
+    same = lambda x, y: torch.equal(x.cpu(), y.cpu())  # noqa: E731
+    ints = (all(same(ea[i], eb[i]) for i in (0, 1, 3, 4, 5))
+            and all(same(getattr(sa, f), getattr(sb, f)) for f in ("occ_sum", "comp", "slot_step"))
+            and all(same(getattr(va, f), getattr(vb, f))
+                    for f in ("stt", "seq", "attempt", "next_seq", "depth", "cdf"))
+            and all(same(getattr(ta, f), getattr(tb, f))
+                    for f in ("arrivals", "served", "shed", "timed_out", "retried", "qdepth_max",
+                              "sojourn_hist")))
+    pairs = [(ea[2], eb[2])] + [(getattr(sa, f), getattr(sb, f))
+                                for f in ("occ_tw", "busy_t", "delay_sum")]
+    pairs += [(va.t_arr, vb.t_arr), (va.tokens, vb.tokens), (ta.sojourn - ta.sojourn_c,
+                                                             tb.sojourn - tb.sojourn_c),
+              (ta.qdepth_tw - ta.qdepth_tw_c, tb.qdepth_tw - tb.qdepth_tw_c)]
+    rel = max(float(((x.cpu().double() - y.cpu().double()).abs()
+                     / y.cpu().double().abs().clamp_min(1e-30)).max()) for x, y in pairs)
+    n_serve = int((eb[5] == 4).sum())
+    check(ints and rel <= 1e-6,
+          f"{label}: J, K, slot, delay, kind ({n_serve} serve events), the integer statistics, "
+          f"the request table and its counters and histograms equal the CPU's on the same "
+          f"draws; times and float statistics within {rel:.2e} <= 1e-6 relative")
+
+
+def _serve_counts(x: dict) -> tuple[int, int, int, int, int]:
+    return tuple(int(x[f"serve_{k}"]) for k in ("arrivals", "served", "shed", "timed_out",
+                                                "pending"))
+
+
+def _serve_conserved(label: str, x: dict) -> None:
+    arr, srv, shed, tmo, pend = _serve_counts(x)
+    check(arr == srv + shed + tmo + pend and arr > 0,
+          f"{label}: requests conserved exactly: arrivals {arr} == served {srv} + shed {shed} + "
+          f"timed out {tmo} + pending {pend}")
+
+
+def _serve_card(dev) -> None:
+    """22 (a): the merged stream on the card against the CPU under both
+    serving configurations; the law against the host oracle; a chunk under
+    the sync check."""
+    from repro_torch.core import stream_device as sd
+    from repro_torch.core.serving import (ServeLoop, ServingConfig, serve_init,
+                                          serve_stats_init, simulate_serving_host)
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.fl.engine import sampling_for
+
+    flc = _mlp_flc(dev)
+    mu = make_client_speeds(flc.n_clients, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    p = sampling_for(flc, mu)
+    args = _serve_inputs(mu, p, STREAM_N, STREAM_C, SERVE_T, 0)
+    refs = _cpu_refs("serve")
+    for name, kw in (("overload", SERVE_OVERLOAD), ("cli", SERVE_CLI)):
+        cfg = ServingConfig(**kw)
+        card, wall = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in args), serving=cfg))
+        _same_served(f"merged stream ({name}) on the card n={STREAM_N} C={STREAM_C} "
+                     f"T={SERVE_T}", card, refs[name])
+        print(f"merged stream ({name}) on the card: {wall:.3f} s, {SERVE_T / wall:.1f} events/s")
+    # the serving marginal's law against the host oracle (the reference's
+    # test_device_matches_host_oracle_law: its configuration, network and bars)
+    cfg = ServingConfig(**SERVE_LAW)
+    n, C, T, B = SERVE_LAW_N, SERVE_LAW_C, SERVE_LAW_T, SERVE_LAW_CELLS
+    mu8 = np.linspace(0.5, 2.0, n)
+    argsb = _serve_inputs(mu8, np.full(n, 1.0 / n), n, C, T, 3000, cells=B)
+    (_, ev, _, (sv, st)), wall = _timed(lambda: sd.scan_draws(*(a.to(dev) for a in argsb),
+                                                              serving=cfg))
+    t_end = ev[2][:, -1].double().cpu().numpy()
+    arr, srv, shed = (int(getattr(st, f).sum()) for f in ("arrivals", "served", "shed"))
+    tmo = int(st.timed_out.sum()) + int((sv.stt != 0).sum())
+    sojourn = float((st.sojourn.double() - st.sojourn_c.double()).sum())
+    horizon = float(t_end.mean())
+    host = dict(arrivals=0, served=0, shed=0, timed_out=0)
+    sjs = []
+    for seed in range(20):
+        h = simulate_serving_host(cfg, horizon, seed=seed)
+        for k in host:
+            host[k] += h[k]
+        sjs += h["sojourns"]
+    rate = arr / float(t_end.sum())
+    fr = {k: (v / arr, host[k] / host["arrivals"]) for k, v in
+          (("served", srv), ("shed", shed), ("timed_out", tmo))}
+    w_dev, w_host = sojourn / max(srv, 1), float(np.mean(sjs))
+    print(f"merged stream law, {B} cells x {T} events on the card ({wall:.3f} s): arrival rate "
+          f"{rate:.4f} (lambda {cfg.arrival_rate}); fractions (card, host) "
+          f"{ {k: (round(a, 4), round(b, 4)) for k, (a, b) in fr.items()} }; mean sojourn "
+          f"{w_dev:.4f} vs host {w_host:.4f}")
+    check(abs(rate / cfg.arrival_rate - 1.0) <= 0.15
+          and all(abs(a - b) < 0.06 for a, b in fr.values())
+          and abs(w_dev / w_host - 1.0) <= 0.25,
+          "merged stream law against simulate_serving_host: arrival rate within 15%, outcome "
+          "fractions within 0.06, mean sojourn within 25% (the reference's bars)")
+    # a chunk of the merged stream under the sync check
+    state, _ = sd.stream_init(argsb[1].to(dev), n, C)
+    stats = sd.stats_init(n, C, cells=B, device=dev)
+    loop = ServeLoop(cfg, serve_init(cfg, cells=B, device=dev), serve_stats_init(cells=B,
+                                                                                  device=dev))
+    mu_g, ur, ue, K = (argsb[i][:, :200].to(dev) if i else argsb[0].to(dev) for i in (0, 2, 3, 4))
+    cst = sd._Consts((B,), C, dev, n=n)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sd._advance(state, stats, mu_g, -torch.log1p(-ue), ur, K, 0, cst, serve=loop)
+        ok = True
+    except RuntimeError as e:
+        ok = False
+        print(f"     {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(ok, "a chunk of the merged stream (200 events, 8 cells) makes no host sync")
+
+
+def _serve_mlp(dev, data) -> None:
+    """22 (b): the full-width MLP through ``run_experiment(stream="device",
+    serving=)`` under the 2x overload, checkpointed every 250 events,
+    truncated after its second save and resumed; the spiking gradient under
+    the guard and unguarded; a chunk under the sync check and a profile."""
+    from repro_torch.core.async_sgd import _device_grad_fn, run_generalized_async_sgd
+    from repro_torch.core.serving import ServingConfig
+    from repro_torch.core.engine_scan import make_fused_runner
+    from repro_torch.core import stream_device as sd
+    from repro_torch.fl.engine import run_experiment
+
+    cfg = ServingConfig(**SERVE_OVERLOAD)
+    flc = replace(_mlp_flc(dev), stream="device", server_steps=SERVE_T)
+    shutil.rmtree(SERVE_CKPT_ROOT, ignore_errors=True)
+    d = str(SERVE_CKPT_ROOT / "mlp")
+    run = lambda **kw: run_experiment(flc, "gen_async", eval_every=SERVE_EVAL, data=data,  # noqa: E731
+                                      serving=cfg, ckpt_dir=d, ckpt_every=SERVE_CKPT_EVERY, **kw)
+    r, wall = _timed(run)
+    x = r.extras
+    acc = [round(float(a), 4) for a in r.eval_acc]
+    print(f"MLP under the 2x overload, run_experiment(stream='device', serving=), T={SERVE_T}, "
+          f"checkpointed every {SERVE_CKPT_EVERY}: {wall:.3f} s, {SERVE_T / wall:.1f} events/s; "
+          f"accuracy {acc}; serve counters {_serve_counts(x)}, retried "
+          f"{int(x['serve_retried'])}, qdepth max {int(x['serve_qdepth_max'])}, known-good step "
+          f"{int(x['serve_kg_step'])}, checksum {float(x['serve_checksum']):.6g}, sojourn "
+          f"buckets {x['serve_sojourn_hist'].tolist()}")
+    _serve_conserved("MLP under the 2x overload", x)
+    check(int(x["serve_qdepth_max"]) <= cfg.queue_cap and int(x["serve_shed"]) > 0,
+          f"MLP under the 2x overload: qdepth max {int(x['serve_qdepth_max'])} <= queue cap "
+          f"{cfg.queue_cap}, {int(x['serve_shed'])} shed")
+    check(np.isfinite(float(x["serve_checksum"])) and int(x["serve_kg_step"]) > 0
+          and int(x["serve_stale_hist"].sum()) == int(x["serve_served"]),
+          "MLP under the 2x overload: the read path's checksum finite, the known-good step "
+          "moved, every serve's staleness histogrammed")
+    check(len(acc) == SERVE_T // SERVE_EVAL and acc[-1] > acc[0],
+          f"MLP under the 2x overload: accuracy rises {acc[0]} -> {acc[-1]}")
+    left = _truncate_ckpts(d, 2 * SERVE_CKPT_EVERY)
+    r2, wall2 = _timed(lambda: run(resume=True))
+    names = sorted(k for k in x if k.startswith("serve_"))
+    bitwise = (all(torch.equal(r.final_params[k], r2.final_params[k]) for k in r.final_params)
+               and all(np.array_equal(x[k], r2.extras[k]) for k in names)
+               and r.eval_acc.tolist() == r2.eval_acc.tolist())
+    print(f"     truncated to steps {left}, resumed in {wall2:.3f} s")
+    check(bitwise and len(names) == 16,
+          "MLP with serving, checkpointed, truncated after its second save and resumed: "
+          "weights, eval curve and the 16 serve_* extras bitwise the uninterrupted run")
+    shutil.rmtree(SERVE_CKPT_ROOT, ignore_errors=True)
+
+    setup, base = _mlp_setup(dev, data)
+    _, guard = _robust_settings(STREAM_C)
+    sbase = replace(base, stream="device", serving=cfg, eval_every=0)
+    nan_step = 333
+    spiky = _Spiky(setup.clients, nan_step)
+    (w_g, tr_g), wall = _timed(lambda: run_generalized_async_sgd(
+        setup.params, spiky, replace(sbase, T=SERVE_SPIKE_T, guard=guard)))
+    xg = tr_g.extras
+    finite_w = all(bool(torch.isfinite(v).all()) for v in w_g.values())
+    print(f"MLP under the overload with a gradient that spikes every {ROBUST_SPIKE_EVERY}th step "
+          f"and is NaN at step {nan_step}, guarded, T={SERVE_SPIKE_T}: {wall:.3f} s; rejects "
+          f"{int(xg['guard_rejects'])}, serve counters {_serve_counts(xg)}, checksum "
+          f"{float(xg['serve_checksum']):.6g}")
+    _serve_conserved("MLP spiking gradient under the guard", xg)
+    check(int(xg["guard_rejects"]) > 0 and int(xg["serve_served"]) > 0 and finite_w
+          and np.isfinite(float(xg["serve_checksum"])),
+          "MLP spiking gradient under the guard: rejected updates never served (the checksum "
+          "of the served rows finite), the weights finite")
+    (_, tr_u), _ = _timed(lambda: run_generalized_async_sgd(setup.params, spiky,
+                                                            replace(sbase, T=SERVE_CONTROL_T)))
+    check(not np.isfinite(float(tr_u.extras["serve_checksum"])),
+          f"MLP spiking gradient unguarded, T={SERVE_CONTROL_T} (the control): the poison "
+          f"reaches the served rows (checksum {float(tr_u.extras['serve_checksum'])})")
+
+    # a chunk of the fused runner with serving and the guard under the sync check
+    n, C, T = STREAM_N, STREAM_C, SERVE_CHUNK_T
+    fused = make_fused_runner(_device_grad_fn(setup.clients), n, C, T, serving=cfg, guard=guard)
+    draws = sd.draw_uniforms(5, n, C, T, base.p, device=dev)
+    mu_g, p_g = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (base.mu, base.p))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused.from_draws(setup.params, mu_g, p_g, 0.05, *draws)
+        ok = True
+    except RuntimeError as e:
+        ok = False
+        print(f"     {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(ok, f"a chunk of the fused runner with serving and the guard on the MLP ({T} events) "
+          "makes no host sync")
+    _print_profile(f"MLP with serving and the guard (fused runner, {T} events)",
+                   lambda: fused.from_draws(setup.params, mu_g, p_g, 0.05, *draws), T)
+    del setup, w_g
+
+
+def _decode_gap(cfg, params, dev, B: int, S: int, seed: int) -> tuple[float, bool]:
+    """Decode of S random tokens from the empty cache against the port's own
+    full-sequence forward at each position: ``(largest gap over the largest
+    |logit|, logits finite)``."""
+    from repro_torch.launch.serve import materialize_cache
+    from repro_torch.models import api
+
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))).to(dev)
+    with torch.no_grad():
+        full, _ = api.forward(params, {"tokens": toks}, cfg)
+        cache = materialize_cache(api.init_cache(cfg, B, S), dev)
+        steps = []
+        for t in range(S):
+            lg, cache = api.decode_step(params, cache, {"tokens": toks[:, t:t + 1]}, cfg)
+            steps.append(lg)
+        dec = torch.stack(steps, dim=1)
+    gap = max_err(dec, full) / max(float(full.float().abs().max()), 1e-30)
+    return gap, bool(torch.isfinite(dec.float()).all())
+
+
+def _decode_vs_forward(label: str, arch: str, cfg, params, dev) -> None:
+    """22 (c)-(d): decode against the full-sequence forward at full width and
+    depth, in the run's bf16 (`SERVE_DECODE_BF16_TOL`) and with the same
+    weights in fp32 (`SERVE_DECODE_FP32_TOL`: the decode path itself)."""
+    from repro_torch.tree import tree_map
+
+    B, S = SERVE_DECODE_B, SERVE_DECODE_PROMPT + SERVE_DECODE_STEPS
+    gap, finite = _decode_gap(cfg, params, dev, B, S, 1)
+    tol = SERVE_DECODE_BF16_TOL[arch]
+    check(finite and gap <= tol, f"{label}: bf16 decode of {S} tokens x {B} through the cache "
+          f"against the full-sequence forward at each position: gap {gap:.3e} of the largest "
+          f"logit <= {tol}, logits finite {finite}")
+    p32 = tree_map(lambda w: w.float(), params)
+    S32 = SERVE_DECODE_FP32_S
+    gap, finite = _decode_gap(cfg.replace(dtype="float32"), p32, dev, B, S32, 2)
+    check(finite and gap <= SERVE_DECODE_FP32_TOL,
+          f"{label}: the same weights in fp32, decode of {S32} tokens x {B} against the forward: "
+          f"gap {gap:.3e} of the largest logit <= {SERVE_DECODE_FP32_TOL}")
+    del p32
+    torch.cuda.empty_cache()
+
+
+def _decode_report(label: str, r: dict) -> None:
+    print(f"{label} decode (B={SERVE_DECODE_B}, prompt {SERVE_DECODE_PROMPT}, "
+          f"{SERVE_DECODE_STEPS} steps): prefill {r['prefill_s'] * 1e3:.1f} ms, decode "
+          f"{r['decode_s'] * 1e3:.1f} ms, {r['tok_per_s']:.1f} tokens/s, "
+          f"{r['decode_s'] * 1e3 / SERVE_DECODE_STEPS:.3f} ms/step")
+
+
+def _profile_decode(label: str, cfg, params, dev, steps: int = 4) -> None:
+    """A profile of ``steps`` decode steps of B tokens (an "event" a step)."""
+    from repro_torch.launch.serve import materialize_cache
+    from repro_torch.models import api
+
+    B = SERVE_DECODE_B
+    tok = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+
+    def run():
+        cache = materialize_cache(api.init_cache(cfg, B, steps), dev)
+        with torch.no_grad():
+            for _ in range(steps):
+                _, cache = api.serve_step(params, cache, {"tokens": tok}, cfg)
+
+    _print_profile(f"{label} decode (B={B}, a step an event)", run, steps)
+
+
+def _serve_mamba(dev, launches: dict) -> None:
+    """22 (c): Mamba2-130M at full width and depth through the driver's
+    training plane under the CLI's traffic (K4 in every gradient), then
+    decode from those weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.launch import serve as t_serve
+
+    part = _Part("Mamba2 serving (phase 22)")
+    args = t_serve._parser().parse_args(SERVE_MAMBA_ARGS + ["--device", dev.type])
+    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
+    path = launches.setdefault("serve_mamba2", {"ssd_scan": 0})
+    k4.reset_launches()
+    (params, x), wall = _timed(lambda: t_serve._train_under_traffic(cfg, args))
+    n4 = k4.launches["ssd_scan"]
+    path["ssd_scan"] += n4
+    T = args.train_steps
+    print(f"Mamba2-130M training plane under the CLI's traffic (n={args.clients}, "
+          f"C={args.concurrency}, T={T} merged events, LMTask(batch 2, seq 16)): {wall:.3f} s, "
+          f"{T / wall:.3f} events/s, K4 launches {n4}; serve counters {_serve_counts(x)}, "
+          f"known-good step {int(x['serve_kg_step'])}")
+    check(n4 == cfg.num_layers * T, f"Mamba2 serving: K4 launches {n4} == {cfg.num_layers} x "
+          f"{T} gradients (serve events compute one too)")
+    _serve_conserved("Mamba2 serving", x)
+    check(int(x["serve_kg_step"]) > 0 and np.isfinite(float(x["serve_checksum"])),
+          f"Mamba2 serving: known-good step {int(x['serve_kg_step'])} > 0, checksum finite")
+    short = t_serve._parser().parse_args(SERVE_MAMBA_ARGS + ["--device", dev.type,
+                                                             "--train-steps", "2"])
+    _print_profile("Mamba2-130M training plane under traffic (T=2, incl. set-up)",
+                   lambda: t_serve._train_under_traffic(cfg, short), 2)
+    r = t_serve._decode(cfg, params, args)
+    check(r["logits_finite"] and r["generated"].shape == (SERVE_DECODE_B, SERVE_DECODE_STEPS),
+          "Mamba2 decode from the trained weights: logits finite, ids (4, 32)")
+    _decode_report("Mamba2-130M", r)
+    _profile_decode("Mamba2-130M", cfg, params, dev)
+    _decode_vs_forward("Mamba2-130M (trained weights, K4 in the forward)", MAMBA_ARCH, cfg, params,
+                       dev)
+    del params
+    part.end()
+    torch.cuda.empty_cache()
+
+
+def _serve_granite(dev) -> None:
+    """22 (d): Granite-3.0-2B decode at full width and depth (bf16, random
+    weights from the seed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as t_serve
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params
+
+    part = _Part("Granite-3.0-2B decode (phase 22)")
+    cfg = get_config(LM_ARCH)
+    params = init_params(api.model_meta(cfg), 0, dev)
+    args = t_serve._parser().parse_args(["--batch", str(SERVE_DECODE_B), "--prompt-len",
+                                         str(SERVE_DECODE_PROMPT), "--steps",
+                                         str(SERVE_DECODE_STEPS), "--device", dev.type])
+    r, _ = _timed(lambda: t_serve._decode(cfg, params, args))
+    check(r["logits_finite"], "Granite-3.0-2B decode: logits finite")
+    _decode_report("Granite-3.0-2B (40 layers)", r)
+    _decode_vs_forward("Granite-3.0-2B", LM_ARCH, cfg, params, dev)
+    del params
+    part.end()
+    torch.cuda.empty_cache()
+
+
+def _serve_moe(dev, launches: dict) -> None:
+    """22 (e): Qwen1.5-MoE-A2.7B decode at full width, depth `MOE_LAYERS`,
+    under the sort dispatch: K5 (``use_pallas``) against the plain experts
+    on the same tokens, on the tokens routed to the same experts in both."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_gmm as k5
+    from repro_torch.launch.serve import materialize_cache
+    from repro_torch.models import api
+    from repro_torch.models import layers as L
+    from repro_torch.models.module import init_params
+
+    part = _Part("Qwen1.5-MoE decode (phase 22)")
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS, moe_dispatch="sort")
+    params = init_params(api.model_meta(cfg), 0, dev)
+    B, S = SERVE_DECODE_B, SERVE_DECODE_PROMPT + SERVE_DECODE_STEPS
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab_size, (B, S))).to(dev)
+    router, seen = L._router, []
+
+    def spy(p, xg, c):  # every routed token's experts and its top-k margin
+        probs, g, idx = router(p, xg, c)
+        top = torch.topk(probs, c.num_experts_per_tok + 1, dim=-1).values
+        seen.append((torch.sort(idx, dim=-1).values, top[:, -2] - top[:, -1]))
+        return probs, g, idx
+
+    def decode(c):
+        cache = materialize_cache(api.init_cache(c, B, S), dev)
+        out = []
+        with torch.no_grad():
+            for t in range(S):
+                lg, cache = api.decode_step(params, cache, {"tokens": toks[:, t:t + 1]}, c)
+                out.append(lg)
+        torch.cuda.synchronize()
+        return torch.stack(out, dim=1)
+
+    path = launches.setdefault("serve_decode_moe", {"moe_gmm": 0})
+    L._router = spy
+    try:
+        k5.reset_launches()
+        kern, wall_k = _timed(lambda: decode(cfg.replace(use_pallas=True)))
+        n5 = k5.launches["moe_gmm"]
+        plain, wall_p = _timed(lambda: decode(cfg.replace(use_pallas=False)))
+    finally:
+        L._router = router
+    path["moe_gmm"] += n5
+    # per step MOE_LAYERS router calls of B tokens: the kernel run, then the plain
+    idx = torch.stack([i for i, _ in seen]).view(2, S, MOE_LAYERS, B, -1)
+    margin = torch.stack([m for _, m in seen]).view(2, S, MOE_LAYERS, B)
+    same = (idx[0] == idx[1]).all(-1).all(1).t()  # (B, S): the same experts at every layer
+    near = (margin.amin(dim=(0, 2)).t() <= SERVE_ROUTER_TIE)
+    scale = float(plain.float().abs().max())
+    gaps = (kern.float() - plain.float()).abs().amax(-1) / scale
+    err = float(gaps[same].max()) if bool(same.any()) else float("nan")
+    print(f"Qwen1.5-MoE decode ({MOE_LAYERS} layers, B={B}, {S} steps, sort dispatch): K5 "
+          f"{wall_k:.3f} s ({B * S / wall_k:.1f} tokens/s), plain experts {wall_p:.3f} s "
+          f"({B * S / wall_p:.1f} tokens/s); K5 "
+          f"launches {n5}; {int(near.sum())} of {B * S} tokens within {SERVE_ROUTER_TIE} of a "
+          f"router tie (random init: a near-uniform router), {int((~same).sum())} routed to "
+          f"other experts with and without K5")
+    check(n5 == 3 * MOE_LAYERS * S, f"Qwen1.5-MoE decode: K5 launches {n5} == 3 x {MOE_LAYERS} "
+          f"layers x {S} steps")
+    check(bool(torch.isfinite(kern.float()).all()) and int(same.sum()) >= B * S // 2
+          and err <= TOL[torch.bfloat16],
+          f"Qwen1.5-MoE decode, K5 against the plain experts on the {int(same.sum())} tokens "
+          f"routed alike: gap {err:.3e} of the largest logit <= {TOL[torch.bfloat16]} (bf16)")
+    del params, kern, plain
+    part.end()
+    torch.cuda.empty_cache()
+
+
+def _serve_driver(dev) -> None:
+    """22 (f): the serving driver's command line on the card
+    (`tests/test_serve_driver.py`'s arguments, the default device)."""
+    from repro_torch.launch.serve import run_serve
+
+    r, wall = _timed(lambda: run_serve(SERVE_DRIVER_ARGS + ["--device", dev.type]))
+    x = {k: v for k, v in r.items() if k.startswith("serve_")}
+    print(f"run_serve({' '.join(SERVE_DRIVER_ARGS)}) on the card: {wall:.3f} s, "
+          f"{r['tok_per_s']:.1f} tokens/s, serve counters {_serve_counts(x)}")
+    _serve_conserved("run_serve on the card", x)
+    check(r["logits_finite"] and r["generated"].shape == (2, 4)
+          and int(x["serve_kg_step"]) > 0 and np.isfinite(float(x["serve_checksum"])),
+          "run_serve on the card: logits finite, ids (2, 4), known-good step moved, checksum "
+          "finite")
+
+
+def phase_serve(dev, launches: dict) -> None:
+    """22. The serving plane (see the module docstring); adds K4's launches
+    to ``launches`` under "serve_mamba2" and K5's under "serve_decode_moe"."""
+    from repro_torch.data.pipeline import FederatedClassification
+
+    t0 = time.perf_counter()
+    _serve_card(dev)
+    t1 = time.perf_counter()
+    flc = _mlp_flc(dev)
+    _serve_mlp(dev, FederatedClassification(n_clients=flc.n_clients, seed=flc.seed))
+    t2 = time.perf_counter()
+    with _card_memory(10, "22 (c): Mamba2-130M under traffic, decode"):
+        _serve_mamba(dev, launches)
+    t3 = time.perf_counter()
+    with _card_memory(24, "22 (d): Granite-3.0-2B decode"):
+        _serve_granite(dev)
+    with _card_memory(20, "22 (e): Qwen1.5-MoE decode"):
+        _serve_moe(dev, launches)
+    t4 = time.perf_counter()
+    _serve_driver(dev)
+    t5 = time.perf_counter()
+    print(f"phase 22 times: merged stream {t1 - t0:.1f} s, MLP {t2 - t1:.1f} s, Mamba2 training "
+          f"and decode {t3 - t2:.1f} s, Granite and MoE decode {t4 - t3:.1f} s, the driver "
+          f"{t5 - t4:.1f} s; phase 22 {t5 - t0:.1f} s")
+
+
+GROUPS = KERNEL_GROUPS + LM_LANE + MLP_LANE
+
+
+def _kernel_phases(dev, groups: set, done) -> dict:
+    """2. and 11. The kernels of ``groups`` against their plain versions, in
+    this process; their rows of the kernels line."""
+    gen = torch.Generator().manual_seed(0)
+    rows = {}
+    if "k1k2k6" in groups:
+        rows.update(phase_kernels(dev, gen))
+    if "fa" in groups:
+        rows.update(phase_flash_attention(dev))
+    if "ssd" in groups:
+        rows.update(phase_ssd_scan(dev))
+    if "gmm" in groups:
+        rows.update(phase_moe_gmm(dev))
+    if rows:
+        done("2, 11")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _lm_lane(dev, groups: set, launches: dict, done) -> None:
+    """The LM lane's phases of ``groups``, in this process: the Mamba2
+    matrix first (see `phase_matrix_mamba`), each part inside its
+    declaration of card memory."""
+    if "matrix_mamba" in groups:
+        with _card_memory(66, "17: the Mamba2-130M matrix"):
+            phase_matrix_mamba(dev, launches)
+        done("17 (Mamba2)")
+    if "granite" in groups:  # 7.-8. the dense LM slice
+        with _card_memory(68, "7-8: Granite-3.0-2B"):
+            phase_grad_check(dev, LM_ARCH)
+            phase_lm(dev, launches)
+        done("7-8")
+    if "ssm" in groups:  # 9.-10. the SSM and hybrid slice
+        with _card_memory(40, "9-10: Mamba2-130M and Zamba2-2.7B"):
+            phase_grad_check(dev, MAMBA_ARCH)
+            phase_grad_check(dev, "zamba2-2.7b")
+            phase_mamba(dev, launches)
+        done("9-10")
+    if "moe" in groups:  # 12.-13. the MoE slice
+        with _card_memory(60, "12-13: Qwen1.5-MoE-A2.7B"):
+            phase_grad_check(dev, MOE_ARCH, num_layers=MOE_LAYERS)
+            phase_moe_lm(dev, launches)
+        done("12-13")
+    if "robust_mamba" in groups:  # 18., Mamba2-130M under faults, checkpointed
+        with _card_memory(35, "18: Mamba2-130M under faults, checkpointed"):
+            phase_robust_mamba(dev, launches)
+        done("18 (Mamba2)")
+    if "serve" in groups:  # 22. the serving plane (its parts declare their memory)
+        phase_serve(dev, launches)
+        done("22")
+
+
+def _mlp_lane(dev, groups: set, launches: dict, done) -> None:
+    """The MLP lane's phases of ``groups``, in this process."""
+    blocked = None
+    if "mlp" in groups:  # 3.-6. the MLP slice, each kernel path's launches counted per path
+        blocked = phase_mlp(dev, launches)
+        done("3-6")
+    if "lanes" in groups:  # 14.-16. FedBuff, the lane-sharded MLP, the FL launcher, FedAvg, FAVANO
+        phase_lanes(dev, launches, blocked)
+        done("14-16")
+    if "matrix" in groups:  # 17. the paper's 27-cell matrix
+        phase_matrix(dev, launches)
+        done("17 (MLP)")
+    if "robust" in groups:  # 18. faults, the guard, scenarios, checkpoints, host stream
+        phase_robust(dev, launches)
+        done("18 (MLP)")
+    if "stream" in groups:  # 19. the device event stream, control plane, adaptive sampling
+        phase_stream(dev, launches)
+        done("19")
+    if "stream_robust" in groups:  # 20. faults, the guard, checkpoints on the device stream
+        phase_stream_robust(dev, launches)
+        done("20")
+    if "sparse" in groups:  # 21. the sparse O(C) stream and the class-collapsed control plane
+        phase_sparse(dev, launches)
+        done("21")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -4327,6 +5179,8 @@ def main(argv: list[str] | None = None) -> int:
                          "prints no kernels line and no result line")
     ap.add_argument("--robust-child", nargs=2, metavar=("DIR", "MODE"),
                     help=argparse.SUPPRESS)  # phases 18 and 20's kill-and-resume child
+    ap.add_argument("--lane-out", help=argparse.SUPPRESS)  # the MLP lane's process: its results
+    ap.add_argument("--t-start", type=float, help=argparse.SUPPRESS)  # the run's start, epoch s
     ap.add_argument("--memory-history", action="store_true",
                     help="record the allocator's history around phase 17's blocked Mamba2 "
                          "matrix and print the owners of the live memory at K2's plain-version "
@@ -4339,10 +5193,12 @@ def main(argv: list[str] | None = None) -> int:
         ap.error(f"unknown phase groups {sorted(unknown)}")
     if "lanes" in groups:
         groups.add("mlp")
-    t_start = time.perf_counter()
+    t_start = time.time() if args.t_start is None else args.t_start
 
     def done(phases: str) -> None:
-        print(f"phases {phases} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(f"phases {phases} done at {time.time() - t_start:.1f} s (this process's CPU "
+              f"{time.process_time():.1f} s, load average {os.getloadavg()[0]:.2f} on "
+              f"{len(os.sched_getaffinity(0))} cores)", flush=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
@@ -4350,6 +5206,8 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     if args.robust_child:
         return _robust_child(*args.robust_child, torch.device("cuda"))
+    if args.lane_out:
+        _die_with_parent()
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4361,9 +5219,6 @@ def main(argv: list[str] | None = None) -> int:
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
 
-    # the CPU runs phases 19-21 hold the card to, and phase 21's MLP shards,
-    # in CPU-only worker processes beside the build
-    workers = _start_cpu_references(groups)
     # 1. build every kernel source of the checkout, one nvcc each, in parallel
     t0 = time.perf_counter()
     srcs = sorted(p.stem for p in build.CSRC.glob("*.cu"))
@@ -4373,75 +5228,47 @@ def main(argv: list[str] | None = None) -> int:
         build.load(name)
     print(f"build: {srcs} in {time.perf_counter() - t0:.2f} s")
     done("1")
-    _collect_cpu_references(workers)
-    done("1 and the CPU workers")
 
-    # 17. the scenario matrix, first (`phase_matrix`)
     launches: dict = {}
-    if "matrix" in groups:
-        phase_matrix(dev, launches)
-        done("17")
-        torch.cuda.empty_cache()
+    if args.lane_out:  # a lane's process: its groups, then its results to the file
+        _start_cpu_references(groups)
+        rows = _kernel_phases(dev, groups, done)
+        _lm_lane(dev, groups, launches, done)
+        _mlp_lane(dev, groups, launches, done)
+        _collect_cpu_references()
+        Path(args.lane_out).write_text(json.dumps(
+            {"failures": failures, "launches": launches, "rows": rows}))
+        return 1 if failures else 0
 
-    # 2. and 11. kernels against their plain versions
-    gen = torch.Generator().manual_seed(0)
-    rows = {}
-    if "k1k2k6" in groups:
-        rows.update(phase_kernels(dev, gen))
-    if "fa" in groups:
-        rows.update(phase_flash_attention(dev))
-    if "ssd" in groups:
-        rows.update(phase_ssd_scan(dev))
-    if "gmm" in groups:
-        rows.update(phase_moe_gmm(dev))
-    done("2, 11")
-
-    # 3.-8. the MLP and dense LM slices, each kernel path's launches counted per path
-    if "mlp" in groups:
-        blocked = phase_mlp(dev, launches)
-        done("3-6")
-    # 14.-16. FedBuff, the lane-sharded MLP slice, the FL launcher, FedAvg, FAVANO
-    if "lanes" in groups:
-        phase_lanes(dev, launches, blocked)
-        done("14-16")
-    torch.cuda.empty_cache()
-    if "granite" in groups:
-        phase_grad_check(dev, LM_ARCH)
-        phase_lm(dev, launches)
-        done("7-8")
-        torch.cuda.empty_cache()
-    # 9.-10. the SSM and hybrid slice
-    if "ssm" in groups:
-        phase_grad_check(dev, MAMBA_ARCH)
-        phase_grad_check(dev, "zamba2-2.7b")
-        phase_mamba(dev, launches)
-        done("9-10")
-        torch.cuda.empty_cache()
-    # 12.-13. the MoE slice
-    if "moe" in groups:
-        phase_grad_check(dev, MOE_ARCH, num_layers=MOE_LAYERS)
-        phase_moe_lm(dev, launches)
-        done("12-13")
-        torch.cuda.empty_cache()
-    # 18. faults, the guard, scenarios and checkpoints on the host stream
-    if "robust" in groups:
-        phase_robust(dev, launches)
-        done("18")
-        torch.cuda.empty_cache()
-    # 19. the device event stream, its control plane and adaptive sampling
-    if "stream" in groups:
-        phase_stream(dev, launches)
-        done("19")
-        torch.cuda.empty_cache()
-    # 20. faults, the guard, scenarios and checkpoints on the device stream
-    if "stream_robust" in groups:
-        phase_stream_robust(dev, launches)
-        done("20")
-        torch.cuda.empty_cache()
-    # 21. the sparse O(C) stream and the class-collapsed control plane
-    if "sparse" in groups:
-        phase_sparse(dev, launches)
-        done("21")
+    kern = [g for g in KERNEL_GROUPS if g in groups]
+    lm = groups & set(LM_LANE)
+    mlp = sorted(groups & set(MLP_LANE), key=MLP_LANE.index)
+    LANE_DIR.mkdir(parents=True, exist_ok=True)
+    (LANE_DIR / "card_memory.json").unlink(missing_ok=True)
+    lane = None
+    try:
+        # 2. and 11. first and alone, in a process of their own when the run
+        # has other phases (a profiler that has traced none of them)
+        if kern and (lm or mlp):
+            lane = _start_lane("kernel", kern, t_start)
+            rows = _join_lane(lane, launches)
+            done("2, 11 (the kernel lane)")
+        else:
+            rows = _kernel_phases(dev, groups, done)
+        # the two lanes: the MLP lane in a second process when both run
+        if lm and mlp:
+            lane = _start_lane("MLP", mlp, t_start)
+        _start_cpu_references(lm if lm and mlp else groups)
+        _lm_lane(dev, groups, launches, done)
+        if not (lm and mlp):
+            _mlp_lane(dev, groups, launches, done)
+        else:
+            _join_lane(lane, launches)
+            done("of the MLP lane")
+    finally:
+        if lane is not None and lane[2].poll() is None:
+            _kill_tree(lane[2].pid)
+    _collect_cpu_references()
 
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed: {failures}", file=sys.stderr)

@@ -85,8 +85,7 @@ class ServerConfig:
 
     The field names are `repro.core.async_sgd.ServerConfig`'s, so one config
     drives both packages, plus ``device``.  Options this port does not run
-    yet (the serving plane) raise `NotImplementedError` naming their
-    ROADMAP item.
+    yet raise `NotImplementedError` naming their ROADMAP item.
     """
 
     n: int                      # number of clients
@@ -142,7 +141,12 @@ class ServerConfig:
     ckpt_every: int = 0          # checkpoint cadence in CS steps
     resume: bool = False         # resume from the latest checkpoint in ckpt_dir
                                  # (config-fingerprint validated)
-    serving: Any | None = None   # not ported (ROADMAP item 11)
+    serving: Any | None = None   # serving.ServingConfig: merge an open Poisson
+                                 # inference stream into the device-stream
+                                 # event race; requests are served from the
+                                 # snapshot ring (the last known-good
+                                 # iterate) and serve_* counters land in
+                                 # TraceRecord.extras
     scenario: Any | None = None  # scenario.ScenarioConfig or a registry name:
                                  # phase-type service + Markov-modulated
                                  # availability, both engines and streams
@@ -183,9 +187,8 @@ def _resolve_scenario_cfg(cfg: ServerConfig):
 
 
 def _reject_unported(cfg: ServerConfig) -> None:
-    """Raise for every option of `repro`'s ServerConfig the port does not
-    run: the serving plane (item 11).  The engine's own validation raises
-    first, as the reference's does."""
+    """The checks of `repro`'s ServerConfig that come before any run; the
+    engines' own validation follows, as the reference's does."""
     if cfg.stream not in ("host", "device"):
         raise ValueError(cfg.stream)
     if cfg.engine == "python" and (cfg.stream == "device" or cfg.adaptive):
@@ -200,8 +203,6 @@ def _reject_unported(cfg: ServerConfig) -> None:
             )
         if cfg.sparse not in (True, False, "auto"):
             raise ValueError(f"sparse={cfg.sparse!r} (expected bool or 'auto')")
-    if cfg.serving is not None and cfg.serving.enabled:
-        raise unported("serving=", 11)
 
 
 def _device_grad_fn(source) -> Callable:
@@ -331,6 +332,10 @@ def _run_scan(
     ckpt_on = cfg.ckpt_dir is not None
     if ckpt_on and cfg.ckpt_every <= 0:
         raise ValueError("ckpt_dir requires ckpt_every > 0")
+    serving = _serving(cfg)
+    if serving is not None and cfg.stream != "device":
+        raise ValueError("serving requires stream='device' (the open arrival stream is merged "
+                         "into the on-device event race)")
     if fedbuff_Z and (faults is not None or guard_stale):
         raise ValueError(
             "fault injection / staleness cutoff compose with Algorithm 1, "
@@ -515,6 +520,11 @@ def _expand_class_extras(extras: dict, classes) -> dict:
     return out
 
 
+def _serving(cfg: ServerConfig):
+    """``cfg.serving`` when it is on, else None."""
+    return cfg.serving if (cfg.serving is not None and cfg.serving.enabled) else None
+
+
 def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff_Z: int = 0,
                faults=None, scenario=None):
     """The device-stream branch of `_run_scan` (`repro`'s ``stream="device"``):
@@ -523,9 +533,10 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
     ``faults`` or ``scenario`` (resolved by `_run_scan`) and ``cfg.guard``;
     the trace carries the event times and the on-device statistics
     (p_final, p_traj, mean delays, completions, busy time, mean queue
-    lengths, and the guard's and the kinds' counters).  ``cfg.ckpt_dir``
-    runs `engine_ckpt.run_checkpointed` instead, whose trace has NaN times
-    (the chunked driver keeps only the final clock)."""
+    lengths, the guard's and the kinds' counters, and with ``cfg.serving``
+    the ``serve_*`` counters).  ``cfg.ckpt_dir`` runs
+    `engine_ckpt.run_checkpointed` instead, whose trace has NaN times (the
+    chunked driver keeps only the final clock)."""
     from .engine_scan import jit_fused_runner
 
     weighting = "plain" if fedbuff_Z else cfg.weighting
@@ -535,10 +546,16 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
     if cfg.update not in ("jnp", "pallas"):
         raise ValueError(cfg.update)
     ckpt_on = cfg.ckpt_dir is not None
+    serving = _serving(cfg)
+    if cfg.sparse is True and serving is not None:
+        raise ValueError("serving composes with the dense stream only (the serve read path "
+                         "indexes the dense snapshot ring)")
     if scenario is not None:
         if cfg.sparse is True:
             raise ValueError("the fused engine's scenario path is dense-only; use "
                              "sparse_stats_stream_fn(scenario=True) for class-level laws")
+        if serving is not None:
+            raise ValueError("scenario= does not compose with serving=")
         if ckpt_on:
             raise ValueError("scenario= does not compose with checkpointing yet")
         if block_size == "auto":
@@ -546,7 +563,7 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
         elif int(block_size) > 1:
             raise ValueError("scenario= requires block_size=1")
     classes = class_mu = class_p = None
-    if scenario is None:
+    if scenario is None and serving is None:  # serving keeps "auto" on the dense stream
         classes, class_mu, class_p = _resolve_sparse(cfg, mu, p, block_size, ckpt_on)
     if classes is not None:
         block_size = 1  # the sparse stream is per event: no "auto" probe
@@ -558,7 +575,7 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
     grad_fn = _device_grad_fn(source)
     if ckpt_on:
         return _run_fused_checkpointed(w0, grad_fn, cfg, eval_fn, eval_every, p, mu, device,
-                                       weighting, int(block_size), fedbuff_Z, faults)
+                                       weighting, int(block_size), fedbuff_Z, faults, serving)
     runner = jit_fused_runner(
         grad_fn, cfg.n, cfg.C, cfg.T,
         weighting=weighting, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn, eval_every=eval_every,
@@ -566,7 +583,7 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
         ctrl_iters=cfg.ctrl_iters, update_fn=_scan_update_fn(cfg), block_size=int(block_size),
         snapshot_dtype=cfg.snapshot_dtype, collect_extras=cfg.collect_extras,
         lane_devices=cfg.devices, fault=faults, guard=cfg.guard, scenario=scenario,
-        classes=classes,
+        classes=classes, serving=serving,
     )
     run_mu, run_p = (mu, p) if classes is None else (class_mu, class_p)
     w, evals, extras = runner(_to_device(w0, device), run_mu, run_p, cfg.seed, cfg.eta)
@@ -579,6 +596,9 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
     trace.extras = {"p_final": np.asarray(extras["p_final"], np.float64)}
     for name in ("guard_rejects", "stale_drops", "kind_count", "avail_time"):
         if name in extras:
+            trace.extras[name] = np.asarray(extras[name])
+    for name in extras:
+        if name.startswith("serve_"):
             trace.extras[name] = np.asarray(extras[name])
     if "occ_mean" in extras:
         trace.mean_queue_lengths = np.asarray(extras["occ_mean"], np.float64)
@@ -597,7 +617,8 @@ def _run_fused(w0, source, cfg: ServerConfig, eval_fn, p, mu, device, *, fedbuff
 
 
 def _run_fused_checkpointed(w0, grad_fn, cfg: ServerConfig, eval_fn, eval_every: int, p, mu,
-                            device, weighting: str, block_size: int, fedbuff_Z: int, faults):
+                            device, weighting: str, block_size: int, fedbuff_Z: int, faults,
+                            serving=None):
     """`_run_fused` with ``cfg.ckpt_dir``: `engine_ckpt.run_checkpointed`,
     seeded by ``cfg.seed``, with a full-carry checkpoint every
     ``cfg.ckpt_every`` events.  The trace's times are NaN (the chunked
@@ -616,7 +637,7 @@ def _run_fused_checkpointed(w0, grad_fn, cfg: ServerConfig, eval_fn, eval_every:
         eval_fn=eval_fn, eval_every=eval_every, adaptive=cfg.adaptive,
         refresh_every=cfg.refresh_every, ctrl_lr=cfg.ctrl_lr, ctrl_iters=cfg.ctrl_iters,
         block_size=block_size, snapshot_dtype=cfg.snapshot_dtype, fault=faults, guard=cfg.guard,
-        resume=cfg.resume,
+        serving=serving, resume=cfg.resume,
     )
     trace = TraceRecord(steps=np.arange(cfg.T), times=np.full(cfg.T, np.nan))
     trace.extras = {k: v.detach().cpu().numpy() for k, v in extras.items()}  # one host sync

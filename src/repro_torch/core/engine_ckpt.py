@@ -26,7 +26,8 @@ records each save's bytes and how long it held the loop.
 The fused device-stream driver (`run_checkpointed`) runs the fused
 runner's chunks (`engine_scan._advance_chunk`) from a host loop and saves,
 besides the replay's carry, the closed network's `StreamState` and
-`StatsState`, the per-slot dispatch-time scales, p and its dispatch CDF.
+`StatsState`, the per-slot dispatch-time scales, p and its dispatch CDF,
+and under ``serving=`` the serving plane's `ServeState` and `ServeStats`.
 Chunk c's uniforms come from a generator seeded by a fixed function of
 (seed, c) (`chunk_seed`), as the reference folds the chunk index into its
 key: nothing depends on when a chunk runs, so a resume needs no generator
@@ -46,7 +47,6 @@ import numpy as np
 import torch
 
 from ..tree import tree_flatten
-from ..unported import unported
 from .engine_scan import (
     GuardConfig,
     _advance_chunk,
@@ -346,21 +346,27 @@ def run_checkpointed(
     parity test can pass the reference's ``fold_in`` draws.  Returns
     ``(w_final, evals, extras)``.  ``resume=True`` restores the latest
     checkpoint under ``ckpt_dir`` (config-fingerprint validated) and goes
-    on; kill-and-resume is bitwise the uninterrupted call.  Serving raises
-    item 11; lanes and the cell axis are not taken (checkpoint each cell's
-    run alone), nor the reference's ``unroll`` (`make_fused_runner` has
-    none either).
+    on; kill-and-resume is bitwise the uninterrupted call.  ``serving`` (a
+    `serving.ServingConfig`, per event) merges the serving plane as the
+    fused runner does; its `ServeState` and `ServeStats` ride in the
+    checkpointed carry, its configuration in the fingerprint, and
+    ``extras`` gains the ``serve_*`` counters.  Lanes and the cell axis are
+    not taken (checkpoint each cell's run alone), nor the reference's
+    ``unroll`` (`make_fused_runner` has none either).
     """
     from . import stream_device as sd
     from .theory import BoundConstants
 
     if weighting not in ("importance", "plain"):
         raise ValueError(weighting)
-    if serving is not None and serving.enabled:
-        raise unported("serving=", 11)
     if adaptive and refresh_every <= 0:
         raise ValueError("adaptive=True requires refresh_every > 0")
     E = max(int(block_size), 1)
+    serving_on = serving is not None and serving.enabled
+    if serving_on:
+        serving.validate()
+        if E > 1:
+            raise ValueError("serving= requires block_size=1")
     faulty = sd._enabled(fault)
     guard_stale = guard is not None and int(guard.stale_cutoff) > 0
     importance = weighting == "importance"
@@ -374,7 +380,8 @@ def run_checkpointed(
     dev = _tree_device(w0)
     pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype)
     _require_flat_codec(unpack)
-    replay = _FusedReplay(grad_fn, w0, C + 1 if (E > 1 or faulty) else C, pack, unpack, enc,
+    tagged = faulty or serving_on  # flip and serve events carry the trash slot C
+    replay = _FusedReplay(grad_fn, w0, C + 1 if (E > 1 or tagged) else C, pack, unpack, enc,
                           True, None, 0, E, n, C, 1, dev, guard)
     f32 = lambda a: torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a  # noqa: E731
                                     ).to(device=dev, dtype=torch.float32).reshape(1, -1)
@@ -388,9 +395,15 @@ def run_checkpointed(
     nodes = torch.as_tensor(nodes).to(device=dev, dtype=torch.int64).reshape(1, C)
     sstate0, _ = sd.stream_init(nodes, n, C, fault=faulty)
     stats0 = sd.stats_init(n, C, fault=faulty, cells=1, device=dev)
-    slot_scale0 = (_slot_scales(eta_t, n, p_t, nodes, faulty) if importance
-                   else eta_t.expand(1, C + faulty).clone())
+    slot_scale0 = (_slot_scales(eta_t, n, p_t, nodes, tagged) if importance
+                   else eta_t.expand(1, C + tagged).clone())
     carry0 = (replay.carry, sstate0, stats0, slot_scale0, p_t, torch.cumsum(p_t, dim=-1))
+    if serving_on:
+        from .serving import ServeLoop, serve_init, serve_stats_init
+
+        # the serving state and counters ride in the checkpointed carry
+        carry0 = carry0 + (serve_init(serving, cells=1, device=dev),
+                           serve_stats_init(cells=1, device=dev))
     cst = sd._Consts((1,), C, dev, n=n)
 
     fingerprint = _fingerprint("fused", dict(
@@ -399,6 +412,7 @@ def run_checkpointed(
         refresh_every=refresh_every, init=init, block_size=E,
         snapshot_dtype=str(snapshot_dtype),
         fault=fault.cache_key() if faulty else None, guard=_cache_key(guard),
+        serving=serving.cache_key() if serving_on else None,
         key=None if draws is not None else int(key), given_draws=draws is not None,
         eta=float(eta), mu=_array_digest(mu_t.cpu().numpy()),
         p0=_array_digest(p_t.cpu().numpy()), ctrl=(float(ctrl_lr), int(ctrl_iters)),
@@ -414,7 +428,8 @@ def run_checkpointed(
         cursor0 = int(state["cursor"])
 
     def chunk(carry, c: int, Lc: int):
-        ucarry, sstate, stats, slot_scale, p, cdf = carry
+        ucarry, sstate, stats, slot_scale, p, cdf = carry[:6]
+        serve = ServeLoop(serving, *carry[6:]) if serving_on else None
         replay.carry = ucarry
         ur, ue, ud = (torch.as_tensor(x).to(device=dev, dtype=torch.float32).reshape(1, Lc)
                       for x in chunk_draws(c, Lc))
@@ -422,13 +437,14 @@ def run_checkpointed(
         sstate, stats, slot_scale, _ = _advance_chunk(
             replay, sstate, stats, slot_scale if importance else None, p, mu_t,
             -torch.log1p(-ue), ur, K, c * L, cst, eta_t=eta_t, n=n, need_stats=True, fr=fr,
-            guard_stale=guard_stale)
+            guard_stale=guard_stale, serve=serve)
         if not importance:
             slot_scale = carry[3]
         if adaptive:
             p = sd.ctrl_refresh(p, stats.comp, stats.busy_t, bound, lr=ctrl_lr, iters=ctrl_iters)
             cdf = torch.cumsum(p, dim=-1)
-        return replay.carry, sstate, stats, slot_scale, p, cdf
+        out = (replay.carry, sstate, stats, slot_scale, p, cdf)
+        return out + (serve.sv, serve.stats) if serving_on else out
 
     saver = _AsyncSaver(ckpt_dir, fingerprint, keep)
     try:
@@ -446,13 +462,15 @@ def run_checkpointed(
     finally:
         saver.abort()
 
-    ucarry, sstate, stats, _, p, _ = carry
+    ucarry, sstate, stats, _, p, _ = carry[:6]
     extras = {"p_final": p[0], "comp": stats.comp[0], "busy_time": stats.busy_t[0],
               "delay_sum": stats.delay_sum[0], "t_final": sstate.t[0]}
     if guard is not None:
         extras["guard_rejects"], extras["stale_drops"] = ucarry[3][0], ucarry[3][1]
     if faulty:
         extras.update(kind_count=stats.kind_count[0], avail_time=stats.avail_tw[0])
+    if serving_on:
+        extras.update({k: v[0] for k, v in ServeLoop(serving, *carry[6:]).extras(sstate.t).items()})
     return (replay.to_tree(ucarry[0]), torch.as_tensor(evals.curve(), device=dev), extras)
 
 

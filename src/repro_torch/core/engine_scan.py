@@ -970,21 +970,20 @@ def _make_host_block_runner(
 # ------------------------------------------------------------------ #
 # device stream: the fused runner (the closed network and Algorithm 1)
 # ------------------------------------------------------------------ #
-def _reject_fused_unported(*, serving, lane_devices, lane_axis, shard_devices=1) -> None:
+def _reject_fused_unported(*, lane_devices, lane_axis, shard_devices=1) -> None:
     """Options the reference's fused runner takes that wait for their own
     ROADMAP items here."""
-    if serving is not None and serving.enabled:
-        raise unported("serving=", 11)
     if lane_devices > 1 or lane_axis is not None or shard_devices > 1:
         raise unported("lanes and shards of the device stream", 12)
 
 
 def _check_fused_options(*, faulty: bool, scen_on: bool, guard, fedbuff_Z: int, E: int,
                          serving, classes, vmap_scenarios: bool, n: int = 0,
-                         lane_devices: int = 1) -> None:
+                         lane_devices: int = 1, update_fn=None) -> None:
     """The reference's `ValueError`s for fused options that do not compose
-    (`repro.core.engine_scan.make_fused_runner`), with its messages; the
-    cell axis replays without a guard, as the host cell axis does."""
+    (`repro.core.engine_scan.make_fused_runner`), with its messages and in
+    its order; the cell axis replays without a guard, as the host cell
+    axis does."""
     if scen_on:
         if faulty:
             raise ValueError("scenario= and fault= are separate injection paths; model "
@@ -1005,13 +1004,23 @@ def _check_fused_options(*, faulty: bool, scen_on: bool, guard, fedbuff_Z: int, 
             raise ValueError("classes= (sparse stream) requires lane_devices=1")
         if classes.n != n:
             raise ValueError(f"ClassSpec covers n={classes.n} clients, runner built for n={n}")
-        if serving is not None and serving.enabled:
-            raise ValueError("serving= requires the dense stream (classes=None)")
     if faulty and fedbuff_Z:
         raise ValueError("fault injection composes with Algorithm 1, not FedBuff "
                          "(a crash/timeout at a flush step has no masking semantics)")
     if guard is not None and int(guard.stale_cutoff) > 0 and fedbuff_Z:
         raise ValueError("the staleness cutoff requires the per-event update (fedbuff_Z=0)")
+    if serving is not None and serving.enabled:
+        serving.validate()
+        if E > 1:
+            raise ValueError("serving= requires block_size=1")
+        if fedbuff_Z:
+            raise ValueError("serving= composes with Algorithm 1, not FedBuff")
+        if classes is not None:
+            raise ValueError("serving= requires the dense stream (classes=None)")
+        if lane_devices > 1:
+            raise ValueError("serving= requires lane_devices=1")
+        if update_fn is not None:
+            raise ValueError("serving= requires the default update w - scale*g")
     if vmap_scenarios and guard is not None:
         raise ValueError("vmap_scenarios=True replays without a guard (guard=None)")
 
@@ -1111,8 +1120,18 @@ def make_fused_runner(
     class sizes and the adaptive refresh runs on the class simplex
     (`stream_device.ctrl_refresh(counts=)`).  The events still carry global
     client ids and slots, so the replay, K1, the guard and FedBuff are the
-    dense stream's.  The options that do not compose raise the reference's
-    `ValueError`s; serving and lanes raise their ROADMAP items.
+    dense stream's.  ``serving`` (a `serving.ServingConfig`; per event, the
+    dense stream, no FedBuff, the default update) merges an open Poisson
+    inference stream into the race (`stream_device.merged_stream_step`): a
+    serve event carries client n, slot C and scale 0, so its gradient is
+    discarded and the trash row and entry C take its writes; the request
+    table advances with the stream, a chunk ahead of the replay (its law
+    does not depend on training), while the known-good pointer, the read
+    of its ring row and the staleness run in event order in the replay,
+    after each event's update (`serving.ServeLoop`).  ``extras`` then gains
+    the reference's ``serve_*`` counters, histograms and final serve state.
+    The options that do not compose raise the reference's `ValueError`s;
+    lanes raise their ROADMAP item.
 
     ``run.from_draws(w0, mu, p0, eta, nodes, u_race, u_exp, u_disp[, u_ph,
     u_phase0], u_mem=, u_bit=)`` takes given draws (the scenario stream's
@@ -1138,15 +1157,17 @@ def make_fused_runner(
     faulty, scen_on = sd._enabled(fault), sd._enabled(scenario)
     _check_fused_options(faulty=faulty, scen_on=scen_on, guard=guard, fedbuff_Z=fedbuff_Z, E=E,
                          serving=serving, classes=classes, vmap_scenarios=vmap_scenarios, n=n,
-                         lane_devices=lane_devices)
-    _reject_fused_unported(serving=serving, lane_devices=lane_devices, lane_axis=lane_axis)
+                         lane_devices=lane_devices, update_fn=update_fn)
+    _reject_fused_unported(lane_devices=lane_devices, lane_axis=lane_axis)
     sparse = classes is not None
     counts = tuple(int(c) for c in np.asarray(classes.counts)) if sparse else None
     if vmap_scenarios and fedbuff_Z:
         raise ValueError("vmap_scenarios=True runs Generalized AsyncSGD (fedbuff_Z=0)")
     bound = bound if bound is not None else BoundConstants(C=C, T=T)
     importance = weighting == "importance"
-    tagged = faulty or scen_on
+    serving_on = serving is not None and serving.enabled
+    # flip, stage and serve events carry the trash slot C
+    tagged = faulty or scen_on or serving_on
     guard_stale = guard is not None and int(guard.stale_cutoff) > 0
     # the staleness cutoff reads the stream's slot_step, so stats must run
     need_stats = collect_extras or adaptive or guard_stale
@@ -1180,8 +1201,11 @@ def make_fused_runner(
             fr, sr = sd._resolve_modes(fault, scenario, n, dev)
         width = spec.m if sparse else n  # of the stream's mu, p and statistics
         pack, unpack, enc = _snapshot_codec(w0, snapshot_dtype)
+        if serving_on and unpack is None:
+            raise ValueError("serving= requires all-float parameters (the serving read path "
+                             "gathers flat-packed snapshot rows)")
         _require_flat_codec(unpack)
-        # flip and stage events carry slot C: the ring's trash row takes them
+        # flip, stage and serve events carry slot C: the ring's trash row takes them
         rows = C + 1 if (E > 1 or tagged) else C
         replay = (_FusedCellsReplay if vmap_scenarios else _FusedReplay)(
             grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z, E, n, C, B,
@@ -1200,6 +1224,12 @@ def make_fused_runner(
         slot_scale = (_slot_scales(eta_t, n, p, nodes, tagged, cls_of=cls_of) if importance
                       else None)
         cst = sd._Consts((B,), C, dev, n=None if sparse else n)
+        serve = None
+        if serving_on:
+            from .serving import ServeLoop, serve_init, serve_stats_init
+
+            serve = ServeLoop(serving, serve_init(serving, cells=B, device=dev),
+                              serve_stats_init(cells=B, device=dev))
         evals, p_traj, ts = [], [], []
         for c in range(n_chunks + (T > n_chunks * L)):
             a, b = c * L, min((c + 1) * L, T)
@@ -1212,7 +1242,7 @@ def make_fused_runner(
                 e_hold[:, a:b], u_race[:, a:b], K, a, cst, eta_t=eta_t, n=n,
                 need_stats=need_stats, fr=fr, sr=sr,
                 u_ph=None if sr is None else u_ph[:, a:b], guard_stale=guard_stale, spec=spec,
-                u_bit=None if u_bit is None else u_bit[:, a:b])
+                u_bit=None if u_bit is None else u_bit[:, a:b], serve=serve)
             if collect_extras:
                 ts.append(t)
             if c < n_chunks:
@@ -1229,6 +1259,8 @@ def make_fused_runner(
         extras = {"p_final": one(p)}
         if guard is not None:
             extras["guard_rejects"], extras["stale_drops"] = replay.gcnt()
+        if serve is not None:
+            extras.update({k: one(v) for k, v in serve.extras(sstate.t).items()})
         if collect_extras:
             t_all = torch.cat(ts, dim=-1)
             extras.update(
@@ -1240,7 +1272,7 @@ def make_fused_runner(
                 delay_sum=one(stats.delay_sum),
                 comp=one(stats.comp),
             )
-            if tagged:
+            if faulty or scen_on:
                 extras.update(kind_count=one(stats.kind_count), avail_time=one(stats.avail_tw))
             if sparse:  # the statistics are per class: consumers expand by the sizes
                 extras["class_counts"] = sd._table(classes.counts, torch.int32, dev)
@@ -1282,15 +1314,19 @@ def _slot_scales(eta_t, n: int, p, nodes, tagged: bool, cls_of=None):
 
 def _advance_chunk(replay, sstate, stats, slot_scale, p, mu, e_hold, u_race, K, k0: int, cst, *,
                    eta_t, n: int, need_stats: bool, fr=None, sr=None, u_ph=None,
-                   guard_stale: bool = False, spec=None, u_bit=None):
+                   guard_stale: bool = False, spec=None, u_bit=None, serve=None):
     """One chunk of fused events, shared by the fused runner and the
     checkpointed driver (`engine_ckpt.run_checkpointed`): the stream
     advanced over the chunk's (B, L) draws (`stream_device._advance`; the
     sparse stream with ``spec``), each event's scale (the completing task's
     dispatch-time importance scale from ``slot_scale``, or plain ``eta_t``
-    when ``slot_scale`` is None; 0 for a crash, timeout, flip or stage
-    event), then ``replay``'s steps over the chunk.  Returns ``(sstate,
-    stats, slot_scale, t)``."""
+    when ``slot_scale`` is None; 0 for a crash, timeout, flip, stage or
+    serve event), then ``replay``'s steps over the chunk.  ``serve`` (a
+    `serving.ServeLoop`) merges the serving plane: its table runs with the
+    stream, its read path in the replay; a serve event's client n is
+    clamped to n - 1 for the gradient call the replay discards, as the
+    reference's gather clamps it.  Returns ``(sstate, stats, slot_scale,
+    t)``."""
     from . import stream_device as sd
 
     scales = []
@@ -1307,15 +1343,18 @@ def _advance_chunk(replay, sstate, stats, slot_scale, p, mu, e_hold, u_race, K, 
 
     sstate, stats, (J, t, slot, delay, kind) = sd._advance(
         sstate, stats, mu, e_hold, u_race, K, k0, cst, need_stats, on_event, fr=fr, sr=sr,
-        u_ph=u_ph, spec=spec, u_bit=u_bit)
+        u_ph=u_ph, spec=spec, u_bit=u_bit, serve=serve)
     if slot_scale is not None:
         slot_scale = box[0]
         scale = torch.stack(scales, dim=-1)
     else:
         scale = eta_t.expand(*K.shape)
-    if kind is not None:  # crash, timeout, flip and stage events apply nothing
+    if kind is not None:  # crash, timeout, flip, stage and serve events apply nothing
         scale = torch.where(kind == KIND_COMPLETE, scale, 0.0)
-    replay.events(J, slot, scale, k0, delay if guard_stale else None)
+    if serve is not None:
+        J = torch.clamp_max(J, n - 1)
+    replay.events(J, slot, scale, k0, delay if guard_stale else None,
+                  serve=None if serve is None else (serve, serve.chunk_served()))
     return sstate, stats, slot_scale, t
 
 
@@ -1326,6 +1365,7 @@ class _FusedReplay:
     def __init__(self, grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z,
                  E, n, C, B, dev, guard=None):
         self.E, self.n, self.C, self.dev = E, n, C, dev
+        self.guarded = guard is not None
         self.cutoff = int(guard.stale_cutoff) if guard is not None else 0
         if E > 1:
             self.step = _make_block_step(grad_fn, pack, unpack, "jnp", fedbuff_Z, guard=guard)
@@ -1335,16 +1375,30 @@ class _FusedReplay:
         self.carry, self.to_tree = _init_update_carry(w0, rows, pack, unpack, flat_mode, enc,
                                                       fedbuff_Z)
 
-    def events(self, J, slot, scale, k0: int, stale=None):
+    def events(self, J, slot, scale, k0: int, stale=None, serve=None):
         """One chunk's (1, L) events; ``stale`` (the stream's per-event
-        delays) feeds the guard's staleness cutoff."""
+        delays) feeds the guard's staleness cutoff.  ``serve = (loop,
+        served)`` runs the serving read path after each event's update
+        (`serving.ServeLoop.read`): the pointer moves on an accepted update,
+        one whose scale is nonzero and that left the guard's counters as
+        they were."""
         J, slot, scale = J[0], slot[0], scale[0]
         Lc = int(J.shape[0])
         if self.E == 1:
             ks = torch.arange(k0, k0 + Lc, dtype=torch.int64, device=self.dev)
+            if serve is not None:
+                loop, served = serve
+                row_mean = lambda r: _row_means(self.carry[1][None], r)  # noqa: E731
             for i in range(Lc):
+                if serve is not None:
+                    gcnt_pre = self.carry[3].clone() if self.guarded else None
                 self.carry = self.step(self.carry, J[i], slot[i], scale[i], ks[i],
                                        None if stale is None else stale[0, i])
+                if serve is not None:
+                    accepted = scale[i] != 0
+                    if gcnt_pre is not None:
+                        accepted = accepted & (self.carry[3] == gcnt_pre).all()
+                    loop.read(slot[i:i + 1], accepted[None], ks[i], row_mean, served[:, i])
             return
         if stale is not None and self.cutoff > 0:
             # the cutoff needs no gradient: drop stale updates before the cut
@@ -1387,14 +1441,20 @@ class _FusedCellsReplay:
             self.base = torch.arange(B, dtype=torch.int64, device=dev) * rows
         self.dev = dev
 
-    def events(self, J, slot, scale, k0: int, stale=None):
+    def events(self, J, slot, scale, k0: int, stale=None, serve=None):
         B, Lc = (int(d) for d in J.shape)
         if self.E == 1:
             Jt, rows_t = J.t().contiguous(), (slot.t() + self.base).contiguous()
             sct = scale.t().contiguous()
             ks = torch.arange(k0, k0 + Lc, dtype=torch.int64, device=self.dev)[:, None].expand(Lc, B)
+            if serve is not None:  # the cell axis is unguarded: accepted = scale != 0
+                loop, served = serve
+                slot_t = slot.t().contiguous()
+                row_mean = lambda r: _row_means(self.snaps, r)  # noqa: E731
             for i in range(Lc):
                 self.w = self.step(self.w, self.ring, Jt[i], rows_t[i], sct[i], ks[i])
+                if serve is not None:
+                    loop.read(slot_t[i], sct[i] != 0, ks[i], row_mean, served[:, i])
             return
         Jb, sb, scb, kb, mb = _chunk_blocks(J, slot, scale, k0, self.E, self.n, self.C)
         for r in range(Jb.shape[1]):
@@ -1406,6 +1466,14 @@ class _FusedCellsReplay:
 
     def weights(self):
         return self.to_tree(self.w)
+
+
+def _row_means(snaps: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """The fp32 mean of each cell's ring row ``slot``: (B,) from the
+    (B, rows, P) ring and (B,) rows (the serving read path)."""
+    B, R, P = snaps.shape
+    base = torch.arange(B, dtype=torch.int64, device=snaps.device) * R
+    return snaps.reshape(B * R, P).index_select(0, base + slot).float().mean(-1)
 
 
 def _chunk_blocks(J, slot, scale, k0: int, E: int, n: int, C: int):
@@ -1576,7 +1644,7 @@ def jit_fused_runner(grad_fn, n: int, C: int, T: int, *, vmap_scenarios: bool = 
     `make_fused_runner` and take part in the memo key.  ``shard_devices``
     and ``lane_devices`` > 1 (the scenario and lane meshes) raise item 12.
     """
-    _reject_fused_unported(serving=None, lane_devices=lane_devices, lane_axis=None,
+    _reject_fused_unported(lane_devices=lane_devices, lane_axis=None,
                            shard_devices=shard_devices)
     cache, func = _runner_cache(grad_fn)
 

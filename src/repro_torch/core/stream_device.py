@@ -19,6 +19,11 @@ pre-simulated on the host:
     `scenario_stream_step` 2n (phase-type service stages and modulated
     availability; `resolve_scenario`): a flip or stage event moves no task
     and carries the trash slot C, and every event a kind tag;
+  * `merged_stream_step` races the closed network against an open stream
+    of total rate ``ext_rate`` (the serving plane, `core.serving`): an
+    external win emits ``Event(j=n, slot=C, kind=KIND_SERVE)`` and hands
+    the open side its conditional uniform; `merged_stats_step` leaves the
+    per-node statistics of such an event as they were;
   * `StatsState` / `stats_step` accumulate running occupancy, busy time,
     completion counts and FIFO delays on the device, the float integrals as
     Kahan-compensated pairs (`fault_stats_step` / `scenario_stats_step`:
@@ -74,6 +79,7 @@ from .classes import ClassSpec, build_class_spec
 from .queue_sim import (
     KIND_COMPLETE,
     KIND_FLIP,
+    KIND_SERVE,
     KIND_STAGE,
     N_KINDS,
     EventBlocks,
@@ -88,6 +94,8 @@ __all__ = [
     "stream_init",
     "stream_step",
     "fault_stream_step",
+    "merged_stream_step",
+    "merged_stats_step",
     "FaultRates",
     "resolve_fault_rates",
     "ScenarioRates",
@@ -221,6 +229,15 @@ def kahan_add(s, c, x):
     y = x - c
     t = s + y
     return t, (t - s) - y
+
+
+def fma32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` of float32 tensors, rounded once to float32: XLA's CPU
+    backend contracts a product that feeds an add into one fused
+    multiply-add, and where the reference's arithmetic is held bitwise the
+    port rounds such sums once too.  Computed in float64, which holds the
+    product of two float32 values exactly, then rounded."""
+    return (a.double() * b.double() + c.double()).to(_F32)
 
 
 def kahan_value(s, c) -> np.ndarray:
@@ -497,6 +514,91 @@ def fault_stream_step(state: StreamState, mu, fr: FaultRates, xs):
     cst = _Consts(state.occ.shape[:-1], state.ring.shape[-1], dev)
     return _fault_stream_step(state, _f32(mu, dev), fr, _hold(u_exp, dev), _f32(u_race, dev),
                               torch.as_tensor(k_new, dtype=_I64, device=dev), cst)
+
+
+#: the conditional uniforms' upper clip, 1 - 1e-7 rounded to float32 once
+_U_TOP = float(np.float32(1.0 - 1e-7))
+
+
+def _merged_stream_step(state: StreamState, mu, ext, e_hold, u_race, k_new, cst: _Consts,
+                        fr: FaultRates | None = None):
+    """`merged_stream_step` on precomputed holding times: ``(state, ev,
+    is_ext, u_ext)``."""
+    occ, ring, head, tail, avail = state.occ, state.ring, state.head, state.tail, state.avail
+    C = cst.C
+    n = occ.shape[-1]
+    lead = occ.shape[:-1]
+    if fr is not None:
+        busy = occ > 0
+        rates = torch.cat([torch.where(busy, mu * avail, 0.0),
+                           torch.where(busy, fr.kappa * avail, 0.0),
+                           torch.where(busy, fr.theta, 0.0),
+                           torch.where(avail > 0, fr.q_off, fr.q_on)], dim=-1)
+    else:
+        rates = torch.where(occ > 0, mu, 0.0)
+    rtree = tree_build(rates)
+    r_train = torch.clamp_min(rtree[..., 1], 1e-30)
+    tot = r_train + ext
+    dt = e_hold / tot
+    t, t_c = kahan_add(state.t, state.t_c, dt)
+    x = u_race * tot
+    is_ext = x >= r_train
+    # conditional uniforms: exact given the branch (clipped only against
+    # the open boundary so the tree descent stays in range)
+    u_train = torch.clamp(x / r_train, 0.0, _U_TOP)
+    # x - r_train as XLA computes it: u_race * tot - r_train in one rounding
+    u_ext = torch.clamp(fma32(u_race, tot, -r_train) / torch.clamp_min(ext, 1e-30), 0.0, _U_TOP)
+    idx = tree_sample(rtree, u_train)
+    if fr is not None:
+        kind = torch.div(idx, n, rounding_mode="floor")
+        j = idx - kind * n
+        kind = torch.where(is_ext, KIND_SERVE, kind)
+    else:
+        kind = torch.where(is_ext, KIND_SERVE, KIND_COMPLETE)
+        j = idx
+    move = kind < KIND_FLIP  # excludes flips and external events
+    # the reference gathers at j % n and drops the scatters at j = n: an
+    # external event reads node 0 here and adds 0 there
+    flat = ring.reshape(*lead, -1)
+    s = torch.where(move, _take(flat, torch.add(_take(head, j) % C, j, alpha=C)), C)
+    mv = move.to(_I64)[..., None]
+    jj, kk = j[..., None], k_new[..., None]
+    head = head.scatter_add(-1, jj, mv)
+    occ = occ.scatter_add(-1, jj, -mv)
+    flat = _push(flat, tail, k_new, s, move, C)
+    tail = tail.scatter_add(-1, kk, mv)
+    occ = occ.scatter_add(-1, kk, mv)
+    if fr is not None:
+        avail = _toggle(avail, j, kind == KIND_FLIP)
+    new = StreamState(occ=occ, ring=flat.view(ring.shape), head=head, tail=tail, t=t,
+                      avail=avail, t_c=t_c)
+    j = torch.where(is_ext, n, j)
+    return new, Event(j=j, k=k_new, t=t, slot=s, dt=dt, kind=kind), is_ext, u_ext
+
+
+def merged_stream_step(state: StreamState, mu, ext_rate, xs, fr: FaultRates | None = None):
+    """One event of the closed network merged with an external event class.
+
+    ``ext_rate`` is the total rate of an independent open stream (the
+    serving plane, `serving.serve_total_rate`) racing the closed network's
+    clocks.  With all clocks exponential the merged system is a CTMC: the
+    holding time is ``Exp(r_train + ext_rate)`` and the winner is external
+    w.p. ``ext_rate / (r_train + ext_rate)``; the conditional uniforms
+    handed to each side (``x / r_train`` and ``(x - r_train) / ext_rate``
+    with ``x = u_race * tot``) are again uniform, so both sub-races stay
+    exact in law.  An external win leaves the queues untouched and emits
+    ``Event(j=n, slot=C, kind=KIND_SERVE)``, the flip's masking pattern.
+    ``fr`` switches the closed side to the faulty 4n-clock race of
+    `fault_stream_step`.  Returns ``(state', ev, is_ext, u_ext)``, ``u_ext``
+    the external side's conditional uniform (meaningless unless
+    ``is_ext``).
+    """
+    u_race, u_exp, k_new = xs
+    dev = state.occ.device
+    cst = _Consts(state.occ.shape[:-1], state.ring.shape[-1], dev)
+    return _merged_stream_step(state, _f32(mu, dev), _f32(ext_rate, dev), _hold(u_exp, dev),
+                               _f32(u_race, dev), torch.as_tensor(k_new, dtype=_I64, device=dev),
+                               cst, fr)
 
 
 class ScenarioRates(NamedTuple):
@@ -792,6 +894,62 @@ def scenario_stats_step(stats: StatsState, ev: Event, occ_pre, avail_pre, speed_
                               _delay(stats, ev.slot, k, C), C)
 
 
+def _merged_stats(stats: StatsState, ev: Event, occ_pre, avail_pre, occ_post, k, n: int,
+                  cst: _Consts):
+    """`merged_stats_step` given the ring width in ``cst``: ``(stats,
+    delay)``.  An external event (``j == n``) leaves the per-node counters,
+    the delay sum, the dispatch steps and the kind counts as they were
+    (the reference drops those scatters out of range) and integrates the
+    occupancy, busy time and availability over its ``dt`` like any event."""
+    C = cst.C
+    live = ev.j < n
+    at = torch.clamp_max(ev.j, n - 1)
+    dt = ev.dt[..., None]
+    delay = _delay(stats, ev.slot, k, C)
+    count = live if avail_pre is None else live & (ev.kind == KIND_COMPLETE)
+    occ_tw, occ_tw_c = kahan_add(stats.occ_tw, stats.occ_tw_c, torch.mul(occ_pre, dt))
+    if avail_pre is None:
+        busy = torch.where(occ_pre > 0, dt, 0.0)
+        x = delay.to(_F32)
+    else:
+        busy = _exposure(occ_pre, avail_pre, dt)
+        x = delay.to(_F32) * count.to(_F32)
+    busy_t, busy_t_c = kahan_add(stats.busy_t, stats.busy_t_c, busy)
+    sd_, cd_ = _kahan_scatter_add(stats.delay_sum, stats.delay_sum_c, at, x)
+    keep = live[..., None]
+    delay_sum = torch.where(keep, sd_, stats.delay_sum)
+    delay_sum_c = torch.where(keep, cd_, stats.delay_sum_c)
+    sl = torch.clamp_max(ev.slot, C - 1)[..., None]
+    slot_step = stats.slot_step.scatter(
+        -1, sl, torch.where((ev.slot < C)[..., None], k + 1, stats.slot_step.gather(-1, sl)))
+    out = stats._replace(
+        occ_sum=stats.occ_sum + occ_post, occ_tw=occ_tw, busy_t=busy_t,
+        comp=stats.comp.scatter_add(-1, at[..., None], count.to(_I64)[..., None]),
+        delay_sum=delay_sum, slot_step=slot_step, occ_tw_c=occ_tw_c, busy_t_c=busy_t_c,
+        delay_sum_c=delay_sum_c)
+    if avail_pre is not None:
+        avail_tw, avail_tw_c = kahan_add(stats.avail_tw, stats.avail_tw_c, avail_pre * dt)
+        K = stats.kind_count.shape[-1]
+        kc = ev.kind[..., None]
+        out = out._replace(
+            avail_tw=avail_tw, avail_tw_c=avail_tw_c,
+            kind_count=stats.kind_count.scatter_add(-1, torch.clamp_max(kc, K - 1),
+                                                    (kc < K).to(_I64)))
+    return out, delay
+
+
+def merged_stats_step(stats: StatsState, ev: Event, occ_pre, avail_pre, occ_post,
+                      k) -> StatsState:
+    """The statistics of one `merged_stream_step` event: `stats_step`'s
+    (``avail_pre`` None) or `fault_stats_step`'s, where an external event
+    (``j = n``, slot C, `KIND_SERVE`) changes no per-node counter, delay
+    sum, dispatch step or kind count, as the reference's out-of-range
+    scatters drop, while the time integrals run over its ``dt``."""
+    n = occ_pre.shape[-1]
+    cst = _Consts(occ_pre.shape[:-1], stats.slot_step.shape[-1], occ_pre.device)
+    return _merged_stats(stats, ev, occ_pre, avail_pre, occ_post, k, n, cst)[0]
+
+
 # ---------------------------------------------------------------------- #
 # the scan harness: T fused steps of stream_step + stats_step
 # ---------------------------------------------------------------------- #
@@ -818,8 +976,24 @@ def _dense_event(state, stats, mu, e_hold, u_race, k_new, u_ph, k: int, cst, nee
     return state, stats, ev, delay
 
 
+def _merged_event(state, stats, mu, e_hold, u_race, k_new, k: int, cst, need_stats: bool, fr,
+                  serve):
+    """One event of the dense stream merged with the serving plane
+    (``serve``, a `serving.ServeLoop`): the race against its current rate,
+    the statistics, then the serving table's transition."""
+    occ_pre, avail_pre = state.occ, state.avail
+    state, ev, is_ext, u_ext = _merged_stream_step(state, mu, serve.rate(), e_hold, u_race,
+                                                   k_new, cst, fr)
+    delay = None
+    if need_stats:
+        stats, delay = _merged_stats(stats, ev, occ_pre, avail_pre, state.occ, k,
+                                     occ_pre.shape[-1], cst)
+    serve.step(ev.dt, ev.t, is_ext, u_ext)
+    return state, stats, ev, delay
+
+
 def _advance(state, stats, mu, e_hold, u_race, K, k0: int, cst, need_stats=True, on_event=None,
-             fr=None, sr=None, u_ph=None, spec=None, u_bit=None):
+             fr=None, sr=None, u_ph=None, spec=None, u_bit=None, serve=None):
     """Advance the network over one block of pre-drawn inputs.
 
     ``e_hold``, ``u_race``, ``K`` (and the scenario stream's ``u_ph``) are
@@ -827,15 +1001,21 @@ def _advance(state, stats, mu, e_hold, u_race, K, k0: int, cst, need_stats=True,
     stream, ``sr`` (`ScenarioRates`) the scenario stream, and ``spec`` (a
     `ClassSpec` with int64 tables on the device, `_spec_on`) the sparse
     stream, whose tagged streams also take the availability-bit uniforms
-    ``u_bit``.  Returns the new ``(state, stats)`` and the stacked ``(J, t,
-    slot, delay, kind)`` columns (delay None without stats, kind None on
-    the plain stream).  ``on_event(i, ev)`` runs after each event's stream
+    ``u_bit``.  ``serve`` (a `serving.ServeLoop`) merges the serving plane
+    into the dense race (`merged_stream_step`; with or without ``fr``).
+    Returns the new ``(state, stats)`` and the stacked ``(J, t, slot,
+    delay, kind)`` columns (delay None without stats, kind None on the
+    plain stream).  ``on_event(i, ev)`` runs after each event's stream
     step (the fused runner's slot-scale bookkeeping).
     """
     L = K.shape[-1]
     Js, ts, ss, ds, ks = [], [], [], [], []
     for i in range(L):
-        if spec is not None:
+        if serve is not None:
+            state, stats, ev, delay = _merged_event(
+                state, stats, mu, e_hold[..., i], u_race[..., i], K[..., i], k0 + i, cst,
+                need_stats, fr, serve)
+        elif spec is not None:
             state, stats, ev, delay = _sparse_event(
                 state, stats, mu, spec, e_hold[..., i], u_race[..., i], K[..., i],
                 None if u_bit is None else u_bit[..., i], None if u_ph is None else u_ph[..., i],
@@ -851,7 +1031,7 @@ def _advance(state, stats, mu, e_hold, u_race, K, k0: int, cst, need_stats=True,
         Js.append(ev.j)
         ts.append(ev.t)
         ss.append(ev.slot)
-        if fr is not None or sr is not None:
+        if fr is not None or sr is not None or serve is not None:
             ks.append(ev.kind)
     st = lambda xs: torch.stack(xs, dim=-1) if xs else None  # noqa: E731
     return state, stats, (st(Js), st(ts), st(ss), st(ds), st(ks))
@@ -876,7 +1056,7 @@ def _resolve_modes(fault, scenario, n: int, device):
 
 
 def scan_draws(mu, nodes, u_race, u_exp, K, emit_events: bool = True, fault=None, scenario=None,
-               u_ph=None, u_phase0=None):
+               u_ph=None, u_phase0=None, serving=None):
     """The stream over pre-drawn inputs: the reference's ``xs``.
 
     ``nodes`` (the initial placement, ``(C,)`` or ``(B, C)``), ``u_race``,
@@ -887,9 +1067,15 @@ def scan_draws(mu, nodes, u_race, u_exp, K, emit_events: bool = True, fault=None
     fault stream; ``scenario`` (a `ScenarioConfig` or `ScenarioRates`) the
     scenario stream, which also takes the dispatch-phase uniforms ``u_ph``
     (like ``K``) and the initial-phase uniforms ``u_phase0`` (like
-    ``nodes``).  Returns ``(nodes, events, stats)`` with ``events = (J, K,
-    t, slot, delay)`` tensors (plus ``kind`` with a fault or scenario), or
-    None without ``emit_events``.
+    ``nodes``).  ``serving`` (a `serving.ServingConfig`) merges the serving
+    plane's open stream into the race (`merged_stream_step`, with or
+    without ``fault``) and advances its request table with the stream;
+    there is no replay here, so the known-good pointer stays at its start
+    and the read path's checksum and staleness are not taken.  Returns
+    ``(nodes, events, stats)`` with ``events = (J, K, t, slot, delay)``
+    tensors (plus ``kind`` with a fault, a scenario or serving), or None
+    without ``emit_events``; with ``serving`` a fourth entry, the final
+    ``(ServeState, ServeStats)``.
     """
     mu = torch.as_tensor(mu)
     dev = mu.device
@@ -909,10 +1095,20 @@ def scan_draws(mu, nodes, u_race, u_exp, K, emit_events: bool = True, fault=None
     e_hold = _hold(torch.as_tensor(u_exp, device=dev), dev)
     K = torch.as_tensor(K, device=dev).to(_I64)
     cst = _Consts(lead, C, dev, n=n)
+    serve = None
+    if serving is not None and serving.enabled:
+        if sr is not None:
+            raise ValueError("scenario= does not compose with serving=")
+        from .serving import ServeLoop, serve_init, serve_stats_init
+
+        cells = lead[0] if lead else None
+        serve = ServeLoop(serving.validate(), serve_init(serving, cells=cells, device=dev),
+                          serve_stats_init(cells=cells, device=dev))
     _, stats, (J, t, slot, delay, kind) = _advance(state, stats, mu, e_hold, u_race, K, 0, cst,
-                                                   fr=fr, sr=sr, u_ph=u_ph)
+                                                   fr=fr, sr=sr, u_ph=u_ph, serve=serve)
     events = (J, K, t, slot, delay) + ((kind,) if kind is not None else ())
-    return nodes, (events if emit_events else None), stats
+    out = (nodes, (events if emit_events else None), stats)
+    return out if serve is None else out + ((serve.sv, serve.stats),)
 
 
 def _generator(seed, device) -> torch.Generator:

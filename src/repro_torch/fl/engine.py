@@ -428,15 +428,13 @@ def _cached_fl_setup(data: FederatedClassification | None, seed: int, task=None,
     return setup
 
 
-def _reject_unported(flc: FLConfig, method, task, serving):
-    """Duck-typed tasks (item 7d), then the serving plane (item 11); the
-    device stream's own unported options raise in `core.async_sgd`."""
+def _reject_unported(flc: FLConfig, method, task):
+    """Duck-typed tasks (item 7d); the device stream's own unported options
+    raise in `core.async_sgd`."""
     if method not in ("gen_async", "async_sgd", "fedbuff", "fedavg", "favano"):
         raise ValueError(method)
     if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
         raise unported(f"task={type(task).__name__}", "7d")
-    if serving is not None:
-        raise unported("serving=", 11)
 
 
 def run_experiment(
@@ -479,15 +477,17 @@ def run_experiment(
     client churn / crashes / straggler timeouts (`core.FaultConfig`),
     ``guard`` rejects divergent or over-stale updates (`core.GuardConfig`),
     ``flc.scenario`` swaps in a phase-type service law and modulated
-    availability (per event on the device stream), and ``ckpt_dir`` +
-    ``ckpt_every`` checkpoint the full engine state every ``ckpt_every`` CS
-    steps (scan engine; on the device stream not with a scenario, as in
-    the reference); ``resume=True`` restores the latest checkpoint and
-    continues, bitwise.  The other keywords keep
-    `repro.fl.engine.run_experiment`'s signature; the serving plane, which
-    the port does not run yet, raises `NotImplementedError`.
+    availability (per event on the device stream), ``serving`` merges an
+    open inference-request stream into the device event race and serves
+    from the snapshot ring (`core.ServingConfig`, requires ``flc.stream ==
+    "device"``; the ``serve_*`` counters land in ``FLRun.extras``), and
+    ``ckpt_dir`` + ``ckpt_every`` checkpoint the full engine state every
+    ``ckpt_every`` CS steps (scan engine; on the device stream not with a
+    scenario, as in the reference); ``resume=True`` restores the latest
+    checkpoint and continues, bitwise.  The other keywords keep
+    `repro.fl.engine.run_experiment`'s signature.
     """
-    _reject_unported(flc, method, task, serving)
+    _reject_unported(flc, method, task)
     device = resolve_device(flc.device)
     if flc.stream == "device":
         if engine == "python":
@@ -536,6 +536,7 @@ def run_experiment(
         segmentation=flc.segmentation,
         faults=faults,
         guard=guard,
+        serving=serving,
         ckpt_dir=ckpt_dir,
         ckpt_every=ckpt_every,
         resume=resume,

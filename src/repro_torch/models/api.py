@@ -4,10 +4,13 @@
     logits, _ = forward(params, batch, cfg)          # train / prefill
     loss, aux = loss_fn(params, batch, cfg)
 
+    cache     = init_cache(cfg, batch, seq_len)      # cache spec (CacheSpec leaves)
+    logits, c = decode_step(params, cache, batch, cfg)
+    out, c    = serve_step(params, cache, batch, cfg)  # + greedy next ids
+
 The dense, MoE, VLM and audio families (the transformer), the SSM family
 (`mamba2`) and the hybrid (`hybrid`) are ported; the optimizer-driven
-`train_step` and decode / serving raise `NotImplementedError` naming their
-ROADMAP item.
+`train_step` raises `NotImplementedError` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ __all__ = [
     "model_meta",
     "forward",
     "init_cache",
+    "cache_logical_axes",
     "decode_step",
     "loss_fn",
     "train_step",
@@ -49,6 +53,10 @@ def forward(params, batch, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     return family_module(cfg).init_cache(cfg, batch, seq_len)
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    return family_module(cfg).cache_logical_axes(cfg)
 
 
 def decode_step(params, cache, batch, cfg: ModelConfig):
@@ -87,6 +95,8 @@ def train_step(*args, **kwargs):
     raise unported("api.train_step (optim/)", "7d")
 
 
-def serve_step(*args, **kwargs):
-    """One batched decode step — not ported yet."""
-    raise unported("api.serve_step", 11)
+def serve_step(params, cache, batch, cfg: ModelConfig):
+    """One batched decode step; greedy next-token ids alongside raw logits."""
+    logits, new_cache = decode_step(params, cache, batch, cfg)
+    next_ids = torch.argmax(logits, dim=-1).to(torch.int32)
+    return {"logits": logits, "next_ids": next_ids}, new_cache

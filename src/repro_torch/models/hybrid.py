@@ -5,9 +5,8 @@ applied every `cfg.attn_every` layers (arXiv:2411.15242).
 shared block has a single parameter set reused at each of the
 ``num_layers // attn_every`` sites (Zamba2's weight-shared global block),
 so its gradient sums over the sites; the backbone runs in segments of
-``attn_every`` Mamba2 layers, plus the trailing layers.  Decode (per-layer
-SSM / conv states plus one KV cache per site) belongs to the serving plane
-and is not ported yet.
+``attn_every`` Mamba2 layers, plus the trailing layers.  Decode carries
+per-layer SSM / conv states plus one KV cache per shared-block site.
 """
 from __future__ import annotations
 
@@ -17,13 +16,13 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..unported import unported
 from . import layers as L
 from . import mamba2 as M
-from .module import ParamMeta
-from .transformer import _dt, _remat, _unstack
+from .module import CacheSpec, ParamMeta
+from .transformer import _dt, _remat, _unstack, cache_len_for
 
-__all__ = ["model_meta", "forward", "init_cache", "decode_step", "num_shared_sites"]
+__all__ = ["model_meta", "forward", "init_cache", "cache_logical_axes", "decode_step",
+           "num_shared_sites"]
 
 
 def num_shared_sites(cfg: ModelConfig) -> int:
@@ -82,10 +81,76 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """SSM / conv states plus per-site KV caches — not ported yet."""
-    raise unported("hybrid.init_cache", 11)
+    """The decode cache spec (`CacheSpec` leaves): the backbone's per-layer
+    SSM / conv states, one ring-buffer KV cache per shared-block site, the
+    positions the ring slots hold and the next position."""
+    d_inner = cfg.d_inner
+    H, N = cfg.ssm_heads, cfg.ssm_state
+    conv_ch = d_inner + 2 * cfg.ssm_groups * N
+    nL, nseg = cfg.num_layers, num_shared_sites(cfg)
+    W = cache_len_for(cfg, seq_len)
+    K, Dh = cfg.num_kv_heads, cfg.head_dim
+    dt = _dt(cfg)
+    return {
+        "ssm": CacheSpec((nL, batch, H, N, cfg.ssm_head_dim), torch.float32),
+        "conv": CacheSpec((nL, batch, cfg.ssm_conv - 1, conv_ch), dt),
+        "k": CacheSpec((nseg, batch, W, K, Dh), dt),
+        "v": CacheSpec((nseg, batch, W, K, Dh), dt),
+        "positions": CacheSpec((W,), torch.int32),
+        "pos": CacheSpec((), torch.int32),
+    }
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    return {
+        "ssm": ("layers", "batch", "heads", "state", None),
+        "conv": ("layers", "batch", None, "mlp"),
+        "k": ("layers", "batch", "cache_seq", "cache_kv_heads", "cache_head_dim"),
+        "v": ("layers", "batch", "cache_seq", "cache_kv_heads", "cache_head_dim"),
+        "positions": (None,),
+        "pos": (),
+    }
 
 
 def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
-    """One-token decode of the hybrid — not ported yet."""
-    raise unported("hybrid.decode_step", 11)
+    """One-token decode.  Each site attends from the cache's positions as
+    they were before the step (every site writes the same ring slot), as
+    the reference does.  Returns (logits (B, V), new_cache)."""
+    x = F.embedding(batch["tokens"], params["embed"])
+    pos = cache["pos"]
+    ae = cfg.attn_every
+    n_seg = num_shared_sites(cfg)
+    layers = _unstack(params["blocks"], cfg.num_layers)
+    new_ssm, new_conv, new_k, new_v = [], [], [], []
+    positions = cache["positions"]
+
+    def mamba_seg(x, lo, hi):
+        x, ssm, conv = M._decode_layers(_seg_slice(layers, lo, hi), x, cfg,
+                                        cache["ssm"][lo:hi], cache["conv"][lo:hi])
+        new_ssm.extend(ssm)
+        new_conv.extend(conv)
+        return x
+
+    for seg in range(n_seg):
+        x, (kc, vc), positions = L.decode_attention_block(
+            params["shared"]["attn"], x, cfg, (cache["k"][seg], cache["v"][seg]),
+            cache["positions"], pos)
+        x = L.ffn_block(params["shared"]["ffn"], x, cfg)
+        new_k.append(kc)
+        new_v.append(vc)
+        x = mamba_seg(x, seg * ae, (seg + 1) * ae)
+    if cfg.num_layers % ae:
+        x = mamba_seg(x, n_seg * ae, cfg.num_layers)
+
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ head)[:, 0]
+    new_cache = {
+        "ssm": torch.stack(new_ssm),
+        "conv": torch.stack(new_conv),
+        "k": torch.stack(new_k),
+        "v": torch.stack(new_v),
+        "positions": positions,
+        "pos": pos + 1,
+    }
+    return logits, new_cache

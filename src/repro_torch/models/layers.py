@@ -17,7 +17,6 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..unported import unported
 from .module import ParamMeta
 
 __all__ = [
@@ -192,9 +191,55 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + out.reshape(B, S, H * Dh) @ params["wo"]
 
 
-def decode_attention_block(*args, **kwargs):
-    """Single-token decode against a ring-buffer KV cache — not ported yet."""
-    raise unported("decode_attention_block", 11)
+def decode_attention_block(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    kv_cache: tuple[torch.Tensor, torch.Tensor],
+    cache_positions: torch.Tensor,
+    pos: torch.Tensor,
+) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """Single-token decode against a ring-buffer KV cache.
+
+    x: (B, 1, D).  kv_cache: (k, v) each (B, W, K, Dh) holding RoPE'd keys.
+    cache_positions: (W,) int32, the absolute position stored in each slot
+    (-1 = empty).  pos: 0-d int32, the position of the current token.  The
+    new token is written at slot pos % W (ring eviction); the new cache and
+    positions are returned (new tensors, the inputs are left as they were).
+    Plain torch: the reference's decode attention has no TPU kernel.
+    """
+    B, _, D = x.shape
+    H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    W = kv_cache[0].shape[1]
+    h = rms_norm(params["pre_norm"], x, cfg.norm_eps)
+    q = h @ params["wq"]
+    k = h @ params["wk"]
+    v = h @ params["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, 1, H, Dh)
+    k = k.reshape(B, 1, K, Dh)
+    v = v.reshape(B, 1, K, Dh)
+    posv = pos.reshape(1)
+    cos, sin = make_rope(posv, Dh, cfg.rope_theta)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    slot = torch.remainder(posv, W).to(torch.int64)
+    ck = kv_cache[0].index_copy(1, slot, k)
+    cv = kv_cache[1].index_copy(1, slot, v)
+    new_positions = cache_positions.index_copy(0, slot, posv.to(cache_positions.dtype))
+    # attend over the whole ring buffer; mask invalid / out-of-window slots
+    valid = (new_positions >= 0) & (new_positions <= pos)
+    if cfg.sliding_window:
+        valid = valid & (new_positions > pos - cfg.sliding_window)
+    mask = valid[None, None, None, :]              # (1,1,1,W)
+    G = H // K
+    qg = q.reshape(B, 1, K, G, Dh)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, ck).float() / float(np.sqrt(Dh))
+    scores = torch.where(mask[:, :, None], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(cv.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, cv).reshape(B, 1, H * Dh)
+    return x + out @ params["wo"], (ck, cv), new_positions
 
 
 # --------------------------------------------------------------------- #

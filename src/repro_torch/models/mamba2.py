@@ -1,14 +1,15 @@
-"""Mamba2 (state-space duality / SSD) blocks — the chunked parallel form.
+"""Mamba2 (state-space duality / SSD) blocks: the chunked parallel form and
+decode.
 
-`repro.models.mamba2`'s training and prefill half, after "Transformers are
-SSDs" (arXiv:2405.21060):
+`repro.models.mamba2`, after "Transformers are SSDs" (arXiv:2405.21060):
   h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t,      y_t = C_t h_t + D x_t
 with per-head scalar A and B/C shared across heads (ssm_groups=1).  Training
-and prefill use the chunked dual form (O(S Q) with chunk Q); all decay and
-exp math is fp32.  With ``cfg.use_pallas`` the chunked scan runs the
-hand-written CUDA kernel (`kernels.ops.ssd_scan`, K4), else `ssd_chunked`.
-Decode (the O(1) recurrence and its cache) belongs to the serving plane
-and is not ported yet.
+and prefill use the chunked dual form (O(S Q) with chunk Q); decode is the
+O(1) recurrence (`ssd_recurrent_step`) against an fp32 SSM state and a conv
+ring of the last ssm_conv - 1 inputs; all decay and exp math is fp32.  With
+``cfg.use_pallas`` the chunked scan runs the hand-written CUDA kernel
+(`kernels.ops.ssd_scan`, K4), else `ssd_chunked`; the recurrence is plain
+torch, as it is plain jnp in the reference.
 """
 from __future__ import annotations
 
@@ -19,9 +20,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..unported import unported
 from . import layers as L
-from .module import ParamMeta
+from .module import CacheSpec, ParamMeta
 from .transformer import _dt, _remat, _unstack
 
 __all__ = [
@@ -33,6 +33,7 @@ __all__ = [
     "mamba_decode_block",
     "forward",
     "init_cache",
+    "cache_logical_axes",
     "decode_step",
 ]
 
@@ -157,9 +158,20 @@ def ssd_chunked(
     return y, h
 
 
-def ssd_recurrent_step(*args, **kwargs):
-    """One decode step of the recurrence — not ported yet."""
-    raise unported("mamba2.ssd_recurrent_step", 11)
+def ssd_recurrent_step(
+    h: torch.Tensor,   # (B, H, N, P) fp32 state
+    x: torch.Tensor,   # (B, H, P)
+    dt: torch.Tensor,  # (B, H) fp32
+    A: torch.Tensor,   # (H,)
+    Bm: torch.Tensor,  # (B, N)
+    Cm: torch.Tensor,  # (B, N)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One decode step.  Returns (y (B,H,P), new_state)."""
+    dA = torch.exp(dt * A[None, :])                      # (B,H)
+    dBx = torch.einsum("bn,bh,bhp->bhnp", Bm.float(), dt, x.float())
+    h = h * dA[:, :, None, None] + dBx
+    y = torch.einsum("bn,bhnp->bhp", Cm.float(), h)
+    return y.to(x.dtype), h
 
 
 # ------------------------------------------------------------------ #
@@ -208,9 +220,38 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + y @ params["out_proj"], hT
 
 
-def mamba_decode_block(*args, **kwargs):
-    """Single-token Mamba2 block against the SSM / conv cache — not ported yet."""
-    raise unported("mamba2.mamba_decode_block", 11)
+def mamba_decode_block(
+    params: dict,
+    x: torch.Tensor,                    # (B, 1, D)
+    cfg: ModelConfig,
+    ssm_state: torch.Tensor,            # (B, H, N, P) fp32
+    conv_state: torch.Tensor,           # (B, W-1, conv_ch)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token Mamba2 block with residual.  Returns (y, new_ssm_state,
+    new_conv_state): the conv ring is the last W - 1 inputs, the new one
+    concatenated at its end."""
+    B, _, D = x.shape
+    d_inner, H, N, G, conv_ch = _dims(cfg)
+    Pd = cfg.ssm_head_dim
+    h = L.rms_norm(params["pre_norm"], x, cfg.norm_eps)
+    proj = h @ params["in_proj"]
+    z, xBC, dt_raw = _split_proj(proj, cfg)
+    xBC = xBC[:, 0]                                       # (B, conv_ch)
+    # conv ring: taps = [conv_state, new]
+    full = torch.cat([conv_state, xBC[:, None, :]], dim=1)  # (B, W, ch)
+    conv_out = torch.einsum("bwc,wc->bc", full.float(), params["conv_w"].float())
+    conv_out = conv_out + params["conv_b"].float()
+    xBC_c = F.silu(conv_out).to(x.dtype)
+    new_conv_state = full[:, 1:, :]
+    xs, Bm, Cm = torch.split(xBC_c, [d_inner, G * N, G * N], dim=-1)
+    xs = xs.reshape(B, H, Pd)
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())
+    y, new_state = ssd_recurrent_step(ssm_state, xs, dt, A, Bm, Cm)
+    y = y + xs * params["D"].to(y.dtype)[None, :, None]
+    y = y.reshape(B, 1, d_inner) * F.silu(z)
+    y = L.rms_norm(params["norm"], y, cfg.norm_eps)
+    return x + y @ params["out_proj"], new_state, new_conv_state
 
 
 # ------------------------------------------------------------------ #
@@ -233,14 +274,42 @@ def _call_block(cfg, params_l, x):
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """SSM / conv decode cache spec — not ported yet."""
-    raise unported("mamba2.init_cache", 11)
+    """The decode cache spec (`CacheSpec` leaves): per layer the fp32 SSM
+    state and the conv ring, and the next position."""
+    d_inner, H, N, G, conv_ch = _dims(cfg)
+    nL = cfg.num_layers
+    return {
+        "ssm": CacheSpec((nL, batch, H, N, cfg.ssm_head_dim), torch.float32),
+        "conv": CacheSpec((nL, batch, cfg.ssm_conv - 1, conv_ch), _dt(cfg)),
+        "pos": CacheSpec((), torch.int32),
+    }
 
 
 def cache_logical_axes(cfg: ModelConfig) -> dict:
-    raise unported("mamba2.cache_logical_axes", 11)
+    return {
+        "ssm": ("layers", "batch", "heads", "state", None),
+        "conv": ("layers", "batch", None, "mlp"),
+        "pos": (),
+    }
+
+
+def _decode_layers(layers: list, x: torch.Tensor, cfg: ModelConfig, ssm, conv):
+    """`mamba_decode_block` over ``layers`` and their cache slices: ``(x,
+    [ssm states], [conv rings])``."""
+    ssm_out, conv_out = [], []
+    for params_l, h, c in zip(layers, ssm, conv):
+        x, h, c = mamba_decode_block(params_l, x, cfg, h, c)
+        ssm_out.append(h)
+        conv_out.append(c)
+    return x, ssm_out, conv_out
 
 
 def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
-    """One-token decode against the SSM / conv cache — not ported yet."""
-    raise unported("mamba2.decode_step", 11)
+    """One-token decode.  Returns (logits (B, V), new_cache)."""
+    x = F.embedding(batch["tokens"], params["embed"])
+    x, ssm, conv = _decode_layers(_unstack(params["blocks"], cfg.num_layers), x, cfg,
+                                  cache["ssm"], cache["conv"])
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ head)[:, 0]
+    return logits, {"ssm": torch.stack(ssm), "conv": torch.stack(conv), "pos": cache["pos"] + 1}

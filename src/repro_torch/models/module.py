@@ -17,14 +17,28 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 
-__all__ = ["ParamMeta", "init_params", "abstract_params", "logical_specs", "param_count"]
+__all__ = ["CacheSpec", "ParamMeta", "init_params", "abstract_params", "logical_specs",
+           "param_count"]
+
+
+class CacheSpec(NamedTuple):
+    """Shape and dtype of one decode-cache entry: what `init_cache` returns
+    in place of the reference's ``jax.ShapeDtypeStruct`` (materialize with
+    `launch.serve.materialize_cache`)."""
+
+    shape: tuple[int, ...]
+    dtype: torch.dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,9 +6,10 @@ forward unbinds each stacked leaf once and runs a Python loop over the
 layers (`jax.lax.scan` in the reference), whichever ``cfg.scan_layers``
 says.  The MoE aux loss is summed as the reference sums it: with
 ``scan_layers`` the per-layer sum over num_layers, else each layer's
-share added in turn.  Decode is not ported yet; the SSM and hybrid
-families live in `mamba2` and `hybrid`, which reuse this module's `_dt`,
-`_unstack` and `_remat`.
+share added in turn.  `init_cache` / `decode_step` serve one token at a
+time against a ring-buffer KV cache.  The SSM and hybrid families live in
+`mamba2` and `hybrid`, which reuse this module's `_dt`, `_unstack`,
+`_remat` and `cache_len_for`.
 """
 from __future__ import annotations
 
@@ -19,11 +20,10 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..tree import tree_flatten
-from ..unported import unported
 from . import layers as L
-from .module import ParamMeta
+from .module import CacheSpec, ParamMeta
 
-__all__ = ["model_meta", "forward", "init_cache", "decode_step"]
+__all__ = ["model_meta", "forward", "init_cache", "cache_logical_axes", "decode_step"]
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -112,11 +112,64 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
 # ------------------------------------------------------------------ #
 # decode
 # ------------------------------------------------------------------ #
+def cache_len_for(cfg: ModelConfig, seq_len: int) -> int:
+    if cfg.sliding_window:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """Ring-buffer KV cache spec — not ported yet."""
-    raise unported("transformer.init_cache", 11)
+    """The cache spec (`CacheSpec` leaves): per layer a ring-buffer KV cache
+    of ``cache_len_for`` slots, the positions each slot holds (shared by the
+    layers) and the next position."""
+    W = cache_len_for(cfg, seq_len)
+    nL, K, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    dt = _dt(cfg)
+    return {
+        "k": CacheSpec((nL, batch, W, K, Dh), dt),
+        "v": CacheSpec((nL, batch, W, K, Dh), dt),
+        "positions": CacheSpec((W,), torch.int32),
+        "pos": CacheSpec((), torch.int32),
+    }
 
 
-def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
-    """One-token decode against the KV cache — not ported yet."""
-    raise unported("transformer.decode_step", 11)
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    return {
+        "k": ("layers", "batch", "cache_seq", "cache_kv_heads", "cache_head_dim"),
+        "v": ("layers", "batch", "cache_seq", "cache_kv_heads", "cache_head_dim"),
+        "positions": (None,),
+        "pos": (),
+    }
+
+
+def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig
+                ) -> tuple[torch.Tensor, dict]:
+    """One-token decode.  batch: {"tokens": (B,1)} or {"embeds": (B,1,D)}.
+
+    Returns (logits (B, V), new_cache).  The layers run in a Python loop
+    (the reference's ``lax.scan``), one positions vector carried through
+    them; an MoE layer runs `layers.moe_block` on the B tokens (K5 under
+    ``cfg.use_pallas`` and the sort dispatch)."""
+    if cfg.frontend == "audio_stub":
+        x = batch["embeds"].to(_dt(cfg))
+    else:
+        x = F.embedding(batch["tokens"], params["embed"])
+    pos = cache["pos"]
+    positions = cache["positions"]
+    ks, vs = [], []
+    layers = _unstack(params["blocks"], cfg.num_layers)
+    for params_l, ck, cv in zip(layers, cache["k"], cache["v"]):
+        x, (ck, cv), positions = L.decode_attention_block(
+            params_l["attn"], x, cfg, (ck, cv), positions, pos)
+        if "moe" in params_l:
+            x, _ = L.moe_block(params_l["moe"], x, cfg)
+        else:
+            x = L.ffn_block(params_l["ffn"], x, cfg)
+        ks.append(ck)
+        vs.append(cv)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = (x @ head)[:, 0]
+    new_cache = {"k": torch.stack(ks), "v": torch.stack(vs), "positions": positions,
+                 "pos": pos + 1}
+    return logits, new_cache

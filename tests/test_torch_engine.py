@@ -256,9 +256,33 @@ def test_unported_baselines_raise(fn):
 
 
 def test_serving_raises():
-    class Serving:
-        enabled = True
+    """The serving plane (ROADMAP item 11) is ported and does what the
+    reference's does: the Python loop ignores it (bitwise the run without
+    it), the scan engine's host stream raises the reference's ValueError
+    (the open stream merges only into the device event race), and the
+    device stream runs it with the reference's ``serve_*`` extras
+    (`tests/test_torch_serving.py` holds them on the same draws)."""
+    from repro.core import ServingConfig as JServingConfig
+    from repro_torch.core import ServingConfig
 
-    cfg = ServerConfig(n=4, C=2, T=10, eta=0.1, serving=Serving(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_generalized_async_sgd(np.zeros(4, np.float32), Quadratic(4), cfg)
+    kw = dict(arrival_rate=4.0, serve_rate=2.0, queue_cap=3, deadline=1.0)
+    prob = Quadratic(4)
+    cfg = ServerConfig(n=4, C=2, T=10, eta=0.1, serving=ServingConfig(**kw), device="cpu")
+    w, _ = run_generalized_async_sgd(np.zeros(4, np.float32), prob, cfg)
+    w0, _ = run_generalized_async_sgd(np.zeros(4, np.float32), prob, replace(cfg, serving=None))
+    assert torch.equal(w, w0)
+    jcfg = JServerConfig(n=4, C=2, T=10, eta=0.1, serving=JServingConfig(**kw), engine="scan")
+    with pytest.raises(ValueError, match="serving requires stream='device'"):
+        j_run(jnp.zeros(4, jnp.float32), JQuadratic(prob.c), jcfg)
+    with pytest.raises(ValueError, match="serving requires stream='device'"):
+        run_generalized_async_sgd(np.zeros(4, np.float32), prob, replace(cfg, engine="scan"))
+    dcfg = replace(cfg, engine="scan", stream="device", T=200)
+    w, tr = run_generalized_async_sgd(np.zeros(4, np.float32), prob, dcfg)
+    _, trj = j_run(jnp.zeros(4, jnp.float32), JQuadratic(prob.c),
+                   replace(jcfg, stream="device", T=200))
+    names = sorted(k for k in trj.extras if k.startswith("serve_"))
+    assert names == sorted(k for k in tr.extras if k.startswith("serve_")) and len(names) == 16
+    x = tr.extras
+    assert int(x["serve_arrivals"]) == (int(x["serve_served"]) + int(x["serve_shed"])
+                                        + int(x["serve_timed_out"]) + int(x["serve_pending"]))
+    assert int(x["serve_arrivals"]) > 0 and bool(torch.isfinite(w).all())

@@ -139,22 +139,27 @@ def test_cuda_device_raises_without_a_card():
     (dict(task=object()), "item 7"),
     (dict(faults="crash", flc=dict(stream="device")), None),
     (dict(ckpt_dir="ckpt", ckpt_every=5, flc=dict(stream="device")), None),
-    (dict(serving=object()), "item 11"),
+    (dict(serving="overload", flc=dict(stream="device")), None),
 ])
 def test_run_experiment_unported_raise(kw, item, tmp_path):
-    """Duck-typed tasks raise item 7d and serving item 11.  Faults and
-    checkpoints run on the device stream (under ``tmp_path``) as the
-    reference's do: finite curves of the same eval points, the
-    reference's extras (the kinds of all T events under faults), NaN event
-    times under checkpoints.  ``run_matrix(stream="device",
+    """Duck-typed tasks raise item 7d.  Faults, checkpoints and serving run
+    on the device stream (under ``tmp_path``) as the reference's do:
+    finite curves of the same eval points, the reference's extras (the
+    kinds of all T events under faults; the ``serve_*`` counters, their
+    requests conserved, under serving), NaN event times under
+    checkpoints.  ``run_matrix(stream="device",
     scenario="erlang2")`` runs per event in every cell, as the reference's
     does, with each cell's kinds over 6 tags."""
     from repro.core import FaultConfig as JFaultConfig
-    from repro_torch.core import FaultConfig
+    from repro.core import ServingConfig as JServingConfig
+    from repro_torch.core import FaultConfig, ServingConfig
 
+    serve_kw = dict(arrival_rate=4.0, serve_rate=2.0, queue_cap=3, deadline=1.0)
     kw = dict(kw)
     if kw.get("faults") == "crash":
         kw["faults"] = FaultConfig(crash_rate=0.1)
+    if kw.get("serving") == "overload":
+        kw["serving"] = ServingConfig(**serve_kw)
     if "ckpt_dir" in kw:
         kw["ckpt_dir"] = str(tmp_path / "ckpt")
     method = kw.pop("method", "gen_async")
@@ -170,6 +175,8 @@ def test_run_experiment_unported_raise(kw, item, tmp_path):
             jkw["faults"] = JFaultConfig(crash_rate=0.1)
         if "ckpt_dir" in jkw:
             jkw["ckpt_dir"] = str(tmp_path / "jax_ckpt")
+        if "serving" in jkw:
+            jkw["serving"] = JServingConfig(**serve_kw)
         rj = j_fl.run_experiment(JFLConfig(n_clients=4, concurrency=2, server_steps=10, **fkw),
                                  method, eval_every=5, **jkw)
         assert r.eval_steps.tolist() == rj.eval_steps.tolist() == [5, 10]
@@ -177,6 +184,12 @@ def test_run_experiment_unported_raise(kw, item, tmp_path):
         assert set(rj.extras) <= set(r.extras)
         if "faults" in kw:
             assert int(r.extras["kind_count"].sum()) == int(np.sum(rj.extras["kind_count"])) == 10
+        elif "serving" in kw:
+            x = r.extras
+            assert sum(k.startswith("serve_") for k in rj.extras) == 16
+            assert int(x["serve_arrivals"]) == sum(int(x[f"serve_{k}"]) for k in (
+                "served", "shed", "timed_out", "pending"))
+            assert np.isfinite(r.eval_times).all()
         else:
             assert np.isnan(r.eval_times).all() and np.isnan(rj.eval_times).all()
     m = t_fl.run_matrix(flc, seeds=(0,), stream="device", scenario="erlang2", eval_every=5)

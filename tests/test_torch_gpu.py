@@ -1356,3 +1356,121 @@ def test_fused_run_on_card_equals_cpu(dev, kw):
         out.append((w["w"].cpu(), x["comp"].cpu()))
     torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=1e-5)
     assert torch.equal(out[1][1], out[0][1])
+
+
+_SERVE = dict(arrival_rate=6.0, serve_rate=3.0, queue_cap=5, deadline=1.0, max_retries=2,
+              backoff_base=0.1, backoff_cap=0.4)
+
+
+@pytest.mark.parametrize("fault,cells", [(False, None), (True, None), (False, 4)])
+def test_merged_stream_on_card_equals_cpu(dev, fault, cells):
+    """The stream merged with the serving plane (`scan_draws(serving=)`) on
+    the card against the CPU on the same draws: events and integer state
+    exact, times <= 1e-6, the serving table and its counters exact."""
+    from repro_torch.core import FaultConfig, stream_device as sd
+    from repro_torch.core.serving import ServingConfig
+
+    args = _stream_inputs(64, 16, 1000, cells)
+    kw = dict(serving=ServingConfig(**_SERVE),
+              fault=FaultConfig(**_ROBUST_FAULT) if fault else None)
+    _, ev_c, st_c, (sv_c, ss_c) = sd.scan_draws(*args, **kw)
+    _, ev_g, st_g, (sv_g, ss_g) = sd.scan_draws(*(a.to(dev) for a in args), **kw)
+    for i in (0, 1, 3, 4, 5):  # J, K, slot, delay, kind
+        assert torch.equal(ev_g[i].cpu(), ev_c[i])
+    torch.testing.assert_close(ev_g[2].cpu(), ev_c[2], rtol=1e-6, atol=0)
+    for f in ("occ_sum", "comp", "slot_step"):
+        assert torch.equal(getattr(st_g, f).cpu(), getattr(st_c, f))
+    for f in ("stt", "seq", "attempt", "next_seq", "depth", "cdf"):
+        assert torch.equal(getattr(sv_g, f).cpu(), getattr(sv_c, f)), f
+    for f in ("arrivals", "served", "shed", "timed_out", "retried", "qdepth_max",
+              "sojourn_hist"):
+        assert torch.equal(getattr(ss_g, f).cpu(), getattr(ss_c, f)), f
+    torch.testing.assert_close(ss_g.sojourn.cpu(), ss_c.sojourn, rtol=1e-6, atol=0)
+    assert int(ss_c.served.sum()) > 0
+
+
+def _serve_run(d, kw, n=16, C=4, T=400):
+    """The fused runner with serving on ``d`` over CPU-drawn inputs, ready
+    to run: ``run()`` -> ``(w, evals, extras)`` (the inputs are on ``d``
+    before it is called)."""
+    from repro_torch.core import engine_scan
+    from repro_torch.core.serving import ServingConfig
+
+    c = torch.tensor(np.random.default_rng(0).normal(size=(n, 5)), dtype=torch.float32).to(d)
+    mu, nodes, ur, ue, _ = _stream_inputs(n, C, T)
+    ud = torch.rand(T, generator=torch.Generator().manual_seed(9))
+    fused = engine_scan.make_fused_runner(
+        lambda j, w, k: {"w": w["w"] - c.index_select(0, j.reshape(1))[0]}, n, C, T,
+        serving=ServingConfig(**_SERVE), **kw)
+    args = ({"w": torch.zeros(5, device=d)}, torch.tensor(mu.numpy(), device=d),
+            torch.full((n,), 1.0 / n, device=d), 0.05, *(a.to(d) for a in (nodes, ur, ue, ud)))
+    return lambda: fused.from_draws(*args)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(adaptive=True, refresh_every=100)])
+def test_serving_fused_run_on_card_equals_cpu(dev, kw):
+    """The fused runner with serving on the card against the CPU on the
+    same draws: weights within 1e-5, every integer ``serve_*`` extra and
+    histogram exact, the served rows' checksum within 1e-5."""
+    (wc, _, xc), (wg, _, xg) = (_serve_run(d, kw)() for d in (torch.device("cpu"), dev))
+    torch.testing.assert_close(wg["w"].cpu(), wc["w"], rtol=0, atol=1e-5)
+    for k, v in xc.items():
+        if k.startswith("serve_") and not v.is_floating_point():
+            assert torch.equal(xg[k].cpu(), v), k
+    torch.testing.assert_close(xg["serve_checksum"].cpu(), xc["serve_checksum"], rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_serving_fused_chunk_makes_no_host_sync(dev):
+    """One chunk of the fused runner with serving and the guard under the
+    sync check: the merged race, the request table, the replay and the
+    known-good read path all stay on the card."""
+    from repro_torch.core.engine_scan import GuardConfig
+
+    run = _serve_run(dev, dict(guard=GuardConfig(max_grad_norm=1e3)), T=200)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        w, _, x = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(w["w"]).all()) and int(x["serve_arrivals"]) > 0
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-130m", "zamba2-2.7b", "qwen2-moe-a2.7b",
+                                  "musicgen-medium"])
+def test_decode_on_card_equals_cpu(dev, arch):
+    """Decode at smoke size (fp32) on the card against the CPU on the same
+    weights: every step's logits within 1e-4; the MoE decode with K5 (sort
+    dispatch, ``use_pallas``) on the card against its plain version."""
+    from repro_torch.launch.serve import materialize_cache
+
+    cfg = smoke_config(arch)
+    if cfg.family == "moe":
+        cfg = cfg.replace(capacity_factor=16.0, use_pallas=True, moe_dispatch="sort")
+    params = init_params(api.model_meta(cfg), 3, "cpu")
+    B, S = 2, 8
+    rng = np.random.default_rng(3)
+    if cfg.frontend == "audio_stub":
+        x = torch.from_numpy(rng.normal(size=(B, S, cfg.d_model)).astype(np.float32))
+        feeds = [{"embeds": x[:, t:t + 1]} for t in range(S)]
+    else:
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+        feeds = [{"tokens": toks[:, t:t + 1]} for t in range(S)]
+    logits = {}
+    for d in (torch.device("cpu"), dev):
+        p = {k: v for k, v in params.items()} if d.type == "cpu" else _to(params, d)
+        cache = materialize_cache(api.init_cache(cfg, B, S), d)
+        out = []
+        with torch.no_grad():
+            for b in feeds:
+                lg, cache = api.decode_step(p, cache, {k: v.to(d) for k, v in b.items()}, cfg)
+                out.append(lg.cpu())
+        logits[d.type] = torch.stack(out)
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=0, atol=1e-4)
+
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    return tree.to(d)

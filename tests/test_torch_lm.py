@@ -408,13 +408,25 @@ def test_cli_ckpt_dir_saves_the_final_params(tmp_path, capsys):
 
 
 def test_unported_model_entry_points_raise():
+    """``api.train_step`` waits for item 7d; decode (item 11) is ported:
+    `init_cache` returns the spec, and `decode_step` / `serve_step` run one
+    token against it (their parity with the reference is in
+    `tests/test_torch_decode.py`)."""
+    from repro_torch.launch.serve import materialize_cache
+
     cfg = t_configs.smoke_config("granite-3-2b")
-    for fn, item in ((lambda: t_api.train_step(), "item 7d"),
-                     (lambda: t_api.init_cache(cfg, 1, 8), "item 11"),
-                     (lambda: t_api.decode_step(None, None, None, cfg), "item 11"),
-                     (lambda: t_api.serve_step(), "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    with pytest.raises(NotImplementedError, match="item 7d"):
+        t_api.train_step()
+    spec = t_api.init_cache(cfg, 1, 8)
+    assert tuple(spec["k"].shape) == (cfg.num_layers, 1, 8, cfg.num_kv_heads, cfg.head_dim)
+    params = t_module.init_params(t_api.model_meta(cfg), 0, "cpu")
+    cache = materialize_cache(spec, "cpu")
+    tok = {"tokens": torch.zeros((1, 1), dtype=torch.int64)}
+    with torch.no_grad():
+        logits, cache = t_api.decode_step(params, cache, tok, cfg)
+        out, cache = t_api.serve_step(params, cache, tok, cfg)
+    assert logits.shape == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+    assert out["next_ids"].shape == (1,) and int(cache["pos"]) == 2
 
 
 def test_cli_lm_mode_runs_on_cpu(capsys):

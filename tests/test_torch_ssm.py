@@ -361,13 +361,26 @@ def test_hybrid_trailing_layers_match_reference():
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
 def test_decode_entry_points_raise(arch):
+    """Decode (item 11) is ported: the family's `init_cache` is the api's,
+    and a prompt decoded token by token from the empty cache gives the
+    last position's logits of the full-sequence forward (the reference's
+    bar, 2e-4; per-step parity with the reference is in
+    `tests/test_torch_decode.py`)."""
+    from repro_torch.launch.serve import materialize_cache
+    from repro_torch.models import module as t_module
+
     cfg = t_configs.smoke_config(arch)
     mod = t_api.family_module(cfg)
-    for fn in (lambda: mod.init_cache(cfg, 1, 8), lambda: mod.decode_step(None, None, None, cfg),
-               lambda: t_api.init_cache(cfg, 1, 8), lambda: t_mamba2.ssd_recurrent_step(),
-               lambda: t_mamba2.mamba_decode_block()):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn()
+    assert mod.init_cache(cfg, 1, 8) == t_api.init_cache(cfg, 1, 8)
+    params = t_module.init_params(t_api.model_meta(cfg), 1, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 8)))
+    cache = materialize_cache(mod.init_cache(cfg, 1, 8), "cpu")
+    with torch.no_grad():
+        full, _ = t_api.forward(params, {"tokens": toks}, cfg)
+        for t in range(8):
+            logits, cache = mod.decode_step(params, cache, {"tokens": toks[:, t:t + 1]}, cfg)
+    np.testing.assert_allclose(logits.numpy(), full[:, -1].numpy(), atol=2e-4)
+    assert cache["ssm"].dtype == torch.float32 and int(cache["pos"]) == 8
 
 
 # ---------------------------------------------------------------------------
