@@ -30,7 +30,9 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    ``vmap`` with a batched A, equal to a loop (K5: phase 11); K6, the
    lane-sharded scatter, over `SCATTER_SHAPES` (every ring row and w'
    bitwise equal to the plain version), timed beside its plain version and
-   ``index_copy_``;
+   ``index_copy_``, and across cells in one launch (`CELLS_SCATTER_SHAPES`:
+   4 and 27 cells, fp32 and bf16 rings, bitwise), timed beside
+   ``index_copy_`` on the flattened (B·R, P) ring;
 3. the MLP slice — the paper's experiment, the plain path:
    ``run_experiment(FLConfig(n_clients=256, concurrency=64,
    server_steps=2000, engine="scan"), "gen_async", eval_every=500)`` with
@@ -102,7 +104,20 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    profile of a few events.
 
 14.-16. FedBuff on the MLP, the lane-sharded MLP slice on 2 gloo ranks
-   sharing the card, the FL launcher's defaults, FedAvg and FAVANO;
+   sharing the card, the FL launcher's defaults, FedAvg and FAVANO.  The
+   same 2 ranks then run, at T=400 (`LANE_T`), the fused device stream
+   blocked E=8 with ``devices=2`` (event clock and completion counts exact
+   against the unsharded fused run, weights within 1e-4), the host stream
+   under phase 18's guard with a spiking / NaN gradient (rejects and stale
+   drops equal to the unsharded run's, weights within 1e-4, K6 launches ==
+   block rows) and ``run_matrix(devices=2, kernel="pallas")`` over 2 seeds
+   x 2 policies (K6 scatters the 4 cells in one launch a block; curves,
+   final accuracies and the cells' weights within 1e-4 of the unsharded
+   matrix); then 4 gloo ranks run ``run_matrix(stream="device",
+   devices=2)`` as shard 2 x lane 2 at T=200 (`SHARD_T`) against the
+   unsharded device matrix (curves within 1e-4, eval times and extras
+   exact).  Every rank's
+   results are bitwise equal to every other's;
 17. the scenario matrix on the host stream (``--only matrix`` the MLP's,
    `phase_matrix`; ``--only matrix_mamba`` the Mamba2-130M matrix below,
    first in the LM lane, see `phase_matrix_mamba`): the paper's grid as `examples/scenario_matrix.py`
@@ -508,6 +523,15 @@ PREFIX_SHAPES = [
 ]
 # the lane-sharded MLP slice: 2 gloo ranks sharing the one card
 LANE_RANKS, MLP_E, FEDBUFF_Z = 2, 8, 10
+# phase 15's later runs under lanes and shards, at the MLP slice's width (T
+# cut from 2000 to 400 for time, eval every 200): the fused device stream,
+# the guard on the host stream, and run_matrix over 2 seeds x 2 policies
+# (4 cells) on 2 ranks; then the device matrix on 4 ranks (shard 2 x lane
+# 2), T cut to 200 (eval every 100): five processes on the one card ran it
+# at 73.2 events/s summed at T=400 (NVIDIA H100 80GB HBM3, 700 W)
+LANE_T, LANE_EVAL, LANE_NAN_STEP = 400, 200, 333
+SHARD_RANKS, SHARD_T, SHARD_EVAL = 4, 200, 100
+LANE_GRID = dict(seeds=(0, 1), policies=("uniform", "optimal"), speed_ratios=(10.0,))
 # the scenario matrix (phase 17): examples/scenario_matrix.py's configuration,
 # 3 seeds x 3 policies x 3 speed ratios = 27 cells, uncut; MATRIX_CELL is the
 # (seed, policy, ratio) index of the cell run alone (flc's: seed 0, "optimal",
@@ -522,6 +546,12 @@ MATRIX_CELL = (0, 1, 1)
 # leaves
 CELLS_PREFIX_SHAPES = [(27, 17, 26624, 8, 2, torch.float32), (27, 17, 26624, 8, 2, torch.bfloat16)]
 CELLS = 27
+# K6 across cells (cells, ring rows C+1, P, E, padded lanes a cell, ring
+# dtype): the MLP's blocked ring (n=256, C=64, P padded to a multiple of
+# 1024) at E = 8 over the 4 cells of phase 15's lane-sharded matrix and the
+# matrix's 27, three lanes a cell on the trash row, fp32 and bf16 rings
+CELLS_SCATTER_SHAPES = [(B, 65, 26624, 8, 3, dt) for B in (4, 27)
+                        for dt in (torch.float32, torch.bfloat16)]
 # the Mamba2-130M matrix: phase 10's configuration over 3 policies (seed 0,
 # ratio 10), per event and blocked.  Blocked at E=4 the gradient call folds
 # 3 x 4 x 8 = 96 rows and ran out of the card's memory (75.9 GiB allocated,
@@ -1122,6 +1152,8 @@ def _phase_cells(dev, rows: dict) -> None:
         del snaps0, w, D, ops, copies
         torch.cuda.empty_cache()
     rows["block_prefix_update"]["cells"] = cells
+    rows["block_scatter_rows"]["cells"] = [_scatter_cells(dev, *sh)
+                                           for sh in CELLS_SCATTER_SHAPES]
 
     g = torch.Generator(device=dev).manual_seed(CELLS)
     shapes = list(MLP_LEAVES.values())
@@ -1155,6 +1187,60 @@ def _phase_cells(dev, rows: dict) -> None:
                         lambda: torch._foreach_addcmul(ws, gs, views, value=-1.0)))
     print(f"     {tag}: {json.dumps(row)}")
     rows["weighted_update"]["cells"] = [row]
+
+
+def _scatter_cells(dev, B: int, R: int, P: int, E: int, pad: int, dtype) -> dict:
+    """K6 across B cells in one launch against its plain version with a
+    cell axis: every cell's ring rows and w' bitwise, a second launch
+    bitwise, each cell's lanes ``pad`` of them on the trash row and one
+    real row targeted twice (the later lane wins); timed beside the plain
+    version and ``index_copy_`` of the B·E rows into the flattened (B·R, P)
+    ring plus the final rows' copy (one PyTorch call each; with duplicate
+    slots ``index_copy_`` leaves those rows undefined, which no reader
+    sees), with its byte bound (`_scatter_cost` a cell)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import weighted_update as wu
+
+    rng = np.random.default_rng(B + E + pad)
+    slots_np = np.stack([np.concatenate([rng.choice(R - 1, size=E - pad, replace=False),
+                                         np.full(pad, R - 1)]) for _ in range(B)])
+    slots_np[:, 1] = slots_np[:, 0]
+    slots = torch.as_tensor(slots_np, device=dev)
+    g = torch.Generator(device=dev).manual_seed(B + P)
+    snaps0 = torch.randn((B, R, P), generator=g, device=dev).to(dtype)
+    w = torch.randn((B, P), generator=g, device=dev)
+    W = torch.randn((B, E, P), generator=g, device=dev)
+    wu.reset_launches()
+    ks, kw_ = wu.block_scatter_rows(snaps0.clone(), w, W, slots)
+    n_launch = wu.launches["block_scatter_rows"]
+    rs, rw_ = ref.block_scatter_rows_ref(snaps0.clone(), w, W, slots)
+    again, again_w = wu.block_scatter_rows(snaps0.clone(), w, W, slots)
+    torch.cuda.synchronize()
+    same = torch.equal(ks, rs) and torch.equal(kw_, rw_)
+    twice = torch.equal(ks, again) and torch.equal(kw_, again_w)
+    err = max(max_err(ks, rs), max_err(kw_, rw_))
+    tag = (f"block_scatter_rows across {B} cells, {str(dtype)[6:]} rings {(R, P)} E={E} "
+           f"({pad} padded a cell, a real row twice)")
+    check(n_launch == 1 and same and twice,
+          f"{tag}: {n_launch} launch == 1, every cell's ring rows and w' bitwise equal to the "
+          f"plain version {same} (max abs err {err:.3e}), two launches bitwise {twice}")
+    del ks, kw_, rs, rw_, again, again_w
+    esz = torch.finfo(dtype).bits // 8
+    b, by = bound_ms(sum(_scatter_cost(r.tolist(), P, esz, 4) for r in slots_np), 0.0)
+    buf = snaps0
+    flat_rows = (torch.arange(B, device=dev)[:, None] * R + slots).reshape(-1)
+    row = dict(name="block_scatter_rows", shape=[B, R, P, E, pad, str(dtype)[6:]],
+               launches=n_launch, max_abs_err=err, bitwise=same, bound_ms=b, bound_by=by,
+               vec=wu.scatter_vec(snaps0, W))
+    row.update(_timings(lambda: wu.block_scatter_rows(buf, w, W, slots),
+                        lambda: ref.block_scatter_rows_ref(buf, w, W, slots),
+                        lambda: (buf.view(B * R, P).index_copy_(0, flat_rows,
+                                                                W.view(B * E, P).to(dtype)),
+                                 W[:, -1].to(w.dtype))))
+    print(f"     {tag}: {json.dumps(row)}")
+    del snaps0, buf, w, W
+    torch.cuda.empty_cache()
+    return row
 
 
 def _prefix_cell(dev, shape: tuple, timed: str) -> dict:
@@ -1876,9 +1962,13 @@ def _lanes_rank(rank: int, world: int, device: str) -> dict:
     from repro_torch.core.async_sgd import run_fedbuff, run_generalized_async_sgd
     from repro_torch.kernels import weighted_update as wu
 
+    from repro_torch.data.pipeline import FederatedClassification
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    setup, base = _mlp_setup(torch.device(device))
+    flc = _mlp_flc(torch.device(device))
+    data = FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
+    setup, base = _mlp_setup(torch.device(device), data)
     base = replace(base, block_size=MLP_E, devices=world)
     gen = lambda c: run_generalized_async_sgd(setup.params, setup.clients, c,  # noqa: E731
                                               eval_fn=setup.eval_fn)
@@ -1895,7 +1985,98 @@ def _lanes_rank(rank: int, world: int, device: str) -> dict:
         (w, tr), wall = _timed(lambda: fn(replace(base, **cfg)))
         out[name] = dict(w=_np_tree(w), acc=tr.eval_values, wall=wall, launches=dict(wu.launches))
     out["profile"] = profile(lambda: gen(replace(base, update="pallas", T=400, eval_every=0)))
+    out.update(_lanes_later(rank, world, data, setup, base))
     return out
+
+
+def _lanes_later(rank: int, world: int, data, setup, base) -> dict:
+    """Phase 15's runs of the later lanes (T = `LANE_T`, eval every
+    `LANE_EVAL`), each sharded over the ``world`` ranks with its launch
+    counts zeroed just before it and read just after: (a) the fused device
+    stream blocked E=8 (`run_generalized_async_sgd(ServerConfig(stream=
+    "device", devices=2))`, the plain update: the fused runner's blocks take
+    no kernel); (b) the host stream blocked E=8 with K6 under phase 18's
+    guard and a spiking / NaN gradient; (c) ``run_matrix(devices=2,
+    kernel="pallas")`` over `LANE_GRID`'s 4 cells (K6 across the cells),
+    and `jit_runner` on its stacked inputs for the cells' final weights.
+    The unsharded runs they are held to are shared out over the ranks
+    (rank 0: (a) and (c), rank 1: (b)), each after the sharded ones.  The
+    matrix reuses ``data``'s cached task setup (``setup``'s)."""
+    from repro_torch.core.async_sgd import run_generalized_async_sgd
+    from repro_torch.core.engine_scan import jit_runner
+    from repro_torch.fl.engine import run_matrix
+    from repro_torch.kernels import weighted_update as wu
+
+    dev = setup.params["w1"].device
+    flc = replace(_mlp_flc(dev), server_steps=LANE_T)
+    short = replace(base, T=LANE_T, eval_every=LANE_EVAL)
+    fused = replace(short, stream="device", update="jnp")
+    guarded = replace(_mlp_robust_cfg(short, base.C), faults=None, update="pallas")
+    spiky = _Spiky(setup.clients, LANE_NAN_STEP)
+
+    def gen(cfg, source=setup.clients):
+        return run_generalized_async_sgd(setup.params, source, cfg, eval_fn=setup.eval_fn)
+
+    def matrix(devices):
+        return run_matrix(flc, eval_every=LANE_EVAL, block_size=MLP_E, devices=devices,
+                          kernel="pallas", data=data, **LANE_GRID)
+
+    def weights(devices):
+        blocked, layout = _matrix_inputs(flc, LANE_GRID, 0.05, LANE_EVAL, MLP_E, dev)[1:]
+        run = jit_runner(setup.clients.device_grad, flc.concurrency, eval_fn=setup.eval_fn,
+                         block_size=MLP_E, vmap_streams=True, kernel="pallas",
+                         lane_devices=devices)
+        return _np_tree(run(setup.params, *blocked, **layout)[0])
+
+    out = {}
+
+    def record(name, fn):
+        wu.reset_launches()
+        res, wall = _timed(fn)
+        out[name] = dict(res=res, wall=wall, launches=dict(wu.launches))
+
+    record("fused", lambda: gen(fused))
+    record("guard", lambda: gen(guarded, spiky))
+    record("matrix", lambda: matrix(world))
+    record("matrix_w", lambda: weights(world))
+    if rank == 0:
+        record("fused_unsharded", lambda: gen(replace(fused, devices=1)))
+        record("matrix_unsharded", lambda: matrix(1))
+        record("matrix_w_unsharded", lambda: weights(1))
+    else:
+        record("guard_unsharded", lambda: gen(replace(guarded, devices=1), spiky))
+    for o in out.values():  # to the parent as numpy
+        r = o.pop("res")
+        if isinstance(r, tuple):  # (weights, trace)
+            w, tr = r
+            o.update(w=_np_tree(w), acc=tr.eval_values, times=np.asarray(tr.times),
+                     extras={k: np.asarray(v) for k, v in tr.extras.items()})
+        elif isinstance(r, dict):
+            o["w"] = r
+        else:  # a MatrixResult
+            o.update(acc=r.eval_acc, final_acc=r.final_acc, times=r.eval_times)
+    return out
+
+
+def _shard_matrix(dev, devices: int, data=None):
+    """The device-stream matrix of phase 15's 2-D layout: `LANE_GRID`'s 4
+    cells, blocked E=8, T = `SHARD_T`."""
+    from repro_torch.fl.engine import run_matrix
+
+    flc = replace(_mlp_flc(dev), server_steps=SHARD_T)
+    return run_matrix(flc, eval_every=SHARD_EVAL, stream="device", block_size=MLP_E,
+                      devices=devices, data=data, **LANE_GRID)
+
+
+def _shards_rank(rank: int, world: int, device: str) -> dict:
+    """One rank of phase 15's 2-D layout: ``run_matrix(stream="device",
+    devices=2)`` in a group of `SHARD_RANKS` (shard 2 x lane 2: each rank
+    runs 2 cells and shards their blocks' lanes over 2 ranks)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m, wall = _timed(lambda: _shard_matrix(torch.device(device), 2))
+    return dict(acc=m.eval_acc, final_acc=m.final_acc, times=m.eval_times, wall=wall,
+                extras={k: v for k, v in m.extras.items() if k != "stream"})
 
 
 def phase_lanes(dev, launches: dict, blocked: dict) -> None:
@@ -1908,13 +2089,15 @@ def phase_lanes(dev, launches: dict, blocked: dict) -> None:
     from repro_torch.core.async_sgd import run_fedbuff
     from repro_torch.core.engine_scan import blocked_inputs, step_scales
     from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream
+    from repro_torch.data.pipeline import FederatedClassification
     from repro_torch.fl.engine import run_experiment
     from repro_torch.kernels import weighted_update as wu
     from repro_torch.launch import train
     from repro_torch.launch.lanes import run_lanes
 
     flc = replace(_mlp_flc(dev), fedbuff_Z=FEDBUFF_Z)
-    setup, base = _mlp_setup(dev)
+    data = FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
+    setup, base = _mlp_setup(dev, data)
     T = base.T
     fb = lambda cfg: run_fedbuff(setup.params, setup.clients, cfg, Z=FEDBUFF_Z,  # noqa: E731
                                  eval_fn=setup.eval_fn)
@@ -1961,6 +2144,8 @@ def phase_lanes(dev, launches: dict, blocked: dict) -> None:
     # 15. the lane-sharded MLP slice: 2 gloo ranks, each on the one card
     res, wall = _timed(lambda: run_lanes(_lanes_rank, LANE_RANKS, (dev.type,), timeout=300.0))
     print(f"lane-sharded MLP, {LANE_RANKS} ranks: {wall:.3f} s including their start-up")
+    later = [{k: out.pop(k) for k in list(out) if k.startswith(("fused", "guard", "matrix"))}
+             for out in res]
     for rank, out in enumerate(res):
         dms, wms, top, ops = out.pop("profile")
         print(f"     rank {rank}: " + ", ".join(
@@ -2003,6 +2188,8 @@ def phase_lanes(dev, launches: dict, blocked: dict) -> None:
           f"{rate('gen_async'):.1f} vs K2 {blocked['events_per_s']:.1f}; gen_async plain scatter "
           f"{rate('gen_async_jnp'):.1f}; fedbuff K2 {rate('fedbuff'):.1f} vs blocked "
           f"{fb_bl_rate:.1f} (per event {fb_pe_rate:.1f})")
+    _check_lanes_later(dev, later, launches, base)
+    _check_shards(dev, data)
 
     # 16. the FL launcher's defaults on the card, and the synchronous baselines
     buf = io.StringIO()
@@ -2024,6 +2211,120 @@ def phase_lanes(dev, launches: dict, blocked: dict) -> None:
               and bool(np.all(np.isfinite(r.eval_acc)))
               and all(bool(torch.isfinite(v).all()) for v in r.final_params.values()),
               f"{method}: finite weights and eval accuracies at every {every} rounds")
+
+
+def _check_lanes_later(dev, later: list, launches: dict, base) -> None:
+    """Phase 15's later lanes (`_lanes_later`) against their unsharded runs:
+    the ranks bitwise equal; (a) the fused device stream's event clock and
+    completion counts exact, its weights within 1e-4; (b) the guard's
+    rejects (> 0) and stale drops exact, the weights within 1e-4, K6
+    launches == the block rows; (c) the matrix's curves and final
+    accuracies within 1e-4, eval times exact, the cells' final weights
+    within 1e-4, K6 launches == the block rows of the 4 cells' layout, each
+    launch scattering 4 cells.  Adds "lanes_guard_rank<r>" and
+    "lanes_matrix_rank<r>" to ``launches``."""
+    from repro_torch.core.engine_scan import blocked_inputs, step_scales
+    from repro_torch.core.queue_sim import EventBlocks, SimConfig, export_stream
+
+    flc = replace(_mlp_flc(dev), server_steps=LANE_T)
+    stream = export_stream(SimConfig(mu=base.mu, p=base.p, C=base.C, T=LANE_T, seed=base.seed))
+    guard_rows = blocked_inputs(EventBlocks.from_stream(stream, MLP_E, cut_every=LANE_EVAL),
+                                step_scales(stream, base.eta, base.p, "importance"),
+                                LANE_EVAL)[0].shape[0]
+    blocked = _matrix_inputs(flc, LANE_GRID, 0.05, LANE_EVAL, MLP_E, dev)[1]
+    cells, matrix_rows = int(blocked[0].shape[0]), int(blocked[0].shape[1])
+    for name in ("fused", "guard", "matrix", "matrix_w"):
+        a, b = later[0][name], later[1][name]
+        same = all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) if k != "w"
+                   else _np_gap(a["w"], b["w"]) == 0.0
+                   for k in a if k not in ("wall", "launches", "extras"))
+        same = same and all(np.array_equal(a["extras"][k], b["extras"][k])
+                            for k in a.get("extras", {}))
+        check(same, f"later lanes {name}: the {LANE_RANKS} ranks bitwise equal")
+    one, two = later
+    for rank, o in enumerate(later):
+        launches[f"lanes_guard_rank{rank}"] = {
+            "block_scatter_rows": o["guard"]["launches"]["block_scatter_rows"]}
+        launches[f"lanes_matrix_rank{rank}"] = {
+            "block_scatter_rows": o["matrix"]["launches"]["block_scatter_rows"], "cells": cells}
+        for name, rows in (("guard", guard_rows), ("matrix", matrix_rows)):
+            got = o[name]["launches"]
+            check(got["block_scatter_rows"] == rows and got["block_prefix_update"] == 0,
+                  f"rank {rank}: later lanes {name} K6 launches {got['block_scatter_rows']} == "
+                  f"block rows {rows} (no K2)")
+        check(sum(o["fused"]["launches"].values()) == 0,
+              f"rank {rank}: the fused runner's lanes launch no kernel (the plain scatter)")
+    # (a) the fused device stream
+    a, u = one["fused"], one["fused_unsharded"]
+    gap = _np_gap(a["w"], u["w"])
+    exact = (np.array_equal(a["times"], u["times"])
+             and np.array_equal(a["extras"]["comp"], u["extras"]["comp"]))
+    check(exact and gap <= 1e-4 and _acc_gap(a["acc"], u["acc"]) <= 1e-4,
+          f"fused device stream E={MLP_E} on {LANE_RANKS} ranks vs unsharded (T={LANE_T}): event "
+          f"clock and completion counts exact {exact}, weights max gap {gap:.3e} <= 1e-4, "
+          f"accuracy gap {_acc_gap(a['acc'], u['acc']):.5f}")
+    # (b) the guard under lanes
+    g, u = one["guard"], two["guard_unsharded"]
+    rej = [int(x["extras"][k]) for x in (g, u) for k in ("guard_rejects", "stale_drops")]
+    gap = _np_gap(g["w"], u["w"])
+    check(rej[0] == rej[2] > 0 and rej[1] == rej[3] and gap <= 1e-4,
+          f"guarded host E={MLP_E} K6 on {LANE_RANKS} ranks vs unsharded K2: rejects "
+          f"{rej[0]} == {rej[2]} > 0, stale drops {rej[1]} == {rej[3]}, weights max gap "
+          f"{gap:.3e} <= 1e-4")
+    check(u["launches"]["block_prefix_update"] == guard_rows,
+          f"guarded unsharded K2 launches {u['launches']['block_prefix_update']} == {guard_rows}")
+    # (c) run_matrix with K6 across the cells
+    m, u = one["matrix"], one["matrix_unsharded"]
+    dacc = max(float(np.max(np.abs(m["acc"] - u["acc"]))),
+               float(np.max(np.abs(m["final_acc"] - u["final_acc"]))))
+    gap = _np_gap(one["matrix_w"]["w"], one["matrix_w_unsharded"]["w"])
+    check(dacc <= 1e-4 and gap <= 1e-4 and np.array_equal(m["times"], u["times"]),
+          f"run_matrix devices={LANE_RANKS} kernel=pallas over {cells} cells vs unsharded K2: "
+          f"curves and final accuracies max gap {dacc:.3e} <= 1e-4, the cells' final weights "
+          f"max gap {gap:.3e} <= 1e-4, eval times exact")
+    check(u["launches"]["block_prefix_update"] == matrix_rows,
+          f"unsharded matrix K2 launches {u['launches']['block_prefix_update']} == {matrix_rows}")
+    wall = lambda name: max(o[name]["wall"] for o in later)  # noqa: E731
+    print(f"later lanes, events/s on {LANE_RANKS} ranks sharing the card vs one process "
+          f"(T={LANE_T}): fused device stream E={MLP_E} {LANE_T / wall('fused'):.1f} vs "
+          f"{LANE_T / one['fused_unsharded']['wall']:.1f}; guarded host K6 "
+          f"{LANE_T / wall('guard'):.1f} vs K2 {LANE_T / two['guard_unsharded']['wall']:.1f}; "
+          f"run_matrix {cells} cells summed, K6 across cells {cells * LANE_T / wall('matrix'):.1f} "
+          f"vs K2 {cells * LANE_T / u['wall']:.1f}")
+
+
+def _check_shards(dev, data) -> None:
+    """Phase 15's 2-D layout: ``run_matrix(stream="device", devices=2)`` in
+    a group of `SHARD_RANKS` gloo ranks on the card (shard 2 x lane 2),
+    while this process runs the unsharded device matrix (on ``data``'s
+    cached task setup); the ranks bitwise equal, curves and final
+    accuracies within 1e-4 of the unsharded ones, eval times and the
+    per-client extras exact."""
+    from repro_torch.launch.lanes import run_lanes
+
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(_timed, lambda: run_lanes(_shards_rank, SHARD_RANKS, (dev.type,),
+                                                    timeout=300.0))
+        u, wall_u = _timed(lambda: _shard_matrix(dev, 1, data))
+        res, wall = fut.result()
+    first = res[0]
+    for rank, o in enumerate(res[1:], 1):
+        same = all(np.array_equal(o[k], first[k]) for k in ("acc", "final_acc", "times")) \
+            and all(np.array_equal(o["extras"][k], first["extras"][k]) for k in first["extras"])
+        check(same, f"device matrix shard 2 x lane 2: rank {rank} bitwise rank 0")
+    dacc = max(float(np.max(np.abs(first["acc"] - u.eval_acc))),
+               float(np.max(np.abs(first["final_acc"] - u.final_acc))))
+    exact = np.array_equal(first["times"], u.eval_times) and all(
+        np.array_equal(first["extras"][k], u.extras[k]) for k in first["extras"])
+    check(dacc <= 1e-4 and exact,
+          f"device matrix E={MLP_E} on {SHARD_RANKS} ranks (shard 2 x lane 2) vs unsharded: "
+          f"curves and final accuracies max gap {dacc:.3e} <= 1e-4, eval times and extras "
+          f"({sorted(first['extras'])}) exact {exact}")
+    cells = first["acc"].size // first["acc"].shape[-1]
+    slow = max(o["wall"] for o in res)
+    print(f"device matrix {cells} cells (T={SHARD_T}), events/s summed: {SHARD_RANKS} ranks "
+          f"sharing the card {cells * SHARD_T / slow:.1f} (their spawn {wall:.3f} s in all) vs "
+          f"one process {cells * SHARD_T / wall_u:.1f} beside them")
 
 
 def _print_profile(label: str, fn, events: int) -> None:
@@ -5295,6 +5596,9 @@ def main(argv: list[str] | None = None) -> int:
             extra["leaves_by_path"] = {path: c["weighted_update_leaves"]
                                        for path, c in launches.items()
                                        if "weighted_update_leaves" in c}
+        if name == "block_scatter_rows":  # across cells: the cells each launch scattered
+            extra["cells_by_path"] = {path: c["cells"] for path, c in launches.items()
+                                      if name in c and "cells" in c}
         kernels.append(dict(name=name, route="cuda", source=csrc + meta[name][0],
                             replaces=meta[name][1], launches=sum(by_path.values()),
                             launches_by_path=by_path, **extra, **row))

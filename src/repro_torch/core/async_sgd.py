@@ -43,7 +43,6 @@ import torch
 
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
-from ..unported import unported
 from .queue_sim import (
     KIND_COMPLETE,
     KIND_FLIP,
@@ -369,8 +368,6 @@ def _run_scan(
         raise ValueError("block_size > 1 requires the default update w - scale*g")
     if ckpt_on and cfg.devices > 1:
         raise ValueError("checkpointing does not compose with lane sharding")
-    if guard is not None and cfg.devices > 1:
-        raise unported("guard= on lane-sharded replay (the reject count's sum over lanes)", 12)
     grad_fn = _device_grad_fn(source)
     if block_size > 1:
         group_events = eval_every

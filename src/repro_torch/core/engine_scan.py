@@ -30,16 +30,21 @@ sampling between chunks) — and Algorithm 1 replays it on the device:
   * ``lane_devices=D > 1`` shards the E gradient lanes of every micro-block
     over the D ranks of a `torch.distributed` process group: each rank
     differentiates its E/D lanes and one ``all_gather`` per block
-    recombines them (``kernel="pallas"``: the CUDA kernel
-    `kernels.weighted_update.block_scatter_rows` writes the iterates);
+    recombines them, the guard's reject flags riding along
+    (``kernel="pallas"``: the CUDA kernel
+    `kernels.weighted_update.block_scatter_rows` writes the iterates); the
+    fused runner shards its blocks the same way, and with a cell axis the
+    ranks of a ``shard × lane`` group split the cells as well
+    (`jit_fused_runner(shard_devices=, lane_devices=)`);
   * evaluation runs every ``eval_every`` events (per event) or after each
     eval-interval group of blocks (blocked), on micro-block boundaries by
     construction (`segment_blocks(cut_every=)`);
   * ``vmap_streams=True`` replays B streams (the scenario matrix's cells)
     in lockstep along an explicit cell axis: a (B, C, P) ring, one gather,
     one vmapped gradient call, one update and one scatter per event or
-    block for all cells (`_make_host_cells_runner`,
-    `_make_cells_block_step`).
+    block for all cells, FedBuff with one buffer and the guard with one
+    counter a cell (`_make_host_cells_runner`, `_make_block_step(cells=
+    True)`).
 
 Where JAX runs one `lax.scan`, this engine runs a Python loop over events
 whose arrays already live on the device: the loop indexes them with Python
@@ -62,7 +67,6 @@ import numpy as np
 import torch
 
 from ..tree import tree_flatten, tree_leaves, tree_map
-from ..unported import unported
 from .queue_sim import KIND_COMPLETE, EventBlocks, EventStream
 
 __all__ = [
@@ -75,6 +79,7 @@ __all__ = [
     "make_runner",
     "step_scales",
     "stream_arrays",
+    "world_size",
 ]
 
 Pytree = Any
@@ -453,83 +458,99 @@ def _fedbuff_block_deltas(Gm, scm, k, m, acc, Z):
     buffer + gradients since the previous flush), computed from the in-block
     flush positions.  Returns ``(D, acc')``: the (E, P) scaled update deltas
     (prefix-summable like the gen_async path) and the buffer carried out of
-    the block.  The flush positions are device tensors throughout (gathers
-    by `index_select`, selections by `torch.where`): no host sync.
+    the block.  With a leading cell axis — ``Gm`` (B, E, P), ``scm`` / ``k``
+    / ``m`` (B, E), ``acc`` (B, P) — each cell keeps its own buffer and its
+    own flush positions.  The flush positions are device tensors throughout
+    (gathers by `torch.gather`, selections by `torch.where`): no host sync.
     """
-    cum = torch.cumsum(Gm, dim=0)
+    cum = torch.cumsum(Gm, dim=-2)
     fire = m & (((k + 1) % Z) == 0)
-    E = m.shape[0]
+    E = m.shape[-1]
     fi = torch.where(fire, torch.arange(E, dtype=torch.int64, device=m.device), -1)
-    last_incl = torch.cummax(fi, dim=0).values  # last flush at or before i
-    prev = torch.cat([fi.new_full((1,), -1), last_incl[:-1]])
-    prevcum = torch.where((prev >= 0)[:, None], cum.index_select(0, prev.clamp(min=0)), 0.0)
-    first = torch.where(prev < 0, 1.0, 0.0)[:, None]
-    acc_at = cum - prevcum + first * acc.float()
-    D = torch.where(fire, scm / Z, 0.0)[:, None] * acc_at
-    lastf = last_incl[-1:]  # (1,): the block's last flush, -1 if none
-    flushed = torch.where(lastf >= 0, cum.index_select(0, lastf.clamp(min=0))[0], 0.0)
-    acc = (torch.where(lastf >= 0, 0.0, 1.0) * acc.float() + (cum[-1] - flushed)).to(acc.dtype)
-    return D, acc
+    last_incl = torch.cummax(fi, dim=-1).values  # last flush at or before i
+    prev = torch.cat([fi.new_full(fi.shape[:-1] + (1,), -1), last_incl[..., :-1]], dim=-1)
+
+    def rows(i):  # the rows i of cum, (..., len(i), P)
+        return torch.gather(cum, -2, i.clamp(min=0)[..., None].expand(*i.shape, cum.shape[-1]))
+
+    prevcum = torch.where((prev >= 0)[..., None], rows(prev), 0.0)
+    first = torch.where(prev < 0, 1.0, 0.0)[..., None]
+    acc_at = cum - prevcum + first * acc.float()[..., None, :]
+    D = torch.where(fire, scm / Z, 0.0)[..., None] * acc_at
+    lastf = last_incl[..., -1:]  # (..., 1): the block's last flush, -1 if none
+    flushed = torch.where(lastf >= 0, rows(lastf)[..., 0, :], 0.0)
+    carried = torch.where(lastf >= 0, 0.0, 1.0) * acc.float()
+    return D, (carried + (cum[..., -1, :] - flushed)).to(acc.dtype)
 
 
-def _all_gather_lanes(group, *ts):
+def _all_gather_lanes(group, *ts, cells: bool = False):
     """All-gather per-lane tensors over the lane ranks in ONE collective.
 
     Each (El, ...) tensor is viewed as bytes and the byte rows are packed
     side by side into one (El, nbytes) uint8 tensor, so the lane prefixes,
-    gradients and slot ids of one block ride in a single ``all_gather``
-    (the list form, which every backend takes).  Returns the (E, ...)
-    tensors, rank r's lanes at rows [r*El, (r+1)*El) — the contiguous lane
-    split.  `ProcessGroupGloo` stages CUDA tensors through host memory
-    itself.
+    gradients, slot ids and reject flags of one block ride in a single
+    ``all_gather`` (the list form, which every backend takes).  Returns the
+    (E, ...) tensors, rank r's lanes at rows [r*El, (r+1)*El) — the
+    contiguous lane split.  With ``cells`` every tensor is (B, El, ...), the
+    cell axis leading, and comes back (B, E, ...).  Under NCCL the gather
+    stays on the device; `ProcessGroupGloo` stages CUDA tensors through host
+    memory itself.
     """
     import torch.distributed as dist
 
-    El = ts[0].shape[0]
-    parts = [t.contiguous().reshape(El, -1).view(torch.uint8) for t in ts]
-    buf = torch.cat(parts, dim=1)
+    lead = tuple(ts[0].shape[:2 if cells else 1])
+    parts = [t.contiguous().reshape(*lead, -1).view(torch.uint8) for t in ts]
+    buf = torch.cat(parts, dim=-1)
     out = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, buf, group=group)
-    full = torch.cat(out, dim=0)
+    full = torch.cat(out, dim=len(lead) - 1)  # along the lanes
     res, o = [], 0
     for t, part in zip(ts, parts):
-        nb = part.shape[1]
-        res.append(full[:, o : o + nb].contiguous().view(t.dtype).reshape((-1,) + t.shape[1:]))
+        nb = part.shape[-1]
+        res.append(full[..., o : o + nb].contiguous().view(t.dtype)
+                   .reshape(full.shape[:-1] + t.shape[len(lead):]))
         o += nb
     return res
 
 
-def _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z=0, lane_group=None, guard=None):
+def _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z=0, lane_group=None, guard=None,
+                     cells: bool = False):
     """One event micro-block of the blocked engine (flat-packed mode).
 
-    ``block_step((w, snaps, acc), j, s, scale, k, mask) -> (w, snaps, acc)``
-    consumes up to E conflict-free events: one batched snapshot gather, one
-    vmapped gradient call, then the exact sequential iterates w_i = w_0 -
-    sum_{j<=i} D_j written back in one pass.  Padded lanes (mask False)
-    carry zero scale and the trash ring row, so they are arithmetic no-ops.
-    FedBuff decomposes into the same prefix form (`_fedbuff_block_deltas`).
+    ``block_step((w, snaps, acc, gcnt), j, s, scale, k, mask) -> (w, snaps,
+    acc, gcnt)`` consumes up to E conflict-free events: one batched snapshot
+    gather, one vmapped gradient call, then the exact sequential iterates
+    w_i = w_0 - sum_{j<=i} D_j written back in one pass.  Padded lanes (mask
+    False) carry zero scale and the trash ring row, so they are arithmetic
+    no-ops.  FedBuff decomposes into the same prefix form
+    (`_fedbuff_block_deltas`).
+
+    ``cells=True`` steps B cells in lockstep: (B, P) weights, the (B, C+1,
+    P) ring, (B, E) block columns, a (B, P) FedBuff buffer and a (B, 2)
+    counter.  The B·E snapshot rows are gathered at once and differentiated
+    in one vmapped call (cells and lanes flattened into one vmap level), and
+    one K2 (or K6) launch updates every cell.  The step is written once for
+    both shapes: only the snapshot gather knows the cell axis.
 
     With ``lane_group`` (a `torch.distributed` process group of D ranks)
-    the step runs in every rank on its own E/D lanes: it gathers the
-    snapshots of — and differentiates — only those, and ONE all-gather per
-    block recombines them (`_all_gather_lanes`).  gen_async gathers the
-    local inclusive lane prefixes and slot ids; the exclusive offsets of
-    the ranks before it fall out of the gathered lane totals, and the
-    iterates are scattered into the replicated ring identically on every
-    rank (K6, `kernels.ops.block_scatter_rows`, or its plain version).
-    FedBuff gathers the masked lane gradients instead — its flush positions
-    couple all lanes — and runs the closed form on the full block,
-    replicated (K2 or its plain version).
+    the step runs in every rank on its own E/D lanes (of every cell): it
+    gathers the snapshots of — and differentiates — only those, and ONE
+    all-gather per block recombines them (`_all_gather_lanes`, the cell
+    axis leading).  gen_async gathers the local inclusive lane prefixes and
+    slot ids; the exclusive offsets of the ranks before it fall out of the
+    gathered lane totals, and the iterates are scattered into the replicated
+    ring identically on every rank (K6, `kernels.ops.block_scatter_rows`, or
+    its plain version; across cells one launch).  FedBuff gathers the masked
+    lane gradients instead — its flush positions couple all lanes — and runs
+    the closed form on the full block, replicated (K2 or its plain version).
 
     ``guard`` checks each lane's gradient row before the deltas: a
     non-finite or over-norm row is zeroed (an exact no-op through the
-    prefix sum and K2) and counted in ``gcnt`` if its scale is live.  The
-    staleness cutoff is the host's (the scales arrive already zeroed).  A
-    guard under lanes needs the rejects summed over the ranks (ROADMAP
-    item 12) and raises.
+    prefix sum and K2) and counted in ``gcnt`` if its scale is live.  Under
+    lanes each rank's reject flags ride in the block's one all-gather, so
+    every rank adds the sum over all ranks.  The staleness cutoff is the
+    caller's (the scales arrive already zeroed).
     """
-    if guard is not None and lane_group is not None:
-        raise unported("guard= on lane-sharded replay (the reject count's sum over lanes)", 12)
     if kernel == "pallas":
         # the hand-written CUDA kernels on a CUDA ring, the plain versions
         # on a CPU ring (dispatch by the tensor's device)
@@ -543,70 +564,50 @@ def _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z=0, lane_group=None
     grads = _make_batched_grads(grad_fn, pack, unpack)
     max_sq = float(guard.max_grad_norm) ** 2 if guard is not None else 0.0
 
-    def guard_rows(G, scm, gcnt):
-        bad = _guard_bad(G, max_sq)
-        gcnt[0] += torch.sum(bad & (scm != 0)).to(torch.int32)
-        return torch.where(bad[:, None], 0.0, G)
+    def gather(*ts):
+        return _all_gather_lanes(lane_group, *(t for t in ts if t is not None), cells=cells)
+
+    def snapshot_rows(snaps, s):
+        if not cells:
+            return snaps.index_select(0, s)
+        B, R, P = snaps.shape
+        base = torch.arange(B, dtype=torch.int64, device=s.device)[:, None] * R
+        return snaps.view(B * R, P).index_select(0, (base + s).reshape(-1))
 
     def block_step(ucarry, j, s, sc, k, m):
         w, snaps, acc, gcnt = ucarry
-        G = grads(j, snaps.index_select(0, s), k)  # (E or E/D, P)
+        lead, P = tuple(j.shape[:-1]), snaps.shape[-1]  # lead: () or (B,)
+        El = j.shape[-1]
+        G = grads(j.reshape(-1), snapshot_rows(snaps, s), k.reshape(-1)).view(*lead, El, -1)
         scm = torch.where(m, sc, 0.0).to(torch.float32)
+        rej = None
         if guard is not None:
-            G = guard_rows(G, scm, gcnt)
+            bad = _guard_bad(G, max_sq)
+            rej = (bad & (scm != 0)).to(torch.int32)
+            G = torch.where(bad[..., None], 0.0, G)
         if fedbuff_Z > 0:
-            Gm = torch.where(m[:, None], G, 0.0).to(torch.float32)
+            Gm = torch.where(m[..., None], G, 0.0).to(torch.float32)
             if lane_group is not None:
-                Gm, s, scm, k, m = _all_gather_lanes(lane_group, Gm, s, scm, k, m)
+                Gm, s, scm, k, m, *r = gather(Gm, s, scm, k, m, rej)
+                rej = r[0] if r else None
             D, acc = _fedbuff_block_deltas(Gm, scm, k, m, acc, fedbuff_Z)
             snaps, w = apply_block(snaps, w, D, s)
-            return w, snaps, acc, gcnt
-        D = scm[:, None] * G.to(torch.float32)
-        if lane_group is None:
-            snaps, w = apply_block(snaps, w, D, s)
-            return w, snaps, acc, gcnt
-        # gen_async, sharded: local lane prefix + one collective, then the
-        # global iterates W_i = w - (S_all + exclusive rank offset), replicated
-        S = torch.cumsum(D, dim=0)
-        S_all, s_all = _all_gather_lanes(lane_group, S, s)  # (E, P), (E,)
-        S_all = S_all.reshape(-1, S.shape[0], S.shape[1])  # (D, E/D, P)
-        totals = S_all[:, -1, :]
-        off = torch.cumsum(totals, dim=0) - totals
-        W = w.float()[None] - (S_all + off[:, None, :]).reshape(s_all.shape[0], -1)
-        snaps, w = scatter_rows(snaps, w, W, s_all)
+        elif lane_group is None:
+            snaps, w = apply_block(snaps, w, scm[..., None] * G.to(torch.float32), s)
+        else:
+            # gen_async, sharded: local lane prefix + one collective, then the
+            # global iterates W_i = w - (S_all + exclusive rank offset), replicated
+            S = torch.cumsum(scm[..., None] * G.to(torch.float32), dim=-2)
+            S_all, s_all, *r = gather(S, s, rej)  # (..., E, P), (..., E)
+            rej = r[0] if r else None
+            S_all = S_all.view(*lead, -1, El, P)  # (..., D, E/D, P)
+            totals = S_all[..., -1, :]
+            off = torch.cumsum(totals, dim=-2) - totals
+            W = w.float()[..., None, None, :] - (S_all + off[..., None, :])
+            snaps, w = scatter_rows(snaps, w, W.view(*lead, -1, P), s_all)
+        if rej is not None:
+            gcnt[..., 0] += torch.sum(rej, dim=-1).to(torch.int32)
         return w, snaps, acc, gcnt
-
-    return block_step
-
-
-def _make_cells_block_step(grad_fn, pack, unpack, kernel):
-    """One micro-block of B cells in lockstep (flat-packed mode, gen_async).
-
-    ``block_step(w, snaps, j, s, scale, k, mask) -> (w, snaps)`` over (B, P)
-    weights, the (B, C+1, P) ring and (B, E) block columns: one gather of
-    the B·E snapshot rows, one vmapped gradient call over the B·E lanes
-    (cells and lanes flattened into one vmap level), the (B, E, P) deltas,
-    and one K2 update over all cells (``kernel="pallas"``: the CUDA kernel
-    on a CUDA ring; "jnp" and a CPU ring: its plain version, which writes
-    the lanes in event order).
-    """
-    if kernel == "pallas":
-        from ..kernels.ops import block_prefix_update as apply_block
-    elif kernel == "jnp":
-        from ..kernels.ref import block_prefix_update_ref as apply_block
-    else:
-        raise ValueError(kernel)
-    grads = _make_batched_grads(grad_fn, pack, unpack)
-
-    def block_step(w, snaps, j, s, sc, k, m):
-        B, R, P = snaps.shape
-        E = j.shape[1]
-        base = torch.arange(B, dtype=torch.int64, device=s.device)[:, None] * R
-        rows = snaps.view(B * R, P).index_select(0, (base + s).reshape(-1))
-        G = grads(j.reshape(-1), rows, k.reshape(-1)).view(B, E, -1)
-        D = torch.where(m, sc, 0.0).to(torch.float32)[..., None] * G.to(torch.float32)
-        snaps, w = apply_block(snaps, w, D, s)
-        return w, snaps
 
     return block_step
 
@@ -622,8 +623,8 @@ def _init_update_carry(w0, rows, pack, unpack, flat_mode, enc, fedbuff_Z=0, cell
     ``[guard_rejects, stale_drops]`` counter, carried whether or not a
     guard is on.
     ``cells=B`` starts B cells from the one w0: every part gains a leading
-    axis of B (the ring (B, rows, P)) and the decoder maps (B, P) packed
-    weights to a tree of (B, ...) leaves.
+    axis of B (the ring (B, rows, P), the counter (B, 2)) and the decoder
+    maps (B, P) packed weights to a tree of (B, ...) leaves.
     """
     flat0 = pack(w0)
     lead = () if cells is None else (cells,)
@@ -632,7 +633,7 @@ def _init_update_carry(w0, rows, pack, unpack, flat_mode, enc, fedbuff_Z=0, cell
     if cells is not None:
         w_init = tree_map(lambda x: x.expand(cells, *x.shape).clone(), w_init)
     acc0 = tree_map(torch.zeros_like, w_init) if fedbuff_Z > 0 else None
-    gcnt0 = torch.zeros(2, dtype=torch.int32, device=flat0.device)
+    gcnt0 = torch.zeros(*lead, 2, dtype=torch.int32, device=flat0.device)
     if not flat_mode:
         to_tree = lambda w: w  # noqa: E731
     else:
@@ -688,8 +689,9 @@ def _make_host_runner(
     replays B streams in lockstep (`_make_host_cells_runner`).
     """
     if vmap_streams:
-        return _make_host_cells_runner(grad_fn, C, eval_fn=eval_fn, eval_every=eval_every,
-                                       update_fn=update_fn, snapshot_dtype=snapshot_dtype)
+        return _make_host_cells_runner(grad_fn, C, fedbuff_Z=fedbuff_Z, eval_fn=eval_fn,
+                                       eval_every=eval_every, update_fn=update_fn,
+                                       snapshot_dtype=snapshot_dtype, guard=guard)
     eval_every_default = eval_every
 
     def run(w0, J, slot, scale, eval_every=eval_every_default, ckpt=None):
@@ -730,8 +732,9 @@ def _cells_eval_fn(eval_fn, unpack, flat_mode: bool):
     return torch.func.vmap(lambda v: eval_fn(unpack(v)) if flat_mode else eval_fn(v))
 
 
-def _make_host_cells_runner(grad_fn, C: int, *, eval_fn=None, eval_every: int = 0,
-                            update_fn=None, snapshot_dtype=None):
+def _make_host_cells_runner(grad_fn, C: int, *, fedbuff_Z: int = 0, eval_fn=None,
+                            eval_every: int = 0, update_fn=None, snapshot_dtype=None,
+                            guard: GuardConfig | None = None):
     """The per-event engine over B streams in lockstep, with an explicit
     cell axis: the ring is (B, C, P) (each cell's trash row C added when a
     stream sends an event there, `_ring_rows`), the weights (B, P) in flat
@@ -739,13 +742,17 @@ def _make_host_cells_runner(grad_fn, C: int, *, eval_fn=None, eval_every: int = 
 
     ``run(w0, J, slot, scale, eval_every=...) -> (w_final, evals)`` over
     (B, T) device tensors; ``w_final`` has a leading B axis on every leaf and
-    ``evals`` is (B, n_evals).  Each event makes, for all cells at once, one
-    gather of the B snapshot rows, one gradient call (`torch.func.vmap` of
-    ``grad_fn`` over (j, w, k)), one update (a (B,) scale broadcast down P;
-    ``update_fn`` takes the (B, ...) leaves and the (B,) scale, e.g.
-    `kernels.ops.tree_weighted_update`, K1 across cells) and one scatter of
-    the B new rows; an eval point runs ``eval_fn`` once, vmapped over the
-    cells.  The ring is written in place, so the loop itself is not vmapped.
+    ``evals`` is (B, n_evals); with ``guard`` a third output, the (B, 2)
+    ``[guard_rejects, stale_drops]`` counters, one row a cell (the
+    reference's vmapped runner's shape).  Each event makes, for all cells at
+    once, one gather of the B snapshot rows, one gradient call
+    (`torch.func.vmap` of ``grad_fn`` over (j, w, k)), one update (a (B,)
+    scale broadcast down P; ``update_fn`` takes the (B, ...) leaves and the
+    (B,) scale, e.g. `kernels.ops.tree_weighted_update`, K1 across cells)
+    and one scatter of the B new rows; FedBuff keeps one buffer a cell
+    (`_make_cells_event_step`).  An eval point runs ``eval_fn`` once,
+    vmapped over the cells.  The ring is written in place, so the loop
+    itself is not vmapped.
     """
     eval_every_default = eval_every
 
@@ -756,10 +763,11 @@ def _make_host_cells_runner(grad_fn, C: int, *, eval_fn=None, eval_every: int = 
         B, T = (int(d) for d in J.shape)
         dev = J.device
         R = _ring_rows(C, slot)
-        (w, snaps, _, _), to_tree = _init_update_carry(w0, R, pack, unpack, flat_mode, enc,
-                                                       cells=B)
+        (w, snaps, acc, gcnt), to_tree = _init_update_carry(w0, R, pack, unpack, flat_mode, enc,
+                                                            fedbuff_Z, cells=B)
         ring = snaps.view(B * R, -1)
-        step = _make_cells_event_step(grad_fn, update_fn, pack, unpack, enc, flat_mode)
+        step = _make_cells_event_step(grad_fn, update_fn, pack, unpack, enc, flat_mode,
+                                      fedbuff_Z, guard)
         base = torch.arange(B, dtype=torch.int64, device=dev) * R
         # event-major copies: row k of each is one contiguous (B,) column
         Jt, rows_t = J.t().contiguous(), (slot.t() + base).contiguous()
@@ -767,12 +775,13 @@ def _make_host_cells_runner(grad_fn, C: int, *, eval_fn=None, eval_every: int = 
         ks = torch.arange(T, dtype=torch.int64, device=dev)[:, None].expand(T, B)
         every = eval_every if (eval_fn is not None and eval_every and T >= eval_every) else 0
         evaluate = _cells_eval_fn(eval_fn, unpack, flat_mode)
-        evals = []
+        evals, carry = [], (w, acc, gcnt)
         for k in range(T):
-            w = step(w, ring, Jt[k], rows_t[k], sct[k], ks[k])
+            carry = step(carry, ring, Jt[k], rows_t[k], sct[k], ks[k])
             if every and (k + 1) % every == 0:
-                evals.append(evaluate(w))
-        return to_tree(w), _stack_evals(evals, dev, cells=B)
+                evals.append(evaluate(carry[0]))
+        out = to_tree(carry[0]), _stack_evals(evals, dev, cells=B)
+        return out + (carry[2],) if guard is not None else out
 
     return run
 
@@ -783,42 +792,108 @@ def _require_flat_codec(unpack) -> None:
                          "snapshot storage)")
 
 
-def _make_cells_event_step(grad_fn, update_fn, pack, unpack, enc, flat_mode: bool):
-    """One event of B cells in lockstep: ``step(w, ring, j, rows, scale, k)
-    -> w`` over the (B*R, P) ring view, the (B,) columns of clients, ring
-    rows (slot + cell offset), scales and server steps.  One gather of the B
-    snapshot rows, one `torch.func.vmap` gradient call, one update and one
-    scatter of the B new rows (the ring in place)."""
+def _make_cells_event_step(grad_fn, update_fn, pack, unpack, enc, flat_mode: bool,
+                           fedbuff_Z: int = 0, guard: GuardConfig | None = None):
+    """One event of B cells in lockstep: ``step((w, acc, gcnt), ring, j, rows,
+    scale, k[, stale]) -> (w, acc, gcnt)`` over the (B*R, P) ring view, the
+    (B,) columns of clients, ring rows (slot + cell offset), scales and
+    server steps.  One gather of the B snapshot rows, one `torch.func.vmap`
+    gradient call, one update and one scatter of the B new rows (the ring in
+    place).  Each cell runs `_make_update_step`'s algorithm: FedBuff with
+    its own (B, ...) buffer row, flushed at the same server steps; the guard
+    (flat mode) with its own row of the (B, 2) counter, ``stale`` the (B,)
+    steps its task spent in flight."""
+    if guard is not None and not flat_mode:
+        raise ValueError(
+            "the divergence guard requires the flat-packed snapshot codec "
+            "(uniform-dtype parameters, default linear update)"
+        )
     grads = torch.func.vmap(lambda j, wi, k: grad_fn(j, unpack(wi), k))
     pack_cells = torch.func.vmap(pack)
+    max_sq = float(guard.max_grad_norm) ** 2 if guard is not None else 0.0
+    cutoff = int(guard.stale_cutoff) if guard is not None else 0
 
-    def step(w, ring, j, rows, sc, k):
+    def step(carry, ring, j, rows, sc, k, stale=None):
+        w, acc, gcnt = carry
         g = grads(j, ring.index_select(0, rows), k)
         if flat_mode:
-            w = _flat_axpy(w, pack_cells(g), sc[:, None])
-            new = enc(w)
+            g = pack_cells(g)
+        bad = None
+        if guard is not None:
+            live = sc != 0
+            if cutoff > 0 and stale is not None:
+                st = live & (stale > cutoff)
+                gcnt[:, 1] += st.to(torch.int32)
+                sc = torch.where(st, 0.0, sc)
+                live = live & ~st
+            bad = _guard_bad(g, max_sq)
+            gcnt[:, 0] += (bad & live).to(torch.int32)
+        if fedbuff_Z > 0:
+            fire = ((k + 1) % fedbuff_Z) == 0
+            eff = torch.where(fire, sc / fedbuff_Z, 0.0)
+            keep = lambda a: a * (~fire).to(a.dtype).view(-1, *([1] * (a.ndim - 1)))  # noqa: E731
+            if flat_mode:
+                if bad is not None:  # the buffer consumes g beyond this event
+                    g = torch.where(bad[:, None], 0.0, g)
+                acc = acc + g
+                w = _flat_axpy(w, acc, eff[:, None])
+                acc = keep(acc)
+            else:
+                acc = tree_map(lambda a, y: a + y, acc, g)
+                w = update_fn(w, acc, eff)
+                acc = tree_map(keep, acc)
+        elif flat_mode:
+            w_new = _flat_axpy(w, g, sc[:, None])
+            w = torch.where(bad[:, None], w, w_new) if bad is not None else w_new
         else:
             w = update_fn(w, g, sc)
-            new = enc(pack_cells(w))
-        ring.index_copy_(0, rows, new)
-        return w
+        ring.index_copy_(0, rows, enc(w) if flat_mode else enc(pack_cells(w)))
+        return w, acc, gcnt
 
     return step
 
 
-def _check_lane_devices(lane_devices: int, block_size: int):
-    """Validate the lane-shard request against the block shape and the
-    process group; return the lanes' ``(group, rank)``, or None at D = 1.
+def world_size() -> int:
+    """The ranks a lane or scenario shard can use: the world size of the
+    default `torch.distributed` process group, 1 without one (the port's
+    counterpart of ``jax.device_count()``)."""
+    import torch.distributed as dist
 
-    ``lane_devices=D > 1`` runs the blocked replay as D ranks of the
-    default `torch.distributed` process group, one lane shard each; it
-    never falls back to the unsharded replay when the group is missing.
-    This is the one place the engine reads the process group.
-    """
+    return dist.get_world_size() if _world_group() is not None else 1
+
+
+def _world_group():
+    """The default process group, or None without one."""
+    import torch.distributed as dist
+
+    return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
+
+
+def _require_world(ranks: int, what: str):
+    """The default process group, which must hold exactly ``ranks`` ranks;
+    never falls back to an unsharded run when it is missing."""
+    import torch.distributed as dist
+
+    start = (
+        f"start {ranks} ranks (torchrun --nproc-per-node {ranks}, or "
+        "torch.multiprocessing.spawn + init_process_group in each; "
+        "repro_torch.launch.lanes.run_lanes does both) and make the same run in every rank"
+    )
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"{what} needs a torch.distributed process group of {ranks} ranks, "
+                         f"but none is initialised: {start}")
+    world = dist.get_world_size()
+    if world != ranks:
+        raise ValueError(f"{what} but the torch.distributed process group has world size "
+                         f"{world}: {start}")
+    return dist.group.WORLD
+
+
+def _check_lane_blocks(lane_devices: int, block_size: int) -> None:
     if lane_devices < 1:
         raise ValueError("lane_devices >= 1 required")
     if lane_devices == 1:
-        return None
+        return
     if block_size < 2:
         raise ValueError(
             "lane_devices > 1 shards the E-lane micro-block gradient batch "
@@ -829,26 +904,63 @@ def _check_lane_devices(lane_devices: int, block_size: int):
             f"block_size={block_size} must be a multiple of "
             f"lane_devices={lane_devices} (each rank owns E/D lanes)"
         )
+
+
+def _check_lane_devices(lane_devices: int, block_size: int):
+    """Validate the lane-shard request of one run against the block shape
+    and the process group; return the lanes' ``(group, rank)``, or None at
+    D = 1.
+
+    ``lane_devices=D > 1`` runs the blocked replay as D ranks of the
+    default `torch.distributed` process group (world size D), one lane
+    shard each.  The scenario × lane layout of the cells takes a world of
+    shard × lane instead (`_scenario_mesh`).
+    """
+    _check_lane_blocks(lane_devices, block_size)
+    if lane_devices == 1:
+        return None
     import torch.distributed as dist
 
-    start = (
-        f"start {lane_devices} ranks (torchrun --nproc-per-node {lane_devices}, or "
-        "torch.multiprocessing.spawn + init_process_group in each; "
-        "repro_torch.launch.lanes.run_lanes does both) and make the same run in every rank"
-    )
-    if not (dist.is_available() and dist.is_initialized()):
-        raise ValueError(
-            f"lane_devices={lane_devices} needs a torch.distributed process group "
-            f"of {lane_devices} ranks, but none is initialised: {start}"
-        )
-    world = dist.get_world_size()
-    if world != lane_devices:
-        raise ValueError(
-            f"lane_devices={lane_devices} but the torch.distributed process group "
-            f"has world size {world}: {start}"
-        )
-    group = dist.group.WORLD
+    group = _require_world(lane_devices, f"lane_devices={lane_devices}")
     return group, dist.get_rank(group)
+
+
+@dataclass(frozen=True)
+class _Mesh:
+    """This rank's place in a ``shard × lane`` group of ranks: rank r =
+    s·L + l takes the cells of shard s and the lanes of lane l; its lanes
+    are sharded over the ranks {s·L + l'} (``lane_group``) and its cells
+    gathered over {s'·L + l} (``shard_group``)."""
+
+    shard: int
+    lane: int
+    shard_group: Any
+    lane_group: Any
+
+
+_MESHES: dict = {}
+
+
+def _scenario_mesh(shard_devices: int, lane_devices: int, block_size: int) -> _Mesh:
+    """The scenario × lane layout (`jit_fused_runner(vmap_scenarios=True,
+    shard_devices=S, lane_devices=L)`): a world of S·L ranks and its
+    subgroups, made once per world with `dist.new_group` in the same order
+    in every rank (each rank calls it for every group, as the call
+    requires)."""
+    import torch.distributed as dist
+
+    _check_lane_blocks(lane_devices, block_size)
+    S, L = int(shard_devices), int(lane_devices)
+    world = _require_world(S * L, f"shard_devices={S} x lane_devices={L} "
+                                  f"needs {S * L} ranks")
+    key = (world, S, L)
+    if key not in _MESHES:
+        lane_groups = ([dist.new_group([s * L + l for l in range(L)]) for s in range(S)]
+                       if L > 1 else [None] * S)
+        shard_groups = [dist.new_group([s * L + l for s in range(S)]) for l in range(L)]
+        s, l = divmod(dist.get_rank(), L)
+        _MESHES[key] = _Mesh(s, l, shard_groups[l], lane_groups[s])
+    return _MESHES[key]
 
 
 def _make_host_block_runner(
@@ -885,14 +997,17 @@ def _make_host_block_runner(
     ``lanes=(group, rank)`` (from `_check_lane_devices`) shards the E
     lanes of every block over the D ranks of ``group``: every rank calls
     ``run`` with the same full (B, E) arrays and w0, takes its contiguous
-    E/D lanes, and returns the same replicated ``(w_final, evals)`` (see
-    `_make_block_step`).  Sharded and unsharded replay agree to the
-    re-association of the fp32 lane prefix (<= 1e-5 on the Quadratic).
+    E/D lanes, and returns the same replicated ``(w_final, evals[,
+    gcnt])`` (see `_make_block_step`).  Sharded and unsharded replay agree
+    to the re-association of the fp32 lane prefix (<= 1e-5 on the
+    Quadratic).
 
     ``vmap_streams=True`` replays B cells in lockstep over (B, nb, E)
     arrays (`blocked_inputs_batch`) with a (B, C+1, P) ring, returning the
-    final weights with a leading B axis and (B, n_evals) evals
-    (`_make_cells_block_step`; gen_async, unsharded).
+    final weights with a leading B axis, (B, n_evals) evals and, guarded,
+    (B, 2) counters (`_make_block_step(cells=True)`); with ``lanes`` each
+    rank takes its E/D lanes of every cell — the reference's cell × lane
+    layout.
     """
     if update_fn is not None:
         raise ValueError(
@@ -921,48 +1036,37 @@ def _make_host_block_runner(
             )
         if ckpt is not None and (vmap_streams or lane_group is not None):
             raise ValueError("checkpointing replays one unsharded stream")
-        if vmap_streams:
-            return run_cells(pack, unpack, enc, w0, J, slot, scale, k, mask, chunk_blocks,
-                             n_chunks)
-        if lane_group is not None:  # this rank's contiguous E/D lanes
-            J, slot, scale, k, mask = (a[:, lo : lo + El].contiguous()
-                                       for a in (J, slot, scale, k, mask))
+        arrs = (J, slot, scale, k, mask)
+        if lane_group is not None:  # this rank's contiguous E/D lanes (of every cell)
+            arrs = tuple(a[..., lo : lo + El] for a in arrs)
+        cells = int(J.shape[0]) if vmap_streams else None
+        if vmap_streams:  # block-major: row b of each is one contiguous (B, E) block
+            arrs = tuple(a.transpose(0, 1) for a in arrs)
+        J, slot, scale, k, mask = (a.contiguous() for a in arrs)
         block_step = _make_block_step(grad_fn, pack, unpack, kernel, fedbuff_Z, lane_group,
-                                      guard)
-        carry, to_tree = _init_update_carry(w0, C + 1, pack, unpack, True, enc, fedbuff_Z)
-        B = int(J.shape[0])
+                                      guard, cells=vmap_streams)
+        carry, to_tree = _init_update_carry(w0, C + 1, pack, unpack, True, enc, fedbuff_Z,
+                                            cells=cells)
+        if vmap_streams:
+            evaluate = _cells_eval_fn(eval_fn, unpack, True)
+        else:
+            evaluate = lambda w: eval_fn(to_tree(w))  # noqa: E731
+        nb = int(J.shape[0])
         every = chunk_blocks if (eval_fn is not None and n_chunks and chunk_blocks) else 0
         Bm = n_chunks * chunk_blocks
         evals, b0 = [], 0
         if ckpt is not None:
             carry, evals, b0 = ckpt.start(carry)
-        for b in range(b0, B):
+        for b in range(b0, nb):
             carry = block_step(carry, J[b], slot[b], scale[b], k[b], mask[b])
             if every and b < Bm and (b + 1) % every == 0:
-                evals.append(eval_fn(to_tree(carry[0])))
+                evals.append(evaluate(carry[0]))
             if ckpt is not None:
                 ckpt.after(b + 1, carry, evals)
         if ckpt is not None:
             ckpt.end(carry, evals)
-        out = to_tree(carry[0]), _stack_evals(evals, J.device)
+        out = to_tree(carry[0]), _stack_evals(evals, J.device, cells=cells)
         return out + (carry[3],) if guard is not None else out
-
-    def run_cells(pack, unpack, enc, w0, J, slot, scale, k, mask, chunk_blocks, n_chunks):
-        block_step = _make_cells_block_step(grad_fn, pack, unpack, kernel)
-        B, nb = (int(d) for d in J.shape[:2])
-        (w, snaps, _, _), to_tree = _init_update_carry(w0, C + 1, pack, unpack, True, enc,
-                                                       cells=B)
-        every = chunk_blocks if (eval_fn is not None and n_chunks and chunk_blocks) else 0
-        evaluate = _cells_eval_fn(eval_fn, unpack, True)
-        # block-major copies: row b of each is one contiguous (B, E) block
-        J, slot, scale, k, mask = (a.transpose(0, 1).contiguous()
-                                   for a in (J, slot, scale, k, mask))
-        evals = []
-        for b in range(nb):
-            w, snaps = block_step(w, snaps, J[b], slot[b], scale[b], k[b], mask[b])
-            if every and b < n_chunks * chunk_blocks and (b + 1) % every == 0:
-                evals.append(evaluate(w))
-        return to_tree(w), _stack_evals(evals, J.device, cells=B)
 
     return run
 
@@ -970,20 +1074,12 @@ def _make_host_block_runner(
 # ------------------------------------------------------------------ #
 # device stream: the fused runner (the closed network and Algorithm 1)
 # ------------------------------------------------------------------ #
-def _reject_fused_unported(*, lane_devices, lane_axis, shard_devices=1) -> None:
-    """Options the reference's fused runner takes that wait for their own
-    ROADMAP items here."""
-    if lane_devices > 1 or lane_axis is not None or shard_devices > 1:
-        raise unported("lanes and shards of the device stream", 12)
-
-
 def _check_fused_options(*, faulty: bool, scen_on: bool, guard, fedbuff_Z: int, E: int,
-                         serving, classes, vmap_scenarios: bool, n: int = 0,
-                         lane_devices: int = 1, update_fn=None) -> None:
+                         serving, classes, n: int = 0, lane_devices: int = 1,
+                         update_fn=None) -> None:
     """The reference's `ValueError`s for fused options that do not compose
     (`repro.core.engine_scan.make_fused_runner`), with its messages and in
-    its order; the cell axis replays without a guard, as the host cell
-    axis does."""
+    its order."""
     if scen_on:
         if faulty:
             raise ValueError("scenario= and fault= are separate injection paths; model "
@@ -1021,8 +1117,25 @@ def _check_fused_options(*, faulty: bool, scen_on: bool, guard, fedbuff_Z: int, 
             raise ValueError("serving= requires lane_devices=1")
         if update_fn is not None:
             raise ValueError("serving= requires the default update w - scale*g")
-    if vmap_scenarios and guard is not None:
-        raise ValueError("vmap_scenarios=True replays without a guard (guard=None)")
+
+
+def _fused_lanes(lane_devices: int, lane_axis, E: int):
+    """The fused runner's lanes: ``(group, rank)`` or None.  ``lane_axis``
+    names an existing group of ``lane_devices`` ranks (the reference's
+    ``lane_axis`` inside its scenario × lane mesh); else the lanes take the
+    whole world (`_check_lane_devices`)."""
+    if lane_axis is None:
+        return _check_lane_devices(lane_devices, E)
+    if lane_devices <= 1:
+        raise ValueError("lane_axis requires lane_devices > 1")
+    if E < 2 or E % lane_devices:
+        raise ValueError(f"block_size={E} must be a >1 multiple of lane_devices={lane_devices}")
+    import torch.distributed as dist
+
+    if dist.get_world_size(lane_axis) != lane_devices:
+        raise ValueError(f"lane_axis holds {dist.get_world_size(lane_axis)} ranks, "
+                         f"lane_devices={lane_devices}")
+    return lane_axis, dist.get_rank(lane_axis)
 
 
 def _fused_chunking(T: int, eval_on: bool, eval_every: int, adaptive: bool,
@@ -1130,8 +1243,20 @@ def make_fused_runner(
     of its ring row and the staleness run in event order in the replay,
     after each event's update (`serving.ServeLoop`).  ``extras`` then gains
     the reference's ``serve_*`` counters, histograms and final serve state.
-    The options that do not compose raise the reference's `ValueError`s;
-    lanes raise their ROADMAP item.
+    The options that do not compose raise the reference's `ValueError`s.
+
+    ``lane_devices=D > 1`` (``block_size`` a >1 multiple of D) runs in
+    every rank of a process group of D ranks: each rank generates every
+    chunk's stream itself (the same draws everywhere, as every reference
+    device does), cuts it into the same conflict-free blocks, and
+    differentiates its contiguous E/D lanes of each block; one all-gather a
+    block recombines them (`_make_block_step`), so every rank returns the
+    same result.  ``lane_axis`` — a `torch.distributed` process group, the
+    port's counterpart of the reference's mesh axis name — shards over that
+    group instead of the whole world (the scenario × lane layout of
+    `jit_fused_runner`).  With ``vmap_scenarios`` FedBuff keeps one buffer
+    and the guard one counter a cell (``guard_rejects`` / ``stale_drops``
+    then (B,)).
 
     ``run.from_draws(w0, mu, p0, eta, nodes, u_race, u_exp, u_disp[, u_ph,
     u_phase0], u_mem=, u_bit=)`` takes given draws (the scenario stream's
@@ -1156,13 +1281,11 @@ def make_fused_runner(
     E = max(int(block_size), 1)
     faulty, scen_on = sd._enabled(fault), sd._enabled(scenario)
     _check_fused_options(faulty=faulty, scen_on=scen_on, guard=guard, fedbuff_Z=fedbuff_Z, E=E,
-                         serving=serving, classes=classes, vmap_scenarios=vmap_scenarios, n=n,
-                         lane_devices=lane_devices, update_fn=update_fn)
-    _reject_fused_unported(lane_devices=lane_devices, lane_axis=lane_axis)
+                         serving=serving, classes=classes, n=n, lane_devices=lane_devices,
+                         update_fn=update_fn)
+    lanes = _fused_lanes(lane_devices, lane_axis, E)
     sparse = classes is not None
     counts = tuple(int(c) for c in np.asarray(classes.counts)) if sparse else None
-    if vmap_scenarios and fedbuff_Z:
-        raise ValueError("vmap_scenarios=True runs Generalized AsyncSGD (fedbuff_Z=0)")
     bound = bound if bound is not None else BoundConstants(C=C, T=T)
     importance = weighting == "importance"
     serving_on = serving is not None and serving.enabled
@@ -1209,7 +1332,7 @@ def make_fused_runner(
         rows = C + 1 if (E > 1 or tagged) else C
         replay = (_FusedCellsReplay if vmap_scenarios else _FusedReplay)(
             grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z, E, n, C, B,
-            dev, guard)
+            dev, guard, lanes=lanes)
 
         if sparse:
             sstate, _ = sd.sparse_stream_init(nodes, spec, C, fault=faulty)
@@ -1358,17 +1481,30 @@ def _advance_chunk(replay, sstate, stats, slot_scale, p, mu, e_hold, u_race, K, 
     return sstate, stats, slot_scale, t
 
 
+def _lane_cols(lanes, E: int):
+    """This rank's contiguous lanes of a block, as a slice (all of them
+    without lanes)."""
+    if lanes is None:
+        return slice(None)
+    group, rank = lanes
+    El = E // group.size()
+    return slice(rank * El, (rank + 1) * El)
+
+
 class _FusedReplay:
     """The replay half of one fused run: the host runners' carry and steps,
-    fed a chunk of device-generated events at a time."""
+    fed a chunk of device-generated events at a time; with ``lanes``, this
+    rank's lanes of each block (`_make_block_step`)."""
 
     def __init__(self, grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z,
-                 E, n, C, B, dev, guard=None):
+                 E, n, C, B, dev, guard=None, lanes=None):
         self.E, self.n, self.C, self.dev = E, n, C, dev
         self.guarded = guard is not None
         self.cutoff = int(guard.stale_cutoff) if guard is not None else 0
+        self.cols = _lane_cols(lanes, E)
         if E > 1:
-            self.step = _make_block_step(grad_fn, pack, unpack, "jnp", fedbuff_Z, guard=guard)
+            self.step = _make_block_step(grad_fn, pack, unpack, "jnp", fedbuff_Z,
+                                         None if lanes is None else lanes[0], guard)
         else:
             self.step = _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc,
                                           fedbuff_Z, guard)
@@ -1405,11 +1541,10 @@ class _FusedReplay:
             st = (scale != 0) & (stale[0] > self.cutoff)
             self.carry[3][1] += torch.sum(st).to(torch.int32)
             scale = torch.where(st, 0.0, scale)
-        Jb, sb, scb, kb, mb = _chunk_blocks(J[None], slot[None], scale[None], k0, self.E,
-                                            self.n, self.C)
-        for r in range(Jb.shape[1]):
-            self.carry = self.step(self.carry, Jb[0, r], sb[0, r], scb[0, r], kb[0, r],
-                                   mb[0, r])
+        blocks = _chunk_blocks(J[None], slot[None], scale[None], k0, self.E, self.n, self.C,
+                               self.cols)
+        for r in range(blocks[0].shape[1]):
+            self.carry = self.step(self.carry, *(a[0, r] for a in blocks))
 
     def evaluate(self, eval_fn):
         return eval_fn(self.to_tree(self.carry[0]))
@@ -1425,47 +1560,70 @@ class _FusedReplay:
 class _FusedCellsReplay:
     """The replay half of B fused runs in lockstep (`vmap_scenarios`): the
     cell-axis steps of the host matrix (`_make_cells_event_step`,
-    `_make_cells_block_step`)."""
+    `_make_block_step(cells=True)`), FedBuff with one buffer and the guard
+    with one counter a cell, and with ``lanes`` this rank's lanes of every
+    cell's blocks."""
 
     def __init__(self, grad_fn, w0, rows, pack, unpack, enc, flat_mode, update_fn, fedbuff_Z,
-                 E, n, C, B, dev, guard=None):
-        self.E, self.n, self.C, self.B, self.R = E, n, C, B, rows
-        (self.w, self.snaps, _, _), self.to_tree = _init_update_carry(
-            w0, rows, pack, unpack, flat_mode, enc, cells=B)
+                 E, n, C, B, dev, guard=None, lanes=None):
+        self.E, self.n, self.C, self.B, self.R, self.dev = E, n, C, B, rows, dev
+        self.guarded = guard is not None
+        self.cutoff = int(guard.stale_cutoff) if guard is not None else 0
+        self.cols = _lane_cols(lanes, E)
+        self.carry, self.to_tree = _init_update_carry(w0, rows, pack, unpack, flat_mode, enc,
+                                                      fedbuff_Z, cells=B)
         self.flat_mode, self.unpack = flat_mode, unpack
         if E > 1:
-            self.step = _make_cells_block_step(grad_fn, pack, unpack, "jnp")
+            self.step = _make_block_step(grad_fn, pack, unpack, "jnp", fedbuff_Z,
+                                         None if lanes is None else lanes[0], guard, cells=True)
         else:
-            self.step = _make_cells_event_step(grad_fn, update_fn, pack, unpack, enc, flat_mode)
-            self.ring = self.snaps.view(B * rows, -1)
+            self.step = _make_cells_event_step(grad_fn, update_fn, pack, unpack, enc, flat_mode,
+                                               fedbuff_Z, guard)
+            self.ring = self.carry[1].view(B * rows, -1)
             self.base = torch.arange(B, dtype=torch.int64, device=dev) * rows
-        self.dev = dev
 
     def events(self, J, slot, scale, k0: int, stale=None, serve=None):
         B, Lc = (int(d) for d in J.shape)
         if self.E == 1:
             Jt, rows_t = J.t().contiguous(), (slot.t() + self.base).contiguous()
             sct = scale.t().contiguous()
+            st_t = None if stale is None else stale.t().contiguous()
             ks = torch.arange(k0, k0 + Lc, dtype=torch.int64, device=self.dev)[:, None].expand(Lc, B)
-            if serve is not None:  # the cell axis is unguarded: accepted = scale != 0
+            if serve is not None:  # accepted: a nonzero scale the guard let through
                 loop, served = serve
                 slot_t = slot.t().contiguous()
-                row_mean = lambda r: _row_means(self.snaps, r)  # noqa: E731
+                row_mean = lambda r: _row_means(self.carry[1], r)  # noqa: E731
+            w, snaps, acc, gcnt = self.carry
+            c = (w, acc, gcnt)
             for i in range(Lc):
-                self.w = self.step(self.w, self.ring, Jt[i], rows_t[i], sct[i], ks[i])
+                if serve is not None and self.guarded:
+                    gcnt_pre = gcnt.clone()
+                c = self.step(c, self.ring, Jt[i], rows_t[i], sct[i], ks[i],
+                              None if st_t is None else st_t[i])
                 if serve is not None:
-                    loop.read(slot_t[i], sct[i] != 0, ks[i], row_mean, served[:, i])
+                    accepted = sct[i] != 0
+                    if self.guarded:
+                        accepted = accepted & (gcnt == gcnt_pre).all(-1)
+                    loop.read(slot_t[i], accepted, ks[i], row_mean, served[:, i])
+            self.carry = (c[0], snaps, c[1], c[2])
             return
-        Jb, sb, scb, kb, mb = _chunk_blocks(J, slot, scale, k0, self.E, self.n, self.C)
-        for r in range(Jb.shape[1]):
-            self.w, self.snaps = self.step(self.w, self.snaps, Jb[:, r], sb[:, r], scb[:, r],
-                                           kb[:, r], mb[:, r])
+        if stale is not None and self.cutoff > 0:
+            st = (scale != 0) & (stale > self.cutoff)
+            self.carry[3][:, 1] += torch.sum(st, dim=-1).to(torch.int32)
+            scale = torch.where(st, 0.0, scale)
+        blocks = _chunk_blocks(J, slot, scale, k0, self.E, self.n, self.C, self.cols)
+        for r in range(blocks[0].shape[1]):
+            self.carry = self.step(self.carry, *(a[:, r] for a in blocks))
 
     def evaluate(self, eval_fn):
-        return _cells_eval_fn(eval_fn, self.unpack, self.flat_mode)(self.w)
+        return _cells_eval_fn(eval_fn, self.unpack, self.flat_mode)(self.carry[0])
 
     def weights(self):
-        return self.to_tree(self.w)
+        return self.to_tree(self.carry[0])
+
+    def gcnt(self):
+        """``(guard_rejects, stale_drops)``, (B,) device tensors."""
+        return self.carry[3][:, 0], self.carry[3][:, 1]
 
 
 def _row_means(snaps: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
@@ -1476,15 +1634,17 @@ def _row_means(snaps: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return snaps.reshape(B * R, P).index_select(0, base + slot).float().mean(-1)
 
 
-def _chunk_blocks(J, slot, scale, k0: int, E: int, n: int, C: int):
+def _chunk_blocks(J, slot, scale, k0: int, E: int, n: int, C: int, cols=slice(None)):
     """One chunk of B cells' device events as (B, rows, E) blocked columns.
 
     The chunk comes to the host (one copy a chunk); each cell's run is cut
     into conflict-free blocks (`EventBlocks.from_columns`) and the cells are
-    laid out and padded as `blocked_inputs_batch` lays out host streams."""
+    laid out and padded as `blocked_inputs_batch` lays out host streams.
+    ``cols`` keeps a rank's lanes of every block (`_lane_cols`)."""
     Jh, sh = torch.stack((J, slot)).cpu().numpy()
     blocks = [EventBlocks.from_columns(j, s, n, C, E) for j, s in zip(Jh, sh)]
-    Jb, sb, scb, kb, mb, _, _ = blocked_inputs_batch(blocks, list(scale.cpu().numpy()))
+    Jb, sb, scb, kb, mb, _, _ = (a[..., cols] if isinstance(a, np.ndarray) else a
+                                 for a in blocked_inputs_batch(blocks, list(scale.cpu().numpy())))
     dev = J.device
     idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)  # noqa: E731
     m = torch.as_tensor(mb, device=dev)
@@ -1527,8 +1687,9 @@ def make_runner(
     ``lane_devices`` the number of ranks the blocked lanes are sharded over.
     ``vmap_streams=True`` takes the same arrays with a leading cell axis
     (stacked streams, `blocked_inputs_batch`) and replays the cells in
-    lockstep.  ``guard`` adds the divergence guard and returns its counter
-    third (`GuardConfig`).
+    lockstep (with ``lane_devices``, each rank's lanes of every cell).
+    ``guard`` adds the divergence guard and returns its counter third
+    (`GuardConfig`; (B, 2) across cells).
 
     ``stream="device"`` generates the events next to the replay
     (`make_fused_runner`): ``run(w0, mu, p0, key, eta)``.  It requires
@@ -1550,7 +1711,6 @@ def make_runner(
         raise ValueError(stream)
     if device_kw:
         raise TypeError(f"host stream does not accept {sorted(device_kw)}")
-    _check_cells(vmap_streams, lane_devices, fedbuff_Z, guard)
     lanes = _check_lane_devices(lane_devices, block_size)  # rejects D > 1 at E = 1
     if block_size > 1:
         if eval_every:
@@ -1565,20 +1725,6 @@ def make_runner(
         update_fn=update_fn, snapshot_dtype=snapshot_dtype, vmap_streams=vmap_streams,
         guard=guard,
     )
-
-
-def _check_cells(vmap_streams: bool, lane_devices: int, fedbuff_Z: int, guard=None) -> None:
-    """The cell axis replays Generalized AsyncSGD unsharded and unguarded
-    (`run_matrix` passes no guard): its lanes (the reference's cell × lane
-    layout) wait for ROADMAP item 12."""
-    if not vmap_streams:
-        return
-    if lane_devices > 1:
-        raise unported("run_matrix lanes (vmap_streams with lane_devices > 1)", 12)
-    if fedbuff_Z:
-        raise ValueError("vmap_streams=True replays Generalized AsyncSGD (fedbuff_Z=0)")
-    if guard is not None:
-        raise ValueError("vmap_streams=True replays without a guard (guard=None)")
 
 
 def _runner_cache(grad_fn):
@@ -1614,11 +1760,13 @@ def jit_runner(
     `repro`'s entry point and memo (one runner per gradient source and
     algorithm shape; the per-event eval cadence stays a call-time argument).
     ``vmap_streams=True`` returns the runner over stacked streams (a
-    leading cell axis on every array, the cells replayed in lockstep).
+    leading cell axis on every array, the cells replayed in lockstep);
+    with ``lane_devices=D`` and ``block_size=E`` each of the D ranks takes
+    its E/D lanes of every cell (the reference's shard_map over a vmapped
+    runner).
     """
     if block_size > 1 and eval_every:
         raise ValueError(_EVAL_CADENCE_MSG)
-    _check_cells(vmap_streams, lane_devices, fedbuff_Z, guard)
     cache, func = _runner_cache(grad_fn)
     # the lanes' (group, rank) is in the key: a runner holds the group it was built for
     key = ("host", func, C, fedbuff_Z, eval_fn, update_fn, vmap_streams, block_size, kernel,
@@ -1641,11 +1789,23 @@ def jit_fused_runner(grad_fn, n: int, C: int, T: int, *, vmap_scenarios: bool = 
     Memoized on the gradient source like `jit_runner`; ``vmap_scenarios``
     runs stacked (mu, p0, key) cells with shared (w0, eta) in lockstep, the
     cells' streams generated together.  Extra keywords forward to
-    `make_fused_runner` and take part in the memo key.  ``shard_devices``
-    and ``lane_devices`` > 1 (the scenario and lane meshes) raise item 12.
+    `make_fused_runner` and take part in the memo key.
+
+    ``shard_devices=S > 1`` (with ``vmap_scenarios``) splits the cells over
+    the ranks of a process group of S·L ranks, L = ``lane_devices``: rank
+    r = s·L + l runs cells [s·B/S, (s+1)·B/S), shards their blocks' lanes
+    over the ranks {s·L + l'} and gathers the cells' results over the ranks
+    {s'·L + l}, so every rank returns all B cells (`_scenario_mesh`).  As in
+    the reference, with lanes the inputs and outputs are flat (B, ...) (its
+    2-D ``("scen", "lanes")`` mesh); without, they carry a leading (S, B/S)
+    (its ``pmap``): ``mu[s]``, ``p0[s]`` and ``key[s]`` are shard s's cells.
     """
-    _reject_fused_unported(lane_devices=lane_devices, lane_axis=None,
-                           shard_devices=shard_devices)
+    if shard_devices < 1:
+        raise ValueError("shard_devices >= 1 required")
+    if shard_devices > 1 and not vmap_scenarios:
+        raise ValueError("shard_devices > 1 shards the cells of vmap_scenarios=True")
+    mesh = (_scenario_mesh(shard_devices, lane_devices, max(int(kw.get("block_size", 1)), 1))
+            if shard_devices > 1 else None)
     cache, func = _runner_cache(grad_fn)
 
     def entry(k, v):
@@ -1655,8 +1815,58 @@ def jit_fused_runner(grad_fn, n: int, C: int, T: int, *, vmap_scenarios: bool = 
             return (k, None if v is None else v.cache_key())
         return (k, v)
 
-    key = ("device", func, n, C, T, vmap_scenarios,
+    # a runner holds the process groups it was built for
+    key = ("device", func, n, C, T, vmap_scenarios, shard_devices, lane_devices, _world_group(),
            tuple(entry(k, v) for k, v in sorted(kw.items())))
     if key not in cache:
-        cache[key] = make_fused_runner(grad_fn, n, C, T, vmap_scenarios=vmap_scenarios, **kw)
+        if mesh is None:
+            cache[key] = make_fused_runner(grad_fn, n, C, T, vmap_scenarios=vmap_scenarios,
+                                           lane_devices=lane_devices, **kw)
+        else:
+            run = make_fused_runner(grad_fn, n, C, T, vmap_scenarios=True,
+                                    lane_devices=lane_devices, lane_axis=mesh.lane_group, **kw)
+            cache[key] = _shard_cells(run, mesh, shard_devices, flat=lane_devices > 1)
     return cache[key]
+
+
+def _shard_cells(run, mesh: _Mesh, S: int, flat: bool):
+    """``run`` (a cell-axis fused runner) over this rank's shard of the
+    cells, its results gathered over ``mesh.shard_group`` in one collective
+    (`_all_gather_lanes`, the cells in the place of the lanes).  ``flat``:
+    the cells arrive as (B, ...) and shard s takes rows [s·B/S, (s+1)·B/S);
+    else they arrive as (S, B/S, ...) and shard s takes row s, and every
+    output gets the leading (S, B/S) back.  The sampling-class sizes
+    (``class_counts``) are the same in every shard and stay as they are."""
+
+    def take(a):
+        if a is None:
+            return None
+        if not flat:
+            return a[mesh.shard]
+        if len(a) % S:
+            raise ValueError(f"{len(a)} cells do not split over shard_devices={S}")
+        per = len(a) // S
+        return a[mesh.shard * per : (mesh.shard + 1) * per]
+
+    def gather(w, evals, extras):
+        leaves, unflatten = tree_flatten(w)
+        names = [k for k in extras if k != "class_counts"]
+        ts = [*leaves, evals, *(extras[k] for k in names)]
+        live = [t for t in ts if t.numel()]
+        full = iter(_all_gather_lanes(mesh.shard_group, *live))
+        out = [next(full) if t.numel() else t.new_zeros((S * t.shape[0],) + t.shape[1:])
+               for t in ts]
+        if not flat:
+            out = [t.reshape((S, t.shape[0] // S) + t.shape[1:]) for t in out]
+        extras = dict(extras, **dict(zip(names, out[len(leaves) + 1:])))
+        return unflatten(out[: len(leaves)]), out[len(leaves)], extras
+
+    def sharded(w0, mu, p0, key, eta):
+        return gather(*run(w0, take(mu), take(p0), take(key), eta))
+
+    def from_draws(w0, mu, p0, eta, *draws, **kw_draws):
+        return gather(*run.from_draws(w0, take(mu), take(p0), eta, *map(take, draws),
+                                      **{k: take(v) for k, v in kw_draws.items()}))
+
+    sharded.from_draws = from_draws
+    return sharded

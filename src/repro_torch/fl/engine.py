@@ -656,6 +656,7 @@ def run_matrix(
     segmentation: str | None = None,
     task=None,
     scenario: str | None = None,
+    kernel: str = "jnp",
 ) -> MatrixResult:
     """Run the whole scenario grid (seeds x policies x speed ratios) in one
     lockstep run on ``flc.device``, along an explicit cell axis.
@@ -697,22 +698,42 @@ def run_matrix(
     ``task``) to reuse the cached gradient source and with it the memoized
     runner; the host replay's eval cadence is a call-time argument of the
     runner, so a sweep over ``eval_every`` does not rebuild it.
-    ``devices`` > 1 raises `NotImplementedError` (ROADMAP item 12).
+
+    ``kernel`` picks the host replay's update as ``ServerConfig.update``
+    does for one run: "jnp" the plain versions, "pallas" the CUDA kernels
+    across cells (K1 per event; K2 blocked, K6 with lanes).  The device
+    stream's replay takes the plain update, as the reference's fused runner
+    has no kernel option.
+
+    ``devices=D > 1`` (default ``flc.devices``) runs in every rank of a
+    `torch.distributed` process group, as the reference runs over the
+    devices it sees, and every rank returns the whole grid.  The host
+    stream shards each cell's E lanes over the D ranks of a group of D
+    (``block_size`` a >1 multiple of D; every cell on the cell axis in every
+    rank).  The device stream takes the world's W ranks as a ``shard ×
+    lane`` layout: D lanes and ``shard = W // D`` scenario shards when that
+    divides the B cells (else 1, and then W must be D); without lanes the
+    cells are sharded over the W ranks when W divides B
+    (`engine_scan.jit_fused_runner`).  W is the group's world size, 1
+    without a group (`engine_scan.world_size`).
     """
-    from ..core.async_sgd import _auto_block_size, _probe_stream_slots
-    from ..core.engine_scan import blocked_inputs_batch, jit_fused_runner, jit_runner
+    from ..core.async_sgd import _auto_block_size, _pallas_update_fn, _probe_stream_slots
+    from ..core.engine_scan import blocked_inputs_batch, jit_fused_runner, jit_runner, world_size
     from ..core.queue_sim import EventBlocks
     from ..core.scenario import get_scenario
 
     stream = flc.stream if stream is None else stream
     if stream not in ("host", "device"):
         raise ValueError(stream)
+    if kernel not in ("jnp", "pallas"):
+        raise ValueError(kernel)
+    if stream == "device" and kernel != "jnp":
+        raise ValueError("kernel= picks the host replay's update; the device stream's replay "
+                         "takes the plain update")
     sc = get_scenario(scenario if scenario is not None else flc.scenario)
     if sc is not None and not sc.enabled:
         sc = None
     lane = max(int(flc.devices if devices is None else devices), 1)
-    if lane > 1:
-        raise unported("run_matrix lanes (devices > 1)", 12)
     if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
         raise unported(f"task={type(task).__name__}", "7d")
     if stream == "device":
@@ -755,12 +776,28 @@ def run_matrix(
             block_size = _auto_block_size(
                 _probe_stream_slots(mu_b[0], p_b[0], C, T, int(seeds[0]), device, scenario=sc),
                 lane)
+        # the world's ranks: lanes split each block's gradient batch, the
+        # ranks left over shard the cells when they divide them
+        W, B = world_size(), len(keys)
+        rem = W // lane if lane > 1 else W
+        shard = rem if (rem > 1 and B % rem == 0) else 1
         runner = jit_fused_runner(
-            clients.device_grad, n, C, T, vmap_scenarios=True, weighting=flc.weighting,
-            eval_fn=acc_fn, eval_every=eval_every, adaptive=flc.adaptive,
-            refresh_every=flc.refresh_every, block_size=block_size, scenario=sc,
+            clients.device_grad, n, C, T, vmap_scenarios=True, shard_devices=shard,
+            lane_devices=lane, weighting=flc.weighting, eval_fn=acc_fn, eval_every=eval_every,
+            adaptive=flc.adaptive, refresh_every=flc.refresh_every, block_size=block_size,
+            scenario=sc,
         )
-        w_final, evals, dev_extras = runner(w0, mu_b, p_b, keys, eta)
+        args = (mu_b, p_b, keys)
+        if shard > 1 and lane == 1:  # a leading (shard, B / shard), as the reference's pmap
+            per = B // shard
+            args = (mu_b.reshape(shard, per, n), p_b.reshape(shard, per, n),
+                    [keys[i * per:(i + 1) * per] for i in range(shard)])
+        w_final, evals, dev_extras = runner(w0, *args, eta)
+        if shard > 1 and lane == 1:
+            flat = lambda x: x.reshape((B,) + x.shape[2:])  # noqa: E731
+            w_final = tree_map(flat, w_final)
+            evals = flat(evals)
+            dev_extras = {k: flat(v) for k, v in dev_extras.items()}
         dev_extras = {k: v.detach().cpu().numpy() for k, v in dev_extras.items()}
         t_phys = np.asarray(dev_extras["t"], np.float64)
         comp = np.asarray(dev_extras["comp"], np.float64)
@@ -784,13 +821,17 @@ def run_matrix(
             Jb, slotb, scb, kb, maskb, chunk_blocks, n_chunks = blocked_inputs_batch(
                 blocks, [s for _, s in streams], eval_every)
             runner = jit_runner(clients.device_grad, C, eval_fn=acc_fn, block_size=block_size,
-                                vmap_streams=True)
+                                vmap_streams=True, kernel=kernel, lane_devices=lane)
             w_final, evals = runner(w0, idx(Jb), idx(slotb), f32(scb), idx(kb),
                                     torch.as_tensor(maskb, device=device),
                                     chunk_blocks=chunk_blocks, n_chunks=n_chunks)
         else:
+            if lane > 1:
+                raise ValueError("devices > 1 lane-shards micro-blocks and requires "
+                                 "block_size > 1")
             runner = jit_runner(clients.device_grad, C, eval_fn=acc_fn, eval_every=eval_every,
-                                vmap_streams=True)
+                                vmap_streams=True,
+                                update_fn=_pallas_update_fn() if kernel == "pallas" else None)
             w_final, evals = runner(w0, idx([es.J for es, _ in streams]),
                                     idx([es.slot for es, _ in streams]),
                                     f32([s for _, s in streams]))

@@ -37,7 +37,7 @@ SIGNATURES = {
         "block_prefix_update": (_INT, _INT, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
         "block_prefix_update_vec": (_INT, _P, _P, _P, _I64),
         "block_prefix_update_kernel_info": (_INT, _INT, _INT, _I64, _P),
-        "block_scatter_rows": (_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _P),
+        "block_scatter_rows": (_INT, _INT, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
         "block_scatter_rows_vec": (_INT, _P, _P, _I64),
         "block_scatter_rows_kernel_info": (_INT, _INT, _INT, _I64, _P),
     },

@@ -86,7 +86,7 @@
 // and block (E = 8 of 26,624 columns, 3 lanes padded onto the trash row)
 // it moves ~1.4 MB and is bound by latency: a launch and one round trip to
 // memory.  So it does no more than the bytes need, in one pass:
-//   - A CTA takes one lane i (blockIdx.y) and a span of its columns.  It
+//   - A CTA takes one lane i (blockIdx.z) and a span of its columns.  It
 //     loads the slots of lanes i..E-1 into shared memory once; lane i is
 //     live when its slot is in [0, R) and no later lane has the same slot
 //     (O(E) a thread; E is the block size, at most 4096 here).  A live lane writes its row, a
@@ -111,6 +111,11 @@
 //     2)) CTAs a lane, each thread holding two vectors in flight (the MLP
 //     ring: 26 CTAs a lane, 208 over its 8 lanes, more than the 132 SMs;
 //     Mamba2-130M's fp32 ring: 125,961 a lane).
+//   - Across cells (the lane-sharded scenario matrix) one launch takes B
+//     rings, B blocks of W and slots and B rows of w', each cell's after
+//     the previous cell's: blockIdx.y is the cell and blockIdx.z the lane,
+//     the rest of the design is per cell as above (at B = 1 the grid and
+//     the stores are those of one block).
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py) this took 1.5-1.6 us of
 // device time at the MLP ring and block, below index_copy_'s 2.6 us, and
 // 1.54 ms at Mamba2-130M's fp32 ring, 90% of its 1.39 ms byte bound.
@@ -132,7 +137,7 @@
 namespace {
 
 constexpr int64_t kMaxLanes = 4096;  // K2's and K6's slots live in shared memory
-constexpr int64_t kMaxGridY = 65535;  // K2's cells: one row of the grid each
+constexpr int64_t kMaxGridY = 65535;  // K2's and K6's cells: one row of the grid each
 
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
@@ -443,9 +448,9 @@ const void* prefix_kernel(int vec) {
 }
 
 // ------------------------------------------------------------------ K6
-// K6 (see the note above): CTA (x, i) takes lane i's vectors
-// [x * 128 * U, (x + 1) * 128 * U), U = kScatterUnroll, 128 apart in each
-// thread.
+// K6 (see the note above): CTA (x, c, i) takes lane i's vectors
+// [x * 128 * U, (x + 1) * 128 * U) of cell c, U = kScatterUnroll, 128
+// apart in each thread; cell c's ring, W, slots and w' follow cell c-1's.
 constexpr int kScatterThreads = 128;
 constexpr int kScatterUnroll = 2;
 
@@ -455,7 +460,12 @@ block_scatter_rows_kernel(S* __restrict__ snaps, const float* __restrict__ Wr,
                           const int64_t* __restrict__ slots, W* __restrict__ w_out, int64_t R,
                           int64_t P, int64_t E) {
   extern __shared__ int64_t later[];  // slots of lanes i..E-1
-  const int64_t i = blockIdx.y;
+  const int64_t cell = blockIdx.y;
+  const int64_t i = blockIdx.z;
+  snaps += cell * R * P;
+  Wr += cell * E * P;
+  slots += cell * E;
+  w_out += cell * P;
   const int64_t nvec = P / VEC;
   const int64_t v0 =
       static_cast<int64_t>(blockIdx.x) * kScatterThreads * kScatterUnroll + threadIdx.x;
@@ -505,9 +515,10 @@ int scatter_vec(int snap_dtype, const void* snaps, const void* Wr, int64_t P) {
 
 template <typename S, typename W, int VEC>
 cudaError_t launch_scatter_vec(void* snaps, const void* Wr, const void* slots, void* w_out,
-                               int64_t R, int64_t P, int64_t E, cudaStream_t stream) {
+                               int64_t B, int64_t R, int64_t P, int64_t E, cudaStream_t stream) {
   const int64_t span = int64_t{kScatterThreads} * kScatterUnroll;
-  const dim3 grid(static_cast<unsigned>((P / VEC + span - 1) / span), static_cast<unsigned>(E));
+  const dim3 grid(static_cast<unsigned>((P / VEC + span - 1) / span), static_cast<unsigned>(B),
+                  static_cast<unsigned>(E));
   block_scatter_rows_kernel<S, W, VEC><<<grid, kScatterThreads, E * sizeof(int64_t), stream>>>(
       static_cast<S*>(snaps), static_cast<const float*>(Wr), static_cast<const int64_t*>(slots),
       static_cast<W*>(w_out), R, P, E);
@@ -515,10 +526,11 @@ cudaError_t launch_scatter_vec(void* snaps, const void* Wr, const void* slots, v
 }
 
 template <typename S, typename W>
-cudaError_t launch_scatter(void* snaps, const void* Wr, const void* slots, void* w_out, int64_t R,
-                           int64_t P, int64_t E, int vec, cudaStream_t stream) {
-  return vec == 1 ? launch_scatter_vec<S, W, 1>(snaps, Wr, slots, w_out, R, P, E, stream)
-                  : launch_scatter_vec<S, W, kWide<S>>(snaps, Wr, slots, w_out, R, P, E, stream);
+cudaError_t launch_scatter(void* snaps, const void* Wr, const void* slots, void* w_out, int64_t B,
+                           int64_t R, int64_t P, int64_t E, int vec, cudaStream_t stream) {
+  return vec == 1
+      ? launch_scatter_vec<S, W, 1>(snaps, Wr, slots, w_out, B, R, P, E, stream)
+      : launch_scatter_vec<S, W, kWide<S>>(snaps, Wr, slots, w_out, B, R, P, E, stream);
 }
 
 // The K6 kernel of this dtype pair and VEC (1 or 16 bytes), for kernel_info.
@@ -667,10 +679,13 @@ int block_prefix_update_kernel_info(int snap_dtype, int w_dtype, int vec, int64_
   return kernel_attrs(fn, kPrefixThreads, prefix_smem(E), out);
 }
 
+// K6 over B cells, one launch: cell c's (R, P) ring, (E, P) W, (E,) slots
+// and (P,) w' follow cell c-1's in their buffers.
 int block_scatter_rows(int snap_dtype, int w_dtype, void* snaps, const void* W,
-                       const void* slots, void* w_out, int64_t R, int64_t P, int64_t E,
-                       void* stream) {
-  if (E < 1 || E > kMaxLanes || !valid_pair(snap_dtype, w_dtype) || !aligned_to(w_out, 16)) {
+                       const void* slots, void* w_out, int64_t B, int64_t R, int64_t P,
+                       int64_t E, void* stream) {
+  if (B < 1 || B > kMaxGridY || E < 1 || E > kMaxLanes || !valid_pair(snap_dtype, w_dtype) ||
+      !aligned_to(w_out, 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (P == 0) return static_cast<int>(cudaSuccess);
@@ -678,13 +693,14 @@ int block_scatter_rows(int snap_dtype, int w_dtype, void* snaps, const void* W,
   const int vec = scatter_vec(snap_dtype, snaps, W, P);
   cudaError_t err;
   if (snap_dtype == kF32 && w_dtype == kF32) {
-    err = launch_scatter<float, float>(snaps, W, slots, w_out, R, P, E, vec, st);
+    err = launch_scatter<float, float>(snaps, W, slots, w_out, B, R, P, E, vec, st);
   } else if (snap_dtype == kBF16 && w_dtype == kF32) {
-    err = launch_scatter<__nv_bfloat16, float>(snaps, W, slots, w_out, R, P, E, vec, st);
+    err = launch_scatter<__nv_bfloat16, float>(snaps, W, slots, w_out, B, R, P, E, vec, st);
   } else if (snap_dtype == kF32 && w_dtype == kBF16) {
-    err = launch_scatter<float, __nv_bfloat16>(snaps, W, slots, w_out, R, P, E, vec, st);
+    err = launch_scatter<float, __nv_bfloat16>(snaps, W, slots, w_out, B, R, P, E, vec, st);
   } else {
-    err = launch_scatter<__nv_bfloat16, __nv_bfloat16>(snaps, W, slots, w_out, R, P, E, vec, st);
+    err = launch_scatter<__nv_bfloat16, __nv_bfloat16>(snaps, W, slots, w_out, B, R, P, E, vec,
+                                                       st);
   }
   return static_cast<int>(err);
 }

@@ -39,7 +39,8 @@ def block_prefix_update(snaps, w, D, slots):
 
 def block_scatter_rows(snaps, w, W, slots):
     """K6: ``(snaps', w')`` — the lane-sharded scatter of precomputed iterates,
-    ``snaps`` written in place."""
+    ``snaps`` written in place; with a leading cell axis on every operand,
+    one launch for all cells."""
     if on_cuda(snaps):
         return _cuda.block_scatter_rows(snaps, w, W, slots)
     return ref.block_scatter_rows_ref(snaps, w, W, slots)

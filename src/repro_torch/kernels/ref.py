@@ -91,12 +91,21 @@ def block_scatter_rows_ref(
     cast to the ring's dtype and written in place one at a time in event
     order, so duplicate (padded, trash-row) slots resolve last-writer-wins
     as in the kernels.  Returns ``(snaps, w')``.
+
+    Across cells every operand has a leading axis of B cells — ``snaps``
+    (B, R, P), ``w`` (B, P), ``W`` (B, E, P), ``slots`` (B, E) — and lane i
+    writes ``snaps[arange(B), slots[:, i]] = W[:, i]``, lane by lane in
+    event order; one cell is the case B = 1.
     """
+    if snaps.ndim == 2:
+        _, w1 = block_scatter_rows_ref(snaps[None], w[None], W[None], slots[None])
+        return snaps, w1[0]
     rows = W.to(snaps.dtype)
+    cells = torch.arange(snaps.shape[0], device=slots.device)
     idx = slots.to(torch.int64)
-    for i in range(rows.shape[0]):  # E <= 16
-        snaps.index_copy_(0, idx[i : i + 1], rows[i : i + 1])
-    return snaps, W[-1].to(w.dtype)
+    for i in range(rows.shape[1]):  # E <= 16; distinct cells, so no duplicate in a lane
+        snaps[cells, idx[:, i]] = rows[:, i]
+    return snaps, W[:, -1].to(w.dtype)
 
 
 def flash_attention_ref(

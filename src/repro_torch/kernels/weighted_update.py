@@ -15,10 +15,10 @@ rule the CUDA kernels follow), so each distinct ring row is written once,
 by the last lane that targets it; `prefix_vec` and `scatter_vec` ask the
 library how many ring values a thread moves per access,
 `prefix_kernel_info` and `scatter_kernel_info` what the kernels hold.
-K1 and K2 also take a cell axis (the scenario matrix's B runs in lockstep):
-K1 one scale a cell, each cell's slice of a leaf a leaf of its table
-(`cell_rows`, `leaf_code`); K2 B rings, weights, deltas and slots in one
-launch.
+All three also take a cell axis (the scenario matrix's B runs in
+lockstep): K1 one scale a cell, each cell's slice of a leaf a leaf of its
+table (`cell_rows`, `leaf_code`); K2 B rings, weights, deltas and slots in
+one launch, and K6 B rings, iterates and slots (the lane-sharded matrix).
 
 These wrappers take CUDA tensors only: they check dtype, shape, device and
 contiguity, allocate the outputs, launch on PyTorch's current stream and
@@ -374,13 +374,20 @@ def block_scatter_rows(
     ``snaps`` (R, P) float32 | bfloat16 is updated in place; ``w`` (P,) sets
     the dtype of ``w'`` only; ``W`` (E, P) float32, ``slots`` (E,) int64
     with the trash row R-1 on padded lanes.  Returns ``(snaps, W[E-1])``,
-    the last row cast to ``w.dtype``.
+    the last row cast to ``w.dtype``.  With a cell axis — ``snaps`` (B, R,
+    P), ``w`` (B, P), ``W`` (B, E, P), ``slots`` (B, E) — one launch
+    scatters each cell's block into its own ring (at most 65,535 cells).
     """
-    R, P, E, sc, wc = _block_operands(snaps, w, W, slots, "W")
+    cells = snaps.ndim == 3
+    R, P, E, sc, wc = _block_operands(snaps, w, W, slots, "W", cells=cells)
+    B = snaps.shape[0] if cells else 1
+    if not 1 <= B <= 65535:
+        raise ValueError(f"K6 takes 1 to 65535 cells a launch, got {B}")
     w_out = torch.empty_like(w)
     lib = build.load("weighted_update")
     _raise_on(lib.block_scatter_rows(sc, wc, snaps.data_ptr(), W.data_ptr(), slots.data_ptr(),
-                                     w_out.data_ptr(), R, P, E, _stream(w)), "block_scatter_rows")
+                                     w_out.data_ptr(), B, R, P, E, _stream(w)),
+              "block_scatter_rows")
     launches["block_scatter_rows"] += 1
     return snaps, w_out
 
@@ -389,9 +396,9 @@ def scatter_vec(snaps: torch.Tensor, W: torch.Tensor) -> int:
     """Ring values one thread of K6 moves per access on these CUDA operands,
     as the library picks it (``csrc/weighted_update.cu:scatter_vec``): 16
     bytes (4 fp32, 8 bf16) when P and the alignment of ``snaps`` and ``W``
-    allow it, else 1 value."""
+    allow it, else 1 value (a leading cell axis is allowed)."""
     return build.load("weighted_update").block_scatter_rows_vec(
-        _code(snaps, "snaps"), snaps.data_ptr(), W.data_ptr(), snaps.shape[1])
+        _code(snaps, "snaps"), snaps.data_ptr(), W.data_ptr(), snaps.shape[-1])
 
 
 def prefix_vec(snaps: torch.Tensor, w: torch.Tensor, D: torch.Tensor) -> int:

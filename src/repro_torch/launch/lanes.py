@@ -17,9 +17,11 @@ the same result.  `run_lanes` starts those ranks on one host:
         params_by_rank = run_lanes(train, 2)
 
 `torchrun --nproc-per-node D` with ``init_process_group`` in the script does
-the same across hosts.  The group uses the gloo backend, which takes CPU and
-CUDA tensors, so D ranks may share one card (NCCL refuses two ranks on one
-device).
+the same across hosts.  With one card for each rank (D <= the cards, more
+than one card) the group uses NCCL and rank r runs on card r; otherwise
+(several ranks sharing a card, or no card) it uses gloo, which takes CPU and
+CUDA tensors, with rank r on card r mod cards (NCCL refuses two ranks on
+one device).  `placement` makes that choice.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import traceback
 from datetime import timedelta
 from typing import Any, Callable
 
-__all__ = ["run_lanes"]
+__all__ = ["placement", "run_lanes"]
 
 
 def _free_port() -> int:
@@ -38,12 +40,38 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank: int, world: int, port: int, timeout: float,
-               fn: Callable, args: tuple, results) -> None:
+def placement(world: int, cards: int, backend: str = "auto") -> tuple[str, list[int | None]]:
+    """The process group's backend and each rank's card for ``world`` ranks
+    on a host with ``cards`` cards: ``(backend, [card of rank r])``.
+
+    "auto" takes NCCL with rank r on card r when every rank has a card of
+    its own and there is more than one card; else gloo with rank r on card
+    r mod ``cards`` (None without a card).  ``backend="nccl"`` asks for
+    NCCL and raises where the ranks would share a card; ``"gloo"`` keeps
+    gloo on any host.  Nothing falls back from one backend to the other.
+    """
+    if world < 1 or cards < 0:
+        raise ValueError(f"world={world} and cards={cards}: at least one rank, cards >= 0")
+    if backend == "auto":
+        backend = "nccl" if 1 < cards and world <= cards else "gloo"
+    if backend == "nccl":
+        if world > cards:
+            raise ValueError(f"NCCL needs a card for each rank: {world} ranks, {cards} card(s)")
+        return "nccl", list(range(world))
+    if backend != "gloo":
+        raise ValueError(f"backend={backend!r} (auto | nccl | gloo)")
+    return "gloo", [r % cards if cards else None for r in range(world)]
+
+
+def _rank_main(rank: int, world: int, port: int, timeout: float, backend: str,
+               card: int | None, fn: Callable, args: tuple, results) -> None:
+    import torch
     import torch.distributed as dist
 
     try:
-        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+        if card is not None:  # "cuda" in fn means this rank's card
+            torch.cuda.set_device(card)
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
                                 world_size=world, rank=rank,
                                 timeout=timedelta(seconds=timeout))
         out = fn(rank, world, *args)
@@ -54,10 +82,11 @@ def _rank_main(rank: int, world: int, port: int, timeout: float,
 
 
 def run_lanes(fn: Callable[..., Any], world: int, args: tuple = (), *,
-              timeout: float = 300.0) -> list:
+              timeout: float = 300.0, backend: str = "auto") -> list:
     """``[fn(rank, world, *args) for rank in range(world)]``, each call in
-    its own spawned process, all joined by a gloo process group on
-    127.0.0.1 (a free port).
+    its own spawned process, all joined by one process group on 127.0.0.1
+    (a free port): NCCL with one card a rank, else gloo (`placement`; each
+    rank's card is its current device before ``fn`` runs).
 
     ``fn`` and ``args`` are pickled, so ``fn`` is a module-level function,
     and each result comes back pickled: return CPU tensors or numpy arrays.
@@ -69,13 +98,15 @@ def run_lanes(fn: Callable[..., Any], world: int, args: tuple = (), *,
     """
     import queue
 
+    import torch
     import torch.multiprocessing as mp
 
+    backend, cards = placement(world, torch.cuda.device_count(), backend)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_rank_main,
-                         args=(r, world, port, timeout, fn, args, results),
+                         args=(r, world, port, timeout, backend, cards[r], fn, args, results),
                          daemon=True)
              for r in range(world)]
     for p in procs:

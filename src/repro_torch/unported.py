@@ -9,7 +9,6 @@ __all__ = ["ROADMAP_ITEMS", "unported"]
 
 ROADMAP_ITEMS = {
     "7d": "optimizers (optim/), api.train_step and duck-typed tasks",
-    12: "lane sharding of the scenario matrix and of the device stream",
 }
 
 

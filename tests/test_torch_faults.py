@@ -14,7 +14,8 @@ stream, against the JAX package.
     `_SpikeSource`): rejects counted as in JAX, finite weights, and the same
     run unguarded destroyed;
   * the compositions that raise: the guard with K1 per event, faults or
-    the staleness cutoff with FedBuff, the guard under lanes (item 12).
+    the staleness cutoff with FedBuff, the guard under lanes without a
+    process group of its ranks.
 """
 from dataclasses import replace
 
@@ -381,18 +382,21 @@ def test_fedbuff_rejects_faults_and_staleness(engine, kw):
 
 
 def test_guard_under_lanes_and_cells_raise():
-    """A guard on lane-sharded replay needs the rejects summed over the
-    ranks (item 12); the cell axis replays without one."""
-    pack, unpack, _ = engine_scan._snapshot_codec({"a": torch.zeros(3)})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        engine_scan._make_block_step(_Quad(4).device_grad, pack, unpack, "jnp",
-                                     lane_group=object(), guard=GuardConfig())
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """A guard on lane-sharded replay sums its rejects over the ranks
+    (`tests/test_torch_shards.py` runs it on 2 ranks): without a
+    process group of those ranks it raises, and never runs unsharded.  The
+    cell axis runs the guard with one counter a cell."""
+    with pytest.raises(ValueError, match="process group"):
+        engine_scan.jit_runner(_Quad(4).device_grad, 2, block_size=4, lane_devices=2,
+                               guard=GuardConfig())
+    with pytest.raises(ValueError, match="process group"):
         run_generalized_async_sgd({"a": np.zeros(3, np.float32)}, _Quad(4), ServerConfig(
             n=4, C=2, T=20, eta=0.1, engine="scan", block_size=4, devices=2,
             guard=GuardConfig(max_grad_norm=10.0), device="cpu"))
-    with pytest.raises(ValueError, match="without a guard"):
-        engine_scan.jit_runner(_Quad(4).device_grad, 2, vmap_streams=True, guard=GuardConfig())
+    run = engine_scan.jit_runner(_Quad(4).device_grad, 2, vmap_streams=True, guard=GuardConfig())
+    z = torch.zeros((3, 8), dtype=torch.int64)
+    w, _, gcnt = run({"a": torch.zeros(3)}, z, z % 2, torch.full((3, 8), 0.1))
+    assert w["a"].shape == (3, 3) and gcnt.shape == (3, 2) and gcnt.dtype == torch.int32
     with pytest.raises(ValueError, match="ckpt_every > 0"):
         run_generalized_async_sgd({"a": np.zeros(3, np.float32)}, _Quad(4), ServerConfig(
             n=4, C=2, T=20, eta=0.1, engine="scan", ckpt_dir="ckpt", device="cpu"))

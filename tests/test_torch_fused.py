@@ -293,6 +293,8 @@ def test_importance_scale_uses_dispatch_time_p():
 
 
 def test_validation_errors():
+    from repro.core.stream_device import build_class_spec
+
     prob = Quadratic(N)
     mk = lambda **kw: engine_scan.make_runner(prob.device_grad, C, stream="device",  # noqa: E731
                                               **kw)
@@ -317,25 +319,30 @@ def test_validation_errors():
                                                device="cpu"))
     # the guard runs on the device stream; with a staleness cutoff under
     # FedBuff it raises the reference's ValueError (as `jes.make_fused_runner`)
-    for kw, item in ((dict(guard=engine_scan.GuardConfig(stale_cutoff=5), fedbuff_Z=5,
-                           weighting="plain"), "per-event update"),
-                     (dict(lane_devices=2), 12)):
-        if isinstance(item, str):
-            with pytest.raises(ValueError, match=item):
-                mk(n=N, T=100, **kw)
-            from repro.core.engine_scan import GuardConfig as JGuardConfig
+    from repro.core.engine_scan import GuardConfig as JGuardConfig
 
-            with pytest.raises(ValueError, match=item):
-                jes.make_fused_runner(JQuadratic(prob.c).device_grad, N, C, 100, fedbuff_Z=5,
-                                      weighting="plain", guard=JGuardConfig(stale_cutoff=5))
-            continue
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(ValueError, match="per-event update"):
+        mk(n=N, T=100, guard=engine_scan.GuardConfig(stale_cutoff=5), fedbuff_Z=5,
+           weighting="plain")
+    with pytest.raises(ValueError, match="per-event update"):
+        jes.make_fused_runner(JQuadratic(prob.c).device_grad, N, C, 100, fedbuff_Z=5,
+                              weighting="plain", guard=JGuardConfig(stale_cutoff=5))
+    # lanes (`tests/test_torch_shards.py` runs them): the reference's
+    # ValueErrors for what does not compose, then a process group of the
+    # ranks, never an unsharded run
+    for kw, msg in ((dict(lane_devices=2), "block_size > 1"),
+                    (dict(lane_devices=2, block_size=3), "multiple of"),
+                    (dict(lane_devices=2, block_size=4), "process group"),
+                    (dict(lane_devices=2, classes=build_class_spec(np.ones(N))[0]),
+                     "requires lane_devices=1")):
+        with pytest.raises(ValueError, match=msg):
             mk(n=N, T=100, **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="process group"):
+        engine_scan.jit_fused_runner(prob.device_grad, N, C, 100, vmap_scenarios=True,
+                                     shard_devices=2)
+    with pytest.raises(ValueError, match="vmap_scenarios"):
         engine_scan.jit_fused_runner(prob.device_grad, N, C, 100, shard_devices=2)
     # the sparse stream's ClassSpec must cover the runner's n (the reference's ValueError)
-    from repro.core.stream_device import build_class_spec
-
     other = build_class_spec(np.ones(N + 1))[0]
     with pytest.raises(ValueError, match="ClassSpec covers"):
         mk(n=N, T=100, classes=other)

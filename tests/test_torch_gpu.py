@@ -356,6 +356,37 @@ def test_block_scatter_rows_matches_plain(dev, R, P, E, pad, dtype):
     assert torch.equal(ks, rs) and torch.equal(kw, rw) and kw.dtype == w.dtype
 
 
+@pytest.mark.parametrize("dtype,w_dtype", [(torch.float32, torch.float32),
+                                           (torch.bfloat16, torch.float32),
+                                           (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("B", [1, 4, 27])
+def test_block_scatter_rows_across_cells_bitwise(dev, B, dtype, w_dtype):
+    """K6 over B cells, one launch: every cell's ring rows and w' bitwise
+    equal to the plain version with a cell axis, to that cell's own launch
+    and to a second launch; padded lanes on the trash row and a real row
+    targeted twice."""
+    R, P, E = 17, 26624, 8
+    rng = np.random.default_rng(B)
+    slots = np.stack([np.concatenate([rng.choice(R - 1, size=E - 3, replace=False),
+                                      [R - 1, R - 1, R - 1]]) for _ in range(B)])
+    slots[:, 1] = slots[:, 0]  # a real row twice: the later lane wins
+    st = torch.tensor(slots, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(B)
+    snaps = torch.randn((B, R, P), generator=gen, device=dev).to(dtype)
+    w = torch.randn((B, P), generator=gen, device=dev).to(w_dtype)
+    W = torch.randn((B, E, P), generator=gen, device=dev)
+    rs, rw = ref.block_scatter_rows_ref(snaps.clone(), w, W, st)
+    cuda_kernels.reset_launches()
+    ks, kw = ops.block_scatter_rows(snaps.clone(), w, W, st)
+    assert cuda_kernels.launches["block_scatter_rows"] == 1
+    assert torch.equal(ks, rs) and torch.equal(kw, rw) and kw.shape == (B, P)
+    again, again_w = cuda_kernels.block_scatter_rows(snaps.clone(), w, W, st)
+    assert torch.equal(ks, again) and torch.equal(kw, again_w)
+    for c in range(B):
+        cs, cw = cuda_kernels.block_scatter_rows(snaps[c].clone(), w[c], W[c], st[c])
+        assert torch.equal(ks[c], cs) and torch.equal(kw[c], cw)
+
+
 # slot patterns on a ring of 9 rows (trash row 8): padded lanes, a real row
 # targeted twice, every lane on the trash row; E in {1, 8, 16}
 LIVE_PATTERNS = [

@@ -229,7 +229,7 @@ def test_one_runner_across_eval_cadences():
     (dict(stream="device"), None),
     (dict(flc=dict(adaptive=True)), None),
     (dict(scenario="erlang2", stream="device"), None),
-    (dict(devices=2, block_size=4), "item 12"),
+    (dict(devices=2, block_size=4), "process group"),
 ])
 def test_run_matrix_unported_raise(kw, item):
     """What the reference does with each: the device stream runs (its
@@ -237,7 +237,9 @@ def test_run_matrix_unported_raise(kw, item):
     the host stream, which the reference's host matrix ignores; a scenario
     runs on the host stream (`tests/test_torch_scenarios.py`) and on the
     device stream, per event (`tests/test_torch_stream_robust.py` holds it
-    against the reference's); lanes raise item 12."""
+    against the reference's); lanes run in a process group of their ranks
+    (`tests/test_torch_shards.py`) and without one raise, never running
+    unsharded."""
     kw = dict(kw)
     flc = FLConfig(n_clients=4, concurrency=2, server_steps=10, device="cpu",
                    **kw.pop("flc", {}))
@@ -249,20 +251,26 @@ def test_run_matrix_unported_raise(kw, item):
             assert m.extras["kind_count"].shape == (1, 1, 1, 6)
             assert int(m.extras["kind_count"].sum()) == 10
         return
-    with pytest.raises(NotImplementedError, match=item):
-        t_fl.run_matrix(flc, seeds=(0,), policies=("uniform",), **kw)
+    for stream in ("host", "device"):
+        with pytest.raises(ValueError, match=item):
+            t_fl.run_matrix(flc, seeds=(0,), policies=("uniform",), stream=stream, **kw)
 
 
 def test_cell_axis_runner_guard_rails():
-    """The cell axis's lanes wait for item 12; FedBuff is not replayed
-    across cells."""
+    """The cell axis's lanes need a process group of their ranks and
+    raise the reference's `ValueError`s for a block they cannot split;
+    FedBuff runs across cells (`tests/test_torch_cells_guard.py`), the
+    blocked replay with the default update only."""
     _, (_, _, setup) = _pair()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="process group"):
         jit_runner(setup.clients.device_grad, C, block_size=4, lane_devices=2, vmap_streams=True)
-    for E in (1, 4):
-        with pytest.raises(ValueError, match="fedbuff_Z=0"):
-            jit_runner(setup.clients.device_grad, C, fedbuff_Z=5, block_size=E,
+    for E, msg in ((1, "block_size > 1"), (3, "multiple of")):
+        with pytest.raises(ValueError, match=msg):
+            jit_runner(setup.clients.device_grad, C, fedbuff_Z=5, block_size=E, lane_devices=2,
                        vmap_streams=True)
+    with pytest.raises(ValueError, match="default update"):
+        jit_runner(setup.clients.device_grad, C, fedbuff_Z=5, block_size=4, vmap_streams=True,
+                   update_fn=lambda w, g, s: w)
 
 
 @pytest.mark.parametrize("block_size", [1, 4])
