@@ -316,6 +316,31 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    driver's command line (`tests/test_serve_driver.py`'s arguments) on the
    card.  Phase 2 also holds K4 at the serve task's shape and K5 at
    decode's 4-row capacity.
+23. the optimizer step (`optim.make_optimizer`, `api.train_step`), the dry
+   run and the examples (group ``optim``, last in the LM lane): (a)
+   Mamba2-130M at full width and depth (``use_pallas=True``) on one fixed
+   `SyntheticLMStream` batch of 8 x 128 with `optimizer_for`'s AdamW (fp32
+   moments): `OPTIM_WARM` warm-up steps, then `OPTIM_STEPS` timed, the
+   sampling weight cycling over 1/(n p_j) of the LM slice's network; the
+   loss falls, every ``grad_norm`` is finite, ``count`` is 19, the moments
+   are fp32, K4 launches == 24 x 19; ms a step, tokens/s, peak GiB and one
+   profiled step.  (b) The first step again with the plain SSD: new params
+   and loss within 2e-2 of the largest value.  (c) Each optimizer's update
+   (sgd, momentum, adamw; fp32 and bf16 state) on the card against the same
+   update on the CPU over 3 steps: fp32 within `OPTIM_F32_REL` of each
+   leaf's largest magnitude, bf16 within one ulp; Arctic's `optimizer_for`
+   keeps m in bf16.  (d) Qwen1.5-MoE-A2.7B at depth `MOE_LAYERS`, sort
+   dispatch, K3 + K5, AdamW: `OPTIM_MOE_STEPS` steps, the loss falls,
+   ``moe_aux`` finite and > 0, the first step's loss equal to `api.loss_fn`'s
+   on the same params, K3 / K5 launches == 3 / 9 a step.  (e)
+   `launch.dryrun.run_pair` of (a)'s and (d)'s configs at their 8 x 128
+   shape on the meta device: ``ok``, its parameter count, the card's peak
+   >= its argument bytes; the counted FLOPs against 6 N D and the achieved
+   TFLOP/s beside the card's name and power limit.  (f) A duck-typed task
+   (`_DuckTask`, wrapping `ClassificationTask`'s build) through
+   `run_experiment`, the K1 replay and `run_matrix` over 2 cells with K1
+   across them, bitwise the same runs with `ClassificationTask`.  (g)
+   ``examples/torch/quickstart.py`` in a child process exits 0.
 
 A whole run builds the kernels, then runs phases 2 and 11 alone in a
 process of their own (``--lane-out``; the kernel lane), so that their
@@ -326,7 +351,8 @@ the MLP lane's groups (mlp, lanes, matrix, robust, stream, stream_robust,
 sparse: phases 3-6, 14-16, 17 and 18 on the MLP, 19-21) run in a second
 process (its output in ``build/lanes/MLP_lane.log``,
 printed whole when it ends) beside the LM lane's (matrix_mamba, granite,
-ssm, moe, robust_mamba, serve: phases 17 and 18 on Mamba2-130M, 7-13, 22)
+ssm, moe, robust_mamba, serve, optim: phases 17 and 18 on Mamba2-130M,
+7-13, 22, 23)
 in this one: the card idles 82-98% of every path but MoE, so the two
 lanes share it with little wait.  Each part that holds more than a few
 GiB of the card declares it (`_card_memory`), and a declaration waits
@@ -343,7 +369,7 @@ apart from its timed runs.  ``--memory-history`` records the allocator's
 history around phase 17's blocked Mamba2 matrix and prints the owners of
 the live memory at K2's plain-version entry and at the peak.
 
-Phases 4, 5, 8, 10, 13, 17, 18, 19, 20, 21 and 22 are the kernel paths: each launch
+Phases 4, 5, 8, 10, 13, 17, 18, 19, 20, 21, 22 and 23 are the kernel paths: each launch
 count is zeroed just before the run and read just after.  fp32 matmuls run
 in full fp32 (TF32 off for matmul and cuDNN).  The line before the last is
 the ``kernels`` JSON object; the last line is the result object.
@@ -674,6 +700,20 @@ SERVE_DECODE_BF16_TOL = {MAMBA_ARCH: 0.18, LM_ARCH: 0.11}
 # other experts with and without K5
 SERVE_ROUTER_TIE = 1e-3
 SERVE_CKPT_ROOT = Path(__file__).resolve().parent / "build" / "serve_ckpt"
+# phase 23, the optimizer step (`api.train_step`): (a) Mamba2-130M at full
+# width and depth with K4, LMTask's batch (8 x 128) and `optimizer_for`'s
+# AdamW, OPTIM_WARM warm-up steps and OPTIM_STEPS timed ones, the sampling
+# weight cycling over 1/(n p_j) of the LM slice's first clients; (d)
+# Qwen1.5-MoE-A2.7B at MOE_LAYERS with K3 + K5, OPTIM_MOE_STEPS steps; (e)
+# the dry run at their shape; (f) a duck-typed task over the MLP slice's
+# network at OPTIM_DUCK_T events, 2 cells in its matrix.  (b) holds (a)'s
+# first step to the plain SSD within the LM path's bf16 tolerance, (c) the
+# optimizers' update on the card to the same update on the CPU: fp32 leaves
+# within OPTIM_F32_REL of each leaf's largest magnitude, bf16 within one ulp.
+OPTIM_WARM, OPTIM_STEPS, OPTIM_MOE_STEPS = 3, 16, 8
+OPTIM_F32_REL = 1e-6
+OPTIM_DUCK_T = 200
+OPTIM_DRYRUN_ROOT = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
 
 # The two lanes of a whole run (`main`).  The LM parts, which hold most of
 # the card's memory, run in this process; the MLP and stream parts, which
@@ -685,7 +725,7 @@ SERVE_CKPT_ROOT = Path(__file__).resolve().parent / "build" / "serve_ckpt"
 # would pass CARD_BUDGET_GIB of the card's 79.2 (the rest: the processes'
 # contexts and the undeclared MLP parts).  Declared: each part's peak in PR
 # 24's whole runs (NVIDIA H100 80GB HBM3, 700.00 W) with room to spare.
-LM_LANE = ("matrix_mamba", "granite", "ssm", "moe", "robust_mamba", "serve")
+LM_LANE = ("matrix_mamba", "granite", "ssm", "moe", "robust_mamba", "serve", "optim")
 MLP_LANE = ("mlp", "lanes", "matrix", "robust", "stream", "stream_robust", "sparse")
 KERNEL_GROUPS = ("k1k2k6", "fa", "ssd", "gmm")
 CARD_BUDGET_GIB = 74.0
@@ -5389,6 +5429,393 @@ def phase_serve(dev, launches: dict) -> None:
           f"{t5 - t4:.1f} s; phase 22 {t5 - t0:.1f} s")
 
 
+def _lm_weights(n: int) -> list:
+    """A few importance weights 1/(n p_j) of the LM slice's network (its
+    speeds and optimal sampling vector, `run_lm`'s), for the train steps."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.fl.engine import sampling_for
+
+    flc = FLConfig(n_clients=LM_N, concurrency=LM_C, speed_ratio=10.0, sampling="optimal")
+    mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=0)
+    p = sampling_for(flc, mu)
+    return [float(1.0 / (LM_N * p[j])) for j in (0, LM_N - 1, 1, LM_N - 2)][:n]
+
+
+def _peak_gib() -> float:
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def _train_steps(cfg, box: list, batch, opt, weights: list, steps: int):
+    """``steps`` `api.train_step`s from the params in ``box`` (taken out, so
+    that the caller holds no reference to the first step's old params), the
+    sampling weight cycling over ``weights`` (0-d fp32 tensors on the card):
+    ``(params, state, [metrics])``."""
+    from repro_torch.models import api
+
+    params = box.pop()
+    state = opt.init(params)
+    out = []
+    for i in range(steps):
+        w = weights[i % len(weights)]
+        params, state, m = api.train_step(params, state, batch, cfg, opt, w)
+        out.append(m)
+    return params, state, out
+
+
+def _optim_mamba(dev, launches: dict) -> dict:
+    """23 (a) Mamba2-130M at full width and depth, K4, AdamW; (b) its first
+    step with the plain SSD.  Returns the step's ms, tokens/s and peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.launch.dryrun import optimizer_for
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params
+    from repro_torch.optim import make_optimizer
+
+    part = _Part("Mamba2-130M train_step (phase 23)")
+    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
+    params0 = init_params(api.model_meta(cfg), 0, dev)
+    batch = _lm_batch(cfg, LM_BATCH, LM_SEQ, 0, dev)
+    opt = make_optimizer(optimizer_for(cfg))
+    weights = [torch.tensor(w, dtype=torch.float32, device=dev) for w in _lm_weights(4)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k4.reset_launches()
+    # the first step alone (held to the plain SSD in (b)), then the warm-up
+    (first, state, m0), wall0 = _timed(lambda: api.train_step(params0, opt.init(params0), batch,
+                                                              cfg, opt, weights[0]))
+    print(f"Mamba2-130M train_step: the first step (set-up of its kernels and the "
+          f"optimizer state included) {wall0:.3f} s")
+    params, metrics = first, [m0]
+    for i in range(1, OPTIM_WARM):
+        params, state, m = api.train_step(params, state, batch, cfg, opt, weights[i % 4])
+        metrics.append(m)
+
+    def timed_steps():
+        nonlocal params, state
+        for i in range(OPTIM_STEPS):
+            params, state, m = api.train_step(params, state, batch, cfg, opt,
+                                              weights[(OPTIM_WARM + i) % 4])
+            metrics.append(m)
+
+    _, wall = _timed(timed_steps)
+    n4 = k4.launches["ssd_scan"]
+    peak = _peak_gib()
+    path = launches.setdefault("optim_mamba2", {"ssd_scan": 0})
+    path["ssd_scan"] += n4
+    steps = OPTIM_WARM + OPTIM_STEPS
+    ms = wall * 1e3 / OPTIM_STEPS
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    print(f"Mamba2-130M train_step (full width and depth, K4, AdamW fp32 moments, batch "
+          f"{LM_BATCH} x {LM_SEQ}): {ms:.3f} ms a step over {OPTIM_STEPS} timed, "
+          f"{LM_BATCH * LM_SEQ * 1e3 / ms:.1f} tokens/s, peak {peak:.3f} GiB; loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}, grad_norm {norms[0]:.4f} -> {norms[-1]:.4f}; "
+          f"K4 launches {n4}")
+    check(n4 == cfg.num_layers * steps,
+          f"Mamba2 train_step: K4 launches {n4} == {cfg.num_layers} layers x {steps} steps")
+    check(losses[-1] < losses[0], f"Mamba2 train_step: loss falls {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f} over {steps} steps on one batch")
+    check(all(np.isfinite(norms)), "Mamba2 train_step: every grad_norm finite")
+    check(int(state["count"]) == steps and state["count"].dtype == torch.int32,
+          f"Mamba2 train_step: count {int(state['count'])} == {steps}, int32")
+    check(all(t.dtype == torch.float32 for k in ("m", "v") for t in _leaves(state[k])),
+          "Mamba2 train_step: AdamW's moments are fp32")
+    _print_profile("Mamba2-130M train_step (one step, K4)", lambda: api.train_step(
+        params, state, batch, cfg, opt, weights[0]), 1)
+    # (b) the same first step with the plain SSD
+    plain_cfg = cfg.replace(use_pallas=False)
+    p_plain, _, m_plain = api.train_step(params0, opt.init(params0), batch, plain_cfg, opt,
+                                         weights[0])
+    scale = max(float(t.float().abs().max()) for t in _leaves(p_plain))
+    gap = max(max_err(a, b) for a, b in zip(_leaves(first), _leaves(p_plain)))
+    dloss = abs(float(m0["loss"]) - float(m_plain["loss"]))
+    print(f"Mamba2 first step, K4 vs the plain SSD: new params gap {gap:.3e} (largest "
+          f"{scale:.3f}), loss {float(m0['loss']):.6f} vs {float(m_plain['loss']):.6f}")
+    check(gap <= TOL[torch.bfloat16] * scale and dloss <= TOL[torch.bfloat16] * abs(
+        float(m_plain["loss"])), f"Mamba2 first step K4 vs plain SSD: params gap {gap:.3e} <= "
+          f"2e-2 x {scale:.3f}, loss gap {dloss:.3e} <= 2e-2 of the loss")
+    del params0, first, params, state, p_plain
+    part.end()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "tokens_s": LM_BATCH * LM_SEQ * 1e3 / ms, "peak_gib": peak, "cfg": cfg}
+
+
+def _leaves(tree) -> list:
+    from repro_torch.tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def _ulp_bf16(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |x| (8 significant bits; the smallest normal's
+    ulp below it)."""
+    a = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _optim_update(dev) -> None:
+    """23 (c) each optimizer's update alone on the card against the same
+    update on CPU copies of the same grads, state and params, 3 steps."""
+    from repro_torch.configs.base import OptimConfig
+    from repro_torch.optim import make_optimizer
+
+    gen = torch.Generator().manual_seed(23)
+    params = {"w32": torch.randn((1024, 384), generator=gen),
+              "w16": torch.randn((1024, 384), generator=gen).to(torch.bfloat16),
+              "b": torch.randn((384,), generator=gen) * 0.1}
+    grads = [{k: (torch.randn(v.shape, generator=gen) * 0.3).to(v.dtype) for k, v in
+              params.items()} for _ in range(3)]
+    worst = {}
+    for name in ("sgd", "momentum", "adamw"):
+        for sdt in ("float32", "bfloat16"):
+            opt = make_optimizer(OptimConfig(name=name, lr=0.05, weight_decay=0.01,
+                                             state_dtype=sdt))
+            pc, pd = params, {k: v.to(dev) for k, v in params.items()}
+            sc, sd_ = opt.init(pc), opt.init(pd)
+            for i, g in enumerate(grads):
+                scale = (0.7, 1.9, 0.4)[i]
+                pc, sc = opt.update(g, sc, pc, scale=scale)
+                pd, sd_ = opt.update({k: v.to(dev) for k, v in g.items()}, sd_, pd, scale=scale)
+                trees = [(pc, pd)] + [(sc[k], sd_[k]) for k in sc if k != "count"]
+                for a_tree, b_tree in trees:
+                    for cpu, card in zip(_leaves(a_tree), _leaves(b_tree)):
+                        card = card.cpu()
+                        d = (card.float() - cpu.float()).abs()
+                        if cpu.dtype == torch.bfloat16:
+                            key = (name, sdt, "bf16 ulps")
+                            err = float((d / _ulp_bf16(cpu)).max())
+                        else:
+                            key = (name, sdt, "fp32 rel")
+                            err = float(d.max()) / max(float(cpu.abs().max()), 1e-30)
+                        worst[key] = max(worst.get(key, 0.0), err)
+            check(int(sd_["count"]) == 3 and sd_["count"].device.type == "cuda",
+                  f"optimizer {name} / {sdt}: count 3 on the card")
+            if name != "sgd":
+                want = torch.bfloat16 if sdt == "bfloat16" else torch.float32
+                check(all(t.dtype == want for t in _leaves(sd_["m"])),
+                      f"optimizer {name} / {sdt}: m kept in {want}")
+    for (name, sdt, unit), err in sorted(worst.items()):
+        limit = 1.0 if unit == "bf16 ulps" else OPTIM_F32_REL
+        print(f"optimizer {name} / {sdt} state, card vs CPU over 3 steps: {unit} {err:.3e}")
+        check(err <= limit, f"optimizer {name} / {sdt}: card vs CPU {unit} {err:.3e} <= {limit}")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import optimizer_for
+
+    ocfg = optimizer_for(get_config("arctic-480b"))
+    opt = make_optimizer(ocfg)
+    st = opt.init({"w": torch.zeros((8,), dtype=torch.bfloat16, device=dev)})
+    check(ocfg.name == "momentum" and st["m"]["w"].dtype == torch.bfloat16,
+          "Arctic's optimizer_for: momentum with m kept in bf16")
+
+
+def _optim_moe(dev, launches: dict) -> dict:
+    """23 (d) Qwen1.5-MoE-A2.7B, depth MOE_LAYERS, sort dispatch, K3 + K5,
+    AdamW: OPTIM_MOE_STEPS steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as k3
+    from repro_torch.kernels import moe_gmm as k5
+    from repro_torch.launch.dryrun import optimizer_for
+    from repro_torch.models import api
+    from repro_torch.models.module import init_params
+    from repro_torch.optim import make_optimizer
+
+    part = _Part("Qwen1.5-MoE train_step (phase 23)")
+    cfg = get_config(MOE_ARCH).replace(num_layers=MOE_LAYERS, moe_dispatch="sort",
+                                       use_pallas=True)
+    params = init_params(api.model_meta(cfg), 0, dev)
+    batch = _lm_batch(cfg, LM_BATCH, LM_SEQ, 0, dev)
+    opt = make_optimizer(optimizer_for(cfg))
+    weights = [torch.tensor(w, dtype=torch.float32, device=dev) for w in _lm_weights(4)]
+    loss0 = float(api.loss_fn(params, batch, cfg)[0])
+    box = [params]
+    del params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k3.reset_launches()
+    k5.reset_launches()
+    (params, state, metrics), wall = _timed(
+        lambda: _train_steps(cfg, box, batch, opt, weights, OPTIM_MOE_STEPS))
+    n3, n5 = k3.launches["flash_attention"], k5.launches["moe_gmm"]
+    peak = _peak_gib()
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    path = launches.setdefault("optim_moe", {"flash_attention": 0, "moe_gmm": 0})
+    path["flash_attention"] += n3
+    path["moe_gmm"] += n5
+    ms = wall * 1e3 / OPTIM_MOE_STEPS
+    losses = [float(m["loss"]) for m in metrics]
+    aux = [float(m["moe_aux"]) for m in metrics]
+    print(f"Qwen1.5-MoE train_step ({MOE_LAYERS} of 24 layers, sort dispatch, K3 + K5, AdamW "
+          f"fp32 moments, batch {LM_BATCH} x {LM_SEQ}): {ms:.3f} ms a step over "
+          f"{OPTIM_MOE_STEPS}, {LM_BATCH * LM_SEQ * 1e3 / ms:.1f} tokens/s, peak {peak:.3f} GiB "
+          f"({reserved:.3f} reserved); "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, moe_aux {aux[0]:.5f} -> {aux[-1]:.5f}; "
+          f"K3 launches {n3}, K5 {n5}")
+    check(n3 == MOE_LAYERS * OPTIM_MOE_STEPS and n5 == 3 * MOE_LAYERS * OPTIM_MOE_STEPS,
+          f"Qwen1.5-MoE train_step: K3 launches {n3} == {MOE_LAYERS} x {OPTIM_MOE_STEPS}, K5 "
+          f"{n5} == 3 x {MOE_LAYERS} x {OPTIM_MOE_STEPS}")
+    check(losses[-1] < losses[0], f"Qwen1.5-MoE train_step: loss falls {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}")
+    check(all(np.isfinite(a) and a > 0 for a in aux), "Qwen1.5-MoE train_step: moe_aux finite, > 0")
+    check(losses[0] == loss0, f"Qwen1.5-MoE train_step: the first step's loss {losses[0]!r} "
+          f"equals api.loss_fn's on the same params {loss0!r}")
+    del params, state
+    part.end()
+    torch.cuda.empty_cache()
+    return {"ms": ms, "tokens_s": LM_BATCH * LM_SEQ * 1e3 / ms, "peak_gib": peak, "cfg": cfg}
+
+
+def _optim_dryrun(runs: dict) -> None:
+    """23 (e) the dry run of (a)'s and (d)'s steps at the card's own shape,
+    against the card's peak and ms a step."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import run_pair
+    from repro_torch.models import api
+    from repro_torch.models.module import param_count
+
+    shape = ShapeConfig("smoke", LM_SEQ, LM_BATCH, "train")
+    for label, r in runs.items():
+        cfg = r["cfg"]
+        rec = run_pair(label, shape, out_dir=str(OPTIM_DRYRUN_ROOT), cfg=cfg)
+        check(bool(rec.get("ok")), f"dry run of {label}: ok ({rec.get('error', '')[:200]})")
+        if not rec.get("ok"):
+            continue
+        arg = rec["memory"]["argument_bytes"]
+        flops = rec["hlo_flops_total"]
+        print(f"dry run of {label} at {LM_BATCH} x {LM_SEQ} (meta device, {rec['wall_s']} s): "
+              f"argument bytes {arg} ({arg / 2**30:.3f} GiB), output bytes "
+              f"{rec['memory']['output_bytes']}; counted FLOPs {flops:.4e} against "
+              f"model_flops_total (6 N D) {rec['model_flops_total']:.4e} (ratio "
+              f"{rec['useful_flops_ratio']:.4f}); bytes {rec['bytes_per_device']:.4e}, dominant "
+              f"{rec['dominant']}; the card's peak {r['peak_gib']:.3f} GiB; achieved "
+              f"{flops / (r['ms'] * 1e-3) / 1e12:.3f} TFLOP/s at {r['ms']:.3f} ms a step "
+              f"({_SHARED.get('smi', 'card not queried')})")
+        check(rec["params"] == param_count(api.model_meta(cfg)),
+              f"dry run of {label}: params {rec['params']} == param_count")
+        check(r["peak_gib"] * 2**30 >= arg, f"dry run of {label}: the card's peak "
+              f"{r['peak_gib']:.3f} GiB >= argument bytes {arg / 2**30:.3f} GiB")
+    shutil.rmtree(OPTIM_DRYRUN_ROOT, ignore_errors=True)
+
+
+class _DuckTask:
+    """A task that is neither `ClassificationTask` nor `LMTask`: the
+    reference's duck typing (``cache_key()``, ``build(data, seed,
+    n_clients)``), its build wrapping `ClassificationTask`'s on the card."""
+
+    def __init__(self):
+        from repro_torch.fl.engine import ClassificationTask
+
+        self.inner = ClassificationTask()
+
+    def cache_key(self):
+        return ("duck",) + tuple(self.inner.cache_key())
+
+    def build(self, data, seed, n_clients, device="cuda"):
+        return self.inner.build(data, seed, n_clients, device=device)
+
+
+def _optim_duck(dev, launches: dict) -> None:
+    """23 (f) a duck-typed task through `run_experiment` (scan), the K1
+    replay of its setup and `run_matrix` over 2 cells with K1 across them,
+    bitwise the same runs with `ClassificationTask`."""
+    from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
+    from repro_torch.data.pipeline import FederatedClassification, make_client_speeds
+    from repro_torch.fl.engine import ClassificationTask, _cached_fl_setup, run_experiment
+    from repro_torch.fl.engine import run_matrix, sampling_for
+    from repro_torch.kernels import weighted_update as wu
+
+    flc = _mlp_flc(dev).replace(server_steps=OPTIM_DUCK_T)
+    path = launches.setdefault("optim_duck", {})
+    out = {}
+    for name, task in (("duck", _DuckTask()), ("classification", ClassificationTask())):
+        data = FederatedClassification(n_clients=flc.n_clients, seed=flc.seed)
+        r = run_experiment(flc, "gen_async", eval_every=100, data=data, task=task)
+        setup = _cached_fl_setup(data, flc.seed, task, n_clients=flc.n_clients, device=dev)
+        mu = make_client_speeds(flc.n_clients, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+        cfg = ServerConfig(n=flc.n_clients, C=flc.concurrency, T=flc.server_steps, eta=0.05,
+                           mu=mu, p=sampling_for(flc, mu), seed=flc.seed, eval_every=100,
+                           engine="scan", weighting="importance", update="pallas",
+                           device=dev.type)
+        wu.reset_launches()
+        w_k1, _ = run_generalized_async_sgd(setup.params, setup.clients, cfg,
+                                            eval_fn=setup.eval_fn)
+        if name == "duck":
+            _k1_counts(path, "duck-typed task", flc.server_steps, len(MLP_LEAVES))
+        wu.reset_launches()
+        m = run_matrix(flc, seeds=(0, 1), policies=("optimal",), eval_every=100, data=data,
+                       task=task, kernel="pallas")
+        if name == "duck":
+            n1 = wu.launches["weighted_update"]
+            path["weighted_update"] += n1
+            check(n1 >= flc.server_steps and n1 % flc.server_steps == 0,
+                  f"duck-typed matrix over 2 cells: K1 launches {n1}, a whole number a step "
+                  f"of the {flc.server_steps}")
+        out[name] = (r, w_k1, m)
+    (r_d, w_d, m_d), (r_c, w_c, m_c) = out["duck"], out["classification"]
+    same = (all(torch.equal(r_d.final_params[k], r_c.final_params[k]) for k in r_c.final_params)
+            and np.array_equal(r_d.eval_acc, r_c.eval_acc)
+            and all(torch.equal(w_d[k], w_c[k]) for k in w_c)
+            and np.array_equal(m_d.eval_acc, m_c.eval_acc)
+            and np.array_equal(m_d.final_acc, m_c.final_acc))
+    print(f"duck-typed task on the card (T={flc.server_steps}): run_experiment acc "
+          f"{r_d.eval_acc.tolist()}, K1 replay, run_matrix over 2 cells final acc "
+          f"{m_d.final_acc.ravel().tolist()}")
+    check(same, "duck-typed task: run_experiment, the K1 replay and run_matrix bitwise the "
+          "same runs with ClassificationTask")
+
+
+def _optim_quickstart():
+    """23 (g) `examples/torch/quickstart.py` in a child process on the card,
+    on a thread beside the phase's other parts (its process start-up and
+    host simulation hold the card little); the caller joins it."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+
+    def child():
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, str(root / "examples" / "torch" / "quickstart.py")],
+                             capture_output=True, text=True, timeout=300, env=env, cwd=root)
+        return res, time.perf_counter() - t0
+
+    return ThreadPoolExecutor(1).submit(child)
+
+
+def _optim_quickstart_check(job) -> None:
+    res, wall = job.result()
+    tail = res.stdout.strip().splitlines()[-3:]
+    print(f"examples/torch/quickstart.py: exit {res.returncode} in {wall:.1f} s (beside the "
+          f"phase's other parts); {tail}")
+    if res.returncode:
+        print(res.stderr[-3000:])
+    check(res.returncode == 0, "examples/torch/quickstart.py exits 0 on the card")
+
+
+def phase_optim(dev, launches: dict) -> None:
+    """23. The optimizer step (see `OPTIM_WARM`): adds K4's launches to
+    ``launches`` under "optim_mamba2", K3's and K5's under "optim_moe", K1's
+    under "optim_duck"."""
+    t0 = time.perf_counter()
+    quickstart = _optim_quickstart()
+    with _card_memory(12, "23 (a)-(b): Mamba2-130M train_step"):
+        mamba = _optim_mamba(dev, launches)
+    _optim_update(dev)
+    t1 = time.perf_counter()
+    with _card_memory(62, "23 (d): Qwen1.5-MoE train_step"):
+        moe = _optim_moe(dev, launches)
+    t2 = time.perf_counter()
+    _optim_dryrun({MAMBA_ARCH: mamba, MOE_ARCH: moe})
+    t3 = time.perf_counter()
+    _optim_duck(dev, launches)
+    t4 = time.perf_counter()
+    _optim_quickstart_check(quickstart)
+    t5 = time.perf_counter()
+    print(f"phase 23 times: Mamba2 and the update {t1 - t0:.1f} s, MoE {t2 - t1:.1f} s, the dry "
+          f"run {t3 - t2:.1f} s, the duck-typed task {t4 - t3:.1f} s, waiting for the "
+          f"quickstart {t5 - t4:.1f} s; phase 23 {t5 - t0:.1f} s")
+
+
 GROUPS = KERNEL_GROUPS + LM_LANE + MLP_LANE
 
 
@@ -5442,6 +5869,9 @@ def _lm_lane(dev, groups: set, launches: dict, done) -> None:
     if "serve" in groups:  # 22. the serving plane (its parts declare their memory)
         phase_serve(dev, launches)
         done("22")
+    if "optim" in groups:  # 23. the optimizer step, the dry run, the examples
+        phase_optim(dev, launches)
+        done("23")
 
 
 def _mlp_lane(dev, groups: set, launches: dict, done) -> None:
@@ -5519,6 +5949,7 @@ def main(argv: list[str] | None = None) -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; card: {smi}")
+    _SHARED["smi"] = smi
 
     # 1. build every kernel source of the checkout, one nvcc each, in parallel
     t0 = time.perf_counter()

@@ -83,8 +83,7 @@ class ServerConfig:
     """One server-loop run of Generalized AsyncSGD / AsyncSGD.
 
     The field names are `repro.core.async_sgd.ServerConfig`'s, so one config
-    drives both packages, plus ``device``.  Options this port does not run
-    yet raise `NotImplementedError` naming their ROADMAP item.
+    drives both packages, plus ``device``.
     """
 
     n: int                      # number of clients
@@ -185,7 +184,7 @@ def _resolve_scenario_cfg(cfg: ServerConfig):
     return sc if sc.enabled else None
 
 
-def _reject_unported(cfg: ServerConfig) -> None:
+def _check_config(cfg: ServerConfig) -> None:
     """The checks of `repro`'s ServerConfig that come before any run; the
     engines' own validation follows, as the reference's does."""
     if cfg.stream not in ("host", "device"):
@@ -482,7 +481,7 @@ def _resolve_sparse(cfg: ServerConfig, mu, p, block_size, ckpt_on: bool = False)
     try:
         spec, mu_m, p_m = build_class_spec(mu, p)
         if cfg.faults is not None and cfg.faults.enabled:
-            resolve_fault_rates_classes(cfg.faults, spec)  # class-constant?
+            resolve_fault_rates_classes(cfg.faults, spec, cfg.device)  # class-constant?
     except ValueError:
         if forced:
             raise
@@ -662,7 +661,7 @@ def run_generalized_async_sgd(
     k)`` taking 0-d device tensors, and `eval_fn` (if given) must return a
     device scalar.  The "python" engine accepts any host callable.
     """
-    _reject_unported(cfg)
+    _check_config(cfg)
     device = resolve_device(cfg.device)
     p, mu = _resolve(cfg)
     if cfg.engine == "scan":
@@ -818,7 +817,7 @@ def run_fedbuff(
     same queueing clock; the CS performs T//Z buffered updates over T
     completions.  ``cfg.engine == "scan"`` replays it on the engine (per
     event, blocked, lane-sharded), as `run_generalized_async_sgd` does."""
-    _reject_unported(cfg)
+    _check_config(cfg)
     device = resolve_device(cfg.device)
     p, mu = _resolve(cfg)
     pu = np.full(cfg.n, 1.0 / cfg.n)  # FedBuff samples uniformly

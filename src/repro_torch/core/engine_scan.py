@@ -869,8 +869,9 @@ def _world_group():
     return dist.group.WORLD if dist.is_available() and dist.is_initialized() else None
 
 
-def _require_world(ranks: int, what: str):
-    """The default process group, which must hold exactly ``ranks`` ranks;
+def _require_world(ranks: int, what: str, spare: bool = False):
+    """The default process group, which must hold exactly ``ranks`` ranks
+    (with ``spare``, at least ``ranks``: the ranks above take no part);
     never falls back to an unsharded run when it is missing."""
     import torch.distributed as dist
 
@@ -883,7 +884,7 @@ def _require_world(ranks: int, what: str):
         raise ValueError(f"{what} needs a torch.distributed process group of {ranks} ranks, "
                          f"but none is initialised: {start}")
     world = dist.get_world_size()
-    if world != ranks:
+    if world < ranks or (world > ranks and not spare):
         raise ValueError(f"{what} but the torch.distributed process group has world size "
                          f"{world}: {start}")
     return dist.group.WORLD
@@ -930,12 +931,15 @@ class _Mesh:
     """This rank's place in a ``shard × lane`` group of ranks: rank r =
     s·L + l takes the cells of shard s and the lanes of lane l; its lanes
     are sharded over the ranks {s·L + l'} (``lane_group``) and its cells
-    gathered over {s'·L + l} (``shard_group``)."""
+    gathered over {s'·L + l} (``shard_group``).  In a world of more than
+    S·L ranks (``spare``) the ranks from S·L up take no part (``shard`` is
+    None there) and receive the results from rank 0 (`_from_rank0`)."""
 
-    shard: int
-    lane: int
+    shard: int | None
+    lane: int | None
     shard_group: Any
     lane_group: Any
+    spare: bool = False
 
 
 _MESHES: dict = {}
@@ -943,24 +947,46 @@ _MESHES: dict = {}
 
 def _scenario_mesh(shard_devices: int, lane_devices: int, block_size: int) -> _Mesh:
     """The scenario × lane layout (`jit_fused_runner(vmap_scenarios=True,
-    shard_devices=S, lane_devices=L)`): a world of S·L ranks and its
-    subgroups, made once per world with `dist.new_group` in the same order
-    in every rank (each rank calls it for every group, as the call
+    shard_devices=S, lane_devices=L)`) on ranks 0 … S·L−1 of a world of at
+    least S·L ranks, as the reference's mesh takes its first S·L devices:
+    its subgroups, made once per world with `dist.new_group` in the same
+    order in every rank (each rank calls it for every group, as the call
     requires)."""
     import torch.distributed as dist
 
     _check_lane_blocks(lane_devices, block_size)
     S, L = int(shard_devices), int(lane_devices)
     world = _require_world(S * L, f"shard_devices={S} x lane_devices={L} "
-                                  f"needs {S * L} ranks")
+                                  f"needs {S * L} ranks", spare=True)
     key = (world, S, L)
     if key not in _MESHES:
         lane_groups = ([dist.new_group([s * L + l for l in range(L)]) for s in range(S)]
                        if L > 1 else [None] * S)
         shard_groups = [dist.new_group([s * L + l for s in range(S)]) for l in range(L)]
-        s, l = divmod(dist.get_rank(), L)
-        _MESHES[key] = _Mesh(s, l, shard_groups[l], lane_groups[s])
+        rank, spare = dist.get_rank(), dist.get_world_size() > S * L
+        if rank >= S * L:
+            _MESHES[key] = _Mesh(None, None, None, None, spare)
+        else:
+            s, l = divmod(rank, L)
+            _MESHES[key] = _Mesh(s, l, shard_groups[l], lane_groups[s], spare)
     return _MESHES[key]
+
+
+def _from_rank0(out, mesh: _Mesh, device):
+    """``out`` (a rank's ``(w, evals, extras)``, None on a rank that took no
+    part) as every rank returns it: with spare ranks, rank 0's results sent
+    to the world in one `broadcast_object_list` (as CPU tensors, moved to
+    ``device``), so every rank holds the same grid bitwise."""
+    if not mesh.spare:
+        return out
+    import torch.distributed as dist
+
+    box = [tree_map(lambda t: t.detach().cpu() if torch.is_tensor(t) else t, out)
+           if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(box)
+    if mesh.shard is not None:
+        return out
+    return tree_map(lambda t: t.to(device) if torch.is_tensor(t) else t, box[0])
 
 
 def _make_host_block_runner(
@@ -1792,20 +1818,27 @@ def jit_fused_runner(grad_fn, n: int, C: int, T: int, *, vmap_scenarios: bool = 
     `make_fused_runner` and take part in the memo key.
 
     ``shard_devices=S > 1`` (with ``vmap_scenarios``) splits the cells over
-    the ranks of a process group of S·L ranks, L = ``lane_devices``: rank
-    r = s·L + l runs cells [s·B/S, (s+1)·B/S), shards their blocks' lanes
-    over the ranks {s·L + l'} and gathers the cells' results over the ranks
-    {s'·L + l}, so every rank returns all B cells (`_scenario_mesh`).  As in
-    the reference, with lanes the inputs and outputs are flat (B, ...) (its
-    2-D ``("scen", "lanes")`` mesh); without, they carry a leading (S, B/S)
-    (its ``pmap``): ``mu[s]``, ``p0[s]`` and ``key[s]`` are shard s's cells.
+    ranks 0 … S·L−1 of a process group of at least S·L ranks, L =
+    ``lane_devices``: rank r = s·L + l runs cells [s·B/S, (s+1)·B/S), shards
+    their blocks' lanes over the ranks {s·L + l'} and gathers the cells'
+    results over the ranks {s'·L + l}, so every rank returns all B cells
+    (`_scenario_mesh`); ranks from S·L up take no part and receive the grid
+    from rank 0 (lanes alone, S = 1, in a world of more than L ranks, take
+    this layout too).  As in the reference, with lanes the inputs and
+    outputs are flat (B, ...) (its 2-D ``("scen", "lanes")`` mesh); without,
+    they carry a leading (S, B/S) (its ``pmap``): ``mu[s]``, ``p0[s]`` and
+    ``key[s]`` are shard s's cells.  Without ``vmap_scenarios`` the
+    reference ignores ``shard_devices``, and so does this: the unsharded
+    runner, or the lane runner with ``lane_devices > 1``.
     """
     if shard_devices < 1:
         raise ValueError("shard_devices >= 1 required")
-    if shard_devices > 1 and not vmap_scenarios:
-        raise ValueError("shard_devices > 1 shards the cells of vmap_scenarios=True")
+    if not vmap_scenarios:
+        shard_devices = 1
+    layout = vmap_scenarios and (shard_devices > 1
+                                 or (lane_devices > 1 and world_size() > lane_devices))
     mesh = (_scenario_mesh(shard_devices, lane_devices, max(int(kw.get("block_size", 1)), 1))
-            if shard_devices > 1 else None)
+            if layout else None)
     cache, func = _runner_cache(grad_fn)
 
     def entry(k, v):
@@ -1823,8 +1856,9 @@ def jit_fused_runner(grad_fn, n: int, C: int, T: int, *, vmap_scenarios: bool = 
             cache[key] = make_fused_runner(grad_fn, n, C, T, vmap_scenarios=vmap_scenarios,
                                            lane_devices=lane_devices, **kw)
         else:
-            run = make_fused_runner(grad_fn, n, C, T, vmap_scenarios=True,
-                                    lane_devices=lane_devices, lane_axis=mesh.lane_group, **kw)
+            run = (None if mesh.shard is None else
+                   make_fused_runner(grad_fn, n, C, T, vmap_scenarios=True,
+                                     lane_devices=lane_devices, lane_axis=mesh.lane_group, **kw))
             cache[key] = _shard_cells(run, mesh, shard_devices, flat=lane_devices > 1)
     return cache[key]
 
@@ -1836,7 +1870,9 @@ def _shard_cells(run, mesh: _Mesh, S: int, flat: bool):
     the cells arrive as (B, ...) and shard s takes rows [s·B/S, (s+1)·B/S);
     else they arrive as (S, B/S, ...) and shard s takes row s, and every
     output gets the leading (S, B/S) back.  The sampling-class sizes
-    (``class_counts``) are the same in every shard and stay as they are."""
+    (``class_counts``) are the same in every shard and stay as they are.
+    A rank outside the layout (``run`` None) only receives the results
+    (`_from_rank0`)."""
 
     def take(a):
         if a is None:
@@ -1849,6 +1885,8 @@ def _shard_cells(run, mesh: _Mesh, S: int, flat: bool):
         return a[mesh.shard * per : (mesh.shard + 1) * per]
 
     def gather(w, evals, extras):
+        if S == 1:
+            return w, evals, extras
         leaves, unflatten = tree_flatten(w)
         names = [k for k in extras if k != "class_counts"]
         ts = [*leaves, evals, *(extras[k] for k in names)]
@@ -1862,11 +1900,14 @@ def _shard_cells(run, mesh: _Mesh, S: int, flat: bool):
         return unflatten(out[: len(leaves)]), out[len(leaves)], extras
 
     def sharded(w0, mu, p0, key, eta):
-        return gather(*run(w0, take(mu), take(p0), take(key), eta))
+        out = None if run is None else gather(*run(w0, take(mu), take(p0), take(key), eta))
+        return _from_rank0(out, mesh, tree_leaves(w0)[0].device)
 
     def from_draws(w0, mu, p0, eta, *draws, **kw_draws):
-        return gather(*run.from_draws(w0, take(mu), take(p0), eta, *map(take, draws),
-                                      **{k: take(v) for k, v in kw_draws.items()}))
+        out = None if run is None else gather(*run.from_draws(
+            w0, take(mu), take(p0), eta, *map(take, draws),
+            **{k: take(v) for k, v in kw_draws.items()}))
+        return _from_rank0(out, mesh, tree_leaves(w0)[0].device)
 
     sharded.from_draws = from_draws
     return sharded

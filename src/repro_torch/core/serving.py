@@ -51,6 +51,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .stream_device import fma32, kahan_add, kahan_value
 
 __all__ = [
@@ -227,8 +228,9 @@ class ServeStats(NamedTuple):
     checksum_c: Any  # snapshot row's mean (the serving read path)
 
 
-def serve_init(cfg: ServingConfig, *, cells: int | None = None, device="cpu") -> ServeState:
+def serve_init(cfg: ServingConfig, *, cells: int | None = None, device="cuda") -> ServeState:
     """The empty request table (with a leading axis of ``cells``)."""
+    device = resolve_device(device)
     R = cfg.R
     lead = () if cells is None else (cells,)
     zi = lambda *s: torch.zeros((*lead, *s), dtype=_I64, device=device)  # noqa: E731
@@ -245,7 +247,8 @@ def serve_init(cfg: ServingConfig, *, cells: int | None = None, device="cpu") ->
     )
 
 
-def serve_stats_init(*, cells: int | None = None, device="cpu") -> ServeStats:
+def serve_stats_init(*, cells: int | None = None, device="cuda") -> ServeStats:
+    device = resolve_device(device)
     lead = () if cells is None else (cells,)
     zi = lambda *s: torch.zeros((*lead, *s), dtype=_I64, device=device)  # noqa: E731
     zf = lambda: torch.zeros(lead, dtype=_F32, device=device)  # noqa: E731

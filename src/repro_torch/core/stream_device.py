@@ -430,11 +430,11 @@ def _table(a, dtype, device) -> torch.Tensor:
     """A host table on ``device``: on a card, an asynchronous copy from
     pinned memory, so resolving a run's tables makes no host sync."""
     t = torch.as_tensor(np.asarray(a), dtype=dtype)
-    dev = torch.device(device)
+    dev = resolve_device(device)
     return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
 
 
-def resolve_fault_rates(fault, n: int, device="cpu") -> FaultRates:
+def resolve_fault_rates(fault, n: int, device="cuda") -> FaultRates:
     """`FaultConfig` -> float32 ``(kappa, theta, q_off, q_on)`` tensors on
     ``device``, the operand order `fault_stream_step` races over."""
     q_off, q_on, kappa, theta = fault.resolve(n)
@@ -629,7 +629,7 @@ def _scenario_tables(scenario):
     return acdf, srate, absorb, nxt, mod
 
 
-def resolve_scenario(scenario, n: int, device="cpu") -> ScenarioRates:
+def resolve_scenario(scenario, n: int, device="cuda") -> ScenarioRates:
     """`ScenarioConfig` -> dense `ScenarioRates` ((n,) modulation) on
     ``device``."""
     acdf, srate, absorb, nxt, mod = _scenario_tables(scenario)
@@ -662,7 +662,7 @@ def _class_values(rates, spec, what: str, group: str) -> list:
     return out
 
 
-def resolve_scenario_classes(scenario, spec, device="cpu") -> ScenarioRates:
+def resolve_scenario_classes(scenario, spec, device="cuda") -> ScenarioRates:
     """Class-level `resolve_scenario`: the modulation rates as ``(m,)``
     tensors.  Modulation must be constant within each speed class, as the
     fault rates must (`resolve_fault_rates_classes`)."""
@@ -1252,7 +1252,7 @@ def _spec_on(spec: ClassSpec, device) -> ClassSpec:
                        else _table(a, _I64, dev) for a in spec))
 
 
-def resolve_fault_rates_classes(fault, spec: ClassSpec, device="cpu") -> FaultRates:
+def resolve_fault_rates_classes(fault, spec: ClassSpec, device="cuda") -> FaultRates:
     """Class-level `resolve_fault_rates`: ``(kappa, theta, q_off, q_on)`` as
     ``(m,)`` float32 tensors on ``device``.  The rates must be constant
     within each speed class (the exchangeability the sparse idle pools rely

@@ -16,6 +16,7 @@ come from `torch.Generator`s; parity tests pass the JAX package's arrays in.
 """
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass, field, replace
 from functools import lru_cache
 from typing import Any, Callable
@@ -36,7 +37,6 @@ from ..core.theory import BoundConstants
 from ..data.pipeline import FederatedClassification, SyntheticLMStream, make_client_speeds
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
-from ..unported import unported
 
 __all__ = [
     "MLPClassifier",
@@ -108,7 +108,9 @@ def params_from_numpy(params, device):
     """A JAX parameter tree (nested dicts of arrays) as the port's tensors.
 
     Both packages keep the same layout, so this is a bitwise copy; it is
-    the one named place tests carry weights across."""
+    the one named place tests carry weights across.  An optimizer state
+    (`optim.make_optimizer`'s dict: ``count`` a 0-d int32, the moments
+    trees in their state dtype) crosses the same way."""
     dev = resolve_device(device)
     return tree_map(lambda a: _tensor_from_numpy(a).to(dev), params)
 
@@ -406,35 +408,41 @@ def _setup_device(setup: TaskSetup) -> torch.device:
     return tree_leaves(setup.params)[0].device
 
 
+def _takes_device(build) -> bool:
+    try:
+        params = inspect.signature(build).parameters
+    except (TypeError, ValueError):
+        return False
+    return "device" in params or any(p.kind is p.VAR_KEYWORD for p in params.values())
+
+
 def _cached_fl_setup(data: FederatedClassification | None, seed: int, task=None,
                      n_clients: int | None = None,
                      device: str | torch.device = "cuda") -> TaskSetup:
     """Task setup (params, device clients, eval fn) memoized per (seed, task)
     on the dataset — or, for dataset-free tasks like `LMTask`, on the task
     object — so repeated runs reuse one gradient source (and with it the
-    memoized runner).  A cached setup on another device raises."""
+    memoized runner).
+
+    ``task`` is any object with ``cache_key()`` and ``build(data, seed,
+    n_clients) -> TaskSetup``, as in the reference; the port's own tasks
+    (and any whose ``build`` takes a ``device`` keyword) are built on
+    ``device``.  A cached setup on another device raises, and so does a
+    task that put its tensors elsewhere."""
     task = task if task is not None else ClassificationTask()
     dev = resolve_device(device)
     owner = data if data is not None else task
     cache = owner.__dict__.setdefault("_fl_setup_cache", {})
     key = (seed, task.cache_key())
     if key not in cache:
-        n = n_clients if n_clients is not None else data.n_clients
-        cache[key] = task.build(data, seed, n, device=dev)
+        n = n_clients if n_clients is not None else getattr(data, "n_clients", None)
+        kw = {"device": dev} if _takes_device(task.build) else {}
+        cache[key] = task.build(data, seed, n, **kw)
     setup = cache[key]
     have = _setup_device(setup)
     if have.type != dev.type or (dev.index is not None and have.index != dev.index):
         raise ValueError(f"cached task setup lives on {have}, run asks for {dev}")
     return setup
-
-
-def _reject_unported(flc: FLConfig, method, task):
-    """Duck-typed tasks (item 7d); the device stream's own unported options
-    raise in `core.async_sgd`."""
-    if method not in ("gen_async", "async_sgd", "fedbuff", "fedavg", "favano"):
-        raise ValueError(method)
-    if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
-        raise unported(f"task={type(task).__name__}", "7d")
 
 
 def run_experiment(
@@ -460,10 +468,11 @@ def run_experiment(
     device-resident replay engine over the cached task setup; the
     synchronous baselines (fedavg, favano) always run their host loop, as in
     `repro`.  ``task`` picks the workload: the paper's MLP
-    (`ClassificationTask`, the default) or `LMTask` over a dense / VLM /
+    (`ClassificationTask`, the default), `LMTask` over a dense / VLM /
     audio / SSM / hybrid model config (``eval_acc`` then carries eval loss;
     the Python loop drives the same device gradient through its host
-    ``grad`` entry).  ``flc.block_size`` turns on the micro-blocked replay
+    ``grad`` entry), or any object with ``cache_key()`` and ``build(data,
+    seed, n_clients) -> TaskSetup`` (`_cached_fl_setup`).  ``flc.block_size`` turns on the micro-blocked replay
     (an int E, or "auto"), ``flc.segmentation`` its cut placement, and
     ``flc.devices = D > 1`` shards its lanes over the D ranks of a
     `torch.distributed` process group (every rank makes the same call and
@@ -487,7 +496,8 @@ def run_experiment(
     checkpoint and continues, bitwise.  The other keywords keep
     `repro.fl.engine.run_experiment`'s signature.
     """
-    _reject_unported(flc, method, task)
+    if method not in ("gen_async", "async_sgd", "fedbuff", "fedavg", "favano"):
+        raise ValueError(method)
     device = resolve_device(flc.device)
     if flc.stream == "device":
         if engine == "python":
@@ -712,10 +722,11 @@ def run_matrix(
     (``block_size`` a >1 multiple of D; every cell on the cell axis in every
     rank).  The device stream takes the world's W ranks as a ``shard ×
     lane`` layout: D lanes and ``shard = W // D`` scenario shards when that
-    divides the B cells (else 1, and then W must be D); without lanes the
-    cells are sharded over the W ranks when W divides B
-    (`engine_scan.jit_fused_runner`).  W is the group's world size, 1
-    without a group (`engine_scan.world_size`).
+    divides the B cells (else 1), on ranks 0 … shard·D−1, the ranks
+    above taking no part and receiving the grid from rank 0, as the
+    reference's mesh takes its first devices; without lanes the cells are
+    sharded over the W ranks when W divides B (`engine_scan.jit_fused_runner`).
+    W is the group's world size, 1 without a group (`engine_scan.world_size`).
     """
     from ..core.async_sgd import _auto_block_size, _pallas_update_fn, _probe_stream_slots
     from ..core.engine_scan import blocked_inputs_batch, jit_fused_runner, jit_runner, world_size
@@ -734,8 +745,6 @@ def run_matrix(
     if sc is not None and not sc.enabled:
         sc = None
     lane = max(int(flc.devices if devices is None else devices), 1)
-    if task is not None and not isinstance(task, (ClassificationTask, LMTask)):
-        raise unported(f"task={type(task).__name__}", "7d")
     if stream == "device":
         if flc.service != "exp":
             raise ValueError("stream='device' supports exponential service only; use "

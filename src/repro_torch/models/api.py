@@ -3,21 +3,27 @@
     meta      = model_meta(cfg)                      # ParamMeta tree
     logits, _ = forward(params, batch, cfg)          # train / prefill
     loss, aux = loss_fn(params, batch, cfg)
+    params, opt, metrics = train_step(params, opt_state, batch, cfg, opt,
+                                      sampling_weight)   # Alg. 1 line 10 weight
 
     cache     = init_cache(cfg, batch, seq_len)      # cache spec (CacheSpec leaves)
     logits, c = decode_step(params, cache, batch, cfg)
     out, c    = serve_step(params, cache, batch, cfg)  # + greedy next ids
 
 The dense, MoE, VLM and audio families (the transformer), the SSM family
-(`mamba2`) and the hybrid (`hybrid`) are ported; the optimizer-driven
-`train_step` raises `NotImplementedError` naming its ROADMAP item.
+(`mamba2`) and the hybrid (`hybrid`) all run.  ``sampling_weight`` is the
+Generalized-AsyncSGD importance factor 1/(n p_j) (1.0 recovers plain
+synchronous SGD).  With ``cfg.use_pallas`` the forward runs the hand-written
+kernels (K3, K4, K5 through `kernels.ops`); their backwards are the plain
+reference's VJPs.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ModelConfig
-from ..unported import unported
+from ..optim import Optimizer
+from ..tree import tree_leaves
 from . import hybrid, mamba2, transformer
 
 __all__ = [
@@ -90,9 +96,21 @@ def loss_fn(params, batch, cfg: ModelConfig):
     return loss, aux
 
 
-def train_step(*args, **kwargs):
-    """One optimizer step (`repro.optim`) — not ported yet."""
-    raise unported("api.train_step (optim/)", "7d")
+def train_step(params, opt_state, batch, cfg: ModelConfig, opt: Optimizer,
+               sampling_weight: torch.Tensor | float = 1.0):
+    """One Generalized-AsyncSGD server step: the gradient of `loss_fn`, then
+    ``opt.update`` scaled by ``sampling_weight`` = 1/(n p_j) for the
+    contributing client j (Alg. 1), which keeps the estimator unbiased.
+
+    Returns ``(new_params, new_opt_state, {"loss", "moe_aux",
+    "grad_norm"})``; ``grad_norm`` is the fp32 square root of the sum of the
+    leaves' squared sums, in leaf order.
+    """
+    grads, (loss, aux) = torch.func.grad_and_value(loss_fn, has_aux=True)(params, batch, cfg)
+    new_params, new_opt = opt.update(grads, opt_state, params, scale=sampling_weight)
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
+    metrics = {"loss": loss, "moe_aux": aux, "grad_norm": gnorm}
+    return new_params, new_opt, metrics
 
 
 def serve_step(params, cache, batch, cfg: ModelConfig):

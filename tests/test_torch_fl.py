@@ -135,14 +135,63 @@ def test_cuda_device_raises_without_a_card():
         t_fl.MLPClassifier(8, 3)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(task=object()), "item 7"),
-    (dict(faults="crash", flc=dict(stream="device")), None),
-    (dict(ckpt_dir="ckpt", ckpt_every=5, flc=dict(stream="device")), None),
-    (dict(serving="overload", flc=dict(stream="device")), None),
+class _Duck:
+    """A task that is neither `ClassificationTask` nor `LMTask`: what the
+    reference's duck typing asks (``cache_key()``, ``build(data, seed,
+    n_clients)``), its build wrapping another task's; keyword arguments
+    (the port's ``device``) pass through."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def cache_key(self):
+        return ("duck",) + tuple(self.inner.cache_key())
+
+    def build(self, data, seed, n_clients, **kw):
+        return self.inner.build(data, seed, n_clients, **kw)
+
+
+def _duck_runs_match_jax():
+    """A duck-typed task through `run_experiment` (scan, per event and
+    blocked) and `run_matrix` against the reference's with its own duck,
+    the JAX weights carried into the port's setup under the duck's key;
+    then a fresh duck on a fresh dataset, built through ``device=``."""
+    (_, j_task, _), (t_data, t_task, setup) = _pair()
+    jd, td = _Duck(j_task), _Duck(t_task)
+    t_data.__dict__["_fl_setup_cache"][(0, td.cache_key())] = setup
+    # a fresh dataset, so the duck's setup takes its first eval batch, as
+    # the carried setup did (each `eval_batch` call draws the next one)
+    j_data = JData(n_clients=N, seed=0)
+    for E_ in (1, 4):
+        fkw = dict(n_clients=N, concurrency=C, server_steps=T, engine="scan", block_size=E_)
+        rj = j_fl.run_experiment(JFLConfig(**fkw), "gen_async", eval_every=EVAL, data=j_data,
+                                 task=jd)
+        rt = t_fl.run_experiment(FLConfig(device="cpu", **fkw), "gen_async", eval_every=EVAL,
+                                 data=t_data, task=td)
+        assert _gap(rt.final_params, rj.final_params) <= 1e-4
+        np.testing.assert_allclose(rt.eval_acc, rj.eval_acc, atol=2 / 2048)
+    grid = dict(seeds=(0,), policies=("uniform", "optimal"), eval_every=EVAL)
+    fkw = dict(n_clients=N, concurrency=C, server_steps=T)
+    mj = j_fl.run_matrix(JFLConfig(**fkw), data=j_data, task=jd, **grid)
+    mt = t_fl.run_matrix(FLConfig(device="cpu", **fkw), data=t_data, task=td, **grid)
+    np.testing.assert_allclose(mt.eval_acc, mj.eval_acc, atol=2 / 2048)
+    np.testing.assert_array_equal(mt.eval_times, mj.eval_times)
+    fresh = _Duck(t_fl.ClassificationTask(hidden=HIDDEN))
+    r = t_fl.run_experiment(FLConfig(n_clients=4, concurrency=2, server_steps=10, engine="scan",
+                                     device="cpu"), "gen_async", eval_every=5,
+                            data=FederatedClassification(n_clients=4, seed=0), task=fresh)
+    assert r.eval_steps.tolist() == [5, 10] and np.isfinite(r.eval_acc).all()
+
+
+@pytest.mark.parametrize("kw", [
+    dict(task="duck"),
+    dict(faults="crash", flc=dict(stream="device")),
+    dict(ckpt_dir="ckpt", ckpt_every=5, flc=dict(stream="device")),
+    dict(serving="overload", flc=dict(stream="device")),
 ])
-def test_run_experiment_unported_raise(kw, item, tmp_path):
-    """Duck-typed tasks raise item 7d.  Faults, checkpoints and serving run
+def test_run_experiment_options_run_like_jax(kw, tmp_path):
+    """Duck-typed tasks run as the reference's do (`_duck_runs_match_jax`).
+    Faults, checkpoints and serving run
     on the device stream (under ``tmp_path``) as the reference's do:
     finite curves of the same eval points, the reference's extras (the
     kinds of all T events under faults; the ``serve_*`` counters, their
@@ -165,9 +214,8 @@ def test_run_experiment_unported_raise(kw, item, tmp_path):
     method = kw.pop("method", "gen_async")
     fkw = kw.pop("flc", {})
     flc = FLConfig(n_clients=4, concurrency=2, server_steps=10, device="cpu", **fkw)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            t_fl.run_experiment(flc, method, **kw)
+    if kw.get("task") == "duck":
+        _duck_runs_match_jax()
     else:
         r = t_fl.run_experiment(flc, method, eval_every=5, **kw)
         jkw = dict(kw)

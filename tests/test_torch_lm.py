@@ -407,16 +407,27 @@ def test_cli_ckpt_dir_saves_the_final_params(tmp_path, capsys):
     assert abs(float(setup.eval_fn(back)) - last) <= 1e-4
 
 
-def test_unported_model_entry_points_raise():
-    """``api.train_step`` waits for item 7d; decode (item 11) is ported:
+def test_model_entry_points_run():
+    """Every entry point of `api` runs: ``train_step`` takes one AdamW step
+    (its parity with the reference is in `tests/test_torch_optim.py`);
     `init_cache` returns the spec, and `decode_step` / `serve_step` run one
     token against it (their parity with the reference is in
     `tests/test_torch_decode.py`)."""
+    from repro_torch.configs.base import OptimConfig
     from repro_torch.launch.serve import materialize_cache
+    from repro_torch.optim import make_optimizer
 
     cfg = t_configs.smoke_config("granite-3-2b")
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        t_api.train_step()
+    params = t_module.init_params(t_api.model_meta(cfg), 0, "cpu")
+    opt = make_optimizer(OptimConfig())
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    new, state, metrics = t_api.train_step(params, opt.init(params), batch, cfg, opt, 0.5)
+    assert int(state["count"]) == 1 and bool(torch.isfinite(metrics["loss"]))
+    assert float(metrics["grad_norm"]) > 0
+    from repro_torch.tree import tree_leaves
+
+    assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(new), tree_leaves(params)))
     spec = t_api.init_cache(cfg, 1, 8)
     assert tuple(spec["k"].shape) == (cfg.num_layers, 1, 8, cfg.num_kv_heads, cfg.head_dim)
     params = t_module.init_params(t_api.model_meta(cfg), 0, "cpu")

@@ -182,7 +182,7 @@ def test_serve_apply_bitwise_over_reference_uniforms(name):
     live = rng.random(T) < 0.7
     snaps = rng.normal(size=(C, 33)).astype(np.float32)
     j_sv, j_st = jsv.serve_init(jc), jsv.serve_stats_init()
-    t_sv, t_st = sv.serve_init(tc), sv.serve_stats_init()
+    t_sv, t_st = sv.serve_init(tc, device="cpu"), sv.serve_stats_init(device="cpu")
 
     @jax.jit
     def j_step(s, st, u_, t_, dt, k, lv):
@@ -246,7 +246,7 @@ def test_merged_step_from_the_reference_state(faulty):
     jfr = tfr = None
     if faulty:
         jfr = jsd.resolve_fault_rates(JFaultConfig(**FAULT), n)
-        tfr = sd.resolve_fault_rates(FaultConfig(**FAULT), n)
+        tfr = sd.resolve_fault_rates(FaultConfig(**FAULT), n, "cpu")
     rng = np.random.default_rng(3)
     j_step = jax.jit(lambda s, e, x: jsd.merged_stream_step(s, jnp.asarray(mu), e, x, jfr))
     n_ext = 0

@@ -1,7 +1,7 @@
 """PyTorch port, lanes and scenario shards for every runner, on gloo CPU ranks.
 
 ONE subprocess starts the ranks (`repro_torch.launch.lanes.run_lanes`), a
-group of 2 and then a group of 4, and each runs all of its cases; every
+group of 2, then of 3, then of 4, and each runs all of its cases; every
 case is held against the JAX package's UNSHARDED run on the same inputs —
 the reference's own sharded == unsharded contract
 (`tests/test_sharded_block.py`): the Quadratic within 1e-5, the MLP within
@@ -25,7 +25,14 @@ equal to each other.  The cases:
   (v)   `run_matrix(devices=2)` on the host stream (against JAX's
         `run_matrix`) and on the device stream in a group of 2 (1 × 2) and
         of 4 (2 × 2), and the lane-free shards (a group of 2, devices=1),
-        against the port's unsharded device matrix (the port's generator).
+        against the port's unsharded device matrix (the port's generator);
+  (vi)  a world larger than the layout, 3 ranks: the fused cell axis at
+        1 × 2 and 2 × 1 against JAX's vmap on the reference's draws, and
+        `run_matrix(stream="device", devices=2)` over 4 cells against the
+        port's unsharded device matrix; rank 2 takes no part and returns
+        rank 0's grid, bitwise.  And `jit_fused_runner(shard_devices=2)`
+        without the cell axis is the unsharded runner, as the reference's
+        ignores ``shard_devices`` there.
 """
 import os
 import pathlib
@@ -199,6 +206,16 @@ _RANKS_SCRIPT = textwrap.dedent(
         matrix(out, "matrix_device_2x1", data, task, stream="device", block_size=1, devices=1)
         return out
 
+    def rank3(rank, world, inputs):
+        # a world larger than the layout: ranks 0 .. S*L-1 run it, the rest
+        # take no part and receive the grid from rank 0
+        torch.set_num_threads(1)
+        out = {}
+        cells_fused(out, inputs, [("1x2", 1, 2, {}, False), ("2x1", 2, 1, {}, False)])
+        data, task, _ = mlp(inputs)
+        matrix(out, "matrix_device_1x2", data, task, stream="device", block_size=E, devices=2)
+        return out
+
     def rank4(rank, world, inputs):
         torch.set_num_threads(1)
         out = {}
@@ -212,7 +229,7 @@ _RANKS_SCRIPT = textwrap.dedent(
         inputs_path, out_path = sys.argv[1], sys.argv[2]
         inputs = np.load(inputs_path)
         res = {}
-        for world, fn in ((2, rank2), (4, rank4)):
+        for world, fn in ((2, rank2), (3, rank3), (4, rank4)):
             for r, d in enumerate(run_lanes(fn, world, (dict(inputs),), timeout=420.0)):
                 res.update({f"w{world}/r{r}/{k}": np.asarray(v) for k, v in d.items()})
         np.savez(out_path, **res)
@@ -384,7 +401,8 @@ def test_cells_x_lanes_host_matches_jax_vmap(ranks, name):
 # (iv) the fused cell axis as a shard x lane layout
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("world,name", [(2, "1x2"), (2, "1x2_guard"), (2, "2x1"), (4, "2x2"),
-                                        (4, "2x2_guard"), (4, "2x2_fedbuff")])
+                                        (4, "2x2_guard"), (4, "2x2_fedbuff"), (3, "1x2"),
+                                        (3, "2x1")])
 def test_fused_shards_match_jax_vmap(ranks, world, name):
     out, inp = ranks
     got = _get(out, world, f"cells_fused/{name}")
@@ -428,7 +446,8 @@ def device_matrices():
                                 stream="device", block_size=E_, **MATRIX) for E_ in (1, E)}
 
 
-@pytest.mark.parametrize("world,name,E_", [(2, "1x2", E), (4, "2x2", E), (2, "2x1", 1)])
+@pytest.mark.parametrize("world,name,E_", [(2, "1x2", E), (4, "2x2", E), (2, "2x1", 1),
+                                           (3, "1x2", E)])
 def test_run_matrix_device_shards_match_unsharded(ranks, device_matrices, world, name, E_):
     out, _ = ranks
     got = _get(out, world, f"matrix_device_{name}")
@@ -438,3 +457,31 @@ def test_run_matrix_device_shards_match_unsharded(ranks, device_matrices, world,
     np.testing.assert_array_equal(got["times"], m.eval_times)
     for k in ("p_final", "mean_delays", "comp", "occ_mean"):
         np.testing.assert_array_equal(got[k], m.extras[k])
+
+
+# ---------------------------------------------------------------------------
+# (vi) shard_devices without the cell axis
+# ---------------------------------------------------------------------------
+def test_shard_devices_without_cells_is_the_unsharded_runner():
+    """`jit_fused_runner(shard_devices=2)` without ``vmap_scenarios`` runs
+    the unsharded runner, as the reference's jits it and drops
+    ``shard_devices``: the same memoized runner, bitwise the same run as a
+    fresh unsharded one on the reference's draws; no process group needed."""
+    from repro_torch.core import engine_scan as tes
+
+    c = np.random.default_rng(0).normal(size=(N, 4)).astype(np.float32)
+    c_t = torch.as_tensor(c)
+
+    def grad(j, w, k):
+        return w - c_t.index_select(0, j.reshape(1))[0]
+
+    p = _nonuniform_p(N, seed=1)
+    mu = np.random.default_rng(2).uniform(0.5, 4.0, N)
+    d = [torch.as_tensor(x) for x in _ref_draws(jax.random.PRNGKey(5), N, C, T, p)[:4]]
+    sharded = tes.jit_fused_runner(grad, N, C, T, shard_devices=2, block_size=E)
+    assert sharded is tes.jit_fused_runner(grad, N, C, T, block_size=E)
+    w, ev, x = sharded.from_draws(torch.zeros(4), mu, p, ETA, *d)
+    w1, ev1, x1 = tes.make_fused_runner(grad, N, C, T, block_size=E).from_draws(
+        torch.zeros(4), mu, p, ETA, *d)
+    assert torch.equal(w, w1) and torch.equal(ev, ev1)
+    assert all(torch.equal(x[k], x1[k]) for k in x1)

@@ -181,14 +181,14 @@ def test_one_step_bitwise_from_the_reference_state(mode):
     key = jax.random.PRNGKey(2)
     if scen:
         jsr = jsd.resolve_scenario_classes(j_get_scenario(mode), spec)
-        tsr = sd.resolve_scenario_classes(get_scenario(mode), spec)
+        tsr = sd.resolve_scenario_classes(get_scenario(mode), spec, "cpu")
         js, _ = jsd.sparse_scenario_stream_init(key, sdev, C, jnp.asarray(p_m), jsr)
     else:
         js, _ = jsd.sparse_stream_init(key, sdev, C, jnp.asarray(p_m), init="sampled",
                                        fault=fault)
     if fault:
         jfr = jsd.resolve_fault_rates_classes(JFaultConfig(**FAULT), spec)
-        tfr = sd.resolve_fault_rates_classes(FaultConfig(**FAULT), spec)
+        tfr = sd.resolve_fault_rates_classes(FaultConfig(**FAULT), spec, "cpu")
     jst = jsd.sparse_stats_init(m, C, fault=fault, scenario=scen)
     tst = sd.sparse_stats_init(m, C, fault=fault, scenario=scen)
     rng = np.random.default_rng(5)
@@ -467,19 +467,21 @@ def test_sparse_requires_class_constant_rates(what):
     n = 100
     spec, _, _ = _spec(n)
     if what == "fault":
-        for pkg, cfg in ((jsd, JFaultConfig), (sd, FaultConfig)):
+        for pkg, cfg, dev in ((jsd, JFaultConfig, {}), (sd, FaultConfig, {"device": "cpu"})):
             with pytest.raises(ValueError, match="varies within speed class"):
-                pkg.resolve_fault_rates_classes(cfg(crash_rate=np.linspace(0.01, 0.2, n)), spec)
+                pkg.resolve_fault_rates_classes(cfg(crash_rate=np.linspace(0.01, 0.2, n)), spec,
+                                                **dev)
         return
     from dataclasses import replace
 
     from repro.core.scenario import ModulationConfig as JMod
     from repro_torch.core.scenario import ModulationConfig
 
-    for pkg, get, mod in ((jsd, j_get_scenario, JMod), (sd, get_scenario, ModulationConfig)):
+    for pkg, get, mod, dev in ((jsd, j_get_scenario, JMod, {}),
+                               (sd, get_scenario, ModulationConfig, {"device": "cpu"})):
         sc = replace(get("onoff"), modulation=mod(off_rate=np.linspace(0.1, 0.5, n), on_rate=1.0))
         with pytest.raises(ValueError, match="varies within speed class"):
-            pkg.resolve_scenario_classes(sc, spec)
+            pkg.resolve_scenario_classes(sc, spec, **dev)
 
 
 # ------------------------------------------------------------------ #

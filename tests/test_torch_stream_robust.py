@@ -150,7 +150,7 @@ def test_fault_step_bitwise_from_the_reference_state():
     mu = np.random.default_rng(1).uniform(0.5, 4.0, n).astype(np.float32)
     fc = dict(off_rate=0.8, on_rate=0.5, crash_rate=0.6, timeout_rate=0.7)
     jfr, tfr = jsd.resolve_fault_rates(JFaultConfig(**fc), n), sd.resolve_fault_rates(
-        FaultConfig(**fc), n)
+        FaultConfig(**fc), n, "cpu")
     js, nodes = jsd.stream_init(jax.random.PRNGKey(2), n, C_, jnp.full(n, 1 / n), fault=True)
     jst = jsd.stats_init(n, C_, fault=True)
     ts, _ = sd.stream_init(torch.tensor(np.asarray(nodes)), n, C_, fault=True)
@@ -181,7 +181,7 @@ def test_scenario_step_bitwise_from_the_reference_state(name):
     n, C_ = 5, 3
     mu = np.random.default_rng(1).uniform(0.5, 4.0, n).astype(np.float32)
     jsr, tsr = jsd.resolve_scenario(j_get_scenario(name), n), sd.resolve_scenario(
-        get_scenario(name), n)
+        get_scenario(name), n, "cpu")
     js, nodes = jsd.scenario_stream_init(jax.random.PRNGKey(4), n, C_, jnp.full(n, 1 / n), jsr)
     jst = jsd.stats_init(n, C_, scenario=True)
     ts = _state_t(js)
