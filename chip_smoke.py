@@ -47,25 +47,30 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    weights within 1e-4 at T=200;
 6. the replay engine against the port's own per-event Python oracle at full
    width and T=200 (<= 1e-5), then a profile of the MLP kernel paths;
-7. Granite-3.0-2B at full width in fp32: one loss and gradient with the
-   kernel (``use_pallas=True``) and with the plain attention — loss within
-   1e-5 relative, gradients within 1e-4 x max|g|;
+7. Granite-3.0-2B at full width in fp32, at the config's remat "full": one
+   loss and gradient with the kernel (``use_pallas=True``) and with the
+   plain attention — loss within 1e-5 relative, gradients within 1e-4 x
+   max|g| — and one more with the kernel at remat "none" on the same
+   weights and batch, bitwise the "full" one; K3 launches == 2 x layers a
+   gradient at "full" (the recompute runs each block's forward again);
 8. the LM slice: full-width Granite-3.0-2B (bf16, ``use_pallas=True``),
    ``LMTask(batch 8, seq 128, shard 256)`` through ``run_experiment(
    FLConfig(n_clients=20, concurrency=4, server_steps=64,
    sampling="optimal", speed_ratio=10.0, engine="scan"), "gen_async",
    eval_every=16)`` (``run_lm``'s configuration with C cut from 8 to 4 to
-   fit the card), then the same task with ``update="pallas"``: K3
-   launches == 40 x forward calls, K1 launches == 64 covering 64 x 11
-   leaves, eval loss
+   fit the card; remat "full"), then the same task with ``update="pallas"``:
+   K3 launches == 40 x (2 x 64 gradients + 4 evals), K1 launches == 64
+   covering 64 x 11 leaves, eval loss
    finite and falling, the curve within `LM_CURVE_TOL` of the plain
    attention's, peak device memory, and a profile of a few events;
 9. Mamba2-130M (K4) and Zamba2-2.7B (K3 at head_dim 80 and K4) at full
-   width in fp32: one loss and gradient with the kernels and with the plain
+   width in fp32, at remat "full" and, with the kernels, "none" (bitwise),
+   as phase 7: one loss and gradient with the kernels and with the plain
    versions — loss within 1e-5 relative, gradients within 1e-4 x max|g|,
-   K4 launches == num_layers and K3 launches == shared sites;
-10. the Mamba2 LM slice at full width and depth (bf16, ``use_pallas=True``):
-   ``run_lm``'s configuration, ``LMTask(batch 8, seq 128, shard 256)``,
+   K4 launches == 2 x num_layers and K3 launches == shared sites a gradient
+   (the hybrid recomputes its Mamba2 bodies, not its shared block);
+10. the Mamba2 LM slice at full width and depth (bf16, ``use_pallas=True``,
+   remat pinned to "none", below): ``run_lm``'s configuration, ``LMTask(batch 8, seq 128, shard 256)``,
    n=20, C=8, sampling "optimal", speed ratio 10, with T cut from 200 to 64
    and the eval cadence from 50 to 16, four ways: ``run_experiment`` (K4),
    ``update="pallas"`` (K1 launches == 64, leaves 64 x 11), blocked
@@ -86,9 +91,10 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    over 4 lanes, equal to a loop; a CPU tensor takes the plain version and
    a dtype mismatch raises;
 12. Qwen1.5-MoE-A2.7B at full width, depth cut to `MOE_LAYERS`, in fp32
-   under the sort dispatch: one loss and gradient with the kernels (K3, K5)
-   and with the plain versions — loss within 1e-5 relative, gradients
-   within 1e-4 x max|g|, K5 launches == 3 x layers — and the loss of the
+   under the sort dispatch, at remat "full" and "none" as phase 7: one loss
+   and gradient with the kernels (K3, K5) and with the plain versions —
+   loss within 1e-5 relative, gradients within 1e-4 x max|g|, K5 launches
+   == 2 x 3 x layers a gradient — and the loss of the
    einsum dispatch (no K5) on the same weights within 1e-5 of the sort
    dispatch's;
 13. the Qwen1.5-MoE LM slice at full width, depth `MOE_LAYERS` (bf16,
@@ -97,8 +103,9 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    for Granite, three ways: ``run_experiment`` (K3 + K5), ``update=
    "pallas"`` (K1 launches == 64, leaves 64 x 19) and ``use_pallas=False``
    (plain
-   attention, bf16 einsum experts on the same dispatch); K5 launches == 3
-   x layers x forwards and K3 == layers x forwards on the kernel runs,
+   attention, bf16 einsum experts on the same dispatch), at remat "full";
+   K5 launches == 3 x layers x forwards and K3 == layers x forwards on the
+   kernel runs, a gradient counting two forwards (`_passes`),
    eval loss finite and falling, the curves within 1e-3 (K1) and
    `MOE_CURVE_TOL` (plain) of the kernel run's, peak device memory, and a
    profile of a few events.
@@ -131,9 +138,14 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    bitwise the flat update's or within 1e-5) and K2 across cells blocked
    (one launch a block, bitwise its plain version), events/s summed over
    cells beside one run's, and profiles.  The Mamba2-130M matrix (phase
-   10's run over 3 policies) per event and blocked E=2 (E=4 folds 96 rows
-   into one gradient call, more than the card's memory), K4 folded over
-   the cells (24 launches a forward), curves finite and within
+   10's run over 3 policies, at the config's remat "full"): (i) first one
+   vmapped gradient call as its blocked engine makes it over 48 folded
+   rows (3 cells x 2 lanes x batch 8) at remat "none", "dots" and "full"
+   (the peak above the call's entry printed for each, the gradients bitwise
+   equal, "full"'s peak the lower, "dots"'s between), then over 96 rows
+   (E=4) at "full";
+   (ii) per event and blocked E=`MAMBA_MATRIX_E`, K4 folded over the cells
+   (24 launches a forward, 48 a gradient), curves finite and within
    `MAMBA_CURVE_TOL["blocked"]` of each other and of each cell run alone
    (per event; the "optimal" cell blocked too),
    peak device memory; then the cells' final weights from ``jit_runner``
@@ -318,7 +330,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    decode's 4-row capacity.
 23. the optimizer step (`optim.make_optimizer`, `api.train_step`), the dry
    run and the examples (group ``optim``, last in the LM lane): (a)
-   Mamba2-130M at full width and depth (``use_pallas=True``) on one fixed
+   Mamba2-130M at full width and depth (``use_pallas=True``, remat pinned
+   to "none") on one fixed
    `SyntheticLMStream` batch of 8 x 128 with `optimizer_for`'s AdamW (fp32
    moments): `OPTIM_WARM` warm-up steps, then `OPTIM_STEPS` timed, the
    sampling weight cycling over 1/(n p_j) of the LM slice's network; the
@@ -332,15 +345,46 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    keeps m in bf16.  (d) Qwen1.5-MoE-A2.7B at depth `MOE_LAYERS`, sort
    dispatch, K3 + K5, AdamW: `OPTIM_MOE_STEPS` steps, the loss falls,
    ``moe_aux`` finite and > 0, the first step's loss equal to `api.loss_fn`'s
-   on the same params, K3 / K5 launches == 3 / 9 a step.  (e)
+   on the same params, at the config's remat "full": K3 / K5 launches ==
+   2 x 3 / 2 x 9 a step.  (e)
    `launch.dryrun.run_pair` of (a)'s and (d)'s configs at their 8 x 128
    shape on the meta device: ``ok``, its parameter count, the card's peak
-   >= its argument bytes; the counted FLOPs against 6 N D and the achieved
-   TFLOP/s beside the card's name and power limit.  (f) A duck-typed task
+   >= its argument bytes; the counted FLOPs (with (d)'s recompute, and at
+   remat "none") against 6 N D and the achieved TFLOP/s beside the card's
+   name and power limit.  (f) A duck-typed task
    (`_DuckTask`, wrapping `ClassificationTask`'s build) through
    `run_experiment`, the K1 replay and `run_matrix` over 2 cells with K1
    across them, bitwise the same runs with `ClassificationTask`.  (g)
    ``examples/torch/quickstart.py`` in a child process exits 0.
+24. Zamba2-2.7B's first async-FL training run (group ``zamba``, in the LM
+   lane after the Mamba2 matrix, before the MLP lane's Mamba2 parts
+   declare their memory; `ZAMBA_*`): ``run_lm``'s
+   configuration (``LMTask(batch 8, seq 128, shard 256)``, n=20, sampling
+   "optimal", speed ratio 10, C cut from 8 to `ZAMBA_C`: 8 rows of the fp32
+   ring alone are 72.2 GiB) at full width and depth (54
+   Mamba2 layers, 9 shared attention sites, head_dim 80, bf16), remat
+   "full", per event with K1 (``update="pallas"``), T cut from 200 to
+   `ZAMBA_T` with an eval every `ZAMBA_EVAL`, once with the kernels (K3,
+   K4, K1) and once with the plain attention and SSD on the same weights:
+   K3 launches == 9 a forward, K4 == 54 x (2 a gradient + 1 an eval), K1
+   == T; eval losses finite, the clients' training loss over the run's
+   trained minibatches falling in both, the curves within
+   `ZAMBA_CURVE_TOL`, the eval loss of the initial weights and the training
+   loss after the run within `ZAMBA_INIT_TOL` and `ZAMBA_TRAIN_TOL`; the peak, events/s, tokens/s and a `ZAMBA_PROFILE_T`-event
+   profile.  Phase 2 holds K3 and K4 at its shapes (`FA_PATH_SHAPES`,
+   `SSD_ZAMBA_SHAPE`).
+
+Remat.  The configs default to ``remat="full"``, as the reference's do
+(`src/repro/configs/base.py:50`), and the port rematerialises as the
+reference does (`models/remat.py`): phases 7-9, 12, 13, 17's matrix, 23
+(d) and 24 run at that default, and their launch counts take the
+recompute's second forward of each block (`_passes`).  Phases 10, 17's
+cells run alone, 18's, 19's and 20's Mamba2 parts,
+22 (c) and 23 (a)-(b) hold under 20 GiB and pass ``remat="none"``
+explicitly, so that their times and peaks stay comparable with PERF.md's
+history: the reference runs that value itself (`smoke_config`, the 100m
+preset), and remat changes what the backward keeps, not the numbers
+(`tests/test_torch_remat.py`; phases 7, 9, 12 and 17 (i) on the card).
 
 A whole run builds the kernels, then runs phases 2 and 11 alone in a
 process of their own (``--lane-out``; the kernel lane), so that their
@@ -348,12 +392,11 @@ timings see no other process on the card and their profiler has traced
 nothing before (after the other phases, in one process, it read half the
 kernels' device time).  Then it runs two lanes (`LM_LANE`, `MLP_LANE`):
 the MLP lane's groups (mlp, lanes, matrix, robust, stream, stream_robust,
-sparse: phases 3-6, 14-16, 17 and 18 on the MLP, 19-21) run in a second
-process (its output in ``build/lanes/MLP_lane.log``,
-printed whole when it ends) beside the LM lane's (matrix_mamba, granite,
-ssm, moe, robust_mamba, serve, optim: phases 17 and 18 on Mamba2-130M,
-7-13, 22, 23)
-in this one: the card idles 82-98% of every path but MoE, so the two
+sparse, robust_mamba: phases 3-6, 14-16, 17 and 18 on the MLP, 19-21, 18 on
+Mamba2-130M) run in a second process (its output in
+``build/lanes/MLP_lane.log``, printed whole when it ends) beside the LM
+lane's (matrix_mamba, zamba, granite, ssm, moe, serve, optim: phases 17 on
+Mamba2-130M, 24, 7-13, 22, 23) in this one: the card idles 82-98% of every path but MoE, so the two
 lanes share it with little wait.  Each part that holds more than a few
 GiB of the card declares it (`_card_memory`), and a declaration waits
 while both lanes' would pass `CARD_BUDGET_GIB`.  The events/s and
@@ -369,7 +412,7 @@ apart from its timed runs.  ``--memory-history`` records the allocator's
 history around phase 17's blocked Mamba2 matrix and prints the owners of
 the live memory at K2's plain-version entry and at the peak.
 
-Phases 4, 5, 8, 10, 13, 17, 18, 19, 20, 21, 22 and 23 are the kernel paths: each launch
+Phases 4, 5, 8, 10, 13, 17, 18, 19, 20, 21, 22, 23 and 24 are the kernel paths: each launch
 count is zeroed just before the run and read just after.  fp32 matmuls run
 in full fp32 (TF32 off for matmul and cuDNN).  The line before the last is
 the ``kernels`` JSON object; the last line is the result object.
@@ -409,13 +452,14 @@ BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's
 # K3 shapes (B, S, H, K, D, T, window, q_offset): the grid of
-# tests/test_kernels.py, the two LM path shapes (Granite-3.0-2B's, then
-# Qwen1.5-MoE-A2.7B's), a long causal sequence with and without a window,
+# tests/test_kernels.py, the three LM path shapes (Granite-3.0-2B's,
+# Qwen1.5-MoE-A2.7B's, then Zamba2-2.7B's shared attention at head_dim 80), a long causal sequence with and without a window,
 # D=80 and D=128 with ragged S and T, rows whose every key is masked (T a
 # multiple of the key tile or not), and windows that let the tensor-core
 # kernel's 64-row query tiles skip 64-key tiles on both sides, beside rows
 # masked on every key (q tile 0 of the last shape visits every tile)
-FA_PATH_SHAPES = [(8, 128, 32, 8, 64, 128, 0, 0), (8, 128, 16, 16, 128, 128, 0, 0)]
+FA_PATH_SHAPES = [(8, 128, 32, 8, 64, 128, 0, 0), (8, 128, 16, 16, 128, 128, 0, 0),
+                  (8, 128, 32, 32, 80, 128, 0, 0)]
 FA_PATH_SHAPE = FA_PATH_SHAPES[0]
 FA_SHAPES = [
     (2, 128, 4, 2, 64, 128, 0, 0),
@@ -435,7 +479,10 @@ FA_SHAPES = [
     (1, 192, 4, 2, 128, 256, 40, 100),
     (1, 128, 4, 2, 64, 128, 16, 120),
 ]
-# the LM slice: run_lm's configuration, C cut from 8 to 4 (memory)
+# the LM slice: run_lm's configuration, C cut from 8 to 4.  At remat "full"
+# C=8 fits (63.220 GiB, NVIDIA H100 80GB HBM3, 700.00 W), but over T=64 its
+# eval loss rises (11.22642 -> 11.30367) and its K3-vs-plain curve gap is
+# 1.247e-3: the phase's checks hold C=4's run
 LM_ARCH, LM_N, LM_C, LM_T, LM_EVAL = "granite-3-2b", 20, 4, 64, 16
 LM_BATCH, LM_SEQ, LM_SHARD = 8, 128, 256
 LM_PARAMS = 2_533_531_648
@@ -468,12 +515,16 @@ SSD_SHAPES = [
 # Mamba2-130M): the chunk 64 covers the 16-token sequence, Q = 16
 SSD_SERVE_SHAPE = (2, 16, 24, 64, 128, 64, (1.0, 16.0), (0.001, 0.1))
 SSD_SHAPES.append(SSD_SERVE_SHAPE)
+# Zamba2-2.7B's training path (phase 24, LMTask(batch 8, seq 128)): 80 heads
+# of P = 64, N = 64
+SSD_ZAMBA_SHAPE = (8, 128, 80, 64, 64, 64, (1.0, 16.0), (0.001, 0.1))
+SSD_SHAPES.append(SSD_ZAMBA_SHAPE)
 SSD_STATE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # the shapes that must take the tensor-core kernel in bf16 (Mamba2-130M's
 # path shape, its blocked and matrix folds, Zamba2-2.7B's), and the ones
 # timed in full
-SSD_TC_SHAPES = SSD_SHAPES[3:9] + [SSD_SERVE_SHAPE]
-SSD_TIMED_SHAPES = SSD_SHAPES[3:5] + [SSD_SERVE_SHAPE]
+SSD_TC_SHAPES = SSD_SHAPES[3:9] + [SSD_SERVE_SHAPE, SSD_ZAMBA_SHAPE]
+SSD_TIMED_SHAPES = SSD_SHAPES[3:5] + [SSD_SERVE_SHAPE, SSD_ZAMBA_SHAPE]
 SSD_MATRIX_SHAPES = SSD_SHAPES[5:8]
 # the Mamba2 LM slice: run_lm's configuration at full width and depth
 MAMBA_ARCH, MAMBA_C, MAMBA_E = "mamba2-130m", 8, 4
@@ -579,12 +630,13 @@ CELLS = 27
 CELLS_SCATTER_SHAPES = [(B, 65, 26624, 8, 3, dt) for B in (4, 27)
                         for dt in (torch.float32, torch.bfloat16)]
 # the Mamba2-130M matrix: phase 10's configuration over 3 policies (seed 0,
-# ratio 10), per event and blocked.  Blocked at E=4 the gradient call folds
-# 3 x 4 x 8 = 96 rows and ran out of the card's memory (75.9 GiB allocated,
-# NVIDIA H100 80GB HBM3, 700 W); E=2 folds 48
+# ratio 10), per event and blocked, at the config's remat "full".  Blocked at
+# E=4 the gradient call folds 3 x 4 x 8 = 96 rows; without remat it ran out
+# of the card's memory (75.9 GiB allocated, NVIDIA H100 80GB HBM3, 700 W),
+# and the blocked matrix ran at E=2 (48 rows) until the port rematerialised
 MAMBA_MATRIX_GRID = dict(seeds=(0,), policies=("uniform", "optimal", "physical_time"),
                          speed_ratios=(10.0,))
-MAMBA_MATRIX_E = 2
+MAMBA_MATRIX_E = 4
 # a matrix cell's final weights lie at most this fraction of the distance to
 # the nearest other cell's from its own reference run (`_own_gap`); measured
 # 0.12-0.23 (bf16 weights; NVIDIA H100 80GB HBM3, 700 W)
@@ -714,6 +766,32 @@ OPTIM_WARM, OPTIM_STEPS, OPTIM_MOE_STEPS = 3, 16, 8
 OPTIM_F32_REL = 1e-6
 OPTIM_DUCK_T = 200
 OPTIM_DRYRUN_ROOT = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
+# phase 24, Zamba2-2.7B's async-FL training run: run_lm's configuration
+# (src/repro/launch/train.py:66-146: LMTask(batch 8, seq 128, shard 256),
+# n=20, sampling "optimal", speed ratio 10) at full width and depth (54
+# Mamba2 layers, d_model 2560, 9 shared attention sites, head_dim 80, bf16),
+# remat "full", per event with K1 (``update="pallas"``).  C cut from 8 to 4:
+# the per-event ring packs the mixed bf16 / fp32 tree in fp32 (9.69 GB a row;
+# the un-checkpointed per-event replay ignores snapshot_dtype, as the
+# reference's does), and C=8's ring alone asked for 72.20 GiB of the card's
+# 79.18 (NVIDIA H100 80GB HBM3, 700.00 W).  T cut from 200 to ZAMBA_T for
+# time (16, eval every 8, took the whole script to 1038 s), eval every
+# ZAMBA_EVAL; a ZAMBA_PROFILE_T-event profile.  The part declares ZAMBA_GIB
+# and caps this process's allocator there (its cache reached 77.0 GiB
+# reserved for a 61.1 GiB allocated peak, beside the other lane)
+ZAMBA_ARCH, ZAMBA_C, ZAMBA_T, ZAMBA_EVAL, ZAMBA_PROFILE_T = "zamba2-2.7b", 4, 8, 4, 2
+ZAMBA_GIB = 72
+ZAMBA_PARAMS, ZAMBA_LEAVES = 2_422_670_240, 21
+# K3 + K4 against the plain attention and SSD, relative gaps (NVIDIA H100
+# 80GB HBM3, 700.00 W).  The eval-loss curve: 5x the gap first measured, at
+# T=16 (3.004e-3); at T=8 it read 3.913e-3, as large as the curve's own
+# movement from the initial weights (1.6e-3-5.4e-3), so this check catches
+# only gross faults.  The two below hold the path more tightly, each at 5x its
+# reading at T=8 and far below what training moves: the eval loss of the
+# initial weights (8.0e-5; 4 events move it 3.2e-3) and the clients' training
+# loss over the run's minibatches after it (5.78e-4; the run moves it 3.94e-2)
+ZAMBA_CURVE_TOL = 1.5e-2
+ZAMBA_INIT_TOL, ZAMBA_TRAIN_TOL = 4e-4, 2.9e-3
 
 # The two lanes of a whole run (`main`).  The LM parts, which hold most of
 # the card's memory, run in this process; the MLP and stream parts, which
@@ -724,9 +802,16 @@ OPTIM_DRYRUN_ROOT = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
 # declares it (`_card_memory`) and waits while the two lanes' declarations
 # would pass CARD_BUDGET_GIB of the card's 79.2 (the rest: the processes'
 # contexts and the undeclared MLP parts).  Declared: each part's peak in PR
-# 24's whole runs (NVIDIA H100 80GB HBM3, 700.00 W) with room to spare.
-LM_LANE = ("matrix_mamba", "granite", "ssm", "moe", "robust_mamba", "serve", "optim")
-MLP_LANE = ("mlp", "lanes", "matrix", "robust", "stream", "stream_robust", "sparse")
+# 24's whole runs (NVIDIA H100 80GB HBM3, 700.00 W) with room to spare; the
+# Mamba2 matrix's, Zamba2's, Granite's and Qwen1.5-MoE's from PR 27's runs
+# at remat "full" (Granite: 48.1 GiB allocated, 52.9 reserved; MoE: 39.5,
+# 44.1-49.4), so that the MLP lane's Mamba2 parts (16 and 21 GiB) fit
+# beside them.  Phase 18's Mamba2 part (~35 s) runs last in the MLP lane, to
+# even the lanes: the LM lane holds the Mamba2 matrix at T=64 (~310 s) and
+# Zamba2's run.  It reserved 35.756 GiB there (beside that process's own
+# Mamba2 task), so it declares 38.
+LM_LANE = ("matrix_mamba", "zamba", "granite", "ssm", "moe", "serve", "optim")
+MLP_LANE = ("mlp", "lanes", "matrix", "robust", "stream", "stream_robust", "sparse", "robust_mamba")
 KERNEL_GROUPS = ("k1k2k6", "fa", "ssd", "gmm")
 CARD_BUDGET_GIB = 74.0
 LANE_DIR = Path(__file__).resolve().parent / "build" / "lanes"
@@ -1508,23 +1593,27 @@ class _Part:
               f"loss passes, checks and profiles {total - runs:.1f} s")
 
 
-def _mamba_task(dev):
+def _mamba_task(dev, remat: str = "none"):
     """The Mamba2-130M `LMTask` at full width and depth with K4
-    (``use_pallas=True``): built once and shared by phases 10, 17, 18, 19
-    and 20, its setup (weights, client shards, eval batch) cached on it."""
+    (``use_pallas=True``): built once a remat policy and shared by phases
+    10, 17, 18, 19 and 20, its setup (weights, client shards, eval batch)
+    cached on it.  The pinned phases take remat "none" (the module docstring
+    says why); phase 17's matrix takes "full", and its gradient call (i)
+    "dots" too: tasks of their own, their weights made from the same seed."""
     from repro_torch.configs import get_config
     from repro_torch.fl.engine import LMTask, _cached_fl_setup
 
-    if "mamba_task" not in _SHARED:
-        task = LMTask(get_config(MAMBA_ARCH).replace(use_pallas=True), batch_size=LM_BATCH,
-                      seq_len=LM_SEQ, shard_size=LM_SHARD)
+    key = "mamba_task" if remat == "none" else f"mamba_task_{remat}"
+    if key not in _SHARED:
+        task = LMTask(get_config(MAMBA_ARCH).replace(use_pallas=True, remat=remat),
+                      batch_size=LM_BATCH, seq_len=LM_SEQ, shard_size=LM_SHARD)
         t0 = time.perf_counter()
         _cached_fl_setup(None, 0, task, n_clients=LM_N, device=dev)
         torch.cuda.synchronize()
-        print(f"Mamba2-130M task set-up (weights, client shards, eval batch; shared by phases "
-              f"10 and 17-20): {time.perf_counter() - t0:.3f} s")
-        _SHARED["mamba_task"] = task
-    return _SHARED["mamba_task"]
+        print(f"Mamba2-130M task set-up at remat {remat} (weights, client shards, eval batch; "
+              f"shared by phases 10 and 17-20): {time.perf_counter() - t0:.3f} s")
+        _SHARED[key] = task
+    return _SHARED[key]
 
 
 def _allclose_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1767,6 +1856,7 @@ def phase_ssd_scan(dev) -> dict:
     first = dict(path_rows[SSD_PATH_SHAPE])
     first.update(path_shapes=[path_rows[sh] for sh in SSD_TIMED_SHAPES[:2]],
                  serve_shape=path_rows[SSD_SERVE_SHAPE],
+                 zamba2_shape=path_rows[SSD_ZAMBA_SHAPE],
                  matrix_shapes=[path_rows[sh] for sh in SSD_MATRIX_SHAPES], kernel_info=info)
     return {"ssd_scan": first}
 
@@ -2410,24 +2500,37 @@ def phase_grad_check(dev, arch: str, num_layers: int | None = None) -> None:
     ssm = cfg.family in ("ssm", "hybrid")
     attention = (0 if cfg.family == "ssm" else
                  hybrid.num_shared_sites(cfg) if cfg.family == "hybrid" else cfg.num_layers)
-    want = {"flash_attention": attention, "ssd_scan": cfg.num_layers if ssm else 0,
-            "moe_gmm": 3 * cfg.num_layers if moe else 0}
+    per_forward = {"flash_attention": attention, "ssd_scan": cfg.num_layers if ssm else 0,
+                   "moe_gmm": 3 * cfg.num_layers if moe else 0}
     params = init_params(api.model_meta(cfg), 0, dev)
     batch = _lm_batch(cfg, 2, LM_SEQ, 1, dev)
     res = {}
-    for use_pallas in (True, False):
-        c = cfg.replace(use_pallas=use_pallas)
+    for use_pallas, remat in ((True, cfg.remat), (True, "none"), (False, cfg.remat)):
+        c = cfg.replace(use_pallas=use_pallas, remat=remat)
         for mod in (fa, k4, k5):
             mod.reset_launches()
-        res[use_pallas], wall = _timed(lambda: torch.func.grad_and_value(
+        torch.cuda.reset_peak_memory_stats()
+        res[use_pallas, remat], wall = _timed(lambda: torch.func.grad_and_value(
             lambda p: api.loss_fn(p, batch, c)[0])(params))
         got = {"flash_attention": fa.launches["flash_attention"], "ssd_scan": k4.launches["ssd_scan"],
                "moe_gmm": k5.launches["moe_gmm"]}
-        print(f"{arch} ({cfg.num_layers} layers) fp32 full-width loss+grad, use_pallas={use_pallas}: "
-              f"{wall:.3f} s, loss {float(res[use_pallas][1]):.7f}, launches {got}")
+        print(f"{arch} ({cfg.num_layers} layers) fp32 full-width loss+grad, use_pallas={use_pallas}, "
+              f"remat {remat}: {wall:.3f} s, loss {float(res[use_pallas, remat][1]):.7f}, launches "
+              f"{got}, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         if use_pallas:
-            check(got == want, f"{arch} launches per forward {got} == {want}")
-    (gk, lk), (gp, lp) = res[True], res[False]
+            want = {k: v * _passes(c, k) for k, v in per_forward.items()}
+            check(got == want, f"{arch} launches per gradient at remat {remat} {got} == {want}")
+        if (use_pallas, remat) == (True, "none"):
+            # remat changes what the backward keeps, not the numbers
+            (gf, lf), (gn, ln) = res[True, cfg.remat], res.pop((True, "none"))
+            same = [torch.equal(a, b) for a, b in zip(tree_leaves(gf), tree_leaves(gn))]
+            gap = max(max_err(a, b) for a, b in zip(tree_leaves(gf), tree_leaves(gn)))
+            check(all(same) and torch.equal(lf, ln),
+                  f"{arch} fp32 full-width, kernels, remat {cfg.remat} vs none: loss bitwise "
+                  f"{torch.equal(lf, ln)}, gradients bitwise on {sum(same)} of {len(same)} "
+                  f"leaves (max gap {gap:.3e})")
+            del gf, gn
+    (gk, lk), (gp, lp) = res[True, cfg.remat], res[False, cfg.remat]
     rel = abs(float(lk) - float(lp)) / abs(float(lp))
     check(rel <= 1e-5, f"{arch} fp32 full-width loss, kernel vs plain: relative gap {rel:.3e} <= 1e-5")
     if moe:
@@ -2460,12 +2563,12 @@ def phase_lm(dev, launches: dict) -> None:
     from repro_torch.models.module import param_count
 
     part = _Part("Granite LM (phase 8)")
-    cfg = get_config(LM_ARCH).replace(use_pallas=True)
+    cfg = get_config(LM_ARCH).replace(use_pallas=True)  # remat "full", the config's
     n_params = param_count(api.model_meta(cfg))
     check(n_params == LM_PARAMS, f"{LM_ARCH} parameters {n_params:,} == {LM_PARAMS:,}")
     flc = FLConfig(n_clients=LM_N, concurrency=LM_C, server_steps=LM_T, sampling="optimal",
                    speed_ratio=10.0, engine="scan", device=dev.type)
-    forwards = _forwards(LM_T, LM_EVAL)
+    forwards = _forwards(LM_T, LM_EVAL, cfg, "flash_attention")
     tokens = LM_T * LM_BATCH * LM_SEQ
     lm = launches.setdefault("lm", {"weighted_update": 0, "flash_attention": 0})
 
@@ -2485,7 +2588,8 @@ def phase_lm(dev, launches: dict) -> None:
     task, curve = experiment(True)
     lm["flash_attention"] += fa.launches["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
-    print(f"LM peak device memory (run_experiment): {peak / 2**30:.3f} GiB")
+    print(f"LM peak device memory (run_experiment, C={LM_C}, remat {cfg.remat}): "
+          f"{peak / 2**30:.3f} GiB")
     check(curve.shape == (LM_T // LM_EVAL,) and bool(np.all(np.isfinite(curve))),
           f"LM eval losses finite, {LM_T // LM_EVAL} points")
     check(bool(curve[-1] < curve[0]), f"LM eval loss falls: {curve[0]:.5f} -> {curve[-1]:.5f}")
@@ -2559,9 +2663,21 @@ def _train_loss(setup, params, J, steps=None) -> float:
     return total / len(ks)
 
 
-def _forwards(T: int, every: int) -> int:
-    """Forward passes of a per-event run: one per gradient, one per eval."""
-    return T + T // every
+def _passes(cfg, kernel: str) -> int:
+    """Forwards of ``kernel`` a gradient runs under ``cfg.remat``: the
+    recompute of "full" and "dots" runs each rematerialised block's forward
+    (K3, K4, K5) a second time, as the reference's ``jax.checkpoint`` runs
+    its Pallas kernels twice; the hybrid recomputes its Mamba2 bodies (K4),
+    never its shared attention sites (K3)."""
+    if cfg.remat == "none" or (cfg.family == "hybrid" and kernel == "flash_attention"):
+        return 1
+    return 2
+
+
+def _forwards(T: int, every: int, cfg=None, kernel: str = "ssd_scan") -> int:
+    """Forwards of ``kernel`` in a per-event run: `_passes` per gradient, one
+    per eval (one per gradient when ``cfg`` is not given)."""
+    return T * (1 if cfg is None else _passes(cfg, kernel)) + T // every
 
 
 def phase_mamba(dev, launches: dict) -> None:
@@ -2582,7 +2698,7 @@ def phase_mamba(dev, launches: dict) -> None:
     from repro_torch.tree import tree_map
 
     part = _Part("Mamba2 (phase 10)")
-    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
+    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True, remat="none")  # pinned: see `_mamba_task`
     n_params = param_count(api.model_meta(cfg))
     check(n_params == MAMBA_PARAMS, f"{MAMBA_ARCH} parameters {n_params:,} == {MAMBA_PARAMS:,}")
     nL = cfg.num_layers
@@ -2600,8 +2716,8 @@ def phase_mamba(dev, launches: dict) -> None:
                       shard_size=LM_SHARD)
 
     def experiment(task, label: str):
-        """``(curve, final weights, K4 launches)`` of `run_experiment`; with
-        K4, phase 17's run of its "optimal" cell alone when that was the
+        """``(curve, final weights, K4 launches, peak)`` of `run_experiment`;
+        with K4, phase 17's run of its "optimal" cell alone when that was the
         same configuration (`phase_matrix_mamba` keeps it)."""
         done = _SHARED.get("mamba_alone")
         if (task.cfg.use_pallas and done is not None and done["flc"] == flc
@@ -2758,7 +2874,7 @@ def phase_moe_lm(dev, launches: dict) -> None:
     nL = cfg.num_layers
     flc = FLConfig(n_clients=LM_N, concurrency=LM_C, server_steps=LM_T, sampling="optimal",
                    speed_ratio=10.0, engine="scan", device=dev.type)
-    forwards = _forwards(LM_T, LM_EVAL)
+    forwards = _forwards(LM_T, LM_EVAL, cfg, "moe_gmm")  # K3 and K5 alike: remat "full"
     tokens = LM_T * LM_BATCH * LM_SEQ
     path = launches.setdefault("qwen_moe", {"weighted_update": 0, "flash_attention": 0,
                                             "moe_gmm": 0})
@@ -2851,6 +2967,116 @@ def phase_moe_lm(dev, launches: dict) -> None:
           f"{gap:.3e} <= {MOE_CURVE_TOL}")
     part.end()
     torch.cuda.empty_cache()
+
+
+def phase_zamba(dev, launches: dict) -> None:
+    """24. Zamba2-2.7B's async-FL training run at full width and depth (see
+    `ZAMBA_T`), remat "full", per event with K1: with the kernels (K3 at the
+    9 shared sites, head_dim 80; K4 in the 54 Mamba2 layers), then with the
+    plain attention and SSD on the same weights and stream.  K3 launches ==
+    9 a forward (the shared sites are not rematerialised), K4 == 54 x 2 a
+    gradient + 54 an eval, K1 == T; the eval curves within
+    `ZAMBA_CURVE_TOL` of each other; the clients' training loss over the
+    run's trained minibatches falls; the eval loss of the initial weights and
+    the training loss after the run within `ZAMBA_INIT_TOL` and
+    `ZAMBA_TRAIN_TOL` of the plain run's; peak memory, events/s, tokens/s and
+    a profile.  Adds the launches to ``launches`` under "zamba2"."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.async_sgd import ServerConfig, run_generalized_async_sgd
+    from repro_torch.core.queue_sim import SimConfig, export_stream
+    from repro_torch.data.pipeline import make_client_speeds
+    from repro_torch.fl.engine import LMTask, _cached_fl_setup, sampling_for
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as k4
+    from repro_torch.kernels import weighted_update as wu
+    from repro_torch.models import api, hybrid
+    from repro_torch.models.module import param_count
+
+    part = _Part("Zamba2-2.7B (phase 24)")
+    cfg = get_config(ZAMBA_ARCH).replace(use_pallas=True)  # remat "full", the config's
+    n_params = param_count(api.model_meta(cfg))
+    check(n_params == ZAMBA_PARAMS, f"{ZAMBA_ARCH} parameters {n_params:,} == {ZAMBA_PARAMS:,}")
+    nL, sites = cfg.num_layers, hybrid.num_shared_sites(cfg)
+    flc = FLConfig(n_clients=LM_N, concurrency=ZAMBA_C, server_steps=ZAMBA_T,
+                   sampling="optimal", speed_ratio=10.0, engine="scan", device=dev.type)
+    mu = make_client_speeds(LM_N, flc.frac_fast, flc.speed_ratio, seed=flc.seed)
+    p = sampling_for(flc, mu)
+    base = ServerConfig(n=LM_N, C=ZAMBA_C, T=ZAMBA_T, eta=0.05, mu=mu, p=p, seed=flc.seed,
+                        eval_every=ZAMBA_EVAL, engine="scan", weighting="importance",
+                        update="pallas", device=dev.type)
+    stream = export_stream(SimConfig(mu=mu, p=p, C=ZAMBA_C, T=ZAMBA_T, seed=flc.seed))
+    tokens = ZAMBA_T * LM_BATCH * LM_SEQ
+    evals = ZAMBA_T // ZAMBA_EVAL
+    path = launches.setdefault("zamba2", {"weighted_update": 0, "flash_attention": 0,
+                                          "ssd_scan": 0})
+    curves, init, trained = {}, {}, {}
+    total = torch.cuda.get_device_properties(dev).total_memory
+    torch.cuda.set_per_process_memory_fraction(min(1.0, ZAMBA_GIB * 2**30 / total))
+    for use_pallas in (True, False):
+        label = "K3 + K4" if use_pallas else "plain attention and SSD"
+        task = LMTask(cfg.replace(use_pallas=use_pallas), batch_size=LM_BATCH, seq_len=LM_SEQ,
+                      shard_size=LM_SHARD)
+        t0 = time.perf_counter()
+        setup = _cached_fl_setup(None, flc.seed, task, n_clients=LM_N, device=dev)
+        torch.cuda.synchronize()
+        print(f"Zamba2 task set-up ({label}): {time.perf_counter() - t0:.3f} s")
+        run = lambda c, setup=setup: run_generalized_async_sgd(  # noqa: E731
+            setup.params, setup.clients, c, eval_fn=setup.eval_fn)
+        for mod in (fa, k4, wu):
+            mod.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        (w, tr), wall = _timed(lambda: run(base))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        curve = np.asarray(tr.eval_values, np.float64)
+        curves[use_pallas] = curve
+        print(f"Zamba2 ({label}) n={LM_N} C={ZAMBA_C} T={ZAMBA_T} remat {cfg.remat} K1: "
+              f"{wall:.3f} s, {ZAMBA_T / wall:.4f} events/s, {tokens / wall:.1f} tokens/s, peak "
+              f"device memory {peak:.3f} GiB ({_SHARED.get('smi', 'card not queried')}); "
+              f"launches K1 {wu.launches['weighted_update']} K3 {fa.launches['flash_attention']} "
+              f"K4 {k4.launches['ssd_scan']}; eval loss {curve.tolist()}")
+        check(curve.shape == (evals,) and bool(np.all(np.isfinite(curve))),
+              f"Zamba2 ({label}) eval losses finite, {evals} points")
+        if use_pallas:
+            _k1_counts(path, "Zamba2", ZAMBA_T, ZAMBA_LEAVES)
+            path["flash_attention"] += fa.launches["flash_attention"]
+            path["ssd_scan"] += k4.launches["ssd_scan"]
+            f3 = _forwards(ZAMBA_T, ZAMBA_EVAL, cfg, "flash_attention")
+            f4 = _forwards(ZAMBA_T, ZAMBA_EVAL, cfg, "ssd_scan")
+            check(fa.launches["flash_attention"] == sites * f3,
+                  f"Zamba2 K3 launches {fa.launches['flash_attention']} == {sites} sites x {f3} "
+                  f"forwards (the shared sites run once a gradient)")
+            check(k4.launches["ssd_scan"] == nL * f4,
+                  f"Zamba2 K4 launches {k4.launches['ssd_scan']} == {nL} layers x {f4} forwards "
+                  f"({ZAMBA_T} gradients x 2 under remat, {evals} evals)")
+        with torch.no_grad():
+            loss0 = float(setup.eval_fn(setup.params))
+        before = _train_loss(setup, setup.params, stream.J)
+        after = _train_loss(setup, w, stream.J)
+        init[use_pallas], trained[use_pallas] = loss0, after
+        print(f"Zamba2 ({label}) eval loss from the initial weights {loss0:.5f} -> "
+              f"{curve.tolist()}; training loss over the run's {ZAMBA_T} trained minibatches "
+              f"{before:.5f} -> {after:.5f}")
+        check(after < before, f"Zamba2 ({label}) training loss over the run's {ZAMBA_T} trained "
+              f"minibatches falls: {before:.5f} -> {after:.5f}")
+        del w
+        if use_pallas:
+            _print_profile(f"Zamba2-2.7B update=pallas, K3 + K4, T={ZAMBA_PROFILE_T} (incl. ring "
+                           "set-up)", lambda: run(replace(base, T=ZAMBA_PROFILE_T, eval_every=0)),
+                           ZAMBA_PROFILE_T)
+        del setup, run
+        task.__dict__.pop("_fl_setup_cache", None)
+        torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    gap = float(np.max(np.abs(curves[True] - curves[False]) / np.abs(curves[False])))
+    check(gap <= ZAMBA_CURVE_TOL, f"Zamba2 eval curve, K3 + K4 vs plain: relative gap {gap:.3e} "
+          f"<= {ZAMBA_CURVE_TOL}")
+    for what, got, tol in (("eval loss of the initial weights", init, ZAMBA_INIT_TOL),
+                           (f"training loss after the run's {ZAMBA_T} events", trained,
+                            ZAMBA_TRAIN_TOL)):
+        gap = abs(got[True] - got[False]) / abs(got[False])
+        check(gap <= tol, f"Zamba2 {what}, K3 + K4 vs plain: relative gap {gap:.3e} <= {tol}")
+    part.end()
 
 
 def _matrix_inputs(flc, grid: dict, eta: float, every: int, E: int, dev, scenario=None):
@@ -3101,6 +3327,54 @@ class _MemoryOwners:
         return False
 
 
+def _matrix_grad_peaks(dev, task) -> None:
+    """17 (c) (i). One vmapped gradient call of the Mamba2 matrix alone, as
+    its blocked engine makes it (`DeviceTaskClients.device_grad` under a
+    `vmap` over the cells of a `vmap` over the lanes, each row its own
+    snapshot, client and step): over 3 cells x 2 lanes x batch 8 = 48
+    folded rows at remat "none", "dots" and "full" (gradients bitwise
+    equal, "full" and "dots" below "none"'s peak), then over 3 x 4 x 8 = 96
+    rows at "full".  The peak is the allocator's above the call's entry;
+    "dots" keeps the per-row products of the 2-D weights (`models.remat`),
+    so its peak shows what they cost beside "full"'s block inputs."""
+    from repro_torch.fl.engine import _cached_fl_setup
+    from repro_torch.tree import tree_leaves, tree_map
+
+    B = len(MAMBA_MATRIX_GRID["policies"])
+    peaks, none = {}, None
+    for E, remat in ((2, "none"), (2, "dots"), (2, "full"), (4, "full")):
+        setup = _cached_fl_setup(None, 0, _mamba_task(dev, remat), n_clients=LM_N, device=dev)
+        rows = tree_map(lambda x: (x.float() * (1.0 + 1e-3 * torch.arange(
+            B * E, device=dev).view(-1, *[1] * x.ndim))).to(x.dtype).view(B, E, *x.shape),
+            setup.params)
+        J = (torch.arange(B * E, device=dev) % LM_N).view(B, E)
+        K = torch.arange(B * E, device=dev).view(B, E)
+        fn = torch.func.vmap(torch.func.vmap(setup.clients.device_grad))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        entry = torch.cuda.memory_allocated()
+        g = fn(J, rows, K)
+        torch.cuda.synchronize()
+        peaks[E, remat] = (torch.cuda.max_memory_allocated() - entry) / 2**30
+        print(f"Mamba2 matrix gradient call, {B} cells x {E} lanes x batch {LM_BATCH} = "
+              f"{B * E * LM_BATCH} folded rows, remat {remat}: peak {peaks[E, remat]:.3f} GiB "
+              f"above the entry ({entry / 2**30:.3f} GiB held at the entry)", flush=True)
+        if remat == "none":
+            none = g
+        elif E == 2:
+            same = [torch.equal(a, b) for a, b in zip(tree_leaves(none), tree_leaves(g))]
+            check(all(same), f"Mamba2 matrix gradient call at 48 rows: remat {remat} bitwise "
+                  f"none on {sum(same)} of {len(same)} leaves")
+            check(peaks[2, remat] < peaks[2, "none"],
+                  f"Mamba2 matrix gradient call at 48 rows: peak at remat {remat} "
+                  f"{peaks[2, remat]:.3f} GiB < none {peaks[2, 'none']:.3f} GiB")
+        del g, rows, setup
+    _SHARED.pop("mamba_task_dots")  # only this call takes "dots"
+    del none
+    torch.cuda.empty_cache()
+
+
 def phase_matrix_mamba(dev, launches: dict) -> None:
     """17 (c). The 3-cell Mamba2-130M matrix at full width and depth, per
     event and blocked, K4 folded over the cells (and cells x lanes); then
@@ -3108,9 +3382,11 @@ def phase_matrix_mamba(dev, launches: dict) -> None:
     each cell's training loss falls, and each cell is nearest its own
     single run (per event) and its own per-event cell (blocked).  Adds K4's
     launches to ``launches`` under "matrix_mamba2".  `main` runs it first
-    in its process: the blocked Mamba2 matrix needs up to 73.3 GiB of the
-    card's 79.2, and after the other phases it ran out of memory with
-    5.9-6.3 GiB of the allocator's cache reserved but unused (PERF.md)."""
+    in its process: before the port rematerialised, the blocked Mamba2
+    matrix at E=2 needed up to 73.3 GiB of the card's 79.2, and after the
+    other phases it ran out of memory with 5.9-6.3 GiB of the allocator's
+    cache reserved but unused (PERF.md); at remat "full" and E=4 it peaked
+    at 42.1 GiB."""
     from repro_torch.configs.base import FLConfig
     from repro_torch.core.engine_scan import jit_runner
     from repro_torch.fl.engine import _cached_fl_setup, run_experiment, run_matrix
@@ -3118,7 +3394,9 @@ def phase_matrix_mamba(dev, launches: dict) -> None:
     from repro_torch.tree import tree_map
 
     part = _Part("Mamba2 matrix (phase 17)")
-    task = _mamba_task(dev)
+    alone_task = _mamba_task(dev)  # remat "none", the pinned phases' task
+    task = _mamba_task(dev, "full")
+    _matrix_grad_peaks(dev, task)
     nL, T, every = task.cfg.num_layers, LM_T, LM_EVAL
     flc = FLConfig(n_clients=LM_N, concurrency=MAMBA_C, server_steps=T, speed_ratio=10.0,
                    engine="scan", device=dev.type)
@@ -3144,11 +3422,12 @@ def phase_matrix_mamba(dev, launches: dict) -> None:
         path["ssd_scan"] += n
         curve = np.asarray(m.eval_acc, np.float64).reshape(B, -1)
         curves[bs] = curve
-        forwards = steps + T // every + 1  # gradients, evals, the final eval
+        forwards = steps * _passes(task.cfg, "ssd_scan") + T // every + 1  # + evals, the final
         peak = torch.cuda.max_memory_allocated()
         print(f"Mamba2 run_matrix {label}, {B} cells n={LM_N} C={MAMBA_C} T={T}: {wall:.3f} s, "
               f"{B * T / wall:.3f} events/s summed over cells, K4 launches {n}; peak device "
-              f"memory {peak / 2**30:.3f} GiB (rings {B} x {ring * (MAMBA_C + (bs > 1)) / 1e9:.2f} GB); "
+              f"memory {peak / 2**30:.3f} GiB at remat {task.cfg.remat} (rings {B} x "
+              f"{ring * (MAMBA_C + (bs > 1)) / 1e9:.2f} GB); "
               f"loss {curve.tolist()}")
         check(curve.shape == (B, T // every) and bool(np.isfinite(curve).all())
               and bool(np.isfinite(m.final_acc).all()),
@@ -3193,11 +3472,12 @@ def phase_matrix_mamba(dev, launches: dict) -> None:
         torch.cuda.reset_peak_memory_stats()
         k4.reset_launches()
         one = replace(flc, sampling=pol)
-        r, wall = _timed(lambda: run_experiment(one, "gen_async", eval_every=every, task=task))
+        r, wall = _timed(lambda: run_experiment(one, "gen_async", eval_every=every,
+                                                task=alone_task))
         alone[c] = (np.asarray(r.eval_acc), _flat_cpu(r.final_params))
         if pol == "optimal":  # phase 10's run_experiment: the same configuration
             _SHARED["mamba_alone"] = dict(
-                flc=one, every=every, task=task.cache_key(), wall=wall,
+                flc=one, every=every, task=alone_task.cache_key(), wall=wall,
                 k4=k4.launches["ssd_scan"], peak=torch.cuda.max_memory_allocated(),
                 run=replace(r, final_params=tree_map(lambda v: v.cpu(), r.final_params)))
         del r
@@ -5263,7 +5543,7 @@ def _serve_mamba(dev, launches: dict) -> None:
 
     part = _Part("Mamba2 serving (phase 22)")
     args = t_serve._parser().parse_args(SERVE_MAMBA_ARGS + ["--device", dev.type])
-    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
+    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True, remat="none")  # pinned
     path = launches.setdefault("serve_mamba2", {"ssd_scan": 0})
     k4.reset_launches()
     (params, x), wall = _timed(lambda: t_serve._train_under_traffic(cfg, args))
@@ -5475,7 +5755,7 @@ def _optim_mamba(dev, launches: dict) -> dict:
     from repro_torch.optim import make_optimizer
 
     part = _Part("Mamba2-130M train_step (phase 23)")
-    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True)
+    cfg = get_config(MAMBA_ARCH).replace(use_pallas=True, remat="none")  # pinned
     params0 = init_params(api.model_meta(cfg), 0, dev)
     batch = _lm_batch(cfg, LM_BATCH, LM_SEQ, 0, dev)
     opt = make_optimizer(optimizer_for(cfg))
@@ -5653,9 +5933,12 @@ def _optim_moe(dev, launches: dict) -> dict:
           f"({reserved:.3f} reserved); "
           f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, moe_aux {aux[0]:.5f} -> {aux[-1]:.5f}; "
           f"K3 launches {n3}, K5 {n5}")
-    check(n3 == MOE_LAYERS * OPTIM_MOE_STEPS and n5 == 3 * MOE_LAYERS * OPTIM_MOE_STEPS,
-          f"Qwen1.5-MoE train_step: K3 launches {n3} == {MOE_LAYERS} x {OPTIM_MOE_STEPS}, K5 "
-          f"{n5} == 3 x {MOE_LAYERS} x {OPTIM_MOE_STEPS}")
+    passes = _passes(cfg, "moe_gmm")  # remat "full": K3 and K5 twice a gradient
+    check(n3 == passes * MOE_LAYERS * OPTIM_MOE_STEPS
+          and n5 == passes * 3 * MOE_LAYERS * OPTIM_MOE_STEPS,
+          f"Qwen1.5-MoE train_step (remat {cfg.remat}): K3 launches {n3} == {passes} x "
+          f"{MOE_LAYERS} x {OPTIM_MOE_STEPS}, K5 {n5} == {passes} x 3 x {MOE_LAYERS} x "
+          f"{OPTIM_MOE_STEPS}")
     check(losses[-1] < losses[0], f"Qwen1.5-MoE train_step: loss falls {losses[0]:.5f} -> "
           f"{losses[-1]:.5f}")
     check(all(np.isfinite(a) and a > 0 for a in aux), "Qwen1.5-MoE train_step: moe_aux finite, > 0")
@@ -5686,9 +5969,11 @@ def _optim_dryrun(runs: dict) -> None:
         flops = rec["hlo_flops_total"]
         print(f"dry run of {label} at {LM_BATCH} x {LM_SEQ} (meta device, {rec['wall_s']} s): "
               f"argument bytes {arg} ({arg / 2**30:.3f} GiB), output bytes "
-              f"{rec['memory']['output_bytes']}; counted FLOPs {flops:.4e} against "
+              f"{rec['memory']['output_bytes']}; counted FLOPs {flops:.4e} at remat "
+              f"{rec['remat']} ({rec['hlo_flops_remat_none']:.4e} at none) against "
               f"model_flops_total (6 N D) {rec['model_flops_total']:.4e} (ratio "
-              f"{rec['useful_flops_ratio']:.4f}); bytes {rec['bytes_per_device']:.4e}, dominant "
+              f"{rec['useful_flops_ratio']:.4f}; {rec['useful_flops_ratio_remat_none']:.4f} at "
+              f"none); bytes {rec['bytes_per_device']:.4e}, dominant "
               f"{rec['dominant']}; the card's peak {r['peak_gib']:.3f} GiB; achieved "
               f"{flops / (r['ms'] * 1e-3) / 1e12:.3f} TFLOP/s at {r['ms']:.3f} ms a step "
               f"({_SHARED.get('smi', 'card not queried')})")
@@ -5843,11 +6128,15 @@ def _lm_lane(dev, groups: set, launches: dict, done) -> None:
     matrix first (see `phase_matrix_mamba`), each part inside its
     declaration of card memory."""
     if "matrix_mamba" in groups:
-        with _card_memory(66, "17: the Mamba2-130M matrix"):
+        with _card_memory(48, "17: the Mamba2-130M matrix"):
             phase_matrix_mamba(dev, launches)
         done("17 (Mamba2)")
+    if "zamba" in groups:  # 24. the hybrid's training run
+        with _card_memory(ZAMBA_GIB, "24: Zamba2-2.7B"):
+            phase_zamba(dev, launches)
+        done("24")
     if "granite" in groups:  # 7.-8. the dense LM slice
-        with _card_memory(68, "7-8: Granite-3.0-2B"):
+        with _card_memory(58, "7-8: Granite-3.0-2B"):
             phase_grad_check(dev, LM_ARCH)
             phase_lm(dev, launches)
         done("7-8")
@@ -5858,14 +6147,10 @@ def _lm_lane(dev, groups: set, launches: dict, done) -> None:
             phase_mamba(dev, launches)
         done("9-10")
     if "moe" in groups:  # 12.-13. the MoE slice
-        with _card_memory(60, "12-13: Qwen1.5-MoE-A2.7B"):
+        with _card_memory(52, "12-13: Qwen1.5-MoE-A2.7B"):
             phase_grad_check(dev, MOE_ARCH, num_layers=MOE_LAYERS)
             phase_moe_lm(dev, launches)
         done("12-13")
-    if "robust_mamba" in groups:  # 18., Mamba2-130M under faults, checkpointed
-        with _card_memory(35, "18: Mamba2-130M under faults, checkpointed"):
-            phase_robust_mamba(dev, launches)
-        done("18 (Mamba2)")
     if "serve" in groups:  # 22. the serving plane (its parts declare their memory)
         phase_serve(dev, launches)
         done("22")
@@ -5898,6 +6183,10 @@ def _mlp_lane(dev, groups: set, launches: dict, done) -> None:
     if "sparse" in groups:  # 21. the sparse O(C) stream and the class-collapsed control plane
         phase_sparse(dev, launches)
         done("21")
+    if "robust_mamba" in groups:  # 18., Mamba2-130M under faults, checkpointed
+        with _card_memory(38, "18: Mamba2-130M under faults, checkpointed"):
+            phase_robust_mamba(dev, launches)
+        done("18 (Mamba2)")
 
 
 def main(argv: list[str] | None = None) -> int:

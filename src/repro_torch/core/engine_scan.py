@@ -258,15 +258,23 @@ def _snapshot_codec(w0, snapshot_dtype=None, pad_to: int = 1):
     P = offs[-1]
     P_pad = ((P + pad_to - 1) // pad_to) * pad_to
 
+    # a mixed tree's unpacked leaves own their storage: a leaf already in the
+    # compute dtype would otherwise be a view that keeps the whole packed row
+    # alive (at Zamba2-2.7B's width a 9.69 GB fp32 row for its two small fp32
+    # leaves)
+    mixed = len(set(leaf_dtypes)) > 1
+
     def pack(w):
-        flat = torch.cat([x.reshape(-1).to(compute_dtype) for x in tree_flatten(w)[0]])
+        # `cat` promotes the leaves to the compute dtype itself: no cast copy
+        # of each leaf beside the packed vector
+        flat = torch.cat([x.reshape(-1) for x in tree_flatten(w)[0]]).to(compute_dtype)
         if P_pad != P:
             flat = torch.nn.functional.pad(flat, (0, P_pad - P))
         return flat
 
     def unpack(flat):
         return unflatten([
-            flat[offs[i] : offs[i + 1]].reshape(shapes[i]).to(leaf_dtypes[i])
+            flat[offs[i] : offs[i + 1]].reshape(shapes[i]).to(leaf_dtypes[i], copy=mixed)
             for i in range(len(shapes))
         ])
 
@@ -402,9 +410,9 @@ def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc, fedbuff_
     def update_step(ucarry, j, s, scale, k, stale=None):
         w, snaps, acc, gcnt = ucarry
         s1 = s.reshape(1)
-        # gather the completing task's dispatch-time snapshot (Alg. 1 line 9)
-        w_disp = unpack(snaps.index_select(0, s1)[0])
-        g = grad_fn(j, w_disp, k)
+        # gather the completing task's dispatch-time snapshot (Alg. 1 line 9);
+        # no name holds it past the gradient
+        g = grad_fn(j, unpack(snaps.index_select(0, s1)[0]), k)
         if flat_mode:
             g = pack(g)
         bad = None
@@ -432,6 +440,7 @@ def _make_update_step(grad_fn, update_fn, pack, unpack, flat_mode, enc, fedbuff_
             w = torch.where(bad, w, w_new) if bad is not None else w_new
         else:
             w = update_fn(w, g, scale)
+        del g  # before the new row is packed: at full width each is GBs
         row = enc(w) if flat_mode else enc(pack(w))
         # the freed slot hosts the new dispatch with the updated params
         snaps.index_copy_(0, s1, row[None])

@@ -770,7 +770,10 @@ def scenario_stream_step(state: StreamState, mu, sr: ScenarioRates, xs):
 
 
 def stats_init(n: int, C: int, fault: bool = False, scenario: bool = False, *,
-               cells: int | None = None, device="cpu") -> StatsState:
+               cells: int | None = None, device="cuda") -> StatsState:
+    """The stream's zeroed statistics on ``device`` (the card unless the
+    caller asks for the CPU; `device.resolve_device` raises without one)."""
+    device = resolve_device(device)
     lead = () if cells is None else (cells,)
     zi = lambda m: torch.zeros(*lead, m, dtype=_I64, device=device)  # noqa: E731
     zf = lambda: torch.zeros(*lead, n, dtype=_F32, device=device)  # noqa: E731
@@ -1632,7 +1635,7 @@ def sparse_scenario_stream_step(state: SparseStreamState, mu, spec: ClassSpec, s
 
 
 def sparse_stats_init(m: int, C: int, fault: bool = False, scenario: bool = False, *,
-                      cells: int | None = None, device="cpu") -> StatsState:
+                      cells: int | None = None, device="cuda") -> StatsState:
     """Per-class `StatsState`: the same fields, (m,) where the dense ones
     are (n,)."""
     return stats_init(m, C, fault=fault, scenario=scenario, cells=cells, device=device)

@@ -21,7 +21,12 @@ mean the same thing.  The roofline terms are one H100 SXM's (80 GB HBM3):
 989 TFLOP/s dense bf16, 3.35 TB/s HBM, no collectives on one card
 (``collective_s`` 0).  The compiled program's ``temp_bytes`` and
 ``peak_bytes`` have no meta-device counterpart and are left out: the card
-measures the peak (``chip_smoke.py``'s optimizer phase).  The reference's
+measures the peak (``chip_smoke.py``'s optimizer phase).  Under
+``cfg.remat`` "full" or "dots" the traced backward runs the blocks'
+recompute (`models.remat`), so its FLOPs include it, as the reference's
+HLO count does; a train record also carries the count of the same step at
+remat "none" (``hlo_flops_remat_none``) and the ratio of the model FLOPs
+(6·N·D) to each count.  The reference's
 ``--multi-pod``, ``--both-meshes`` and ``--rules`` pick an XLA device mesh
 and its partition rules, which the port does not have: they exit with an
 error.
@@ -42,7 +47,7 @@ from ..models import api
 from ..models.module import abstract_params, param_count
 from ..optim import make_optimizer
 from ..tree import tree_leaves
-from .op_analysis import OpCounter, nbytes
+from .op_analysis import OpCounter, analyze, nbytes
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "optimizer_for", "model_flops_estimate", "tree_bytes",
            "build_step", "run_pair", "main"]
@@ -143,6 +148,12 @@ def run_pair(arch: str, shape: str | ShapeConfig, out_dir: str = "artifacts/dryr
         hlo = counter.result()
         flops, bytes_acc = hlo["flops"], hlo["bytes"]
         mf = model_flops_estimate(cfg, shape)
+        flops_none = flops
+        if cfg.remat != "none" and shape.kind == "train":
+            # the same step without the recompute: the count a model-FLOPs
+            # utilisation divides by when it names remat "none"
+            fn_none, args_none = build_step(cfg.replace(remat="none"), shape)
+            flops_none = analyze(fn_none, *args_none)[1]["flops"]
         terms = {"compute_s": flops / PEAK_FLOPS, "memory_s": bytes_acc / HBM_BW,
                  "collective_s": 0.0}
         dominant = max(terms, key=terms.get)
@@ -156,8 +167,11 @@ def run_pair(arch: str, shape: str | ShapeConfig, out_dir: str = "artifacts/dryr
             roofline=terms,
             dominant=dominant.replace("_s", ""),
             model_flops_total=mf,
+            remat=cfg.remat,
             hlo_flops_total=flops,
             useful_flops_ratio=(mf / flops) if flops > 0 else None,
+            hlo_flops_remat_none=flops_none,
+            useful_flops_ratio_remat_none=(mf / flops_none) if flops_none > 0 else None,
             devices=sorted(counter.devices),
             off_meta_bytes=counter.off_meta_bytes,
             by_op=hlo["by_op"],
@@ -175,7 +189,9 @@ def run_pair(arch: str, shape: str | ShapeConfig, out_dir: str = "artifacts/dryr
         json.dump(rec, f, indent=1)
     status = "OK " if rec.get("ok") else "FAIL"
     print(f"[{status}] {tag} wall={rec['wall_s']}s "
-          + (f"dom={rec.get('dominant')}" if rec.get("ok") else rec.get("error", "")[:200]),
+          + (f"dom={rec.get('dominant')} flops={rec['hlo_flops_total']:.6g} "
+             f"(remat {rec['remat']}) flops_remat_none={rec['hlo_flops_remat_none']:.6g}"
+             if rec.get("ok") else rec.get("error", "")[:200]),
           flush=True)
     return rec
 

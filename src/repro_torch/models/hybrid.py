@@ -19,7 +19,8 @@ from ..configs.base import ModelConfig
 from . import layers as L
 from . import mamba2 as M
 from .module import CacheSpec, ParamMeta
-from .transformer import _dt, _remat, _unstack, cache_len_for
+from .remat import remat
+from .transformer import _dt, _unstack, cache_len_for
 
 __all__ = ["model_meta", "forward", "init_cache", "cache_logical_axes", "decode_step",
            "num_shared_sites"]
@@ -63,7 +64,10 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
     ae = cfg.attn_every
     n_seg = num_shared_sites(cfg)
     layers = _unstack(params["blocks"], cfg.num_layers)
-    mamba_body = _remat(lambda params_l, x: M.mamba_block(params_l, x, cfg)[0], cfg)
+    # the reference checkpoints the Mamba2 body whole under "dots" and
+    # "full" alike, and leaves the shared block alone
+    mamba_body = remat(lambda params_l, x: M.mamba_block(params_l, x, cfg)[0],
+                       "full" if cfg.remat == "dots" else cfg.remat)
 
     for seg in range(n_seg):
         # shared attention + MLP block at the segment head (weight-shared)

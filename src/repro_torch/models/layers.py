@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from .module import ParamMeta
+from .remat import dot
 
 __all__ = [
     "rms_norm",
@@ -176,9 +177,9 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     B, S, D = x.shape
     H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = _maybe_grad_cast(rms_norm(params["pre_norm"], x, cfg.norm_eps), cfg)
-    q = h @ params["wq"]
-    k = h @ params["wk"]
-    v = h @ params["wv"]
+    q = dot(h, params["wq"])
+    k = dot(h, params["wk"])
+    v = dot(h, params["wv"])
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(B, S, H, Dh)
@@ -188,7 +189,7 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     out = _flash_or_ref(q, k, v, positions, cfg, 0)
-    return x + out.reshape(B, S, H * Dh) @ params["wo"]
+    return x + dot(out.reshape(B, S, H * Dh), params["wo"])
 
 
 def decode_attention_block(
@@ -267,12 +268,12 @@ def ffn_meta(cfg: ModelConfig, d_ff: int | None = None, stacked: int | None = No
 
 def ffn_block(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = _maybe_grad_cast(rms_norm(params["pre_norm"], x, cfg.norm_eps), cfg)
-    u = h @ params["w_up"]
+    u = dot(h, params["w_up"])
     if cfg.ffn_gated:
-        a = F.silu(h @ params["w_gate"]) * u
+        a = F.silu(dot(h, params["w_gate"])) * u
     else:
         a = F.gelu(u, approximate="tanh")  # jax.nn.gelu is the tanh form by default
-    return x + a @ params["w_down"]
+    return x + dot(a, params["w_down"])
 
 
 # --------------------------------------------------------------------- #
@@ -320,7 +321,7 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 def _router(params, xg: torch.Tensor, cfg: ModelConfig):
     """fp32 router: ``(probs (N,E), gate_vals (N,k) renormalised, idx (N,k))``."""
-    logits = xg.float() @ params["router"].float()
+    logits = dot(xg.float(), params["router"].float())
     probs = torch.softmax(logits, dim=-1)
     gate_vals, idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1, sorted=True)
     return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), idx
@@ -439,11 +440,11 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Te
     out = out.transpose(0, 1).reshape(B, S, D)
 
     if cfg.num_shared_experts:
-        g = h @ params["ws_gate"]
-        u = h @ params["ws_up"]
-        out = out + (F.silu(g) * u) @ params["ws_down"]
+        g = dot(h, params["ws_gate"])
+        u = dot(h, params["ws_up"])
+        out = out + dot(F.silu(g) * u, params["ws_down"])
     if cfg.moe_dense_residual:
-        g = h @ params["wd_gate"]
-        u = h @ params["wd_up"]
-        out = out + (F.silu(g) * u) @ params["wd_down"]
+        g = dot(h, params["wd_gate"])
+        u = dot(h, params["wd_up"])
+        out = out + dot(F.silu(g) * u, params["wd_down"])
     return x + out, aux_total

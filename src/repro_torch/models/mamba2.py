@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from . import layers as L
 from .module import CacheSpec, ParamMeta
+from .remat import dot
 from .transformer import _dt, _remat, _unstack
 
 __all__ = [
@@ -201,7 +202,7 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     d_inner, H, N, G, conv_ch = _dims(cfg)
     Pd = cfg.ssm_head_dim
     h = L._maybe_grad_cast(L.rms_norm(params["pre_norm"], x, cfg.norm_eps), cfg)
-    proj = h @ params["in_proj"]
+    proj = dot(h, params["in_proj"])
     z, xBC, dt_raw = _split_proj(proj, cfg)
     xBC = F.silu(_causal_conv(xBC, params["conv_w"], params["conv_b"]))
     xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
@@ -217,7 +218,7 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     y = y + xs * params["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(B, S, d_inner) * F.silu(z)
     y = L.rms_norm(params["norm"], y, cfg.norm_eps)
-    return x + y @ params["out_proj"], hT
+    return x + dot(y, params["out_proj"]), hT
 
 
 def mamba_decode_block(
@@ -263,14 +264,14 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
     x = F.embedding(batch["tokens"], params["embed"])
     blk = _remat(functools.partial(_call_block, cfg), cfg)
     for params_l in _unstack(params["blocks"], cfg.num_layers):
-        x, _ = blk(params_l, x)
+        x = blk(params_l, x)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _call_block(cfg, params_l, x):
-    return mamba_block(params_l, x, cfg)
+    return mamba_block(params_l, x, cfg)[0]
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int) -> dict:

@@ -13,6 +13,7 @@ time against a ring-buffer KV cache.  The SSM and hybrid families live in
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -22,6 +23,7 @@ from ..configs.base import ModelConfig
 from ..tree import tree_flatten
 from . import layers as L
 from .module import CacheSpec, ParamMeta
+from .remat import remat
 
 __all__ = ["model_meta", "forward", "init_cache", "cache_logical_axes", "decode_step"]
 
@@ -49,16 +51,11 @@ def model_meta(cfg: ModelConfig) -> dict:
 
 
 def _remat(fn, cfg: ModelConfig):
-    """The reference's rematerialisation policy; the port recomputes nothing.
-
-    `torch.utils.checkpoint` does not compose with `torch.func.grad` /
-    `vmap`, which the engine differentiates through, and remat changes
-    memory, not numbers: every ``cfg.remat`` runs the block as it is.
-    `chip_smoke.py` prints the card's peak memory to show the full-width
-    slice fits without it."""
-    if cfg.remat not in ("none", "dots", "full"):
-        raise ValueError(f"unknown remat {cfg.remat!r}")
-    return fn
+    """The block rematerialised by ``cfg.remat`` (`remat.remat`): "none"
+    keeps its activations, "full" only its inputs, "dots" its inputs and
+    its products by a 2-D weight.  Every tensor the block reads is one of
+    ``fn``'s arguments; ``cfg`` stays in its closure."""
+    return remat(fn, cfg.remat)
 
 
 def _block_apply(cfg: ModelConfig, params_l: dict, x: torch.Tensor, positions: torch.Tensor):
@@ -96,11 +93,11 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
     x = _embed_inputs(params, batch, cfg)
     B, S, D = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].expand(B, S)
-    blk = _remat(_block_apply, cfg)
+    blk = _remat(functools.partial(_block_apply, cfg), cfg)
     nL = cfg.num_layers
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for params_l in _unstack(params["blocks"], nL):
-        x, a = blk(cfg, params_l, x, positions)
+        x, a = blk(params_l, x, positions)
         aux = aux + a if cfg.scan_layers else aux + a / nL
     if cfg.scan_layers:
         aux = aux / nL

@@ -867,6 +867,35 @@ def test_ssm_loss_and_grads_kernel_vs_plain(dev, arch, dtype):
         assert _err(a, b) <= tol_grad * float(b.float().abs().max())
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "granite-3-2b"])
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_remat_grads_with_the_kernels_equal_none(dev, arch, remat):
+    """bf16 smoke configs with the kernels (K4, K3): the loss and gradients
+    at ``remat`` bitwise those at "none", under `grad` and `vmap(grad)` over
+    two parameter rows; the recompute runs each block's kernel a second
+    time."""
+    from repro_torch.tree import tree_map
+
+    cfg = smoke_config(arch).replace(dtype="bfloat16", use_pallas=True)
+    params = init_params(api.model_meta(cfg), 0, dev)
+    rows = tree_map(lambda x: torch.stack([x, (x.float() * 1.01).to(x.dtype)]), params)
+    gen = torch.Generator().manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), generator=gen).to(dev)
+             for k in ("tokens", "labels")}
+    out, counts = {}, {}
+    for r in ("none", remat):
+        c = cfg.replace(remat=r)
+        k4.reset_launches()
+        fa.reset_launches()
+        fn = torch.func.grad_and_value(lambda p: api.loss_fn(p, batch, c)[0])
+        out[r] = (fn(params), torch.func.vmap(fn)(rows))
+        torch.cuda.synchronize()
+        counts[r] = k4.launches["ssd_scan"] + fa.launches["flash_attention"]
+    assert counts["none"] == 2 * cfg.num_layers and counts[remat] == 2 * counts["none"]
+    for a, b in zip(tree_leaves(out["none"]), tree_leaves(out[remat])):
+        assert torch.equal(a, b)
+
+
 # K5 shapes (E, C, D, F), as chip_smoke.py checks them: Qwen1.5-MoE-A2.7B's
 # path shapes (capacity 88; gate/up, then down), the grid of
 # tests/test_kernels.py, a ragged capacity, C over two 128-row slabs with D

@@ -242,7 +242,7 @@ def test_merged_step_from_the_reference_state(faulty):
     js, nodes = jsd.stream_init(jax.random.PRNGKey(2), n, C, jnp.full(n, 1 / n), fault=faulty)
     jst = jsd.stats_init(n, C, fault=faulty)
     ts, _ = sd.stream_init(torch.tensor(np.asarray(nodes)), n, C, fault=faulty)
-    tst = sd.stats_init(n, C, fault=faulty)
+    tst = sd.stats_init(n, C, fault=faulty, device="cpu")
     jfr = tfr = None
     if faulty:
         jfr = jsd.resolve_fault_rates(JFaultConfig(**FAULT), n)

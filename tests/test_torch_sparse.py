@@ -190,7 +190,7 @@ def test_one_step_bitwise_from_the_reference_state(mode):
         jfr = jsd.resolve_fault_rates_classes(JFaultConfig(**FAULT), spec)
         tfr = sd.resolve_fault_rates_classes(FaultConfig(**FAULT), spec, "cpu")
     jst = jsd.sparse_stats_init(m, C, fault=fault, scenario=scen)
-    tst = sd.sparse_stats_init(m, C, fault=fault, scenario=scen)
+    tst = sd.sparse_stats_init(m, C, fault=fault, scenario=scen, device="cpu")
     rng = np.random.default_rng(5)
     kinds = set()
     for k in range(40):

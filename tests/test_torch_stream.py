@@ -115,7 +115,7 @@ def test_one_step_bitwise_from_the_reference_state():
     js, nodes = jsd.stream_init(jax.random.PRNGKey(2), n, C, jnp.asarray(p, jnp.float32))
     jstats = jsd.stats_init(n, C)
     ts, _ = sd.stream_init(_t(nodes), n, C)
-    tstats = sd.stats_init(n, C)
+    tstats = sd.stats_init(n, C, device="cpu")
     for k, (ur, ue, kn) in enumerate([(0.3, 0.7, 2), (0.9, 0.1, 0), (0.5, 0.5, 6), (0.01, 0.99, 2)]):
         occ_j, occ_t = js.occ, ts.occ
         js, ev_j = jsd.stream_step(js, jnp.asarray(mu), (jnp.float32(ur), jnp.float32(ue),
@@ -299,6 +299,18 @@ def test_generators_reject_unported_options():
         sd.generate_stream(np.ones(3), np.full(3, 0.3), 2, 10, device="cpu")
     stats = sd.stats_stream_fn(4, 2, 50)(0, np.ones(4), np.full(4, 0.25), device="cpu")
     assert int(stats.comp.sum()) == 50 and int(stats.occ_sum.sum()) == 2 * 50
+
+
+@pytest.mark.parametrize("init", ["stats_init", "sparse_stats_init"])
+def test_stats_constructors_default_to_the_card(init):
+    """The statistics' constructors take the card unless asked for the CPU,
+    as the stream's other state constructors do."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    with pytest.raises(RuntimeError, match="cuda"):
+        getattr(sd, init)(4, 2, fault=True)
+    stats = getattr(sd, init)(4, 2, fault=True, device="cpu")
+    assert stats.occ_sum.device.type == "cpu" and stats.kind_count.shape == (4,)
 
 
 # ------------------------------------------------------------------ #

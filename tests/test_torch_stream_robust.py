@@ -154,7 +154,7 @@ def test_fault_step_bitwise_from_the_reference_state():
     js, nodes = jsd.stream_init(jax.random.PRNGKey(2), n, C_, jnp.full(n, 1 / n), fault=True)
     jst = jsd.stats_init(n, C_, fault=True)
     ts, _ = sd.stream_init(torch.tensor(np.asarray(nodes)), n, C_, fault=True)
-    tst = sd.stats_init(n, C_, fault=True)
+    tst = sd.stats_init(n, C_, fault=True, device="cpu")
     rng = np.random.default_rng(3)
     kinds = set()
     for k in range(60):
@@ -185,7 +185,7 @@ def test_scenario_step_bitwise_from_the_reference_state(name):
     js, nodes = jsd.scenario_stream_init(jax.random.PRNGKey(4), n, C_, jnp.full(n, 1 / n), jsr)
     jst = jsd.stats_init(n, C_, scenario=True)
     ts = _state_t(js)
-    tst = sd.stats_init(n, C_, scenario=True)
+    tst = sd.stats_init(n, C_, scenario=True, device="cpu")
     rng = np.random.default_rng(5)
     for k in range(60):
         ur, ue, up = (np.float32(rng.random()) for _ in range(3))
