@@ -7,7 +7,8 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
 
 1. the card (``nvidia-smi`` name and power limit) and the nvcc build of
    every kernel source, from this checkout (one nvcc per source, all
-   started together);
+   started together); what a process holds on the card beside its
+   allocator's reserve (its CUDA context), read while it is alone there;
 2. every hand-written kernel held against its plain PyTorch version on the
    card, timed with CUDA events (median over batches of back-to-back
    launches after warm-up) beside its plain version, the one PyTorch call
@@ -373,6 +374,26 @@ Phases, each a hard check (any failure exits non-zero and prints no result):
    loss after the run within `ZAMBA_INIT_TOL` and `ZAMBA_TRAIN_TOL`; the peak, events/s, tokens/s and a `ZAMBA_PROFILE_T`-event
    profile.  Phase 2 holds K3 and K4 at its shapes (`FA_PATH_SHAPES`,
    `SSD_ZAMBA_SHAPE`).
+25. the model-sharded train step (group ``sharded``, last in the MLP
+   lane; `SHARDED_*`): Granite-3.0-2B at full width, depth cut to 4, bf16
+   and fp32, one fixed `SyntheticLMStream` batch of 8 x 128, AdamW,
+   ``use_pallas=True``, remat "none", on 2 gloo ranks sharing the card
+   (`launch.lanes.run_lanes`) over two meshes of the same ranks: (data 1,
+   model 2) under the tensor-parallel rules ``tp_only`` and (data 2, model
+   1) under the default (FSDP) rules.  Parameters, optimizer state and
+   batch are DTensors (`launch.shardings`), `api.train_step` runs under
+   ``activate_rules``, and K3 runs on each rank's local heads through
+   ``local_map``: K3 launches == 4 a step on every rank; the loss and the
+   gathered gradients (the new first moment) against the one-rank step of
+   the same weights and batch (bf16 within 2e-2, through K3 as the sharded
+   step; fp32 1e-5 for the loss and 1e-4 x max|g| for the gradients,
+   through the plain attention, so that K3 on the ranks' local heads is
+   held against the plain route as phase 7 holds it); the leaves that set
+   the bf16 gaps, beside one rank's bf16 gradient against its fp32 one;
+   ms a step, collective bytes (`launch.op_analysis.OpCounter`) and peak
+   GiB a rank; the ranks' reserved peaks plus a CUDA context each (phase
+   1's reading) within the phase's declaration `SHARDED_GIB`.  Phase 2 holds K3 at the ranks'
+   shapes (`FA_PATH_SHAPES`).
 
 Remat.  The configs default to ``remat="full"``, as the reference's do
 (`src/repro/configs/base.py:50`), and the port rematerialises as the
@@ -392,8 +413,8 @@ timings see no other process on the card and their profiler has traced
 nothing before (after the other phases, in one process, it read half the
 kernels' device time).  Then it runs two lanes (`LM_LANE`, `MLP_LANE`):
 the MLP lane's groups (mlp, lanes, matrix, robust, stream, stream_robust,
-sparse, robust_mamba: phases 3-6, 14-16, 17 and 18 on the MLP, 19-21, 18 on
-Mamba2-130M) run in a second process (its output in
+sparse, robust_mamba, sharded: phases 3-6, 14-16, 17 and 18 on the MLP,
+19-21, 18 on Mamba2-130M, 25) run in a second process (its output in
 ``build/lanes/MLP_lane.log``, printed whole when it ends) beside the LM
 lane's (matrix_mamba, zamba, granite, ssm, moe, serve, optim: phases 17 on
 Mamba2-130M, 24, 7-13, 22, 23) in this one: the card idles 82-98% of every path but MoE, so the two
@@ -412,7 +433,7 @@ apart from its timed runs.  ``--memory-history`` records the allocator's
 history around phase 17's blocked Mamba2 matrix and prints the owners of
 the live memory at K2's plain-version entry and at the peak.
 
-Phases 4, 5, 8, 10, 13, 17, 18, 19, 20, 21, 22, 23 and 24 are the kernel paths: each launch
+Phases 4, 5, 8, 10, 13, 17, 18, 19, 20, 21, 22, 23, 24 and 25 are the kernel paths: each launch
 count is zeroed just before the run and read just after.  fp32 matmuls run
 in full fp32 (TF32 off for matmul and cuDNN).  The line before the last is
 the ``kernels`` JSON object; the last line is the result object.
@@ -452,14 +473,18 @@ BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py's
 # K3 shapes (B, S, H, K, D, T, window, q_offset): the grid of
-# tests/test_kernels.py, the three LM path shapes (Granite-3.0-2B's,
-# Qwen1.5-MoE-A2.7B's, then Zamba2-2.7B's shared attention at head_dim 80), a long causal sequence with and without a window,
+# tests/test_kernels.py, the LM path shapes (Granite-3.0-2B's,
+# Qwen1.5-MoE-A2.7B's, Zamba2-2.7B's shared attention at head_dim 80, then
+# the sharded Granite step's two a rank), a long causal sequence with and without a window,
 # D=80 and D=128 with ragged S and T, rows whose every key is masked (T a
 # multiple of the key tile or not), and windows that let the tensor-core
 # kernel's 64-row query tiles skip 64-key tiles on both sides, beside rows
 # masked on every key (q tile 0 of the last shape visits every tile)
 FA_PATH_SHAPES = [(8, 128, 32, 8, 64, 128, 0, 0), (8, 128, 16, 16, 128, 128, 0, 0),
-                  (8, 128, 32, 32, 80, 128, 0, 0)]
+                  (8, 128, 32, 32, 80, 128, 0, 0),
+                  # phase 25's Granite shapes a rank: tensor parallel (16 q / 4 kv
+                  # heads), FSDP (4 batch rows)
+                  (8, 128, 16, 4, 64, 128, 0, 0), (4, 128, 32, 8, 64, 128, 0, 0)]
 FA_PATH_SHAPE = FA_PATH_SHAPES[0]
 FA_SHAPES = [
     (2, 128, 4, 2, 64, 128, 0, 0),
@@ -792,6 +817,24 @@ ZAMBA_PARAMS, ZAMBA_LEAVES = 2_422_670_240, 21
 # loss over the run's minibatches after it (5.78e-4; the run moves it 3.94e-2)
 ZAMBA_CURVE_TOL = 1.5e-2
 ZAMBA_INIT_TOL, ZAMBA_TRAIN_TOL = 4e-4, 2.9e-3
+# phase 25, the model-sharded train step: Granite-3.0-2B at full width, depth
+# cut to SHARDED_LAYERS, LMTask's batch of 8 x 128, AdamW, K3 on each rank's
+# local heads, on 2 gloo ranks sharing the card over two meshes of the same
+# ranks, (data, model, rules): tensor parallel and FSDP.  bf16 and fp32, each
+# against the one-rank step of the same weights and batch: bf16 loss and
+# gradients within the LM phases' 2e-2 (of the loss, of the largest
+# gradient), fp32 loss within 1e-5 relative, gradients within 1e-4 x max|g|
+SHARDED_ARCH, SHARDED_LAYERS = "granite-3-2b", 4
+SHARDED_MESHES = ((1, 2, "tp_only"), (2, 1, "default"))
+SHARDED_STEPS = 2          # timed bf16 steps a mesh, after the counted one
+SHARDED_REF_RANK = {"bfloat16": 0, "float32": 1}  # the rank that runs a dtype's one-rank step
+# the attention of a dtype's one-rank step: bf16 K3, as the sharded step (the
+# gap is the sharding's); fp32 the plain route (K3 on local heads vs plain)
+SHARDED_REF_KERNEL = {"bfloat16": True, "float32": False}
+SHARDED_TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-5, 1e-4)}  # (loss, gradients)
+# both ranks' reserved peaks and CUDA contexts (checked): room beside the
+# MoE phases' 52 GiB within CARD_BUDGET_GIB
+SHARDED_GIB = 22
 
 # The two lanes of a whole run (`main`).  The LM parts, which hold most of
 # the card's memory, run in this process; the MLP and stream parts, which
@@ -811,7 +854,8 @@ ZAMBA_INIT_TOL, ZAMBA_TRAIN_TOL = 4e-4, 2.9e-3
 # Zamba2's run.  It reserved 35.756 GiB there (beside that process's own
 # Mamba2 task), so it declares 38.
 LM_LANE = ("matrix_mamba", "zamba", "granite", "ssm", "moe", "serve", "optim")
-MLP_LANE = ("mlp", "lanes", "matrix", "robust", "stream", "stream_robust", "sparse", "robust_mamba")
+MLP_LANE = ("mlp", "lanes", "matrix", "robust", "stream", "stream_robust", "sparse", "robust_mamba",
+            "sharded")
 KERNEL_GROUPS = ("k1k2k6", "fa", "ssd", "gmm")
 CARD_BUDGET_GIB = 74.0
 LANE_DIR = Path(__file__).resolve().parent / "build" / "lanes"
@@ -6101,6 +6145,260 @@ def phase_optim(dev, launches: dict) -> None:
           f"quickstart {t5 - t4:.1f} s; phase 23 {t5 - t0:.1f} s")
 
 
+def _leaf_gaps(names: list, got: list, ref: list) -> tuple:
+    """``(max gap / max|ref|, the 3 leaves with the largest gaps as (name,
+    gap / max|ref|, gap / the leaf's own max|ref|, the gap's flat index,
+    the leaf's shape))`` over a gradient tree's leaves."""
+    gmax = max(float(r.abs().max()) for r in ref)
+    rows = []
+    for n, a, b in zip(names, got, ref):
+        d = (a - b).abs()
+        gap = float(d.max())
+        rows.append((n, gap / gmax, gap / max(float(b.abs().max()), 1e-30),
+                     int(d.argmax()), tuple(b.shape)))
+    rows.sort(key=lambda r: -r[1])
+    return rows[0][1], rows[:3]
+
+
+def _card_context(dev) -> None:
+    """Measure what a process holds on the card beside its allocator's
+    reserve (the CUDA context, cuBLAS's handle, the loaded modules) while
+    this process is alone on the card, after one bf16 product, and write it
+    to `LANE_DIR` for phase 25's check (a rank's memory is its reserved peak
+    plus this)."""
+    a = torch.ones((64, 64), device=dev, dtype=torch.bfloat16)
+    (a @ a).sum().item()
+    free, total = torch.cuda.mem_get_info()
+    gib = ((total - free) - torch.cuda.memory_reserved()) / 2**30
+    LANE_DIR.mkdir(parents=True, exist_ok=True)
+    (LANE_DIR / "card_context.json").write_text(json.dumps({"gib": gib}))
+    print(f"card: a process's CUDA context and modules {gib:.3f} GiB (alone on the card; "
+          f"{torch.cuda.memory_reserved() / 2**20:.0f} MiB reserved)")
+
+
+def _sharded_rank(rank: int, world: int, device: str, t_spawn: float) -> dict:
+    """One rank of phase 25.  First the one-rank steps the sharded ones are
+    held to, one dtype a rank (`SHARDED_REF_RANK`, side by side, each
+    through `SHARDED_REF_KERNEL`'s attention; bf16 twice, the second
+    timed); the fp32 rank then takes one bf16 step through K3 and compares
+    it with its fp32 one (the gap bf16 alone makes).  Then for bf16 and
+    fp32, on each of `SHARDED_MESHES`, the sharded step (`api.train_step`
+    on DTensor parameters under `shardings.activate_rules`): one step
+    counted by `op_analysis.OpCounter` (the rank's FLOPs and collective
+    bytes) and held against the one-rank step (loss; the new first moment
+    m = 0.1 g, gathered whole; a bf16 step also against the fp32 one-rank
+    step), then in bf16 `SHARDED_STEPS` timed steps.  K3's count is zeroed
+    just before each mesh's steps and read just after; each part's seconds
+    are recorded, and the rank's reserved peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimConfig
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import shardings as SH
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.op_analysis import OpCounter
+    from repro_torch.models import api
+    from repro_torch.models.module import _map_with_path, init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.tree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    opt = make_optimizer(OptimConfig(name="adamw", state_dtype="float32"))
+    weight = torch.tensor(0.7, device=dev)
+    out: dict = {"parts_s": {"start-up": round(time.time() - t_spawn, 3)}}
+    t_part = time.perf_counter()
+    reserved = 0  # the rank's reserved peak across the parts' resets
+
+    def part(name: str) -> None:
+        nonlocal t_part
+        torch.cuda.synchronize()
+        out["parts_s"][name] = round(time.perf_counter() - t_part, 3)
+        t_part = time.perf_counter()
+
+    def reset_peak() -> None:
+        nonlocal reserved
+        reserved = max(reserved, torch.cuda.max_memory_reserved())
+        torch.cuda.reset_peak_memory_stats()
+
+    def setup(dtype: str) -> tuple:
+        """(cfg, meta, weights, batch) of a dtype, made anew where needed
+        (the same from the seed), so that a rank holds one dtype's at a time."""
+        cfg = get_config(SHARDED_ARCH).replace(num_layers=SHARDED_LAYERS, dtype=dtype,
+                                               use_pallas=True, remat="none")
+        meta = api.model_meta(cfg)
+        return cfg, meta, init_params(meta, 0, dev), _lm_batch(cfg, LM_BATCH, LM_SEQ, 1, dev)
+
+    names = tree_leaves(_map_with_path(lambda path, _: path, api.model_meta(
+        get_config(SHARDED_ARCH).replace(num_layers=SHARDED_LAYERS))))
+
+    def one_rank(dtype: str, kernel: bool):
+        cfg, _, params, batch = setup(dtype)
+        cfg = cfg.replace(use_pallas=kernel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, s1, m1 = api.train_step(params, opt.init(params), batch, cfg, opt, weight)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return float(m1["loss"]), [m.float() for m in tree_leaves(s1["m"])], ms
+
+    refs = {}
+    for dtype, owner in SHARDED_REF_RANK.items():
+        if rank != owner:
+            continue
+        for i in range(2 if dtype == "bfloat16" else 1):  # the last one timed
+            loss, grads, ms = one_rank(dtype, SHARDED_REF_KERNEL[dtype])
+            if i == 0:
+                out[f"{dtype}_first_step_ms"] = ms
+            out[f"{dtype}_one_rank_ms"] = ms
+        refs[dtype] = (loss, grads)
+    part("one-rank steps")
+    if "float32" in refs:  # the gap bf16 alone makes, on one rank
+        loss, grads, _ = one_rank("bfloat16", True)
+        ref_loss, ref_m = refs["float32"]
+        out["bf16_vs_fp32_loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
+        out["bf16_vs_fp32_grad_gap"], out["bf16_vs_fp32_leaves"] = _leaf_gaps(names, grads, ref_m)
+        del grads
+        part("one-rank bf16 against fp32")
+    for dtype in SHARDED_REF_RANK:
+        cfg, meta, params, batch = setup(dtype)
+        part(f"{dtype} weights")
+        for data, model, rules_name in SHARDED_MESHES:
+            key = f"{dtype}_{data}x{model}"
+            mesh = make_debug_mesh(data, model)
+            rules = SH.filter_rules(SH.RULE_SETS[rules_name], mesh)
+            dp = SH.distribute_params(params, mesh, rules, meta)
+            db = {k: SH.distribute_like(v, mesh, SH.logical_to_pspec(
+                ("batch", "seq"), {**rules, "seq": None}, tuple(v.shape), mesh))
+                for k, v in batch.items()}
+
+            def step(p):
+                st = opt.init(p)
+                st = {"count": SH.distribute_like(st["count"], mesh, ()), "m": st["m"],
+                      "v": st["v"]}
+                with SH.activate_rules(rules, mesh):
+                    return api.train_step(p, st, db, cfg, opt, weight)
+
+            reset_peak()
+            fa.reset_launches()
+            counter = OpCounter()
+            with counter:
+                _, s2, m2 = step(dp)
+            counted = counter.result()
+            steps = 1
+            part(f"{key} counted step")
+            loss = float(m2["loss"].full_tensor())
+            grads = [m.full_tensor().float() for m in tree_leaves(s2["m"])]
+            del s2, m2
+            row = {"collective_bytes": counted["collectives"]["total"],
+                   "collectives": counted["collectives"],
+                   "flops": counted["flops"], "loss": loss,
+                   "embed_shard": tuple(dp["embed"].to_local().shape)}
+            if dtype in refs:
+                ref_loss, ref_m = refs[dtype]
+                row["loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
+                row["grad_gap"], row["leaves"] = _leaf_gaps(names, grads, ref_m)
+            if dtype == "bfloat16" and "float32" in refs:
+                ref_loss, ref_m = refs["float32"]
+                row["vs_fp32_loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
+                row["vs_fp32_grad_gap"], row["vs_fp32_leaves"] = _leaf_gaps(names, grads, ref_m)
+            del grads
+            part(f"{key} gathered and compared")
+            if dtype == "bfloat16":  # the counted step warmed it up
+                t0 = time.perf_counter()
+                for _ in range(SHARDED_STEPS):
+                    step(dp)
+                torch.cuda.synchronize()
+                row["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / SHARDED_STEPS
+                steps += SHARDED_STEPS
+                part(f"{key} timed steps")
+            row["steps"] = steps
+            row["launches"] = fa.launches["flash_attention"]
+            row["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            out[key] = row
+            del dp, db
+        refs.pop(dtype, None)  # the fp32 one stays through the bf16 meshes
+        del params, batch
+        torch.cuda.empty_cache()
+    reset_peak()
+    torch.cuda.synchronize()
+    out["reserved_peak_gib"] = reserved / 2**30
+    return out
+
+
+def phase_sharded(dev, launches: dict) -> None:
+    """25. The model-sharded train step (`_sharded_rank`) on 2 gloo ranks
+    sharing the card (`launch.lanes.run_lanes`; NCCL needs a card a rank):
+    each dtype's comparison on the rank that ran its one-rank step, the
+    loss equal on both ranks, K3 launches == layers a step on
+    every rank (the attention of each rank's local heads, through
+    ``local_map``), ms a step, collective bytes and peak GiB a rank, the
+    leaves that set the bf16 gaps, and the ranks' card memory within
+    `SHARDED_GIB`."""
+    from repro_torch.launch.lanes import run_lanes
+
+    t0 = time.perf_counter()
+    ranks = run_lanes(_sharded_rank, 2, (dev.type, t0 + time.time() - time.perf_counter()),
+                      timeout=600)
+    print(f"25: the sharded {SHARDED_ARCH} step ({SHARDED_LAYERS} layers, batch {LM_BATCH} x "
+          f"{LM_SEQ}, AdamW), 2 gloo ranks on one card: {time.perf_counter() - t0:.1f} s with "
+          f"the ranks' start; card {_SHARED.get('smi')}; the parts' seconds, rank 0 "
+          f"{ranks[0]['parts_s']}, rank 1 {ranks[1]['parts_s']}")
+
+    def leaves(rows):
+        return "; ".join(f"{n} {g:.3e} of max|g| ({own:.3e} of its own max, at flat index "
+                         f"{i} of {shape})" for n, g, own, i, shape in rows)
+
+    for dtype, owner in SHARDED_REF_RANK.items():
+        loss_tol, grad_tol = SHARDED_TOL[dtype]
+        print(f"25 {dtype}: one-rank step ({'K3' if SHARDED_REF_KERNEL[dtype] else 'plain'} "
+              f"attention) {ranks[owner][f'{dtype}_one_rank_ms']:.1f} ms, the rank's first step "
+              f"{ranks[owner][f'{dtype}_first_step_ms']:.1f} ms (rank {owner})")
+        for data, model, rules_name in SHARDED_MESHES:
+            key = f"{dtype}_{data}x{model}"
+            r0 = ranks[owner][key]
+            for rank, res in enumerate(ranks):
+                r = res[key]
+                print(f"25 {dtype} mesh (data {data}, model {model}) rules {rules_name} rank "
+                      f"{rank}: {r.get('ms_per_step', float('nan')):.1f} ms a step, collective "
+                      f"bytes {r['collective_bytes']:.0f} {r['collectives']}, FLOPs "
+                      f"{r['flops']:.4g}, peak {r['peak_gib']:.3f} GiB, embed shard "
+                      f"{r['embed_shard']}, K3 launches {r['launches']} in {r['steps']} steps")
+                check(r["launches"] == SHARDED_LAYERS * r["steps"],
+                      f"25 {key} rank {rank}: K3 launches {r['launches']} == {SHARDED_LAYERS} "
+                      f"x {r['steps']} steps")
+                check(r["collective_bytes"] > 0, f"25 {key} rank {rank}: collective bytes "
+                      f"{r['collective_bytes']:.0f} > 0")
+                check(r["loss"] == r0["loss"], f"25 {key} rank {rank}: loss {r['loss']!r} "
+                      f"== rank {owner}'s")
+                launches[f"sharded_{key}_rank{rank}"] = {"flash_attention": r["launches"]}
+            check(r0["loss_rel"] <= loss_tol and r0["grad_gap"] <= grad_tol,
+                  f"25 {key}: against the one-rank step (rank {owner}), loss relative gap "
+                  f"{r0['loss_rel']:.3e} <= {loss_tol}, gradients {r0['grad_gap']:.3e} <= "
+                  f"{grad_tol} x max|g|")
+            print(f"25 {key}: the largest gradient gaps against the one-rank step: "
+                  f"{leaves(r0['leaves'])}")
+            if dtype == "bfloat16":
+                r1 = ranks[SHARDED_REF_RANK["float32"]][key]
+                print(f"25 {key} against the fp32 one-rank step: loss relative gap "
+                      f"{r1['vs_fp32_loss_rel']:.3e}, gradients {r1['vs_fp32_grad_gap']:.3e} "
+                      f"x max|g|: {leaves(r1['vs_fp32_leaves'])}")
+    r1 = ranks[SHARDED_REF_RANK["float32"]]
+    print(f"25 one rank, bf16 (K3) against fp32 (plain): loss relative gap "
+          f"{r1['bf16_vs_fp32_loss_rel']:.3e}, gradients {r1['bf16_vs_fp32_grad_gap']:.3e} x "
+          f"max|g|: {leaves(r1['bf16_vs_fp32_leaves'])}")
+    # each rank: its reserved peak plus a process's CUDA context, as phase 1
+    # measured it alone on the card (`_card_context`)
+    ctx_file = LANE_DIR / "card_context.json"
+    check(ctx_file.exists(), f"25: phase 1's reading of a CUDA context ({ctx_file}) exists")
+    context = json.loads(ctx_file.read_text())["gib"] if ctx_file.exists() else float("nan")
+    peaks = [r["reserved_peak_gib"] for r in ranks]
+    total = sum(peaks) + len(ranks) * context
+    check(total <= SHARDED_GIB, f"25: the ranks' reserved peaks {[round(g, 3) for g in peaks]} "
+          f"GiB and {len(ranks)} contexts of {context:.3f} GiB, {total:.3f} GiB <= the declared "
+          f"{SHARDED_GIB} GiB")
+
+
 GROUPS = KERNEL_GROUPS + LM_LANE + MLP_LANE
 
 
@@ -6187,6 +6485,10 @@ def _mlp_lane(dev, groups: set, launches: dict, done) -> None:
         with _card_memory(38, "18: Mamba2-130M under faults, checkpointed"):
             phase_robust_mamba(dev, launches)
         done("18 (Mamba2)")
+    if "sharded" in groups:  # 25. the model-sharded train step on 2 gloo ranks
+        with _card_memory(SHARDED_GIB, "25: the sharded Granite-3.0-2B step"):
+            phase_sharded(dev, launches)
+        done("25")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -6248,6 +6550,8 @@ def main(argv: list[str] | None = None) -> int:
     for name in srcs:
         build.load(name)
     print(f"build: {srcs} in {time.perf_counter() - t0:.2f} s")
+    if not args.lane_out:  # the first process on the card, alone there
+        _card_context(dev)
     done("1")
 
     launches: dict = {}

@@ -26,11 +26,47 @@ import argparse
 import time
 
 import numpy as np
+import torch
 
 from ..configs import get_config, smoke_config
 from ..ckpt import save
 from ..configs.base import FLConfig
+from ..data.pipeline import SyntheticLMStream
 from ..fl import LMTask, run_experiment
+from ..models import api
+from ..tree import tree_leaves
+
+__all__ = ["LMClients", "lm_config", "run_lm", "run_fl", "main"]
+
+
+class LMClients:
+    """GradientSource: each client draws from its own synthetic LM stream.
+
+    The legacy streaming source of the original per-event Python loop: each
+    `grad` call consumes fresh host RNG state, so runs are NOT replayable
+    against the compiled engine.  `LMTask` (fixed per-client shards,
+    identical minibatches on every path) supersedes it for anything that
+    needs parity; this stays for host-streaming experiments whose datasets
+    don't fit device memory.  Client i streams `SyntheticLMStream` with
+    seed ``seed * 1000 + i``, as the reference's does, so one seed gives
+    the same batches in both packages; each batch goes to the parameters'
+    device.
+    """
+
+    def __init__(self, cfg, n_clients: int, batch: int, seq: int, seed: int = 0):
+        self.cfg = cfg
+        self.streams = [
+            SyntheticLMStream(cfg.vocab_size, seq, seed=seed * 1000 + i) for i in range(n_clients)
+        ]
+        self.batch = batch
+        self._grad = torch.func.grad(lambda p, b: api.loss_fn(p, b, cfg)[0])
+        self.grad_calls = 0
+
+    def grad(self, client_id: int, params, server_step: int):
+        b = self.streams[client_id].batch(self.batch)
+        self.grad_calls += 1
+        dev = tree_leaves(params)[0].device
+        return self._grad(params, {k: torch.as_tensor(v, device=dev) for k, v in b.items()})
 
 
 def lm_config(args):

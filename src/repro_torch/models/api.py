@@ -22,9 +22,11 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..launch.shardings import active
 from ..optim import Optimizer
-from ..tree import tree_leaves
+from ..tree import tree_flatten, tree_leaves
 from . import hybrid, mamba2, transformer
+from .layers import _shard
 
 __all__ = [
     "family_module",
@@ -96,17 +98,33 @@ def loss_fn(params, batch, cfg: ModelConfig):
     return loss, aux
 
 
+def _grad_and_value(params, batch, cfg: ModelConfig):
+    """``(grads, (loss, aux))`` of `loss_fn`: `torch.func.grad_and_value`,
+    or eager autograd under a rule context (`launch.shardings.
+    activate_rules`): inside a `torch.func` transform a DTensor is wrapped,
+    and its placements, ``redistribute`` and ``local_map`` are out of
+    reach.  Both differentiate the same operations."""
+    if active() is None:
+        return torch.func.grad_and_value(loss_fn, has_aux=True)(params, batch, cfg)
+    leaves, unflatten = tree_flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    loss, aux = loss_fn(unflatten(leaves), batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    return unflatten(list(grads)), (loss.detach(), aux.detach())
+
+
 def train_step(params, opt_state, batch, cfg: ModelConfig, opt: Optimizer,
                sampling_weight: torch.Tensor | float = 1.0):
     """One Generalized-AsyncSGD server step: the gradient of `loss_fn`, then
     ``opt.update`` scaled by ``sampling_weight`` = 1/(n p_j) for the
     contributing client j (Alg. 1), which keeps the estimator unbiased.
 
-    Returns ``(new_params, new_opt_state, {"loss", "moe_aux",
-    "grad_norm"})``; ``grad_norm`` is the fp32 square root of the sum of the
+    Under a rule context the parameters are DTensors and so are the
+    results (`launch.shardings`).  Returns ``(new_params, new_opt_state,
+    {"loss", "moe_aux", "grad_norm"})``; ``grad_norm`` is the fp32 square root of the sum of the
     leaves' squared sums, in leaf order.
     """
-    grads, (loss, aux) = torch.func.grad_and_value(loss_fn, has_aux=True)(params, batch, cfg)
+    grads, (loss, aux) = _grad_and_value(params, batch, cfg)
     new_params, new_opt = opt.update(grads, opt_state, params, scale=sampling_weight)
     gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads)))
     metrics = {"loss": loss, "moe_aux": aux, "grad_norm": gnorm}
@@ -116,5 +134,8 @@ def train_step(params, opt_state, batch, cfg: ModelConfig, opt: Optimizer,
 def serve_step(params, cache, batch, cfg: ModelConfig):
     """One batched decode step; greedy next-token ids alongside raw logits."""
     logits, new_cache = decode_step(params, cache, batch, cfg)
+    # replicated, as the reference's out_shardings give them (the identity
+    # outside a rule context)
+    logits = _shard(logits, (None, None))
     next_ids = torch.argmax(logits, dim=-1).to(torch.int32)
     return {"logits": logits, "next_ids": next_ids}, new_cache

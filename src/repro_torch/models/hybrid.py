@@ -13,7 +13,6 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -58,8 +57,10 @@ def _seg_slice(layers: list[dict], lo: int, hi: int) -> list[dict]:
 
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B,S,V), 0)."""
-    x = F.embedding(batch["tokens"], params["embed"])
+    params = L._gather(params)
+    x = L.embed_lookup(params["embed"], batch["tokens"])
     B, S, D = x.shape
+    x = L._shard(x, ("batch", "seq", "embed"))
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].expand(B, S)
     ae = cfg.attn_every
     n_seg = num_shared_sites(cfg)
@@ -120,7 +121,8 @@ def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
     """One-token decode.  Each site attends from the cache's positions as
     they were before the step (every site writes the same ring slot), as
     the reference does.  Returns (logits (B, V), new_cache)."""
-    x = F.embedding(batch["tokens"], params["embed"])
+    params = L._gather(params)
+    x = L.embed_lookup(params["embed"], batch["tokens"])
     pos = cache["pos"]
     ae = cfg.attn_every
     n_seg = num_shared_sites(cfg)

@@ -5,18 +5,27 @@ Attention has two data paths: the plain PyTorch reference (`_sdpa`) and,
 with ``cfg.use_pallas``, the hand-written flash-attention kernel
 (`kernels.ops.flash_attention`, the CUDA counterpart of the TPU kernel);
 likewise the MoE FFN's expert products under the sort dispatch
-(`kernels.ops.moe_gmm`).  The reference's activation-sharding hints are
-the identity here: one card, no mesh.  Products keep JAX's dtype flow:
+(`kernels.ops.moe_gmm`).  The activation-sharding hints (`_shard`, at the
+reference's places) are the identity outside a rule context
+(`launch.shardings.activate_rules`); under one, on DTensors, they
+redistribute to the rules' placements, the attention runs on each rank's
+local batch rows and heads (`_local_attention`, K3 there under
+``cfg.use_pallas``) and the vocab-sharded embedding looks up each rank's
+rows (`embed_lookup`).  Products keep JAX's dtype flow:
 bf16 x bf16 gives bf16 (fp32 accumulation inside the matmul), and norms,
 RoPE and the MoE router compute in fp32.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..launch import shardings as SH
+from ..launch.shardings import _is_dtensor, logical_to_pspec, placements, shard_index
 from .module import ParamMeta
 from .remat import dot
 
@@ -32,7 +41,16 @@ __all__ = [
     "ffn_block",
     "moe_meta",
     "moe_block",
+    "embed_lookup",
 ]
+
+
+# the hints and the rule context (`launch.shardings`), each the identity
+# without a context
+_shard = SH.shard_activation          # redistribute to the rules' placements
+_sharded = SH.active                  # ``(rules, mesh)`` of the context, else None
+_gather = SH.gather_weights           # the weights with their FSDP shards gathered
+_keep_grad = SH.keep_grad_placements  # the gradient back at the value's placements
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -156,6 +174,9 @@ def _sdpa(q, k, v, mask, cfg: ModelConfig):
 
 
 def _flash_or_ref(q, k, v, positions, cfg: ModelConfig, causal_offset: int):
+    ctx = _sharded()
+    if ctx is not None and _is_dtensor(q):
+        return _local_attention(q, k, v, positions, cfg, causal_offset, *ctx)
     if cfg.use_pallas:
         from ..kernels import ops as kops
 
@@ -171,6 +192,81 @@ def _flash_or_ref(q, k, v, positions, cfg: ModelConfig, causal_offset: int):
     return _sdpa(q, k, v, mask[:, None], cfg)      # (B?, 1, S, S)
 
 
+def _heads(t: torch.Tensor, B: int, S: int, n: int, Dh: int, name: str) -> torch.Tensor:
+    """(B, S, n * Dh) -> (B, S, n, Dh).  Under a rule context the flat
+    dimension is first split as its ``n`` heads are (`_shard` with
+    ``shape=(B, S, n)``): DTensor reshapes a sharded dimension only where
+    the heads divide its mesh axes (GSPMD pads)."""
+    t = _shard(t, ("batch", "seq", name), shape=(B, S, n))
+    return t.reshape(B, S, n, Dh)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the cotangent contiguous.  A local
+    gradient leaves `local_map` as a DTensor whose global strides are the
+    contiguous ones; an attention backward's permuted local layout would
+    then fail the next ``view``."""
+
+    @staticmethod
+    def forward(x):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def _local_attention(q, k, v, positions, cfg: ModelConfig, causal_offset: int, rules, mesh):
+    """`_flash_or_ref` on each rank's batch rows and heads
+    (`torch.distributed.tensor.experimental.local_map`): K3 under
+    ``cfg.use_pallas`` (a DTensor cannot enter a kernel called through
+    ``ctypes``), else the plain attention.
+
+    The q heads are sharded as the rules shard them.  The kv heads are
+    sharded alike where they split alike (the local GQA groups are the
+    global ones); where they do not divide the mesh axes (Yi-6B's 4 kv
+    heads on a model axis of 16) each rank takes them whole and attends
+    with the ones its q heads read, so their gradient is a partial sum over
+    those axes; where neither fits, the heads are replicated."""
+    from torch.distributed.tensor import Partial, Shard
+
+    B, S, H, Dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    sq = logical_to_pspec(("batch", "seq", "heads", None), rules, (B, S, H, Dh), mesh)
+    sk = logical_to_pspec(("batch", "seq", "kv_heads", None), rules, (B, T, K, Dh), mesh)
+    sliced = None  # the mesh dims the q heads split while the kv heads stay whole
+    if sq[2] != sk[2]:
+        sk = sk[:2] + (None, None)
+        dims = [i for i, p in enumerate(placements(sq, mesh)) if p == Shard(2)]
+        Hl = H // math.prod(mesh.size(i) for i in dims)
+        if dims and (G % Hl == 0 or Hl % G == 0):
+            sliced = dims
+        else:
+            sq = sq[:2] + (None, None)
+    pq, pk = placements(sq, mesh), placements(sk, mesh)
+    gk = pk if sliced is None else tuple(Partial() if i in sliced else p
+                                         for i, p in enumerate(pk))
+    pos = positions if positions.ndim == 2 else positions[None, :].expand(B, S)
+    ppos = placements(sq[:2], mesh)
+    k0 = nk = 0
+    if sliced is not None:
+        k0 = shard_index(mesh, sliced) * Hl // G
+        nk = max(1, Hl // G)
+
+    def local(q, k, v, pos):
+        q, k, v = _ContiguousGrad.apply(q), _ContiguousGrad.apply(k), _ContiguousGrad.apply(v)
+        if nk:
+            k, v = k[:, :, k0:k0 + nk], v[:, :, k0:k0 + nk]
+        return _flash_or_ref(q, k, v, pos, cfg, causal_offset)
+
+    return SH.local(local, (pq, pk, pk, ppos), (pq,), (pq, gk, gk, ppos))(q, k, v, pos)
+
+
 def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence (train / prefill) attention with residual."""
@@ -182,14 +278,18 @@ def attention_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     v = dot(h, params["wv"])
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, S, H, Dh)
-    k = k.reshape(B, S, K, Dh)
-    v = v.reshape(B, S, K, Dh)
+    q = _heads(q, B, S, H, Dh, "heads")
+    k = _heads(k, B, S, K, Dh, "kv_heads")
+    v = _heads(v, B, S, K, Dh, "kv_heads")
+    q = _shard(q, ("batch", "seq", "heads", None))
+    k = _shard(k, ("batch", "seq", "kv_heads", None))
     cos, sin = make_rope(positions, Dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     out = _flash_or_ref(q, k, v, positions, cfg, 0)
-    return x + dot(out.reshape(B, S, H * Dh), params["wo"])
+    out = dot(_keep_grad(out.reshape(B, S, H * Dh)), params["wo"])
+    out = _shard(out, ("batch", "seq", "embed"))
+    return x + out
 
 
 def decode_attention_block(
@@ -211,20 +311,36 @@ def decode_attention_block(
     """
     B, _, D = x.shape
     H, K, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    W = kv_cache[0].shape[1]
     h = rms_norm(params["pre_norm"], x, cfg.norm_eps)
     q = h @ params["wq"]
     k = h @ params["wk"]
     v = h @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, 1, H, Dh)
-    k = k.reshape(B, 1, K, Dh)
-    v = v.reshape(B, 1, K, Dh)
+    q = _heads(q, B, 1, H, Dh, "heads")
+    k = _heads(k, B, 1, K, Dh, "kv_heads")
+    v = _heads(v, B, 1, K, Dh, "kv_heads")
     posv = pos.reshape(1)
     cos, sin = make_rope(posv, Dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    ctx = _sharded()
+    if ctx is not None and _is_dtensor(q):
+        out, (ck, cv), new_positions = _local_decode(q, k, v, kv_cache, cache_positions, pos,
+                                                     cfg, *ctx)
+    else:
+        out, (ck, cv), new_positions = _decode_attend(q, k, v, kv_cache, cache_positions,
+                                                      pos, cfg)
+    return x + out @ params["wo"], (ck, cv), new_positions
+
+
+def _decode_attend(q, k, v, kv_cache, cache_positions, pos, cfg: ModelConfig):
+    """The ring write and the attention of one decode step: ``(out (B, 1,
+    H * Dh), (k cache, v cache), positions)``."""
+    B, _, H, Dh = q.shape
+    K = k.shape[2]
+    W = kv_cache[0].shape[1]
+    posv = pos.reshape(1)
     slot = torch.remainder(posv, W).to(torch.int64)
     ck = kv_cache[0].index_copy(1, slot, k)
     cv = kv_cache[1].index_copy(1, slot, v)
@@ -240,7 +356,34 @@ def decode_attention_block(
     scores = torch.where(mask[:, :, None], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(cv.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", w, cv).reshape(B, 1, H * Dh)
-    return x + out @ params["wo"], (ck, cv), new_positions
+    return out, (ck, cv), new_positions
+
+
+def _local_decode(q, k, v, kv_cache, cache_positions, pos, cfg: ModelConfig, rules, mesh):
+    """`_decode_attend` on each rank's batch rows and heads (``local_map``):
+    the heads sharded where the q and kv heads split alike, else replicated.
+    A cache laid out otherwise by the rules (on its head dim or its ring
+    slots) is redistributed to that layout for the step and back after it
+    (the reference's GSPMD keeps it in place: a cost the dry run's records
+    of those rules carry)."""
+    from torch.distributed.tensor import Replicate
+
+    B, _, H, Dh = q.shape
+    K = k.shape[2]
+    W = kv_cache[0].shape[1]
+    sq = logical_to_pspec(("batch", None, "heads", None), rules, (B, 1, H, Dh), mesh)
+    sk = logical_to_pspec(("batch", None, "kv_heads", None), rules, (B, W, K, Dh), mesh)
+    if sq[2] != sk[2]:
+        sq, sk = sq[:2] + (None, None), sk[:2] + (None, None)
+    pq, pk = placements(sq, mesh), placements(sk, mesh)
+    pout = placements(sq[:3], mesh)            # (B, 1, H * Dh), heads major
+    rep = (Replicate(),) * mesh.ndim
+    out, (ck, cv), new_positions = SH.local(
+        lambda q, k, v, ck, cv, cp, p: _decode_attend(q, k, v, (ck, cv), cp, p, cfg),
+        (pq, pk, pk, pk, pk, rep, rep), (pout, pk, pk, rep))(
+            q, k, v, kv_cache[0], kv_cache[1], cache_positions, pos)
+    axes = ("batch", "cache_seq", "cache_kv_heads", "cache_head_dim")
+    return out, (_shard(ck, axes), _shard(cv, axes)), new_positions
 
 
 # --------------------------------------------------------------------- #
@@ -273,7 +416,10 @@ def ffn_block(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         a = F.silu(dot(h, params["w_gate"])) * u
     else:
         a = F.gelu(u, approximate="tanh")  # jax.nn.gelu is the tanh form by default
-    return x + dot(a, params["w_down"])
+    a = _shard(a, ("batch", "seq", "mlp"))
+    out = dot(a, params["w_down"])
+    out = _shard(out, ("batch", "seq", "embed"))
+    return x + out
 
 
 # --------------------------------------------------------------------- #
@@ -320,8 +466,10 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _router(params, xg: torch.Tensor, cfg: ModelConfig):
-    """fp32 router: ``(probs (N,E), gate_vals (N,k) renormalised, idx (N,k))``."""
-    logits = dot(xg.float(), params["router"].float())
+    """fp32 router: ``(probs (N,E), gate_vals (N,k) renormalised, idx (N,k))``.
+    Under a rule context the logits take every expert on each rank (the
+    top-k of a sharded dimension would gather candidates from every shard)."""
+    logits = _shard(dot(xg.float(), params["router"].float()), ("batch", None))
     probs = torch.softmax(logits, dim=-1)
     gate_vals, idx = torch.topk(probs, cfg.num_experts_per_tok, dim=-1, sorted=True)
     return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), idx
@@ -341,21 +489,62 @@ def _route_group(params, xg: torch.Tensor, cfg: ModelConfig):
     cap = _capacity(N, cfg)
     probs, gate_vals, idx = _router(params, xg, cfg)
     sel = _one_hot(idx, E)                                        # (N, k, E)
-    # priority: expert slot 0 of every token first, then slot 1, ... (GShard)
-    sel_f = sel.transpose(0, 1).reshape(N * k, E)                 # (k*N, E)
-    pos_in_e = torch.cumsum(sel_f, dim=0) * sel_f - 1.0           # (k*N, E)
+    # priority: expert slot 0 of every token first, then slot 1, ... (GShard):
+    # the running count over the k-major order is the count within the
+    # slot plus the earlier slots' totals (integers, exact in fp32; the
+    # tokens' dimension, which a mesh may shard, is never flattened with k)
+    sel_k = sel.transpose(0, 1)                                   # (k, N, E)
+    within = torch.cumsum(sel_k, dim=1)
+    before = torch.cumsum(within[:, -1], dim=0) - within[:, -1]   # (k, E)
+    pos_in_e = (within + before[:, None]) * sel_k - 1.0           # (k, N, E)
     keep = (pos_in_e >= 0) & (pos_in_e < cap)
-    disp = (sel_f * keep)[..., None] * _one_hot(pos_in_e.long(), cap)
-    disp = disp.reshape(k, N, E, cap).permute(1, 0, 2, 3)         # (N, k, E, cap)
+    disp = (sel_k * keep)[..., None] * _one_hot(pos_in_e.long(), cap)
+    disp = disp.permute(1, 0, 2, 3)                               # (N, k, E, cap)
     disp_tok = disp.sum(dim=1)                                    # (N, E, cap) 0/1
-    xin = torch.einsum("nec,nd->ecd", disp_tok.to(xg.dtype), xg)  # (E, cap, D)
+    xin = _expert_einsum("nec,nd->ecd", disp_tok.to(xg.dtype), xg, params["we_gate"])
     h = torch.einsum("ecd,edf->ecf", xin, params["we_gate"])
     u = torch.einsum("ecd,edf->ecf", xin, params["we_up"])
     a = F.silu(h) * u
+    a = _shard(a, ("experts", None, "mlp_expert"))
     y = torch.einsum("ecf,efd->ecd", a, params["we_down"])        # (E, cap, D)
     comb = torch.einsum("nkec,nk->nec", disp, gate_vals).to(y.dtype)
-    out = torch.einsum("nec,ecd->nd", comb, y)                    # (N, D)
+    out = _expert_einsum("nec,ecd->nd", comb, y, y)               # (N, D)
     return out, _aux(probs, idx, E)
+
+
+def _expert_einsum(eq: str, route: torch.Tensor, x: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum(eq, route, x)``: ``route`` (N, E, cap) the dispatch or
+    combine weights, ``x`` the tokens' rows (N, D) and the result the
+    experts' slots (E, cap, D), or the other way round.  Under a rule
+    context each rank contracts its tokens' rows with the experts it holds
+    (those of ``w``, an (E, ...) expert tensor) through ``local_map``: the
+    result, and x's gradient, is a partial sum over the mesh dimensions that
+    the contraction runs across.  DTensor's own einsum would flatten the
+    (experts, capacity) pair, whose strided split it materialises index by
+    index."""
+    ctx = _sharded()
+    if ctx is None or not _is_dtensor(x):
+        return torch.einsum(eq, route, x)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def summed(p):  # a side that the contraction runs across
+        return Partial() if p == Replicate() else p
+
+    tokens_in = x.ndim == 2
+    rows = []  # a mesh dim's (route, x, result, x's gradient) placements
+    for r_pl, x_pl, w_pl in zip(route.placements, x.placements, w.placements):
+        if w_pl == Shard(0):                                # the experts
+            r, side = Shard(1), (Replicate(), Shard(0))     # (tokens' rows, experts' slots)
+        elif (x_pl if tokens_in else r_pl) == Shard(0):     # the tokens
+            r, side = Shard(0), (Shard(0), Replicate())
+        else:
+            rows.append((Replicate(),) * 4)
+            continue
+        xi, oi = side if tokens_in else side[::-1]
+        rows.append((r, xi, summed(oi), summed(xi)))
+    pr, px, po, gx = zip(*rows)
+    return SH.local(lambda a, b: torch.einsum(eq, a, b), (pr, px), (po,), (pr, gx))(route, x)
 
 
 def _route_group_sorted(params, xg: torch.Tensor, cfg: ModelConfig):
@@ -377,6 +566,10 @@ def _route_group_sorted(params, xg: torch.Tensor, cfg: ModelConfig):
     E, k = cfg.num_experts, cfg.num_experts_per_tok
     cap = _capacity(N, cfg)
     dev = xg.device
+    if _sharded() is not None and _is_dtensor(xg):
+        raise NotImplementedError("the sort dispatch has no sharded form yet (DTensor has no "
+                                  "rule for searchsorted; K5 under local_map is queued): "
+                                  "use moe_dispatch='einsum' on a mesh")
     probs, gate_vals, idx = _router(params, xg, cfg)
     # k-major flattening (same priority order as the einsum path)
     idx_f = idx.T.reshape(N * k)                                  # (k*N,)
@@ -401,7 +594,8 @@ def _route_group_sorted(params, xg: torch.Tensor, cfg: ModelConfig):
     else:
         h = torch.einsum("ecd,edf->ecf", xin, params["we_gate"])
         u = torch.einsum("ecd,edf->ecf", xin, params["we_up"])
-        y = torch.einsum("ecf,efd->ecd", F.silu(h) * u, params["we_down"])  # (E, cap, D)
+        a = _shard(F.silu(h) * u, ("experts", None, "mlp_expert"))
+        y = torch.einsum("ecf,efd->ecd", a, params["we_down"])  # (E, cap, D)
     y_flat = torch.cat([y.reshape(E * cap, D), torch.zeros((1, D), dtype=y.dtype, device=dev)])
     per_slot = y_flat.index_select(0, slot) * (gates_f * keep).to(y.dtype)[:, None]
     per_slot = per_slot.reshape(k, N, D)                          # (k, N, D)
@@ -421,10 +615,15 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Te
     n_groups = max(S // Sg, 1)
     if S % Sg:
         raise ValueError(f"seq {S} not divisible by moe group {Sg}")
-    hg = h.reshape(B, n_groups, Sg, D).transpose(0, 1).reshape(n_groups, B * Sg, D)
+    hg = _keep_grad(h.reshape(B, n_groups, Sg, D).transpose(0, 1).reshape(n_groups, B * Sg, D))
 
-    route = _route_group_sorted if cfg.moe_dispatch == "sort" else _route_group
+    # a group's tokens keep the batch's layout (under a rule context: the
+    # experts' partial sums reduced before the groups are stacked)
+    def route(params, xg, cfg):
+        y, aux = dispatch(params, xg, cfg)
+        return _shard(y, ("batch", "embed")), aux
 
+    dispatch = _route_group_sorted if cfg.moe_dispatch == "sort" else _route_group
     if n_groups == 1:
         out, aux_total = route(params, hg[0], cfg)
         out = out.reshape(1, B, Sg, D)
@@ -437,7 +636,7 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Te
             outs.append(y)
         aux_total = aux_total / n_groups
         out = torch.stack(outs).reshape(n_groups, B, Sg, D)
-    out = out.transpose(0, 1).reshape(B, S, D)
+    out = _keep_grad(out.transpose(0, 1).reshape(B, S, D))
 
     if cfg.num_shared_experts:
         g = dot(h, params["ws_gate"])
@@ -447,4 +646,41 @@ def moe_block(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Te
         g = dot(h, params["wd_gate"])
         u = dot(h, params["wd_up"])
         out = out + dot(F.silu(g) * u, params["wd_down"])
+    out = _shard(out, ("batch", "seq", "embed"))
     return x + out, aux_total
+
+
+# --------------------------------------------------------------------- #
+# embedding
+# --------------------------------------------------------------------- #
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding(tokens, table)``.  Under a rule context, a table whose
+    vocab rows are sharded is looked up on each rank's rows
+    (`torch.distributed.tensor.experimental.local_map`): a token outside
+    them gives zeros, and the output is a partial sum over those mesh
+    dimensions, which the next hint reduces (the vocab-parallel embedding;
+    DTensor's own masked lookup is not used)."""
+    ctx = _sharded()
+    if ctx is None or not _is_dtensor(table) or not any(
+            p.is_shard(0) for p in table.placements):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import Partial, Replicate
+
+    _, mesh = ctx
+    vdims = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    tok_pl = tokens.placements if _is_dtensor(tokens) else (Replicate(),) * mesh.ndim
+    ptok = tuple(Replicate() if i in vdims else p for i, p in enumerate(tok_pl))
+    pout = tuple(Partial() if i in vdims else p for i, p in enumerate(ptok))
+    n_local = table.to_local().shape[0]
+    lo = shard_index(mesh, vdims) * n_local  # the rank's first row
+
+    def local(tbl, tok):
+        idx = tok.to(torch.int64) - lo
+        ok = (idx >= 0) & (idx < n_local)
+        out = F.embedding(torch.where(ok, idx, 0), tbl)
+        return out * ok[..., None].to(out.dtype)
+
+    # each rank's table gradient holds its own tokens' rows only: a partial
+    # sum over the mesh dimensions that shard the tokens
+    gtab = tuple(Partial() if p.is_shard() else t for t, p in zip(table.placements, ptok))
+    return SH.local(local, (table.placements, ptok), (pout,), (gtab, ptok))(table, tokens)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..launch import shardings as SH
 from . import layers as L
 from .module import CacheSpec, ParamMeta
 from .remat import dot
@@ -175,6 +176,18 @@ def ssd_recurrent_step(
     return y.to(x.dtype), h
 
 
+def _recurrent_step(h, x, dt, A, Bm, Cm):
+    """`ssd_recurrent_step`; under a rule context on each rank's batch rows
+    (``local_map``; DTensor's einsum may split the 24 heads of Mamba2-130M
+    over a model axis of 16, which its reshapes then refuse)."""
+    if L._sharded() is None or not L._is_dtensor(x):
+        return ssd_recurrent_step(h, x, dt, A, Bm, Cm)
+    rows = SH.axis_placements(("batch",), (x.shape[0],))
+    rep = SH.axis_placements((None,), A.shape)  # replicated
+    return SH.local(ssd_recurrent_step, (rows, rows, rows, rep, rows, rows),
+                    (rows, rows))(h, x, dt, A, Bm, Cm)
+
+
 # ------------------------------------------------------------------ #
 # blocks
 # ------------------------------------------------------------------ #
@@ -206,7 +219,7 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     z, xBC, dt_raw = _split_proj(proj, cfg)
     xBC = F.silu(_causal_conv(xBC, params["conv_w"], params["conv_b"]))
     xs, Bm, Cm = torch.split(xBC, [d_inner, G * N, G * N], dim=-1)
-    xs = xs.reshape(B, S, H, Pd)
+    xs = L._heads(xs, B, S, H, Pd, "heads")
     dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
     if cfg.use_pallas:
@@ -216,9 +229,10 @@ def mamba_block(params: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         y, hT = ssd_chunked(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
     y = y + xs * params["D"].to(y.dtype)[None, None, :, None]
-    y = y.reshape(B, S, d_inner) * F.silu(z)
+    y = L._keep_grad(y.reshape(B, S, d_inner)) * F.silu(z)
     y = L.rms_norm(params["norm"], y, cfg.norm_eps)
-    return x + dot(y, params["out_proj"]), hT
+    out = L._shard(dot(y, params["out_proj"]), ("batch", "seq", "embed"))
+    return x + out, hT
 
 
 def mamba_decode_block(
@@ -245,10 +259,10 @@ def mamba_decode_block(
     xBC_c = F.silu(conv_out).to(x.dtype)
     new_conv_state = full[:, 1:, :]
     xs, Bm, Cm = torch.split(xBC_c, [d_inner, G * N, G * N], dim=-1)
-    xs = xs.reshape(B, H, Pd)
+    xs = L._shard(xs, ("batch", "heads"), shape=(B, H)).reshape(B, H, Pd)
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
-    y, new_state = ssd_recurrent_step(ssm_state, xs, dt, A, Bm, Cm)
+    y, new_state = _recurrent_step(ssm_state, xs, dt, A, Bm, Cm)
     y = y + xs * params["D"].to(y.dtype)[None, :, None]
     y = y.reshape(B, 1, d_inner) * F.silu(z)
     y = L.rms_norm(params["norm"], y, cfg.norm_eps)
@@ -261,7 +275,9 @@ def mamba_decode_block(
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward over the unbound stacked layers (the
     reference's ``lax.scan``).  Returns (logits (B,S,V), 0)."""
-    x = F.embedding(batch["tokens"], params["embed"])
+    params = L._gather(params)
+    x = L.embed_lookup(params["embed"], batch["tokens"])
+    x = L._shard(x, ("batch", "seq", "embed"))
     blk = _remat(functools.partial(_call_block, cfg), cfg)
     for params_l in _unstack(params["blocks"], cfg.num_layers):
         x = blk(params_l, x)
@@ -307,7 +323,8 @@ def _decode_layers(layers: list, x: torch.Tensor, cfg: ModelConfig, ssm, conv):
 
 def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig):
     """One-token decode.  Returns (logits (B, V), new_cache)."""
-    x = F.embedding(batch["tokens"], params["embed"])
+    params = L._gather(params)
+    x = L.embed_lookup(params["embed"], batch["tokens"])
     x, ssm, conv = _decode_layers(_unstack(params["blocks"], cfg.num_layers), x, cfg,
                                   cache["ssm"], cache["conv"])
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)

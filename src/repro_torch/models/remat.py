@@ -22,7 +22,8 @@ tensor the block reads enters the Function as an input (the parameters,
 the activations, integer tensors such as ``positions``); non-tensor
 arguments such as ``cfg`` stay in ``fn``'s closure.  The recompute runs the
 same operations on the same inputs, so losses and gradients are bitwise
-those of ``"none"``; the kernels' forwards (K3, K4, K5) run twice a
+those of ``"none"``; under a sharding rule context (DTensor parameters)
+the recompute's vjp is eager autograd (`_eager_vjp`); the kernels' forwards (K3, K4, K5) run twice a
 gradient, as the reference's remat runs its Pallas kernels twice.  The
 backward returns its cotangents detached, so a block's recompute is freed
 before the next block's (`torch.func.grad` backpropagates with
@@ -35,6 +36,7 @@ import threading
 
 import torch
 
+from ..launch.shardings import activate_rules, active
 from ..tree import tree_flatten
 
 __all__ = ["POLICIES", "remat", "dot"]
@@ -112,12 +114,16 @@ def dot(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 class _Spec:
     """What the Function needs beside its tensors: the block, its argument
-    tree and policy, and (set by the forward) its output tree."""
+    tree and policy, (set by the forward) its output tree, and the rule
+    context the forward ran under (`launch.shardings.active`), which the
+    recompute re-enters: a CUDA backward runs on autograd's device thread,
+    where the forward's context variables are not set."""
 
     def __init__(self, fn, unflatten, n_in: int, dots: bool):
         self.fn, self.unflatten, self.n_in, self.dots = fn, unflatten, n_in, dots
         self.n_out = None
         self.out_unflatten = None
+        self.rules = active()
 
     def run(self, leaves):
         out, self.out_unflatten = tree_flatten(self.fn(*self.unflatten(list(leaves))))
@@ -161,8 +167,11 @@ class _Remat(torch.autograd.Function):
             with _Tape(recorded):
                 return tuple(spec.run(args))
 
-        _, vjp_fn = torch.func.vjp(block, *[leaves[i] for i in fl])
-        gin = vjp_fn(tuple(grads[: spec.n_out]))
+        if spec.rules is None:
+            _, vjp_fn = torch.func.vjp(block, *[leaves[i] for i in fl])
+            gin = vjp_fn(tuple(grads[: spec.n_out]))
+        else:
+            gin = _eager_vjp(block, [leaves[i] for i in fl], grads[: spec.n_out], spec.rules)
         # detached: under ``create_graph=True`` the cotangents would carry
         # the recompute's graph, and with it every block's activations, to
         # the end of the backward.  Grad mode stays as the caller set it
@@ -172,6 +181,19 @@ class _Remat(torch.autograd.Function):
         for i, g in zip(fl, gin):
             out[i] = g.detach()
         return (None, *out)
+
+
+def _eager_vjp(block, xs: list, grads, rules) -> list:
+    """The cotangents of ``block``'s floating inputs by eager autograd,
+    under the forward's rule context: inside `torch.func.vjp` a DTensor is
+    wrapped, and its placements and ``redistribute`` are out of reach."""
+    xs = [x.detach().requires_grad_() for x in xs]
+    with torch.enable_grad(), activate_rules(*rules):
+        outs = block(*xs)
+        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        gin = torch.autograd.grad([o for o, _ in pairs], xs, [g for _, g in pairs],
+                                  allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(xs, gin)]
 
 
 def remat(fn, policy: str):

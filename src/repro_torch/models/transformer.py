@@ -7,7 +7,10 @@ layers (`jax.lax.scan` in the reference), whichever ``cfg.scan_layers``
 says.  The MoE aux loss is summed as the reference sums it: with
 ``scan_layers`` the per-layer sum over num_layers, else each layer's
 share added in turn.  `init_cache` / `decode_step` serve one token at a
-time against a ring-buffer KV cache.  The SSM and hybrid families live in
+time against a ring-buffer KV cache.  Under a rule context
+(`launch.shardings.activate_rules`) the forward and decode gather the
+weights' FSDP shards first (`layers._gather`) and take the reference's
+activation hints (`layers._shard`).  The SSM and hybrid families live in
 `mamba2` and `hybrid`, which reuse this module's `_dt`, `_unstack`,
 `_remat` and `cache_len_for`.
 """
@@ -73,7 +76,7 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     if cfg.frontend == "audio_stub":
         # EnCodec frame embeddings arrive precomputed (spec carve-out).
         return batch["embeds"].to(_dt(cfg))
-    x = F.embedding(batch["tokens"], params["embed"])  # (B, S_text, D) gather
+    x = L.embed_lookup(params["embed"], batch["tokens"])  # (B, S_text, D) gather
     if cfg.frontend == "vision_stub":
         patches = batch["patch_embeds"].to(x.dtype)  # (B, P, D)
         x = torch.cat([patches, x], dim=1)
@@ -90,8 +93,10 @@ def _unstack(blocks: dict, n: int) -> list[dict]:
 
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B,S,V), moe_aux_loss)."""
+    params = L._gather(params)
     x = _embed_inputs(params, batch, cfg)
     B, S, D = x.shape
+    x = L._shard(x, ("batch", "seq", "embed"))
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :].expand(B, S)
     blk = _remat(functools.partial(_block_apply, cfg), cfg)
     nL = cfg.num_layers
@@ -103,7 +108,8 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> tuple[torch.Tensor, 
         aux = aux / nL
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head, aux
+    logits = L._shard(x @ head, ("batch", "seq", "vocab"))
+    return logits, aux
 
 
 # ------------------------------------------------------------------ #
@@ -147,10 +153,12 @@ def decode_step(params: dict, cache: dict, batch: dict, cfg: ModelConfig
     (the reference's ``lax.scan``), one positions vector carried through
     them; an MoE layer runs `layers.moe_block` on the B tokens (K5 under
     ``cfg.use_pallas`` and the sort dispatch)."""
+    params = L._gather(params)
     if cfg.frontend == "audio_stub":
         x = batch["embeds"].to(_dt(cfg))
     else:
-        x = F.embedding(batch["tokens"], params["embed"])
+        x = L.embed_lookup(params["embed"], batch["tokens"])
+    x = L._shard(x, ("batch", None, "embed"))
     pos = cache["pos"]
     positions = cache["positions"]
     ks, vs = [], []

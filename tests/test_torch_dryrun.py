@@ -104,11 +104,26 @@ def test_run_pair_on_smoke_configs(arch, tmp_path):
 
 
 def test_cli_runs_without_a_card_and_refuses_the_mesh_flags(tmp_path, capsys):
+    """The one-card record as before; the mesh flags write the production
+    meshes' records (``--multi-pod`` the 2x16x16 one, ``--both-meshes``
+    both, ``--rules`` a rule set on 16x16) and an unknown rule set is
+    refused (exit code 2)."""
     dryrun.main(["--arch", "mamba2-130m", "--shape", "decode_32k", "--out-dir", str(tmp_path)])
     rec = json.loads((tmp_path / "mamba2-130m__decode_32k__1xH100.json").read_text())
     assert rec["ok"] and rec["devices"] == ["meta"]
-    for argv in (["--multi-pod"], ["--both-meshes"], ["--rules", "default"]):
-        with pytest.raises(SystemExit) as e:
-            dryrun.main(argv + ["--out-dir", str(tmp_path)])
-        assert e.value.code == 2
-        assert "no XLA mesh in the port" in capsys.readouterr().err
+    pair = ["--arch", "mamba2-130m", "--shape", "decode_32k", "--out-dir", str(tmp_path)]
+    for argv, tags in ((["--multi-pod"], ["multipod__default"]),
+                       (["--both-meshes"], ["singlepod__default", "multipod__default"]),
+                       (["--rules", "kv_seq"], ["singlepod__kv_seq"])):
+        for tag in tags:
+            (tmp_path / f"mamba2-130m__decode_32k__{tag}.json").unlink(missing_ok=True)
+        dryrun.main(pair + argv)
+        for tag in tags:
+            rec = json.loads((tmp_path / f"mamba2-130m__decode_32k__{tag}.json").read_text())
+            assert rec["ok"], rec.get("error")
+            assert rec["mesh"] == ("2x16x16" if tag.startswith("multi") else "16x16")
+            assert rec["rules"] == tag.split("__")[1]
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(pair + ["--rules", "bogus"])
+    assert e.value.code == 2
+    assert "invalid choice: 'bogus'" in capsys.readouterr().err
